@@ -1,0 +1,101 @@
+"""Serving CLI: random init → quantize → continuous-batching run on the card
+(counterpart of ``llm_fp8_tpu/cli/serve.py``, Llama-family models only):
+
+  python -m llm_fp8_tpu_torch.cli.serve --model_name llama-3.2-1b --random_init \\
+      --precision fp8 --kv_dtype fp8
+
+Prints one JSON line with the JAX CLI's keys: tokens/s, p50/p99 TTFT and the
+peak device memory (``torch.cuda.max_memory_allocated``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="FP8 serving benchmark on the card")
+    p.add_argument("--model_name", type=str, required=True)
+    p.add_argument("--weights_path", type=str, default=None)
+    p.add_argument("--random_init", action="store_true")
+    p.add_argument("--precision", type=str, default="fp8",
+                   choices=["fp8", "int8", "int4", "bf16"])
+    p.add_argument("--fp8_scenario", type=str, default="default",
+                   choices=["default", "mxfp8", "hybrid"])
+    p.add_argument("--kv_dtype", type=str, default="auto",
+                   choices=["auto", "fp8", "bf16", "int8"])
+    p.add_argument("--max_slots", type=int, default=8)
+    p.add_argument("--max_seq_len", type=int, default=2048)
+    p.add_argument("--paged", action="store_true", help="not ported yet")
+    p.add_argument("--decode_burst", type=int, default=32)
+    p.add_argument("--num_requests", type=int, default=16)
+    p.add_argument("--prompt_len", type=int, default=128)
+    p.add_argument("--max_new_tokens", type=int, default=64)
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--draft_model", type=str, default=None, help="not ported yet")
+    p.add_argument("--device", type=str, default=None,
+                   help="default cuda; 'cpu' runs the plain versions of the kernels")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    from ..models.config import get_config
+    from ..models.llama import init_params, quantize_params
+    from ..quant import recipe_set_by_name
+    from ..serving.engine import Engine, EngineConfig, SamplingParams
+    from ..utils.backend import resolve_device
+
+    for flag, on in (("--paged", args.paged), ("--draft_model", args.draft_model),
+                     ("--precision int4", args.precision == "int4"),
+                     ("--weights_path", args.weights_path and not args.random_init)):
+        if on:
+            raise SystemExit(f"{flag} is not ported yet")
+    device = resolve_device(args.device)
+    cfg = get_config(args.model_name)
+    params = init_params(cfg, dtype=torch.bfloat16, device=device, seed=0)
+    if args.precision == "fp8":
+        params = quantize_params(params, recipe_set_by_name(args.fp8_scenario))
+    elif args.precision == "int8":
+        params = quantize_params(params, recipe_set_by_name("int8"))
+    eng = Engine(params, cfg, EngineConfig(max_slots=args.max_slots,
+                                           max_seq_len=args.max_seq_len,
+                                           kv_dtype=args.kv_dtype,
+                                           decode_burst=args.decode_burst),
+                 device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    rng = np.random.RandomState(0)
+    sp = SamplingParams(temperature=args.temperature, max_new_tokens=args.max_new_tokens)
+    t0 = time.perf_counter()
+    for _ in range(args.num_requests):
+        eng.add_request(rng.randint(1, cfg.vocab_size, args.prompt_len).astype(np.int32), sp)
+    done = eng.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    new_tokens = sum(len(r.output) for r in done)
+    ttfts = sorted(r.ttft for r in done if r.ttft is not None)
+    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+            if device.type == "cuda" else None)
+    print(json.dumps({
+        "requests": len(done),
+        "generated_tokens": new_tokens,
+        "wall_s": round(dt, 3),
+        "tokens_per_s": round(new_tokens / dt, 2),
+        "ttft_p50_s": round(ttfts[len(ttfts) // 2], 4) if ttfts else None,
+        "ttft_p99_s": round(ttfts[min(len(ttfts) - 1, int(len(ttfts) * 0.99))], 4)
+        if ttfts else None,
+        "peak_memory_gb": round(peak, 3) if peak is not None else None,
+        "precision": args.precision,
+        "kv_dtype": str(eng.ecfg.kv_dtype).replace("torch.", ""),
+        **({"kv_drift": eng.kv_drift_stats()} if eng._int8_kv else {}),
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,24 @@
+"""Hand-written Hopper kernels (CUDA C++, ``csrc/``) with their plain
+PyTorch versions. Importing this package builds nothing: a kernel's library
+is built by ``nvcc`` at its first launch (``_build.py``)."""
+from __future__ import annotations
+
+from . import decode_attention, flash_attention, quant_matmul
+
+__all__ = ["KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts"]
+
+#: Kernel name → wrapper; each wrapper counts its own launches.
+KERNEL_WRAPPERS = {
+    "quant_matmul": quant_matmul.quant_matmul,
+    "decode_attention_arena": decode_attention.decode_attention_arena,
+    "flash_attention": flash_attention.flash_attention,
+}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,327 @@
+"""Llama/Qwen decoder (counterpart of ``llm_fp8_tpu/models/llama.py``).
+
+Parameters are a plain dict of tensors with the JAX package's stacked layout
+(every layer parameter has a leading ``[num_layers]`` axis, fused ``wqkv =
+[q|k|v]`` and ``w_gate_up = [gate|up]``); weights are tensors or
+:class:`QTensor`. Where JAX scans over the layers, this is a Python loop;
+where JAX donates cache buffers, the caches here are updated in place.
+
+Quantized projections run K1 (``quant.qdot``), the decode attention K2 and
+the prefill attention K3 on the card. Plain bf16 products (unquantized
+weights, the tied lm_head) are cuBLAS calls (``torch.matmul``/``torch.mm``)
+on the card, as the JAX package leaves them to XLA; on the CPU they are
+float32 products of the bf16 operands, as XLA computes them there.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.decode_attention import decode_attention_arena
+from ..ops.attention import attention
+from ..ops.rmsnorm import rmsnorm
+from ..ops.rotary import apply_rope, rope_cos_sin, rope_frequencies
+from ..quant import QTensor, RecipeSet, qdot, quantize, quantize_mx
+from ..utils.backend import resolve_device
+from .config import ModelConfig
+
+__all__ = ["init_params", "quantize_params", "KVCache", "init_kv_cache",
+           "cache_append_attend", "forward", "forward_decode_arena", "layer_params"]
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
+                dtype=torch.bfloat16, device=None, seed: int = 0) -> Dict[str, Any]:
+    """Random init, normal(0, 0.02), drawn on ``device`` from ``generator``
+    (a new one seeded with ``seed`` when none is given)."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+    D, I, V, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
+
+    def w(*shape):
+        t = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (t * 0.02).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    layers = {
+        "wqkv": w(L, D, cfg.qkv_dim),
+        "wo": w(L, cfg.q_dim, D),
+        "w_gate_up": w(L, D, 2 * I),
+        "w_down": w(L, I, D),
+        "norm_attn": ones(L, D),
+        "norm_mlp": ones(L, D),
+    }
+    if cfg.qkv_bias:
+        layers["bqkv"] = torch.zeros((L, cfg.qkv_dim), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        layers["q_norm"] = ones(L, cfg.head_dim)
+        layers["k_norm"] = ones(L, cfg.head_dim)
+    params = {"embed": w(V, D), "layers": layers, "final_norm": ones(D)}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = w(D, V)
+    return params
+
+
+def quantize_params(params: Dict[str, Any], recipes: RecipeSet) -> Dict[str, Any]:
+    """Prequantize the projection weights per the recipe set: per-output-
+    channel scales (MX blocks for the block recipe), subnormal codes flushed."""
+    out = dict(params)
+    layers = dict(params["layers"])
+
+    def q(name: str, role: str, contract_axis: int = 1):
+        recipe = recipes.for_role(role)
+        if recipe is None:
+            return
+        wv = layers[name].float()
+        if recipe.granularity == "block32":
+            layers[name] = quantize_mx(wv, recipe.fmt_fwd, block_axis=contract_axis,
+                                       flush_subnormal=True)
+        else:
+            layers[name] = quantize(wv, recipe.fmt_fwd, axes=(contract_axis,),
+                                    margin=recipe.margin, group_size=recipe.group_size,
+                                    flush_subnormal=True)
+
+    q("wqkv", "attn_qkv")
+    q("wo", "attn_out")
+    q("w_gate_up", "mlp")
+    q("w_down", "mlp")
+    out["layers"] = layers
+    lm_recipe = recipes.for_role("lm_head")
+    if lm_recipe is not None and "lm_head" in out:
+        out["lm_head"] = quantize(out["lm_head"].float(), lm_recipe.fmt_fwd, axes=(0,),
+                                  flush_subnormal=True)
+    return out
+
+
+def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i`` of the stacked layer parameters (views, no copies)."""
+    return {k: (v.layer(i) if isinstance(v, QTensor) else v[i]) for k, v in layers.items()}
+
+
+def _dot(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w where w is a tensor or a QTensor (K1)."""
+    if isinstance(w, QTensor):
+        return qdot(x, w)
+    if x.is_cuda:
+        return torch.matmul(x, w.to(x.dtype))
+    return (x.float() @ w.to(x.dtype).float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# KV cache
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Cache arena ``k/v [L, B, S_max, Hk, Dh]``, fills ``lens [B]`` and
+    per-layer descales ``k_scale/v_scale [L]``. Updated in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lens: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16,
+                  device=None) -> KVCache:
+    device = resolve_device(device)
+    L, Hk, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    return KVCache(
+        k=torch.zeros((L, batch, max_len, Hk, Dh), dtype=dtype, device=device),
+        v=torch.zeros((L, batch, max_len, Hk, Dh), dtype=dtype, device=device),
+        lens=torch.zeros((batch,), dtype=torch.int32, device=device),
+        k_scale=torch.ones((L,), dtype=torch.float32, device=device),
+        v_scale=torch.ones((L,), dtype=torch.float32, device=device),
+    )
+
+
+def storage_max(dtype: torch.dtype) -> float:
+    """Largest finite value of a KV storage dtype (the clip before the cast)."""
+    return float(torch.iinfo(dtype).max if not dtype.is_floating_point
+                 else torch.finfo(dtype).max)
+
+
+def quantize_kv(t: torch.Tensor, scale, dtype: torch.dtype) -> torch.Tensor:
+    """K/V into a cache dtype: divide by the scale, clip into the storage
+    range (e4m3fn has no inf), round (integers) and cast."""
+    fmax = storage_max(dtype)
+    q = torch.clamp(t.float() / scale, -fmax, fmax)
+    return (torch.round(q) if not dtype.is_floating_point else q).to(dtype)
+
+
+def cache_append_attend(q, kk, vv, cache_kv: Tuple, start_pos: torch.Tensor,
+                        kv_lens: Optional[torch.Tensor], *,
+                        scale: Optional[float] = None, window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """Write the new K/V at each sequence's ``start_pos`` (quantizing when the
+    cache is narrower) in place, then attend over the masked cache.
+
+    ``cache_kv``: ``(k_cache, v_cache, k_scale, v_scale[, layer_idx])`` with
+    per-layer arenas ``[B, S, Hk, Dh]`` or full ``[L, B, S, Hk, Dh]`` ones
+    when ``layer_idx`` is given. Returns ``(attn, (k_cache, v_cache))``.
+    """
+    k_cache, v_cache, k_scale, v_scale = cache_kv[:4]
+    layer_idx = cache_kv[4] if len(cache_kv) > 4 else None
+    if k_cache.dtype != kk.dtype:
+        k_store = quantize_kv(kk, k_scale, k_cache.dtype)
+        v_store = quantize_kv(vv, v_scale, v_cache.dtype)
+    else:
+        k_store, v_store = kk, vv
+    B, S = k_store.shape[:2]
+    bidx = torch.arange(B, device=q.device)[:, None]
+    pos = start_pos.long()[:, None] + torch.arange(S, device=q.device)[None, :]
+    k_layer = k_cache if layer_idx is None else k_cache[layer_idx]
+    v_layer = v_cache if layer_idx is None else v_cache[layer_idx]
+    k_layer[bidx, pos] = k_store
+    v_layer[bidx, pos] = v_store
+    k_all, v_all = k_layer.to(q.dtype), v_layer.to(q.dtype)
+    if k_layer.dtype != kk.dtype:
+        k_all = k_all * torch.as_tensor(k_scale, device=q.device).to(q.dtype)
+        v_all = v_all * torch.as_tensor(v_scale, device=q.device).to(q.dtype)
+    attn = attention(q, k_all, v_all, causal=True, q_offset=start_pos, kv_lens=kv_lens,
+                     scale=scale, window=window, softcap=softcap)
+    return attn, (k_cache, v_cache)
+
+
+# --------------------------------------------------------------------------
+# Forward
+# --------------------------------------------------------------------------
+
+
+def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    return rope_cos_sin(positions, inv_freq.to(positions.device), cfg.rope_scaling)
+
+
+def _qkv(h, lp, cfg: ModelConfig, B: int, S: int):
+    qkv = _dot(h, lp["wqkv"])
+    if "bqkv" in lp:
+        qkv = qkv + lp["bqkv"].to(qkv.dtype)
+    q, kk, vv = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    kk = kk.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    vv = vv.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if "q_norm" in lp:
+        q = rmsnorm(q, lp["q_norm"], cfg.rms_eps)
+        kk = rmsnorm(kk, lp["k_norm"], cfg.rms_eps)
+    return q, kk, vv
+
+
+def _mlp(x, lp, cfg: ModelConfig):
+    h = rmsnorm(x, lp["norm_mlp"], cfg.rms_eps)
+    gate, up = torch.chunk(_dot(h, lp["w_gate_up"]), 2, dim=-1)
+    h = F.silu(gate.float()).to(up.dtype) * up
+    return x + _dot(h, lp["w_down"])
+
+
+def _check_family(cfg: ModelConfig):
+    if cfg.alibi:
+        raise NotImplementedError(f"{cfg.name}: ALiBi models are not ported yet")
+
+
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
+            cache: Optional[KVCache] = None, start_pos=0,
+            kv_lens: Optional[torch.Tensor] = None,
+            compute_dtype=torch.bfloat16, return_kv: bool = False):
+    """``tokens [B, S] -> (logits [B, S, V] float32, cache)``.
+
+    ``cache=None``: causal self-attention; with ``return_kv`` the second
+    value is the per-layer ``(K, V)``, each ``[L, B, S, Hk, Dh]``. With a
+    cache: K/V are written at ``start_pos`` in place and the returned cache
+    carries the new ``lens``.
+    """
+    _check_family(cfg)
+    dev = params["embed"].device
+    tokens = tokens.to(dev)
+    x = params["embed"][tokens.long()].to(compute_dtype)
+    B, S = tokens.shape
+    start_pos = torch.as_tensor(start_pos, dtype=torch.int32, device=dev).reshape(-1).expand(B)
+    positions = start_pos[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+    cos, sin = _rope_tables(cfg, positions)
+    L = params["layers"]["norm_attn"].shape[0]
+    ks, vs = [], []
+    for li in range(L):
+        lp = layer_params(params["layers"], li)
+        h = rmsnorm(x, lp["norm_attn"], cfg.rms_eps)
+        q, kk, vv = _qkv(h, lp, cfg, B, S)
+        q, kk = apply_rope(q, cos, sin), apply_rope(kk, cos, sin)
+        if cache is None:
+            attn = attention(q, kk, vv, causal=True, kv_lens=kv_lens,
+                             window=cfg.sliding_window)
+            if return_kv:
+                ks.append(kk)
+                vs.append(vv)
+        else:
+            attn, _ = cache_append_attend(
+                q, kk, vv, (cache.k, cache.v, cache.k_scale[li], cache.v_scale[li], li),
+                start_pos, kv_lens, window=cfg.sliding_window)
+        x = x + _dot(attn.reshape(B, S, -1), lp["wo"])
+        x = _mlp(x, lp, cfg)
+    if cache is None:
+        new_cache = (torch.stack(ks), torch.stack(vs)) if return_kv else None
+    else:
+        new_cache = dataclasses.replace(
+            cache, lens=torch.maximum(cache.lens, start_pos + S))
+    x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    return _lm_head(params, x, cfg), new_cache
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` of bf16 operands with float32 output (the
+    JAX package's ``preferred_element_type=float32``)."""
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+def _lm_head(params, x, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_word_embeddings or "lm_head" not in params:
+        return _matmul_f32(x, params["embed"].to(x.dtype).t())
+    lm = params["lm_head"]
+    if isinstance(lm, QTensor):
+        return qdot(x, lm, out_dtype=torch.float32)
+    return _matmul_f32(x, lm.to(x.dtype))
+
+
+def forward_decode_arena(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
+                         k_arena: torch.Tensor, v_arena: torch.Tensor, lens: torch.Tensor,
+                         *, kv_scale=1.0, window: Optional[int] = None):
+    """Single-token decode over the ``[L, B, Hk, S, Dh]`` arena through K2,
+    which rotates q and the new K, quantizes and appends the new token at
+    ``lens`` (in place) and attends. Returns ``(logits [B, 1, V], k_arena,
+    v_arena)``."""
+    _check_family(cfg)
+    B, S_tok = tokens.shape
+    if S_tok != 1:
+        raise ValueError(f"forward_decode_arena takes one token per sequence, got {S_tok}")
+    dev = params["embed"].device
+    lens = lens.to(device=dev, dtype=torch.int32)
+    x = params["embed"][tokens.to(dev).long()].to(torch.bfloat16)
+    cos, sin = _rope_tables(cfg, lens[:, None])
+    k_sc, v_sc = kv_scale if isinstance(kv_scale, tuple) else (kv_scale, kv_scale)
+    lengths = lens + 1
+    L = k_arena.shape[0]
+    for li in range(L):
+        lp = layer_params(params["layers"], li)
+        h = rmsnorm(x, lp["norm_attn"], cfg.rms_eps)
+        q, kk, vv = _qkv(h, lp, cfg, B, 1)
+        attn, k_arena, v_arena = decode_attention_arena(
+            q[:, 0], k_arena, v_arena, lengths, li, new_k=kk[:, 0], new_v=vv[:, 0],
+            rope_cos_sin=(cos[:, 0], sin[:, 0]), k_scale=k_sc, v_scale=v_sc,
+            window=window)
+        x = x + _dot(attn.reshape(B, 1, -1), lp["wo"])
+        x = _mlp(x, lp, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    return _lm_head(params, x, cfg), k_arena, v_arena

@@ -1,0 +1,14 @@
+"""RMSNorm (counterpart of ``llm_fp8_tpu/ops/rmsnorm.py``)."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["rmsnorm"]
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * weight``, reduction in float32."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+

@@ -1,0 +1,408 @@
+"""Continuous-batching FP8 inference engine (counterpart of
+``llm_fp8_tpu/serving/engine.py``).
+
+A fixed pool of decode slots; requests prefill into free slots (prompts
+padded to a bucket length) and leave on EOS or length while the other slots
+keep decoding. fp8/int8 KV runs the arena path: a ``[L, B, Hk, S, Dh]`` arena
+decoded by K2 (``forward_decode_arena``); bf16 KV runs the generic
+:class:`KVCache` path. Greedy bursts of decode steps run as a Python loop
+with the tokens kept on the device (a CUDA graph of it is later work). The
+arena and cache are updated in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models.config import ModelConfig
+from ..models.llama import (KVCache, forward, forward_decode_arena, init_kv_cache,
+                            quantize_kv, storage_max)
+from ..ops.sampling import greedy, sample
+from ..utils.backend import resolve_device, resolve_kv_dtype
+
+__all__ = ["EngineConfig", "SamplingParams", "Request", "Engine"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    temperature: float = 0.0  # 0 = greedy
+    top_k: int = 0
+    top_p: float = 0.0
+    max_new_tokens: int = 128
+    stop_token_ids: tuple = ()
+
+
+@dataclasses.dataclass
+class Request:
+    request_id: int
+    prompt: np.ndarray  # [len] int32
+    params: SamplingParams
+    output: List[int] = dataclasses.field(default_factory=list)
+    slot: int = -1
+    done: bool = False
+    #: Set when the engine rejects or alters a request (e.g. it cannot fit).
+    error: Optional[str] = None
+    enqueue_time: float = 0.0
+    first_token_time: Optional[float] = None
+    finish_time: Optional[float] = None
+
+    @property
+    def ttft(self) -> Optional[float]:
+        if self.first_token_time is None:
+            return None
+        return self.first_token_time - self.enqueue_time
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    max_slots: int = 8
+    max_seq_len: int = 2048
+    #: "auto" (e4m3 on an fp8-capable card, bf16 on the CPU), "fp8", "int8",
+    #: "bf16" or a torch dtype. int8 calibrates per-head scales at the first
+    #: prefill.
+    kv_dtype: Any = "auto"
+    kv_scale: float = 1.0
+    prefill_buckets: tuple = (128, 256, 512, 1024, 2048)
+    #: Max greedy decode steps per burst (1 = per-step decode).
+    decode_burst: int = 32
+    #: int8-KV drift guard: warn when the EWMA of the fraction of prefill K/V
+    #: values clipping past the calibrated range crosses this threshold;
+    #: kv_recalibrate also widens the scales and requantizes the arena.
+    kv_sat_threshold: float = 1e-3
+    kv_recalibrate: bool = False
+
+
+class Engine:
+    """Single-model engine; params may hold QTensor fp8/int8 weights.
+
+    Runs on ``cuda`` unless ``device`` is given (``device="cpu"`` runs the
+    plain versions of the kernels)."""
+
+    #: Subclass hook: engines whose steps feed several tokens opt out of the
+    #: single-token arena path (as the JAX package's speculative engine does).
+    _use_arena = True
+
+    def __init__(self, params: Dict[str, Any], model_cfg: ModelConfig,
+                 engine_cfg: EngineConfig = EngineConfig(), *,
+                 eos_token_id: Optional[int] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = model_cfg
+        buckets = tuple(b for b in engine_cfg.prefill_buckets
+                        if b <= engine_cfg.max_seq_len) or (engine_cfg.max_seq_len,)
+        engine_cfg = dataclasses.replace(
+            engine_cfg, kv_dtype=resolve_kv_dtype(engine_cfg.kv_dtype, self.device),
+            prefill_buckets=buckets)
+        self.ecfg = engine_cfg
+        self.eos = eos_token_id
+        B, S = engine_cfg.max_slots, engine_cfg.max_seq_len
+        kv_dtype = engine_cfg.kv_dtype
+        self._fp8_arena = (kv_dtype in (torch.float8_e4m3fn, torch.float8_e5m2, torch.int8)
+                           and type(self)._use_arena)
+        self._int8_kv = kv_dtype == torch.int8
+        if self._int8_kv and not self._fp8_arena:
+            # Only the arena path carries calibrated per-head scales; int8 at
+            # the unit scale would truncate K/V to ±1 and wreck the logits.
+            raise ValueError(
+                "int8 KV requires the fused-arena engine path (Llama-family "
+                "forward); use kv_dtype='bf16' or 'fp8' for this model")
+        self._calibrated = not self._int8_kv
+        Hk = model_cfg.num_kv_heads
+        dev = self.device
+        self._kscales = torch.full((Hk,), engine_cfg.kv_scale, dtype=torch.float32, device=dev)
+        self._vscales = torch.full((Hk,), engine_cfg.kv_scale, dtype=torch.float32, device=dev)
+        self._sat_ewma_k = np.zeros((Hk,), np.float64)
+        self._sat_ewma_v = np.zeros((Hk,), np.float64)
+        self.kv_sat_warning = False
+        self.kv_recalibrations = 0
+        if self._fp8_arena:
+            L, Dh = model_cfg.num_layers, model_cfg.head_dim
+            self.ka = torch.zeros((L, B, Hk, S, Dh), dtype=kv_dtype, device=dev)
+            self.va = torch.zeros((L, B, Hk, S, Dh), dtype=kv_dtype, device=dev)
+            self.cache = None
+        else:
+            self.cache: KVCache = init_kv_cache(model_cfg, B, S, dtype=kv_dtype, device=dev)
+        self.slot_req: List[Optional[Request]] = [None] * B
+        self.slot_lens = np.zeros((B,), np.int32)
+        self.slot_last_tok = np.zeros((B,), np.int32)
+        self.waiting: List[Request] = []
+        self._next_id = 0
+        self._generator = generator or torch.Generator(device=dev).manual_seed(0)
+
+    # ------------------------------------------------------------------
+    # compute
+    # ------------------------------------------------------------------
+
+    def _prefill_kv(self, tokens, true_len):
+        """Run the prompt without a cache; return last-position logits and
+        the raw per-layer K/V ``[L, 1, bucket, Hk, Dh]``."""
+        logits, kv = forward(self.params, tokens[None, :], self.cfg,
+                             kv_lens=true_len.reshape(1), return_kv=True)
+        return logits[0, int(true_len) - 1], kv
+
+    @staticmethod
+    def _store_arena(arena, new, scales, slot):
+        """Quantize ``[L, 1, bucket, Hk, Dh]`` K or V by per-head ``scales``
+        into ``arena[:, slot, :, :bucket]`` in place."""
+        arena[:, slot, :, :new.shape[2]] = quantize_kv(
+            new[:, 0].permute(0, 2, 1, 3), scales.reshape(1, -1, 1, 1), arena.dtype)
+
+    @staticmethod
+    def _sat_stats(new, scales, true_len, fmax):
+        """Per-head saturation fraction and amax of a raw prefill K or V."""
+        a = new[:, 0].float().abs()  # [L, bucket, Hk, Dh]
+        valid = (torch.arange(a.shape[1], device=a.device) < true_len)[None, :, None, None]
+        rng = scales.reshape(1, 1, -1, 1) * fmax
+        sat = torch.where(valid, (a > rng).float(), torch.zeros_like(a)).sum(dim=(0, 1, 3))
+        denom = max(int(true_len) * a.shape[0] * a.shape[-1], 1)
+        amax = torch.where(valid, a, torch.zeros_like(a)).amax(dim=(0, 1, 3))
+        return sat / denom, amax
+
+    def _prefill_arena(self, tokens, true_len, slot):
+        last, (k, v) = self._prefill_kv(tokens, true_len)
+        fmax = storage_max(self.ka.dtype)
+        stats = (self._sat_stats(k, self._kscales, true_len, fmax)
+                 + self._sat_stats(v, self._vscales, true_len, fmax))
+        self._store_arena(self.ka, k, self._kscales, slot)
+        self._store_arena(self.va, v, self._vscales, slot)
+        return last, stats
+
+    def _calibrate_int8_kv(self, tokens, true_len, slot):
+        """First-prefill int8 calibration: per-head scales from the prompt's
+        K/V amaxes with 5% headroom, then quantize and store."""
+        last, (k, v) = self._prefill_kv(tokens, true_len)
+        n = int(true_len)
+        amax_k = k[:, 0, :n].float().abs().amax(dim=(0, 1, 3))
+        amax_v = v[:, 0, :n].float().abs().amax(dim=(0, 1, 3))
+        self._kscales = torch.clamp(amax_k, min=1e-6) * 1.05 / 127.0
+        self._vscales = torch.clamp(amax_v, min=1e-6) * 1.05 / 127.0
+        self._calibrated = True
+        self._store_arena(self.ka, k, self._kscales, slot)
+        self._store_arena(self.va, v, self._vscales, slot)
+        return last
+
+    def _run_prefill(self, padded, true_len, slot):
+        if self._fp8_arena:
+            if not self._calibrated:
+                return self._calibrate_int8_kv(padded, true_len, slot)
+            last, stats = self._prefill_arena(padded, true_len, slot)
+            if self._int8_kv:
+                self._track_kv_drift(stats)
+            return last
+        bucket = padded.shape[0]
+        one = init_kv_cache(self.cfg, 1, bucket, dtype=self.ecfg.kv_dtype, device=self.device)
+        one = dataclasses.replace(one, k_scale=self.cache.k_scale, v_scale=self.cache.v_scale)
+        logits, one = forward(self.params, padded[None, :], self.cfg, cache=one,
+                              start_pos=0, kv_lens=true_len.reshape(1))
+        self.cache.k[:, slot, :bucket] = one.k[:, 0]
+        self.cache.v[:, slot, :bucket] = one.v[:, 0]
+        self.cache.lens[slot] = true_len
+        return logits[0, int(true_len) - 1]
+
+    def _track_kv_drift(self, stats):
+        """Update the saturation EWMA, warn past the threshold, optionally
+        widen the scales."""
+        k_sat, k_amax, v_sat, v_amax = (s.double().cpu().numpy() for s in stats)
+        a = 0.2
+        self._sat_ewma_k = (1 - a) * self._sat_ewma_k + a * k_sat
+        self._sat_ewma_v = (1 - a) * self._sat_ewma_v + a * v_sat
+        worst = max(self._sat_ewma_k.max(), self._sat_ewma_v.max())
+        if worst > self.ecfg.kv_sat_threshold and not self.kv_sat_warning:
+            self.kv_sat_warning = True
+            warnings.warn(
+                f"int8-KV saturation EWMA {worst:.2%} exceeds "
+                f"kv_sat_threshold={self.ecfg.kv_sat_threshold:.2%}: activations "
+                "have drifted past the first-prefill calibration range"
+                + ("" if self.ecfg.kv_recalibrate
+                   else "; set EngineConfig.kv_recalibrate=True to expand scales online"),
+                stacklevel=3)
+        if self.ecfg.kv_recalibrate and (k_sat.max() > self.ecfg.kv_sat_threshold
+                                         or v_sat.max() > self.ecfg.kv_sat_threshold):
+            dev = self.device
+            new_ks = torch.maximum(self._kscales, torch.as_tensor(
+                k_amax * 1.05 / 127.0, dtype=torch.float32, device=dev))
+            new_vs = torch.maximum(self._vscales, torch.as_tensor(
+                v_amax * 1.05 / 127.0, dtype=torch.float32, device=dev))
+            self._rescale_arena(new_ks, new_vs)
+            self.kv_recalibrations += 1
+
+    def _rescale_arena(self, new_ks, new_vs):
+        """Requantize the live int8 arena in place from the old scales to
+        widened ones: ``q_new = round(q_old * old / new)``."""
+        for arena, old, new in ((self.ka, self._kscales, new_ks),
+                                (self.va, self._vscales, new_vs)):
+            ratio = (old / new).reshape(1, 1, -1, 1, 1)
+            arena.copy_(torch.clamp(torch.round(arena.float() * ratio), -127, 127).to(arena.dtype))
+        self._kscales, self._vscales = new_ks, new_vs
+
+    def kv_drift_stats(self) -> Dict[str, Any]:
+        return {
+            "sat_ewma_k_max": float(self._sat_ewma_k.max()),
+            "sat_ewma_v_max": float(self._sat_ewma_v.max()),
+            "sat_threshold": self.ecfg.kv_sat_threshold,
+            "warning": self.kv_sat_warning,
+            "recalibrations": self.kv_recalibrations,
+        }
+
+    def _decode_step(self, toks, lens):
+        """One decode step over every slot: ``(logits [B, V], greedy [B])``."""
+        if self._fp8_arena:
+            logits, self.ka, self.va = forward_decode_arena(
+                self.params, toks[:, None], self.cfg, self.ka, self.va, lens,
+                kv_scale=(self._kscales, self._vscales), window=self.cfg.sliding_window)
+        else:
+            logits, self.cache = forward(
+                self.params, toks[:, None], self.cfg, cache=self.cache, start_pos=lens,
+                kv_lens=lens + 1)
+        logits = logits[:, 0]
+        return logits, greedy(logits)
+
+    def _run_decode_burst(self, toks, lens, steps) -> np.ndarray:
+        """``steps`` greedy decode steps; tokens stay on the device and are
+        read back once. Returns ``[steps, slots]``."""
+        out = []
+        for _ in range(steps):
+            _, toks = self._decode_step(toks, lens)
+            lens = lens + 1
+            out.append(toks)
+        return torch.stack(out).cpu().numpy()
+
+    _BURST_BUCKETS = (32, 16, 8, 4, 2)
+
+    def _burst_size(self) -> int:
+        """Largest safe burst: greedy-only active slots, capped by each slot's
+        token budget and arena headroom; at most 8 while requests wait."""
+        active = [(s, r) for s, r in enumerate(self.slot_req) if r is not None]
+        if not active or any(r.params.temperature != 0.0 for _, r in active):
+            return 1
+        n = min(min(r.params.max_new_tokens - len(r.output) for _, r in active),
+                min(self.ecfg.max_seq_len - 1 - int(self.slot_lens[s]) for s, _ in active),
+                self.ecfg.decode_burst)
+        if self.waiting:
+            n = min(n, 8)
+        for b in self._BURST_BUCKETS:
+            if b <= n:
+                return b
+        return 1
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+
+    def add_request(self, prompt: np.ndarray,
+                    params: SamplingParams = SamplingParams()) -> Request:
+        req = Request(request_id=self._next_id, prompt=np.asarray(prompt, np.int32),
+                      params=params, enqueue_time=time.perf_counter())
+        self._next_id += 1
+        self.waiting.append(req)
+        return req
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.ecfg.prefill_buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"prompt length {n} exceeds max bucket")
+
+    def has_work(self) -> bool:
+        return bool(self.waiting) or any(r is not None for r in self.slot_req)
+
+    def _accept(self, slot: int, req: Request, tok: int, finished: List[Request]):
+        req.output.append(tok)
+        self.slot_lens[slot] += 1
+        self.slot_last_tok[slot] = tok
+        if self._is_stop(req, tok) or self.slot_lens[slot] + 1 >= self.ecfg.max_seq_len:
+            finished.append(self._retire(slot))
+
+    def step(self) -> List[Request]:
+        """Admit waiting requests into free slots, then one decode step (or
+        burst). Returns the requests finished during this step."""
+        finished: List[Request] = []
+        dev = self.device
+        for slot in range(self.ecfg.max_slots):
+            if not self.waiting or self.slot_req[slot] is not None:
+                continue
+            req = self.waiting[0]
+            if (len(req.prompt) + req.params.max_new_tokens > self.ecfg.max_seq_len
+                    or len(req.prompt) > self.ecfg.prefill_buckets[-1]):
+                self.waiting.pop(0)
+                req.done = True
+                req.error = (
+                    f"rejected: prompt={len(req.prompt)} + "
+                    f"max_new={req.params.max_new_tokens} exceeds arena "
+                    f"max_seq_len={self.ecfg.max_seq_len} or largest prefill "
+                    f"bucket {self.ecfg.prefill_buckets[-1]}")
+                finished.append(req)
+                continue
+            self.waiting.pop(0)
+            bucket = self._bucket_for(len(req.prompt))
+            padded = np.zeros((bucket,), np.int32)
+            padded[: len(req.prompt)] = req.prompt
+            last_logits = self._run_prefill(
+                torch.as_tensor(padded, device=dev),
+                torch.tensor(len(req.prompt), dtype=torch.int32, device=dev), slot)
+            tok = int(self._sample_one(last_logits, req.params))
+            req.first_token_time = time.perf_counter()
+            req.output.append(tok)
+            req.slot = slot
+            self.slot_req[slot] = req
+            self.slot_lens[slot] = len(req.prompt)
+            self.slot_last_tok[slot] = tok
+            if self._is_stop(req, tok):
+                finished.append(self._retire(slot))
+
+        if any(r is not None for r in self.slot_req):
+            lens = torch.as_tensor(self.slot_lens, device=dev)
+            toks = torch.as_tensor(self.slot_last_tok, device=dev)
+            burst = self._burst_size()
+            if burst > 1:
+                block = self._run_decode_burst(toks, lens, burst)
+                for i in range(burst):
+                    for slot, req in enumerate(self.slot_req):
+                        if req is not None:
+                            self._accept(slot, req, int(block[i, slot]), finished)
+                return finished
+            logits, greedy_toks = self._decode_step(toks, lens)
+            greedy_toks = greedy_toks.cpu().numpy()
+            for slot, req in enumerate(self.slot_req):
+                if req is None:
+                    continue
+                tok = (int(greedy_toks[slot]) if req.params.temperature == 0.0
+                       else int(self._sample_one(logits[slot], req.params)))
+                self._accept(slot, req, tok, finished)
+        return finished
+
+    def run(self) -> List[Request]:
+        """Drain: step until every queued request completes."""
+        done: List[Request] = []
+        while self.has_work():
+            done.extend(self.step())
+        return done
+
+    def _sample_one(self, logits: torch.Tensor, p: SamplingParams):
+        if p.temperature == 0.0:
+            return greedy(logits[None, :])[0]
+        return sample(logits[None, :], self._generator, temperature=p.temperature,
+                      top_k=p.top_k, top_p=p.top_p)[0]
+
+    def _is_stop(self, req: Request, tok: int) -> bool:
+        if len(req.output) >= req.params.max_new_tokens:
+            return True
+        if self.eos is not None and tok == self.eos:
+            return True
+        return tok in req.params.stop_token_ids
+
+    def _retire(self, slot: int) -> Request:
+        req = self.slot_req[slot]
+        req.done = True
+        req.finish_time = time.perf_counter()
+        req.slot = -1
+        self.slot_req[slot] = None
+        self.slot_lens[slot] = 0
+        self.slot_last_tok[slot] = 0
+        return req

@@ -1,0 +1,107 @@
+"""K1's plain version (the port's ``quant_matmul`` on CPU tensors) and
+``qdot`` against the JAX ``quant_matmul`` kernel, which runs in Pallas
+interpret mode on the CPU as the JAX package's own tests run it.
+
+Both sides multiply exact bf16 operands in float32; only the order of the
+float32 sums differs, so float32 outputs agree to rtol 1e-5 and bf16 outputs
+to one bf16 ulp of the largest output.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_fp8_tpu.kernels.quant_matmul import quant_matmul as jax_qmm
+from llm_fp8_tpu.quant import dot as jdot
+from llm_fp8_tpu.quant import formats as jfmt
+from llm_fp8_tpu.quant import qtensor as jqt
+from llm_fp8_tpu_torch.convert import tensor_from_numpy
+from llm_fp8_tpu_torch.kernels import KERNEL_WRAPPERS
+from llm_fp8_tpu_torch.kernels.quant_matmul import quant_matmul
+from llm_fp8_tpu_torch.quant import dot as tdot
+from llm_fp8_tpu_torch.quant import formats as tfmt
+from llm_fp8_tpu_torch.quant import qtensor as tqt
+
+K, N = 96, 80
+
+
+def _case(seed, M, fmt_name, mode):
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    jf = {"e4m3": jfmt.E4M3, "int8": jfmt.INT8}[fmt_name]
+    if mode == "mx":
+        jq = jqt.quantize_mx(jnp.asarray(w), jf, block_axis=0, flush_subnormal=True)
+        scale = jq.scale
+    else:
+        jq = jqt.quantize(jnp.asarray(w), jf, axes=None if mode == "tensor" else (0,),
+                          flush_subnormal=True)
+        scale = jq.scale.reshape(1, -1) if mode == "channel" else jq.scale.reshape(1, 1)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    return xj, jq, scale
+
+
+def _ulp(a):
+    return 2.0 ** (np.floor(np.log2(np.abs(a).max())) - 7)
+
+
+@pytest.mark.parametrize("fmt_name", ["e4m3", "int8"])
+@pytest.mark.parametrize("M", [1, 5, 33])
+@pytest.mark.parametrize("mode", ["tensor", "channel", "mx"])
+def test_plain_matches_jax_kernel(mode, M, fmt_name):
+    xj, jq, scale = _case(M, M, fmt_name, mode)
+    ref = np.asarray(jax_qmm(xj, jq.qvalue, scale, mode=mode, out_dtype=jnp.float32))
+    got = quant_matmul(tensor_from_numpy(np.asarray(xj)), tensor_from_numpy(np.asarray(jq.qvalue)),
+                       tensor_from_numpy(np.asarray(scale)), mode=mode,
+                       out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+def test_plain_bf16_output_within_one_ulp():
+    xj, jq, scale = _case(7, 17, "e4m3", "channel")
+    ref = np.asarray(jax_qmm(xj, jq.qvalue, scale, mode="channel").astype(jnp.float32))
+    got = quant_matmul(tensor_from_numpy(np.asarray(xj)), tensor_from_numpy(np.asarray(jq.qvalue)),
+                       tensor_from_numpy(np.asarray(scale)), mode="channel")
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=_ulp(ref))
+
+
+@pytest.mark.parametrize("granularity", ["channel", "mx"])
+def test_qdot_matches_jax_qdot(granularity):
+    """qdot on a QTensor with leading batch dims: the port routes it through
+    K1, JAX through its default XLA route; on flushed weights both compute
+    the same products."""
+    rng = np.random.default_rng(11)
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    x = rng.standard_normal((2, 3, K)).astype(np.float32)
+    if granularity == "mx":
+        jq = jqt.quantize_mx(jnp.asarray(w), jfmt.E4M3, block_axis=0, flush_subnormal=True)
+        tq = tqt.quantize_mx(torch.from_numpy(w), tfmt.E4M3, block_axis=0, flush_subnormal=True)
+    else:
+        jq = jqt.quantize(jnp.asarray(w), jfmt.E4M3, axes=(0,), flush_subnormal=True)
+        tq = tqt.quantize(torch.from_numpy(w), tfmt.E4M3, axes=(0,), flush_subnormal=True)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    ref = np.asarray(jdot.qdot(xj, jq, out_dtype=jnp.float32))
+    got = tdot.qdot(tensor_from_numpy(np.asarray(xj)), tq, out_dtype=torch.float32)
+    assert got.shape == (2, 3, N)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+def test_cpu_tensors_take_plain_version_without_launch():
+    before = KERNEL_WRAPPERS["quant_matmul"].launches
+    x = torch.ones((2, 64), dtype=torch.bfloat16)
+    w = torch.ones((64, 32)).to(torch.float8_e4m3fn)
+    y = quant_matmul(x, w, torch.ones((1, 1)), mode="tensor")
+    assert float(y[0, 0]) == 64.0
+    assert KERNEL_WRAPPERS["quant_matmul"].launches == before == 0
+
+
+def test_rejects_inputs_the_kernel_does_not_take():
+    x = torch.ones((2, 64), dtype=torch.bfloat16)
+    w = torch.ones((64, 32)).to(torch.float8_e4m3fn)
+    with pytest.raises(TypeError):
+        quant_matmul(x.float(), w, torch.ones((1, 1)), mode="tensor")
+    with pytest.raises(ValueError):
+        quant_matmul(x, w, torch.ones((1, 31)), mode="channel")
+    with pytest.raises(ValueError):
+        quant_matmul(x, w, torch.ones((1, 1)), mode="rows")
