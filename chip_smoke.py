@@ -5,17 +5,26 @@
 
 Phases, in order; any failure exits non-zero before the last line:
 
-1. card: ``nvidia-smi`` name and power limit; build every kernel with nvcc.
+1. card: ``nvidia-smi`` name and power limit; build every kernel with nvcc
+   and the host allocator with g++, all at once.
 2. kernels: each CUDA kernel against its plain PyTorch version on the card at
-   the main path's shapes (Llama-3.2-1B), with the tolerance stated; the
+   the main paths' shapes (Llama-3.2-1B), with the tolerance stated; the
    kernel's median time, the plain version's, one PyTorch library call as a
    yardstick (timed only) and the bound (bytes or FLOPs over the card's peak).
+   ``paged_kernels``: K5 at the paged serve shape (8 sequences of ~8k
+   tokens, e4m3, int8 and bf16 pools, with append: codes must equal the
+   plain version's) and its features; K3 at an 8192-token prefill.
 3. slice: Llama-3.2-1B at full width cut to 2 layers, LAYERWISE fp8 weights:
    one prefill and two arena decode steps on the card and on the CPU (plain
    versions), logits compared; then the same through the bf16 KVCache path.
+   ``paged_slice``: two prefills inserted into an e4m3 page pool and two
+   ``forward_paged`` steps, card against CPU, logits and pool codes compared.
 4. serving: Llama-3.2-1B, all 16 layers, fp8 weights, fp8 KV through the
-   engine (8 requests), then int8 KV (2 requests, calibration); launch counts
-   of every kernel are read around the fp8 run and must all be > 0.
+   arena engine (8 requests), then int8 KV (2 requests, calibration).
+   ``paged_serve``: the paged engine, e4m3 pool, 8 requests of 8184-token
+   prompts and 64 new tokens each, then a short int8-pool run. Each path's
+   launch counts are set to 0 just before its run and read just after; every
+   kernel of the path must have been launched.
 5. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -34,6 +43,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_serve")
+#: The kernels each serving path runs (launch counts read around its run).
+ARENA_PATH = ("quant_matmul", "decode_attention_arena", "flash_attention")
+PAGED_PATH = ("quant_matmul", "flash_attention", "paged_attention")
 
 # Peak rates (data sheets, dense): bytes/s of device memory, bf16 FLOP/s.
 _PEAKS = (("H100 NVL", 3.9e12, 835e12), ("H100 PCIe", 2.0e12, 756e12),
@@ -131,6 +145,82 @@ def bound_ms(nbytes: float, flops: float, bw: float, peak: float):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+#: Attention outputs are held row by row (a row: one head's D values for one
+#: query) to this many bf16 ulps of the row's largest |value|. The kernels and
+#: the plain versions round p to bf16 against different running maxima and
+#: round the output to bf16; each costs at most about one ulp of the row's
+#: largest element.
+ROW_ULPS = 4
+
+
+def row_ulps(got, ref):
+    """Per row (last dim) of ``got``: its largest error against ``ref`` in
+    bf16 ulps of the row's largest |ref| (a row of zeros has ulp 0: any
+    error there is infinite)."""
+    import torch
+
+    err = (got.float() - ref.float()).abs().amax(dim=-1)
+    top = ref.float().abs().amax(dim=-1)
+    ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top).exponent - 8)
+    ulp = torch.where(top > 0, ulp, torch.zeros_like(ulp))
+    return torch.where(err > 0, err / ulp, torch.zeros_like(err))
+
+
+def rows_within(got, ref, what):
+    """Hold every row of ``got`` to ``ref`` within :data:`ROW_ULPS`; returns
+    ``(max abs err, worst row's error in ulps)``."""
+    err = (got.float() - ref.float()).abs().max().item()
+    worst = row_ulps(got, ref).max().item()
+    check(math.isfinite(err) and worst <= ROW_ULPS,
+          f"{what}: a row is {worst} bf16 ulps off (max abs err {err}; tol {ROW_ULPS} "
+          "ulps of each row's largest value)")
+    return err, worst
+
+
+def caught_share(bad, ref, live):
+    """Share of the ``live`` rows in which a planted error ``bad`` breaks the
+    row tolerance."""
+    return float((row_ulps(bad, ref)[live] > ROW_ULPS).float().mean())
+
+
+class Instrumented:
+    """Engine mixin: whether every logits row was finite, the host time of
+    prefills and decode bursts (each ends in a sync), the decode steps run
+    and the steps run in bursts."""
+
+    finite = None
+    prefill_s = decode_s = 0.0
+    decode_steps = burst_steps = 0
+
+    def _note(self, logits):
+        import torch
+
+        ok = torch.isfinite(logits).all()
+        self.finite = ok if self.finite is None else (self.finite & ok)
+
+    def _timed_prefill(self, fn, *args):
+        import torch
+
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        self.prefill_s += time.perf_counter() - t0
+        return out
+
+    def _decode_step(self, *args):
+        logits, g = super()._decode_step(*args)
+        self._note(logits)
+        self.decode_steps += 1
+        return logits, g
+
+    def _run_decode_burst(self, *args):
+        t0 = time.perf_counter()
+        out = super()._run_decode_burst(*args)  # reads back: synced
+        self.decode_s += time.perf_counter() - t0
+        self.burst_steps += args[-1]
+        return out
+
+
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
@@ -223,11 +313,9 @@ def kernel_cases(dev, bw, peak, log):
             q, ka_p, va_p, lengths, layer, new_k=nk, new_v=nv, cos=cos, sin=sin,
             k_scale=ks, v_scale=vs, scale=D ** -0.5, window=None, softcap=None)
         torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        tol = 1e-2 * max(1.0, ref.float().abs().max().item())
+        err, ulps = rows_within(got, ref, f"K2 {dtype}")
         same_codes = bool(torch.equal(ka_k.view(torch.uint8), ka_p.view(torch.uint8))
                           and torch.equal(va_k.view(torch.uint8), va_p.view(torch.uint8)))
-        check(math.isfinite(err) and err <= tol, f"K2 {dtype}: err {err} > tol {tol}")
         check(same_codes, f"K2 {dtype}: appended arena codes differ from the plain version")
         del ka_k, va_k, ka_p, va_p
         layers = cycler(list(range(L)))
@@ -258,7 +346,7 @@ def kernel_cases(dev, bw, peak, log):
         flops = 4.0 * Hq * D * int(lengths.sum())
         b_ms, b_by = bound_ms(nbytes, flops, bw, peak)
         case = dict(kernel="decode_attention_arena", case=f"B8 Hq32 Hk8 D64 S1024 {dtype}",
-                    max_abs_err=err, tol=tol, arena_codes_equal=same_codes, ms=ms,
+                    max_abs_err=err, err_ulps=ulps, arena_codes_equal=same_codes, ms=ms,
                     call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         cases.append(case)
         log(case)
@@ -277,10 +365,8 @@ def kernel_cases(dev, bw, peak, log):
         ref, ref_lse = k3.flash_fwd_plain(q, k, v, zero, kv_lens, causal=True, window=None,
                                           softcap=None, scale=D ** -0.5)
         torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
+        err, ulps = rows_within(got, ref, f"K3 Sq={Sq}")
         lse_err = (lse - ref_lse).abs().max().item()
-        tol = 1e-2 * max(1.0, ref.float().abs().max().item())
-        check(math.isfinite(err) and err <= tol, f"K3 Sq={Sq}: err {err} > tol {tol}")
         check(math.isfinite(lse_err) and lse_err <= 1e-3, f"K3 Sq={Sq}: lse err {lse_err}")
         ms = cuda_ms(lambda: k3.flash_attention(q, k, v, causal=True, q_offset=zero, kv_lens=kv_lens))
         call_ms = eager_ms(lambda: k3.flash_attention(q, k, v, causal=True, q_offset=zero, kv_lens=kv_lens))
@@ -297,9 +383,9 @@ def kernel_cases(dev, bw, peak, log):
         nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2 + Bq * Hq * Sq * 4
         b_ms, b_by = bound_ms(nbytes, 4.0 * Hq * D * pairs * Bq, bw, peak)
         case = dict(kernel="flash_attention", case=f"B1 Sq=Sk={Sq} Hq32 Hk8 D64 causal "
-                    f"kv_len={kv_len}", max_abs_err=err, lse_err=lse_err, tol=tol, ms=ms,
-                    call_ms=call_ms,
-                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                    f"kv_len={kv_len}", max_abs_err=err, err_ulps=ulps, lse_err=lse_err,
+                    ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by)
         cases.append(case)
         log(case)
     cases += feature_cases(dev, g, log)
@@ -319,8 +405,9 @@ def feature_cases(dev, g, log):
 
     cases = []
 
-    def record(kernel, case, err, tol, **extra):
-        check(math.isfinite(err) and err <= tol, f"{kernel} {case}: err {err} > tol {tol}")
+    def record(kernel, case, err, tol=None, **extra):
+        if tol is not None:
+            check(math.isfinite(err) and err <= tol, f"{kernel} {case}: err {err} > tol {tol}")
         c = dict(kernel=kernel, case=case, max_abs_err=err, tol=tol, **extra)
         cases.append(c)
         log(c)
@@ -370,13 +457,12 @@ def feature_cases(dev, g, log):
                                               cos=cos, sin=sin, k_scale=ks, v_scale=vs,
                                               scale=D ** -0.5, window=window, softcap=softcap)
         torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
+        name = f"B{B} Hq{Hq} Hk{Hk} D{D} S{S} {dtype} window {window} softcap {softcap}"
+        err, ulps = rows_within(got, ref, f"K2 {name}")
         same = bool(torch.equal(ka_k.view(torch.uint8), ka_p.view(torch.uint8))
                     and torch.equal(va_k.view(torch.uint8), va_p.view(torch.uint8)))
         check(same, f"K2 features {dtype}: appended codes differ")
-        record("decode_attention_arena", f"B{B} Hq{Hq} Hk{Hk} D{D} S{S} {dtype} "
-               f"window {window} softcap {softcap}", err,
-               1e-2 * max(1.0, ref.float().abs().max().item()), arena_codes_equal=same)
+        record("decode_attention_arena", name, err, err_ulps=ulps, arena_codes_equal=same)
 
     for (B, Sq, Sk, Hq, Hk, D, causal, window, softcap, q_off, kv) in (
             (2, 100, 300, 16, 4, 128, True, 64, 20.0, [200, 150], [300, 260]),
@@ -391,15 +477,203 @@ def feature_cases(dev, g, log):
         got, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **cfg)
         ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, **cfg)
         torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
+        name = (f"B{B} Sq{Sq} Sk{Sk} Hq{Hq} Hk{Hk} D{D} causal {causal} window {window} "
+                f"softcap {softcap}")
+        err, ulps = rows_within(got, ref, f"K3 {name}")
         live = torch.isfinite(ref_lse)
         check(bool(torch.equal(live, torch.isfinite(lse))), "K3 features: dead rows differ")
         lse_err = (lse[live] - ref_lse[live]).abs().max().item() if live.any() else 0.0
         check(lse_err <= 1e-3, f"K3 features: lse err {lse_err}")
-        record("flash_attention", f"B{B} Sq{Sq} Sk{Sk} Hq{Hq} Hk{Hk} D{D} causal {causal} "
-               f"window {window} softcap {softcap}", err,
-               1e-2 * max(1.0, ref.float().abs().max().item()), lse_err=lse_err,
+        record("flash_attention", name, err, err_ulps=ulps, lse_err=lse_err,
                dead_rows=int((~live).sum()))
+    return cases
+
+
+def paged_kernel_cases(dev, bw, peak, log):
+    """K5 against its plain version at the paged serve shape and with its
+    features; K3 at the paged prefill's 8192-token bucket."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels import paged_attention as k5
+    from llm_fp8_tpu_torch.kernels._common import fp8_to_bf16_ftz
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    cases = []
+
+    def pools(dtype, P, L, Hk, page, D, kv_scale):
+        def one():
+            x = torch.randn((P, L, Hk, page, D), generator=g, device=dev)
+            return k5.quantize_to_pool(x, kv_scale, dtype)
+        return one(), one()
+
+    def tables_for(lengths, page, width, P, pad):
+        """Shuffled pages 1..P-2 (page 0 stays unused: a zero-length row
+        writes its row 0 back; P-1 is the scratch page), padded with pad."""
+        perm = torch.randperm(P - 2, generator=g, device=dev) + 1
+        t = torch.full((len(lengths), width), pad, dtype=torch.int32, device=dev)
+        nxt = 0
+        for b, n in enumerate(lengths.tolist()):
+            k = -(-n // page)
+            t[b, :k] = perm[nxt:nxt + k].int()
+            nxt += k
+        return t
+
+    def run_case(name, dtype, B, Hq, Hk, D, page, lengths, *, L=4, kv_scale=1.0,
+                 window=None, softcap=None, pad=None, timed=False):
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        width = max(1, -(-int(lengths.max()) // page))
+        P = B * width + 2
+        kp, vp = pools(dtype, P, L, Hk, page, D, kv_scale)
+        tables = tables_for(lengths, page, width, P, P - 1 if pad is None else pad)
+        q = torch.randn((B, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+        nk = torch.randn((B, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+        nv = torch.randn((B, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+        kw = dict(kv_scale=kv_scale, window=window, softcap=softcap)
+        layer = L - 1
+        kk, vk, kq, vq = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        got, _, _ = k5.paged_attention(q, kk, vk, lengths, tables, layer, new_k=nk, new_v=nv,
+                                       **kw)
+        ref = k5.paged_attention_plain(q, kq, vq, lengths, tables, layer, new_k=nk, new_v=nv,
+                                       scale=D ** -0.5, **kw)
+        torch.cuda.synchronize()
+        err, ulps = rows_within(got, ref, f"K5 {name}")
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.uint8
+        same = bool(torch.equal(kk.view(bits), kq.view(bits))
+                    and torch.equal(vk.view(bits), vq.view(bits)))
+        changed = int((kk.view(bits) != kp.view(bits)).any(dim=(1, 2, 4)).sum())
+        check(same, f"K5 {name}: appended pool codes differ from the plain version")
+        check(changed <= int((lengths > 0).sum()), f"K5 {name}: {changed} rows changed")
+        if bool((lengths == 0).any()):
+            check(bool((got[lengths == 0] == 0).all()), f"K5 {name}: zero-length row not 0")
+        # Planted errors the row tolerance must catch in most live rows: the
+        # plain version on the appended pool, each row short of as many keys
+        # as it has pages (what a page-boundary off-by-one loses), or of a
+        # 32-key tail chunk.
+        live = (lengths > 0)[:, None].expand(B, Hq)
+        caught = {}
+        for tag, lost in (("key_per_page", (lengths + page - 1) // page),
+                          ("tail_32", lengths.clamp(max=32))):
+            bad = k5.paged_attention_plain(q, kq, vq, lengths - lost, tables, layer,
+                                           new_k=None, new_v=None, scale=D ** -0.5, **kw)
+            caught[tag] = caught_share(bad, ref, live)
+            check(caught[tag] >= 0.5, f"K5 {name}: the tolerance lets a planted {tag} "
+                  f"error through in {1 - caught[tag]:.0%} of the rows")
+        del kk, vk, kq, vq
+        case = dict(kernel="paged_attention", case=name, max_abs_err=err, err_ulps=ulps,
+                    planted_caught=caught, pool_codes_equal=same, lengths=lengths.tolist())
+        if timed:
+            layers = cycler(list(range(L)))
+            call = lambda: k5.paged_attention(q, kp, vp, lengths, tables, layers(),  # noqa: E731
+                                              new_k=nk, new_v=nv, **kw)
+            case["ms"] = cuda_ms(call)
+            case["call_ms"] = eager_ms(call)
+            case["plain_ms"] = cuda_ms(lambda: k5.paged_attention_plain(
+                q, kp, vp, lengths, tables, layers(), new_k=nk, new_v=nv, scale=D ** -0.5,
+                **kw), calls=4, rounds=3)
+            # Yardstick: SDPA over the gathered, dequantized pages of one layer
+            # (heads expanded, masked by length).
+            def gathered(pool):
+                x = fp8_to_bf16_ftz(pool[:, layer][tables.long().clamp(0, P - 1)])
+                x = (x * kv_scale).permute(0, 2, 1, 3, 4).reshape(B, Hk, width * page, D)
+                return x.repeat_interleave(Hq // Hk, dim=1)
+            kd, vd = gathered(kp), gathered(vp)
+            mask = (torch.arange(width * page, device=dev)[None, :]
+                    < lengths[:, None].long())[:, None, None, :]
+            q4 = q[:, :, None, :]
+            case["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask))
+            del kd, vd
+            tokens = int(lengths.sum())
+            nbytes = (2 * tokens * Hk * D * kp.element_size() + q.numel() * 2 * 2
+                      + (nk.numel() + nv.numel()) * 2 + tables.numel() * 4 + B * 4)
+            case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 4.0 * Hq * D * tokens,
+                                                          bw, peak)
+        cases.append(case)
+        log(case)
+        del kp, vp
+
+    # The paged serve's decode shape: 8 sequences of 8185..8256 tokens (8192
+    # ends a page), Llama-3.2-1B heads, page 128.
+    serve_lengths = [8185, 8192, 8200, 8210, 8224, 8240, 8248, 8256]
+    spread = [1, 127, 128, 129, 1000, 4096, 6000, 8256]
+    for dtype, lengths, tag in ((torch.float8_e4m3fn, serve_lengths, "serve"),
+                                (torch.float8_e4m3fn, spread, "spread"),
+                                (torch.int8, spread, "spread"),
+                                (torch.bfloat16, spread, "spread")):
+        run_case(f"{tag} B8 Hq32 Hk8 D64 page128 {dtype}", dtype, 8, 32, 8, 64, 128, lengths,
+                 kv_scale=4 / 127 if dtype == torch.int8 else 1.0, timed=True)
+    # Features off the serve shape (correctness only).
+    run_case("window 100 softcap 30, e5m2, page 16", torch.float8_e5m2, 3, 8, 8, 64, 16,
+             [700, 33, 16], window=100, softcap=30.0, kv_scale=0.5)
+    run_case("head_dim 128, GQA 4:1, bf16, kv_scale 1.5", torch.bfloat16, 2, 16, 4, 128, 64,
+             [300, 1], kv_scale=1.5)
+    run_case("-1 table padding and zero length, int8", torch.int8, 4, 16, 4, 32, 32,
+             [0, 95, 96, 33], pad=-1, kv_scale=4 / 127)
+    run_case("8 q heads per kv head, e4m3", torch.float8_e4m3fn, 2, 16, 2, 64, 48,
+             [500, 97])
+
+    # ---- K3 at the paged prefill's bucket: B 1, Sq = Sk = 8192, kv_len 8184 ----
+    Sq, Hq, Hk, D, kv_len = 8192, 32, 8, 64, 8184
+    q = torch.randn((1, Sq, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((1, Sq, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((1, Sq, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+    kv_lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    got, lse = k3.flash_attention(q, k, v, causal=True, q_offset=zero, kv_lens=kv_lens,
+                                  return_lse=True)
+    chunk = 1024
+
+    def plain(shift=0):
+        """The plain version in query chunks of 1024 (its float32 scores
+        fit); ``shift`` moves every query row ``shift`` keys back."""
+        outs, lses = [], []
+        for i in range(0, Sq, chunk):
+            o, ls = k3.flash_fwd_plain(q[:, i:i + chunk], k, v,
+                                       torch.tensor([i - shift], dtype=torch.int32,
+                                                    device=dev),
+                                       kv_lens, causal=True, window=None, softcap=None,
+                                       scale=D ** -0.5)
+            outs.append(o)
+            lses.append(ls)
+        return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+    ref, ref_lse = plain()
+    torch.cuda.synchronize()
+    err, ulps = rows_within(got, ref, "K3 Sq=8192")
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(math.isfinite(lse_err) and lse_err <= 1e-3, f"K3 Sq=8192: lse err {lse_err}")
+    # Planted: every query row short of its last 32 keys (a lost diagonal
+    # chunk); the row tolerance must catch it in most rows.
+    caught = caught_share(plain(shift=32)[0], ref, torch.ones(ref.shape[:-1], dtype=torch.bool,
+                                                              device=dev))
+    check(caught >= 0.5, f"K3 Sq=8192: the tolerance lets a lost 32-key chunk through in "
+          f"{1 - caught:.0%} of the rows")
+    del ref, ref_lse
+    call = lambda: k3.flash_attention(q, k, v, causal=True, q_offset=zero,  # noqa: E731
+                                      kv_lens=kv_lens)
+    ms = cuda_ms(call, calls=5, rounds=3)
+    call_ms = eager_ms(call, calls=5, rounds=3)
+    plain_ms = eager_ms(plain, calls=1, rounds=2)
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(Hq // Hk, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(Hq // Hk, dim=1)
+    pos = torch.arange(Sq, device=dev)
+    mask = ((pos[None, :] <= pos[:, None]) & (pos[None, :] < kv_len))[None, None]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+                     calls=5, rounds=3)
+    pairs = int(mask.sum())
+    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2 + Hq * Sq * 4
+    b_ms, b_by = bound_ms(nbytes, 4.0 * Hq * D * pairs, bw, peak)
+    case = dict(kernel="flash_attention", case=f"B1 Sq=Sk={Sq} Hq32 Hk8 D64 causal "
+                f"kv_len={kv_len}", max_abs_err=err, err_ulps=ulps,
+                planted_caught={"tail_32": caught}, lse_err=lse_err, ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, plain_timing="eager, 8 query chunks",
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                tflops=4.0 * Hq * D * pairs / (ms * 1e-3) / 1e12)
+    cases.append(case)
+    log(case)
     return cases
 
 
@@ -478,6 +752,110 @@ def slice_check(dev, log):
     return res
 
 
+def paged_slice_check(dev, log):
+    """The paged path at full 1B width, 2 layers: two prompts (200 tokens,
+    and 128, which ends a page) prefilled and inserted into an e4m3 pool,
+    then two ``forward_paged`` steps, on the card and on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch.models import forward_paged, get_config
+    from llm_fp8_tpu_torch.models.llama import init_params, quantize_params
+    from llm_fp8_tpu_torch.quant import LAYERWISE, QTensor
+    from llm_fp8_tpu_torch.serving import PagedEngine, PagedEngineConfig
+    from llm_fp8_tpu_torch.serving.block_table import SequenceTable
+
+    cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=2)
+    params = quantize_params(init_params(cfg, device=dev, seed=7), LAYERWISE)
+
+    def to_cpu(t):
+        if isinstance(t, QTensor):
+            return t.to("cpu")
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        return t.cpu()
+
+    ecfg = PagedEngineConfig(max_slots=2, num_pages=8, page_size=128, max_pages_per_seq=3,
+                             kv_dtype="fp8", prefill_buckets=(256,))
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32) for n in (200, 128)]
+    runs = {}
+    for name, p, d in (("cuda", params, dev), ("cpu", to_cpu(params), torch.device("cpu"))):
+        eng = PagedEngine(p, cfg, ecfg, device=d)
+        logits, tables, kv = [], [], []
+        for prompt in prompts:
+            n = len(prompt)
+            table = SequenceTable(eng.allocator)
+            table.ensure_capacity(n + 2)
+            padded = np.zeros((256,), np.int32)
+            padded[:n] = prompt
+            last, k, v = eng._prefill(torch.as_tensor(padded, device=d), n)
+            eng._insert(k, v, table.blocks[:-(-n // 128)])
+            logits.append(last.float().cpu())
+            tables.append(table.table(3))
+            kv.append(torch.stack([k[:, :n], v[:, :n]]).float().cpu())  # [2, L, n, Hk, D]
+        runs[name] = dict(eng=eng, params=p, dev=d, logits=[torch.stack(logits)], kv=kv,
+                          tables=torch.as_tensor(np.stack(tables), device=d))
+    toks = torch.argmax(runs["cpu"]["logits"][0], dim=-1)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    for _ in range(2):
+        for r in runs.values():
+            eng, d = r["eng"], r["dev"]
+            lg, eng.k_pages, eng.v_pages = forward_paged(
+                r["params"], toks[:, None].to(d), cfg, eng.k_pages, eng.v_pages, r["tables"],
+                lens.to(d))
+            r["logits"].append(lg[:, 0].float().cpu())
+        toks = torch.argmax(runs["cpu"]["logits"][-1], dim=-1)
+        lens = lens + 1
+    tol = 0.06  # as the arena slice: bf16 activations, K3's bf16 P against float32
+    errs = []
+    for a, b in zip(runs["cuda"]["logits"], runs["cpu"]["logits"]):
+        check(bool(torch.isfinite(a).all()), "paged slice: non-finite logits on the card")
+        errs.append((a - b).abs().max().item())
+    # Pool codes: the card's and the CPU's K/V differ before they are
+    # quantized (bf16 roundings of other sum orders in K1 and K3, carried
+    # through the layers: kv_input_max_abs_diff reads them per layer), so a
+    # stored value may differ by one e4m3 step (2^-3 of its magnitude) plus
+    # that input difference. Near 0 the e4m3 codes are 2^-9 apart, so the
+    # same input difference spans many codes there; the slack for it is 2^-4
+    # absolute (PERF.md has the readings).
+    kv_diff = [max(float((a[:, li] - b[:, li]).abs().max())
+                   for a, b in zip(runs["cuda"]["kv"], runs["cpu"]["kv"]))
+               for li in range(cfg.num_layers)]
+    same, excess, diff, worst = [], [], 0.0, None
+    for attr in ("k_pages", "v_pages"):
+        a = getattr(runs["cuda"]["eng"], attr).cpu()
+        b = getattr(runs["cpu"]["eng"], attr)
+        same.append(float((a.view(torch.uint8) == b.view(torch.uint8)).float().mean()))
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        diff = max(diff, float(d.max()))
+        beyond = d - 2.0 ** -3 * torch.maximum(a.abs(), b.abs())
+        per_layer = beyond.amax(dim=(0, 2, 3, 4))
+        excess.append([float(x) for x in per_layer])
+        i = int(beyond.argmax())
+        if worst is None or float(beyond.flatten()[i]) > worst[0]:
+            worst = (float(beyond.flatten()[i]), attr, float(a.flatten()[i]),
+                     float(b.flatten()[i]))
+    excess_max = max(max(e) for e in excess)
+    res = dict(config="llama-3.2-1b, 2 layers, LAYERWISE fp8, e4m3 page pool (page 128): "
+               "prefills of 200 and 128 tokens inserted, then 2 forward_paged steps",
+               steps=len(errs), logits_max_abs_err=max(errs), per_step=errs, tol=tol,
+               logits_max_abs=max(float(x.abs().max()) for x in runs["cpu"]["logits"]),
+               kv_input_max_abs_diff=kv_diff, pool_codes_identical_share=min(same),
+               pool_value_max_abs_diff=diff, pool_diff_beyond_one_step=excess_max,
+               pool_beyond_by_layer={"k": excess[0], "v": excess[1]},
+               pool_worst=dict(zip(("beyond", "pool", "card", "cpu"), worst)),
+               pool_tol=2.0 ** -4)
+    log(res)
+    check(max(errs) <= tol, f"paged slice: logits err {max(errs)} > tol {tol}")
+    check(excess_max <= 2.0 ** -4, f"paged slice: pool values differ by {excess_max} "
+          "beyond one e4m3 step")
+    return res
+
+
 # --------------------------------------------------------------------------
 # phase 4: serving through the engine
 # --------------------------------------------------------------------------
@@ -495,37 +873,11 @@ def serving(dev, num_layers, card, log):
     from llm_fp8_tpu_torch.quant import LAYERWISE
     from llm_fp8_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 
-    class CheckedEngine(Engine):
-        """Engine that also records whether every logits row was finite, and
-        the host time of prefills and decode bursts (each ends in a sync)."""
-
-        finite = None
-        prefill_s = decode_s = 0.0
-        decode_steps = 0
-
-        def _note(self, logits):
-            ok = torch.isfinite(logits).all()
-            self.finite = ok if self.finite is None else (self.finite & ok)
-
-        def _decode_step(self, toks, lens):
-            logits, g = super()._decode_step(toks, lens)
-            self._note(logits)
-            return logits, g
-
+    class CheckedEngine(Instrumented, Engine):
         def _run_prefill(self, padded, true_len, slot):
-            t0 = time.perf_counter()
-            last = super()._run_prefill(padded, true_len, slot)
+            last = self._timed_prefill(super()._run_prefill, padded, true_len, slot)
             self._note(last)
-            torch.cuda.synchronize()
-            self.prefill_s += time.perf_counter() - t0
             return last
-
-        def _run_decode_burst(self, toks, lens, steps):
-            t0 = time.perf_counter()
-            out = super()._run_decode_burst(toks, lens, steps)  # reads back: synced
-            self.decode_s += time.perf_counter() - t0
-            self.decode_steps += steps
-            return out
 
     cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=num_layers)
     t0 = time.perf_counter()
@@ -558,8 +910,9 @@ def serving(dev, num_layers, card, log):
             check(len(r.output) == 32, f"serve {kv}: {len(r.output)} tokens, not 32")
             check(all(0 <= t < cfg.vocab_size for t in r.output), f"serve {kv}: bad token")
         check(eng.finite is not None and bool(eng.finite), f"serve {kv}: non-finite logits")
-        for name, c in counts.items():
-            check(c > 0, f"serve {kv}: kernel {name} was launched {c} times")
+        for name in ARENA_PATH:
+            check(counts[name] > 0, f"serve {kv}: kernel {name} was launched "
+                  f"{counts[name]} times")
         if kv == "int8":
             check(bool(torch.isfinite(eng._kscales).all() and (eng._kscales > 0).all()),
                   "serve int8: bad calibrated scales")
@@ -571,7 +924,8 @@ def serving(dev, num_layers, card, log):
                    peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
                    launches=counts, init_s=init_s, prefill_s=eng.prefill_s,
                    decode_s=eng.decode_s, decode_steps=eng.decode_steps,
-                   decode_step_ms=1e3 * eng.decode_s / max(eng.decode_steps, 1))
+                   burst_steps=eng.burst_steps,
+                   decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1))
         if kv == "fp8":
             res["profile"] = profile_run(CheckedEngine, params, cfg, ecfg, prompts, dev)
         log(res)
@@ -580,8 +934,103 @@ def serving(dev, num_layers, card, log):
     return results
 
 
-def profile_run(engine_cls, params, cfg, ecfg, prompts, dev):
-    """The same fp8 serving run under torch.profiler: device (kernel) time
+def paged_serving(dev, num_layers, card, log):
+    """The paged engine at full 1B width: e4m3 pool, 8 requests of 8184-token
+    prompts (bucket 8192) and 64 new tokens each; then int8 pool, 2 short
+    requests. Launch counts are set to 0 before each measured run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.models.llama import init_params, quantize_params
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+    from llm_fp8_tpu_torch.serving import PagedEngine, PagedEngineConfig, SamplingParams
+
+    class CheckedPagedEngine(Instrumented, PagedEngine):
+        """Prefill time includes the insert; also the most pages held."""
+
+        max_pages = 0
+
+        def _prefill(self, tokens, true_len):
+            out = self._timed_prefill(super()._prefill, tokens, true_len)
+            self._note(out[0])
+            return out
+
+        def _insert(self, k_new, v_new, blocks):
+            self._timed_prefill(super()._insert, k_new, v_new, blocks)
+
+        def step(self):
+            out = super().step()
+            self.max_pages = max(self.max_pages, self.pages_in_use)
+            return out
+
+    cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=num_layers)
+    params = quantize_params(init_params(cfg, device=dev, seed=0), LAYERWISE)
+    rng = np.random.RandomState(1)
+    results = {}
+    for kv, n_req, n_prompt, max_new, bucket, kv_scale in (("fp8", 8, 8184, 64, 8192, 1.0),
+                                                           ("int8", 2, 1000, 16, 1024, 1 / 16)):
+        page = 128
+        per_seq = -(-(n_prompt + max_new) // page)
+        ecfg = PagedEngineConfig(max_slots=8, num_pages=n_req * per_seq + 1, page_size=page,
+                                 max_pages_per_seq=per_seq, kv_dtype=kv, kv_scale=kv_scale,
+                                 prefill_buckets=(bucket,))
+        prompts = [rng.randint(1, cfg.vocab_size, n_prompt).astype(np.int32)
+                   for _ in range(n_req)]
+        warm = CheckedPagedEngine(params, cfg, ecfg, device=dev)
+        warm.add_request(prompts[0], SamplingParams(max_new_tokens=4))
+        warm.run()
+        del warm
+        eng = CheckedPagedEngine(params, cfg, ecfg, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new)) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for r in reqs:
+            check(r.done and r.error is None, f"paged {kv}: request {r.request_id} {r.error}")
+            check(len(r.output) == max_new, f"paged {kv}: {len(r.output)} tokens, not {max_new}")
+            check(all(0 <= t < cfg.vocab_size for t in r.output), f"paged {kv}: bad token")
+        check(eng.finite is not None and bool(eng.finite), f"paged {kv}: non-finite logits")
+        for name in PAGED_PATH:
+            check(counts[name] > 0, f"paged {kv}: kernel {name} was launched {counts[name]} times")
+        check(counts["decode_attention_arena"] == 0, "paged: the arena kernel ran")
+        check(counts["paged_attention"] == num_layers * eng.decode_steps,
+              f"paged {kv}: {counts['paged_attention']} K5 launches for "
+              f"{eng.decode_steps} decode steps of {num_layers} layers")
+        check(counts["flash_attention"] == num_layers * n_req,
+              f"paged {kv}: {counts['flash_attention']} K3 launches for {n_req} prefills")
+        check(eng.pages_in_use == 0 and eng.max_pages == n_req * per_seq,
+              f"paged {kv}: {eng.max_pages} pages held at most, {eng.pages_in_use} at the end")
+        ttfts = sorted(r.ttft for r in reqs)
+        res = dict(card=card, kv_dtype=kv, kv_scale=kv_scale, requests=n_req,
+                   layers=num_layers, prompt_len=n_prompt, bucket=bucket, page_size=page,
+                   generated=max_new * n_req, wall_s=wall,
+                   tokens_per_s=max_new * n_req / wall, ttft_p50_s=ttfts[len(ttfts) // 2],
+                   peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                   pool_gb=2 * eng.k_pages.numel() * eng.k_pages.element_size() / 2 ** 30,
+                   pages_in_use_max=eng.max_pages, launches=counts,
+                   prefill_s=eng.prefill_s, decode_steps=eng.decode_steps,
+                   burst_s=eng.decode_s, burst_steps=eng.burst_steps,
+                   decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1))
+        del eng
+        if kv == "fp8":
+            res["profile"] = profile_run(CheckedPagedEngine, params, cfg, ecfg, prompts, dev,
+                                         max_new=max_new)
+        log(res)
+        results[kv] = res
+    return results
+
+
+def profile_run(engine_cls, params, cfg, ecfg, prompts, dev, max_new=32):
+    """The same serving run under torch.profiler: device (kernel) time
     against wall time, and the kernels that take most of it. A separate run,
     so the profiler's overhead stays out of the numbers above."""
     import torch
@@ -591,7 +1040,7 @@ def profile_run(engine_cls, params, cfg, ecfg, prompts, dev):
 
     eng = engine_cls(params, cfg, ecfg, device=dev)
     for p in prompts:
-        eng.add_request(p, SamplingParams(max_new_tokens=32))
+        eng.add_request(p, SamplingParams(max_new_tokens=max_new))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -610,8 +1059,8 @@ def profile_run(engine_cls, params, cfg, ecfg, prompts, dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,slice,serve",
-                    help="comma list of kernels, slice, serve")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma list of {', '.join(PHASES)}")
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for the per-case JSON report and the nvcc logs")
     args = ap.parse_args(argv)
@@ -656,47 +1105,67 @@ def main(argv=None) -> int:
     def log(obj):
         print(json.dumps(obj, default=str), flush=True)
 
+    steps = (("kernels", lambda: kernel_cases(dev, bw, peak, log)),
+             ("paged_kernels", lambda: paged_kernel_cases(dev, bw, peak, log)),
+             ("slice", lambda: slice_check(dev, log)),
+             ("paged_slice", lambda: paged_slice_check(dev, log)),
+             ("serve", lambda: serving(dev, 16, card, log)),
+             ("paged_serve", lambda: paged_serving(dev, 16, card, log)))
     try:
-        if "kernels" in phases:
-            report["kernels"] = kernel_cases(dev, bw, peak, log)
-        if "slice" in phases:
-            report["slice"] = slice_check(dev, log)
-        if "serve" in phases:
-            report["serve"] = serving(dev, 16, card, log)
+        for phase, run in steps:
+            if phase in phases:
+                t0 = time.perf_counter()
+                report[phase] = run()
+                print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+                torch.cuda.empty_cache()
     except SmokeFailure as e:
         save_report()
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     save_report()
 
-    if phases != {"kernels", "slice", "serve"}:
+    if phases != set(PHASES):
         print(f"chip_smoke: partial run ({args.phases}); no result line", flush=True)
         return 0
-    launches = report["serve"]["fp8"]["launches"]
-    pick = {"quant_matmul": "w_gate_up M=8 channel e4m3",
-            "decode_attention_arena": "B8 Hq32 Hk8 D64 S1024 torch.float8_e4m3fn",
-            "flash_attention": "B1 Sq=Sk=128"}
-    meta = {"quant_matmul": ("csrc/quant_matmul.cu", "llm_fp8_tpu/kernels/quant_matmul.py:126"),
-            "decode_attention_arena": ("csrc/decode_attention.cu",
-                                       "llm_fp8_tpu/kernels/decode_attention.py:300"),
-            "flash_attention": ("csrc/flash_attention.cu",
-                                "llm_fp8_tpu/kernels/flash_attention.py:475")}
-    line = []
-    for kname, prefix in pick.items():
-        c = next(c for c in report["kernels"]
-                 if c["kernel"] == kname and c["case"].startswith(prefix))
-        src, repl = meta[kname]
-        line.append(dict(name=kname, route="cuda", source=f"llm_fp8_tpu_torch/{src}",
-                         replaces=repl, launches=launches[kname],
-                         max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
-                         bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-                         library_ms=c["library_ms"], case=c["case"]))
-    print(json.dumps({"kernels": line}))
+    print(json.dumps({"kernels": kernels_line(report)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernels_line(report):
+    """One entry per kernel: its main-path case from the kernel phases and
+    its launches in the serving runs (summed over the paths that run it)."""
+    by_path = {"arena": report["serve"]["fp8"]["launches"],
+               "paged": report["paged_serve"]["fp8"]["launches"]}
+    pick = {"quant_matmul": ("kernels", "w_gate_up M=8 channel e4m3"),
+            "decode_attention_arena": ("kernels",
+                                       "B8 Hq32 Hk8 D64 S1024 torch.float8_e4m3fn"),
+            "flash_attention": ("paged_kernels", "B1 Sq=Sk=8192"),
+            "paged_attention": ("paged_kernels", "serve B8 Hq32 Hk8 D64 page128 "
+                                "torch.float8_e4m3fn")}
+    meta = {"quant_matmul": ("csrc/quant_matmul.cu", "llm_fp8_tpu/kernels/quant_matmul.py:126"),
+            "decode_attention_arena": ("csrc/decode_attention.cu",
+                                       "llm_fp8_tpu/kernels/decode_attention.py:300"),
+            "flash_attention": ("csrc/flash_attention.cu",
+                                "llm_fp8_tpu/kernels/flash_attention.py:475"),
+            "paged_attention": ("csrc/paged_attention.cu",
+                                "llm_fp8_tpu/kernels/paged_attention.py:293")}
+    line = []
+    for kname, (phase, prefix) in pick.items():
+        c = next(c for c in report[phase]
+                 if c["kernel"] == kname and c["case"].startswith(prefix))
+        src, repl = meta[kname]
+        counts = {path: n[kname] for path, n in by_path.items() if n[kname]}
+        line.append(dict(name=kname, route="cuda", source=f"llm_fp8_tpu_torch/{src}",
+                         replaces=repl, launches=sum(counts.values()),
+                         launches_by_path=counts,
+                         max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+                         bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                         library_ms=c["library_ms"], case=c["case"]))
+    return line
 
 
 if __name__ == "__main__":

@@ -2,10 +2,11 @@
 (counterpart of ``llm_fp8_tpu/cli/serve.py``, Llama-family models only):
 
   python -m llm_fp8_tpu_torch.cli.serve --model_name llama-3.2-1b --random_init \\
-      --precision fp8 --kv_dtype fp8
+      --precision fp8 --kv_dtype fp8 [--paged --page_size 128 --num_pages 512]
 
 Prints one JSON line with the JAX CLI's keys: tokens/s, p50/p99 TTFT and the
-peak device memory (``torch.cuda.max_memory_allocated``).
+peak device memory (``torch.cuda.max_memory_allocated``); ``--paged`` serves
+through the paged-KV engine and adds ``pages_in_use``.
 """
 from __future__ import annotations
 
@@ -30,7 +31,11 @@ def build_parser():
                    choices=["auto", "fp8", "bf16", "int8"])
     p.add_argument("--max_slots", type=int, default=8)
     p.add_argument("--max_seq_len", type=int, default=2048)
-    p.add_argument("--paged", action="store_true", help="not ported yet")
+    p.add_argument("--paged", action="store_true",
+                   help="serve through the paged-KV engine (block tables + paged "
+                        "decode kernel) instead of the slot arena")
+    p.add_argument("--page_size", type=int, default=128)
+    p.add_argument("--num_pages", type=int, default=512)
     p.add_argument("--decode_burst", type=int, default=32)
     p.add_argument("--num_requests", type=int, default=16)
     p.add_argument("--prompt_len", type=int, default=128)
@@ -47,10 +52,16 @@ def main(argv=None):
     from ..models.config import get_config
     from ..models.llama import init_params, quantize_params
     from ..quant import recipe_set_by_name
-    from ..serving.engine import Engine, EngineConfig, SamplingParams
+    from ..serving import (Engine, EngineConfig, PagedEngine, PagedEngineConfig,
+                           SamplingParams)
     from ..utils.backend import resolve_device
 
-    for flag, on in (("--paged", args.paged), ("--draft_model", args.draft_model),
+    if args.paged and args.draft_model is not None:
+        raise SystemExit(
+            "--paged and --draft_model are mutually exclusive: speculative "
+            "decoding runs on the slot-arena engine (SpecEngine), not the "
+            "paged pool — see docs/PERF_NOTES.md (speculative serving path)")
+    for flag, on in (("--draft_model", args.draft_model),
                      ("--precision int4", args.precision == "int4"),
                      ("--weights_path", args.weights_path and not args.random_init)):
         if on:
@@ -62,11 +73,17 @@ def main(argv=None):
         params = quantize_params(params, recipe_set_by_name(args.fp8_scenario))
     elif args.precision == "int8":
         params = quantize_params(params, recipe_set_by_name("int8"))
-    eng = Engine(params, cfg, EngineConfig(max_slots=args.max_slots,
-                                           max_seq_len=args.max_seq_len,
-                                           kv_dtype=args.kv_dtype,
-                                           decode_burst=args.decode_burst),
-                 device=device)
+    if args.paged:
+        eng = PagedEngine(params, cfg, PagedEngineConfig(
+            max_slots=args.max_slots, num_pages=args.num_pages, page_size=args.page_size,
+            max_pages_per_seq=-(-args.max_seq_len // args.page_size),
+            kv_dtype=args.kv_dtype, decode_burst=args.decode_burst), device=device)
+    else:
+        eng = Engine(params, cfg, EngineConfig(max_slots=args.max_slots,
+                                               max_seq_len=args.max_seq_len,
+                                               kv_dtype=args.kv_dtype,
+                                               decode_burst=args.decode_burst),
+                     device=device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     rng = np.random.RandomState(0)
@@ -93,7 +110,8 @@ def main(argv=None):
         "peak_memory_gb": round(peak, 3) if peak is not None else None,
         "precision": args.precision,
         "kv_dtype": str(eng.ecfg.kv_dtype).replace("torch.", ""),
-        **({"kv_drift": eng.kv_drift_stats()} if eng._int8_kv else {}),
+        **({"pages_in_use": eng.pages_in_use} if args.paged else {}),
+        **({"kv_drift": eng.kv_drift_stats()} if getattr(eng, "_int8_kv", False) else {}),
     }))
 
 

@@ -6,6 +6,10 @@ of its fields (``qvalue``, ``scale``, ``fmt`` as the format's name,
 ``block_size``, ``block_axis``, ``pack_axis``), and returns the port's tree
 on ``device``. bf16 and fp8 arrays are read through their dtype *name* and a
 ``uint16``/``uint8`` view, so no ``ml_dtypes`` import is needed.
+
+``pool_from_numpy`` carries a JAX paged KV pool (``[P, L, Hk, D, page]``,
+lane-major) into the port's ``[P, L, Hk, page, D]``; ``pool_to_numpy`` goes
+back, as the codes' bits.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import torch
 from .quant.formats import format_by_name
 from .quant.qtensor import QTensor
 
-__all__ = ["params_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "tensor_from_numpy", "pool_from_numpy", "pool_to_numpy"]
 
 _VIEWS = {
     "bfloat16": (np.uint16, torch.bfloat16),
@@ -52,3 +56,20 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def pool_from_numpy(a, device="cpu") -> torch.Tensor:
+    """A JAX page pool ``[P, L, Hk, D, page]`` (numpy) as the port's
+    ``[P, L, Hk, page, D]`` tensor, code for code."""
+    return tensor_from_numpy(np.ascontiguousarray(np.swapaxes(np.asarray(a), -1, -2)), device)
+
+
+def pool_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """The port's pool ``[P, L, Hk, page, D]`` in the JAX layout
+    ``[P, L, Hk, D, page]``, as the codes' bits: ``uint16`` for bf16,
+    ``uint8`` for the one-byte kinds (``.view`` of the caller's dtype gives
+    the values)."""
+    bits = t.detach().cpu().contiguous().view(torch.int16 if t.element_size() == 2
+                                              else torch.uint8).numpy()
+    return np.ascontiguousarray(np.swapaxes(bits, -1, -2).view(
+        np.uint16 if t.element_size() == 2 else np.uint8))

@@ -3,7 +3,7 @@ PyTorch versions. Importing this package builds nothing: a kernel's library
 is built by ``nvcc`` at its first launch (``_build.py``)."""
 from __future__ import annotations
 
-from . import decode_attention, flash_attention, quant_matmul
+from . import decode_attention, flash_attention, paged_attention, quant_matmul
 
 __all__ = ["KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts"]
 
@@ -12,6 +12,7 @@ KERNEL_WRAPPERS = {
     "quant_matmul": quant_matmul.quant_matmul,
     "decode_attention_arena": decode_attention.decode_attention_arena,
     "flash_attention": flash_attention.flash_attention,
+    "paged_attention": paged_attention.paged_attention,
 }
 
 

@@ -6,11 +6,12 @@ Parameters are a plain dict of tensors with the JAX package's stacked layout
 :class:`QTensor`. Where JAX scans over the layers, this is a Python loop;
 where JAX donates cache buffers, the caches here are updated in place.
 
-Quantized projections run K1 (``quant.qdot``), the decode attention K2 and
-the prefill attention K3 on the card. Plain bf16 products (unquantized
-weights, the tied lm_head) are cuBLAS calls (``torch.matmul``/``torch.mm``)
-on the card, as the JAX package leaves them to XLA; on the CPU they are
-float32 products of the bf16 operands, as XLA computes them there.
+Quantized projections run K1 (``quant.qdot``), the arena decode attention
+K2, the paged decode attention K5 and the prefill attention K3 on the card.
+Plain bf16 products (unquantized weights, the tied lm_head) are cuBLAS calls
+(``torch.matmul``/``torch.mm``) on the card, as the JAX package leaves them
+to XLA; on the CPU they are float32 products of the bf16 operands, as XLA
+computes them there.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.decode_attention import decode_attention_arena
+from ..kernels.paged_attention import paged_attention
 from ..ops.attention import attention
 from ..ops.rmsnorm import rmsnorm
 from ..ops.rotary import apply_rope, rope_cos_sin, rope_frequencies
@@ -29,7 +31,8 @@ from ..utils.backend import resolve_device
 from .config import ModelConfig
 
 __all__ = ["init_params", "quantize_params", "KVCache", "init_kv_cache",
-           "cache_append_attend", "forward", "forward_decode_arena", "layer_params"]
+           "cache_append_attend", "forward", "forward_decode_arena", "forward_paged",
+           "layer_params"]
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
@@ -233,13 +236,15 @@ def _check_family(cfg: ModelConfig):
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
             cache: Optional[KVCache] = None, start_pos=0,
             kv_lens: Optional[torch.Tensor] = None,
-            compute_dtype=torch.bfloat16, return_kv: bool = False):
+            compute_dtype=torch.bfloat16, return_kv: bool = False,
+            return_hidden: bool = False):
     """``tokens [B, S] -> (logits [B, S, V] float32, cache)``.
 
     ``cache=None``: causal self-attention; with ``return_kv`` the second
     value is the per-layer ``(K, V)``, each ``[L, B, S, Hk, Dh]``. With a
     cache: K/V are written at ``start_pos`` in place and the returned cache
-    carries the new ``lens``.
+    carries the new ``lens``. ``return_hidden`` returns the final-norm hidden
+    states ``[B, S, D]`` in place of the logits (``_lm_head`` maps them).
     """
     _check_family(cfg)
     dev = params["embed"].device
@@ -274,6 +279,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
         new_cache = dataclasses.replace(
             cache, lens=torch.maximum(cache.lens, start_pos + S))
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    if return_hidden:
+        return x, new_cache
     return _lm_head(params, x, cfg), new_cache
 
 
@@ -325,3 +332,38 @@ def forward_decode_arena(params: Dict[str, Any], tokens: torch.Tensor, cfg: Mode
         x = _mlp(x, lp, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
     return _lm_head(params, x, cfg), k_arena, v_arena
+
+
+def forward_paged(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
+                  k_pages: torch.Tensor, v_pages: torch.Tensor, page_tables: torch.Tensor,
+                  lens: torch.Tensor, *, kv_scale: float = 1.0,
+                  compute_dtype=torch.bfloat16):
+    """Single-token decode over the ``[P, L, Hk, page, Dh]`` paged pools.
+
+    Rotary is applied to q and the new K at positions ``lens`` here; K5 then
+    quantizes and appends each slot's new K/V at ``lens`` through its block
+    table row (in place) and attends. Returns ``(logits [B, 1, V] float32,
+    k_pages, v_pages)``.
+    """
+    _check_family(cfg)
+    B, S_tok = tokens.shape
+    if S_tok != 1:
+        raise ValueError(f"forward_paged takes one token per sequence, got {S_tok}")
+    dev = params["embed"].device
+    lens = lens.to(device=dev, dtype=torch.int32)
+    tables = page_tables.to(device=dev, dtype=torch.int32)
+    x = params["embed"][tokens.to(dev).long()].to(compute_dtype)
+    cos, sin = _rope_tables(cfg, lens[:, None])
+    lengths = lens + 1
+    for li in range(k_pages.shape[1]):
+        lp = layer_params(params["layers"], li)
+        h = rmsnorm(x, lp["norm_attn"], cfg.rms_eps)
+        q, kk, vv = _qkv(h, lp, cfg, B, 1)
+        q, kk = apply_rope(q, cos, sin), apply_rope(kk, cos, sin)
+        attn, k_pages, v_pages = paged_attention(
+            q[:, 0], k_pages, v_pages, lengths, tables, li, kv_scale=kv_scale,
+            window=cfg.sliding_window, new_k=kk[:, 0], new_v=vv[:, 0])
+        x = x + _dot(attn.reshape(B, 1, -1), lp["wo"])
+        x = _mlp(x, lp, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    return _lm_head(params, x, cfg), k_pages, v_pages

@@ -25,7 +25,7 @@ from ..models.llama import (KVCache, forward, forward_decode_arena, init_kv_cach
 from ..ops.sampling import greedy, sample
 from ..utils.backend import resolve_device, resolve_kv_dtype
 
-__all__ = ["EngineConfig", "SamplingParams", "Request", "Engine"]
+__all__ = ["EngineConfig", "SamplingParams", "Request", "RequestQueue", "Engine"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +77,77 @@ class EngineConfig:
     kv_recalibrate: bool = False
 
 
-class Engine:
+class RequestQueue:
+    """Request intake, prefill buckets, stop rules and slot retirement shared
+    by the slot-arena and the paged engine. The engine provides ``waiting``,
+    ``_next_id``, ``slot_req``, ``slot_lens``, ``slot_last_tok``,
+    ``ecfg.prefill_buckets``, ``eos``, ``_generator`` and ``step``, and may
+    override the hooks ``_slot_full`` and ``_release``."""
+
+    def add_request(self, prompt: np.ndarray,
+                    params: SamplingParams = SamplingParams()) -> Request:
+        req = Request(request_id=self._next_id, prompt=np.asarray(prompt, np.int32),
+                      params=params, enqueue_time=time.perf_counter())
+        self._next_id += 1
+        self.waiting.append(req)
+        return req
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.ecfg.prefill_buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"prompt length {n} exceeds max bucket")
+
+    def has_work(self) -> bool:
+        return bool(self.waiting) or any(r is not None for r in self.slot_req)
+
+    def run(self) -> List[Request]:
+        """Drain: step until every queued request completes."""
+        done: List[Request] = []
+        while self.has_work():
+            done.extend(self.step())
+        return done
+
+    def _sample_one(self, logits: torch.Tensor, p: SamplingParams):
+        if p.temperature == 0.0:
+            return greedy(logits[None, :])[0]
+        return sample(logits[None, :], self._generator, temperature=p.temperature,
+                      top_k=p.top_k, top_p=p.top_p)[0]
+
+    def _is_stop(self, req: Request, tok: int) -> bool:
+        if len(req.output) >= req.params.max_new_tokens:
+            return True
+        if self.eos is not None and tok == self.eos:
+            return True
+        return tok in req.params.stop_token_ids
+
+    def _slot_full(self, slot: int) -> bool:
+        """Hook: whether ``slot`` has no room for another token."""
+        return False
+
+    def _release(self, slot: int) -> None:
+        """Hook: give back what ``slot`` holds beyond its request."""
+
+    def _accept(self, slot: int, req: Request, tok: int, finished: List[Request]):
+        req.output.append(tok)
+        self.slot_lens[slot] += 1
+        self.slot_last_tok[slot] = tok
+        if self._is_stop(req, tok) or self._slot_full(slot):
+            finished.append(self._retire(slot))
+
+    def _retire(self, slot: int) -> Request:
+        req = self.slot_req[slot]
+        req.done = True
+        req.finish_time = time.perf_counter()
+        req.slot = -1
+        self.slot_req[slot] = None
+        self._release(slot)
+        self.slot_lens[slot] = 0
+        self.slot_last_tok[slot] = 0
+        return req
+
+
+class Engine(RequestQueue):
     """Single-model engine; params may hold QTensor fp8/int8 weights.
 
     Runs on ``cuda`` unless ``device`` is given (``device="cpu"`` runs the
@@ -295,29 +365,8 @@ class Engine:
     # public API
     # ------------------------------------------------------------------
 
-    def add_request(self, prompt: np.ndarray,
-                    params: SamplingParams = SamplingParams()) -> Request:
-        req = Request(request_id=self._next_id, prompt=np.asarray(prompt, np.int32),
-                      params=params, enqueue_time=time.perf_counter())
-        self._next_id += 1
-        self.waiting.append(req)
-        return req
-
-    def _bucket_for(self, n: int) -> int:
-        for b in self.ecfg.prefill_buckets:
-            if n <= b:
-                return b
-        raise ValueError(f"prompt length {n} exceeds max bucket")
-
-    def has_work(self) -> bool:
-        return bool(self.waiting) or any(r is not None for r in self.slot_req)
-
-    def _accept(self, slot: int, req: Request, tok: int, finished: List[Request]):
-        req.output.append(tok)
-        self.slot_lens[slot] += 1
-        self.slot_last_tok[slot] = tok
-        if self._is_stop(req, tok) or self.slot_lens[slot] + 1 >= self.ecfg.max_seq_len:
-            finished.append(self._retire(slot))
+    def _slot_full(self, slot: int) -> bool:
+        return self.slot_lens[slot] + 1 >= self.ecfg.max_seq_len
 
     def step(self) -> List[Request]:
         """Admit waiting requests into free slots, then one decode step (or
@@ -376,33 +425,3 @@ class Engine:
                        else int(self._sample_one(logits[slot], req.params)))
                 self._accept(slot, req, tok, finished)
         return finished
-
-    def run(self) -> List[Request]:
-        """Drain: step until every queued request completes."""
-        done: List[Request] = []
-        while self.has_work():
-            done.extend(self.step())
-        return done
-
-    def _sample_one(self, logits: torch.Tensor, p: SamplingParams):
-        if p.temperature == 0.0:
-            return greedy(logits[None, :])[0]
-        return sample(logits[None, :], self._generator, temperature=p.temperature,
-                      top_k=p.top_k, top_p=p.top_p)[0]
-
-    def _is_stop(self, req: Request, tok: int) -> bool:
-        if len(req.output) >= req.params.max_new_tokens:
-            return True
-        if self.eos is not None and tok == self.eos:
-            return True
-        return tok in req.params.stop_token_ids
-
-    def _retire(self, slot: int) -> Request:
-        req = self.slot_req[slot]
-        req.done = True
-        req.finish_time = time.perf_counter()
-        req.slot = -1
-        self.slot_req[slot] = None
-        self.slot_lens[slot] = 0
-        self.slot_last_tok[slot] = 0
-        return req

@@ -6,6 +6,7 @@
   they raise and name ``device="cpu"``.
 * Dispatch is by the tensors' device: CPU tensors take the plain versions and
   no kernel launch is counted; importing the kernels builds nothing.
+* ``cli.serve --paged --device cpu`` serves through the paged engine.
 * ``chip_smoke.py`` exits non-zero and prints no result line without a card,
   and when it stands alone in a directory.
 """
@@ -28,12 +29,14 @@ PORT_MODULES = [
     "llm_fp8_tpu_torch.kernels", "llm_fp8_tpu_torch.kernels._build",
     "llm_fp8_tpu_torch.kernels._common", "llm_fp8_tpu_torch.kernels.quant_matmul",
     "llm_fp8_tpu_torch.kernels.decode_attention",
-    "llm_fp8_tpu_torch.kernels.flash_attention", "llm_fp8_tpu_torch.ops",
+    "llm_fp8_tpu_torch.kernels.flash_attention", "llm_fp8_tpu_torch.kernels.paged_attention",
+    "llm_fp8_tpu_torch.ops",
     "llm_fp8_tpu_torch.ops.attention", "llm_fp8_tpu_torch.ops.rmsnorm",
     "llm_fp8_tpu_torch.ops.rotary", "llm_fp8_tpu_torch.ops.sampling",
     "llm_fp8_tpu_torch.models", "llm_fp8_tpu_torch.models.config",
     "llm_fp8_tpu_torch.models.llama", "llm_fp8_tpu_torch.serving",
-    "llm_fp8_tpu_torch.serving.engine", "llm_fp8_tpu_torch.cli.serve",
+    "llm_fp8_tpu_torch.serving.engine", "llm_fp8_tpu_torch.serving.block_table",
+    "llm_fp8_tpu_torch.serving.paged_engine", "llm_fp8_tpu_torch.cli.serve",
     "llm_fp8_tpu_torch.convert", "chip_smoke",
 ]
 
@@ -98,13 +101,16 @@ def test_resolve_kv_dtype_on_the_cpu(name, want):
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     from llm_fp8_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from llm_fp8_tpu_torch.kernels._build import BUILD_DIR
-    from llm_fp8_tpu_torch.models import forward_decode_arena, get_config
+    from llm_fp8_tpu_torch.kernels._build import BUILD_DIR, KERNELS
+    from llm_fp8_tpu_torch.models import forward_decode_arena, forward_paged, get_config
     from llm_fp8_tpu_torch.models.llama import forward, init_params, quantize_params
     from llm_fp8_tpu_torch.quant import LAYERWISE
 
+    def kernel_libs():  # the CUDA libraries (host libraries may be built meanwhile)
+        return sorted(p for k in KERNELS for p in BUILD_DIR.glob(f"lib{k}-*.so"))
+
     reset_launch_counts()
-    built_before = sorted(BUILD_DIR.glob("*.so")) if BUILD_DIR.exists() else []
+    built_before = kernel_libs()
     cfg = get_config("debug-tiny")
     params = quantize_params(init_params(cfg, device="cpu"), LAYERWISE)
     toks = torch.randint(1, cfg.vocab_size, (2, 8))
@@ -113,10 +119,15 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                      dtype=torch.float8_e4m3fn)
     va = torch.zeros_like(ka)
     out, _, _ = forward_decode_arena(params, toks[:, :1], cfg, ka, va, torch.tensor([3, 0]))
+    kp = torch.zeros((4, cfg.num_layers, cfg.num_kv_heads, 16, cfg.head_dim),
+                     dtype=torch.float8_e4m3fn)
+    paged, _, _ = forward_paged(params, toks[:, :1], cfg, kp, kp.clone(),
+                                torch.tensor([[0, 1], [2, 3]]), torch.tensor([17, 0]))
     assert torch.isfinite(logits).all() and torch.isfinite(out).all()
+    assert torch.isfinite(paged).all() and paged.shape == (2, 1, cfg.vocab_size)
     assert launch_counts() == {"quant_matmul": 0, "decode_attention_arena": 0,
-                               "flash_attention": 0}
-    assert (sorted(BUILD_DIR.glob("*.so")) if BUILD_DIR.exists() else []) == built_before
+                               "flash_attention": 0, "paged_attention": 0}
+    assert kernel_libs() == built_before
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -151,12 +162,27 @@ def test_serve_cli_prints_the_jax_cli_keys_on_cpu():
     assert out["kv_dtype"] == "float8_e4m3fn"
 
 
-@pytest.mark.parametrize("flag", [["--paged"], ["--draft_model", "debug-tiny"],
-                                  ["--precision", "int4"]])
+def test_serve_cli_paged_runs_on_cpu():
+    code = ("from llm_fp8_tpu_torch.cli.serve import main\n"
+            "main(['--model_name', 'debug-tiny', '--random_init', '--precision', 'fp8', "
+            "'--kv_dtype', 'fp8', '--device', 'cpu', '--paged', '--page_size', '32', "
+            "'--num_pages', '16', '--num_requests', '3', '--prompt_len', '40', "
+            "'--max_new_tokens', '3', '--max_slots', '2', '--max_seq_len', '128'])\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert {"requests", "generated_tokens", "wall_s", "tokens_per_s", "ttft_p50_s",
+            "ttft_p99_s", "peak_memory_gb", "precision", "kv_dtype", "pages_in_use"} <= set(out)
+    assert out["requests"] == 3 and out["generated_tokens"] == 9
+    assert out["kv_dtype"] == "float8_e4m3fn" and out["pages_in_use"] == 0
+
+
+@pytest.mark.parametrize("flag", [["--paged", "--draft_model", "debug-tiny"],
+                                  ["--draft_model", "debug-tiny"], ["--precision", "int4"]])
 def test_serve_cli_refuses_unported_options(flag):
     from llm_fp8_tpu_torch.cli.serve import main
 
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="not ported yet|mutually exclusive"):
         main(["--model_name", "debug-tiny", "--random_init", "--device", "cpu", *flag])
 
 
