@@ -25,7 +25,18 @@ Phases, in order; any failure exits non-zero before the last line:
    prompts and 64 new tokens each, then a short int8-pool run. Each path's
    launch counts are set to 0 just before its run and read just after; every
    kernel of the path must have been launched.
-5. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
+5. training. ``train_kernels``: K6 (flash backward) against its plain
+   version row by row at the training shape and its features, with planted
+   errors the tolerance must catch and a determinism check; K9 (fused
+   quantize) bit for bit at the training step's four gradient shapes, rows
+   and columns, e4m3/e5m2/int8, float32 and bf16. ``train_slice``:
+   Llama-3.2-1B at full width cut to 2 layers, LAYERWISE, one step's loss,
+   gradient norm, amaxes and every parameter's gradient on the card against
+   the CPU's plain versions. ``train``: all 16 layers, float32 master
+   weights, 10 steps of 8 x 512 synthetic tokens through the ``Trainer``
+   with gradients quantized by K9; the loss must fall and K3, K6 and K9 must
+   launch their per-step counts.
+6. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 With ``--out DIR`` the details of every case go to ``DIR/chip_smoke.json``
@@ -44,10 +55,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_serve")
-#: The kernels each serving path runs (launch counts read around its run).
+PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_serve",
+          "train_kernels", "train_slice", "train")
+#: The kernels each path runs (launch counts read around its run).
 ARENA_PATH = ("quant_matmul", "decode_attention_arena", "flash_attention")
 PAGED_PATH = ("quant_matmul", "flash_attention", "paged_attention")
+TRAIN_PATH = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+              "quantize_fused")
 
 # Peak rates (data sheets, dense): bytes/s of device memory, bf16 FLOP/s.
 _PEAKS = (("H100 NVL", 3.9e12, 835e12), ("H100 PCIe", 2.0e12, 756e12),
@@ -138,6 +152,15 @@ def cycler(items):
         return item
 
     return nxt
+
+
+def to_cpu(tree):
+    """A parameter tree (tensors, QTensors, nested dicts) copied to the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if hasattr(tree, "qvalue"):  # a QTensor
+        return tree.to("cpu")
+    return tree.detach().cpu()
 
 
 def bound_ms(nbytes: float, flops: float, bw: float, peak: float):
@@ -689,17 +712,10 @@ def slice_check(dev, log):
 
     from llm_fp8_tpu_torch.models import forward, forward_decode_arena, get_config
     from llm_fp8_tpu_torch.models.llama import init_params, quantize_params
-    from llm_fp8_tpu_torch.quant import LAYERWISE, QTensor
+    from llm_fp8_tpu_torch.quant import LAYERWISE
 
     cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=2)
     params = quantize_params(init_params(cfg, device=dev, seed=7), LAYERWISE)
-
-    def to_cpu(t):
-        if isinstance(t, QTensor):
-            return t.to("cpu")
-        if isinstance(t, dict):
-            return {k: to_cpu(v) for k, v in t.items()}
-        return t.cpu()
 
     cpu_params = to_cpu(params)
     n, bucket, S = 40, 64, 128
@@ -763,19 +779,12 @@ def paged_slice_check(dev, log):
 
     from llm_fp8_tpu_torch.models import forward_paged, get_config
     from llm_fp8_tpu_torch.models.llama import init_params, quantize_params
-    from llm_fp8_tpu_torch.quant import LAYERWISE, QTensor
+    from llm_fp8_tpu_torch.quant import LAYERWISE
     from llm_fp8_tpu_torch.serving import PagedEngine, PagedEngineConfig
     from llm_fp8_tpu_torch.serving.block_table import SequenceTable
 
     cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=2)
     params = quantize_params(init_params(cfg, device=dev, seed=7), LAYERWISE)
-
-    def to_cpu(t):
-        if isinstance(t, QTensor):
-            return t.to("cpu")
-        if isinstance(t, dict):
-            return {k: to_cpu(v) for k, v in t.items()}
-        return t.cpu()
 
     ecfg = PagedEngineConfig(max_slots=2, num_pages=8, page_size=128, max_pages_per_seq=3,
                              kv_dtype="fp8", prefill_buckets=(256,))
@@ -1057,6 +1066,396 @@ def profile_run(engine_cls, params, cfg, ecfg, prompts, dev, max_new=32):
                           device_ms=e.self_device_time_total / 1e3) for e in top])
 
 
+# --------------------------------------------------------------------------
+# phase 5: training
+# --------------------------------------------------------------------------
+
+
+def live_pairs(B, Sq, Sk, q_off, kv_lens, causal, window, dev):
+    """``[B, Sq, Sk]``: the (query, key) pairs attention reads (K3's mask)."""
+    import torch
+
+    q_pos = q_off.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    k_pos = torch.arange(Sk, device=dev)
+    live = k_pos[None, None, :] < kv_lens.long()[:, None, None]
+    if causal:
+        live = live & (k_pos[None, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        live = live & (k_pos[None, None, :] > q_pos[:, :, None] - window)
+    return live
+
+
+#: A query that sees exactly one key has dq = 0 exactly (ds = p·(dp - di)
+#: with dp = di); both versions give float32 rounding noise there, so such
+#: rows (and dk rows of keys that only such queries see) are held to this
+#: share of the tensor's largest |value| instead of to ROW_ULPS.
+ZERO_ROW_NOISE = 2.0 ** -10
+
+
+def grad_rows_within(got, ref, exempt, what):
+    """:func:`rows_within` on the rows not in ``exempt``; the exempt rows
+    within :data:`ZERO_ROW_NOISE` of the tensor's largest |value|. Returns
+    ``(max abs err, worst row's ulps, exempt rows, their largest error)``."""
+    err, worst = rows_within(got[~exempt], ref[~exempt], what)
+    noise = 0.0
+    if bool(exempt.any()):
+        noise = (got[exempt].float() - ref[exempt].float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        check(noise <= ZERO_ROW_NOISE * top, f"{what}: a zero-gradient row is {noise} off "
+              f"(tol {ZERO_ROW_NOISE} of {top})")
+    return max(err, noise), worst, int(exempt.sum()), noise
+
+
+def train_kernel_cases(dev, bw, peak, log):
+    """K6 against its plain version (row by row, planted errors, two runs
+    bit-identical) and K9 against its plain version (bit for bit), with
+    timings at the training step's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels import flash_attention_bwd as k6
+    from llm_fp8_tpu_torch.kernels import quantize as k9
+    from llm_fp8_tpu_torch.quant import E4M3, E5M2, INT8
+
+    g = torch.Generator(device=dev).manual_seed(2468)
+    cases = []
+    k6_cases = (
+        # name, B, Sq, Sk, Hq, Hk, D, causal, window, softcap, q_offset, kv_lens, timed
+        ("train B8 S512 Hq32 Hk8 D64 causal", 8, 512, 512, 32, 8, 64, True, None, None,
+         [0] * 8, [512] * 8, True),
+        ("window 100, ragged kv_lens", 2, 300, 300, 16, 4, 64, True, 100, None, [0, 0],
+         [300, 250], False),
+        ("softcap 30", 2, 256, 256, 8, 2, 64, True, None, 30.0, [0, 0], [256, 256], False),
+        ("q_offset, ragged kv_lens, D128, window 64, softcap 20", 2, 100, 300, 16, 4, 128,
+         True, 64, 20.0, [200, 150], [300, 260], False),
+        ("GQA 1:1", 2, 128, 128, 8, 8, 64, True, None, None, [0, 0], [128, 97], False),
+        ("GQA 8:1, Sq 200 (unaligned)", 1, 200, 200, 16, 2, 64, True, None, None, [0], [150],
+         False),
+        ("D32, not causal", 2, 70, 70, 8, 8, 32, False, None, None, [0, 0], [70, 33], False),
+        ("dead rows", 2, 8, 40, 4, 2, 64, True, 4, None, [0, 30], [40, 20], False),
+    )
+    for (name, B, Sq, Sk, Hq, Hk, D, causal, window, softcap, q_off, kv, timed) in k6_cases:
+        q, do = (torch.randn((B, Sq, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn((B, Sk, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kv, dtype=torch.int32, device=dev)
+        cfg = dict(causal=causal, window=window, softcap=softcap, scale=D ** -0.5)
+        out, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **cfg)
+        args = (q, k, v, out, lse, do)
+        got = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)
+        again = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)
+        ref = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl, **cfg)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(same, f"K6 {name}: two runs are not bit-identical")
+        live = live_pairs(B, Sq, Sk, qo, kl, causal, window, dev)
+        nkeys = live.sum(dim=-1)
+        single = nkeys == 1
+        key_multi = (live & (nkeys > 1)[:, :, None]).any(dim=1)
+        ex = {"dq": single[:, :, None].expand(B, Sq, Hq),
+              "dk": (live.any(dim=1) & ~key_multi)[:, :, None].expand(B, Sk, Hk),
+              "dv": torch.zeros((B, Sk, Hk), dtype=torch.bool, device=dev)}
+        case = dict(kernel="flash_attention_bwd", case=name, deterministic=same,
+                    dead_rows=int((nkeys == 0).sum()) * Hq)
+        errs = []
+        for what, a, b in zip(("dq", "dk", "dv"), got, ref):
+            err, ulps, n_ex, noise = grad_rows_within(a, b, ex[what], f"K6 {name} {what}")
+            case[what] = dict(max_abs_err=err, err_ulps=ulps, zero_rows=n_ex, zero_row_err=noise)
+            errs.append(err)
+        case["max_abs_err"] = max(errs)
+        if timed:
+            case.update(k6_planted(k6, q, k, v, out, lse, do, qo, kl, cfg, ref, live, ex, dev))
+            call = lambda: k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)  # noqa: E731
+            case["ms"] = cuda_ms(call)
+            case["call_ms"] = eager_ms(call)
+            case["plain_ms"] = cuda_ms(lambda: k6.flash_attention_bwd_plain(
+                *args, q_offset=qo, kv_lens=kl, **cfg), calls=2, rounds=3)
+            # Yardstick: SDPA's backward under autograd (heads expanded),
+            # its forward outside the timing.
+            grp = Hq // Hk
+            qh = q.transpose(1, 2).detach().requires_grad_()
+            kh = k.transpose(1, 2).repeat_interleave(grp, dim=1).detach().requires_grad_()
+            vh = v.transpose(1, 2).repeat_interleave(grp, dim=1).detach().requires_grad_()
+            oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+            doh = do.transpose(1, 2)
+            case["library_ms"] = eager_ms(lambda: torch.autograd.grad(
+                oh, (qh, kh, vh), doh, retain_graph=True))
+            del qh, kh, vh, oh
+            pairs = int(live.sum()) * Hq
+            nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) \
+                + lse.numel() * 4
+            case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 10.0 * D * pairs, bw, peak)
+            case["tflops"] = 10.0 * D * pairs / (case["ms"] * 1e-3) / 1e12
+        cases.append(case)
+        log(case)
+        del q, k, v, do, out, lse, got, again, ref
+
+    # ---- K9 at the four gradient shapes of the training step ----
+    M = 4096
+    shapes = {"qkv": 3072, "out": 2048, "gate_up": 16384, "down": 2048}
+    main_fmt = {"qkv": E5M2, "out": E5M2, "gate_up": E4M3, "down": E4M3}
+    for site, N in shapes.items():
+        base = torch.randn((M, N), generator=g, device=dev) * 1e-3
+        base[0] = 0.0  # an all-zero row and column: the scale's tiny floor
+        base[:, 1] = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            x = base.to(dtype)
+            for fmt in (E4M3, E5M2, INT8):
+                for axis, tag in ((-1, "rows"), (0, "columns")):
+                    a = k9.quantize_fused(x, fmt, axis=axis)
+                    b = k9.quantize_fused_plain(x, fmt, axis=axis)
+                    torch.cuda.synchronize()
+                    codes = torch.equal(a.qvalue.view(torch.uint8), b.qvalue.view(torch.uint8))
+                    scales = torch.equal(a.scale, b.scale)
+                    differ = int((a.qvalue.view(torch.uint8) != b.qvalue.view(torch.uint8)).sum())
+                    name = f"{site} [{M}, {N}] {tag} {str(dtype)[6:]} {fmt.name}"
+                    check(codes and scales, f"K9 {name}: {differ} codes differ, scales "
+                          f"{'equal' if scales else 'differ'}")
+                    case = dict(kernel="quantize_fused", case=name, max_abs_err=0.0,
+                                codes_equal=codes, scales_equal=scales)
+                    if dtype == torch.float32 and fmt == main_fmt[site]:
+                        call = lambda: k9.quantize_fused(x, fmt, axis=axis)  # noqa: E731
+                        case["ms"] = cuda_ms(call)
+                        case["call_ms"] = eager_ms(call)
+                        case["plain_ms"] = cuda_ms(lambda: k9.quantize_fused_plain(
+                            x, fmt, axis=axis), calls=4, rounds=3)
+                        case["library_ms"] = None
+                        nbytes = M * N * (x.element_size() + 1) + a.scale.numel() * 4
+                        case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 3.0 * M * N,
+                                                                      bw, peak)
+                    cases.append(case)
+                    log(case)
+    return cases
+
+
+def k6_planted(k6, q, k, v, out, lse, do, qo, kl, cfg, ref, live, ex, dev):
+    """Share of live rows in which the row tolerance catches planted errors:
+    dk/dv with the last head of every GQA group left out of the sum, and dq
+    with each query's diagonal 64-key tile left out."""
+    import torch
+
+    B, Sq, Hq, D = q.shape
+    Hk = k.shape[2]
+    grp = Hq // Hk
+    sub = slice(grp - 1, None, grp)
+    _, dk_c, dv_c = k6.flash_attention_bwd_plain(
+        q[:, :, sub], k, v, out[:, :, sub], lse[:, sub], do[:, :, sub], q_offset=qo,
+        kv_lens=kl, **cfg)
+    key_rows = live.any(dim=1)[:, :, None].expand(B, k.shape[1], Hk)
+    caught = {"dk_one_head_left_out": caught_share(ref[1].float() - dk_c.float(), ref[1],
+                                                   key_rows & ~ex["dk"]),
+              "dv_one_head_left_out": caught_share(ref[2].float() - dv_c.float(), ref[2],
+                                                   key_rows & ~ex["dv"])}
+    p, ds = k6.recompute_p_ds(q, k, v, lse, do, k6.row_di(out, do), qo, kl, **cfg)
+    del p
+    q_tile = (qo.long()[:, None] + torch.arange(Sq, device=dev)[None, :]) // 64
+    k_tile = torch.arange(k.shape[1], device=dev) // 64
+    diag = (k_tile[None, None, :] == q_tile[:, :, None])[:, None]
+    dsb = torch.where(diag, torch.zeros_like(ds), ds.to(torch.bfloat16).float())
+    del ds
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(grp, dim=1)
+    bad_dq = (dsb @ kf).permute(0, 2, 1, 3).to(torch.bfloat16)
+    del dsb, kf
+    q_rows = (live.sum(dim=-1) > 0)[:, :, None].expand(B, Sq, Hq)
+    caught["dq_diagonal_tile_left_out"] = caught_share(bad_dq, ref[0], q_rows & ~ex["dq"])
+    for tag, share in caught.items():
+        check(share >= 0.5, f"K6: the tolerance lets a planted {tag} error through in "
+              f"{1 - share:.0%} of the rows")
+    return {"planted_caught": caught}
+
+
+def train_slice_check(dev, log):
+    """One training step's forward and backward at full 1B width, 2 layers,
+    LAYERWISE, batch 2 x 128, on the card (K3, K6, fp8 _scaled_mm, K9) and
+    on the CPU (plain versions on the same native route), from the same
+    float32 weights and batch; then one full step on the card."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.models.llama import init_params
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+    from llm_fp8_tpu_torch.quant.dot import _native_mode
+    from llm_fp8_tpu_torch.training import TrainConfig, Trainer
+    from llm_fp8_tpu_torch.training.trainer import global_norm
+
+    cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=2)
+    rng = np.random.RandomState(5)
+    ids = rng.randint(3, cfg.vocab_size, (2, 128)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[1, -16:] = 0
+    batch = {"input_ids": ids, "attention_mask": mask}
+    tcfg = TrainConfig(recipes="default", warmup_steps=0, learning_rate=1e-4)
+    params = init_params(cfg, dtype=torch.float32, device=dev, seed=11)
+    cpu_params = to_cpu(params)
+    saved = {k: os.environ.get(k) for k in ("LLM_FP8_NATIVE_DOT", "LLM_FP8_QUANTIZE")}
+    os.environ.update(LLM_FP8_NATIVE_DOT="1", LLM_FP8_QUANTIZE="pallas")
+    try:
+        check(_native_mode(LAYERWISE.for_role("mlp")) == "fp8", "train slice: not the fp8 route")
+        runs, counts = {}, {}
+        for name, p, d in (("cuda", params, dev), ("cpu", cpu_params, torch.device("cpu"))):
+            tr = Trainer(cfg, tcfg, device=d)
+            state = tr.init_state(p)
+            kernels.reset_launch_counts()
+            loss, n, amaxes, act, grads, g_amax = tr.loss_and_grads(state, batch)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            counts[name] = kernels.launch_counts()
+            runs[name] = dict(loss=float(loss), gnorm=float(global_norm(grads.values())),
+                              amaxes={s: (a.x.cpu(), a.w.cpu()) for s, a in amaxes.items()},
+                              g_amax={s: t.cpu() for s, t in g_amax.items()},
+                              grads={k: t.float().cpu() for k, t in grads.items()})
+            del grads
+        L = cfg.num_layers
+        want = {"flash_attention": L, "flash_attention_bwd_dkv": L, "flash_attention_bwd_dq": L,
+                "quantize_fused": 2 * 4 * L}
+        for kname, nwant in want.items():
+            check(counts["cuda"][kname] == nwant, f"train slice: {kname} launched "
+                  f"{counts['cuda'][kname]} times, not {nwant}")
+        check(all(v == 0 for v in counts["cpu"].values()), "train slice: a CPU launch counted")
+        a, b = runs["cuda"], runs["cpu"]
+
+        def rel(x, y):
+            return float((x - y).norm() / y.norm())
+
+        read = dict(loss_rel=abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                    grad_norm_rel=abs(a["gnorm"] - b["gnorm"]) / b["gnorm"],
+                    amax_x_rel=max(rel(a["amaxes"][s][0], b["amaxes"][s][0]) for s in a["amaxes"]),
+                    amax_w_rel=max(rel(a["amaxes"][s][1], b["amaxes"][s][1]) for s in a["amaxes"]),
+                    amax_g_rel=max(rel(a["g_amax"][s], b["g_amax"][s]) for s in a["g_amax"]),
+                    grad_rel_l2={k: rel(a["grads"][k], b["grads"][k]) for k in a["grads"]})
+        limits = dict(loss_rel=1e-3, grad_norm_rel=5e-2, amax_x_rel=5e-2, amax_w_rel=1e-6,
+                      amax_g_rel=0.1, grad_rel_l2=0.25)
+        res = dict(config="llama-3.2-1b, 2 layers, LAYERWISE, native fp8 dots, K9 gradients; "
+                   "batch 2 x 128 (16 padded positions)", loss_card=a["loss"],
+                   loss_cpu=b["loss"], grad_norm_card=a["gnorm"], grad_norm_cpu=b["gnorm"],
+                   readings=read, limits=limits, launches=counts["cuda"])
+        log(res)
+        for key, lim in limits.items():
+            worst = max(read[key].values()) if isinstance(read[key], dict) else read[key]
+            check(math.isfinite(worst) and worst <= lim,
+                  f"train slice: {key} {worst} > limit {lim}")
+        # One full step on the card: finite, and the weights moved.
+        tr = Trainer(cfg, tcfg, device=dev)
+        state = tr.init_state(params)
+        before = params["layers"]["wqkv"].detach().clone()
+        state, m = tr.train_step(state, batch)
+        check(int(m["finite"]) == 1 and not torch.equal(before, state.params["layers"]["wqkv"]),
+              "train slice: the card's train_step did not update the weights")
+        res["step_loss"] = float(m["loss"])
+        return res
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def training(dev, num_layers, card, log, steps=10):
+    """Llama-3.2-1B (all layers), float32 master weights, LAYERWISE, 8 x 512
+    synthetic tokens per step through the port's Trainer with gradients
+    quantized by K9; launch counts read around the ``steps`` steps."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.cli.train import ByteTokenizer
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.models.llama import init_params
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+    from llm_fp8_tpu_torch.quant.dot import _native_mode
+    from llm_fp8_tpu_torch.training import (DataConfig, DataManager, TrainConfig, Trainer,
+                                            synthetic_examples)
+
+    cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=num_layers)
+    saved = {k: os.environ.get(k) for k in ("LLM_FP8_NATIVE_DOT", "LLM_FP8_QUANTIZE")}
+    os.environ.pop("LLM_FP8_NATIVE_DOT", None)  # the card's own route: native fp8
+    os.environ["LLM_FP8_QUANTIZE"] = "pallas"
+    try:
+        check(_native_mode(LAYERWISE.for_role("attn_qkv")) == "fp8",
+              "train: the card does not take the native fp8 route")
+        dm = DataManager(DataConfig(max_seq_length=512, batch_size=8),
+                         ByteTokenizer(cfg.vocab_size))
+        train_seqs, _ = dm.build(synthetic_examples(100))
+        batches = list(dm.batches(train_seqs, 8, shuffle=True, seed=0))
+        check(len(batches) > steps, f"train: {len(batches)} batches for {steps} steps")
+        t0 = time.perf_counter()
+        params = init_params(cfg, dtype=torch.float32, device=dev, seed=0)
+        tr = Trainer(cfg, TrainConfig(recipes="default", learning_rate=3e-4, warmup_steps=1,
+                                      total_steps=steps), device=dev)
+        state = tr.init_state(params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        losses, step_s, tokens = [], [], 0
+        for b in batches[:steps]:
+            t1 = time.perf_counter()
+            state, m = tr.train_step(state, b)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            losses.append(loss)
+            tokens += int(m["tokens"])
+            check(int(m["finite"]) == 1 and math.isfinite(loss), f"train: step {len(losses)} "
+                  f"not finite (loss {loss})")
+        counts = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        check(statistics.mean(losses[-3:]) < losses[0],
+              f"train: the loss did not fall ({losses})")
+        per_step = {"flash_attention": num_layers, "flash_attention_bwd_dkv": num_layers,
+                    "flash_attention_bwd_dq": num_layers, "quantize_fused": 8 * num_layers}
+        for kname, n in per_step.items():
+            check(counts[kname] == n * steps, f"train: {kname} launched {counts[kname]} "
+                  f"times in {steps} steps, not {n * steps}")
+        step_ms = 1e3 * statistics.median(step_s[1:])
+        res = dict(card=card, config=f"llama-3.2-1b, {num_layers} layers, float32 master "
+                   "weights, LAYERWISE, native fp8 dots, LLM_FP8_QUANTIZE=pallas",
+                   batch="8 x 512 synthetic", steps=steps, losses=losses, init_s=init_s,
+                   step_ms=step_ms, first_step_ms=1e3 * step_s[0],
+                   tokens_per_s=8 * 512 / (step_ms / 1e3), real_tokens=tokens,
+                   peak_memory_gb=peak_gb, launches=counts, launches_per_step=per_step,
+                   profile=profile_train_step(tr, state, batches[steps]))
+        log(res)
+        return res
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def profile_train_step(trainer, state, batch):
+    """One train step under torch.profiler: device (kernel) time against
+    wall time and the kernels that take most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:15]
+    return dict(wall_s=wall, device_s=device_us / 1e6, device_busy_share=device_us / 1e6 / wall,
+                top=[dict(name=e.key[:90], calls=e.count,
+                          device_ms=e.self_device_time_total / 1e3) for e in top])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1110,7 +1509,10 @@ def main(argv=None) -> int:
              ("slice", lambda: slice_check(dev, log)),
              ("paged_slice", lambda: paged_slice_check(dev, log)),
              ("serve", lambda: serving(dev, 16, card, log)),
-             ("paged_serve", lambda: paged_serving(dev, 16, card, log)))
+             ("paged_serve", lambda: paged_serving(dev, 16, card, log)),
+             ("train_kernels", lambda: train_kernel_cases(dev, bw, peak, log)),
+             ("train_slice", lambda: train_slice_check(dev, log)),
+             ("train", lambda: training(dev, 16, card, log)))
     try:
         for phase, run in steps:
             if phase in phases:
@@ -1137,28 +1539,38 @@ def main(argv=None) -> int:
 
 def kernels_line(report):
     """One entry per kernel: its main-path case from the kernel phases and
-    its launches in the serving runs (summed over the paths that run it)."""
+    its launches in the serving and training runs (summed over the paths
+    that run it; K6's two kernels are one entry)."""
     by_path = {"arena": report["serve"]["fp8"]["launches"],
-               "paged": report["paged_serve"]["fp8"]["launches"]}
+               "paged": report["paged_serve"]["fp8"]["launches"],
+               "train": report["train"]["launches"]}
+    for counts in by_path.values():
+        counts["flash_attention_bwd"] = (counts.get("flash_attention_bwd_dkv", 0)
+                                         + counts.get("flash_attention_bwd_dq", 0))
     pick = {"quant_matmul": ("kernels", "w_gate_up M=8 channel e4m3"),
             "decode_attention_arena": ("kernels",
                                        "B8 Hq32 Hk8 D64 S1024 torch.float8_e4m3fn"),
             "flash_attention": ("paged_kernels", "B1 Sq=Sk=8192"),
             "paged_attention": ("paged_kernels", "serve B8 Hq32 Hk8 D64 page128 "
-                                "torch.float8_e4m3fn")}
+                                "torch.float8_e4m3fn"),
+            "flash_attention_bwd": ("train_kernels", "train B8 S512 Hq32 Hk8 D64"),
+            "quantize_fused": ("train_kernels", "gate_up [4096, 16384] rows float32 e4m3")}
     meta = {"quant_matmul": ("csrc/quant_matmul.cu", "llm_fp8_tpu/kernels/quant_matmul.py:126"),
             "decode_attention_arena": ("csrc/decode_attention.cu",
                                        "llm_fp8_tpu/kernels/decode_attention.py:300"),
             "flash_attention": ("csrc/flash_attention.cu",
                                 "llm_fp8_tpu/kernels/flash_attention.py:475"),
             "paged_attention": ("csrc/paged_attention.cu",
-                                "llm_fp8_tpu/kernels/paged_attention.py:293")}
+                                "llm_fp8_tpu/kernels/paged_attention.py:293"),
+            "flash_attention_bwd": ("csrc/flash_attention_bwd.cu",
+                                    "llm_fp8_tpu/kernels/flash_attention_bwd.py:215"),
+            "quantize_fused": ("csrc/quantize.cu", "llm_fp8_tpu/kernels/quantize.py:76")}
     line = []
     for kname, (phase, prefix) in pick.items():
         c = next(c for c in report[phase]
                  if c["kernel"] == kname and c["case"].startswith(prefix))
         src, repl = meta[kname]
-        counts = {path: n[kname] for path, n in by_path.items() if n[kname]}
+        counts = {path: n[kname] for path, n in by_path.items() if n.get(kname)}
         line.append(dict(name=kname, route="cuda", source=f"llm_fp8_tpu_torch/{src}",
                          replaces=repl, launches=sum(counts.values()),
                          launches_by_path=counts,

@@ -10,6 +10,12 @@ on ``device``. bf16 and fp8 arrays are read through their dtype *name* and a
 ``pool_from_numpy`` carries a JAX paged KV pool (``[P, L, Hk, D, page]``,
 lane-major) into the port's ``[P, L, Hk, page, D]``; ``pool_to_numpy`` goes
 back, as the codes' bits.
+
+Training state: ``params_from_numpy`` carries float32 master weights;
+``tree_to_numpy`` brings a tree of float32 tensors back; the delayed-scaling
+state (``{site: {"x"/"w"/"g": ScaleState}}``, each given as a dict of
+``history`` and ``scale`` numpy arrays) goes across with
+``quant_state_from_numpy`` and back with ``quant_state_to_numpy``.
 """
 from __future__ import annotations
 
@@ -18,10 +24,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from .quant.delayed import ScaleState
 from .quant.formats import format_by_name
 from .quant.qtensor import QTensor
 
-__all__ = ["params_from_numpy", "tensor_from_numpy", "pool_from_numpy", "pool_to_numpy"]
+__all__ = ["params_from_numpy", "tensor_from_numpy", "pool_from_numpy", "pool_to_numpy",
+           "tree_to_numpy", "quant_state_from_numpy", "quant_state_to_numpy"]
 
 _VIEWS = {
     "bfloat16": (np.uint16, torch.bfloat16),
@@ -73,3 +81,24 @@ def pool_to_numpy(t: torch.Tensor) -> np.ndarray:
                                               else torch.uint8).numpy()
     return np.ascontiguousarray(np.swapaxes(bits, -1, -2).view(
         np.uint16 if t.element_size() == 2 else np.uint8))
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """A nested dict of float32 (or integer) tensors as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def quant_state_from_numpy(tree: Any, device="cpu") -> Any:
+    """``{site: {t: {"history", "scale"}}}`` of numpy arrays as the port's
+    ``{site: {t: ScaleState}}``."""
+    return {site: {t: ScaleState(history=tensor_from_numpy(st["history"], device),
+                                 scale=tensor_from_numpy(st["scale"], device))
+                   for t, st in per.items()} for site, per in tree.items()}
+
+
+def quant_state_to_numpy(qstate: Any) -> Any:
+    """The port's delayed-scaling state as ``{site: {t: {"history", "scale"}}}``."""
+    return {site: {t: {"history": tree_to_numpy(st.history), "scale": tree_to_numpy(st.scale)}
+                   for t, st in per.items()} for site, per in qstate.items()}

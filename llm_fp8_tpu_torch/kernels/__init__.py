@@ -3,7 +3,8 @@ PyTorch versions. Importing this package builds nothing: a kernel's library
 is built by ``nvcc`` at its first launch (``_build.py``)."""
 from __future__ import annotations
 
-from . import decode_attention, flash_attention, paged_attention, quant_matmul
+from . import (decode_attention, flash_attention, flash_attention_bwd, paged_attention,
+               quant_matmul, quantize)
 
 __all__ = ["KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts"]
 
@@ -13,6 +14,9 @@ KERNEL_WRAPPERS = {
     "decode_attention_arena": decode_attention.decode_attention_arena,
     "flash_attention": flash_attention.flash_attention,
     "paged_attention": paged_attention.paged_attention,
+    "flash_attention_bwd_dkv": flash_attention_bwd.flash_bwd_dkv,
+    "flash_attention_bwd_dq": flash_attention_bwd.flash_bwd_dq,
+    "quantize_fused": quantize.quantize_fused,
 }
 
 

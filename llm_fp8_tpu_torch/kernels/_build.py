@@ -27,7 +27,8 @@ CSRC = _PKG / "csrc"
 _REPO_CSRC = _PKG.parent / "csrc"
 BUILD_DIR = _PKG / "_build"
 _HEADERS = ("fp8_ftz.cuh",)
-KERNELS = ("quant_matmul", "decode_attention", "flash_attention", "paged_attention")
+KERNELS = ("quant_matmul", "decode_attention", "flash_attention", "paged_attention",
+           "flash_attention_bwd", "quantize")
 #: Host-side C++ libraries (no CUDA) → source, built with g++ and the flags
 #: of the repo's ``csrc/Makefile``.
 HOST_LIBS = {"block_allocator": _REPO_CSRC / "block_allocator.cpp"}
@@ -36,13 +37,17 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: Library → (launcher, its C argument types); every launcher returns int.
+#: Library → {launcher: its C argument types}; every launcher returns int.
 _SIGNATURES = {
-    "quant_matmul": ("qmm_launch", [_P] * 5 + [_I] * 9 + [_P]),
-    "decode_attention": ("decode_arena_launch",
-                         [_P] * 4 + [_I] + [_P] * 7 + [_I] * 6 + [_F, _I, _F, _P]),
-    "flash_attention": ("flash_fwd_launch", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _F, _P]),
-    "paged_attention": ("paged_attn_launch", [_P] * 8 + [_I] * 10 + [_F, _F, _I, _F, _P]),
+    "quant_matmul": {"qmm_launch": [_P] * 5 + [_I] * 9 + [_P]},
+    "decode_attention": {"decode_arena_launch":
+                         [_P] * 4 + [_I] + [_P] * 7 + [_I] * 6 + [_F, _I, _F, _P]},
+    "flash_attention": {"flash_fwd_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _F, _P]},
+    "paged_attention": {"paged_attn_launch": [_P] * 8 + [_I] * 10 + [_F, _F, _I, _F, _P]},
+    "flash_attention_bwd": {
+        "flash_bwd_dkv_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _P],
+        "flash_bwd_dq_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _F, _P]},
+    "quantize": {"quantize_launch": [_P] * 3 + [_I] * 5 + [_F, _F, _P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -123,9 +128,9 @@ def library(name: str) -> ctypes.CDLL:
         if name not in HOST_LIBS:  # a host library's caller declares its functions
             lib.kernel_error_string.restype = ctypes.c_char_p
             lib.kernel_error_string.argtypes = [ctypes.c_int]
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.restype, fn.argtypes = ctypes.c_int, argtypes
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.restype, fn.argtypes = ctypes.c_int, argtypes
         _LIBS[name] = lib
     return lib
 

@@ -7,8 +7,9 @@ Counterpart of ``llm_fp8_tpu/kernels/flash_attention.py::flash_attention``
 Supported: causal with a per-batch ``q_offset``, ``kv_lens``, GQA through the
 head map, sliding window, softcap and the logit scale. ALiBi,
 ``attention_chunk``, segment ids and dropout are not ported yet and raise on
-both devices. The backward (K6) is not ported either: the autograd function
-raises if a gradient is asked of it.
+both devices. The autograd function's backward is K6
+(:mod:`.flash_attention_bwd`): its kernels on CUDA tensors, its plain version
+on CPU tensors.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .flash_attention_bwd import flash_attention_bwd
 
 __all__ = ["flash_attention", "flash_fwd_plain", "MASK_VALUE"]
 
@@ -78,7 +80,8 @@ def _launch(q, k, v, q_offset, kv_lens, causal, window, softcap, scale):
 
 
 class _FlashForward(torch.autograd.Function):
-    """Forward through K3; the backward (K6) is not ported yet."""
+    """Forward through K3, backward through K6 from the saved out and LSE
+    (the LSE itself gets no gradient)."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset, kv_lens, cfg):
@@ -87,13 +90,16 @@ class _FlashForward(torch.autograd.Function):
         else:
             out, lse = flash_fwd_plain(q, k, v, q_offset, kv_lens, **cfg)
         ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse, q_offset, kv_lens)
+        ctx.cfg = cfg
         return out, lse
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "flash attention backward (K6, kernels/flash_attention_bwd.py) is "
-            "not ported yet")
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, q_offset, kv_lens = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                         q_offset=q_offset, kv_lens=kv_lens, **ctx.cfg)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(

@@ -1,0 +1,152 @@
+"""K6: flash-attention backward (dQ, dK, dV) over bshd tensors.
+
+Counterpart of ``llm_fp8_tpu/kernels/flash_attention_bwd.py::flash_attention_bwd``
+(``_dkv_kernel``, ``_dq_kernel``, ``_recompute_p_and_ds``). On CUDA tensors
+:func:`flash_attention_bwd` launches the two kernels of
+``csrc/flash_attention_bwd.cu`` (dKV, then dQ); on CPU tensors it takes
+:func:`flash_attention_bwd_plain`.
+
+The softmax weights are recomputed from the forward's log-sum-exp, which is
+K3's ``[B, Hq, Sq]`` here (the TPU's is ``[B, Hq, 8, Sq_p]``). Rows whose LSE
+is ``-inf`` (no live key) get p = 0, not NaN. p and ds are rounded to bf16
+before the dV, dK and dQ products, and the GQA group sum of dK/dV runs in
+float32, as in the TPU kernel (its module docstring says the sum happens
+outside the kernel; the code does it inside). ``di = rowsum(o·do)`` is a
+torch op, as JAX leaves it to XLA. Causal with a per-batch ``q_offset``,
+``kv_lens``, GQA, sliding window, softcap and the logit scale are supported;
+ALiBi, ``attention_chunk``, segment ids and dropout are not ported (the
+forward raises on them).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+
+__all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "flash_bwd_dkv",
+           "flash_bwd_dq", "recompute_p_ds", "row_di"]
+
+
+def row_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``di = rowsum(o·do)`` in float32, ``[B, Hq, Sq]``."""
+    return (o.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def recompute_p_ds(q, k, v, lse, do, di, q_offset, kv_lens, *, causal: bool,
+                   window: Optional[int], softcap: Optional[float], scale: float):
+    """p and ds ``[B, Hq, Sq, Sk]`` in float32 (before their bf16 rounding),
+    the TPU kernel's ``_recompute_p_and_ds`` over the whole score matrix."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    g = Hq // Hk
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    z = softcap * torch.tanh(s / softcap) if softcap is not None else s
+    q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=q.device)[None, :]
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = k_pos[None, None, :] < kv_lens.long()[:, None, None]
+    if causal:
+        mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
+    finite = torch.isfinite(lse)[..., None]
+    lse0 = torch.where(finite, lse[..., None], torch.zeros_like(lse[..., None]))
+    p = torch.where(mask[:, None] & finite, torch.exp(z - lse0), torch.zeros_like(z))
+    dp = do.float().permute(0, 2, 1, 3) @ vf.transpose(-1, -2)
+    ds = p * (dp - di[..., None])
+    if softcap is not None:
+        ds = ds * (1.0 - (z / softcap) ** 2)
+    return p, ds * scale
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool, window: Optional[int],
+                              softcap: Optional[float], scale: float, q_offset, kv_lens):
+    """The kernels' function in plain PyTorch. Returns ``dq, dk, dv`` (bshd,
+    in q's, k's and v's dtypes)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    g = Hq // Hk
+    p, ds = recompute_p_ds(q, k, v, lse, do, row_di(o, do), q_offset, kv_lens,
+                           causal=causal, window=window, softcap=softcap, scale=scale)
+    pb = p.to(torch.bfloat16).float()
+    dsb = ds.to(torch.bfloat16).float()
+    qf = q.float().permute(0, 2, 1, 3)
+    dof = do.float().permute(0, 2, 1, 3)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    dv = (pb.transpose(-1, -2) @ dof).reshape(B, Hk, g, Sk, D).sum(dim=2)
+    dk = (dsb.transpose(-1, -2) @ qf).reshape(B, Hk, g, Sk, D).sum(dim=2)
+    dq = dsb @ kf
+
+    def bshd(t, dtype):
+        return t.permute(0, 2, 1, 3).to(dtype).contiguous()
+
+    return bshd(dq, q.dtype), bshd(dk, k.dtype), bshd(dv, v.dtype)
+
+
+def _common_args(q, k, cfg):
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    return [ctypes.c_int(B), ctypes.c_int(Sq), ctypes.c_int(Sk), ctypes.c_int(Hq),
+            ctypes.c_int(Hk), ctypes.c_int(D), ctypes.c_float(cfg["scale"]),
+            ctypes.c_int(int(cfg["causal"])), ctypes.c_int(cfg["window"] or 0),
+            ctypes.c_float(cfg["softcap"] or 0.0),
+            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)]
+
+
+def _ptrs(*ts):
+    return [ctypes.c_void_p(t.data_ptr()) for t in ts]
+
+
+def flash_bwd_dkv(q, k, v, do, lse, di, q_offset, kv_lens, **cfg):
+    """dK and dV on the card (the dKV kernel); counts its launches."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _build.library("flash_attention_bwd")
+    err = lib.flash_bwd_dkv_launch(*_ptrs(q, k, v, do, lse, di, q_offset, kv_lens, dk, dv),
+                                   *_common_args(q, k, cfg))
+    _build.check(lib, err, "flash_attention_bwd (dKV)")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, di, q_offset, kv_lens, **cfg):
+    """dQ on the card (the dQ kernel); counts its launches."""
+    dq = torch.empty_like(q)
+    lib = _build.library("flash_attention_bwd")
+    err = lib.flash_bwd_dq_launch(*_ptrs(q, k, v, do, lse, di, q_offset, kv_lens, dq),
+                                  *_common_args(q, k, cfg))
+    _build.check(lib, err, "flash_attention_bwd (dQ)")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: Optional[int],
+                        softcap: Optional[float], scale: float, q_offset: torch.Tensor,
+                        kv_lens: torch.Tensor):
+    """``dq, dk, dv`` of flash attention from the forward's ``o`` and ``lse``
+    (``[B, Hq, Sq]`` float32) and the output gradient ``do``. ``q_offset``
+    and ``kv_lens`` are int32 ``[B]`` tensors on q's device."""
+    cfg = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, q_offset=q_offset,
+                                         kv_lens=kv_lens, **cfg)
+    B, Sq, Hq, D = q.shape
+    if D not in (32, 64, 128) or q.dtype != torch.bfloat16 or do.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_bwd: bf16 with head_dim 32/64/128, got {q.dtype} "
+                         f"D={D}, do {do.dtype}")
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be float32 {(B, Hq, Sq)}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
+    di = row_di(o, do)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, q_offset, kv_lens, **cfg)
+    dq = flash_bwd_dq(q, k, v, do, lse, di, q_offset, kv_lens, **cfg)
+    return dq, dk, dv
+
+
+flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches = 0

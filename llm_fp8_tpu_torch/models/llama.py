@@ -12,11 +12,16 @@ Plain bf16 products (unquantized weights, the tied lm_head) are cuBLAS calls
 (``torch.matmul``/``torch.mm``) on the card, as the JAX package leaves them
 to XLA; on the CPU they are float32 products of the bf16 operands, as XLA
 computes them there.
+
+Training: :func:`forward` differentiates into float32 parameters (the bf16
+recipe), and :func:`forward_fp8_train` runs the four GEMM sites of every
+layer through ``quant.fp8_dot`` (attention through K3 forward and K6
+backward on the card).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,13 +31,14 @@ from ..kernels.paged_attention import paged_attention
 from ..ops.attention import attention
 from ..ops.rmsnorm import rmsnorm
 from ..ops.rotary import apply_rope, rope_cos_sin, rope_frequencies
-from ..quant import QTensor, RecipeSet, qdot, quantize, quantize_mx
+from ..quant import DotAmaxes, QTensor, RecipeSet, fp8_dot, qdot, quantize, quantize_mx
+from ..quant.dot import matmul_f32
 from ..utils.backend import resolve_device
 from .config import ModelConfig
 
 __all__ = ["init_params", "quantize_params", "KVCache", "init_kv_cache",
            "cache_append_attend", "forward", "forward_decode_arena", "forward_paged",
-           "layer_params"]
+           "unstack_layers", "DOT_SITES", "SITE_ROLE", "forward_fp8_train", "lm_head_weight"]
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
@@ -101,9 +107,15 @@ def quantize_params(params: Dict[str, Any], recipes: RecipeSet) -> Dict[str, Any
     return out
 
 
-def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i`` of the stacked layer parameters (views, no copies)."""
-    return {k: (v.layer(i) if isinstance(v, QTensor) else v[i]) for k, v in layers.items()}
+def unstack_layers(layers: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Every layer's parameters (views), one ``unbind`` per stacked tensor.
+    Under autograd the unbind's backward stacks the layer gradients once,
+    where indexing layer by layer writes a zero-filled full-size gradient
+    per layer and adds them up."""
+    L = layers["norm_attn"].shape[0]
+    per = {k: ([v.layer(i) for i in range(L)] if isinstance(v, QTensor) else v.unbind(0))
+           for k, v in layers.items()}
+    return [{k: per[k][i] for k in layers} for i in range(L)]
 
 
 def _dot(x: torch.Tensor, w) -> torch.Tensor:
@@ -113,6 +125,46 @@ def _dot(x: torch.Tensor, w) -> torch.Tensor:
     if x.is_cuda:
         return torch.matmul(x, w.to(x.dtype))
     return (x.float() @ w.to(x.dtype).float()).to(x.dtype)
+
+
+#: The four quantized-GEMM sites per decoder layer: QKV projection,
+#: attention out-projection, MLP gate|up and MLP down.
+DOT_SITES = ("attn_qkv", "attn_out", "mlp_gate_up", "mlp_down")
+
+#: Dot site -> recipe-set role (both MLP matmuls share the "mlp" recipe).
+SITE_ROLE = {
+    "attn_qkv": "attn_qkv",
+    "attn_out": "attn_out",
+    "mlp_gate_up": "mlp",
+    "mlp_down": "mlp",
+}
+
+
+def _make_train_dots(recipes: Optional[RecipeSet], scales, sinks):
+    """Per-site closures ``(x, w) -> (y, DotAmaxes)`` for one layer of the
+    FP8 training path. ``scales[site]`` = (x_scale, w_scale) delayed 0-d
+    scales; ``sinks[site]`` = the zero scalar whose gradient carries the
+    backward amax. High-precision sites report zero amaxes."""
+    dots = {}
+    for site in DOT_SITES:
+        recipe = recipes.for_role(SITE_ROLE[site]) if recipes else None
+        if recipe is None:
+
+            def plain(x, w):
+                z = torch.zeros((), dtype=torch.float32, device=x.device)
+                return _dot(x, w), DotAmaxes(z, z, z)
+
+            dots[site] = plain
+        else:
+
+            def quantized(x, w, recipe=recipe, site=site):
+                x_s, w_s = scales[site]
+                y, amaxes = fp8_dot(x.reshape(-1, x.shape[-1]), w, x_s, w_s, sinks[site],
+                                    recipe)
+                return y.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype), amaxes
+
+            dots[site] = quantized
+    return dots
 
 
 # --------------------------------------------------------------------------
@@ -207,8 +259,17 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
     return rope_cos_sin(positions, inv_freq.to(positions.device), cfg.rope_scaling)
 
 
-def _qkv(h, lp, cfg: ModelConfig, B: int, S: int):
-    qkv = _dot(h, lp["wqkv"])
+def _site_dot(x, w, site: str, dots, amaxes):
+    """``x @ w`` for one GEMM site: ``_dot``, or the training closure
+    ``dots[site]``, whose amaxes land in ``amaxes[site]``."""
+    if dots is None:
+        return _dot(x, w)
+    y, amaxes[site] = dots[site](x, w)
+    return y
+
+
+def _qkv(h, lp, cfg: ModelConfig, B: int, S: int, dots=None, amaxes=None):
+    qkv = _site_dot(h, lp["wqkv"], "attn_qkv", dots, amaxes)
     if "bqkv" in lp:
         qkv = qkv + lp["bqkv"].to(qkv.dtype)
     q, kk, vv = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
@@ -221,11 +282,23 @@ def _qkv(h, lp, cfg: ModelConfig, B: int, S: int):
     return q, kk, vv
 
 
-def _mlp(x, lp, cfg: ModelConfig):
+def _mlp(x, lp, cfg: ModelConfig, dots=None, amaxes=None):
     h = rmsnorm(x, lp["norm_mlp"], cfg.rms_eps)
-    gate, up = torch.chunk(_dot(h, lp["w_gate_up"]), 2, dim=-1)
+    gate, up = torch.chunk(_site_dot(h, lp["w_gate_up"], "mlp_gate_up", dots, amaxes), 2, dim=-1)
     h = F.silu(gate.float()).to(up.dtype) * up
-    return x + _dot(h, lp["w_down"])
+    return x + _site_dot(h, lp["w_down"], "mlp_down", dots, amaxes)
+
+
+def _layer_body(x, lp, cos, sin, cfg: ModelConfig, attend, dots=None, amaxes=None):
+    """One decoder layer over a sequence: ``attend(q, k, v) -> attn`` (causal
+    self-attention or the cache), the GEMMs through ``dots`` when given (the
+    FP8 training path; their amaxes land in ``amaxes``)."""
+    B, S, _ = x.shape
+    h = rmsnorm(x, lp["norm_attn"], cfg.rms_eps)
+    q, kk, vv = _qkv(h, lp, cfg, B, S, dots, amaxes)
+    attn = attend(apply_rope(q, cos, sin), apply_rope(kk, cos, sin), vv)
+    x = x + _site_dot(attn.reshape(B, S, -1), lp["wo"], "attn_out", dots, amaxes)
+    return _mlp(x, lp, cfg, dots, amaxes)
 
 
 def _check_family(cfg: ModelConfig):
@@ -254,25 +327,21 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
     start_pos = torch.as_tensor(start_pos, dtype=torch.int32, device=dev).reshape(-1).expand(B)
     positions = start_pos[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
     cos, sin = _rope_tables(cfg, positions)
-    L = params["layers"]["norm_attn"].shape[0]
     ks, vs = [], []
-    for li in range(L):
-        lp = layer_params(params["layers"], li)
-        h = rmsnorm(x, lp["norm_attn"], cfg.rms_eps)
-        q, kk, vv = _qkv(h, lp, cfg, B, S)
-        q, kk = apply_rope(q, cos, sin), apply_rope(kk, cos, sin)
+    for li, lp in enumerate(unstack_layers(params["layers"])):
         if cache is None:
-            attn = attention(q, kk, vv, causal=True, kv_lens=kv_lens,
-                             window=cfg.sliding_window)
-            if return_kv:
-                ks.append(kk)
-                vs.append(vv)
+            def attend(q, kk, vv):
+                if return_kv:
+                    ks.append(kk)
+                    vs.append(vv)
+                return attention(q, kk, vv, causal=True, kv_lens=kv_lens,
+                                 window=cfg.sliding_window)
         else:
-            attn, _ = cache_append_attend(
-                q, kk, vv, (cache.k, cache.v, cache.k_scale[li], cache.v_scale[li], li),
-                start_pos, kv_lens, window=cfg.sliding_window)
-        x = x + _dot(attn.reshape(B, S, -1), lp["wo"])
-        x = _mlp(x, lp, cfg)
+            def attend(q, kk, vv, li=li):
+                return cache_append_attend(
+                    q, kk, vv, (cache.k, cache.v, cache.k_scale[li], cache.v_scale[li], li),
+                    start_pos, kv_lens, window=cfg.sliding_window)[0]
+        x = _layer_body(x, lp, cos, sin, cfg, attend)
     if cache is None:
         new_cache = (torch.stack(ks), torch.stack(vs)) if return_kv else None
     else:
@@ -287,10 +356,22 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [..., K] @ w [K, N]`` of bf16 operands with float32 output (the
     JAX package's ``preferred_element_type=float32``)."""
-    if x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(*x.shape[:-1], w.shape[-1])
-    return x.float() @ w.float()
+    y = matmul_f32(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def lm_head_weight(params, cfg: ModelConfig) -> torch.Tensor:
+    """The ``[D, V]`` lm_head matrix as a plain tensor (tied: ``embed.T``),
+    for the chunked cross-entropy. Raises on quantized parameters."""
+    if cfg.tie_word_embeddings or "lm_head" not in params:
+        w = params["embed"]
+        if isinstance(w, QTensor):
+            raise TypeError("chunked CE needs unquantized embed weights")
+        return w.t()
+    lm = params["lm_head"]
+    if isinstance(lm, QTensor):
+        raise TypeError("chunked CE needs an unquantized lm_head")
+    return lm
 
 
 def _lm_head(params, x, cfg: ModelConfig) -> torch.Tensor:
@@ -319,9 +400,7 @@ def forward_decode_arena(params: Dict[str, Any], tokens: torch.Tensor, cfg: Mode
     cos, sin = _rope_tables(cfg, lens[:, None])
     k_sc, v_sc = kv_scale if isinstance(kv_scale, tuple) else (kv_scale, kv_scale)
     lengths = lens + 1
-    L = k_arena.shape[0]
-    for li in range(L):
-        lp = layer_params(params["layers"], li)
+    for li, lp in enumerate(unstack_layers(params["layers"])):
         h = rmsnorm(x, lp["norm_attn"], cfg.rms_eps)
         q, kk, vv = _qkv(h, lp, cfg, B, 1)
         attn, k_arena, v_arena = decode_attention_arena(
@@ -355,8 +434,7 @@ def forward_paged(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
     x = params["embed"][tokens.to(dev).long()].to(compute_dtype)
     cos, sin = _rope_tables(cfg, lens[:, None])
     lengths = lens + 1
-    for li in range(k_pages.shape[1]):
-        lp = layer_params(params["layers"], li)
+    for li, lp in enumerate(unstack_layers(params["layers"])):
         h = rmsnorm(x, lp["norm_attn"], cfg.rms_eps)
         q, kk, vv = _qkv(h, lp, cfg, B, 1)
         q, kk = apply_rope(q, cos, sin), apply_rope(kk, cos, sin)
@@ -367,3 +445,45 @@ def forward_paged(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
         x = _mlp(x, lp, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
     return _lm_head(params, x, cfg), k_pages, v_pages
+
+
+def forward_fp8_train(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
+                      recipes: RecipeSet, scales: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                      sinks: Dict[str, torch.Tensor], *, compute_dtype=torch.bfloat16,
+                      remat: bool = False, return_hidden: bool = False):
+    """FP8 training forward: the four GEMM sites of every layer run through
+    :func:`~..quant.fp8_dot` with the recipe the set assigns to their role.
+
+    ``scales[site]`` = (x_scale [L], w_scale [L]) delayed scales;
+    ``sinks[site]`` = zeros [L] that require a gradient — after ``backward``
+    their gradients are the backward-pass amaxes. Returns ``(logits
+    [B, S, V] float32 — or the final-norm hidden states [B, S, D] with
+    ``return_hidden`` — , {site: DotAmaxes stacked [L]})``. ``remat``
+    (per-layer rematerialization) is not ported yet.
+    """
+    if remat:
+        raise NotImplementedError("forward_fp8_train: remat is not ported yet")
+    _check_family(cfg)
+    dev = params["embed"].device
+    tokens = tokens.to(dev)
+    x = params["embed"][tokens.long()].to(compute_dtype)
+    S = tokens.shape[1]
+    cos, sin = _rope_tables(cfg, torch.arange(S, dtype=torch.int32, device=dev)[None, :])
+
+    def attend(q, kk, vv):
+        return attention(q, kk, vv, causal=True, window=cfg.sliding_window)
+
+    per_layer = []
+    for li, lp in enumerate(unstack_layers(params["layers"])):
+        dots = _make_train_dots(
+            recipes, {s: (scales[s][0][li], scales[s][1][li]) for s in DOT_SITES},
+            {s: sinks[s][li] for s in DOT_SITES})
+        amaxes = {}
+        x = _layer_body(x, lp, cos, sin, cfg, attend, dots, amaxes)
+        per_layer.append(amaxes)
+    stacked = {s: DotAmaxes(*(torch.stack(t) for t in zip(*(a[s] for a in per_layer))))
+               for s in DOT_SITES}
+    x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    if return_hidden:
+        return x, stacked
+    return _lm_head(params, x, cfg), stacked

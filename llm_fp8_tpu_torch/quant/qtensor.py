@@ -77,9 +77,15 @@ class QTensor:
 
 
 def compute_scale(amax: torch.Tensor, fmt: Format, margin: int = 0) -> torch.Tensor:
-    """``scale = max(amax, tiny) / fmt.max * 2^margin`` in float32."""
+    """``scale = max(amax, tiny) / fmt.max * 2^margin`` in float32.
+
+    The divisor is a 0-d tensor on ``amax``'s device: on a card PyTorch turns
+    a division by a Python float into a multiplication by its reciprocal,
+    which rounds differently; this way the card and the CPU (and K9) divide
+    alike."""
     amax = torch.clamp(torch.as_tensor(amax, dtype=torch.float32), min=_TINY)
-    return amax / fmt.max * (2.0 ** margin)
+    fmax = torch.full((), fmt.max, dtype=torch.float32, device=amax.device)
+    return amax / fmax * (2.0 ** margin)
 
 
 def _amax(x: torch.Tensor, axes: Optional[Sequence[int]]) -> torch.Tensor:

@@ -1,0 +1,323 @@
+"""FP8 fine-tuning trainer (counterpart of ``llm_fp8_tpu/training/trainer.py``).
+
+One train step: the forward (``forward_fp8_train`` under an FP8 recipe set,
+``forward`` under bf16), the loss, the gradients of the float32 master
+weights and of the amax sinks, then the optimizer and the delayed-scaling
+update. The optimizer is optax's chain written out in torch:
+``clip_by_global_norm`` → AdamW (``scale_by_adam`` with its bias correction,
+decay masked off norms, biases and ``bqkv``, optional ``adam_mu_dtype``) →
+the learning-rate schedule (linear warmup then linear decay, warmup then
+cosine, or constant), wrapped in ``MultiSteps`` for ``grad_accum``.
+
+Where JAX donates the state to a jitted step, ``train_step`` updates the
+given state in place and returns it. The non-finite guard reads the loss and
+the gradient norm on the host: a non-finite step leaves the parameters, the
+optimizer state (Adam's count included) and the delayed-scaling state as
+they were, and only the step counter moves on. ``remat`` and attention
+dropout are not ported and raise; ``unroll`` (a JAX scan knob) has no
+counterpart in an eager loop over the layers and must stay 1.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.config import ModelConfig
+from ..models.llama import _lm_head, forward, forward_fp8_train, lm_head_weight
+from ..quant import RecipeSet, recipe_set_by_name
+from ..utils.backend import resolve_device
+from .losses import causal_lm_loss, chunked_causal_lm_loss
+from .quant_state import forward_scales, init_train_quant_state, make_sinks, update_quant_state
+
+__all__ = ["TrainConfig", "TrainState", "Trainer", "make_optimizer", "AdamW"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Run hyperparameters (the JAX ``TrainConfig``'s fields)."""
+
+    learning_rate: float = 1e-5
+    weight_decay: float = 0.01
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    schedule: str = "linear"  # "linear" | "cosine" | "constant"
+    grad_clip: float = 1.0
+    grad_accum: int = 1
+    recipes: str = "bf16"  # recipe-set name: default|hybrid|mxfp8|int8_train|bf16
+    z_loss: float = 0.0
+    label_smoothing: float = 0.0
+    unroll: int = 1  # a JAX scan knob: must stay 1 here
+    remat: Any = False  # not ported: must stay off
+    adam_mu_dtype: Optional[str] = None
+    attention_dropout: float = 0.0  # not ported: must stay 0
+    ce_chunks: int = 0
+
+
+@dataclasses.dataclass
+class OptState:
+    """AdamW's moments and count, and ``MultiSteps``' accumulator."""
+
+    count: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+    mini_step: int = 0
+    acc: Optional[Dict[str, torch.Tensor]] = None
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt_state: OptState
+    qstate: Any  # delayed-scaling state ({} when the recipe set is off)
+    step: int
+
+
+def _leaves(tree: Dict[str, Any], prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """``(path, tensor)`` in JAX's pytree order (dict keys sorted)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}/{k}" if prefix else k
+        out.extend(_leaves(v, path) if isinstance(v, dict) else [(path, v)])
+    return out
+
+
+def _no_decay(path: str) -> bool:
+    # Norm weights and biases are excluded from weight decay.
+    name = path.rsplit("/", 1)[-1]
+    return any(t in name for t in ("norm", "bqkv", "bias"))
+
+
+def _polynomial(init: float, end: float, steps: int, count: int) -> np.float32:
+    """optax ``linear_schedule`` in float32 (constant ``init`` when
+    ``steps <= 0``)."""
+    if steps <= 0:
+        return np.float32(init)
+    c = min(max(count, 0), steps)
+    frac = np.float32(1) - np.float32(c) / np.float32(steps)
+    return np.float32(init - end) * frac + np.float32(end)
+
+
+def _cosine(init: float, decay_steps: int, count: int) -> np.float32:
+    if not decay_steps > 0:
+        raise ValueError(f"the cosine schedule needs positive decay steps, got {decay_steps}")
+    c = min(np.float32(count), np.float32(decay_steps))
+    cos = np.float32(0.5) * (np.float32(1) + np.cos(np.float32(math.pi) * c / np.float32(decay_steps)))
+    return np.float32(init) * cos
+
+
+class AdamW:
+    """optax ``chain(clip_by_global_norm, adamw(schedule, mask))``, wrapped
+    in ``MultiSteps`` when ``grad_accum > 1``; updates parameters in place."""
+
+    def __init__(self, config: TrainConfig):
+        if config.schedule not in ("linear", "cosine", "constant"):
+            raise ValueError(f"unknown schedule {config.schedule!r}")
+        self.cfg = config
+        self.mu_dtype = (None if config.adam_mu_dtype is None
+                         else getattr(torch, str(config.adam_mu_dtype)))
+        if config.schedule == "cosine":
+            _cosine(config.learning_rate, config.total_steps - config.warmup_steps, 0)
+
+    def learning_rate(self, count: int) -> np.float32:
+        c = self.cfg
+        w = c.warmup_steps
+        if c.schedule == "linear":
+            if count < w:
+                return _polynomial(0.0, c.learning_rate, w, count)
+            return _polynomial(c.learning_rate, 0.0, max(c.total_steps - w, 1), count - w)
+        if c.schedule == "cosine":
+            if count < w:
+                return _polynomial(0.0, c.learning_rate, w, count)
+            return _cosine(c.learning_rate, c.total_steps - w, count - w)
+        return np.float32(c.learning_rate)
+
+    def init(self, params) -> OptState:
+        leaves = _leaves(params)
+        mu = {p: torch.zeros_like(t, dtype=self.mu_dtype or t.dtype) for p, t in leaves}
+        nu = {p: torch.zeros_like(t) for p, t in leaves}
+        acc = ({p: torch.zeros_like(t, dtype=torch.float32) for p, t in leaves}
+               if self.cfg.grad_accum > 1 else None)
+        return OptState(count=0, mu=mu, nu=nu, acc=acc)
+
+    @torch.no_grad()
+    def step(self, params, grads: Dict[str, torch.Tensor], state: OptState) -> None:
+        """One update of ``params`` and ``state`` in place from ``grads``
+        (path → gradient)."""
+        k = self.cfg.grad_accum
+        if k > 1:
+            n = state.mini_step
+            for p, g in grads.items():
+                a = state.acc[p]
+                a.copy_(a + (g.float() - a) / (n + 1))
+            state.mini_step = (n + 1) % k
+            if n != k - 1:
+                return
+            grads = state.acc
+        self._apply(params, grads, state)
+        if k > 1:
+            for a in state.acc.values():
+                a.zero_()
+
+    def _apply(self, params, grads, state: OptState) -> None:
+        c = self.cfg
+        g_norm = global_norm(grads.values())
+        clip = not bool(g_norm < c.grad_clip)
+        lr = -self.learning_rate(state.count)
+        count = state.count + 1
+        dev = g_norm.device
+        bc1 = 1 - torch.tensor(c.adam_b1, dtype=torch.float32, device=dev) ** count
+        bc2 = 1 - torch.tensor(c.adam_b2, dtype=torch.float32, device=dev) ** count
+        for path, p in _leaves(params):
+            g = grads[path]
+            if clip:
+                g = (g / g_norm.to(g.dtype)) * c.grad_clip
+            mu = (1 - c.adam_b1) * g + c.adam_b1 * state.mu[path].float()
+            nu = (1 - c.adam_b2) * (g * g) + c.adam_b2 * state.nu[path]
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + c.adam_eps)
+            if not _no_decay(path):
+                u = u + c.weight_decay * p
+            p.copy_(p + float(lr) * u)
+            state.mu[path].copy_(mu)
+            state.nu[path].copy_(nu)
+        state.count = count
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """``sqrt(Σ Σ x²)`` over all tensors, float32 (optax ``global_norm``)."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+def make_optimizer(config: TrainConfig) -> AdamW:
+    return AdamW(config)
+
+
+def _batch_tensor(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x), device=device)
+
+
+class Trainer:
+    """The train and eval steps of one model configuration on one device."""
+
+    def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig, *, device=None):
+        if train_cfg.remat not in (False, None, "none"):
+            raise NotImplementedError("Trainer: remat is not ported yet")
+        if train_cfg.unroll != 1:
+            raise NotImplementedError("Trainer: unroll is a JAX scan knob; the port's "
+                                      "layer loop has no counterpart (leave it at 1)")
+        if train_cfg.attention_dropout != 0.0:
+            raise NotImplementedError("Trainer: attention dropout is not ported yet")
+        self.model_cfg = model_cfg
+        self.cfg = train_cfg
+        self.device = resolve_device(device)
+        self.recipes: RecipeSet = recipe_set_by_name(train_cfg.recipes)
+        self.tx = make_optimizer(train_cfg)
+
+    # ---- state ----
+
+    def init_state(self, params) -> TrainState:
+        """Takes float32 master weights on the trainer's device (they become
+        leaves that require a gradient and are updated in place)."""
+        want = self.device
+        if want.type == "cuda" and want.index is None:
+            want = torch.device("cuda", torch.cuda.current_device())
+        for path, t in _leaves(params):
+            if t.device != want:
+                raise ValueError(f"parameter {path} is on {t.device}, the trainer on "
+                                 f"{self.device}")
+            t.requires_grad_(True)
+        qstate = (init_train_quant_state(self.model_cfg, self.recipes, self.device)
+                  if self.recipes.enabled else {})
+        return TrainState(params=params, opt_state=self.tx.init(params), qstate=qstate,
+                          step=0)
+
+    # ---- steps ----
+
+    def _forward_loss(self, params, sinks, batch, qstate):
+        tokens = _batch_tensor(batch["input_ids"], self.device)
+        mask = batch.get("attention_mask")
+        mask = None if mask is None else _batch_tensor(mask, self.device)
+        if self.recipes.enabled:
+            scales = forward_scales(qstate, self.model_cfg, self.device)
+            hidden, amaxes = forward_fp8_train(params, tokens, self.model_cfg, self.recipes,
+                                               scales, sinks, return_hidden=True)
+        else:
+            hidden, _ = forward(params, tokens, self.model_cfg, return_hidden=True)
+            amaxes = {}
+        with torch.no_grad():
+            hidden32 = hidden.float()
+            act_stats = (hidden32.mean(), hidden32.std(unbiased=False))
+        kw = dict(z_loss=self.cfg.z_loss, label_smoothing=self.cfg.label_smoothing)
+        if self.cfg.ce_chunks > 1:
+            loss, n = chunked_causal_lm_loss(hidden, lm_head_weight(params, self.model_cfg),
+                                             tokens, mask, num_chunks=self.cfg.ce_chunks, **kw)
+        else:
+            loss, n = causal_lm_loss(_lm_head(params, hidden, self.model_cfg), tokens, mask,
+                                     **kw)
+        return loss, n, amaxes, act_stats
+
+    def loss_and_grads(self, state: TrainState, batch):
+        """The step's forward and backward without the update: ``(loss,
+        tokens, amaxes {site: DotAmaxes [L]}, (activation mean, std),
+        {path: parameter gradient}, {site: backward amaxes [L]})``."""
+        sinks = make_sinks(self.model_cfg, self.device) if self.recipes.enabled else {}
+        loss, n, amaxes, act_stats = self._forward_loss(state.params, sinks, batch,
+                                                        state.qstate)
+        leaves = _leaves(state.params)
+        wrt = [t for _, t in leaves] + list(sinks.values())
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(wrt, torch.autograd.grad(loss, wrt, allow_unused=True))]
+        pgrads = {path: g for (path, _), g in zip(leaves, grads)}
+        g_amaxes = dict(zip(sinks, grads[len(leaves):]))
+        return loss.detach(), n, amaxes, act_stats, pgrads, g_amaxes
+
+    def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
+        """One step on a batch (numpy or torch ``input_ids`` and
+        ``attention_mask``); returns the updated ``state`` and the step's
+        metrics (0-d tensors: loss, grad_norm, tokens, finite,
+        activation_mean, activation_std)."""
+        loss, n, amaxes, act_stats, pgrads, g_amaxes = self.loss_and_grads(state, batch)
+        gnorm = global_norm(pgrads.values())
+        finite = bool(torch.isfinite(loss)) and bool(torch.isfinite(gnorm))
+        if finite:
+            self.tx.step(state.params, pgrads, state.opt_state)
+            if state.qstate:
+                state.qstate = update_quant_state(state.qstate, amaxes, g_amaxes,
+                                                  self.recipes)
+        state.step += 1
+        metrics = {"loss": loss, "grad_norm": gnorm, "tokens": n,
+                   "finite": torch.tensor(int(finite)),
+                   "activation_mean": act_stats[0], "activation_std": act_stats[1]}
+        return state, metrics
+
+    @torch.no_grad()
+    def _eval_step(self, params, batch):
+        tokens = _batch_tensor(batch["input_ids"], self.device)
+        mask = batch.get("attention_mask")
+        mask = None if mask is None else _batch_tensor(mask, self.device)
+        chunked = self.cfg.ce_chunks > 1
+        out, _ = forward(params, tokens, self.model_cfg, return_hidden=chunked)
+        if chunked:
+            loss, n = chunked_causal_lm_loss(out, lm_head_weight(params, self.model_cfg),
+                                             tokens, mask, num_chunks=self.cfg.ce_chunks)
+        else:
+            loss, n = causal_lm_loss(out, tokens, mask)
+        return loss * n, n
+
+    def evaluate(self, params, batches: Iterable[Dict]) -> Dict[str, float]:
+        """Token-weighted eval loss → perplexity (capped at exp(20))."""
+        total_loss, total_tokens = 0.0, 0
+        for batch in batches:
+            loss, n = self._eval_step(params, batch)
+            total_loss += float(loss)
+            total_tokens += int(n)
+        mean = total_loss / max(total_tokens, 1)
+        return {"eval_loss": mean, "perplexity": math.exp(min(mean, 20.0)),
+                "eval_tokens": total_tokens}

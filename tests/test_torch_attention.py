@@ -91,10 +91,21 @@ def test_flash_unported_features_raise(feature):
 
 
 def test_flash_backward_is_not_faked():
-    q = torch.randn((1, 4, 2, 32)).to(torch.bfloat16).requires_grad_()
-    out = flash_attention(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="K6"):
-        out.float().sum().backward()
+    # The backward is K6 from the saved out and LSE: on CPU tensors exactly
+    # its plain version (held to JAX in tests/test_torch_flash_bwd.py).
+    from llm_fp8_tpu_torch.kernels.flash_attention_bwd import flash_attention_bwd_plain
+
+    q, k, v = (torch.randn(s).to(torch.bfloat16).requires_grad_()
+               for s in ((1, 4, 4, 32), (1, 4, 2, 32), (1, 4, 2, 32)))
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    do = torch.randn_like(out)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = flash_attention_bwd_plain(
+        q.detach(), k.detach(), v.detach(), out.detach(), lse, do, causal=True, window=None,
+        softcap=None, scale=32 ** -0.5, q_offset=torch.zeros(1, dtype=torch.int32),
+        kv_lens=torch.full((1,), 4, dtype=torch.int32))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(bool(g.float().abs().sum() > 0) for g in got)
 
 
 def _arena_case(dtype_name, seed, L=2, B=3, Hq=8, Hk=2, D=32, S=128):

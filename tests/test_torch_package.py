@@ -30,6 +30,11 @@ PORT_MODULES = [
     "llm_fp8_tpu_torch.kernels._common", "llm_fp8_tpu_torch.kernels.quant_matmul",
     "llm_fp8_tpu_torch.kernels.decode_attention",
     "llm_fp8_tpu_torch.kernels.flash_attention", "llm_fp8_tpu_torch.kernels.paged_attention",
+    "llm_fp8_tpu_torch.kernels.flash_attention_bwd", "llm_fp8_tpu_torch.kernels.quantize",
+    "llm_fp8_tpu_torch.quant.delayed", "llm_fp8_tpu_torch.training",
+    "llm_fp8_tpu_torch.training.trainer", "llm_fp8_tpu_torch.training.losses",
+    "llm_fp8_tpu_torch.training.quant_state", "llm_fp8_tpu_torch.training.data",
+    "llm_fp8_tpu_torch.training.stability", "llm_fp8_tpu_torch.cli.train",
     "llm_fp8_tpu_torch.ops",
     "llm_fp8_tpu_torch.ops.attention", "llm_fp8_tpu_torch.ops.rmsnorm",
     "llm_fp8_tpu_torch.ops.rotary", "llm_fp8_tpu_torch.ops.sampling",
@@ -83,6 +88,11 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(params, cfg)
     assert Engine(params, cfg, device="cpu").device.type == "cpu"
+    from llm_fp8_tpu_torch.training import TrainConfig, Trainer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, TrainConfig(recipes="default"))
+    assert Trainer(cfg, TrainConfig(recipes="default"), device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("name,want", [("auto", torch.bfloat16), ("fp8", torch.float8_e4m3fn),
@@ -126,7 +136,9 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert torch.isfinite(logits).all() and torch.isfinite(out).all()
     assert torch.isfinite(paged).all() and paged.shape == (2, 1, cfg.vocab_size)
     assert launch_counts() == {"quant_matmul": 0, "decode_attention_arena": 0,
-                               "flash_attention": 0, "paged_attention": 0}
+                               "flash_attention": 0, "paged_attention": 0,
+                               "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+                               "quantize_fused": 0}
     assert kernel_libs() == built_before
 
 
