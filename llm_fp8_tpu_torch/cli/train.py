@@ -6,8 +6,8 @@ Llama-family models):
 
 ``--synthetic_samples N --random_init`` trains on the built-in corpus with
 random weights and a byte tokenizer (the only data path until local data and
-checkpoints are ported). Set ``LLM_FP8_QUANTIZE=pallas`` to quantize the
-gradients of the native fp8 dots through K9. Logs one JSON line per
+checkpoints are ported). On the card the per-channel quantizes of the fp8
+dots (the native route's gradients) go through K9. Logs one JSON line per
 ``--log_every`` steps and per epoch's eval (also appended to
 ``--log_dir/metrics.jsonl``), writes the stability report to
 ``--output_dir/stability_report.json`` and prints it as the last line.
@@ -151,8 +151,7 @@ def main(argv=None):
     stability = StabilityTracker(precision_name=f"fp8-{args.fp8_scenario}"
                                  if args.mixed_precision == "fp8" else "bf16")
     print(json.dumps({"device": str(dev), "steps_per_epoch": steps_per_epoch,
-                      "total_steps": total_steps, "recipes": recipes,
-                      "quantize": os.environ.get("LLM_FP8_QUANTIZE", "xla")}), flush=True)
+                      "total_steps": total_steps, "recipes": recipes}), flush=True)
 
     os.makedirs(args.log_dir, exist_ok=True)
     log_file = open(os.path.join(args.log_dir, "metrics.jsonl"), "a")

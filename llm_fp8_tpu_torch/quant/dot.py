@@ -15,9 +15,11 @@ backward format. The backward's amax leaves through the gradient of a zero
 scalar ``amax_sink`` (which must require a gradient), so delayed state for
 gradients needs no mutable buffer.
 
-Routes, chosen per call from the recipe and ``LLM_FP8_NATIVE_DOT``
-(``LLM_FP8_QUANTIZE=pallas`` sends per-channel quantizes through K9; both
-switches are read per call, where JAX reads them when it traces):
+Routes, chosen per call from the recipe and ``LLM_FP8_NATIVE_DOT`` (read
+per call, where JAX reads it when it traces). Per-channel quantizes of 2-D
+and last-axis operands always go through K9: its plain version stores the
+codes and scales of ``quantize`` bit for bit, so the JAX package's
+``LLM_FP8_QUANTIZE`` switch would choose only between two speeds here.
 
 * the semantics route: quantize, dequantize to bf16, a bf16 product with a
   float32 accumulator (MX ``block32`` for the mxfp8 set);
@@ -111,22 +113,18 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 _FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 
-def _use_fused_quantize() -> bool:
-    return os.environ.get("LLM_FP8_QUANTIZE", "xla") == "pallas"
-
-
 def _quantize_channel(t: torch.Tensor, fmt, contract_axis: int, margin: int) -> QTensor:
-    """Per-channel quantize, through K9 when ``LLM_FP8_QUANTIZE=pallas``.
-    The TPU's VMEM size guards are not carried over: K9 takes any length."""
-    if _use_fused_quantize():
-        from ..kernels.quantize import quantize_fused
+    """Per-channel quantize through K9 (rows of the last axis, or columns of
+    a 2-D operand). The TPU's VMEM size guards are not carried over: K9
+    takes any length."""
+    from ..kernels.quantize import quantize_fused  # kernels.quantize imports quant
 
-        if contract_axis == t.ndim - 1:
-            q = quantize_fused(t.reshape(-1, t.shape[-1]), fmt, axis=-1, margin=margin)
-            return QTensor(qvalue=q.qvalue.reshape(t.shape),
-                           scale=q.scale.reshape(*t.shape[:-1], 1), fmt=fmt)
-        if t.ndim == 2 and contract_axis == 0:
-            return quantize_fused(t, fmt, axis=0, margin=margin)
+    if contract_axis == t.ndim - 1:
+        q = quantize_fused(t.reshape(-1, t.shape[-1]), fmt, axis=-1, margin=margin)
+        return QTensor(qvalue=q.qvalue.reshape(t.shape),
+                       scale=q.scale.reshape(*t.shape[:-1], 1), fmt=fmt)
+    if t.ndim == 2 and contract_axis == 0:
+        return quantize_fused(t, fmt, axis=0, margin=margin)
     return quantize(t, fmt, axes=(contract_axis,), margin=margin)
 
 

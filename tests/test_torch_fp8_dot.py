@@ -7,8 +7,10 @@ function: y, dx, dw, the amax sink's gradient (the output gradient's amax)
 and ``DotAmaxes``. Recipes DELAYED_HYBRID, DELAYED_E4M3, MXFP8 and the
 per-channel int8 training recipe; ``LLM_FP8_NATIVE_DOT`` 0 and 1 (JAX's CPU
 runs the fp8 ``dot_general``, the port multiplies the codes in float32);
-``LLM_FP8_QUANTIZE`` xla and pallas (K9's plain version in the port, the
-JAX kernel in interpret mode). Every switch is set explicitly.
+``LLM_FP8_QUANTIZE`` xla and pallas on the JAX side (XLA's quantize or the
+JAX kernel in interpret mode; the port has no such switch and always takes
+K9, whose plain version stores the codes of ``quantize``). Every switch is
+set explicitly.
 
 Tolerances. Amaxes and the sink gradient: exact (the same max). With the xla
 quantize the codes on both sides are the same, and the products differ only

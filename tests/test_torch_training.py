@@ -79,7 +79,8 @@ CFG = get_config("debug-tiny")
 @pytest.fixture(autouse=True)
 def _switches(monkeypatch):
     # The port's default route depends on the machine (native fp8 on a card):
-    # pin both packages to the semantics route with the XLA quantize.
+    # pin both packages to the semantics route, and JAX to the XLA quantize
+    # (the port has no such switch: its K9 stores the same codes).
     monkeypatch.setenv("LLM_FP8_NATIVE_DOT", "0")
     monkeypatch.setenv("LLM_FP8_QUANTIZE", "xla")
 
@@ -428,11 +429,20 @@ def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
 
 def test_cpu_train_step_on_the_native_route_with_k9_counts_no_launch(monkeypatch):
     # The card's configuration of the main path (native fp8 dots, gradients
-    # through K9) on CPU tensors: the plain versions, no kernel launch.
+    # through K9) on CPU tensors: the plain versions, no kernel launch. K9's
+    # wrapper takes both gradient quantizes of every dot (4 sites per layer).
     from llm_fp8_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from llm_fp8_tpu_torch.kernels import quantize as k9
 
+    calls = []
+    real = k9.quantize_fused
+
+    def counted(x, *args, **kw):
+        calls.append(x.device.type)
+        return real(x, *args, **kw)
+
+    monkeypatch.setattr(k9, "quantize_fused", counted)
     monkeypatch.setenv("LLM_FP8_NATIVE_DOT", "1")
-    monkeypatch.setenv("LLM_FP8_QUANTIZE", "pallas")
     pt = Trainer(CFG, TrainConfig(recipes="default", warmup_steps=0, learning_rate=1e-3),
                  device="cpu")
     state = pt.init_state(params_from_numpy(_np(_jax_params(3))))
@@ -443,5 +453,6 @@ def test_cpu_train_step_on_the_native_route_with_k9_counts_no_launch(monkeypatch
         assert int(m["finite"]) == 1
         losses_seen.append(float(m["loss"]))
     assert all(n == 0 for n in launch_counts().values())
+    assert calls == ["cpu"] * (2 * 4 * CFG.num_layers * 3)
     assert all(math.isfinite(v) for v in losses_seen)
     assert float(state.qstate["attn_qkv"]["g"].history.max()) > 0
