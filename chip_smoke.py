@@ -38,7 +38,21 @@ Phases, in order; any failure exits non-zero before the last line:
    weights, 10 steps of 8 x 512 synthetic tokens through the ``Trainer``
    with gradients quantized by K9; the loss must fall and K3, K6 and K9 must
    launch their per-step counts.
-6. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
+6. ``fp8_kernels``: K7 (FP8-compute flash attention, no caller in the JAX
+   package) through its public function at the 1B prefill shape (8192
+   tokens; its launch counts read around that call), then on both routes
+   (e4m3 tensor-core products, and operands widened to bf16) against its
+   plain version row by row at that shape, the training shape (8 x 512) and
+   decode (kv_lens 1..1024), with window, softcap, float32 out and dead rows;
+   native against dequant; planted faults (P in bf16, a lost chunk, a
+   128-key tile) and the share of rows the tolerance catches. K8 (fused
+   residual RMSNorm) at the probe's [4096, 2048] in bf16 and float32 and at
+   200 x 256: s bit for bit, y within 1 bf16 ulp or 1e-6 relative, the
+   backward on the card against the CPU. ``profile``: the forward-profile
+   probe (``llm_fp8_tpu_torch.scripts.profile_fwd_parts``) at full 1B width,
+   B 8 x S 512, with its parts through K3 and K8 and the whole forward; K3
+   and K8 must launch their counts.
+7. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 With ``--out DIR`` the details of every case go to ``DIR/chip_smoke.json``
@@ -47,6 +61,7 @@ and the compiler's logs to ``DIR/nvcc_*.log``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import statistics
@@ -58,16 +73,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_serve",
-          "train_kernels", "train_slice", "train")
+          "train_kernels", "train_slice", "train", "fp8_kernels", "profile")
 #: The kernels each path runs (launch counts read around its run).
 ARENA_PATH = ("quant_matmul", "decode_attention_arena", "flash_attention")
 PAGED_PATH = ("quant_matmul", "flash_attention", "paged_attention")
 TRAIN_PATH = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
               "quantize_fused")
-
-# Peak rates (data sheets, dense): bytes/s of device memory, bf16 FLOP/s.
-_PEAKS = (("H100 NVL", 3.9e12, 835e12), ("H100 PCIe", 2.0e12, 756e12),
-          ("H200", 4.8e12, 989e12), ("H100", 3.35e12, 989e12))
 
 
 class SmokeFailure(Exception):
@@ -80,10 +91,11 @@ def check(ok: bool, msg: str):
 
 
 def peaks(name: str):
-    for key, bw, flops in _PEAKS:
-        if key in name:
-            return bw, flops
-    return _PEAKS[-1][1:]
+    """The card's memory rate and bf16 peak (the H100 SXM's for a card the
+    port's table does not list)."""
+    from llm_fp8_tpu_torch.utils.backend import CARD_PEAKS, card_peaks
+
+    return card_peaks(name) or CARD_PEAKS[-1][1:]
 
 
 def nvidia_smi() -> str:
@@ -191,21 +203,21 @@ def row_ulps(got, ref):
     return torch.where(err > 0, err / ulp, torch.zeros_like(err))
 
 
-def rows_within(got, ref, what):
-    """Hold every row of ``got`` to ``ref`` within :data:`ROW_ULPS`; returns
+def rows_within(got, ref, what, ulps=ROW_ULPS):
+    """Hold every row of ``got`` to ``ref`` within ``ulps``; returns
     ``(max abs err, worst row's error in ulps)``."""
     err = (got.float() - ref.float()).abs().max().item()
     worst = row_ulps(got, ref).max().item()
-    check(math.isfinite(err) and worst <= ROW_ULPS,
-          f"{what}: a row is {worst} bf16 ulps off (max abs err {err}; tol {ROW_ULPS} "
+    check(math.isfinite(err) and worst <= ulps,
+          f"{what}: a row is {worst} bf16 ulps off (max abs err {err}; tol {ulps} "
           "ulps of each row's largest value)")
     return err, worst
 
 
-def caught_share(bad, ref, live):
+def caught_share(bad, ref, live, ulps=ROW_ULPS):
     """Share of the ``live`` rows in which a planted error ``bad`` breaks the
     row tolerance."""
-    return float((row_ulps(bad, ref)[live] > ROW_ULPS).float().mean())
+    return float((row_ulps(bad, ref)[live] > ulps).float().mean())
 
 
 class Instrumented:
@@ -1571,6 +1583,337 @@ def profile_train_step(trainer, state, batch):
                           device_ms=e.self_device_time_total / 1e3) for e in top])
 
 
+# --------------------------------------------------------------------------
+# phase 6: the last two TPU kernels (K7, K8) and the forward-profile probe
+# --------------------------------------------------------------------------
+
+
+#: K7 against its plain version, row by row, in bf16 ulps of each output
+#: row's largest |value|: every row within K7_ROW_ULPS, and at most
+#: K7_LOOSE_ROWS of the rows beyond 1 ulp. Both versions walk the same key
+#: tiles and round P to e4m3; their scores differ in the float32 sum order of
+#: Q·Kᵀ, which now and then flips one e4m3 code of P and moves a row by up to
+#: about 2 ulps (readings: 1-2 of 262,144 rows beyond 1 ulp at the 8192
+#: prefill, worst 1.87; none at the other shapes). P kept in bf16 or a
+#: 128-key tile moves most rows beyond 1 ulp (PERF.md has the readings).
+K7_ROW_ULPS = 4
+K7_LOOSE_ROWS = 1e-3
+#: Native route against the dequant route (float32 out), the JAX package's
+#: contract (tests/test_flash_attention.py:410-420): |a - b| <= tol (1 + |b|).
+K7_ROUTES_TOL = 5e-3
+
+
+def quantize_per_kvhead(x, Hk):
+    """``[B, S, H, D]`` float32 → e4m3 codes and ``[B, Hk]`` float32
+    descales (amax over the kv head's group / 448); a torch copy of
+    ``tests/test_torch_flash_fp8.py::quantize_per_kvhead``."""
+    import torch
+
+    B, S, H, D = x.shape
+    xg = x.reshape(B, S, Hk, H // Hk, D)
+    descale = xg.abs().amax(dim=(1, 3, 4)) / 448.0
+    codes = (xg / descale[:, None, :, None, None]).to(torch.float8_e4m3fn)
+    return codes.reshape(B, S, H, D), descale
+
+
+def k7_planted_walk(q, k, v, descale, q_offset, kv_lens, *, causal, window, softcap, scale,
+                    block_k, out_dtype, p_dtype, drop_chunk=None):
+    """K7's tile walk written out in the harness, with planted faults: P
+    rounded to ``p_dtype`` before the PV product (e4m3 is the function), and
+    ``drop_chunk`` leaves out the keys of that 64-key chunk of every tile.
+    With neither fault it is ``flash_fp8_plain`` op for op."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels.flash_attention import MASK_VALUE
+
+    B, Sq, Hq, D = q.shape
+    Sk, g = k.shape[1], Hq // k.shape[2]
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3).repeat_interleave(Hq // t.shape[2], dim=1)
+                  for t in (q, k, v))
+    qkd = (descale[0] * descale[1]).repeat_interleave(g, dim=1)[:, :, None, None]
+    vd = descale[2].repeat_interleave(g, dim=1)[:, :, None, None]
+    q_pos = (q_offset.long()[:, None] + torch.arange(Sq, device=q.device))[:, None, :, None]
+    lens = kv_lens.long()[:, None, None, None]
+    m = torch.full((B, Hq, Sq, 1), -float("inf"), device=q.device)
+    l, acc = torch.zeros_like(m), torch.zeros((B, Hq, Sq, D), device=q.device)
+    for k0 in range(0, Sk, block_k):
+        s = (qf @ kf[:, :, k0:k0 + block_k].transpose(-1, -2)) * scale
+        s = s * qkd
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        k_pos = torch.arange(k0, k0 + s.shape[-1], device=q.device)[None, None, None, :]
+        mask = k_pos < lens
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if window is not None:
+            mask = mask & (k_pos > q_pos - window)
+        if drop_chunk is not None:
+            mask = mask & ((k_pos - k0) // 64 != drop_chunk)
+        s = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
+        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(s - m_next)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(p_dtype).float() @ vf[:, :, k0:k0 + block_k]
+        m = m_next
+    dead = (l == 0.0) | (m <= MASK_VALUE * 0.5)
+    l_inv = torch.where(dead, torch.zeros_like(l),
+                        1.0 / torch.where(l == 0.0, torch.ones_like(l), l))
+    return (acc * l_inv * vd).to(out_dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def fp8_kernel_cases(dev, bw, peak, log):
+    """K7 (both routes) against its plain version at the 1B prefill, training
+    and decode shapes and with its features, native against dequant, planted
+    faults; K8 against its plain version at the probe's shape and a ragged
+    one, s bit for bit, and its backward on the card against the CPU. K7's
+    own public call at the 1B prefill shape is its path (no path of the JAX
+    package calls it): its launch counts are read around that call."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.kernels import flash_attention as k7
+    from llm_fp8_tpu_torch.kernels import rmsnorm as k8
+
+    g = torch.Generator(device=dev).manual_seed(1357)
+    cases = []
+    fp8_peak = 2 * peak  # dense fp8 tensor cores: twice the bf16 rate (data sheets)
+
+    def qkv(B, Sq, Sk, Hq, Hk, D):
+        q = torch.randn((B, Sq, Hq, D), generator=g, device=dev)
+        k = torch.randn((B, Sk, Hk, D), generator=g, device=dev)
+        v = torch.randn((B, Sk, Hk, D), generator=g, device=dev)
+        (q8, qd), (k8_, kd), (v8, vd) = (quantize_per_kvhead(t, Hk) for t in (q, k, v))
+        return (q8, k8_, v8), torch.stack([qd, kd, vd])
+
+    def plain(codes, descale, qo, kl, cfg, chunk=None, fn=k7.flash_fp8_plain):
+        """The plain version (or ``fn``, a walk with a planted fault), in query
+        chunks where its scores would not fit."""
+        q8, k8_, v8 = codes
+        Sq = q8.shape[1]
+        chunk = chunk or Sq
+        outs = [fn(q8[:, i:i + chunk], k8_, v8, descale, qo + i, kl, **cfg)
+                for i in range(0, Sq, chunk)]
+        return torch.cat(outs, dim=1)
+
+    def call(codes, descale, qo, kl, cfg, native):
+        c = dict(cfg)
+        return k7.flash_attention_fp8(*codes, q_descale=descale[0], k_descale=descale[1],
+                                      v_descale=descale[2], q_offset=qo, kv_lens=kl,
+                                      fp8_native=native, **c)
+
+    prefill = ("prefill B1 Sq=Sk=8192 Hq32 Hk8 D64 causal kv_len=8184 block_k 512",
+               1, 8192, 8192, 32, 8, 64, [0], [8184], dict(causal=True), 1024)
+    k7_cases = (
+        prefill,
+        ("train B8 S512 Hq32 Hk8 D64 causal block_k 512", 8, 512, 512, 32, 8, 64, [0] * 8,
+         [512] * 8, dict(causal=True), None),
+        ("decode B8 Sq1 Sk1024 Hq32 Hk8 D64 kv_lens 1..1024 block_k 512", 8, 1, 1024, 32, 8, 64,
+         "lens-1", [1, 37, 200, 511, 512, 640, 1000, 1024], dict(causal=True), None),
+        ("window 100, softcap 30, D128, GQA 4:1, q_offset, ragged kv_lens", 2, 100, 300, 16, 4,
+         128, [200, 150], [300, 260], dict(causal=True, window=100, softcap=30.0), None),
+        ("not causal, D32, float32 out, block_k 128", 2, 70, 200, 8, 8, 32, [0, 0], [200, 33],
+         dict(causal=False, out_dtype=torch.float32, block_k=128), None),
+        ("dead rows, window 4, block_k 256", 2, 8, 300, 4, 2, 64, [0, 290], [300, 20],
+         dict(causal=True, window=4, block_k=256), None),
+    )
+
+    def loose_share(got, ref, live_rows):
+        """Share of the live rows more than 1 ulp off."""
+        return float((row_ulps(got, ref)[live_rows] > 1).float().mean())
+    for n_case, (name, B, Sq, Sk, Hq, Hk, D, q_off, kv, extra, chunk) in enumerate(k7_cases):
+        codes, descale = qkv(B, Sq, Sk, Hq, Hk, D)
+        kl = torch.tensor(kv, dtype=torch.int32, device=dev)
+        qo = kl - 1 if q_off == "lens-1" else torch.tensor(q_off, dtype=torch.int32, device=dev)
+        cfg = dict(causal=True, window=None, softcap=None, scale=D ** -0.5,
+                   block_k=k7.auto_block(Sk), out_dtype=torch.bfloat16)
+        cfg.update(extra)
+        if n_case == 0:
+            # K7's path: its public function at the 1B prefill shape, both routes.
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            path_out = {r: call(codes, descale, qo, kl, cfg, r) for r in (True, False)}
+            torch.cuda.synchronize()
+            path_launches = kernels.launch_counts()
+            check(path_launches["flash_attention_fp8"] == 2,
+                  f"K7 path: {path_launches['flash_attention_fp8']} launches, not 2")
+        ref = plain(codes, descale, qo, kl, cfg, chunk)
+        live = live_pairs(B, Sq, Sk, qo, kl, cfg["causal"], cfg["window"], dev)
+        live_rows = (live.sum(dim=-1) > 0)[:, :, None].expand(B, Sq, Hq)
+        case = dict(kernel="flash_attention_fp8", case=name, dead_rows=int((~live_rows).sum()))
+        routes = {}
+        for native in (True, False):
+            got = path_out[native] if n_case == 0 else call(codes, descale, qo, kl, cfg, native)
+            torch.cuda.synchronize()
+            tag = "native" if native else "dequant"
+            err, worst = rows_within(got, ref, f"K7 {name} {tag}", K7_ROW_ULPS)
+            loose = loose_share(got, ref, live_rows)
+            check(loose <= K7_LOOSE_ROWS, f"K7 {name} {tag}: {loose:.2e} of the rows beyond "
+                  f"1 ulp (tol {K7_LOOSE_ROWS})")
+            check(bool((got[~live_rows] == 0).all()), f"K7 {name} {tag}: a dead row is not 0")
+            routes[tag] = dict(max_abs_err=err, err_ulps=worst, rows_beyond_1_ulp_share=loose,
+                               rows=int(live_rows.sum()))
+        case.update(routes=routes, max_abs_err=max(r["max_abs_err"] for r in routes.values()))
+        if n_case < 3:
+            # Native against dequant at float32 out.
+            f32 = dict(cfg, out_dtype=torch.float32)
+            a = call(codes, descale, qo, kl, f32, True)
+            b = call(codes, descale, qo, kl, f32, False)
+            torch.cuda.synchronize()
+            excess = ((a - b).abs() - K7_ROUTES_TOL * (1 + b.abs())).max().item()
+            check(excess <= 0, f"K7 {name}: native and dequant differ beyond "
+                  f"{K7_ROUTES_TOL} (by {excess})")
+            case["native_vs_dequant"] = dict(max_abs_diff=(a - b).abs().max().item(),
+                                             tol=K7_ROUTES_TOL)
+            del a, b
+        if n_case < 2:
+            # Planted faults the tolerance must catch: P kept in bf16, one
+            # 64-key chunk of every tile left out, a 128-key tile. Recorded:
+            # the share of live rows beyond 1 ulp (the tolerance allows
+            # K7_LOOSE_ROWS) and beyond K7_ROW_ULPS.
+            # The harness's walk without a fault is the plain version exactly.
+            e4m3 = functools.partial(k7_planted_walk, p_dtype=torch.float8_e4m3fn)
+            check(torch.equal(plain(codes, descale, qo, kl, cfg, chunk, fn=e4m3), ref),
+                  f"K7 {name}: the fault-free planted walk differs from the plain version")
+            caught = {}
+            for tag, walk in (
+                    ("p_bf16", functools.partial(k7_planted_walk, p_dtype=torch.bfloat16)),
+                    ("chunk_1_of_each_tile_left_out", functools.partial(e4m3, drop_chunk=1)),
+                    ("block_k_128", k7.flash_fp8_plain)):
+                c = dict(cfg, block_k=128) if tag == "block_k_128" else cfg
+                bad = plain(codes, descale, qo, kl, c, chunk, fn=walk)
+                caught[tag] = dict(beyond_1_ulp=loose_share(bad, ref, live_rows),
+                                   beyond_row_ulps=caught_share(bad, ref, live_rows,
+                                                                K7_ROW_ULPS))
+                check(caught[tag]["beyond_1_ulp"] > K7_LOOSE_ROWS
+                      or caught[tag]["beyond_row_ulps"] > 0,
+                      f"K7 {name}: the tolerance lets a planted {tag} through ({caught[tag]})")
+                del bad
+            case["planted_caught"] = caught
+        if n_case < 3:
+            pairs = int(live.sum()) * Hq
+            nbytes = sum(t.numel() for t in codes) + descale.numel() * 4 + B * Sq * Hq * D * 2
+            timed_calls = dict(calls=5, rounds=3) if n_case == 0 else {}
+            for native in (True, False):
+                tag = "native" if native else "dequant"
+                fn = lambda native=native: call(codes, descale, qo, kl, cfg, native)  # noqa: E731
+                routes[tag]["ms"] = cuda_ms(fn, **timed_calls)
+                routes[tag]["bound_ms"], routes[tag]["bound_by"] = bound_ms(
+                    nbytes, 4.0 * D * pairs, bw, fp8_peak if native else peak)
+            case.update(ms=routes["native"]["ms"], dequant_ms=routes["dequant"]["ms"],
+                        bound_ms=routes["native"]["bound_ms"],
+                        bound_by=routes["native"]["bound_by"],
+                        tflops=4.0 * D * pairs / (routes["native"]["ms"] * 1e-3) / 1e12)
+            if chunk:
+                case["plain_ms"] = eager_ms(lambda: plain(codes, descale, qo, kl, cfg, chunk),
+                                            calls=1, rounds=2)
+                case["plain_timing"] = f"eager, query chunks of {chunk}"
+            else:
+                case["plain_ms"] = cuda_ms(lambda: plain(codes, descale, qo, kl, cfg),
+                                           calls=2, rounds=3)
+            # Yardstick (not the same function: no P rounding, one softmax):
+            # SDPA on the dequantized bf16 q/k/v, heads expanded, mask by the
+            # live pairs.
+            deq = [(c.float().reshape(B, -1, Hk, c.shape[2] // Hk, D)
+                    * d[:, None, :, None, None]).reshape(c.shape).to(torch.bfloat16)
+                   .transpose(1, 2) for c, d in zip(codes, descale)]
+            kh, vh = (t.repeat_interleave(Hq // Hk, dim=1) for t in deq[1:])
+            mask = live[:, None]
+            case["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                deq[0], kh, vh, attn_mask=mask), **timed_calls)
+            case["library"] = "SDPA on the dequantized bf16 q/k/v (not the same function)"
+            del deq, kh, vh, mask
+        if n_case == 0:
+            case["launches_on_path"] = path_launches["flash_attention_fp8"]
+            del path_out
+        cases.append(case)
+        log(case)
+        del codes, ref, live
+
+    # ---- K8 at the probe's shape (8 x 512 rows of 2048), float32, ragged rows
+    # and widths that take the kernel's other paths ----
+    for rows, D, dtype, timed in ((8 * 512, 2048, torch.bfloat16, True),
+                                  (8 * 512, 2048, torch.float32, True),
+                                  (200, 256, torch.bfloat16, False),
+                                  (200, 256, torch.float32, False),
+                                  (37, 1000, torch.bfloat16, False),  # the kernel's loop path
+                                  (37, 100, torch.float32, False),
+                                  (37, 250, torch.bfloat16, False)):  # one-element loads
+        x, r = (torch.randn((rows, D), generator=g, device=dev).to(dtype) for _ in range(2))
+        w = (1.0 + 0.1 * torch.randn((D,), generator=g, device=dev)).to(dtype)
+        eps = 1e-5
+        y, s = k8.rmsnorm_residual_fused(x, r, w, eps)
+        yp, sp = k8.rmsnorm_residual_plain(x, r, w, eps)
+        torch.cuda.synchronize()
+        name = f"[{rows}, {D}] {str(dtype)[6:]}"
+        check(torch.equal(s, sp), f"K8 {name}: s differs from the plain version")
+        a, b = y.float(), yp.float()
+        if dtype == torch.bfloat16:  # 1 bf16 ulp of the larger value
+            top = torch.maximum(a.abs(), b.abs())
+            lim = torch.ldexp(torch.ones_like(top), torch.frexp(top).exponent - 8)
+        else:  # 1e-6 relative
+            lim = 1e-6 * b.abs()
+        over = int(((a - b).abs() > lim).sum())
+        check(over == 0, f"K8 {name}: {over} values of y beyond the limit")
+        y_equal = float((y == yp).float().mean())
+        # The backward (plain torch on both devices) on the card against the CPU.
+        xs = [t.detach().requires_grad_() for t in (x, r, w)]
+        xc = [t.detach().cpu().requires_grad_() for t in (x, r, w)]
+        grads = []
+        for ts in (xs, xc):
+            yy, ss = k8.rmsnorm_residual_fused(*ts, eps)
+            (yy.float().pow(2).sum() + ss.float().sin().sum()).backward()
+            grads.append([t.grad.float().cpu() for t in ts])
+        grad_err = {}
+        for gname, ga, gb in zip(("dx", "dresidual", "dw"), *grads):
+            top = gb.abs().max().item()
+            lim = (2.0 ** (math.frexp(top)[1] - 8) if dtype == torch.bfloat16 else 1e-5 * top)
+            e = (ga - gb).abs().max().item()
+            check(e <= lim, f"K8 {name}: {gname} on the card {e} off the CPU's (tol {lim})")
+            grad_err[gname] = e
+        case = dict(kernel="rmsnorm_residual_fused", case=name,
+                    max_abs_err=(a - b).abs().max().item(), y_equal_share=y_equal,
+                    s_equal=True, backward_card_vs_cpu=grad_err)
+        if timed:
+            case["ms"] = cuda_ms(lambda: k8.rmsnorm_residual_fused(x, r, w, eps))
+            case["plain_ms"] = cuda_ms(lambda: k8.rmsnorm_residual_plain(x, r, w, eps))
+            case["library_ms"] = cuda_ms(lambda: F.rms_norm(x + r, (D,), w, eps))
+            case["library"] = ("F.rms_norm(x + r) (not the same function: it normalizes "
+                               "the rounded sum)")
+            nbytes = 4 * rows * D * x.element_size() + D * w.element_size()
+            case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 5.0 * rows * D, bw, peak)
+        cases.append(case)
+        log(case)
+    return cases
+
+
+def profile_probe(dev, log):
+    """The forward-profile probe at full Llama-3.2-1B width (B 8 x S 512, 8
+    steps, 3 trials, with the whole forward): its parts through K3 and K8.
+    Launch counts are read around it; a part's steps run twice through
+    Python (warm-up, CUDA-graph capture) and the model's four times (warm-up
+    and 3 eager trials); replays launch without Python."""
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.scripts import profile_fwd_parts as probe
+
+    L, steps, trials = get_config("llama-3.2-1b").num_layers, 8, 3
+    kernels.reset_launch_counts()
+    res = probe.main(steps=steps, trials=trials, profile_model=True, device=dev,
+                     echo=lambda line: print(line, flush=True))
+    counts = kernels.launch_counts()
+    want = {"rmsnorm_residual_fused": 2 * steps * 2 * L,
+            "flash_attention": 2 * steps * L + (1 + trials) * steps * L}
+    for kname, n in want.items():
+        check(counts[kname] == n, f"profile: {kname} launched {counts[kname]} times, not {n}")
+    for key in ("gemms_ms", "flash_ms", "norms_ms", "model_ms", "gemm_ideal_ms"):
+        check(math.isfinite(res[key]) and res[key] > 0, f"profile: {key} = {res[key]}")
+    res = dict(res, launches=counts, launches_expected=want)
+    log(res)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1627,7 +1970,9 @@ def main(argv=None) -> int:
              ("paged_serve", lambda: paged_serving(dev, 16, card, log)),
              ("train_kernels", lambda: train_kernel_cases(dev, bw, peak, log)),
              ("train_slice", lambda: train_slice_check(dev, log)),
-             ("train", lambda: training(dev, 16, card, log)))
+             ("train", lambda: training(dev, 16, card, log)),
+             ("fp8_kernels", lambda: fp8_kernel_cases(dev, bw, peak, log)),
+             ("profile", lambda: profile_probe(dev, log)))
     try:
         for phase, run in steps:
             if phase in phases:
@@ -1658,7 +2003,12 @@ def kernels_line(report):
     that run it; K6's two kernels are one entry)."""
     by_path = {"arena": report["serve"]["fp8"]["launches"],
                "paged": report["paged_serve"]["fp8"]["launches"],
-               "train": report["train"]["launches"]}
+               "train": report["train"]["launches"],
+               "profile": report["profile"]["launches"],
+               "fp8_kernels (K7's public call at the 1B prefill shape, both routes; no path "
+               "of the JAX package calls K7)": {"flash_attention_fp8": next(
+                   c["launches_on_path"] for c in report["fp8_kernels"]
+                   if "launches_on_path" in c)}}
     for counts in by_path.values():
         counts["flash_attention_bwd"] = (counts.get("flash_attention_bwd_dkv", 0)
                                          + counts.get("flash_attention_bwd_dq", 0))
@@ -1669,10 +2019,13 @@ def kernels_line(report):
             "paged_attention": ("paged_kernels", "serve B8 Hq32 Hk8 D64 page128 "
                                 "torch.float8_e4m3fn"),
             "flash_attention_bwd": ("train_kernels", "train B8 S512 Hq32 Hk8 D64"),
-            "quantize_fused": ("train_kernels", "gate_up [4096, 16384] columns float32 e4m3")}
+            "quantize_fused": ("train_kernels", "gate_up [4096, 16384] columns float32 e4m3"),
+            "flash_attention_fp8": ("fp8_kernels", "prefill B1 Sq=Sk=8192"),
+            "rmsnorm_residual_fused": ("fp8_kernels", "[4096, 2048] bfloat16")}
     # Cases shown beside the main one: K9's rows kernel makes the other half
     # of its launches on the training path.
-    also = {"quantize_fused": ("train_kernels", "gate_up [4096, 16384] rows float32 e4m3")}
+    also = {"quantize_fused": ("train_kernels", "gate_up [4096, 16384] rows float32 e4m3"),
+            "rmsnorm_residual_fused": ("fp8_kernels", "[4096, 2048] float32")}
     meta = {"quant_matmul": ("csrc/quant_matmul.cu", "llm_fp8_tpu/kernels/quant_matmul.py:126"),
             "decode_attention_arena": ("csrc/decode_attention.cu",
                                        "llm_fp8_tpu/kernels/decode_attention.py:300"),
@@ -1682,7 +2035,10 @@ def kernels_line(report):
                                 "llm_fp8_tpu/kernels/paged_attention.py:293"),
             "flash_attention_bwd": ("csrc/flash_attention_bwd.cu",
                                     "llm_fp8_tpu/kernels/flash_attention_bwd.py:215"),
-            "quantize_fused": ("csrc/quantize.cu", "llm_fp8_tpu/kernels/quantize.py:76")}
+            "quantize_fused": ("csrc/quantize.cu", "llm_fp8_tpu/kernels/quantize.py:76"),
+            "flash_attention_fp8": ("csrc/flash_attention_fp8.cu",
+                                    "llm_fp8_tpu/kernels/flash_attention.py:556"),
+            "rmsnorm_residual_fused": ("csrc/rmsnorm.cu", "llm_fp8_tpu/kernels/rmsnorm.py:74")}
     line = []
     for kname, (phase, prefix) in pick.items():
         c = next(c for c in report[phase]
@@ -1695,6 +2051,8 @@ def kernels_line(report):
                          max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
                          bound_ms=c["bound_ms"], bound_by=c["bound_by"],
                          library_ms=c["library_ms"], case=c["case"]))
+        if kname == "flash_attention_fp8":
+            line[-1].update(route_ms=c["routes"], no_jax_path_calls_it=True)
         if kname in also:
             phase, prefix = also[kname]
             o = next(o for o in report[phase]

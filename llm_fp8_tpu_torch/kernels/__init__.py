@@ -4,7 +4,7 @@ is built by ``nvcc`` at its first launch (``_build.py``)."""
 from __future__ import annotations
 
 from . import (decode_attention, flash_attention, flash_attention_bwd, paged_attention,
-               quant_matmul, quantize)
+               quant_matmul, quantize, rmsnorm)
 
 __all__ = ["KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts"]
 
@@ -17,6 +17,8 @@ KERNEL_WRAPPERS = {
     "flash_attention_bwd_dkv": flash_attention_bwd.flash_bwd_dkv,
     "flash_attention_bwd_dq": flash_attention_bwd.flash_bwd_dq,
     "quantize_fused": quantize.quantize_fused,
+    "flash_attention_fp8": flash_attention.flash_attention_fp8,
+    "rmsnorm_residual_fused": rmsnorm.rmsnorm_residual_fused,
 }
 
 

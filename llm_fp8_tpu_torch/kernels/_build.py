@@ -28,7 +28,7 @@ _REPO_CSRC = _PKG.parent / "csrc"
 BUILD_DIR = _PKG / "_build"
 _HEADERS = ("fp8_ftz.cuh",)
 KERNELS = ("quant_matmul", "decode_attention", "flash_attention", "paged_attention",
-           "flash_attention_bwd", "quantize")
+           "flash_attention_bwd", "quantize", "flash_attention_fp8", "rmsnorm")
 #: Host-side C++ libraries (no CUDA) → source, built with g++ and the flags
 #: of the repo's ``csrc/Makefile``.
 HOST_LIBS = {"block_allocator": _REPO_CSRC / "block_allocator.cpp"}
@@ -48,6 +48,8 @@ _SIGNATURES = {
         "flash_bwd_dkv_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _P],
         "flash_bwd_dq_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _F, _P]},
     "quantize": {"quantize_launch": [_P] * 3 + [_I] * 5 + [_F, _F, _P]},
+    "flash_attention_fp8": {"flash_fp8_launch": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _F, _I, _I, _P]},
+    "rmsnorm": {"rmsnorm_residual_launch": [_P] * 5 + [_I] * 3 + [_F, _P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,8 +1,12 @@
-"""K3: flash-attention forward (out and log-sum-exp) over bshd tensors.
+"""K3: flash-attention forward (out and log-sum-exp) over bshd tensors, and
+K7: its FP8-compute variant.
 
 Counterpart of ``llm_fp8_tpu/kernels/flash_attention.py::flash_attention``
 (forward: ``_flash_fwd_call``). On a CUDA tensor the wrapper launches
 ``csrc/flash_attention.cu``; on a CPU tensor it takes :func:`flash_fwd_plain`.
+:func:`flash_attention_fp8` (K7, ``csrc/flash_attention_fp8.cu``, plain
+version :func:`flash_fp8_plain`) is the counterpart of the JAX
+``flash_attention_fp8``: e4m3 q/k/v with FA3 descales, forward only.
 
 Supported: causal with a per-batch ``q_offset``, ``kv_lens``, GQA through the
 head map, sliding window, softcap and the logit scale. ALiBi,
@@ -18,10 +22,12 @@ from typing import Optional
 
 import torch
 
+from ..utils.backend import native_fp8_matmul
 from . import _build
 from .flash_attention_bwd import flash_attention_bwd
 
-__all__ = ["flash_attention", "flash_fwd_plain", "MASK_VALUE"]
+__all__ = ["flash_attention", "flash_fwd_plain", "flash_attention_fp8", "flash_fp8_plain",
+           "auto_block", "MASK_VALUE"]
 
 #: -0.7 * f32 max, as the TPU kernel: finite so the online update never NaNs.
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -77,6 +83,18 @@ def _launch(q, k, v, q_offset, kv_lens, causal, window, softcap, scale):
     _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out, lse
+
+
+def _per_row(q_offset, kv_lens, B: int, Sk: int, dev):
+    """``q_offset`` (a scalar or ``[B]``) and ``kv_lens`` (``[B]``, default
+    Sk) as contiguous int32 ``[B]`` tensors on ``dev``: the kernels read one
+    of each per batch row."""
+    q_offset = torch.as_tensor(q_offset, dtype=torch.int32, device=dev).expand(B).contiguous()
+    if kv_lens is None:
+        return q_offset, torch.full((B,), Sk, dtype=torch.int32, device=dev)
+    if tuple(kv_lens.shape) != (B,):
+        raise ValueError(f"kv_lens of shape {tuple(kv_lens.shape)}, want [{B}]")
+    return q_offset, kv_lens.to(device=dev, dtype=torch.int32).contiguous()
 
 
 class _FlashForward(torch.autograd.Function):
@@ -144,9 +162,7 @@ def flash_attention(
     dev = q.device
     if not (k.device == v.device == dev):
         raise ValueError("q, k and v must be on one device")
-    q_offset = torch.as_tensor(q_offset, dtype=torch.int32, device=dev).expand(B).contiguous()
-    kv_lens = (torch.full((B,), Sk, dtype=torch.int32, device=dev) if kv_lens is None
-               else kv_lens.to(device=dev, dtype=torch.int32).contiguous())
+    q_offset, kv_lens = _per_row(q_offset, kv_lens, B, Sk, dev)
     cfg = dict(causal=causal, window=window, softcap=softcap,
                scale=scale if scale is not None else D ** -0.5)
     out, lse = _FlashForward.apply(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -155,3 +171,169 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def auto_block(seq: int) -> int:
+    """The TPU kernel's default tile (``_auto_block``): the largest of 512 and
+    256 that the sequence fills (its padded length within 25% of the 128-tile
+    padded length), else 128. For K7 the key tile is part of the function.
+    (The JAX helper's ``LLM_FP8_FLASH_BLOCK`` override is not ported.)"""
+    def pad_to(b):
+        return -(-seq // b) * b
+
+    base = pad_to(128)
+    for b in (512, 256):
+        if seq >= b and pad_to(b) <= 1.25 * base:
+            return b
+    return 128
+
+
+def flash_fp8_plain(q, k, v, descale, q_offset, kv_lens, *, causal, window, softcap, scale,
+                    block_k, out_dtype=torch.bfloat16):
+    """K7's function in plain PyTorch, walking the ``block_k``-key tiles as the
+    TPU kernel does: per tile the running max ``m'``, ``p = exp(s - m')``
+    summed unquantized into ``l``, ``p`` rounded to e4m3 for the float32
+    ``p8 @ v``. ``descale`` is ``[3, B, Hk]`` (q, k, v). Returns ``out [B, Sq,
+    Hq, D]`` in ``out_dtype``."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    g = Hq // Hk
+    dev = q.device
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    qkd = (descale[0] * descale[1]).repeat_interleave(g, dim=1)[:, :, None, None]
+    vd = descale[2].repeat_interleave(g, dim=1)[:, :, None, None]
+    q_pos = (q_offset.long()[:, None] + torch.arange(Sq, device=dev)[None, :])[:, None, :, None]
+    lens = kv_lens.long()[:, None, None, None]
+    m = torch.full((B, Hq, Sq, 1), -float("inf"), device=dev)
+    l = torch.zeros((B, Hq, Sq, 1), device=dev)
+    acc = torch.zeros((B, Hq, Sq, D), device=dev)
+    for k0 in range(0, Sk, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = (qf @ kt.transpose(-1, -2)) * scale
+        s = s * qkd
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        k_pos = torch.arange(k0, k0 + kt.shape[2], device=dev)[None, None, None, :]
+        mask = k_pos < lens
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if window is not None:
+            mask = mask & (k_pos > q_pos - window)
+        s = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
+        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(s - m_next)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.float8_e4m3fn).float() @ vt
+        m = m_next
+    dead = (l == 0.0) | (m <= MASK_VALUE * 0.5)
+    l_inv = torch.where(dead, torch.zeros_like(l),
+                        1.0 / torch.where(l == 0.0, torch.ones_like(l), l))
+    out = acc * l_inv * vd
+    return out.to(out_dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernel's vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_fp8(q, k, v, descale, q_offset, kv_lens, *, causal, window, softcap, scale,
+                block_k, out_dtype, fp8_native):
+    lib = _build.library("flash_attention_fp8")
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty((B, Sq, Hq, D), dtype=out_dtype, device=q.device)
+    p = ctypes.c_void_p
+    err = lib.flash_fp8_launch(
+        p(q.data_ptr()), p(k.data_ptr()), p(v.data_ptr()), p(out.data_ptr()),
+        p(descale[0].data_ptr()), p(descale[1].data_ptr()), p(descale[2].data_ptr()),
+        p(q_offset.data_ptr()), p(kv_lens.data_ptr()), ctypes.c_int(B), ctypes.c_int(Sq),
+        ctypes.c_int(Sk), ctypes.c_int(Hq), ctypes.c_int(Hk), ctypes.c_int(D),
+        ctypes.c_int(block_k), ctypes.c_float(scale), ctypes.c_int(int(causal)),
+        ctypes.c_int(window or 0), ctypes.c_float(softcap or 0.0),
+        ctypes.c_int(int(fp8_native)), ctypes.c_int(int(out_dtype == torch.float32)),
+        p(torch.cuda.current_stream(q.device).cuda_stream))
+    _build.check(lib, err, "flash_attention_fp8")
+    flash_attention_fp8.launches += 1
+    return out
+
+
+def flash_attention_fp8(
+    q: torch.Tensor,  # [B, Sq, Hq, D] float8_e4m3fn
+    k: torch.Tensor,  # [B, Sk, Hk, D] float8_e4m3fn
+    v: torch.Tensor,
+    *,
+    q_descale,  # [B, Hk], [Hk] or a scalar, float32
+    k_descale,
+    v_descale,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    q_offset=0,
+    kv_lens: Optional[torch.Tensor] = None,
+    out_dtype=torch.bfloat16,
+    fp8_native: Optional[bool] = None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
+) -> torch.Tensor:
+    """FP8-compute flash attention with FA3 descale semantics (forward only):
+    scores ``q8·k8 · scale · qd·kd``, P rounded to e4m3 before ``P·V``, the
+    V descale in the epilogue. Returns ``out [B, Sq, Hq, D]`` in ``out_dtype``
+    (bf16 or float32).
+
+    ``fp8_native`` picks the kernel's route (e4m3 tensor-core products, or
+    operands widened to bf16 exactly); default
+    :func:`..utils.backend.native_fp8_matmul`. The products are exact on both,
+    so they differ only in the accumulation; the plain version (CPU tensors)
+    has one route. ``block_k`` is the key tile, part of the function (default
+    :func:`auto_block` of Sk); ``block_q`` does not change the result and is
+    accepted for API parity. Counts kernel launches in
+    ``flash_attention_fp8.launches``.
+    """
+    del block_q
+    if not (q.dtype == k.dtype == v.dtype == torch.float8_e4m3fn):
+        raise TypeError(f"flash_attention_fp8 takes e4m3 q, k and v, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    if Hq % Hk or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash_attention_fp8 writes bf16 or float32, not {out_dtype}")
+    dev = q.device
+    if not (k.device == v.device == dev):
+        raise ValueError("q, k and v must be on one device")
+
+    def as_bh(d):
+        d = torch.as_tensor(d, dtype=torch.float32, device=dev)
+        if d.ndim == 0:
+            d = d[None]
+        if d.ndim == 1:
+            d = d[None, :].expand(B, Hk)
+        if d.shape != (B, Hk):
+            raise ValueError(f"descale of shape {tuple(d.shape)}, want [{B}, {Hk}] or [{Hk}]")
+        return d
+
+    descale = torch.stack([as_bh(q_descale), as_bh(k_descale), as_bh(v_descale)]).contiguous()
+    q_offset, kv_lens = _per_row(q_offset, kv_lens, B, Sk, dev)
+    cfg = dict(causal=causal, window=window, softcap=softcap,
+               scale=scale if scale is not None else D ** -0.5,
+               block_k=block_k or auto_block(Sk), out_dtype=out_dtype)
+    if not q.is_cuda:
+        return flash_fp8_plain(q, k, v, descale, q_offset, kv_lens, **cfg)
+    if D not in (32, 64, 128):
+        raise ValueError(f"head_dim {D} not in (32, 64, 128)")
+    if cfg["block_k"] % 64:
+        raise ValueError(f"block_k {cfg['block_k']} is not a multiple of 64")
+    if fp8_native is None:
+        fp8_native = native_fp8_matmul()
+    return _launch_fp8(q, k, v, descale, q_offset, kv_lens, fp8_native=fp8_native, **cfg)
+
+
+flash_attention_fp8.launches = 0

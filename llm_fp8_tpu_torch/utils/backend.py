@@ -7,12 +7,24 @@ exist from sm_89 (Ada) on, so ``"auto"`` KV is e4m3 on such cards.
 from __future__ import annotations
 
 import functools
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
 __all__ = ["device_kind", "native_fp8_matmul", "resolve_kv_dtype",
-           "resolve_device"]
+           "resolve_device", "CARD_PEAKS", "card_peaks"]
+
+#: Published peaks (NVIDIA data sheets, dense): device memory bytes/s and
+#: bf16 tensor-core FLOP/s, by a substring of the card's name; the first
+#: match wins.
+CARD_PEAKS = (("H100 NVL", 3.9e12, 835e12), ("H100 PCIe", 2.0e12, 756e12),
+              ("H200", 4.8e12, 989e12), ("H100", 3.35e12, 989e12))
+
+
+def card_peaks(name: str) -> Optional[Tuple[float, float]]:
+    """``(bytes/s, bf16 FLOP/s)`` of the card ``name`` (as
+    ``torch.cuda.get_device_name`` gives it), or None if it is not listed."""
+    return next(((bw, flops) for key, bw, flops in CARD_PEAKS if key in name), None)
 
 
 @functools.lru_cache(maxsize=1)

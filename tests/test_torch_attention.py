@@ -90,6 +90,16 @@ def test_flash_unported_features_raise(feature):
         flash_attention(q, q, q, **{feature: value})
 
 
+def test_flash_kv_lens_needs_one_length_per_row():
+    # The kernel reads kv_lens[b] for every batch row b.
+    q = torch.zeros((2, 4, 4, 32), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="kv_lens"):
+        flash_attention(q, q, q, kv_lens=torch.full((1,), 4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="kv_lens"):
+        flash_attention(q, q, q, kv_lens=torch.full((2, 1), 4, dtype=torch.int32))
+    assert flash_attention(q, q, q, kv_lens=torch.full((2,), 4, dtype=torch.int32)).shape == q.shape
+
+
 def test_flash_backward_is_not_faked():
     # The backward is K6 from the saved out and LSE: on CPU tensors exactly
     # its plain version (held to JAX in tests/test_torch_flash_bwd.py).

@@ -31,6 +31,8 @@ PORT_MODULES = [
     "llm_fp8_tpu_torch.kernels.decode_attention",
     "llm_fp8_tpu_torch.kernels.flash_attention", "llm_fp8_tpu_torch.kernels.paged_attention",
     "llm_fp8_tpu_torch.kernels.flash_attention_bwd", "llm_fp8_tpu_torch.kernels.quantize",
+    "llm_fp8_tpu_torch.kernels.rmsnorm", "llm_fp8_tpu_torch.scripts",
+    "llm_fp8_tpu_torch.scripts.profile_fwd_parts",
     "llm_fp8_tpu_torch.quant.delayed", "llm_fp8_tpu_torch.training",
     "llm_fp8_tpu_torch.training.trainer", "llm_fp8_tpu_torch.training.losses",
     "llm_fp8_tpu_torch.training.quant_state", "llm_fp8_tpu_torch.training.data",
@@ -138,7 +140,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert launch_counts() == {"quant_matmul": 0, "decode_attention_arena": 0,
                                "flash_attention": 0, "paged_attention": 0,
                                "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-                               "quantize_fused": 0}
+                               "quantize_fused": 0, "flash_attention_fp8": 0,
+                               "rmsnorm_residual_fused": 0}
     assert kernel_libs() == built_before
 
 

@@ -3,12 +3,15 @@
     JAX_PLATFORMS=cpu python tests/torch_parity_readings.py
 
 Prints one JSON object with the numbers ``tests/test_torch_training.py``,
-``tests/test_torch_quantize.py`` and ROADMAP's Queue 3 cite, on the same
+``tests/test_torch_quantize.py``, ``tests/test_torch_flash_fp8.py``,
+``tests/test_torch_rmsnorm.py`` and ROADMAP's Queue 3 cite, on the same
 inputs as the tests (``debug-tiny``, numpy seeds): the share of rows whose
 K9 scale equals JAX's; one eager decoder layer, the bf16 and fp8 training
 forwards' final hidden states (relative L2), also with XLA's excess
 precision turned off (in a second process); the first step's gradients and
-loss; three ``Trainer`` steps under ``default`` and ``bf16``; ``evaluate``.
+loss; three ``Trainer`` steps under ``default`` and ``bf16``; ``evaluate``;
+K7's plain version against both JAX routes (largest error, and how far a
+bf16 P and a 128-key tile break the tolerance); K8's gradients in bf16.
 Not a test (pytest does not collect it): it reports, it does not assert.
 """
 import json
@@ -180,6 +183,49 @@ def three_steps():
     return res
 
 
+def flash_fp8():
+    import test_torch_flash_fp8 as t
+
+    res = {}
+    for name in t.CASES:
+        qkv, kw = t._inputs(name)
+        r = {}
+        for out, jd, td in (("float32", jnp.float32, torch.float32),
+                            ("bfloat16", jnp.bfloat16, torch.bfloat16)):
+            for native in (True, False):
+                want = t._jax(qkv, kw, native, jd)
+                got = t._port(qkv, kw, td).float().numpy()
+                r[f"max_abs_err {out} {'native' if native else 'dequant'}"] = float(
+                    np.abs(got - want).max())
+        want = t._jax(qkv, kw, False, jnp.float32)
+        bad = t._port(qkv, kw, torch.float32, fn=lambda *a, **k: t.tile_walk(
+            *a, **k, p_dtype=torch.bfloat16))
+        r["p_bf16_excess_over_tol"] = t._excess(bad, want)
+        if "block_k" not in kw:
+            r["block_k_128_excess_over_tol"] = t._excess(
+                t._port(qkv, {**kw, "block_k": 128}, torch.float32), want)
+        res[name] = r
+    return res
+
+
+def rmsnorm_bf16_grads():
+    import test_torch_rmsnorm as t
+
+    x, r, w = t._data(1, (2, 64, 128), jnp.bfloat16)
+
+    def loss(x, r, w):
+        y, s = t.jax_fused(x, r, w, 1e-5, 64, True)
+        return jnp.sum(y.astype(jnp.float32) ** 2) + jnp.sum(jnp.sin(s.astype(jnp.float32)))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(x, r, w)
+    xt, rt, wt = (u.requires_grad_() for u in t._torch(x, r, w))
+    y, s = t.rmsnorm_residual_fused(xt, rt, wt)
+    (y.float().pow(2).sum() + s.float().sin().sum()).backward()
+    return {n: {"max_abs_err": float(np.abs(g.float().numpy() - np.asarray(ref, np.float32)).max()),
+                "max_abs": float(np.abs(np.asarray(ref, np.float32)).max())}
+            for n, g, ref in zip(("dx", "dresidual", "dw"), (xt.grad, rt.grad, wt.grad), want)}
+
+
 def main():
     if "--hidden-only" in sys.argv:
         print(json.dumps(forward_hidden()))
@@ -196,6 +242,8 @@ def main():
             no_excess.stdout.strip().splitlines()[-1]),
         "first_step": first_step(),
         "three_steps": three_steps(),
+        "flash_fp8": flash_fp8(),
+        "rmsnorm_bf16_grads": rmsnorm_bf16_grads(),
     }, indent=1))
 
 
