@@ -422,7 +422,8 @@ def kernel_cases(dev, bw, peak, log):
         case = dict(kernel="flash_attention", case=f"B1 Sq=Sk={Sq} Hq32 Hk8 D64 causal "
                     f"kv_len={kv_len}", max_abs_err=err, err_ulps=ulps, lse_err=lse_err,
                     ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=b_ms, bound_by=b_by)
+                    vs_library=ms / lib_ms, bound_ms=b_ms, bound_by=b_by,
+                    tflops=4.0 * Hq * D * pairs * Bq / (ms * 1e-3) / 1e12)
         cases.append(case)
         log(case)
     cases += feature_cases(dev, g, log)
@@ -707,7 +708,7 @@ def paged_kernel_cases(dev, bw, peak, log):
                 f"kv_len={kv_len}", max_abs_err=err, err_ulps=ulps,
                 planted_caught={"tail_32": caught}, lse_err=lse_err, ms=ms,
                 call_ms=call_ms, plain_ms=plain_ms, plain_timing="eager, 8 query chunks",
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, vs_library=ms / lib_ms, bound_ms=b_ms, bound_by=b_by,
                 tflops=4.0 * Hq * D * pairs / (ms * 1e-3) / 1e12)
     cases.append(case)
     log(case)
@@ -1162,14 +1163,15 @@ def train_k3_case(k3, name, q, k, v, out, lse, qo, kl, cfg, qh, kh, vh, pairs, b
     del ref, ref_lse
     call = lambda: k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **cfg)  # noqa: E731
     ms = cuda_ms(call)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                            scale=cfg["scale"]))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
     b_ms, b_by = bound_ms(nbytes, 4.0 * D * pairs, bw, peak)
     return dict(kernel="flash_attention", case=name, max_abs_err=err, err_ulps=ulps,
                 lse_err=lse_err, ms=ms, call_ms=eager_ms(call),
                 plain_ms=cuda_ms(lambda: k3.flash_fwd_plain(q, k, v, qo, kl, **cfg),
                                  calls=2, rounds=3),
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, is_causal=True, scale=cfg["scale"])),
+                library_ms=lib_ms, vs_library=ms / lib_ms,
                 bound_ms=b_ms, bound_by=b_by, tflops=4.0 * D * pairs / (ms * 1e-3) / 1e12)
 
 
@@ -1215,7 +1217,16 @@ def train_kernel_cases(dev, bw, peak, log):
         got = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)
         again = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)
         ref = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl, **cfg)
+        # The dQ kernel's di = rowsum(o·dO) against the plain reduction: the
+        # two sum D products in another order, each within D float32
+        # roundings of the row's sum of |o·dO|.
+        _, di = k6.flash_bwd_dq(q, k, v, out, do, lse, qo, kl, **cfg)
+        di_ref = k6.row_di(out, do)
+        di_err = (di - di_ref).abs()
+        di_tol = 1e-5 * (out.float() * do.float()).abs().sum(dim=-1).transpose(1, 2)
         torch.cuda.synchronize()
+        check(bool((di_err <= di_tol).all()), f"K6 {name}: the dQ kernel's di is "
+              f"{di_err.max().item()} off the plain reduction")
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         check(same, f"K6 {name}: two runs are not bit-identical")
         live = live_pairs(B, Sq, Sk, qo, kl, causal, window, dev)
@@ -1226,7 +1237,7 @@ def train_kernel_cases(dev, bw, peak, log):
               "dk": (live.any(dim=1) & ~key_multi)[:, :, None].expand(B, Sk, Hk),
               "dv": torch.zeros((B, Sk, Hk), dtype=torch.bool, device=dev)}
         case = dict(kernel="flash_attention_bwd", case=name, deterministic=same,
-                    dead_rows=int((nkeys == 0).sum()) * Hq)
+                    dead_rows=int((nkeys == 0).sum()) * Hq, di_max_abs_err=di_err.max().item())
         errs = []
         for what, a, b in zip(("dq", "dk", "dv"), got, ref):
             err, ulps, n_ex, noise = grad_rows_within(a, b, ex[what], f"K6 {name} {what}")
@@ -1248,6 +1259,14 @@ def train_kernel_cases(dev, bw, peak, log):
             call = lambda: k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)  # noqa: E731
             case["ms"] = cuda_ms(call)
             case["call_ms"] = eager_ms(call)
+            # K6's two kernels, each timed alone: dQ, which also computes
+            # di = rowsum(o·dO), and dKV, which reads it; beside them the
+            # plain torch reduction of di that the dQ kernel took over.
+            case["split_ms"] = {
+                "dq_and_di": cuda_ms(lambda: k6.flash_bwd_dq(q, k, v, out, do, lse, qo, kl,
+                                                             **cfg)),
+                "dkv": cuda_ms(lambda: k6.flash_bwd_dkv(q, k, v, do, lse, di, qo, kl, **cfg))}
+            case["row_di_ms"] = cuda_ms(lambda: k6.row_di(out, do))
             case["plain_ms"] = cuda_ms(lambda: k6.flash_attention_bwd_plain(
                 *args, q_offset=qo, kv_lens=kl, **cfg), calls=2, rounds=3)
             # Yardstick: SDPA's flash backward (heads expanded) timed the
@@ -1256,6 +1275,9 @@ def train_kernel_cases(dev, bw, peak, log):
             sdpa_bwd, sdpa_grad = sdpa_backward(qh, kh, vh, do.transpose(1, 2), D ** -0.5)
             case["library_ms"] = cuda_ms(sdpa_bwd)
             case["library_call_ms"] = eager_ms(sdpa_grad)
+            case["vs_library"] = case["ms"] / case["library_ms"]
+            case["split_vs_library"] = {part: t / case["library_ms"]
+                                        for part, t in case["split_ms"].items()}
             del sdpa_bwd, sdpa_grad
             nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) \
                 + lse.numel() * 4
@@ -2051,6 +2073,10 @@ def kernels_line(report):
                          max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
                          bound_ms=c["bound_ms"], bound_by=c["bound_by"],
                          library_ms=c["library_ms"], case=c["case"]))
+        if "vs_library" in c:
+            line[-1]["vs_library"] = c["vs_library"]
+        if "split_ms" in c:
+            line[-1]["split_ms"] = c["split_ms"]
         if kname == "flash_attention_fp8":
             line[-1].update(route_ms=c["routes"], no_jax_path_calls_it=True)
         if kname in also:

@@ -3,253 +3,385 @@
 // Replaces llm_fp8_tpu/kernels/flash_attention.py::flash_attention (forward:
 // _flash_fwd_call / _fwd_kernel). Features: causal with a per-batch q_offset,
 // per-batch kv_lens, GQA through the head map (K/V are never repeated),
-// sliding window, softcap and the logit scale. Dead rows (no live key) give
-// out 0 and lse -inf, as on the TPU.
+// sliding window, softcap and the logit scale. Masked scores take the TPU
+// kernel's finite MASK_VALUE; dead rows (no live key) give out 0 and lse
+// -inf, as on the TPU. P is rounded to bf16 before the P·V product.
 //
-// Bound on the H100: a 128-token prefill bucket at Llama-3.2-1B (32 heads,
-// head_dim 64, causal) is 67 MFLOP per layer, a few µs of launch and tile
-// latency; long prompts approach the bf16 tensor-core bound (989 TFLOP/s).
+// Bound on the H100: operations at long prompts, 4·D FLOPs per live (query,
+// key) pair at 989 TFLOP/s bf16 (an 8192-token causal prefill of
+// Llama-3.2-1B, 32 heads of 64, is 275 GFLOP a layer, 0.28 ms); at the
+// 128-token serving bucket (67 MFLOP) launch and tile latency, a few µs.
 //
-// Design: one block of four warps per (64-query tile, q head, batch row).
-// The block walks 64-key tiles from the first tile the window can reach to
-// the last tile causality and kv_len allow (dead tiles are never loaded). Each
-// warp owns 16 query rows: S = Q·Kᵀ and O += P·V run on WMMA bf16 16x16x16
-// with float32 accumulators; the online softmax (running max m, sum l) runs
-// on the warp's rows in shared memory with warp shuffles; P is rounded to
-// bf16 before the PV product, as the TPU kernel does. Masked scores take the
-// TPU kernel's finite MASK_VALUE so the dead-row test matches it.
+// Design:
+// - One block per (query tile, q head, batch row): one producer warpgroup
+//   and NC consumer warpgroups of 64 query rows each. NC is 2 (128 rows)
+//   when the grid still covers the SMs, else 1 (short prompts, and D = 128,
+//   whose S, P and O do not fit the registers of a 384-thread block).
+// - The producer's one thread loads Q once and the 128-key K and V tiles
+//   through TMA (a 4-D tensor map over [B, S, H, D]; rows past S arrive as
+//   zeros) into a 2-stage ring in swizzled shared memory, with full and
+//   empty mbarriers, so the next tile's copy overlaps this tile's math.
+// - Consumers: S = Q·Kᵀ on wgmma m64n128k16 with both operands in shared
+//   memory (SS, both K-major as stored); S stays in the accumulator
+//   registers. Scale, softcap and masks are applied there, and the online
+//   softmax runs in the log2 domain (one ex2 per score, log2(e) folded into
+//   the scale) with the row max and sum over the 4 lanes of a quad. P is
+//   converted in registers to bf16 A fragments and O += P·V runs on wgmma
+//   with A in registers (RS) and V in shared memory MN-major (as stored, no
+//   transpose). O stays in registers and is rescaled there; nothing float32
+//   goes through shared memory. Within a warpgroup, S of the next tile is
+//   issued before P·V of this one, and the next softmax runs while P·V
+//   does; the two warpgroups interleave on the tensor cores besides.
+// - The block walks the key tiles that hold a live key for some row (dead
+//   tiles are never loaded). Masks are evaluated only on tiles that cut the
+//   causal diagonal, kv_len or the window. With causal masking the heavy
+//   query tiles (the last) are scheduled first.
 #include <math.h>
-#include <mma.h>
 
 #include "fp8_ftz.cuh"
+#include "hopper.cuh"
 
-using namespace nvcuda;
+using namespace hopper;
 
 namespace {
 
-constexpr int kBQ = 64, kBKV = 64, kWarps = 4, kThreads = kWarps * 32;
+constexpr int kBN = 128, kStages = 2;
 constexpr float kMask = -0.7f * 3.4028234663852886e38f;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
-template <int D>
-struct FlashSmem {
-  static constexpr int LDQ = D + 8, LDS = kBKV + 4, LDP = kBKV + 8, LDO = D + 4;
+template <int D, int NC>
+struct FwdSmem {
+  static constexpr int QB = NC * 64 * D * 2;  // Q [NC·64][D]
+  static constexpr int KB = kBN * D * 2;      // one K or V tile [128][D]
   static constexpr int Q = 0;
-  static constexpr int K = Q + kBQ * LDQ * 2;
-  static constexpr int V = K + kBKV * LDQ * 2;
-  static constexpr int S = V + kBKV * LDQ * 2;
-  static constexpr int P = S + kBQ * LDS * 4;
-  static constexpr int O = P + kBQ * LDP * 2;
-  static constexpr int ML = O + kBQ * LDO * 4;
-  static constexpr int BYTES = ML + 2 * kBQ * 4;
+  static constexpr int K = Q + QB;
+  static constexpr int V = K + kStages * KB;
+  static constexpr int BAR = V + kStages * KB;  // q_full, k_full[2], v_full[2], empty[2]
+  static constexpr int BYTES = BAR + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+// The online softmax of one consumer thread's two rows (row and row + 8 of
+// its warp's 16) over one 128-key tile of scores held as a m64n128
+// accumulator, in the log2 domain.
+struct Rows {
+  float scale, softcap;
+  int causal, window, kv_len;
+  int q_pos;   // position of the thread's first row (the second is + 8)
+  int wg_min;  // position of the warpgroup's first row (its last is + 63)
+  int quad;    // lane % 4: the thread's columns are 8·(i / 4) + 2·quad + (i & 1)
 
-__device__ __forceinline__ float warp_sum(float v) {
+  // Scales (and caps) and masks sc in place, updates the running max m and
+  // sum l, leaves p = 2^(x - m) in sc and the factor alpha by which the
+  // output accumulator must be rescaled.
+  __device__ __forceinline__ void softmax(float (&sc)[kBN / 2], int k0, float (&m)[2],
+                                          float (&l)[2], float (&alpha)[2]) const {
+    const float scale2 = scale * kLog2e;
+    const bool need_mask = k0 + kBN > kv_len || (causal && k0 + kBN - 1 > wg_min) ||
+                           (window > 0 && k0 <= wg_min + 63 - window);
+    float mx[2] = {-INFINITY, -INFINITY};
+    // Unmasked, uncapped tiles (most of a long prompt) take the max of the raw
+    // scores and fold the scale into the exponent's multiply-add.
+    const bool fold = !need_mask && softcap <= 0.0f && scale2 > 0.0f;
+    if (fold) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Copies `rows` rows of D bf16 (row r at src + r * stride) into smem with
-// leading dimension ld, zero-filling rows >= valid.
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld,
-                                          const __nv_bfloat16* src, size_t stride,
-                                          int rows, int valid) {
-  constexpr int CH = D / 8;
-  for (int c = threadIdx.x; c < rows * CH; c += kThreads) {
-    const int r = c / CH, cc = (c % CH) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * stride + cc);
-    *reinterpret_cast<uint4*>(dst + r * ld + cc) = v;
+      for (int i = 0; i < kBN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) mx[r] *= scale2;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        float x = softcap > 0.0f ? softcap * tanhf(sc[i] * scale / softcap) * kLog2e
+                                 : sc[i] * scale2;
+        if (need_mask) {
+          const int kp = k0 + 8 * (i / 4) + 2 * quad + (i & 1), q = q_pos + 8 * ((i >> 1) & 1);
+          bool live = kp < kv_len;
+          if (causal) live = live && kp <= q;
+          if (window > 0) live = live && kp > q - window;
+          x = live ? x : kMask;
+        }
+        sc[i] = x;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+      }
+    }
+    float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+    }
+    if (fold) {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const float p = fast_exp2(fmaf(sc[i], scale2, -m[(i >> 1) & 1]));
+        sc[i] = p;
+        rs[(i >> 1) & 1] += p;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const float p = fast_exp2(sc[i] - m[(i >> 1) & 1]);
+        sc[i] = p;
+        rs[(i >> 1) & 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
   }
-}
+};
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+template <int D, int NC>
+__global__ void __launch_bounds__((NC + 1) * 128, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                  float* __restrict__ lse, const int* __restrict__ q_offset,
-                 const int* __restrict__ kv_lens, int Sq, int Sk, int Hq, int Hk,
-                 float scale, int causal, int window, float softcap) {
-  using L = FlashSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::Q);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::K);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::V);
-  float* Ss = reinterpret_cast<float*>(smem + L::S);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + L::P);
-  float* Os = reinterpret_cast<float*>(smem + L::O);
-  float* m_s = reinterpret_cast<float*>(smem + L::ML);
-  float* l_s = m_s + kBQ;
+                 const int* __restrict__ kv_lens, int Sq, int Sk, int Hq, int Hk, float scale,
+                 int causal, int window, float softcap) {
+  using T = Tile<D>;
+  using L = FwdSmem<D, NC>;
+  constexpr int CH = T::CW / 2;  // accumulator floats of one column chunk
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BAR;
+  auto k_full = [&](int s) { return base + L::BAR + 8u * (1 + s); };
+  auto v_full = [&](int s) { return base + L::BAR + 8u * (1 + kStages + s); };
+  auto empty = [&](int s) { return base + L::BAR + 8u * (1 + 2 * kStages + s); };
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * NC * 64;  // heavy (late) tiles first
   const int kvh = h / (Hq / Hk);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = qt * kBQ;
   const int q_off = q_offset[b];
   const int kv_len = min(kv_lens[b], Sk);
 
-  const size_t q_stride = static_cast<size_t>(Hq) * D, kv_stride = static_cast<size_t>(Hk) * D;
-  load_rows<D>(Qs, L::LDQ, q + (static_cast<size_t>(b) * Sq + q0) * q_stride + h * D,
-               q_stride, kBQ, Sq - q0);
-  for (int i = tid; i < kBQ * L::LDO; i += kThreads) Os[i] = 0.0f;
-  for (int i = tid; i < kBQ; i += kThreads) {
-    m_s[i] = -INFINITY;
-    l_s[i] = 0.0f;
-  }
-
-  // Key tiles that can hold a live (q, k) pair for some row of this tile.
-  const int q_min = q_off + q0, q_max = q_off + min(q0 + kBQ, Sq) - 1;
+  // Key tiles that can hold a live (q, k) pair for some row of this block.
+  const int q_min = q_off + q0, q_max = q_off + min(q0 + NC * 64, Sq) - 1;
   int k_hi = kv_len;
   if (causal) k_hi = min(k_hi, q_max + 1);
-  const int kt_end = k_hi > 0 ? (k_hi + kBKV - 1) / kBKV : 0;
+  const int kt_end = k_hi > 0 ? (k_hi + kBN - 1) / kBN : 0;
   int kt_begin = 0;
-  if (window > 0 && q_min - window + 1 > 0) kt_begin = (q_min - window + 1) / kBKV;
+  if (window > 0 && q_min - window + 1 > 0) kt_begin = (q_min - window + 1) / kBN;
+  const int ntiles = max(kt_end - kt_begin, 0);
 
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qf[D / 16];
-#pragma unroll
-  for (int d = 0; d < D / 16; ++d)
-    wmma::load_matrix_sync(qf[d], Qs + (warp * 16) * L::LDQ + d * 16, L::LDQ);
-
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Sk * kv_stride + kvh * D;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Sk * kv_stride + kvh * D;
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBKV;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<D>(Ks, L::LDQ, kb + k0 * kv_stride, kv_stride, kBKV, Sk - k0);
-    load_rows<D>(Vs, L::LDQ, vb + k0 * kv_stride, kv_stride, kBKV, Sk - k0);
-    __syncthreads();
-
-    // S = Q Kᵀ for this warp's 16 rows.
-#pragma unroll
-    for (int j = 0; j < kBKV / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.0f);
-#pragma unroll
-      for (int d = 0; d < D / 16; ++d) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + (j * 16) * L::LDQ + d * 16, L::LDQ);
-        wmma::mma_sync(sf, qf[d], kf, sf);
-      }
-      wmma::store_matrix_sync(Ss + (warp * 16) * L::LDS + j * 16, sf, L::LDS,
-                              wmma::mem_row_major);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), NC * 4);  // one arrival per consumer warp
     }
-    __syncwarp();
-
-    // Online softmax over the warp's rows; lanes cover the 64 keys.
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      const int q_pos = q_off + q0 + row;
-      float s[kBKV / 32];
-      float mx = kMask;
-#pragma unroll
-      for (int i = 0; i < kBKV / 32; ++i) {
-        const int c = lane + 32 * i, k_pos = k0 + c;
-        float x = Ss[row * L::LDS + c] * scale;
-        if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-        bool live = k_pos < kv_len;
-        if (causal) live = live && k_pos <= q_pos;
-        if (window > 0) live = live && k_pos > q_pos - window;
-        s[i] = live ? x : kMask;
-        mx = fmaxf(mx, s[i]);
-      }
-      const float m_old = m_s[row], l_old = l_s[row];
-      const float m_new = fmaxf(m_old, warp_max(mx));
-      const float alpha = expf(m_old - m_new);
-      float psum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < kBKV / 32; ++i) {
-        const float p = expf(s[i] - m_new);
-        psum += p;
-        Ps[row * L::LDP + lane + 32 * i] = __float2bfloat16_rn(p);
-      }
-      psum = warp_sum(psum);
-      for (int d = lane; d < D; d += 32) Os[row * L::LDO + d] *= alpha;
-      if (lane == 0) {
-        m_s[row] = m_new;
-        l_s[row] = alpha * l_old + psum;
-      }
-    }
-    __syncwarp();
-
-    // O += P V for this warp's rows.
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::load_matrix_sync(of, Os + (warp * 16) * L::LDO + j * 16, L::LDO,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, Ps + (warp * 16) * L::LDP + kk * 16, L::LDP);
-        wmma::load_matrix_sync(vf, Vs + (kk * 16) * L::LDQ + j * 16, L::LDQ);
-        wmma::mma_sync(of, pf, vf, of);
-      }
-      wmma::store_matrix_sync(Os + (warp * 16) * L::LDO + j * 16, of, L::LDO,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
+    mbar_fence_init();
   }
   __syncthreads();
 
-  for (int r = 0; r < 16; ++r) {
-    const int row = warp * 16 + r, sq = q0 + row;
-    if (sq >= Sq) break;
-    const float l = l_s[row], m = m_s[row];
-    const bool dead = (l == 0.0f) || (m <= kMask * 0.5f);
-    const float inv = dead ? 0.0f : 1.0f / l;
-    __nv_bfloat16* o = out + (static_cast<size_t>(b) * Sq + sq) * q_stride + h * D;
-    for (int d = lane; d < D; d += 32) o[d] = __float2bfloat16_rn(Os[row * L::LDO + d] * inv);
-    if (lane == 0)
-      lse[(static_cast<size_t>(b) * Hq + h) * Sq + sq] = dead ? -INFINITY : m + logf(l);
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every load ----
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, L::QB);
+      for (int c = 0; c < T::NCH; ++c)
+        tma_load_4d(base + L::Q + c * NC * 64 * T::SWZ, &tq, q_full, c * T::CW, h, q0, b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(empty(s), ((j / kStages) - 1) & 1);
+        const int k0 = (kt_begin + j) * kBN;
+        mbar_arrive_expect_tx(k_full(s), L::KB);
+        for (int c = 0; c < T::NCH; ++c)
+          tma_load_4d(base + L::K + s * L::KB + c * kBN * T::SWZ, &tk, k_full(s), c * T::CW, kvh,
+                      k0, b);
+        mbar_arrive_expect_tx(v_full(s), L::KB);
+        for (int c = 0; c < T::NCH; ++c)
+          tma_load_4d(base + L::V + s * L::KB + c * kBN * T::SWZ, &tv, v_full(s), c * T::CW, kvh,
+                      k0, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: query rows q0 + 64·wg .. + 63 ----
+    const int wg = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32, quad = lane % 4;
+    const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+    const Rows rows{scale, softcap, causal, window, kv_len, q_off + row0,
+                    q_off + q0 + 64 * wg, quad};
+
+    float o[T::NCH][CH];
+#pragma unroll
+    for (int c = 0; c < T::NCH; ++c)
+#pragma unroll
+      for (int i = 0; i < CH; ++i) o[c][i] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2] = {1.0f, 1.0f};
+    float sc[kBN / 2];
+    uint32_t pf[kBN / 16][4];
+
+    // S(j) = Q·K(j)ᵀ into sc (issued, not waited for).
+    auto issue_s = [&](int j) {
+      const int s = j % kStages;
+      mbar_wait(k_full(s), (j / kStages) & 1);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n128(sc, T::kmajor(base + L::Q, NC * 64, 64 * wg, kk),
+                      T::kmajor(base + L::K + s * L::KB, kBN, 0, kk), kk > 0);
+      wgmma_commit();
+    };
+
+    // P(j)·V(j) into o (issued, not waited for), from P(j) in pf.
+    auto issue_pv = [&](int j) {
+      const int s = j % kStages;
+      mbar_wait(v_full(s), (j / kStages) & 1);
+#pragma unroll
+      for (int c = 0; c < T::NCH; ++c) fence_regs(o[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < T::NCH; ++c) {
+          const uint64_t dv = T::mnmajor(base + L::V + s * L::KB, kBN, c, kk);
+          if constexpr (T::CW == 64) wgmma_rs_n64_bt(o[c], pf[kk], dv);
+          else wgmma_rs_n32_bt(o[c], pf[kk], dv);
+        }
+      wgmma_commit();
+    };
+    // P(j) from the softmax's p into pf, and O rescaled by its alpha.
+    auto take_p = [&]() {
+      acc_to_a<kBN>(sc, pf);
+#pragma unroll
+      for (int c = 0; c < T::NCH; ++c)
+#pragma unroll
+        for (int i = 0; i < CH; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+    };
+    // Waits for P(j)·V(j) and gives tile j's stage back to the producer.
+    auto retire = [&](int j) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < T::NCH; ++c) fence_regs(o[c]);
+      fence_regs(pf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(j % kStages));
+    };
+
+    mbar_wait(q_full, 0);
+    if (ntiles > 0) {
+      issue_s(0);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      rows.softmax(sc, kt_begin * kBN, m, l, alpha);
+    }
+    // Tile j: P(j)·V(j) runs on the tensor cores while the softmax of tile
+    // j + 1 runs on the scores S(j + 1), issued just before it. The last tile
+    // is peeled off the loop: with the S issue under a condition inside it,
+    // ptxas serialized every wgmma of the kernel.
+    for (int j = 0; j + 1 < ntiles; ++j) {
+      take_p();
+      issue_s(j + 1);
+      issue_pv(j);
+      wgmma_wait<1>();  // S(j + 1) is done; P(j)·V(j) may still run
+      fence_regs(sc);
+      rows.softmax(sc, (kt_begin + j + 1) * kBN, m, l, alpha);
+      retire(j);
+    }
+    if (ntiles > 0) {
+      take_p();
+      issue_pv(ntiles - 1);
+      retire(ntiles - 1);
+    }
+
+    // ---- epilogue: out = O / l (0 on dead rows), lse = m + log l ----
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    const size_t q_stride = static_cast<size_t>(Hq) * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+      const bool dead = (l[r] == 0.0f) || (m[r] <= kMask * 0.5f);
+      const float inv = dead ? 0.0f : 1.0f / l[r];
+      __nv_bfloat16* orow = out + (static_cast<size_t>(b) * Sq + row) * q_stride + h * D;
+#pragma unroll
+      for (int c = 0; c < T::NCH; ++c)
+#pragma unroll
+        for (int nb = 0; nb < T::CW / 8; ++nb) {
+          const int col = c * T::CW + 8 * nb + 2 * quad;
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              pack_bf16(o[c][4 * nb + 2 * r] * inv, o[c][4 * nb + 2 * r + 1] * inv);
+        }
+      if (quad == 0)
+        lse[(static_cast<size_t>(b) * Hq + h) * Sq + row] =
+            dead ? -INFINITY : (m[r] + log2f(l[r])) * kLn2;
+    }
   }
 }
 
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+template <int D, int NC>
+int launch_nc(const void* q, const void* k, const void* v, void* out, void* lse,
+              const void* q_offset, const void* kv_lens, int B, int Sq, int Sk, int Hq, int Hk,
+              float scale, int causal, int window, float softcap, cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  int e = encode_bshd<D>(&tq, q, B, Sq, Hq, NC * 64);
+  if (e == 0) e = encode_bshd<D>(&tk, k, B, Sk, Hk, kBN);
+  if (e == 0) e = encode_bshd<D>(&tv, v, B, Sk, Hk, kBN);
+  if (e != 0) return e;
+  constexpr int bytes = FwdSmem<D, NC>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, NC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(Hq, B, (Sq + NC * 64 - 1) / (NC * 64));
+  flash_fwd_kernel<D, NC><<<grid, (NC + 1) * 128, bytes, s>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      static_cast<const int*>(q_offset), static_cast<const int*>(kv_lens), Sq, Sk, Hq, Hk, scale,
+      causal, window, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 128 query rows a block when that grid still covers 90% of the SMs, else 64.
+// At D = 128 always 64: a consumer thread's S, P and O (64 + 32 + 64
+// registers) exceed the 168 a thread of a 384-thread block can hold.
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           const void* q_offset, const void* kv_lens, int B, int Sq, int Sk,
-           int Hq, int Hk, float scale, int causal, int window, float softcap,
-           cudaStream_t s) {
-  constexpr int bytes = FlashSmem<D>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), static_cast<const int*>(q_offset),
-      static_cast<const int*>(kv_lens), Sq, Sk, Hq, Hk, scale, causal, window, softcap);
-  return static_cast<int>(cudaGetLastError());
+           const void* q_offset, const void* kv_lens, int B, int Sq, int Sk, int Hq, int Hk,
+           float scale, int causal, int window, float softcap, cudaStream_t s) {
+  const long long blocks128 = static_cast<long long>((Sq + 127) / 128) * Hq * B;
+  if constexpr (D != 128)
+    if (blocks128 * 10 >= 9LL * num_sms())
+      return launch_nc<D, 2>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk, scale,
+                             causal, window, softcap, s);
+  return launch_nc<D, 1>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk, scale, causal,
+                         window, softcap, s);
 }
 
 }  // namespace
 
-// window <= 0 and softcap <= 0 mean "off". D is 32, 64 or 128.
-extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* out, void* lse, const void* q_offset,
-                                const void* kv_lens, int B, int Sq, int Sk,
-                                int Hq, int Hk, int D, float scale, int causal,
+// window <= 0 and softcap <= 0 mean "off". D is 32, 64 or 128; q, k and v
+// are contiguous and 16-byte aligned.
+extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
+                                void* lse, const void* q_offset, const void* kv_lens, int B,
+                                int Sq, int Sk, int Hq, int Hk, int D, float scale, int causal,
                                 int window, float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk,
-                        scale, causal, window, softcap, s);
+      return launch<32>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk, scale, causal,
+                        window, softcap, s);
     case 64:
-      return launch<64>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk,
-                        scale, causal, window, softcap, s);
+      return launch<64>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk, scale, causal,
+                        window, softcap, s);
     case 128:
-      return launch<128>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk,
-                         scale, causal, window, softcap, s);
+      return launch<128>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk, scale, causal,
+                         window, softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

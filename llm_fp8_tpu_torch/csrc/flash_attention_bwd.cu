@@ -19,47 +19,52 @@
 // S 512, Hq 32, D 64, causal) that is ~21.5 GFLOP per layer, ~22 µs at
 // 989 TFLOP/s bf16.
 //
-// Design: two kernels with no atomics, so two runs give the same bits.
-//   dKV: one block of four warps per (64-key tile, kv head, batch row). It
-//        walks the (group head, 64-query tile) pairs that can reach its keys
-//        (causal, kv_len and window skip dead tiles) in the TPU kernel's
-//        order, g-major, and sums the GQA group in its float32 dK/dV
-//        accumulators. Each warp owns 16 keys: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ run
-//        on WMMA bf16 16x16x16 with float32 accumulators into shared memory,
-//        the warp turns its rows into bf16 Pᵀ and dSᵀ, and accumulates
-//        Pᵀ·dO and dSᵀ·Q in register fragments.
-//   dQ:  one block per (64-query tile, q head, batch row), walking the key
-//        tiles K3's forward walks; each warp owns 16 queries.
-// Every offset into q/k/v/o/do/dq/dk/dv is 64-bit.
+// Design: two kernels with no atomics, so two runs give the same bits. Each
+// block is one producer warpgroup and two consumer warpgroups of 64 rows;
+// the producer loads through TMA (4-D tensor maps over [B, S, H, D], rows
+// past S as zeros) into a 2-stage ring with full and empty mbarriers. All
+// five products run on wgmma with bf16 operands as stored (no transpose);
+// score-shaped tiles stay in the accumulator registers, p and ds are formed
+// there element by element
+// (exp(z - lse) as one ex2 of z·log2(e) - lse·log2(e); the mask test only
+// on tiles that cut the diagonal, kv_len or the window), and P/dS reach
+// their products as register A fragments (RS). No float32 tile and no P/dS
+// tile goes through shared memory.
+//   dQ:  launched first. One block per (128-query tile, q head, batch row),
+//        its Q and dO loaded once, walking the 64-key tiles K3 walks. Each
+//        consumer thread first sums di = rowsum(o·dO) for its two rows
+//        (a quarter row per lane, then the quad) and writes it for the dKV
+//        kernel. S = Q·Kᵀ and dP = dO·Vᵀ are SS (K-major both); dQ += dS·K
+//        is RS with K MN-major. Heavy (late) query tiles first.
+//   dKV: one block per (128-key tile, kv head, batch row); its K and V are
+//        loaded once. It walks the (group head, query tile) pairs that can
+//        reach its keys (causal, kv_len and window skip dead tiles) in the
+//        TPU kernel's order, g-major, and sums the GQA group in its float32
+//        dK/dV accumulators. Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are SS; dV += Pᵀ·dO
+//        and dK += dSᵀ·Q are RS with dO and Q MN-major. The ring carries
+//        Q, dO and the tile's lse and di, which the producer warp's lanes
+//        load with plain loads. Query tiles are 64 rows. At D = 128, where
+//        dK and dV take 64 registers each, a block is one consumer of 64
+//        keys with 32-row query tiles (see DkvSmem). Low key tiles, which
+//        the most queries reach, are scheduled first.
 #include <math.h>
-#include <mma.h>
 
 #include "fp8_ftz.cuh"
+#include "hopper.cuh"
 
-using namespace nvcuda;
+using namespace hopper;
 
 namespace {
 
-constexpr int kBQ = 64, kBK = 64, kWarps = 4, kThreads = kWarps * 32;
+constexpr int kStages = 2;
 
-template <int D>
-struct BwdSmem {
-  static constexpr int LDT = D + 8;     // bf16 tiles [64][D]
-  static constexpr int LDS = 64 + 4;    // float32 [64][64] score tiles
-  static constexpr int LDP = 64 + 8;    // bf16 [64][64] P / dS tiles
-  static constexpr int LDO = D + 4;     // float32 [64][D] result staging
-  static constexpr int A = 0;                        // K (dKV) or Q (dQ)
-  static constexpr int B = A + 64 * LDT * 2;         // V (dKV) or dO (dQ)
-  static constexpr int C = B + 64 * LDT * 2;         // Q (dKV) or K (dQ)
-  static constexpr int E = C + 64 * LDT * 2;         // dO (dKV) or V (dQ)
-  static constexpr int S = E + 64 * LDT * 2;         // scores, then results
-  static constexpr int DP = S + 64 * LDS * 4;        // dP
-  static constexpr int P = DP + 64 * LDS * 4;        // bf16 P (dKV only)
-  static constexpr int DS = P + 64 * LDP * 2;        // bf16 dS
-  static constexpr int ROW = DS + 64 * LDP * 2;      // lse[64], di[64]
-  static constexpr int BYTES = ROW + 2 * 64 * 4;
-  static_assert(64 * LDO * 4 <= 2 * 64 * LDS * 4, "result staging overflows S+DP");
-};
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A row's lse as the kernels use it: nl = -lse·log2(e), or -inf for a dead
+// row (lse -inf), so that p = 2^(z·log2(e) + nl) is 0 there.
+__device__ __forceinline__ float neg_lse2(float lse) {
+  return isfinite(lse) ? -lse * kLog2e : -INFINITY;
+}
 
 struct Mask {
   float scale, softcap;
@@ -72,289 +77,439 @@ struct Mask {
     return ok;
   }
 
+  // Whether some pair of queries [q_lo, q_hi] and keys [k_lo, k_hi] is
+  // masked (else every pair is live and the tile skips the test).
+  __device__ __forceinline__ bool cuts(int q_lo, int q_hi, int k_lo, int k_hi) const {
+    return k_hi >= kv_len || (causal && k_hi > q_lo) || (window > 0 && k_lo <= q_hi - window);
+  }
+
   // p and ds of one (query, key) pair from the raw dot q·k, dO·v, the row's
-  // lse and di (the TPU kernel's _recompute_p_and_ds, element by element).
-  __device__ __forceinline__ void p_ds(float qk, float dp, float lse, float di, bool ok,
+  // nl (neg_lse2) and di: the TPU kernel's _recompute_p_and_ds, element by
+  // element, with exp(z - lse) taken as 2^(z·log2(e) + nl).
+  __device__ __forceinline__ void p_ds(float qk, float dp, float nl, float di, bool ok,
                                        float& p, float& ds) const {
-    const float s = qk * scale;
-    const float z = softcap > 0.0f ? softcap * tanhf(s / softcap) : s;
-    p = (ok && isfinite(lse)) ? expf(z - lse) : 0.0f;
-    float d = p * (dp - di);
     if (softcap > 0.0f) {
+      const float z = softcap * tanhf(qk * scale / softcap);
+      p = ok ? fast_exp2(fmaf(z, kLog2e, nl)) : 0.0f;
       const float t = z / softcap;
-      d = d * (1.0f - t * t);
+      ds = p * (dp - di) * (1.0f - t * t) * scale;
+    } else {
+      p = ok ? fast_exp2(fmaf(qk, scale * kLog2e, nl)) : 0.0f;
+      ds = p * (dp - di) * scale;
     }
-    ds = d * scale;
   }
 };
 
-// Copies `rows` rows of D bf16 (row r at src + r * stride) into smem with
-// leading dimension ld, zero-filling rows >= valid.
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src,
-                                          size_t stride, int rows, int valid) {
-  constexpr int CH = D / 8;
-  for (int c = threadIdx.x; c < rows * CH; c += kThreads) {
-    const int r = c / CH, cc = (c % CH) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * stride + cc);
-    *reinterpret_cast<uint4*>(dst + r * ld + cc) = v;
-  }
-}
-
-// dst[16 rows of this warp][64] = A[16][D] · Bᵀ, with B given row-major as
-// [64][D] (so Bᵀ is read col-major): the score-shaped products Q·Kᵀ, K·Qᵀ,
-// dO·Vᵀ and V·dOᵀ.
-template <int D>
-__device__ __forceinline__ void warp_abt(float* dst, int ldd, const __nv_bfloat16* a,
-                                         const __nv_bfloat16* b, int ld) {
+// acc[c] (chunk c of a [64 rows][D] accumulator) += A·B, A the 64 x R bf16
+// fragments `a` (R / 16 reduction steps), B an [R][D] tile at `tile` read
+// MN-major.
+template <int D, int R>
+__device__ __forceinline__ void rs_acc(float (&acc)[Tile<D>::NCH][Tile<D>::CW / 2],
+                                       const uint32_t (&a)[R / 16][4], uint32_t tile) {
+  using T = Tile<D>;
 #pragma unroll
-  for (int j = 0; j < 64 / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
+  for (int kk = 0; kk < R / 16; ++kk)
 #pragma unroll
-    for (int d = 0; d < D / 16; ++d) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, a + d * 16, ld);
-      wmma::load_matrix_sync(fb, b + (j * 16) * ld + d * 16, ld);
-      wmma::mma_sync(acc, fa, fb, acc);
+    for (int c = 0; c < T::NCH; ++c) {
+      const uint64_t db = T::mnmajor(tile, R, c, kk);
+      if constexpr (T::CW == 64) wgmma_rs_n64_bt(acc[c], a[kk], db);
+      else wgmma_rs_n32_bt(acc[c], a[kk], db);
     }
-    wmma::store_matrix_sync(dst + j * 16, acc, ldd, wmma::mem_row_major);
+}
+
+// s[64 x N] = A·Bᵀ over D: A rows [a_row0, +64) of a tile of a_rows rows,
+// B the N rows of a tile at b (both K-major).
+template <int D, int N>
+__device__ __forceinline__ void ss_abt(float (&s)[N / 2], uint32_t a, int a_rows, int a_row0,
+                                       uint32_t b) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = T::kmajor(a, a_rows, a_row0, kk), db = T::kmajor(b, N, 0, kk);
+    if constexpr (N == 64) wgmma_ss_n64(s, da, db, kk > 0);
+    else wgmma_ss_n32(s, da, db, kk > 0);
   }
 }
 
-// acc[D/16] += A[16 rows][64] (bf16, row-major, ld lda) · B[64][D] (row-major).
+// Writes rows row0 and row0 + 8 (< rows_valid) of a [64][D] accumulator held
+// as chunks to out (row r at out + r·stride), bf16.
 template <int D>
-__device__ __forceinline__ void warp_ab_acc(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16],
-    const __nv_bfloat16* a, int lda, const __nv_bfloat16* b, int ldb) {
+__device__ __forceinline__ void store_rows(const float (&acc)[Tile<D>::NCH][Tile<D>::CW / 2],
+                                           __nv_bfloat16* out, size_t stride, int row0,
+                                           int rows_valid, int quad) {
+  using T = Tile<D>;
 #pragma unroll
-  for (int kk = 0; kk < 64 / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, lda);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, b + (kk * 16) * ldb + j * 16, ldb);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-// Writes this warp's 16 accumulator rows as bf16 to rows row0.. of out
-// (row r at out + r * stride), staging them through `stage` (float32, ld LDO).
-template <int D>
-__device__ __forceinline__ void warp_store(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16], float* stage,
-    __nv_bfloat16* out, size_t stride, int row0, int rows_valid) {
-  constexpr int LDO = BwdSmem<D>::LDO;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* w = stage + (warp * 16) * LDO;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(w + j * 16, acc[j], LDO, wmma::mem_row_major);
-  __syncwarp();
-  for (int r = 0; r < 16; ++r) {
-    const int row = row0 + warp * 16 + r;
-    if (row >= rows_valid) break;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= rows_valid) continue;
     __nv_bfloat16* o = out + static_cast<size_t>(row) * stride;
-    for (int d = lane; d < D; d += 32) o[d] = __float2bfloat16_rn(w[r * LDO + d]);
+#pragma unroll
+    for (int c = 0; c < T::NCH; ++c)
+#pragma unroll
+      for (int nb = 0; nb < T::CW / 8; ++nb)
+        *reinterpret_cast<uint32_t*>(o + c * T::CW + 8 * nb + 2 * quad) =
+            pack_bf16(acc[c][4 * nb + 2 * r], acc[c][4 * nb + 2 * r + 1]);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+__device__ __forceinline__ void zero(float (&acc)[Tile<D>::NCH][Tile<D>::CW / 2]) {
+#pragma unroll
+  for (int c = 0; c < Tile<D>::NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < Tile<D>::CW / 2; ++i) acc[c][i] = 0.0f;
+}
+
+template <int D>
+__device__ __forceinline__ void fence_acc(float (&acc)[Tile<D>::NCH][Tile<D>::CW / 2]) {
+#pragma unroll
+  for (int c = 0; c < Tile<D>::NCH; ++c) fence_regs(acc[c]);
+}
+
+// ---------------------------------------------------------------- dKV ----
+
+// A dKV block holds NC·64 keys (one consumer warpgroup per 64) and walks
+// query tiles of BQ rows. At D = 128 a consumer thread's dK and dV take 64
+// registers each, so the block has one consumer (the thread may hold 255
+// registers, against 168 in a 384-thread block) and 32-row query tiles.
+template <int D>
+struct DkvSmem {
+  static constexpr int NC = D == 128 ? 1 : 2;
+  static constexpr int BK = 64 * NC;
+  static constexpr int BQ = D == 128 ? 32 : 64;
+  static constexpr int KB = BK * D * 2;  // K or V [BK keys][D]
+  static constexpr int QB = BQ * D * 2;  // Q or dO [BQ queries][D]
+  static constexpr int K = 0;
+  static constexpr int V = K + KB;
+  static constexpr int RING = V + KB;                     // stage s: Q, dO
+  static constexpr int ROW = RING + kStages * 2 * QB;     // stage s: lse[BQ], di[BQ]
+  static constexpr int BAR = ROW + kStages * 2 * BQ * 4;  // kv_full, full[2], empty[2]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__((DkvSmem<D>::NC + 1) * 128, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                      const float* __restrict__ lse, const float* __restrict__ di,
                      const int* __restrict__ q_offset, const int* __restrict__ kv_lens,
                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
                      int Sk, int Hq, int Hk, float scale, int causal, int window,
                      float softcap) {
-  using L = BwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::A);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::B);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::C);
-  __nv_bfloat16* dOs = reinterpret_cast<__nv_bfloat16*>(smem + L::E);
-  float* St = reinterpret_cast<float*>(smem + L::S);
-  float* dPt = reinterpret_cast<float*>(smem + L::DP);
-  __nv_bfloat16* Pt = reinterpret_cast<__nv_bfloat16*>(smem + L::P);
-  __nv_bfloat16* dSt = reinterpret_cast<__nv_bfloat16*>(smem + L::DS);
-  float* lse_s = reinterpret_cast<float*>(smem + L::ROW);
-  float* di_s = lse_s + 64;
+  using T = Tile<D>;
+  using L = DkvSmem<D>;
+  constexpr int BQ = L::BQ, BK = L::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  float* rows_s = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + L::ROW);
+  const uint32_t kv_full = base + L::BAR;
+  auto full = [&](int s) { return base + L::BAR + 8u * (1 + s); };
+  auto empty = [&](int s) { return base + L::BAR + 8u * (1 + kStages + s); };
+  auto q_tile = [&](int s) { return base + L::RING + s * 2 * L::QB; };
+  auto do_tile = [&](int s) { return base + L::RING + s * 2 * L::QB + L::QB; };
 
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BK;  // low (heavy) tiles first
   const int groups = Hq / Hk;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int k0 = kt * kBK;
   const int q_off = q_offset[b];
   const Mask mask{scale, softcap, causal, window, min(kv_lens[b], Sk)};
 
-  const size_t q_stride = static_cast<size_t>(Hq) * D, kv_stride = static_cast<size_t>(Hk) * D;
-  const size_t kv_base = static_cast<size_t>(b) * Sk * kv_stride + static_cast<size_t>(hk) * D;
-  load_rows<D>(Ks, L::LDT, k + kv_base + k0 * kv_stride, kv_stride, kBK, Sk - k0);
-  load_rows<D>(Vs, L::LDT, v + kv_base + k0 * kv_stride, kv_stride, kBK, Sk - k0);
-
-  // Query tiles that can hold a live (q, k) pair for some key of this tile.
-  const int nq = (Sq + kBQ - 1) / kBQ;
+  // Query tiles that can hold a live (q, k) pair for some key of this block.
+  const int nq = (Sq + BQ - 1) / BQ;
   int qt_begin = 0, qt_end = k0 < mask.kv_len ? nq : 0;
   if (causal) {
     const int n = k0 - q_off;  // first query index whose position reaches k0
-    qt_begin = n > 0 ? n / kBQ : 0;
+    qt_begin = n > 0 ? n / BQ : 0;
   }
   if (window > 0) {
-    const int n = k0 + window + kBK - 2 - q_off;  // last query index a key here reaches
-    qt_end = min(qt_end, n >= 0 ? n / kBQ + 1 : 0);
+    const int n = k0 + window + BK - 2 - q_off;  // last query index a key here reaches
+    qt_end = min(qt_end, n >= 0 ? n / BQ + 1 : 0);
   }
+  const int per_head = max(qt_end - qt_begin, 0);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.0f);
-    wmma::fill_fragment(dv_acc[j], 0.0f);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 32);  // the producer warp's lanes (lane 0 with the bytes)
+      mbar_init(empty(s), 4 * L::NC);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  const __nv_bfloat16* Kw = Ks + (warp * 16) * L::LDT;
-  const __nv_bfloat16* Vw = Vs + (warp * 16) * L::LDT;
-  float* Sw = St + (warp * 16) * L::LDS;
-  float* dPw = dPt + (warp * 16) * L::LDS;
-  __nv_bfloat16* Pw = Pt + (warp * 16) * L::LDP;
-  __nv_bfloat16* dSw = dSt + (warp * 16) * L::LDP;
-
-  for (int g = 0; g < groups; ++g) {
-    const int h = hk * groups + g;
-    const size_t q_base = static_cast<size_t>(b) * Sq * q_stride + static_cast<size_t>(h) * D;
-    const size_t row_base = (static_cast<size_t>(b) * Hq + h) * Sq;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_rows<D>(Qs, L::LDT, q + q_base + q0 * q_stride, q_stride, kBQ, Sq - q0);
-      load_rows<D>(dOs, L::LDT, dout + q_base + q0 * q_stride, q_stride, kBQ, Sq - q0);
-      for (int i = tid; i < kBQ; i += kThreads) {
-        const bool in = q0 + i < Sq;
-        lse_s[i] = in ? lse[row_base + q0 + i] : -INFINITY;
-        di_s[i] = in ? di[row_base + q0 + i] : 0.0f;
-      }
-      __syncthreads();
-
-      warp_abt<D>(Sw, L::LDS, Kw, Qs, L::LDT);    // Sᵀ rows of this warp's keys
-      warp_abt<D>(dPw, L::LDS, Vw, dOs, L::LDT);  // dPᵀ
-      __syncwarp();
-      for (int r = 0; r < 16; ++r) {
-        const int k_pos = k0 + warp * 16 + r;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int c = lane + 32 * i;
-          float p, ds;
-          mask.p_ds(Sw[r * L::LDS + c], dPw[r * L::LDS + c], lse_s[c], di_s[c],
-                    mask.live(q_off + q0 + c, k_pos), p, ds);
-          Pw[r * L::LDP + c] = __float2bfloat16_rn(p);
-          dSw[r * L::LDP + c] = __float2bfloat16_rn(ds);
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: warp 0 loads; lane 0 issues the TMA ----
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * L::KB);
+        for (int c = 0; c < T::NCH; ++c) {
+          tma_load_4d(base + L::K + c * BK * T::SWZ, &tk, kv_full, c * T::CW, hk, k0, b);
+          tma_load_4d(base + L::V + c * BK * T::SWZ, &tv, kv_full, c * T::CW, hk, k0, b);
         }
       }
-      __syncwarp();
-      warp_ab_acc<D>(dv_acc, Pw, L::LDP, dOs, L::LDT);  // dV += Pᵀ·dO
-      warp_ab_acc<D>(dk_acc, dSw, L::LDP, Qs, L::LDT);  // dK += dSᵀ·Q
+      int i = 0;
+      for (int h = hk * groups; h < (hk + 1) * groups; ++h) {
+        const size_t row_base = (static_cast<size_t>(b) * Hq + h) * Sq;
+        for (int q0 = qt_begin * BQ; q0 < qt_end * BQ; q0 += BQ, ++i) {
+          const int s = i & 1;
+          if (i >= kStages) mbar_wait(empty(s), ((i >> 1) - 1) & 1);
+          float* ls = rows_s + s * 2 * BQ;
+          for (int r = lane; r < BQ; r += 32) {
+            const bool in = q0 + r < Sq;
+            ls[r] = in ? neg_lse2(lse[row_base + q0 + r]) : -INFINITY;
+            ls[BQ + r] = in ? di[row_base + q0 + r] : 0.0f;
+          }
+          if (lane == 0) {
+            mbar_arrive_expect_tx(full(s), 2 * L::QB);
+            for (int c = 0; c < T::NCH; ++c) {
+              tma_load_4d(q_tile(s) + c * BQ * T::SWZ, &tq, full(s), c * T::CW, h, q0, b);
+              tma_load_4d(do_tile(s) + c * BQ * T::SWZ, &tdo, full(s), c * T::CW, h, q0, b);
+            }
+          } else {
+            mbar_arrive(full(s));
+          }
+        }
+      }
     }
-  }
+  } else {
+    // ---- consumer warpgroup wg: keys k0 + 64·wg .. + 63 ----
+    const int wg = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32, quad = lane % 4;
+    const int key0 = k0 + 64 * wg + 16 * warp + lane / 4;  // this thread's keys: key0, key0 + 8
+    const int steps = groups * per_head;
 
-  // The staging rows of a warp overlap other warps' score rows unless D is 64.
-  __syncthreads();
-  __nv_bfloat16* dk_b = dk + kv_base;
-  __nv_bfloat16* dv_b = dv + kv_base;
-  warp_store<D>(dk_acc, St, dk_b, kv_stride, k0, Sk);
-  __syncwarp();
-  warp_store<D>(dv_acc, St, dv_b, kv_stride, k0, Sk);
+    float dk_acc[T::NCH][T::CW / 2], dv_acc[T::NCH][T::CW / 2];
+    zero<D>(dk_acc);
+    zero<D>(dv_acc);
+    mbar_wait(kv_full, 0);
+    const int key_lo = k0 + 64 * wg;
+    for (int i = 0; i < steps; ++i) {
+      const int s = i & 1;
+      const uint32_t ph = (i >> 1) & 1;
+      const int q0 = (qt_begin + i % per_head) * BQ;
+      const bool need_mask = mask.cuts(q_off + q0, q_off + q0 + BQ - 1, key_lo, key_lo + 63);
+      float st[BQ / 2], dpt[BQ / 2];
+
+      mbar_wait(full(s), ph);
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+      ss_abt<D, BQ>(st, base + L::K, BK, 64 * wg, q_tile(s));    // Sᵀ = K·Qᵀ
+      ss_abt<D, BQ>(dpt, base + L::V, BK, 64 * wg, do_tile(s));  // dPᵀ = V·dOᵀ
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      const float* ls = rows_s + s * 2 * BQ;
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int col = 8 * (e / 4) + 2 * quad + (e & 1);  // query within the tile
+        const int kp = key0 + 8 * ((e >> 1) & 1);
+        float p, ds;
+        const bool ok = !need_mask || mask.live(q_off + q0 + col, kp);
+        mask.p_ds(st[e], dpt[e], ls[col], ls[BQ + col], ok, p, ds);
+        st[e] = p;
+        dpt[e] = ds;
+      }
+      uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+      acc_to_a<BQ>(st, pf);
+      acc_to_a<BQ>(dpt, dsf);
+
+      fence_acc<D>(dv_acc);
+      fence_acc<D>(dk_acc);
+      wgmma_fence();
+      rs_acc<D, BQ>(dv_acc, pf, do_tile(s));  // dV += Pᵀ·dO
+      rs_acc<D, BQ>(dk_acc, dsf, q_tile(s));  // dK += dSᵀ·Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc<D>(dv_acc);
+      fence_acc<D>(dk_acc);
+      fence_regs(pf);
+      fence_regs(dsf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    const size_t kv_stride = static_cast<size_t>(Hk) * D;
+    const size_t kv_base = static_cast<size_t>(b) * Sk * kv_stride + static_cast<size_t>(hk) * D;
+    store_rows<D>(dk_acc, dk + kv_base, kv_stride, key0, Sk, quad);
+    store_rows<D>(dv_acc, dv + kv_base, kv_stride, key0, Sk, quad);
+  }
+}
+
+// ----------------------------------------------------------------- dQ ----
+
+template <int D>
+struct DqSmem {
+  static constexpr int QB = 128 * D * 2;  // Q or dO [128 queries][D]
+  static constexpr int KB = 64 * D * 2;   // K or V [64 keys][D]
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + QB;
+  static constexpr int RING = DO + QB;  // stage s: K, V
+  static constexpr int BAR = RING + kStages * 2 * KB;  // q_full, full[2], empty[2]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// di = rowsum(o·dO) of rows row0 and row0 + 8 (0 past Sq), in float32: each
+// lane of the quad sums a quarter of the row, then the quad adds.
+template <int D>
+__device__ __forceinline__ void row_di(const __nv_bfloat16* o, const __nv_bfloat16* dout,
+                                       size_t stride, int row0, int Sq, int quad,
+                                       float (&di)[2]) {
+  constexpr int Q4 = D / 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    float acc = 0.0f;
+    if (row < Sq) {
+      const uint4* a = reinterpret_cast<const uint4*>(o + row * stride + quad * Q4);
+      const uint4* g = reinterpret_cast<const uint4*>(dout + row * stride + quad * Q4);
+#pragma unroll
+      for (int v = 0; v < Q4 / 8; ++v) {
+        const uint4 x = a[v], y = g[v];
+        const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[j]));
+          const float2 yf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[j]));
+          acc = fmaf(xf.x, yf.x, acc);
+          acc = fmaf(xf.y, yf.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    di[r] = acc;
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ di,
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ di_out,
                     const int* __restrict__ q_offset, const int* __restrict__ kv_lens,
-                    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int Hq, int Hk,
-                    float scale, int causal, int window, float softcap) {
-  using L = BwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::A);
-  __nv_bfloat16* dOs = reinterpret_cast<__nv_bfloat16*>(smem + L::B);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::C);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::E);
-  float* Ss = reinterpret_cast<float*>(smem + L::S);
-  float* dPs = reinterpret_cast<float*>(smem + L::DP);
-  __nv_bfloat16* dSs = reinterpret_cast<__nv_bfloat16*>(smem + L::DS);
-  float* lse_s = reinterpret_cast<float*>(smem + L::ROW);
-  float* di_s = lse_s + 64;
+                    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int Hq, int Hk, float scale,
+                    int causal, int window, float softcap) {
+  using T = Tile<D>;
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BAR;
+  auto full = [&](int s) { return base + L::BAR + 8u * (1 + s); };
+  auto empty = [&](int s) { return base + L::BAR + 8u * (1 + kStages + s); };
+  auto k_tile = [&](int s) { return base + L::RING + s * 2 * L::KB; };
+  auto v_tile = [&](int s) { return base + L::RING + s * 2 * L::KB + L::KB; };
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 128;  // heavy (late) tiles first
   const int hk = h / (Hq / Hk);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = qt * kBQ;
   const int q_off = q_offset[b];
   const Mask mask{scale, softcap, causal, window, min(kv_lens[b], Sk)};
 
-  const size_t q_stride = static_cast<size_t>(Hq) * D, kv_stride = static_cast<size_t>(Hk) * D;
-  const size_t q_base = static_cast<size_t>(b) * Sq * q_stride + static_cast<size_t>(h) * D;
-  const size_t row_base = (static_cast<size_t>(b) * Hq + h) * Sq;
-  load_rows<D>(Qs, L::LDT, q + q_base + q0 * q_stride, q_stride, kBQ, Sq - q0);
-  load_rows<D>(dOs, L::LDT, dout + q_base + q0 * q_stride, q_stride, kBQ, Sq - q0);
-  for (int i = tid; i < kBQ; i += kThreads) {
-    const bool in = q0 + i < Sq;
-    lse_s[i] = in ? lse[row_base + q0 + i] : -INFINITY;
-    di_s[i] = in ? di[row_base + q0 + i] : 0.0f;
-  }
-
   // Key tiles that can hold a live (q, k) pair for some row (as K3's forward).
-  const int q_min = q_off + q0, q_max = q_off + min(q0 + kBQ, Sq) - 1;
+  const int q_min = q_off + q0, q_max = q_off + min(q0 + 128, Sq) - 1;
   int k_hi = mask.kv_len;
   if (causal) k_hi = min(k_hi, q_max + 1);
-  const int kt_end = k_hi > 0 ? (k_hi + kBK - 1) / kBK : 0;
+  const int kt_end = k_hi > 0 ? (k_hi + 63) / 64 : 0;
   int kt_begin = 0;
-  if (window > 0 && q_min - window + 1 > 0) kt_begin = (q_min - window + 1) / kBK;
+  if (window > 0 && q_min - window + 1 > 0) kt_begin = (q_min - window + 1) / 64;
+  const int ntiles = max(kt_end - kt_begin, 0);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(dq_acc[j], 0.0f);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  const __nv_bfloat16* Qw = Qs + (warp * 16) * L::LDT;
-  const __nv_bfloat16* dOw = dOs + (warp * 16) * L::LDT;
-  float* Sw = Ss + (warp * 16) * L::LDS;
-  float* dPw = dPs + (warp * 16) * L::LDS;
-  __nv_bfloat16* dSw = dSs + (warp * 16) * L::LDP;
-  const size_t kv_base = static_cast<size_t>(b) * Sk * kv_stride + static_cast<size_t>(hk) * D;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<D>(Ks, L::LDT, k + kv_base + k0 * kv_stride, kv_stride, kBK, Sk - k0);
-    load_rows<D>(Vs, L::LDT, v + kv_base + k0 * kv_stride, kv_stride, kBK, Sk - k0);
-    __syncthreads();
-
-    warp_abt<D>(Sw, L::LDS, Qw, Ks, L::LDT);    // S rows of this warp's queries
-    warp_abt<D>(dPw, L::LDS, dOw, Vs, L::LDT);  // dP
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      const int q_pos = q_off + q0 + row;
-      const float l = lse_s[row], d_i = di_s[row];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int c = lane + 32 * i;
-        float p, ds;
-        mask.p_ds(Sw[r * L::LDS + c], dPw[r * L::LDS + c], l, d_i,
-                  mask.live(q_pos, k0 + c), p, ds);
-        dSw[r * L::LDP + c] = __float2bfloat16_rn(ds);
+  if (threadIdx.x < 128) {
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * L::QB);
+      for (int c = 0; c < T::NCH; ++c) {
+        tma_load_4d(base + L::Q + c * 128 * T::SWZ, &tq, q_full, c * T::CW, h, q0, b);
+        tma_load_4d(base + L::DO + c * 128 * T::SWZ, &tdo, q_full, c * T::CW, h, q0, b);
+      }
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j & 1;
+        if (j >= kStages) mbar_wait(empty(s), ((j >> 1) - 1) & 1);
+        const int kt0 = (kt_begin + j) * 64;
+        mbar_arrive_expect_tx(full(s), 2 * L::KB);
+        for (int c = 0; c < T::NCH; ++c) {
+          tma_load_4d(k_tile(s) + c * 64 * T::SWZ, &tk, full(s), c * T::CW, hk, kt0, b);
+          tma_load_4d(v_tile(s) + c * 64 * T::SWZ, &tv, full(s), c * T::CW, hk, kt0, b);
+        }
       }
     }
-    __syncwarp();
-    warp_ab_acc<D>(dq_acc, dSw, L::LDP, Ks, L::LDT);  // dQ += dS·K
-  }
+  } else {
+    const int wg = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32, quad = lane % 4;
+    const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+    const size_t q_stride = static_cast<size_t>(Hq) * D;
+    const size_t q_base = static_cast<size_t>(b) * Sq * q_stride + static_cast<size_t>(h) * D;
+    const size_t row_base = (static_cast<size_t>(b) * Hq + h) * Sq;
+    // di of this thread's rows, from o and dO; written for the dKV kernel.
+    float di_r[2], nl_r[2];
+    row_di<D>(o + q_base, dout + q_base, q_stride, row0, Sq, quad, di_r);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = row0 + 8 * r < Sq;
+      nl_r[r] = in ? neg_lse2(lse[row_base + row0 + 8 * r]) : -INFINITY;
+      if (in && quad == 0) di_out[row_base + row0 + 8 * r] = di_r[r];
+    }
+    const int wg_min = q_off + q0 + 64 * wg;
 
-  __syncthreads();  // the staging area overlaps tiles other warps may still read
-  warp_store<D>(dq_acc, Ss, dq + q_base, q_stride, q0, Sq);
+    float dq_acc[T::NCH][T::CW / 2];
+    zero<D>(dq_acc);
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j & 1;
+      const uint32_t ph = (j >> 1) & 1;
+      const int kt0 = (kt_begin + j) * 64;
+      const bool need_mask = mask.cuts(wg_min, wg_min + 63, kt0, kt0 + 63);
+      float sc[32], dp[32];
+
+      mbar_wait(full(s), ph);
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      ss_abt<D, 64>(sc, base + L::Q, 128, 64 * wg, k_tile(s));   // S = Q·Kᵀ
+      ss_abt<D, 64>(dp, base + L::DO, 128, 64 * wg, v_tile(s));  // dP = dO·Vᵀ
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e >> 1) & 1;
+        const int kp = kt0 + 8 * (e / 4) + 2 * quad + (e & 1);
+        float p, ds;
+        const bool ok = !need_mask || mask.live(q_off + row0 + 8 * r, kp);
+        mask.p_ds(sc[e], dp[e], nl_r[r], di_r[r], ok, p, ds);
+        dp[e] = ds;
+      }
+      uint32_t dsf[4][4];
+      acc_to_a<64>(dp, dsf);
+
+      fence_acc<D>(dq_acc);
+      wgmma_fence();
+      rs_acc<D, 64>(dq_acc, dsf, k_tile(s));  // dQ += dS·K
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc<D>(dq_acc);
+      fence_regs(dsf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    store_rows<D>(dq_acc, dq + q_base, q_stride, row0, Sq, quad);
+  }
 }
 
 template <int D>
@@ -362,15 +517,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                const void* di, const void* q_offset, const void* kv_lens, void* dk, void* dv,
                int B, int Sq, int Sk, int Hq, int Hk, float scale, int causal, int window,
                float softcap, cudaStream_t s) {
-  constexpr int bytes = BwdSmem<D>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Sk + kBK - 1) / kBK, Hk, B);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
+  CUtensorMap tq, tk, tv, tdo;
+  using L = DkvSmem<D>;
+  int e = encode_bshd<D>(&tq, q, B, Sq, Hq, L::BQ);
+  if (e == 0) e = encode_bshd<D>(&tdo, dout, B, Sq, Hq, L::BQ);
+  if (e == 0) e = encode_bshd<D>(&tk, k, B, Sk, Hk, L::BK);
+  if (e == 0) e = encode_bshd<D>(&tv, v, B, Sk, Hk, L::BK);
+  if (e != 0) return e;
+  constexpr int bytes = L::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(Hk, B, (Sk + L::BK - 1) / L::BK);
+  flash_bwd_dkv_kernel<D><<<grid, (L::NC + 1) * 128, bytes, s>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(di),
       static_cast<const int*>(q_offset), static_cast<const int*>(kv_lens),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq, Sk, Hq, Hk, scale,
       causal, window, softcap);
@@ -378,27 +538,37 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }
 
 template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* di, const void* q_offset, const void* kv_lens, void* dq, int B,
-              int Sq, int Sk, int Hq, int Hk, float scale, int causal, int window,
+int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+              const void* lse, void* di, const void* q_offset, const void* kv_lens, void* dq,
+              int B, int Sq, int Sk, int Hq, int Hk, float scale, int causal, int window,
               float softcap, cudaStream_t s) {
-  constexpr int bytes = BwdSmem<D>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<const int*>(q_offset), static_cast<const int*>(kv_lens),
-      static_cast<__nv_bfloat16*>(dq), Sq, Sk, Hq, Hk, scale, causal, window, softcap);
+  if (reinterpret_cast<uintptr_t>(o) % 16 != 0 || reinterpret_cast<uintptr_t>(dout) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap tq, tk, tv, tdo;
+  int e = encode_bshd<D>(&tq, q, B, Sq, Hq, 128);
+  if (e == 0) e = encode_bshd<D>(&tdo, dout, B, Sq, Hq, 128);
+  if (e == 0) e = encode_bshd<D>(&tk, k, B, Sk, Hk, 64);
+  if (e == 0) e = encode_bshd<D>(&tv, v, B, Sk, Hk, 64);
+  if (e != 0) return e;
+  constexpr int bytes = DqSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(Hq, B, (Sq + 127) / 128);
+  flash_bwd_dq_kernel<D><<<grid, 384, bytes, s>>>(
+      tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(di), static_cast<const int*>(q_offset),
+      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(dq), Sq, Sk, Hq, Hk, scale,
+      causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// window <= 0 and softcap <= 0 mean "off". D is 32, 64 or 128.
+// window <= 0 and softcap <= 0 mean "off". D is 32, 64 or 128; q, k, v, o
+// and dout are contiguous and 16-byte aligned. The dQ kernel also writes di
+// (float32 [B, Hq, Sq]), which the dKV kernel reads: launch dQ first.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* di,
                                     const void* q_offset, const void* kv_lens, void* dk,
@@ -421,22 +591,22 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
   }
 }
 
-extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
-                                   const void* dout, const void* lse, const void* di,
+extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const void* lse, void* di,
                                    const void* q_offset, const void* kv_lens, void* dq, int B,
                                    int Sq, int Sk, int Hq, int Hk, int D, float scale,
                                    int causal, int window, float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch_dq<32>(q, k, v, dout, lse, di, q_offset, kv_lens, dq, B, Sq, Sk, Hq, Hk,
+      return launch_dq<32>(q, k, v, o, dout, lse, di, q_offset, kv_lens, dq, B, Sq, Sk, Hq, Hk,
                            scale, causal, window, softcap, s);
     case 64:
-      return launch_dq<64>(q, k, v, dout, lse, di, q_offset, kv_lens, dq, B, Sq, Sk, Hq, Hk,
+      return launch_dq<64>(q, k, v, o, dout, lse, di, q_offset, kv_lens, dq, B, Sq, Sk, Hq, Hk,
                            scale, causal, window, softcap, s);
     case 128:
-      return launch_dq<128>(q, k, v, dout, lse, di, q_offset, kv_lens, dq, B, Sq, Sk, Hq, Hk,
-                            scale, causal, window, softcap, s);
+      return launch_dq<128>(q, k, v, o, dout, lse, di, q_offset, kv_lens, dq, B, Sq, Sk, Hq,
+                            Hk, scale, causal, window, softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

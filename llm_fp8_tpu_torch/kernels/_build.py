@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 _REPO_CSRC = _PKG.parent / "csrc"
 BUILD_DIR = _PKG / "_build"
-_HEADERS = ("fp8_ftz.cuh",)
+_HEADERS = ("fp8_ftz.cuh", "hopper.cuh")
 KERNELS = ("quant_matmul", "decode_attention", "flash_attention", "paged_attention",
            "flash_attention_bwd", "quantize", "flash_attention_fp8", "rmsnorm")
 #: Host-side C++ libraries (no CUDA) → source, built with g++ and the flags
@@ -46,7 +46,7 @@ _SIGNATURES = {
     "paged_attention": {"paged_attn_launch": [_P] * 8 + [_I] * 10 + [_F, _F, _I, _F, _P]},
     "flash_attention_bwd": {
         "flash_bwd_dkv_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _P],
-        "flash_bwd_dq_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _F, _P]},
+        "flash_bwd_dq_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _P]},
     "quantize": {"quantize_launch": [_P] * 3 + [_I] * 5 + [_F, _F, _P]},
     "flash_attention_fp8": {"flash_fp8_launch": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _F, _I, _I, _P]},
     "rmsnorm": {"rmsnorm_residual_launch": [_P] * 5 + [_I] * 3 + [_F, _P]},

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["e4m3_to_bf16_ftz", "fp8_to_bf16_ftz", "pad_to_multiple",
+__all__ = ["e4m3_to_bf16_ftz", "fp8_to_bf16_ftz", "pad_to_multiple", "aligned16",
            "KV_KINDS", "W_KINDS"]
 
 #: dtype → kind code of ``csrc/fp8_ftz.cuh`` (``kCodeE4M3`` ...).
@@ -50,3 +50,10 @@ def pad_to_multiple(x: torch.Tensor, axis: int, multiple: int) -> torch.Tensor:
     pad_shape = list(x.shape)
     pad_shape[axis] = rem
     return torch.cat([x, x.new_zeros(pad_shape)], dim=axis)
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernels' vector and TMA
+    loads need both); copies only when it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -4,6 +4,9 @@ K7: its FP8-compute variant.
 Counterpart of ``llm_fp8_tpu/kernels/flash_attention.py::flash_attention``
 (forward: ``_flash_fwd_call``). On a CUDA tensor the wrapper launches
 ``csrc/flash_attention.cu``; on a CPU tensor it takes :func:`flash_fwd_plain`.
+The kernel is built for Hopper: TMA loads K/V tiles into a ring of swizzled
+shared memory for consumer warpgroups that run Q·Kᵀ and P·V on ``wgmma``
+with the scores, P and O kept in registers (its source note has the design).
 :func:`flash_attention_fp8` (K7, ``csrc/flash_attention_fp8.cu``, plain
 version :func:`flash_fp8_plain`) is the counterpart of the JAX
 ``flash_attention_fp8``: e4m3 q/k/v with FA3 descales, forward only.
@@ -24,6 +27,7 @@ import torch
 
 from ..utils.backend import native_fp8_matmul
 from . import _build
+from ._common import aligned16
 from .flash_attention_bwd import flash_attention_bwd
 
 __all__ = ["flash_attention", "flash_fwd_plain", "flash_attention_fp8", "flash_fp8_plain",
@@ -68,6 +72,7 @@ def _launch(q, k, v, q_offset, kv_lens, causal, window, softcap, scale):
     lib = _build.library("flash_attention")
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
+    q, k, v = aligned16(q), aligned16(k), aligned16(v)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     err = lib.flash_fwd_launch(
@@ -235,18 +240,12 @@ def flash_fp8_plain(q, k, v, descale, q_offset, kv_lens, *, causal, window, soft
     return out.to(out_dtype).permute(0, 2, 1, 3).contiguous()
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (the kernel's vector loads)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _launch_fp8(q, k, v, descale, q_offset, kv_lens, *, causal, window, softcap, scale,
                 block_k, out_dtype, fp8_native):
     lib = _build.library("flash_attention_fp8")
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = aligned16(q), aligned16(k), aligned16(v)
     out = torch.empty((B, Sq, Hq, D), dtype=out_dtype, device=q.device)
     p = ctypes.c_void_p
     err = lib.flash_fp8_launch(

@@ -3,19 +3,23 @@
 Counterpart of ``llm_fp8_tpu/kernels/flash_attention_bwd.py::flash_attention_bwd``
 (``_dkv_kernel``, ``_dq_kernel``, ``_recompute_p_and_ds``). On CUDA tensors
 :func:`flash_attention_bwd` launches the two kernels of
-``csrc/flash_attention_bwd.cu`` (dKV, then dQ); on CPU tensors it takes
-:func:`flash_attention_bwd_plain`.
+``csrc/flash_attention_bwd.cu`` (dQ, then dKV); on CPU tensors it takes
+:func:`flash_attention_bwd_plain`. Both kernels load their tiles through TMA
+into a ring of shared memory and run all five products on Hopper's
+``wgmma``, with the score tiles, p and ds in registers; neither uses
+atomics, so two runs give the same bits.
 
 The softmax weights are recomputed from the forward's log-sum-exp, which is
 K3's ``[B, Hq, Sq]`` here (the TPU's is ``[B, Hq, 8, Sq_p]``). Rows whose LSE
 is ``-inf`` (no live key) get p = 0, not NaN. p and ds are rounded to bf16
 before the dV, dK and dQ products, and the GQA group sum of dK/dV runs in
 float32, as in the TPU kernel (its module docstring says the sum happens
-outside the kernel; the code does it inside). ``di = rowsum(o·do)`` is a
-torch op, as JAX leaves it to XLA. Causal with a per-batch ``q_offset``,
-``kv_lens``, GQA, sliding window, softcap and the logit scale are supported;
-ALiBi, ``attention_chunk``, segment ids and dropout are not ported (the
-forward raises on them).
+outside the kernel; the code does it inside). ``di = rowsum(o·do)``, which
+JAX leaves to XLA, is computed by the dQ kernel on the card (so dQ runs
+first) and by :func:`row_di` in the plain version. Causal with a per-batch
+``q_offset``, ``kv_lens``, GQA, sliding window, softcap and the logit scale
+are supported; ALiBi, ``attention_chunk``, segment ids and dropout are not
+ported (the forward raises on them).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._common import aligned16
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "flash_bwd_dkv",
            "flash_bwd_dq", "recompute_p_ds", "row_di"]
@@ -113,15 +118,19 @@ def flash_bwd_dkv(q, k, v, do, lse, di, q_offset, kv_lens, **cfg):
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, do, lse, di, q_offset, kv_lens, **cfg):
-    """dQ on the card (the dQ kernel); counts its launches."""
+def flash_bwd_dq(q, k, v, o, do, lse, q_offset, kv_lens, **cfg):
+    """dQ on the card (the dQ kernel), which also computes ``di =
+    rowsum(o·do)`` (float32 ``[B, Hq, Sq]``) for the dKV kernel; counts its
+    launches. Returns ``(dq, di)``."""
+    B, Sq, Hq, _ = q.shape
     dq = torch.empty_like(q)
+    di = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention_bwd")
-    err = lib.flash_bwd_dq_launch(*_ptrs(q, k, v, do, lse, di, q_offset, kv_lens, dq),
+    err = lib.flash_bwd_dq_launch(*_ptrs(q, k, v, o, do, lse, di, q_offset, kv_lens, dq),
                                   *_common_args(q, k, cfg))
     _build.check(lib, err, "flash_attention_bwd (dQ)")
     flash_bwd_dq.launches += 1
-    return dq
+    return dq, di
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: Optional[int],
@@ -141,10 +150,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: Optional[i
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be float32 {(B, Hq, Sq)}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")
-    q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
-    di = row_di(o, do)
+    q, k, v, o, do = (aligned16(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dq, di = flash_bwd_dq(q, k, v, o, do, lse, q_offset, kv_lens, **cfg)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, q_offset, kv_lens, **cfg)
-    dq = flash_bwd_dq(q, k, v, do, lse, di, q_offset, kv_lens, **cfg)
     return dq, dk, dv
 
 
