@@ -11,20 +11,29 @@ Phases, in order; any failure exits non-zero before the last line:
    the main paths' shapes (Llama-3.2-1B), with the tolerance stated; the
    kernel's median time, the plain version's, one PyTorch library call as a
    yardstick (timed only) and the bound (bytes or FLOPs over the card's peak).
+   K1 runs at M = 8, 128 and 8192 (its decode and its wgmma prefill
+   kernel), each beside torch.matmul on the dequantized weight and the
+   fp8native route (K9 + fp8 products, not the same function).
    ``paged_kernels``: K5 at the paged serve shape (8 sequences of ~8k
    tokens, e4m3, int8 and bf16 pools, with append: codes must equal the
-   plain version's) and its features; K3 at an 8192-token prefill.
+   plain version's, and two runs must be bit-identical) and its features,
+   a split that holds a single key among them; K3 at an 8192-token prefill.
 3. slice: Llama-3.2-1B at full width cut to 2 layers, LAYERWISE fp8 weights:
    one prefill and two arena decode steps on the card and on the CPU (plain
    versions), logits compared; then the same through the bf16 KVCache path.
    ``paged_slice``: two prefills inserted into an e4m3 page pool and two
    ``forward_paged`` steps, card against CPU, logits and pool codes compared.
-4. serving: Llama-3.2-1B, all 16 layers, fp8 weights, fp8 KV through the
-   arena engine (8 requests), then int8 KV (2 requests, calibration).
-   ``paged_serve``: the paged engine, e4m3 pool, 8 requests of 8184-token
-   prompts and 64 new tokens each, then a short int8-pool run. Each path's
-   launch counts are set to 0 just before its run and read just after; every
-   kernel of the path must have been launched.
+   Both run twice, with qdot pinned to one route on both sides:
+   LLM_FP8_QDOT=xla (K1) and fp8native.
+4. serving: Llama-3.2-1B, all 16 layers, fp8 weights (qdot's default
+   route on the card, fp8native: K9 quantizes x, then fp8 products), fp8 KV
+   through the arena engine (8 requests), then int8 KV (2 requests,
+   calibration), then int8 weights (2 requests; K1 must launch in prefill
+   and in decode). ``paged_serve``: the paged engine, e4m3 pool, 8 requests
+   of 8184-token prompts and 64 new tokens each, on the default route and
+   again with LLM_FP8_QDOT=xla (K1 at every projection), then a short
+   int8-pool run. Each path's launch counts are set to 0 just before its run
+   and read just after; every kernel of the path must have been launched.
 5. training. ``train_kernels``: K6 (flash backward) against its plain
    version row by row at the training shape and its features, with planted
    errors the tolerance must catch and a determinism check (and K3's
@@ -61,9 +70,11 @@ and the compiler's logs to ``DIR/nvcc_*.log``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -74,9 +85,13 @@ ROOT = Path(__file__).resolve().parent
 
 PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_serve",
           "train_kernels", "train_slice", "train", "fp8_kernels", "profile")
-#: The kernels each path runs (launch counts read around its run).
-ARENA_PATH = ("quant_matmul", "decode_attention_arena", "flash_attention")
-PAGED_PATH = ("quant_matmul", "flash_attention", "paged_attention")
+#: The kernels each path runs (launch counts read around its run). On the
+#: card fp8 weights take qdot's fp8native route (K9 quantizes x per row, then
+#: fp8 products), as the JAX package picks it where fp8 products exist; K1
+#: runs for int8 weights and under LLM_FP8_QDOT=xla.
+ARENA_PATH = ("quantize_fused", "decode_attention_arena", "flash_attention")
+PAGED_PATH = ("quantize_fused", "flash_attention", "paged_attention")
+K1_PATH = ("quant_matmul",)
 TRAIN_PATH = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
               "quantize_fused")
 
@@ -220,14 +235,22 @@ def caught_share(bad, ref, live, ulps=ROW_ULPS):
     return float((row_ulps(bad, ref)[live] > ulps).float().mean())
 
 
+def k1_launches() -> int:
+    from llm_fp8_tpu_torch.kernels import KERNEL_WRAPPERS
+
+    return KERNEL_WRAPPERS["quant_matmul"].launches
+
+
 class Instrumented:
     """Engine mixin: whether every logits row was finite, the host time of
     prefills and decode bursts (each ends in a sync), the decode steps run
-    and the steps run in bursts."""
+    and the steps run in bursts, and K1's launches in prefills and in
+    decode steps."""
 
     finite = None
     prefill_s = decode_s = 0.0
     decode_steps = burst_steps = 0
+    k1_prefill = k1_decode = 0
 
     def _note(self, logits):
         import torch
@@ -238,14 +261,17 @@ class Instrumented:
     def _timed_prefill(self, fn, *args):
         import torch
 
-        t0 = time.perf_counter()
+        t0, n0 = time.perf_counter(), k1_launches()
         out = fn(*args)
         torch.cuda.synchronize()
         self.prefill_s += time.perf_counter() - t0
+        self.k1_prefill += k1_launches() - n0
         return out
 
     def _decode_step(self, *args):
+        n0 = k1_launches()
         logits, g = super()._decode_step(*args)
+        self.k1_decode += k1_launches() - n0
         self._note(logits)
         self.decode_steps += 1
         return logits, g
@@ -264,6 +290,8 @@ class Instrumented:
 
 
 def kernel_cases(dev, bw, peak, log):
+    import dataclasses
+
     import torch
     import torch.nn.functional as F
 
@@ -271,52 +299,74 @@ def kernel_cases(dev, bw, peak, log):
     from llm_fp8_tpu_torch.kernels import flash_attention as k3
     from llm_fp8_tpu_torch.kernels import quant_matmul as k1
     from llm_fp8_tpu_torch.kernels._common import fp8_to_bf16_ftz
-    from llm_fp8_tpu_torch.quant import E4M3, E5M2, INT8, quantize, quantize_mx
+    from llm_fp8_tpu_torch.quant import E4M3, E5M2, INT8, qdot, quantize, quantize_mx
 
     g = torch.Generator(device=dev).manual_seed(1234)
     cases = []
 
     # ---- K1 at every Llama-3.2-1B projection shape ----
+    # Decode (M = 8 slots), a short prefill (M = 128) and the paged engine's
+    # 8192-token prefill bucket (the lm_head shape too). Beside torch.matmul
+    # on the dequantized weight (the same function), the fp8native route (K9
+    # rows + fp8 products + the scales, one graph) is timed as a second
+    # yardstick: it is not the same function (x is quantized to e4m3).
     shapes = {"wqkv": (2048, 3072), "wo": (2048, 2048), "w_gate_up": (2048, 16384),
-              "w_down": (8192, 2048)}
-    runs = [(n, m, mode, E4M3) for n in shapes for m in (8, 128)
+              "w_down": (8192, 2048), "lm_head": (2048, 128256)}
+    runs = [(n, m, mode, E4M3) for n in list(shapes)[:4] for m in (8, 128)
             for mode in ("channel", "tensor", "mx")]
     runs += [("w_gate_up", 8, "channel", INT8), ("w_gate_up", 128, "channel", INT8),
              ("wqkv", 8, "channel", E5M2)]
+    runs += [(n, 8192, mode, E4M3) for n in list(shapes)[:4] for mode in ("channel", "mx")]
+    runs += [("w_gate_up", 8192, "channel", INT8), ("lm_head", 8192, "channel", E4M3)]
     for name, M, mode, fmt in runs:
         K, N = shapes[name]
+        big = M >= 8192
         w = torch.randn((K, N), generator=g, device=dev) * 0.02
         if mode == "mx":
             qt = quantize_mx(w, fmt, block_axis=0, flush_subnormal=True)
         else:
             qt = quantize(w, fmt, axes=None if mode == "tensor" else (0,),
                           flush_subnormal=True)
+        del w
         x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
         got = k1.quant_matmul(x, qt.qvalue, qt.scale, mode=mode)
         ref = k1.quant_matmul_plain(x, qt.qvalue, qt.scale, mode=mode)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         tol = 2.0 ** -7 * ref.float().abs().max().item()
+        del got, ref
         check(math.isfinite(err) and err <= tol,
               f"K1 {name} M={M} {mode} {fmt.name}: err {err} > tol {tol}")
         # Rotate weight copies past the L2 cache: decode finds weights cold.
-        copies = max(1, math.ceil(200e6 / (K * N)))
+        copies = 1 if big else max(1, math.ceil(200e6 / (K * N)))
         ws = [qt.qvalue.clone() for _ in range(copies)]
         wdq = [(qt.dequantize(torch.bfloat16)) for _ in range(max(1, copies // 2))]
         nw, nd = cycler(ws), cycler(wdq)
-        ms = cuda_ms(lambda: k1.quant_matmul(x, nw(), qt.scale, mode=mode))
-        call_ms = eager_ms(lambda: k1.quant_matmul(x, nw(), qt.scale, mode=mode))
+        reps = dict(calls=5, rounds=3) if big else {}
+        ms = cuda_ms(lambda: k1.quant_matmul(x, nw(), qt.scale, mode=mode), **reps)
+        call_ms = eager_ms(lambda: k1.quant_matmul(x, nw(), qt.scale, mode=mode), **reps)
         plain_ms = cuda_ms(lambda: k1.quant_matmul_plain(x, nw(), qt.scale, mode=mode),
-                           calls=4, rounds=3)
-        lib_ms = cuda_ms(lambda: torch.matmul(x, nd()))
+                           calls=1 if big else 4, rounds=2 if big else 3)
+        lib_ms = cuda_ms(lambda: torch.matmul(x, nd()), **reps)
+        native_ms = None
+        if mode != "mx" and fmt is not INT8:
+            wk = [dataclasses.replace(qt, qvalue=c.t().contiguous().t()) for c in ws]
+            nk = cycler(wk)
+            native_ms = cuda_ms(lambda: qdot(x, nk(), impl="fp8native"), **reps)
+            del wk
         nbytes = M * K * 2 + K * N + qt.scale.numel() * qt.scale.element_size() + M * N * 2
         b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, bw, peak)
         case = dict(kernel="quant_matmul", case=f"{name} M={M} {mode} {fmt.name}",
+                    route="prefill (wgmma)" if M >= k1.PREFILL_MIN_M else "decode",
                     max_abs_err=err, tol=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                    library_ms=lib_ms, vs_library=ms / lib_ms, bound_ms=b_ms, bound_by=b_by,
+                    tflops=2.0 * M * N * K / (ms * 1e-3) / 1e12,
+                    fp8native_ms=native_ms,
+                    fp8native_note="K9 rows + fp8 products; not the same function")
         cases.append(case)
         log(case)
-        del ws, wdq
+        del ws, wdq, x, qt
+        torch.cuda.empty_cache()
 
     # ---- K2 at B 8, Hq 32, Hk 8, D 64, S 1024, 16 layers ----
     L, B, Hq, Hk, D, S = 16, 8, 32, 8, 64, 1024
@@ -535,7 +585,7 @@ def paged_kernel_cases(dev, bw, peak, log):
 
     from llm_fp8_tpu_torch.kernels import flash_attention as k3
     from llm_fp8_tpu_torch.kernels import paged_attention as k5
-    from llm_fp8_tpu_torch.kernels._common import fp8_to_bf16_ftz
+    from llm_fp8_tpu_torch.kernels._common import fp8_to_bf16_ftz, num_sms
 
     g = torch.Generator(device=dev).manual_seed(4321)
     cases = []
@@ -559,7 +609,7 @@ def paged_kernel_cases(dev, bw, peak, log):
         return t
 
     def run_case(name, dtype, B, Hq, Hk, D, page, lengths, *, L=4, kv_scale=1.0,
-                 window=None, softcap=None, pad=None, timed=False):
+                 window=None, softcap=None, pad=None, timed=False, rerun=False):
         lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
         width = max(1, -(-int(lengths.max()) // page))
         P = B * width + 2
@@ -583,6 +633,17 @@ def paged_kernel_cases(dev, bw, peak, log):
         changed = int((kk.view(bits) != kp.view(bits)).any(dim=(1, 2, 4)).sum())
         check(same, f"K5 {name}: appended pool codes differ from the plain version")
         check(changed <= int((lengths > 0).sum()), f"K5 {name}: {changed} rows changed")
+        identical = None
+        if rerun:  # the split partials merge in a fixed order: a rerun is bit-identical
+            kk2, vk2 = kp.clone(), vp.clone()
+            got2, _, _ = k5.paged_attention(q, kk2, vk2, lengths, tables, layer, new_k=nk,
+                                            new_v=nv, **kw)
+            torch.cuda.synchronize()
+            identical = bool(torch.equal(got.view(torch.int16), got2.view(torch.int16))
+                             and torch.equal(kk2.view(bits), kk.view(bits))
+                             and torch.equal(vk2.view(bits), vk.view(bits)))
+            check(identical, f"K5 {name}: two runs differ")
+            del kk2, vk2
         if bool((lengths == 0).any()):
             check(bool((got[lengths == 0] == 0).all()), f"K5 {name}: zero-length row not 0")
         # Planted errors the row tolerance must catch in most live rows: the
@@ -599,8 +660,10 @@ def paged_kernel_cases(dev, bw, peak, log):
             check(caught[tag] >= 0.5, f"K5 {name}: the tolerance lets a planted {tag} "
                   f"error through in {1 - caught[tag]:.0%} of the rows")
         del kk, vk, kq, vq
+        splits, pps = k5.split_plan(B, Hk, width, num_sms(dev))
         case = dict(kernel="paged_attention", case=name, max_abs_err=err, err_ulps=ulps,
-                    planted_caught=caught, pool_codes_equal=same, lengths=lengths.tolist())
+                    planted_caught=caught, pool_codes_equal=same, reruns_identical=identical,
+                    lengths=lengths.tolist(), splits=splits, pages_per_split=pps)
         if timed:
             layers = cycler(list(range(L)))
             call = lambda: k5.paged_attention(q, kp, vp, lengths, tables, layers(),  # noqa: E731
@@ -641,7 +704,16 @@ def paged_kernel_cases(dev, bw, peak, log):
                                 (torch.int8, spread, "spread"),
                                 (torch.bfloat16, spread, "spread")):
         run_case(f"{tag} B8 Hq32 Hk8 D64 page128 {dtype}", dtype, 8, 32, 8, 64, 128, lengths,
-                 kv_scale=4 / 127 if dtype == torch.int8 else 1.0, timed=True)
+                 kv_scale=4 / 127 if dtype == torch.int8 else 1.0, timed=True,
+                 rerun=tag == "serve")
+    # Lengths whose last split holds a single key (the appended one), at the
+    # serve shape's split plan.
+    splits, pps = k5.split_plan(8, 8, -(-serve_lengths[-1] // 128), num_sms(dev))
+    span = pps * 128
+    single = [z * span + 1 for z in range(1, splits)][:8]
+    single += [serve_lengths[-1]] * (8 - len(single))
+    run_case("single-key split B8 Hq32 Hk8 D64 page128 e4m3", torch.float8_e4m3fn, 8, 32, 8,
+             64, 128, single, rerun=True)
     # Features off the serve shape (correctness only).
     run_case("window 100 softcap 30, e5m2, page 16", torch.float8_e5m2, 3, 8, 8, 64, 16,
              [700, 33, 16], window=100, softcap=30.0, kv_scale=0.5)
@@ -720,7 +792,78 @@ def paged_kernel_cases(dev, bw, peak, log):
 # --------------------------------------------------------------------------
 
 
+#: qdot's routes the card-vs-CPU slices pin both sides to: on the card the
+#: default for fp8 weights is fp8native and on the CPU xla, so each pass
+#: pins one (xla: K1 against its plain version; fp8native: K9 and fp8
+#: products against the CPU's code product). The fp8native pass runs twice:
+#: free (a reading) and with the CPU's projections fed the card's inputs
+#: (checked), see ForcedQdotInputs.
+SLICE_PASSES = (("xla", False), ("fp8native", False), ("fp8native", True))
+
+
+def pinned(route, fn):
+    """``fn()`` with ``LLM_FP8_QDOT=route`` (weights are quantized inside,
+    so their layout follows the route)."""
+    saved = os.environ.get("LLM_FP8_QDOT")
+    os.environ["LLM_FP8_QDOT"] = route
+    try:
+        return fn()
+    finally:
+        restore_env("LLM_FP8_QDOT", saved)
+
+
+class ForcedQdotInputs:
+    """The fp8native route quantizes each projection's input per row to e4m3,
+    whose steps are 2^-3 of a value where bf16's are 2^-8: where the card's
+    and the CPU's inputs differ by one bf16 rounding (norms, rotary,
+    attention in other orders), a code flips by a whole e4m3 step, and the
+    flips compound through the layers (free running, the card-vs-CPU logits
+    differ several times more than on the xla route; the free pass reads
+    it). So the checked pass holds each fp8native product to the CPU's on
+    the same input: the card's run records every projection's input, and
+    the CPU's run of the same call takes it in place of its own. What lies
+    between the projections is held by the xla pass."""
+
+    def __init__(self):
+        self.queue = []
+        self.forced = 0
+
+    @contextlib.contextmanager
+    def side(self, name):
+        from llm_fp8_tpu_torch.models import llama
+
+        real = llama.qdot
+
+        def record(x, w, **kw):
+            self.queue.append(x.detach().cpu())
+            return real(x, w, **kw)
+
+        def replay(x, w, **kw):
+            card_x = self.queue.pop(0)
+            check(card_x.shape == x.shape, f"forced qdot inputs: {tuple(card_x.shape)} "
+                  f"recorded, {tuple(x.shape)} asked")
+            self.forced += 1
+            return real(card_x.to(x.dtype), w, **kw)
+
+        llama.qdot = record if name == "cuda" else replay
+        try:
+            yield
+        finally:
+            llama.qdot = real
+
+
 def slice_check(dev, log):
+    return [pinned(route, lambda: _slice_check(dev, log, route, forced))
+            for route, forced in SLICE_PASSES]
+
+
+def paged_slice_check(dev, log):
+    return [pinned(route, lambda: _paged_slice_check(dev, log, route, forced))
+            for route, forced in SLICE_PASSES]
+
+
+def _slice_check(dev, log, route, forced):
+    """One pass: checked unless it is the free-running fp8native reading."""
     import dataclasses
 
     import torch
@@ -741,9 +884,13 @@ def slice_check(dev, log):
     tol = 0.06  # bf16 activations, other sum orders, bf16-rounded logits on the card
     errs, tokens = [], []
     runs = {}
+    rec = ForcedQdotInputs()
+    side = rec.side if forced else (lambda name: contextlib.nullcontext())
+    checked = route == "xla" or forced
     for name, p, d in (("cuda", params, dev), ("cpu", cpu_params, torch.device("cpu"))):
-        lg, (k, v) = forward(p, prompt.to(d), cfg, kv_lens=torch.tensor([n], device=d),
-                             return_kv=True)
+        with side(name):
+            lg, (k, v) = forward(p, prompt.to(d), cfg, kv_lens=torch.tensor([n], device=d),
+                                 return_kv=True)
         ka = torch.zeros((L, 1, Hk, S, Dh), dtype=torch.float8_e4m3fn, device=d)
         va = torch.zeros_like(ka)
         ka[:, 0, :, :bucket] = k[:, 0].permute(0, 2, 1, 3).float().clamp(-448, 448).to(ka.dtype)
@@ -753,9 +900,10 @@ def slice_check(dev, log):
     for step in range(2):
         for name in ("cuda", "cpu"):
             p, ka, va, d = runs[name][1]
-            lg, _, _ = forward_decode_arena(
-                p, torch.tensor([[tok]], device=d), cfg, ka, va,
-                torch.tensor([n + step], dtype=torch.int32, device=d))
+            with side(name):
+                lg, _, _ = forward_decode_arena(
+                    p, torch.tensor([[tok]], device=d), cfg, ka, va,
+                    torch.tensor([n + step], dtype=torch.int32, device=d))
             runs[name][0].append(lg[0, 0].float().cpu())
         tok = int(torch.argmax(runs["cpu"][0][-1]))
         tokens.append(tok)
@@ -765,25 +913,31 @@ def slice_check(dev, log):
 
     for name, p, d in (("cuda", params, dev), ("cpu", cpu_params, torch.device("cpu"))):
         cache = init_kv_cache(cfg, 1, S, device=d)
-        lg, cache = forward(p, prompt.to(d), cfg, cache=cache, start_pos=0,
-                            kv_lens=torch.tensor([n], device=d))
-        lg2, _ = forward(p, torch.tensor([[tokens[0]]], device=d), cfg, cache=cache,
-                         start_pos=torch.tensor([n], device=d),
-                         kv_lens=torch.tensor([n + 1], device=d))
+        with side(name):
+            lg, cache = forward(p, prompt.to(d), cfg, cache=cache, start_pos=0,
+                                kv_lens=torch.tensor([n], device=d))
+            lg2, _ = forward(p, torch.tensor([[tokens[0]]], device=d), cfg, cache=cache,
+                             start_pos=torch.tensor([n], device=d),
+                             kv_lens=torch.tensor([n + 1], device=d))
         runs[name][0].extend([lg[0, n - 1].float().cpu(), lg2[0, 0].float().cpu()])
     for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
         check(bool(torch.isfinite(a).all()), "slice: non-finite logits on the card")
         errs.append((a - b).abs().max().item())
     res = dict(config="llama-3.2-1b, 2 layers, LAYERWISE fp8; fp8 arena (prefill + 2 "
-               "decode steps), then bf16 KVCache (prefill + 1 decode step)",
+               "decode steps), then bf16 KVCache (prefill + 1 decode step)", qdot_route=route,
+               cpu_takes_card_qdot_inputs=forced, forced_calls=rec.forced,
+               checked=checked,
                steps=len(errs), logits_max_abs_err=max(errs), per_step=errs, tol=tol,
                logits_max_abs=max(float(x.abs().max()) for x in runs["cpu"][0]))
     log(res)
-    check(max(errs) <= tol, f"slice: logits err {max(errs)} > tol {tol}")
+    check(not checked or max(errs) <= tol,
+          f"slice ({route}{', forced inputs' if forced else ''}): logits err {max(errs)} "
+          f"> tol {tol}")
+    check(not forced or not rec.queue, f"slice: {len(rec.queue)} recorded inputs unused")
     return res
 
 
-def paged_slice_check(dev, log):
+def _paged_slice_check(dev, log, route, forced):
     """The paged path at full 1B width, 2 layers: two prompts (200 tokens,
     and 128, which ends a page) prefilled and inserted into an e4m3 pool,
     then two ``forward_paged`` steps, on the card and on the CPU."""
@@ -806,6 +960,9 @@ def paged_slice_check(dev, log):
     rng = np.random.RandomState(3)
     prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32) for n in (200, 128)]
     runs = {}
+    rec = ForcedQdotInputs()
+    side = rec.side if forced else (lambda name: contextlib.nullcontext())
+    checked = route == "xla" or forced
     for name, p, d in (("cuda", params, dev), ("cpu", to_cpu(params), torch.device("cpu"))):
         eng = PagedEngine(p, cfg, ecfg, device=d)
         logits, tables, kv = [], [], []
@@ -815,7 +972,8 @@ def paged_slice_check(dev, log):
             table.ensure_capacity(n + 2)
             padded = np.zeros((256,), np.int32)
             padded[:n] = prompt
-            last, k, v = eng._prefill(torch.as_tensor(padded, device=d), n)
+            with side(name):
+                last, k, v = eng._prefill(torch.as_tensor(padded, device=d), n)
             eng._insert(k, v, table.blocks[:-(-n // 128)])
             logits.append(last.float().cpu())
             tables.append(table.table(3))
@@ -825,11 +983,12 @@ def paged_slice_check(dev, log):
     toks = torch.argmax(runs["cpu"]["logits"][0], dim=-1)
     lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
     for _ in range(2):
-        for r in runs.values():
+        for name, r in runs.items():
             eng, d = r["eng"], r["dev"]
-            lg, eng.k_pages, eng.v_pages = forward_paged(
-                r["params"], toks[:, None].to(d), cfg, eng.k_pages, eng.v_pages, r["tables"],
-                lens.to(d))
+            with side(name):
+                lg, eng.k_pages, eng.v_pages = forward_paged(
+                    r["params"], toks[:, None].to(d), cfg, eng.k_pages, eng.v_pages,
+                    r["tables"], lens.to(d))
             r["logits"].append(lg[:, 0].float().cpu())
         toks = torch.argmax(runs["cpu"]["logits"][-1], dim=-1)
         lens = lens + 1
@@ -866,6 +1025,8 @@ def paged_slice_check(dev, log):
     excess_max = max(max(e) for e in excess)
     res = dict(config="llama-3.2-1b, 2 layers, LAYERWISE fp8, e4m3 page pool (page 128): "
                "prefills of 200 and 128 tokens inserted, then 2 forward_paged steps",
+               qdot_route=route, cpu_takes_card_qdot_inputs=forced,
+               forced_calls=rec.forced, checked=checked,
                steps=len(errs), logits_max_abs_err=max(errs), per_step=errs, tol=tol,
                logits_max_abs=max(float(x.abs().max()) for x in runs["cpu"]["logits"]),
                kv_input_max_abs_diff=kv_diff, pool_codes_identical_share=min(same),
@@ -874,8 +1035,10 @@ def paged_slice_check(dev, log):
                pool_worst=dict(zip(("beyond", "pool", "card", "cpu"), worst)),
                pool_tol=2.0 ** -4)
     log(res)
-    check(max(errs) <= tol, f"paged slice: logits err {max(errs)} > tol {tol}")
-    check(excess_max <= 2.0 ** -4, f"paged slice: pool values differ by {excess_max} "
+    what = f"paged slice ({route}{', forced inputs' if forced else ''})"
+    check(not checked or max(errs) <= tol, f"{what}: logits err {max(errs)} > tol {tol}")
+    check(not forced or not rec.queue, f"{what}: {len(rec.queue)} recorded inputs unused")
+    check(not checked or excess_max <= 2.0 ** -4, f"{what}: pool values differ by {excess_max} "
           "beyond one e4m3 step")
     return res
 
@@ -894,7 +1057,7 @@ def serving(dev, num_layers, card, log):
     from llm_fp8_tpu_torch import kernels
     from llm_fp8_tpu_torch.models import get_config
     from llm_fp8_tpu_torch.models.llama import init_params, quantize_params
-    from llm_fp8_tpu_torch.quant import LAYERWISE
+    from llm_fp8_tpu_torch.quant import LAYERWISE, recipe_set_by_name
     from llm_fp8_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 
     class CheckedEngine(Instrumented, Engine):
@@ -910,7 +1073,15 @@ def serving(dev, num_layers, card, log):
     init_s = time.perf_counter() - t0
     rng = np.random.RandomState(0)
     results = {}
-    for kv, n_req in (("fp8", 8), ("int8", 2)):
+    # fp8 weights (LAYERWISE) with fp8 KV, then int8 KV; then int8 weights
+    # (K1 at prefill and decode) with fp8 KV.
+    for tag, kv, n_req in (("fp8", "fp8", 8), ("int8", "int8", 2),
+                           ("int8_weights", "fp8", 2)):
+        if tag == "int8_weights":
+            del params
+            torch.cuda.empty_cache()
+            params = quantize_params(init_params(cfg, device=dev, seed=0),
+                                     recipe_set_by_name("int8"))
         ecfg = EngineConfig(max_slots=8, max_seq_len=1024, prefill_buckets=(128, 256),
                             kv_dtype=kv)
         warm = CheckedEngine(params, cfg, ecfg, device=dev)
@@ -930,48 +1101,59 @@ def serving(dev, num_layers, card, log):
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
         for r in reqs:
-            check(r.done and r.error is None, f"serve {kv}: request {r.request_id} {r.error}")
-            check(len(r.output) == 32, f"serve {kv}: {len(r.output)} tokens, not 32")
-            check(all(0 <= t < cfg.vocab_size for t in r.output), f"serve {kv}: bad token")
-        check(eng.finite is not None and bool(eng.finite), f"serve {kv}: non-finite logits")
-        for name in ARENA_PATH:
-            check(counts[name] > 0, f"serve {kv}: kernel {name} was launched "
+            check(r.done and r.error is None, f"serve {tag}: request {r.request_id} {r.error}")
+            check(len(r.output) == 32, f"serve {tag}: {len(r.output)} tokens, not 32")
+            check(all(0 <= t < cfg.vocab_size for t in r.output), f"serve {tag}: bad token")
+        check(eng.finite is not None and bool(eng.finite), f"serve {tag}: non-finite logits")
+        path = ARENA_PATH if tag != "int8_weights" else ("decode_attention_arena",
+                                                         "flash_attention") + K1_PATH
+        for name in path:
+            check(counts[name] > 0, f"serve {tag}: kernel {name} was launched "
                   f"{counts[name]} times")
+        if tag == "int8_weights":
+            check(eng.k1_prefill > 0 and eng.k1_decode > 0,
+                  f"serve int8 weights: K1 launched {eng.k1_prefill} times in prefills and "
+                  f"{eng.k1_decode} in decode steps")
+        else:
+            check(counts["quant_matmul"] == 0, f"serve {tag}: K1 ran {counts['quant_matmul']} "
+                  "times on the fp8native route")
         if kv == "int8":
             check(bool(torch.isfinite(eng._kscales).all() and (eng._kscales > 0).all()),
                   "serve int8: bad calibrated scales")
         ttfts = sorted(r.ttft for r in reqs)
-        res = dict(card=card, kv_dtype=kv, requests=n_req, layers=num_layers,
+        res = dict(card=card, kv_dtype=kv, weights="int8" if tag == "int8_weights" else "fp8",
+                   requests=n_req, layers=num_layers,
                    prompt_lens=[len(p) for p in prompts], generated=32 * n_req,
                    wall_s=wall, tokens_per_s=32 * n_req / wall,
                    ttft_p50_s=ttfts[len(ttfts) // 2],
                    peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-                   launches=counts, init_s=init_s, prefill_s=eng.prefill_s,
+                   launches=counts, k1_prefill=eng.k1_prefill, k1_decode=eng.k1_decode,
+                   init_s=init_s, prefill_s=eng.prefill_s,
                    decode_s=eng.decode_s, decode_steps=eng.decode_steps,
                    burst_steps=eng.burst_steps,
                    decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1))
-        if kv == "fp8":
+        if tag == "fp8":
             res["profile"] = profile_run(CheckedEngine, params, cfg, ecfg, prompts, dev)
         log(res)
-        results[kv] = res
+        results[tag] = res
         del eng
     return results
 
 
 def paged_serving(dev, num_layers, card, log):
     """The paged engine at full 1B width: e4m3 pool, 8 requests of 8184-token
-    prompts (bucket 8192) and 64 new tokens each; then int8 pool, 2 short
-    requests. Launch counts are set to 0 before each measured run."""
+    prompts (bucket 8192) and 64 new tokens each, on qdot's default route and
+    with LLM_FP8_QDOT=xla; then int8 pool, 2 short requests. Launch counts
+    are set to 0 before each measured run."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from llm_fp8_tpu_torch import kernels
     from llm_fp8_tpu_torch.models import get_config
     from llm_fp8_tpu_torch.models.llama import init_params, quantize_params
     from llm_fp8_tpu_torch.quant import LAYERWISE
-    from llm_fp8_tpu_torch.serving import PagedEngine, PagedEngineConfig, SamplingParams
+    from llm_fp8_tpu_torch.serving import PagedEngine
 
     class CheckedPagedEngine(Instrumented, PagedEngine):
         """Prefill time includes the insert; also the most pages held."""
@@ -992,65 +1174,111 @@ def paged_serving(dev, num_layers, card, log):
             return out
 
     cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=num_layers)
-    params = quantize_params(init_params(cfg, device=dev, seed=0), LAYERWISE)
     rng = np.random.RandomState(1)
     results = {}
-    for kv, n_req, n_prompt, max_new, bucket, kv_scale in (("fp8", 8, 8184, 64, 8192, 1.0),
-                                                           ("int8", 2, 1000, 16, 1024, 1 / 16)):
-        page = 128
-        per_seq = -(-(n_prompt + max_new) // page)
-        ecfg = PagedEngineConfig(max_slots=8, num_pages=n_req * per_seq + 1, page_size=page,
-                                 max_pages_per_seq=per_seq, kv_dtype=kv, kv_scale=kv_scale,
-                                 prefill_buckets=(bucket,))
+    # The fp8 workload twice: qdot's default route (fp8native) and
+    # LLM_FP8_QDOT=xla (K1 at every projection); the weights are quantized
+    # under the route in force, which lays their codes out for it.
+    runs = (("fp8", None, "fp8", 8, 8184, 64, 8192, 1.0),
+            ("fp8_xla", "xla", "fp8", 8, 8184, 64, 8192, 1.0),
+            ("int8", None, "int8", 2, 1000, 16, 1024, 1 / 16))
+    prompts_fp8 = None
+    for tag, qdot_env, kv, n_req, n_prompt, max_new, bucket, kv_scale in runs:
+        saved = os.environ.get("LLM_FP8_QDOT")
+        if qdot_env is not None:
+            os.environ["LLM_FP8_QDOT"] = qdot_env
+        try:
+            params = quantize_params(init_params(cfg, device=dev, seed=0), LAYERWISE)
+            res = _paged_run(CheckedPagedEngine, params, cfg, dev, card, num_layers, rng, tag,
+                             kv, n_req, n_prompt, max_new, bucket, kv_scale,
+                             prompts_fp8 if tag == "fp8_xla" else None)
+        finally:
+            restore_env("LLM_FP8_QDOT", saved)
+        if tag == "fp8":
+            prompts_fp8 = res.pop("prompts")
+        else:
+            res.pop("prompts")
+        del params
+        torch.cuda.empty_cache()
+        log(res)
+        results[tag] = res
+    return results
+
+
+def _paged_run(engine_cls, params, cfg, dev, card, num_layers, rng, tag, kv, n_req, n_prompt,
+               max_new, bucket, kv_scale, prompts):
+    """One measured run of the paged engine (after a warm-up request)."""
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.serving import PagedEngineConfig, SamplingParams
+
+    page = 128
+    per_seq = -(-(n_prompt + max_new) // page)
+    ecfg = PagedEngineConfig(max_slots=8, num_pages=n_req * per_seq + 1, page_size=page,
+                             max_pages_per_seq=per_seq, kv_dtype=kv, kv_scale=kv_scale,
+                             prefill_buckets=(bucket,))
+    if prompts is None:
         prompts = [rng.randint(1, cfg.vocab_size, n_prompt).astype(np.int32)
                    for _ in range(n_req)]
-        warm = CheckedPagedEngine(params, cfg, ecfg, device=dev)
-        warm.add_request(prompts[0], SamplingParams(max_new_tokens=4))
-        warm.run()
-        del warm
-        eng = CheckedPagedEngine(params, cfg, ecfg, device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new)) for p in prompts]
-        eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        for r in reqs:
-            check(r.done and r.error is None, f"paged {kv}: request {r.request_id} {r.error}")
-            check(len(r.output) == max_new, f"paged {kv}: {len(r.output)} tokens, not {max_new}")
-            check(all(0 <= t < cfg.vocab_size for t in r.output), f"paged {kv}: bad token")
-        check(eng.finite is not None and bool(eng.finite), f"paged {kv}: non-finite logits")
-        for name in PAGED_PATH:
-            check(counts[name] > 0, f"paged {kv}: kernel {name} was launched {counts[name]} times")
-        check(counts["decode_attention_arena"] == 0, "paged: the arena kernel ran")
-        check(counts["paged_attention"] == num_layers * eng.decode_steps,
-              f"paged {kv}: {counts['paged_attention']} K5 launches for "
-              f"{eng.decode_steps} decode steps of {num_layers} layers")
-        check(counts["flash_attention"] == num_layers * n_req,
-              f"paged {kv}: {counts['flash_attention']} K3 launches for {n_req} prefills")
-        check(eng.pages_in_use == 0 and eng.max_pages == n_req * per_seq,
-              f"paged {kv}: {eng.max_pages} pages held at most, {eng.pages_in_use} at the end")
-        ttfts = sorted(r.ttft for r in reqs)
-        res = dict(card=card, kv_dtype=kv, kv_scale=kv_scale, requests=n_req,
-                   layers=num_layers, prompt_len=n_prompt, bucket=bucket, page_size=page,
-                   generated=max_new * n_req, wall_s=wall,
-                   tokens_per_s=max_new * n_req / wall, ttft_p50_s=ttfts[len(ttfts) // 2],
-                   peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-                   pool_gb=2 * eng.k_pages.numel() * eng.k_pages.element_size() / 2 ** 30,
-                   pages_in_use_max=eng.max_pages, launches=counts,
-                   prefill_s=eng.prefill_s, decode_steps=eng.decode_steps,
-                   burst_s=eng.decode_s, burst_steps=eng.burst_steps,
-                   decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1))
-        del eng
-        if kv == "fp8":
-            res["profile"] = profile_run(CheckedPagedEngine, params, cfg, ecfg, prompts, dev,
-                                         max_new=max_new)
-        log(res)
-        results[kv] = res
-    return results
+    warm = engine_cls(params, cfg, ecfg, device=dev)
+    warm.add_request(prompts[0], SamplingParams(max_new_tokens=4))
+    warm.run()
+    del warm
+    eng = engine_cls(params, cfg, ecfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new)) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for r in reqs:
+        check(r.done and r.error is None, f"paged {tag}: request {r.request_id} {r.error}")
+        check(len(r.output) == max_new, f"paged {tag}: {len(r.output)} tokens, not {max_new}")
+        check(all(0 <= t < cfg.vocab_size for t in r.output), f"paged {tag}: bad token")
+    check(eng.finite is not None and bool(eng.finite), f"paged {tag}: non-finite logits")
+    path = (("flash_attention", "paged_attention") + K1_PATH if tag == "fp8_xla"
+            else PAGED_PATH)
+    for name in path:
+        check(counts[name] > 0, f"paged {tag}: kernel {name} was launched {counts[name]} times")
+    if tag == "fp8_xla":
+        check(eng.k1_prefill == 4 * num_layers * n_req and eng.k1_decode > 0,
+              f"paged {tag}: K1 launched {eng.k1_prefill} times in {n_req} prefills of "
+              f"{num_layers} layers and {eng.k1_decode} in decode steps")
+    else:
+        check(counts["quant_matmul"] == 0, f"paged {tag}: K1 ran {counts['quant_matmul']} "
+              "times on the fp8native route")
+    check(counts["decode_attention_arena"] == 0, "paged: the arena kernel ran")
+    check(counts["paged_attention"] == num_layers * eng.decode_steps,
+          f"paged {tag}: {counts['paged_attention']} K5 launches for "
+          f"{eng.decode_steps} decode steps of {num_layers} layers")
+    check(counts["flash_attention"] == num_layers * n_req,
+          f"paged {tag}: {counts['flash_attention']} K3 launches for {n_req} prefills")
+    check(eng.pages_in_use == 0 and eng.max_pages == n_req * per_seq,
+          f"paged {tag}: {eng.max_pages} pages held at most, {eng.pages_in_use} at the end")
+    ttfts = sorted(r.ttft for r in reqs)
+    res = dict(card=card, kv_dtype=kv, kv_scale=kv_scale,
+               qdot_route="xla (K1)" if tag == "fp8_xla" else "default",
+               requests=n_req, layers=num_layers, prompt_len=n_prompt, bucket=bucket,
+               page_size=page, generated=max_new * n_req, wall_s=wall,
+               tokens_per_s=max_new * n_req / wall, ttft_p50_s=ttfts[len(ttfts) // 2],
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               pool_gb=2 * eng.k_pages.numel() * eng.k_pages.element_size() / 2 ** 30,
+               pages_in_use_max=eng.max_pages, launches=counts,
+               k1_prefill=eng.k1_prefill, k1_decode=eng.k1_decode,
+               prefill_s=eng.prefill_s, decode_steps=eng.decode_steps,
+               burst_s=eng.decode_s, burst_steps=eng.burst_steps,
+               decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1))
+    del eng
+    if tag == "fp8":
+        res["profile"] = profile_run(engine_cls, params, cfg, ecfg, prompts, dev,
+                                     max_new=max_new)
+    res["prompts"] = prompts
+    return res
 
 
 def profile_run(engine_cls, params, cfg, ecfg, prompts, dev, max_new=32):
@@ -1363,8 +1591,6 @@ def k6_planted(k6, q, k, v, out, lse, do, qo, kl, cfg, ref, live, ex, dev):
 
 
 def restore_env(key, value):
-    import os
-
     if value is None:
         os.environ.pop(key, None)
     else:
@@ -2024,7 +2250,9 @@ def kernels_line(report):
     its launches in the serving and training runs (summed over the paths
     that run it; K6's two kernels are one entry)."""
     by_path = {"arena": report["serve"]["fp8"]["launches"],
+               "arena int8 weights": report["serve"]["int8_weights"]["launches"],
                "paged": report["paged_serve"]["fp8"]["launches"],
+               "paged LLM_FP8_QDOT=xla": report["paged_serve"]["fp8_xla"]["launches"],
                "train": report["train"]["launches"],
                "profile": report["profile"]["launches"],
                "fp8_kernels (K7's public call at the 1B prefill shape, both routes; no path "
@@ -2075,6 +2303,12 @@ def kernels_line(report):
                          library_ms=c["library_ms"], case=c["case"]))
         if "vs_library" in c:
             line[-1]["vs_library"] = c["vs_library"]
+        if kname == "quant_matmul":  # the prefill kernel's case beside the decode one
+            o = next(o for o in report["kernels"]
+                     if o["kernel"] == kname and o["case"] == "w_gate_up M=8192 channel e4m3")
+            line[-1]["also"] = {k: o[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "library_ms",
+                                                  "vs_library", "fp8native_ms")}
         if "split_ms" in c:
             line[-1]["split_ms"] = c["split_ms"]
         if kname == "flash_attention_fp8":

@@ -61,8 +61,12 @@ def main(argv=None):
             "--paged and --draft_model are mutually exclusive: speculative "
             "decoding runs on the slot-arena engine (SpecEngine), not the "
             "paged pool — see docs/PERF_NOTES.md (speculative serving path)")
+    if args.paged and args.kv_dtype == "int8":
+        raise SystemExit(
+            "--paged with --kv_dtype int8 is refused: the paged engine stores K/V at "
+            "kv_scale = 1 (it has no calibration and the CLI no scale flag), so the int8 "
+            "pool would hold round(K), mostly zeros; use --kv_dtype fp8 or bf16")
     for flag, on in (("--draft_model", args.draft_model),
-                     ("--precision int4", args.precision == "int4"),
                      ("--weights_path", args.weights_path and not args.random_init)):
         if on:
             raise SystemExit(f"{flag} is not ported yet")
@@ -71,8 +75,8 @@ def main(argv=None):
     params = init_params(cfg, dtype=torch.bfloat16, device=device, seed=0)
     if args.precision == "fp8":
         params = quantize_params(params, recipe_set_by_name(args.fp8_scenario))
-    elif args.precision == "int8":
-        params = quantize_params(params, recipe_set_by_name("int8"))
+    elif args.precision in ("int8", "int4"):
+        params = quantize_params(params, recipe_set_by_name(args.precision))
     if args.paged:
         eng = PagedEngine(params, cfg, PagedEngineConfig(
             max_slots=args.max_slots, num_pages=args.num_pages, page_size=args.page_size,

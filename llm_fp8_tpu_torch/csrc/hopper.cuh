@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the port's attention kernels:
-// mbarriers, TMA tile loads through a tensor map, wgmma matrix descriptors and
-// the bf16 wgmma shapes the kernels issue, and the host-side tensor map over a
-// [B, S, H, D] bf16 tensor.
+// Hopper (sm_90a) building blocks shared by the port's attention kernels and
+// K1's prefill kernel: mbarriers, TMA tile loads through a tensor map, wgmma
+// matrix descriptors and the bf16 wgmma shapes the kernels issue, and the
+// host-side tensor maps over a [B, S, H, D] bf16 tensor and a 2-D matrix.
 //
 // Shared-memory tiles are written by TMA in the canonical swizzled layouts
 // wgmma reads: a [rows][D] bf16 tile is stored as D / CW column chunks, each
@@ -79,6 +79,22 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One box of a 2-D tensor map (coordinates innermost first).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Orders this thread's ordinary shared-memory writes before later reads by
+// the async proxy (wgmma operands written by threads, not by TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- wgmma ----
@@ -241,6 +257,37 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D[64 x 128] (+)= A·B with A (K-major) and B (MN-major: N contiguous) in
+// shared memory.
+__device__ __forceinline__ void wgmma_ss_n128_bt(float (&d)[64], uint64_t desc_a,
+                                               uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D[64 x 32] += A·B, A (bf16 pairs, the m64k16 fragment) in registers,
 // B in shared memory MN-major (transposed: N contiguous).
 __device__ __forceinline__ void wgmma_rs_n32_bt(float (&d)[16], const uint32_t (&a)[4],
@@ -327,6 +374,28 @@ static inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, i
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                             strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             T::SWZ == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A tensor map over the row-major matrix [rows, cols] of `elem` bytes per
+// element at `ptr` (rows `row_bytes` apart), whose box is box_rows x
+// box_cols; swizzle 128 (the box's rows must then be 128 bytes) or 0. Reads
+// past the matrix are zeros. Returns a CUDA error code (0 on success).
+static inline int encode_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr,
+                            long long rows, long long cols, long long row_bytes, int box_rows,
+                            int box_cols, int swizzle) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || row_bytes % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1u, 1u};
+  const CUresult r = encode(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -39,11 +39,12 @@ _HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: Library → {launcher: its C argument types}; every launcher returns int.
 _SIGNATURES = {
-    "quant_matmul": {"qmm_launch": [_P] * 5 + [_I] * 9 + [_P]},
+    "quant_matmul": {"qmm_launch": [_P] * 5 + [_I] * 9 + [_P],
+                     "qmm_prefill_launch": [_P] * 5 + [_I] * 9 + [_P]},
     "decode_attention": {"decode_arena_launch":
                          [_P] * 4 + [_I] + [_P] * 7 + [_I] * 6 + [_F, _I, _F, _P]},
     "flash_attention": {"flash_fwd_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _F, _P]},
-    "paged_attention": {"paged_attn_launch": [_P] * 8 + [_I] * 10 + [_F, _F, _I, _F, _P]},
+    "paged_attention": {"paged_attn_launch": [_P] * 11 + [_I] * 12 + [_F, _F, _I, _F, _P]},
     "flash_attention_bwd": {
         "flash_bwd_dkv_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _P],
         "flash_bwd_dq_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _P]},

@@ -10,10 +10,12 @@ as on the TPU.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 __all__ = ["e4m3_to_bf16_ftz", "fp8_to_bf16_ftz", "pad_to_multiple", "aligned16",
-           "KV_KINDS", "W_KINDS"]
+           "num_sms", "KV_KINDS", "W_KINDS"]
 
 #: dtype → kind code of ``csrc/fp8_ftz.cuh`` (``kCodeE4M3`` ...).
 W_KINDS = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1, torch.int8: 2}
@@ -57,3 +59,9 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     loads need both); copies only when it is not."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of the card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

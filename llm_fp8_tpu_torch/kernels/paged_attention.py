@@ -12,10 +12,14 @@ padding may be any value. The pools are updated **in place**: where JAX
 aliases them to the kernel's outputs, this function writes the new token
 into the tensors it was given and returns them.
 
+The CUDA kernel splits each sequence into runs of pages
+(:func:`split_plan`, from the shapes alone, so a later CUDA graph can
+capture the call) and merges the runs' partial softmaxes in order.
+
 The plain version takes one softmax maximum over the whole sequence, while
 the TPU kernel tiles ``min(8, max_pages) · page`` keys and the CUDA kernel
-keeps one maximum per warp over 32-key chunks: they agree up to where p is
-rounded to bf16 (identical when the TPU's one tile covers the sequence).
+keeps one maximum per warp and split: they agree up to where p is rounded
+to bf16 (identical when the TPU's one tile covers the sequence).
 """
 from __future__ import annotations
 
@@ -25,9 +29,10 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._common import KV_KINDS, fp8_to_bf16_ftz
+from ._common import KV_KINDS, fp8_to_bf16_ftz, num_sms
 
-__all__ = ["paged_attention", "paged_attention_plain", "quantize_to_pool", "MASK_VALUE"]
+__all__ = ["paged_attention", "paged_attention_plain", "quantize_to_pool", "split_plan",
+           "split_ranges", "MASK_VALUE"]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _MAX_GROUPS = 8  # csrc/paged_attention.cu kMaxG
@@ -51,6 +56,31 @@ def quantize_to_pool(x: torch.Tensor, kv_scale: float, dtype: torch.dtype) -> to
     if dtype == torch.int8:
         y = torch.round(y)
     return y.to(dtype)
+
+
+#: Blocks of the CUDA kernel an SM holds at once (four warps each; shared
+#: memory and registers allow four at D = 64): the grid aims at one wave.
+_BLOCKS_PER_SM = 4
+
+
+def split_plan(batch: int, kv_heads: int, max_pages: int, sms: int = 132):
+    """``(splits, pages_per_split)`` of the CUDA kernel: each (kv head,
+    sequence) is cut into ``splits`` runs of ``pages_per_split`` pages of its
+    table (the last run may be shorter), so that the grid ``kv_heads ·
+    batch · splits`` fills ``sms`` with ``_BLOCKS_PER_SM`` blocks each, in
+    one wave. Shapes only: no length is read."""
+    want = max(1, _BLOCKS_PER_SM * sms // max(1, batch * kv_heads))
+    per = -(-max_pages // max(1, min(max_pages, want)))
+    return -(-max_pages // per), per
+
+
+def split_ranges(length: int, page: int, splits: int, pages_per_split: int, window=None):
+    """The key positions ``[lo, hi)`` each split attends for a sequence of
+    ``length`` tokens (the kernel's arithmetic; an empty range is a split
+    with nothing to read)."""
+    span = pages_per_split * page
+    start = max(0, length - window) if window else 0
+    return [(max(z * span, start), min(length, (z + 1) * span)) for z in range(splits)]
 
 
 def paged_attention_plain(q, k_pages, v_pages, lengths, page_tables, layer_idx, *,
@@ -105,14 +135,19 @@ def _launch(q, k_pages, v_pages, lengths, tables, layer_idx, new_k, new_v, scale
     lib = _build.library("paged_attention")
     B, Hq, D = q.shape
     P, L, Hk, page, _ = k_pages.shape
+    splits, pps = split_plan(B, Hk, tables.shape[1], num_sms(q.device))
     out = torch.empty((B, Hq, D), dtype=torch.bfloat16, device=q.device)
+    rows = B * Hk * splits * (Hq // Hk)
+    part = torch.empty((rows * (D + 2),), dtype=torch.float32, device=q.device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
     err = lib.paged_attn_launch(
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(lengths), ptr(tables), ptr(new_k),
-        ptr(new_v), ptr(out), ctypes.c_int(B), ctypes.c_int(Hq), ctypes.c_int(Hk),
+        ptr(new_v), ptr(out), ptr(part), ptr(part[rows:]), ptr(part[2 * rows:]),
+        ctypes.c_int(B), ctypes.c_int(Hq), ctypes.c_int(Hk),
         ctypes.c_int(D), ctypes.c_int(P), ctypes.c_int(L), ctypes.c_int(page),
         ctypes.c_int(tables.shape[1]), ctypes.c_int(layer_idx),
-        ctypes.c_int(KV_KINDS[k_pages.dtype]), ctypes.c_float(scale * kv_scale),
+        ctypes.c_int(KV_KINDS[k_pages.dtype]), ctypes.c_int(splits), ctypes.c_int(pps),
+        ctypes.c_float(scale * kv_scale),
         ctypes.c_float(kv_scale), ctypes.c_int(window or 0), ctypes.c_float(softcap or 0.0),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )

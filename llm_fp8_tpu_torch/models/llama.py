@@ -6,8 +6,10 @@ Parameters are a plain dict of tensors with the JAX package's stacked layout
 :class:`QTensor`. Where JAX scans over the layers, this is a Python loop;
 where JAX donates cache buffers, the caches here are updated in place.
 
-Quantized projections run K1 (``quant.qdot``), the arena decode attention
-K2, the paged decode attention K5 and the prefill attention K3 on the card.
+Quantized projections run ``quant.qdot`` (on the card: K9 and fp8 products
+for fp8 weights where the card has them, K1 for the others), the arena
+decode attention K2, the paged decode attention K5 and the prefill
+attention K3 on the card.
 Plain bf16 products (unquantized weights, the tied lm_head) are cuBLAS calls
 (``torch.matmul``/``torch.mm``) on the card, as the JAX package leaves them
 to XLA; on the CPU they are float32 products of the bf16 operands, as XLA
@@ -32,7 +34,7 @@ from ..ops.attention import attention
 from ..ops.rmsnorm import rmsnorm
 from ..ops.rotary import apply_rope, rope_cos_sin, rope_frequencies
 from ..quant import DotAmaxes, QTensor, RecipeSet, fp8_dot, qdot, quantize, quantize_mx
-from ..quant.dot import matmul_f32
+from ..quant.dot import matmul_f32, serving_layout
 from ..utils.backend import resolve_device
 from .config import ModelConfig
 
@@ -78,7 +80,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *
 
 def quantize_params(params: Dict[str, Any], recipes: RecipeSet) -> Dict[str, Any]:
     """Prequantize the projection weights per the recipe set: per-output-
-    channel scales (MX blocks for the block recipe), subnormal codes flushed."""
+    channel scales (MX blocks for the block recipe), subnormal codes flushed,
+    codes laid out for the ``qdot`` route in force (``serving_layout``)."""
     out = dict(params)
     layers = dict(params["layers"])
 
@@ -91,9 +94,9 @@ def quantize_params(params: Dict[str, Any], recipes: RecipeSet) -> Dict[str, Any
             layers[name] = quantize_mx(wv, recipe.fmt_fwd, block_axis=contract_axis,
                                        flush_subnormal=True)
         else:
-            layers[name] = quantize(wv, recipe.fmt_fwd, axes=(contract_axis,),
-                                    margin=recipe.margin, group_size=recipe.group_size,
-                                    flush_subnormal=True)
+            layers[name] = serving_layout(quantize(
+                wv, recipe.fmt_fwd, axes=(contract_axis,), margin=recipe.margin,
+                group_size=recipe.group_size, flush_subnormal=True))
 
     q("wqkv", "attn_qkv")
     q("wo", "attn_out")
@@ -102,8 +105,8 @@ def quantize_params(params: Dict[str, Any], recipes: RecipeSet) -> Dict[str, Any
     out["layers"] = layers
     lm_recipe = recipes.for_role("lm_head")
     if lm_recipe is not None and "lm_head" in out:
-        out["lm_head"] = quantize(out["lm_head"].float(), lm_recipe.fmt_fwd, axes=(0,),
-                                  flush_subnormal=True)
+        out["lm_head"] = serving_layout(quantize(out["lm_head"].float(), lm_recipe.fmt_fwd,
+                                                 axes=(0,), flush_subnormal=True))
     return out
 
 

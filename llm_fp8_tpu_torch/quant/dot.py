@@ -1,11 +1,32 @@
 """Quantized matmuls (counterpart of ``llm_fp8_tpu/quant/dot.py``).
 
-Inference (``qdot``): the JAX package's default route on the TPU is XLA's
-convert+dot, where XLA fuses the e4m3→bf16 convert into the operand read.
-PyTorch has no such fusion: ``w.to(bf16)`` then ``matmul`` would write a bf16
-copy of every weight and read it back. So every fp8/int8 QTensor goes
-through K1 (:func:`..kernels.quant_matmul.qdot_fused`), the counterpart of
-the JAX ``"fused"`` route.
+Inference (``qdot``): the reference's routes, chosen as it chooses them
+(``impl=``, else ``LLM_FP8_QDOT``, else the default; both read per call):
+
+* ``"fp8native"``, the default for e4m3/e5m2 weights with tensor or channel
+  scales where the card multiplies fp8 natively (``LLM_FP8_NATIVE_DOT``,
+  else :func:`..utils.backend.native_fp8_matmul`): x is quantized per row
+  to e4m3 by K9 and multiplied fp8 by fp8 (``_narrow_dot``,
+  ``torch._scaled_mm`` on the card), the scales after. cuBLASLt wants the
+  second operand column-major, so :func:`serving_layout` (called by
+  ``quantize_params``) stores such weights as the ``.t()`` view of
+  contiguous ``[N, K]`` codes: ``qvalue`` stays logically ``[K, N]`` and no
+  call copies it. A one-time notice says the route was picked.
+* ``"fused"``: K1 (:func:`..kernels.quant_matmul.qdot_fused`).
+* ``"xla"``, the default elsewhere. JAX leaves the convert+dot to XLA,
+  which fuses the convert into the operand read. PyTorch has no such
+  fusion: convert then matmul would write a bf16 copy of every weight and
+  read it back. So on the card a bf16 x goes through K1, which equals
+  convert+dot on weights whose subnormal codes are flushed
+  (``quantize_params`` flushes them). A float32 x, or a CPU tensor, takes
+  JAX's arithmetic in plain torch: the exact convert, a float32-accumulated
+  product, the scale after it (MX: dequantize, then dot).
+* int4 split-half weights (``_int4_dot``) and group-wise scales take plain
+  torch on either device, as JAX takes XLA.
+
+K1 reads row-major ``[K, N]`` codes and the fp8native route column-major
+ones: on the card a weight laid out for the other route raises rather than
+being copied on every call.
 
 Training (``fp8_dot``): a ``torch.autograd.Function`` with the JAX
 ``custom_vjp``'s forward and backward. Forward operands are quantized to the
@@ -36,16 +57,21 @@ does with narrow operands.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
 
+from ..kernels._common import W_KINDS
 from ..kernels.quant_matmul import qdot_fused
-from .qtensor import MX_BLOCK, QTensor, quantize, quantize_mx
+from .formats import E4M3
+from .qtensor import MX_BLOCK, QTensor, _unpack_int4_halves, quantize, quantize_mx
 from .recipe import Recipe
 
-__all__ = ["qdot", "fp8_dot", "DotAmaxes", "matmul_f32"]
+__all__ = ["qdot", "qdot_route", "serving_layout", "fp8_dot", "DotAmaxes", "matmul_f32"]
 
 
 class DotAmaxes(NamedTuple):
@@ -62,14 +88,134 @@ def _scale_is_post_applicable(w: QTensor) -> bool:
     return w.scale.ndim == 0 or all(d == 1 for d in w.scale.shape[:-1])
 
 
-def qdot(x: torch.Tensor, w: QTensor, *, out_dtype=None) -> torch.Tensor:
-    """``x [..., K] @ w [K, N]`` with ``w`` stored quantized (fp8 or int8,
-    unpacked; per-tensor, per-channel or MX scales)."""
-    if w.pack_axis is not None:
-        raise NotImplementedError("qdot: int4 (packed) weights are not ported yet")
-    if w.block_size is None and not _scale_is_post_applicable(w):
-        raise NotImplementedError("qdot: group-wise scales are not ported yet")
-    return qdot_fused(x, w, out_dtype=out_dtype or x.dtype)
+def _fp8_weight(w: QTensor) -> bool:
+    """An fp8 weight the fp8native route can serve (JAX ``fp8_weight``)."""
+    return (w.qvalue.dtype in _FP8_DTYPES and w.block_size is None and w.pack_axis is None
+            and _scale_is_post_applicable(w))
+
+
+def qdot_route(w: QTensor, impl: Optional[str] = None) -> str:
+    """The route :func:`qdot` takes for ``w``: ``impl``, else
+    ``LLM_FP8_QDOT``, else ``"fp8native"`` for an fp8 weight where native fp8
+    products are enabled and ``"xla"`` otherwise (JAX ``qdot :86-91``)."""
+    if impl is not None:
+        return impl
+    default = "fp8native" if (_fp8_weight(w) and _native_fp8_enabled()) else "xla"
+    return os.environ.get("LLM_FP8_QDOT", default)
+
+
+_FP8NATIVE_WARNED = False
+
+
+def _warn_fp8native_autoselect() -> None:
+    """One notice per process when the fp8-operand route was picked by
+    default (JAX ``_warn_fp8native_autoselect``)."""
+    global _FP8NATIVE_WARNED
+    if _FP8NATIVE_WARNED:
+        return
+    _FP8NATIVE_WARNED = True
+    warnings.warn(
+        "qdot: auto-selected the fp8-operand route (the card multiplies fp8 "
+        "natively). Activations are quantized to e4m3 just-in-time; logits differ "
+        "slightly from the dequant route. Pin LLM_FP8_QDOT=xla (or fp8native) to "
+        "silence this notice and fix the route.", stacklevel=3)
+
+
+def _kmajor(q: torch.Tensor) -> bool:
+    return q.stride(-2) == 1 and q.shape[-2] > 1
+
+
+def serving_layout(w: QTensor) -> QTensor:
+    """``w`` with its codes laid out for the route :func:`qdot` will take:
+    the ``.t()`` view of contiguous ``[..., N, K]`` codes where that route
+    is ``"fp8native"`` (``torch._scaled_mm``'s column-major second
+    operand), row-major ``[..., K, N]`` otherwise (K1). A stacked ``[L, K,
+    N]`` weight is judged by its first layer. One copy, made here."""
+    one = w.layer(0) if w.qvalue.ndim == 3 else w
+    want_k = qdot_route(one) == "fp8native" and _fp8_weight(one)
+    if want_k == _kmajor(w.qvalue):
+        return w
+    q = w.qvalue.transpose(-1, -2).contiguous().transpose(-1, -2) if want_k \
+        else w.qvalue.contiguous()
+    return dataclasses.replace(w, qvalue=q)
+
+
+def _k1_serves(x: torch.Tensor, w: QTensor) -> bool:
+    """K1 computes the xla route's function: bf16 x on the card, unpacked
+    fp8/int8 codes, tensor/channel scales or MX blocks along K."""
+    if not (x.is_cuda and x.dtype == torch.bfloat16 and w.qvalue.ndim == 2
+            and w.qvalue.dtype in W_KINDS and w.pack_axis is None):
+        return False
+    if w.block_size is None:
+        return _scale_is_post_applicable(w)
+    return w.block_size == MX_BLOCK and w.block_axis == -2 and w.fmt.name != "int4"
+
+
+def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [..., K] @ b [K, N]`` of one dtype, float32 products and sums
+    (JAX ``jnp.dot(..., preferred_element_type=float32)``)."""
+    a2 = a.reshape(-1, a.shape[-1])
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        y = torch.mm(a2, b, out_dtype=torch.float32)
+    else:
+        y = a2.float() @ b.float()
+    return y.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def _int4_dot(x: torch.Tensor, w: QTensor) -> Optional[torch.Tensor]:
+    """``x [..., K] @ w`` for split-half nibble-packed int4 weights as
+    ``x_lo @ lo + x_hi @ hi`` (JAX ``_int4_dot``); group scales contract each
+    group apart and post-apply its scale. None where a group straddles the
+    halves (the caller dequantizes first)."""
+    lo, hi = _unpack_int4_halves(w.qvalue)
+    kh = w.qvalue.shape[-2]
+    x_lo, x_hi = x[..., :kh], x[..., kh:]
+    if w.block_size is None and _scale_is_post_applicable(w):
+        y = _dot_f32(x_lo, lo.to(x.dtype)) + _dot_f32(x_hi, hi.to(x.dtype))
+        return y * w.scale.float().reshape(-1)
+    if w.block_size is not None and w.scale.ndim == 2:
+        g = w.block_size
+        if kh % g:
+            return None
+        gh, n, s, lead = kh // g, w.qvalue.shape[-1], w.scale.float(), x.shape[:-1]
+
+        def half(xp, wp, sp):
+            yg = torch.einsum("...gk,gkn->...gn", xp.float().reshape(*lead, gh, g),
+                              wp.float().reshape(gh, g, n))
+            return (yg * sp).sum(dim=-2)
+
+        return half(x_lo, lo, s[:gh]) + half(x_hi, hi, s[gh:])
+    return None
+
+
+def qdot(x: torch.Tensor, w: QTensor, *, out_dtype=None, impl: Optional[str] = None
+         ) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` with ``w`` stored quantized, by the route
+    :func:`qdot_route` picks (JAX ``qdot``; the module docstring has the
+    routes)."""
+    if impl is None and "LLM_FP8_QDOT" not in os.environ and qdot_route(w) == "fp8native":
+        _warn_fp8native_autoselect()
+    impl = qdot_route(w, impl)
+    if impl == "fp8native" and _fp8_weight(w):
+        if w.qvalue.is_cuda and not _kmajor(w.qvalue):
+            raise ValueError("qdot fp8native: the weight codes are row-major (laid out "
+                             "for K1); quantize_params lays them out for the route in force "
+                             "when it runs, so set LLM_FP8_QDOT before it")
+        xq = _quantize_channel(x, E4M3, x.ndim - 1, margin=0)
+        return _narrow_dot(xq, w, out_dtype or x.dtype, "fp8")
+    if impl == "fused" and w.pack_axis is None:
+        return qdot_fused(x, w, out_dtype=out_dtype or x.dtype)
+    out_dtype = out_dtype or x.dtype
+    if w.pack_axis is not None and w.pack_axis % w.ndim == w.ndim - 2:
+        y = _int4_dot(x, w)
+        if y is not None:
+            return y.to(out_dtype)
+    if _k1_serves(x, w):
+        return qdot_fused(x, w, out_dtype=out_dtype)
+    if w.block_size is None and _scale_is_post_applicable(w):
+        y = _dot_f32(x, w.unpack().to(x.dtype)) * w.scale.float().reshape(-1)
+        return y.to(out_dtype)
+    return _dot_f32(x, w.dequantize(x.dtype)).to(out_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -177,11 +323,21 @@ def _native_mode(recipe: Recipe) -> Optional[str]:
     return None
 
 
+@functools.lru_cache(maxsize=None)
+def _unit_scale(device: torch.device) -> torch.Tensor:
+    """The 0-d float32 one ``torch._scaled_mm`` takes as both scales (made
+    once per device: the serving route calls it per projection)."""
+    return torch.ones((), dtype=torch.float32, device=device)
+
+
 def _codes_mm(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     """``a [M, K] @ b [K, N]`` of one-byte codes, accumulated in float32
     (``"fp8"``) or int32 (``"int"``), returned as float32. ``b`` may be any
     view (a transpose included); the card's products get the layouts
-    cuBLASLt takes."""
+    cuBLASLt takes. ``torch._scaled_mm`` takes any M (checked on the H100
+    with torch 2.11 at M = 1, 5, 8, 17, 128 and 8184), so decode slots and
+    ragged prefill rows are not padded. K and N must be multiples of 16,
+    which every projection of every ``models/config.py`` configuration is."""
     if not a.is_cuda:
         return a.float() @ b.float()
     if mode == "int":
@@ -190,7 +346,7 @@ def _codes_mm(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
         a = a.contiguous()
     if b.stride(0) != 1:  # column-major second operand
         b = b.t().contiguous().t()
-    one = torch.ones((), dtype=torch.float32, device=a.device)
+    one = _unit_scale(a.device)
     try:
         return torch._scaled_mm(a, b, one, one, out_dtype=torch.float32)
     except RuntimeError as e:
@@ -203,8 +359,8 @@ def _narrow_dot(aq: QTensor, bq: QTensor, out_dtype, mode: str) -> torch.Tensor:
     scales are constant along the contraction, so they post-apply exactly."""
     a = aq.qvalue.reshape(-1, aq.qvalue.shape[-1])
     acc = _codes_mm(a, bq.qvalue, mode).reshape(*aq.qvalue.shape[:-1], bq.qvalue.shape[-1])
-    y = acc * aq.scale.float() * bq.scale.float().reshape(-1)
-    return y.to(out_dtype)
+    # In place on the fresh float32 product: (acc · sa) · sb, as JAX rounds it.
+    return acc.mul_(aq.scale.float()).mul_(bq.scale.float().reshape(-1)).to(out_dtype)
 
 
 def _amax_of(t: torch.Tensor) -> torch.Tensor:

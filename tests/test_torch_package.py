@@ -193,11 +193,12 @@ def test_serve_cli_paged_runs_on_cpu():
 
 
 @pytest.mark.parametrize("flag", [["--paged", "--draft_model", "debug-tiny"],
-                                  ["--draft_model", "debug-tiny"], ["--precision", "int4"]])
+                                  ["--draft_model", "debug-tiny"],
+                                  ["--paged", "--kv_dtype", "int8"]])
 def test_serve_cli_refuses_unported_options(flag):
     from llm_fp8_tpu_torch.cli.serve import main
 
-    with pytest.raises(SystemExit, match="not ported yet|mutually exclusive"):
+    with pytest.raises(SystemExit, match="not ported yet|mutually exclusive|kv_scale = 1"):
         main(["--model_name", "debug-tiny", "--random_init", "--device", "cpu", *flag])
 
 

@@ -141,3 +141,28 @@ def test_refuses_what_the_kernel_does_not_take(bad):
     err = NotImplementedError if bad == "alibi" else (TypeError if bad == "dtype" else ValueError)
     with pytest.raises(err):
         paged_attention(q, pool, pool.clone(), lengths, tables, **kw)
+
+
+@pytest.mark.parametrize("B,Hk,max_pages,page,window", [
+    (8, 8, 65, 128, None), (1, 8, 65, 128, None), (2, 2, 3, 16, None), (16, 8, 1, 32, None),
+    (4, 4, 100, 16, 100), (8, 8, 9, 128, None), (1, 1, 1000, 16, None)])
+def test_split_plan_partitions_every_length(B, Hk, max_pages, page, window):
+    """The CUDA kernel's split plan (computed on the host from the shapes):
+    for every length the table can hold, the splits' key ranges partition
+    ``[0, length)`` (or the window's tail of it) in order, and exactly one
+    split holds position ``length - 1``, the one that appends."""
+    from llm_fp8_tpu_torch.kernels.paged_attention import split_plan, split_ranges
+
+    splits, per = split_plan(B, Hk, max_pages, sms=132)
+    assert split_plan(B, Hk, max_pages, sms=132) == (splits, per)
+    assert 1 <= splits <= max_pages and (splits - 1) * per < max_pages <= splits * per
+    assert splits == 1 or B * Hk * splits >= 132 or splits * per == max_pages
+    cap = max_pages * page
+    for length in sorted({n for n in (0, 1, page - 1, page, page + 1, cap // 2, cap - 1, cap)
+                          if n <= cap}):
+        ranges = split_ranges(length, page, splits, per, window)
+        start = max(0, length - window) if window else 0
+        covered = [t for lo, hi in ranges for t in range(lo, hi)]
+        assert covered == list(range(start, length))
+        holders = [z for z, (lo, hi) in enumerate(ranges) if lo <= length - 1 < hi]
+        assert holders == ([] if length == 0 else [(length - 1) // (per * page)])

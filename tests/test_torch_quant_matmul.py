@@ -68,9 +68,9 @@ def test_plain_bf16_output_within_one_ulp():
 
 @pytest.mark.parametrize("granularity", ["channel", "mx"])
 def test_qdot_matches_jax_qdot(granularity):
-    """qdot on a QTensor with leading batch dims: the port routes it through
-    K1, JAX through its default XLA route; on flushed weights both compute
-    the same products."""
+    """qdot on a QTensor with leading batch dims, both sides on their default
+    CPU route (xla: the port's plain torch here, K1 on the card); on flushed
+    weights both compute the same products."""
     rng = np.random.default_rng(11)
     w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
     x = rng.standard_normal((2, 3, K)).astype(np.float32)

@@ -11,8 +11,11 @@ forwards' final hidden states (relative L2), also with XLA's excess
 precision turned off (in a second process); the first step's gradients and
 loss; three ``Trainer`` steps under ``default`` and ``bf16``; ``evaluate``;
 K7's plain version against both JAX routes (largest error, and how far a
-bf16 P and a 128-key tile break the tolerance); K8's gradients in bf16.
-Not a test (pytest does not collect it): it reports, it does not assert.
+bf16 P and a 128-key tile break the tolerance); K8's gradients in bf16;
+how far one bf16 ulp on 5% of the embedding entries moves the port's
+logits on the xla and the fp8native ``qdot`` routes (``debug-small``, the
+reason ``chip_smoke.py`` feeds its fp8native slice the card's projection
+inputs). Not a test (pytest does not collect it): it reports, it does not assert.
 """
 import json
 import os
@@ -226,6 +229,31 @@ def rmsnorm_bf16_grads():
             for n, g, ref in zip(("dx", "dresidual", "dw"), (xt.grad, rt.grad, wt.grad), want)}
 
 
+def fp8native_input_ulp_sensitivity():
+    """Largest |Δlogit| over a 40-token prompt when one bf16 ulp is added to
+    5% of the embedding entries, per ``qdot`` route (LAYERWISE weights)."""
+    cfg = get_config("debug-small")
+    base = PL.init_params(cfg, device="cpu", seed=7)
+    g = torch.Generator().manual_seed(3)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 40), generator=g)
+    bump = torch.rand(base["embed"].shape, generator=g) < 0.05
+    out, saved = {}, os.environ.get("LLM_FP8_QDOT")
+    for route in ("xla", "fp8native"):
+        os.environ["LLM_FP8_QDOT"] = route
+        p = PL.quantize_params(base, recipe_set_by_name("default"))
+        bumped = p["embed"].clone()
+        bumped.view(torch.int16)[bump] += 1
+        lg, _ = PL.forward(p, prompt, cfg)
+        lg2, _ = PL.forward(dict(p, embed=bumped), prompt, cfg)
+        out[route] = float((lg.float() - lg2.float()).abs().max())
+    if saved is None:
+        os.environ.pop("LLM_FP8_QDOT")
+    else:
+        os.environ["LLM_FP8_QDOT"] = saved
+    out["logits_max_abs"] = float(lg.float().abs().max())
+    return out
+
+
 def main():
     if "--hidden-only" in sys.argv:
         print(json.dumps(forward_hidden()))
@@ -244,6 +272,7 @@ def main():
         "three_steps": three_steps(),
         "flash_fp8": flash_fp8(),
         "rmsnorm_bf16_grads": rmsnorm_bf16_grads(),
+        "fp8native_input_ulp_sensitivity": fp8native_input_ulp_sensitivity(),
     }, indent=1))
 
 
