@@ -13,7 +13,12 @@ Phases, in order; any failure exits non-zero before the last line:
    yardstick (timed only) and the bound (bytes or FLOPs over the card's peak).
    K1 runs at M = 8, 128 and 8192 (its decode and its wgmma prefill
    kernel), each beside torch.matmul on the dequantized weight and the
-   fp8native route (K9 + fp8 products, not the same function).
+   fp8native route (K9 + fp8 products, not the same function). K2 at the
+   arena decode shape in four arena dtypes (its split plan logged; the e4m3
+   case run twice, bit-identical), then at its split edges: single-key
+   splits beside a zero-length slot (a zero row, an untouched arena), and a
+   window that empties the early splits. The launch floor (a one-element
+   torch add) is timed beside them.
    ``paged_kernels``: K5 at the paged serve shape (8 sequences of ~8k
    tokens, e4m3, int8 and bf16 pools, with append: codes must equal the
    plain version's, and two runs must be bit-identical) and its features,
@@ -39,7 +44,10 @@ Phases, in order; any failure exits non-zero before the last line:
    errors the tolerance must catch and a determinism check (and K3's
    forward at the training shape); K9 (fused
    quantize) bit for bit at the training step's four gradient shapes, rows
-   and columns, e4m3/e5m2/int8, float32 and bf16. ``train_slice``:
+   and columns, e4m3/e5m2/int8, float32 and bf16, then at the serving
+   route's bf16 row shapes (prefill and decode, timed) and one case of each
+   remaining route of its selector and of the scalar edge, each case
+   logging its route. ``train_slice``:
    Llama-3.2-1B at full width cut to 2 layers, LAYERWISE, one step's loss,
    gradient norm, amaxes and every parameter's gradient on the card against
    the CPU's plain versions, and a planted fault in dw's gradient scales
@@ -284,6 +292,77 @@ class Instrumented:
         return out
 
 
+def kernel_ms(fn, calls: int = 20) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by name
+    (torch.profiler over ``calls`` eager calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if t:
+            name = e.key.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0]
+            out[name.split("::")[-1].split()[-1]] = t / calls / 1e3
+    return out
+
+
+def launch_floor_ms(dev) -> float:
+    """Device time of the smallest kernel: a one-element torch add, timed as
+    the kernels are (``cuda_ms``). Kernels that move a few KB sit at it."""
+    import torch
+
+    x = torch.zeros((1,), device=dev)
+    return cuda_ms(lambda: x.add_(1.0))
+
+
+def k2_check(k2, what, q, ka, va, lengths, layer, nk, nv, cos, sin, ks, vs, *, window=None,
+             rerun=False):
+    """K2 with append and rotary against its plain version on copies of the
+    arenas: every row within ROW_ULPS, the appended codes equal, a
+    zero-length sequence's row 0 and its arena untouched, and (``rerun``)
+    a second run bit-identical. Returns ``(max abs err, worst ulps, codes
+    equal, reruns identical)``."""
+    import torch
+
+    D = q.shape[-1]
+    kw = dict(new_k=nk, new_v=nv, rope_cos_sin=(cos, sin), k_scale=ks, v_scale=vs,
+              window=window)
+    ka_k, va_k = ka.clone(), va.clone()
+    got, _, _ = k2.decode_attention_arena(q, ka_k, va_k, lengths, layer, **kw)
+    ka_p, va_p = ka.clone(), va.clone()
+    ref = k2.decode_attention_arena_plain(
+        q, ka_p, va_p, lengths, layer, new_k=nk, new_v=nv, cos=cos, sin=sin, k_scale=ks,
+        v_scale=vs, scale=D ** -0.5, window=window, softcap=None)
+    torch.cuda.synchronize()
+    err, ulps = rows_within(got, ref, what)
+    bits = torch.int16 if ka.dtype == torch.bfloat16 else torch.uint8
+    same = bool(torch.equal(ka_k.view(bits), ka_p.view(bits))
+                and torch.equal(va_k.view(bits), va_p.view(bits)))
+    check(same, f"{what}: appended arena codes differ from the plain version")
+    dead = lengths == 0
+    if bool(dead.any()):
+        check(bool((got[dead] == 0).all()), f"{what}: a zero-length row is not 0")
+        check(bool(torch.equal(ka_k[:, dead].view(bits), ka[:, dead].view(bits))),
+              f"{what}: a zero-length sequence's arena changed")
+    identical = None
+    if rerun:  # the split partials merge in a fixed order: a rerun is bit-identical
+        ka_r, va_r = ka.clone(), va.clone()
+        again, _, _ = k2.decode_attention_arena(q, ka_r, va_r, lengths, layer, **kw)
+        torch.cuda.synchronize()
+        identical = bool(torch.equal(got.view(torch.int16), again.view(torch.int16))
+                         and torch.equal(ka_r.view(bits), ka_k.view(bits))
+                         and torch.equal(va_r.view(bits), va_k.view(bits)))
+        check(identical, f"{what}: two runs differ")
+    return err, ulps, same, identical
+
+
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
@@ -298,11 +377,12 @@ def kernel_cases(dev, bw, peak, log):
     from llm_fp8_tpu_torch.kernels import decode_attention as k2
     from llm_fp8_tpu_torch.kernels import flash_attention as k3
     from llm_fp8_tpu_torch.kernels import quant_matmul as k1
-    from llm_fp8_tpu_torch.kernels._common import fp8_to_bf16_ftz
+    from llm_fp8_tpu_torch.kernels._common import fp8_to_bf16_ftz, num_sms
     from llm_fp8_tpu_torch.quant import E4M3, E5M2, INT8, qdot, quantize, quantize_mx
 
     g = torch.Generator(device=dev).manual_seed(1234)
     cases = []
+    floor_ms = launch_floor_ms(dev)
 
     # ---- K1 at every Llama-3.2-1B projection shape ----
     # Decode (M = 8 slots), a short prefill (M = 128) and the paged engine's
@@ -393,18 +473,9 @@ def kernel_cases(dev, bw, peak, log):
         cos, sin = torch.cos(ang), torch.sin(ang)
         layer = 5
         kw = dict(new_k=nk, new_v=nv, rope_cos_sin=(cos, sin), k_scale=ks, v_scale=vs)
-        ka_k, va_k = ka.clone(), va.clone()
-        got, _, _ = k2.decode_attention_arena(q, ka_k, va_k, lengths, layer, **kw)
-        ka_p, va_p = ka.clone(), va.clone()
-        ref = k2.decode_attention_arena_plain(
-            q, ka_p, va_p, lengths, layer, new_k=nk, new_v=nv, cos=cos, sin=sin,
-            k_scale=ks, v_scale=vs, scale=D ** -0.5, window=None, softcap=None)
-        torch.cuda.synchronize()
-        err, ulps = rows_within(got, ref, f"K2 {dtype}")
-        same_codes = bool(torch.equal(ka_k.view(torch.uint8), ka_p.view(torch.uint8))
-                          and torch.equal(va_k.view(torch.uint8), va_p.view(torch.uint8)))
-        check(same_codes, f"K2 {dtype}: appended arena codes differ from the plain version")
-        del ka_k, va_k, ka_p, va_p
+        err, ulps, same_codes, identical = k2_check(
+            k2, f"K2 {dtype}", q, ka, va, lengths, layer, nk, nv, cos, sin, ks, vs,
+            rerun=dtype == torch.float8_e4m3fn)
         layers = cycler(list(range(L)))
         ms = cuda_ms(lambda: k2.decode_attention_arena(q, ka, va, lengths, layers(), **kw))
         call_ms = eager_ms(lambda: k2.decode_attention_arena(q, ka, va, lengths, layers(),
@@ -432,12 +503,44 @@ def kernel_cases(dev, bw, peak, log):
                   + nk.numel() * 2 * 2 + cos.numel() * 8)
         flops = 4.0 * Hq * D * int(lengths.sum())
         b_ms, b_by = bound_ms(nbytes, flops, bw, peak)
+        splits, span = k2.split_plan(B, Hk, S, num_sms(dev))
+        parts = kernel_ms(lambda: k2.decode_attention_arena(q, ka, va, lengths, layers(), **kw))
         case = dict(kernel="decode_attention_arena", case=f"B8 Hq32 Hk8 D64 S1024 {dtype}",
-                    max_abs_err=err, err_ulps=ulps, arena_codes_equal=same_codes, ms=ms,
-                    call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                    kernel_parts_ms=parts,
+                    max_abs_err=err, err_ulps=ulps, arena_codes_equal=same_codes,
+                    reruns_identical=identical, splits=splits, span=span, ms=ms,
+                    call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    vs_library=ms / lib_ms, bound_ms=b_ms, bound_by=b_by,
+                    launch_floor_ms=floor_ms)
         cases.append(case)
         log(case)
         del ka, va, kd, vd
+
+    # K2's split edges at the serve shape's plan (correctness only): a split
+    # holding a single key beside a zero-length slot, and a window that
+    # leaves the early splits of every sequence empty.
+    splits, span = k2.split_plan(B, Hk, S, num_sms(dev))
+    edge = ([0, 1] + [z * span + 1 for z in range(1, splits)] + [S] * 8)[:B]
+    for name, lens, window in (("single-key splits and a zero length", edge, None),
+                               ("window 100, early splits empty", [S, 1000, 700, 333, 129, 100,
+                                                                   99, 1][:B], 100)):
+        ka = torch.randn((2, B, Hk, S, D), generator=g, device=dev).to(torch.float8_e4m3fn)
+        va = torch.randn((2, B, Hk, S, D), generator=g, device=dev).to(torch.float8_e4m3fn)
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        ks = vs = torch.ones((Hk,), device=dev)
+        q = torch.randn((B, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+        nk = torch.randn((B, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+        ang = (lens - 1).float()[:, None] * torch.rand((1, D // 2), generator=g, device=dev)
+        err, ulps, same_codes, identical = k2_check(
+            k2, f"K2 {name}", q, ka, va, lens, 1, nk, nk, torch.cos(ang), torch.sin(ang), ks, vs,
+            window=window, rerun=True)
+        case = dict(kernel="decode_attention_arena", case=f"{name}, B8 Hq32 Hk8 D64 S1024 e4m3",
+                    lengths=lens.tolist(), window=window, splits=splits, span=span,
+                    max_abs_err=err, err_ulps=ulps, arena_codes_equal=same_codes,
+                    reruns_identical=identical)
+        cases.append(case)
+        log(case)
+        del ka, va
 
     # ---- K3 at B 1, Sq = Sk in {128, 512}, Hq 32, Hk 8, D 64 ----
     for Sq in (128, 512):
@@ -670,6 +773,7 @@ def paged_kernel_cases(dev, bw, peak, log):
                                               new_k=nk, new_v=nv, **kw)
             case["ms"] = cuda_ms(call)
             case["call_ms"] = eager_ms(call)
+            case["kernel_parts_ms"] = kernel_ms(call)
             case["plain_ms"] = cuda_ms(lambda: k5.paged_attention_plain(
                 q, kp, vp, lengths, tables, layers(), new_k=nk, new_v=nv, scale=D ** -0.5,
                 **kw), calls=4, rounds=3)
@@ -1538,7 +1642,8 @@ def train_kernel_cases(dev, bw, peak, log):
                     check(codes and scales, f"K9 {name}: {differ} codes differ, scales "
                           f"{'equal' if scales else 'differ'}")
                     case = dict(kernel="quantize_fused", case=name, max_abs_err=0.0,
-                                codes_equal=codes, scales_equal=scales)
+                                codes_equal=codes, scales_equal=scales,
+                                route=k9.route(M, N, dtype, axis))
                     if dtype == torch.float32 and fmt == main_fmt[site]:
                         call = lambda: k9.quantize_fused(x, fmt, axis=axis)  # noqa: E731
                         case["ms"] = cuda_ms(call)
@@ -1551,6 +1656,63 @@ def train_kernel_cases(dev, bw, peak, log):
                                                                       bw, peak)
                     cases.append(case)
                     log(case)
+    cases += k9_route_cases(k9, E4M3, g, dev, bw, peak, log)
+    return cases
+
+
+def k9_route_cases(k9, fmt, g, dev, bw, peak, log):
+    """K9 bit for bit at the serving route's bf16 row shapes (each
+    projection's input at an 8192-token prefill bucket and at 8-slot decode,
+    timed with its bound), one case of each remaining route of its selector
+    (a row longer than registers hold, one longer than shared memory holds,
+    a column taller than a cluster holds), and the scalar edge (ragged N, an
+    unaligned pointer)."""
+    import torch
+
+    floor_ms = launch_floor_ms(dev)
+    runs = [  # name, M, N, dtype, axis, timed
+        ("serve prefill qkv|gate_up in", 8192, 2048, torch.bfloat16, -1, True),
+        ("serve prefill down in", 8192, 8192, torch.bfloat16, -1, True),
+        ("serve decode qkv|gate_up in", 8, 2048, torch.bfloat16, -1, True),
+        ("serve decode down in", 8, 8192, torch.bfloat16, -1, True),
+        ("long row", 64, 32768, torch.float32, -1, False),
+        ("longer row", 16, 65536, torch.float32, -1, False),
+        ("tall column", 16384, 512, torch.float32, 0, False),
+        ("ragged rows", 300, 1001, torch.float32, -1, False),
+        ("ragged columns", 300, 1001, torch.bfloat16, 0, False),
+        ("unaligned rows", 128, 512, torch.float32, -1, False),
+        ("unaligned columns", 128, 512, torch.float32, 0, False),
+    ]
+    cases = []
+    for name, M, N, dtype, axis, timed in runs:
+        if name.startswith("unaligned"):  # a view 4 bytes into its storage
+            x = torch.randn((1 + M * N,), generator=g, device=dev)[1:].view(M, N).to(dtype)
+        else:
+            x = (torch.randn((M, N), generator=g, device=dev) * 3.0).to(dtype)
+        a = k9.quantize_fused(x, fmt, axis=axis)
+        b = k9.quantize_fused_plain(x, fmt, axis=axis)
+        torch.cuda.synchronize()
+        codes = torch.equal(a.qvalue.view(torch.uint8), b.qvalue.view(torch.uint8))
+        scales = torch.equal(a.scale, b.scale)
+        differ = int((a.qvalue.view(torch.uint8) != b.qvalue.view(torch.uint8)).sum())
+        label = f"{name} [{M}, {N}] {'rows' if axis == -1 else 'columns'} {str(dtype)[6:]} {fmt.name}"
+        check(codes and scales, f"K9 {label}: {differ} codes differ, scales "
+              f"{'equal' if scales else 'differ'}")
+        nbytes = M * N * (x.element_size() + 1) + a.scale.numel() * 4
+        case = dict(kernel="quantize_fused", case=label, max_abs_err=0.0, codes_equal=codes,
+                    scales_equal=scales, route=k9.route(M, N, dtype, axis),
+                    vectorized=x.data_ptr() % 16 == 0 and N * x.element_size() % 16 == 0)
+        case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 3.0 * M * N, bw, peak)
+        if timed:
+            call = lambda: k9.quantize_fused(x, fmt, axis=axis)  # noqa: E731
+            case["ms"] = cuda_ms(call)
+            case["call_ms"] = eager_ms(call)
+            case["plain_ms"] = cuda_ms(lambda: k9.quantize_fused_plain(x, fmt, axis=axis),
+                                       calls=4, rounds=3)
+            case["library_ms"] = None
+            case["launch_floor_ms"] = floor_ms
+        cases.append(case)
+        log(case)
     return cases
 
 
@@ -2311,6 +2473,15 @@ def kernels_line(report):
                                                   "vs_library", "fp8native_ms")}
         if "split_ms" in c:
             line[-1]["split_ms"] = c["split_ms"]
+        if kname == "decode_attention_arena":  # its split plan beside its time
+            line[-1]["split_plan"] = {"splits": c["splits"], "span": c["span"]}
+        if "kernel_parts_ms" in c:  # the split kernel and the merge
+            line[-1]["kernel_parts_ms"] = c["kernel_parts_ms"]
+        if kname == "quantize_fused":  # the serving route's prefill rows beside the gradients
+            o = next(o for o in report["train_kernels"]
+                     if o["kernel"] == kname and o["case"].startswith("serve prefill qkv"))
+            line[-1]["serving"] = {k: o[k] for k in ("case", "route", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "library_ms")}
         if kname == "flash_attention_fp8":
             line[-1].update(route_ms=c["routes"], no_jax_path_calls_it=True)
         if kname in also:

@@ -24,101 +24,40 @@
 // the sequence's table (pps and the split count come from the host, from
 // the shapes alone: kernels/paged_attention.py::split_plan), so at the 1B
 // decode shape 512 blocks of four warps fill the 132 SMs four deep, in one
-// wave, where one block per (kv head, sequence) gave 64. Each warp walks 32-key groups; a lane
-// copies its key's K and V rows (16-byte cp.async) into the warp's
-// double-buffered stage while the warp scores the group before, then scores
-// its key for all grouped q heads from the staged K row, and the warp's PV
-// sum reads the staged V rows. Each warp keeps its own online softmax with p
-// rounded to bf16 before the PV sum, as on the TPU; the block merges its
-// warps and writes a float32 partial (max, sum, unnormalized out). A second
-// kernel merges the partials of each (kv head, sequence) in split order and
-// applies 1/sum and the V descale, so two runs are bit-identical (no float
-// atomics). Only the split that holds position lengths-1 quantizes the new
-// token exactly as the TPU kernel does (divide by kv_scale with __fdiv_rn,
-// clip to ±fmax for the narrow kinds, round to nearest even) and stores its
-// codes in the pool and in shared memory; the attention reads that position
-// from the shared copy, so no thread reads back what another just wrote, and
+// wave, where one block per (kv head, sequence) gave 64. The walk over a
+// split's keys and the merge of the splits are shared with K2
+// (csrc/decode_split.cuh, which describes them); here a key's row is
+// reached through the block table. Only the split that holds position
+// lengths-1 quantizes the new token exactly as the TPU kernel does (divide
+// by kv_scale with __fdiv_rn, clip to ±fmax for the narrow kinds, round to
+// nearest even) and stores its codes in the pool and in shared memory;
 // blocks of inactive slots that all append into the same scratch row never
 // see each other's codes. q is multiplied by scale·kv_scale and rounded to
 // bf16 once (the TPU kernel's folding). Keys outside the window are never
 // read.
-#include <math.h>
-
-#include "fp8_ftz.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int kWarps = 4, kThreads = kWarps * 32, kMaxG = 8;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int KIND>
-__device__ __forceinline__ float load_code(const uint8_t* row, int d) {
-  if constexpr (KIND == kCodeBF16)
-    return bf16_bits_to_float(reinterpret_cast<const uint16_t*>(row)[d]);
-  else
-    return code_to_float<KIND>(row[d]);
-}
-
-// Quantizes one new-token element: writes its code to the pool row and to
-// `copy` (a shared-memory row the attention reads in its place).
-template <int KIND>
-__device__ __forceinline__ void store_code(uint8_t* row, uint8_t* copy, int d, float x,
-                                           float kv_scale) {
-  if constexpr (KIND == kCodeBF16) {
-    const __nv_bfloat16 h = __float2bfloat16_rn(__fdiv_rn(x, kv_scale));
-    reinterpret_cast<__nv_bfloat16*>(row)[d] = h;
-    reinterpret_cast<__nv_bfloat16*>(copy)[d] = h;
-  } else {
-    const float fmax = kind_max<KIND>();
-    const uint8_t c = float_to_code<KIND>(fminf(fmaxf(__fdiv_rn(x, kv_scale), -fmax), fmax));
-    row[d] = c;
-    copy[d] = c;
-  }
-}
+using namespace decode_split;
 
 struct PoolGeom {
   int P, L, Hk, page, max_pages, layer;
-  // Byte offset of token t's row for (kv head kvh) through the table row.
-  __device__ __forceinline__ size_t row_offset(const int* table, int t, int kvh,
-                                               int row_bytes) const {
-    const int idx = min(t / page, max_pages - 1);
-    const int pid = min(max(table[idx], 0), P - 1);
-    return ((((static_cast<size_t>(pid) * L + layer) * Hk + kvh) * page) + t % page) *
-           static_cast<size_t>(row_bytes);
-  }
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The float32 partials of every (sequence, kv head, split): per grouped q
-// head its running max, its sum and its unnormalized output row.
-struct Partials {
-  float* m;  // [B, Hk, splits, G]
-  float* l;  // [B, Hk, splits, G]
-  float* o;  // [B, Hk, splits, G, D]
+// Byte offset of token t's row for one (kv head, sequence) through its
+// table row.
+struct PageRows {
+  PoolGeom geo;
+  const int* table;
+  int kvh, row_bytes;
+  __device__ __forceinline__ size_t operator()(int t) const {
+    const int idx = min(t / geo.page, geo.max_pages - 1);
+    const int pid = min(max(table[idx], 0), geo.P - 1);
+    return ((((static_cast<size_t>(pid) * geo.L + geo.layer) * geo.Hk + kvh) * geo.page) +
+            t % geo.page) *
+           static_cast<size_t>(row_bytes);
+  }
 };
 
 template <int D, int KIND>
@@ -129,36 +68,40 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pages, uint8_
                    const __nv_bfloat16* __restrict__ new_v, Partials part, int Hq,
                    PoolGeom geo, int pps, float qscale, float kv_scale, int window,
                    float softcap) {
-  constexpr int ES = KIND == kCodeBF16 ? 2 : 1;  // bytes per stored element
-  constexpr int ROW = D * ES;                      // bytes per token row
-  constexpr int CH = ROW / 16;                     // 16-byte chunks per row
-  constexpr int DPL = D / 32;                      // output dims per lane
-  __shared__ __align__(16) float acc_w[kWarps][kMaxG][D];
-  __shared__ __align__(16) float q_s[D][kMaxG];  // [d][g]: one dimension's heads together
-  __shared__ __align__(16) uint8_t new_code[2][ROW];  // the appended K and V rows
-  __shared__ float p_s[kWarps][kMaxG][32];
-  __shared__ float m_w[kWarps][kMaxG], l_w[kWarps][kMaxG];
-  // Dynamic shared memory: each warp's stage, [2 buffers][K, V][32 rows][ROW].
+  using W = Walk<D, KIND, PageRows>;
+  __shared__ __align__(16) __nv_bfloat16 q_b[kMaxG][D];  // q folded, bf16; zero past G
+  __shared__ __align__(16) uint8_t new_code[2][W::ROW];  // the appended K and V rows
   extern __shared__ __align__(16) uint8_t stage_all[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  uint8_t* stage = stage_all + static_cast<size_t>(warp) * 2 * 2 * 32 * ROW;
-
-  const int kvh = blockIdx.x, b = blockIdx.y, z = blockIdx.z, S = gridDim.z;
+  const int tid = threadIdx.x;
+  const int kvh = blockIdx.x, b = blockIdx.y, z = blockIdx.z, splits = gridDim.z;
   const int Hk = geo.Hk, G = Hq / Hk;
   const int length = max(0, min(lengths[b], geo.max_pages * geo.page));
   const int* table = tables + static_cast<size_t>(b) * geo.max_pages;
   const int span = pps * geo.page;  // keys per split
-
-  // 1. Fold scale·kv_scale into q and round it to bf16; the split holding
-  //    position lengths-1 quantizes and appends the new token there.
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    const float x = __bfloat162float(q[(static_cast<size_t>(b) * Hq + kvh * G + g) * D + d]);
-    q_s[d][g] = round_bf16(__fmul_rn(x, qscale));
-  }
+  const int lo = max(z * span, window > 0 ? max(0, length - window) : 0);
+  const int hi = min(length, (z + 1) * span);
   const int last = (new_k != nullptr && length >= 1) ? length - 1 : -1;
+  const size_t row0 = ((static_cast<size_t>(b) * Hk + kvh) * splits + z) * G;
+  if (lo >= hi) {  // never the split that appends: it holds lengths-1
+    empty_partial(part, row0, G);
+    return;
+  }
+  const PageRows rows{geo, table, kvh, W::ROW};
+  const W walk(k_pages, v_pages, rows, lo, hi, last, stage_all);
+  walk.prefetch();
+
+  // Fold scale·kv_scale into q and round it to bf16; the split holding
+  // position lengths-1 quantizes and appends the new token there.
+  for (int i = tid; i < kMaxG * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    float x = 0.0f;
+    if (g < G)
+      x = __fmul_rn(__bfloat162float(q[(static_cast<size_t>(b) * Hq + kvh * G + g) * D + d]),
+                    qscale);
+    q_b[g][d] = __float2bfloat16_rn(x);
+  }
   if (last >= 0 && last / span == z) {
-    const size_t off = geo.row_offset(table, last, kvh, ROW);
+    const size_t off = rows(last);
     const size_t src = (static_cast<size_t>(b) * Hk + kvh) * D;
     for (int d = tid; d < D; d += kThreads) {
       store_code<KIND>(k_pages + off, new_code[0], d, __bfloat162float(new_k[src + d]),
@@ -168,171 +111,7 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pages, uint8_
     }
   }
   __syncthreads();
-
-  // 2. Each warp: online softmax over the 32-key groups base, base +
-  //    kWarps·32, ... of this split's keys [lo, hi). A lane copies key
-  //    base+lane's K and V rows into the stage (not the appended row, read
-  //    from new_code) while the warp works on the group before.
-  const int lo = max(z * span, window > 0 ? max(0, length - window) : 0);
-  const int hi = min(length, (z + 1) * span);
-  auto stage_k = [&](int buf) { return stage + (buf * 2 + 0) * 32 * ROW; };
-  auto stage_v = [&](int buf) { return stage + (buf * 2 + 1) * 32 * ROW; };
-  auto issue = [&](int base, int buf) {
-    const int t = base + lane;
-    if (t < hi && t != last) {
-      const size_t off = geo.row_offset(table, t, kvh, ROW);
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        cp_async16(stage_k(buf) + lane * ROW + c * 16, k_pages + off + c * 16);
-        cp_async16(stage_v(buf) + lane * ROW + c * 16, v_pages + off + c * 16);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float m[kMaxG], l[kMaxG], acc[kMaxG][DPL];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[g][j] = 0.0f;
-  }
-  const int first = lo + warp * 32, step = kWarps * 32;
-  if (first < hi) issue(first, 0);
-  int buf = 0;
-  for (int base = first; base < hi; base += step, buf ^= 1) {
-    if (base + step < hi) issue(base + step, buf ^ 1);
-    else cp_async_commit();
-    cp_async_wait<1>();
-    __syncwarp();
-    const int t = base + lane;
-    float s[kMaxG];
-    if (t < hi) {
-      const uint4* krow = reinterpret_cast<const uint4*>(
-          t == last ? new_code[0] : stage_k(buf) + lane * ROW);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) s[g] = 0.0f;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const uint4 kc = krow[c];
-        const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&kc);
-#pragma unroll
-        for (int e = 0; e < 16 / ES; ++e) {
-          const int d = c * (16 / ES) + e;
-          const float kd = load_code<KIND>(bytes, e);
-          const float4 qa = *reinterpret_cast<const float4*>(&q_s[d][0]);
-          s[0] = fmaf(qa.x, kd, s[0]);
-          s[1] = fmaf(qa.y, kd, s[1]);
-          s[2] = fmaf(qa.z, kd, s[2]);
-          s[3] = fmaf(qa.w, kd, s[3]);
-          if (G > 4) {
-            const float4 qb = *reinterpret_cast<const float4*>(&q_s[d][4]);
-            s[4] = fmaf(qb.x, kd, s[4]);
-            s[5] = fmaf(qb.y, kd, s[5]);
-            s[6] = fmaf(qb.z, kd, s[6]);
-            s[7] = fmaf(qb.w, kd, s[7]);
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (softcap > 0.0f) s[g] = softcap * tanhf(s[g] / softcap);
-    } else {
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) s[g] = -INFINITY;
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      const float m_new = fmaxf(m[g], warp_max(s[g]));
-      const float alpha = expf(m[g] - m_new);
-      const float p = expf(s[g] - m_new);
-      l[g] = alpha * l[g] + warp_sum(p);
-      p_s[warp][g][lane] = round_bf16(p);
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[g][j] *= alpha;
-      m[g] = m_new;
-    }
-    __syncwarp();
-    const int n = min(32, hi - base);
-    for (int jj = 0; jj < n; ++jj) {
-      const uint8_t* row = base + jj == last ? new_code[1] : stage_v(buf) + jj * ROW;
-      float vv[DPL];
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) vv[j] = load_code<KIND>(row, lane * DPL + j);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g >= G) break;
-        const float p = p_s[warp][g][jj];
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) acc[g][j] = fmaf(p, vv[j], acc[g][j]);
-      }
-    }
-    __syncwarp();  // the group after next overwrites this buffer and p_s
-  }
-  cp_async_wait<0>();
-
-  // 3. Merge the warps' partial softmaxes (in warp order) into this split's
-  //    partial; a split without live keys writes max -inf, sum 0, out 0.
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) break;
-    if (lane == 0) {
-      m_w[warp][g] = m[g];
-      l_w[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc_w[warp][g][lane * DPL + j] = acc[g][j];
-  }
-  __syncthreads();
-  const size_t row0 = ((static_cast<size_t>(b) * Hk + kvh) * S + z) * G;
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    float M = -INFINITY;
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, m_w[w][g]);
-    float Lsum = 0.0f, O = 0.0f;
-    if (M != -INFINITY) {
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = expf(m_w[w][g] - M);
-        Lsum += l_w[w][g] * f;
-        O += acc_w[w][g][d] * f;
-      }
-    }
-    part.o[(row0 + g) * D + d] = O;
-    if (d == 0) {
-      part.m[row0 + g] = M;
-      part.l[row0 + g] = Lsum;
-    }
-  }
-}
-
-// Merges the splits of one (kv head, sequence) in split order: out = Σ o·f
-// · (1/Σ l·f · kv_scale), f = exp(m - max m); 0 where no key was live (a
-// zero-length sequence).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-paged_combine_kernel(Partials part, __nv_bfloat16* __restrict__ out, int Hq, int Hk, int S,
-                     float kv_scale) {
-  const int kvh = blockIdx.x, b = blockIdx.y, G = Hq / Hk;
-  const size_t base = (static_cast<size_t>(b) * Hk + kvh) * S;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    float M = -INFINITY;
-    for (int z = 0; z < S; ++z) M = fmaxf(M, part.m[(base + z) * G + g]);
-    float Lsum = 0.0f, O = 0.0f;
-    if (M != -INFINITY) {
-      for (int z = 0; z < S; ++z) {
-        const size_t r = (base + z) * G + g;
-        const float f = expf(part.m[r] - M);
-        Lsum += part.l[r] * f;
-        O += part.o[r * D + d] * f;
-      }
-    }
-    const float l_inv = Lsum == 0.0f ? 1.0f : 1.0f / Lsum;
-    out[(static_cast<size_t>(b) * Hq + kvh * G + g) * D + d] =
-        __float2bfloat16_rn(O * __fmul_rn(l_inv, kv_scale));
-  }
+  walk.attend(q_b, new_code, G, softcap, part, row0);
 }
 
 template <int D>
@@ -341,13 +120,15 @@ int launch_kind(int kind, dim3 grid, cudaStream_t s, const __nv_bfloat16* q, uin
                 const __nv_bfloat16* nv, Partials part, __nv_bfloat16* out, int Hq,
                 PoolGeom geo, int pps, float qscale, float kv_scale, int window,
                 float softcap) {
-  cudaError_t e = cudaSuccess;
+  // The stage's shared-memory limit is set once per kernel instance (a
+  // function-local static), not on every launch of the decode step.
 #define K5_LAUNCH(KIND)                                                              \
   do {                                                                               \
-    constexpr int bytes = kWarps * 2 * 2 * 32 * D * (KIND == kCodeBF16 ? 2 : 1);     \
-    e = cudaFuncSetAttribute(paged_split_kernel<D, KIND>,                            \
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);    \
-    if (e != cudaSuccess) return static_cast<int>(e);                                \
+    constexpr int bytes = stage_bytes<D, KIND>();                                    \
+    static const cudaError_t attr = cudaFuncSetAttribute(                            \
+        paged_split_kernel<D, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,    \
+        bytes);                                                                      \
+    if (attr != cudaSuccess) return static_cast<int>(attr);                          \
     paged_split_kernel<D, KIND><<<grid, kThreads, bytes, s>>>(                       \
         q, kp, vp, lengths, tables, nk, nv, part, Hq, geo, pps, qscale, kv_scale,    \
         window, softcap);                                                            \
@@ -360,10 +141,11 @@ int launch_kind(int kind, dim3 grid, cudaStream_t s, const __nv_bfloat16* q, uin
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef K5_LAUNCH
-  e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  paged_combine_kernel<D><<<dim3(grid.x, grid.y), kThreads, 0, s>>>(part, out, Hq, geo.Hk,
-                                                                    grid.z, kv_scale);
+  const int G = Hq / geo.Hk;  // the merge runs one thread per output
+  combine_kernel<D><<<dim3(grid.x, grid.y), G * D, combine_bytes(grid.z, G), s>>>(
+      part, out, Hq, geo.Hk, grid.z, nullptr, kv_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -383,6 +165,9 @@ extern "C" int paged_attn_launch(const void* q, void* k_pages, void* v_pages,
                                  float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0) return 0;
+  if (splits <= 0 || Hk <= 0 || Hq % Hk || Hq / Hk > kMaxG ||
+      combine_bytes(splits, Hq / Hk) > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(Hk, B, splits);
   const PoolGeom geo{P, L, Hk, page, max_pages, layer};
   const Partials part{static_cast<float*>(part_m), static_cast<float*>(part_l),

@@ -8,6 +8,15 @@ The port's arena is ``[L, B, Hk, S, D]`` (each token's D codes contiguous),
 not the TPU's lane-major ``[L, B, Hk, D, S]``. The arenas are updated **in
 place**: where JAX donates the buffers and returns new ones, this function
 writes the new token into the tensors it was given and returns them.
+
+The CUDA kernel splits each sequence's arena rows into runs of ``span``
+keys (:func:`split_plan`, from the shapes alone, so a later CUDA graph can
+capture the call) and merges the runs' partial softmaxes in order.
+
+A zero-length sequence gives zeros and appends nothing, on both devices.
+The TPU kernel also gives zeros (it runs no key chunk), but its append at
+position -1 is an out-of-range copy of a 128-lane tile; the port writes
+nothing there.
 """
 from __future__ import annotations
 
@@ -17,12 +26,27 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._common import KV_KINDS, fp8_to_bf16_ftz
+from ._common import KV_KINDS, fp8_to_bf16_ftz, num_sms
+from .paged_attention import split_plan as paged_split_plan
 
-__all__ = ["decode_attention_arena", "decode_attention_arena_plain", "MASK_VALUE"]
+__all__ = ["decode_attention_arena", "decode_attention_arena_plain", "split_plan",
+           "MASK_VALUE"]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-_MAX_GROUPS = 8  # csrc/decode_attention.cu kMaxG
+_MAX_GROUPS = 8  # csrc/decode_split.cuh kMaxG
+
+#: A split's span is a whole number of a warp's 32-key groups.
+_GROUP = 32
+
+
+def split_plan(batch: int, kv_heads: int, seq_len: int, sms: int = 132):
+    """``(splits, span)`` of the CUDA kernel: each (kv head, sequence)'s
+    ``seq_len`` arena rows are cut into ``splits`` runs of ``span`` keys (a
+    multiple of 32; the last run may be shorter). K5's plan with 32-key
+    groups for pages: the grid ``kv_heads · batch · splits`` fills ``sms``
+    four blocks deep, in one wave. Shapes only: no length is read."""
+    splits, per = paged_split_plan(batch, kv_heads, max(1, -(-seq_len // _GROUP)), sms)
+    return splits, per * _GROUP
 
 
 def _fmax(dtype: torch.dtype) -> Optional[float]:
@@ -72,14 +96,20 @@ def decode_attention_arena_plain(q, k_arena, v_arena, lengths, layer_idx, *,
     if cos is not None:
         qf = _rope(qf, cos, sin)
     ka, va = k_arena[layer_idx], v_arena[layer_idx]  # views [B, Hk, S, D]
+    live = lengths > 0
     if new_k is not None:
         kq = new_k.to(torch.bfloat16).float()
         if cos is not None:
             kq = _rope(kq, cos, sin)
         vq = new_v.to(torch.bfloat16).float()
+        # Row lengths-1 of each sequence; a zero-length sequence writes its
+        # row 0 back unchanged (no host sync, so a graph can capture it).
         bidx = torch.arange(B, device=q.device)
-        ka[bidx, :, lengths - 1] = _quantize_token(kq, ks, ka.dtype)
-        va[bidx, :, lengths - 1] = _quantize_token(vq, vs, va.dtype)
+        last = (lengths - 1).clamp(min=0)
+        for arena, new, sc in ((ka, kq, ks), (va, vq, vs)):
+            bits = arena.view(torch.int16 if arena.element_size() == 2 else torch.uint8)
+            codes = _quantize_token(new, sc, arena.dtype).view(bits.dtype)
+            bits[bidx, :, last] = torch.where(live[:, None, None], codes, bits[bidx, :, last])
     qs = (qf * (scale * k_scale).reshape(1, Hk, 1, 1)).to(torch.bfloat16).float()
     s = torch.einsum("bhgd,bhsd->bhgs", qs, fp8_to_bf16_ftz(ka).float())
     if softcap is not None:
@@ -96,7 +126,8 @@ def decode_attention_arena_plain(q, k_arena, v_arena, lengths, layer_idx, *,
                        fp8_to_bf16_ftz(va).float())
     vsc = v_scale.reshape(1, Hk, 1, 1)
     l_inv = torch.where(l == 0.0, torch.ones_like(l), vsc / l)
-    return (acc * l_inv).to(q.dtype).reshape(B, Hq, D)
+    out = torch.where(live[:, None, None, None], acc * l_inv, torch.zeros_like(acc))
+    return out.to(q.dtype).reshape(B, Hq, D)
 
 
 def _launch(q, k_arena, v_arena, lengths, layer_idx, new_k, new_v, cos, sin,
@@ -104,13 +135,17 @@ def _launch(q, k_arena, v_arena, lengths, layer_idx, new_k, new_v, cos, sin,
     lib = _build.library("decode_attention")
     B, Hq, D = q.shape
     L, _, Hk, S, _ = k_arena.shape
+    splits, span = split_plan(B, Hk, S, num_sms(q.device))
     out = torch.empty((B, Hq, D), dtype=torch.bfloat16, device=q.device)
+    rows = B * Hk * splits * (Hq // Hk)
+    part = torch.empty((rows * (D + 2),), dtype=torch.float32, device=q.device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
     err = lib.decode_arena_launch(
         ptr(q), ptr(k_arena), ptr(v_arena), ptr(lengths), ctypes.c_int(layer_idx),
         ptr(new_k), ptr(new_v), ptr(cos), ptr(sin), ptr(k_scale), ptr(v_scale),
-        ptr(out), ctypes.c_int(B), ctypes.c_int(Hq), ctypes.c_int(Hk),
-        ctypes.c_int(S), ctypes.c_int(D), ctypes.c_int(KV_KINDS[k_arena.dtype]),
+        ptr(out), ptr(part), ptr(part[rows:]), ptr(part[2 * rows:]), ctypes.c_int(B),
+        ctypes.c_int(Hq), ctypes.c_int(Hk), ctypes.c_int(S), ctypes.c_int(D),
+        ctypes.c_int(KV_KINDS[k_arena.dtype]), ctypes.c_int(splits), ctypes.c_int(span),
         ctypes.c_float(scale), ctypes.c_int(window or 0),
         ctypes.c_float(softcap or 0.0),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),

@@ -10,7 +10,10 @@ cast.
 
 The TPU kernel falls back to XLA's two-pass quantize past its VMEM limits
 (rows longer than 65536, columns taller than 4096, ``quant/dot.py:207,215``);
-the CUDA kernel streams any length, so the port has no such guard.
+the CUDA kernel takes any length, so the port has no such guard. Its
+route (:func:`route`) follows from ``(M, N, dtype, axis)`` alone: rows in
+registers, in shared memory, or read twice past that; columns in one
+thread-block cluster, or read twice past what a cluster holds.
 """
 from __future__ import annotations
 
@@ -23,10 +26,46 @@ from ..quant.qtensor import QTensor, compute_scale
 from . import _build
 from ._common import W_KINDS
 
-__all__ = ["quantize_fused", "quantize_fused_plain"]
+__all__ = ["quantize_fused", "quantize_fused_plain", "route", "ROUTES"]
 
 #: Input dtype → kind code of ``csrc/quantize.cu``.
 _IN_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+
+#: The CUDA kernel's routes, in the order of its route codes.
+ROUTES = ("rows_regs", "rows_smem", "rows_stream", "cols_cluster", "cols_stream")
+_ROW_WARPS_MAX, _LANE_ELEMS = 16, 32  # rows_regs: warps a row, elements a lane
+_SMEM_MAX = 192 * 1024  # dynamic shared memory a block stages
+_CLUSTER, _STRIP = 8, 32  # cols_cluster: blocks splitting M, columns a strip
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def route(M: int, N: int, dtype: torch.dtype, axis: int):
+    """``(name, warps, vecs)``: the CUDA kernel's route for an ``[M, N]``
+    operand of ``dtype`` reduced over ``axis``, from the shapes alone.
+    ``warps`` (warps a row) and ``vecs`` (16-byte vectors a lane) are
+    ``rows_regs``' and 0 for the other routes.
+
+    * rows (axis 1): ``rows_regs`` while the row fits 16 warps x 32 lanes x 32
+      elements (N <= 16384; fewest warps first, then the fewest power-of-two
+      vectors a lane), ``rows_smem`` while it fits 192 KiB of shared memory,
+      else ``rows_stream`` (read twice);
+    * columns (axis 0): ``cols_cluster`` while a cluster of 8 blocks holds
+      the 32-column strip (ceil(M/8) x 32 elements in 192 KiB each: M <=
+      12288 float32, 24576 bf16), else ``cols_stream`` (read twice).
+    """
+    esize = torch.empty((), dtype=dtype).element_size()
+    if axis % 2 == 1:
+        nv = -(-N // (16 // esize))  # 16-byte vectors a row
+        vecs_max = _LANE_ELEMS // (16 // esize)
+        if nv <= _ROW_WARPS_MAX * 32 * vecs_max:
+            warps = _pow2(-(-nv // (32 * vecs_max)))
+            return "rows_regs", warps, _pow2(-(-nv // (32 * warps)))
+        return ("rows_smem" if nv * 16 <= _SMEM_MAX else "rows_stream"), 0, 0
+    fits = -(-M // _CLUSTER) * _STRIP * esize <= _SMEM_MAX
+    return ("cols_cluster" if fits else "cols_stream"), 0, 0
 
 
 def quantize_fused_plain(x: torch.Tensor, fmt: Format, *, axis: int = -1,
@@ -65,12 +104,14 @@ def quantize_fused(x: torch.Tensor, fmt: Format, *, axis: int = -1,
     q = torch.empty((M, N), dtype=fmt.dtype, device=x.device)
     scale = torch.empty((M, 1) if axis == 1 else (1, N), dtype=torch.float32,
                         device=x.device)
+    name, warps, vecs = route(M, N, x.dtype, axis)
     lib = _build.library("quantize")
     err = lib.quantize_launch(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(q.data_ptr()),
         ctypes.c_void_p(scale.data_ptr()), ctypes.c_int(M), ctypes.c_int(N),
         ctypes.c_int(_IN_KINDS[x.dtype]), ctypes.c_int(W_KINDS[fmt.dtype]),
-        ctypes.c_int(axis), ctypes.c_float(fmt.max), ctypes.c_float(2.0 ** margin),
+        ctypes.c_int(ROUTES.index(name)), ctypes.c_int(warps), ctypes.c_int(vecs),
+        ctypes.c_float(fmt.max), ctypes.c_float(2.0 ** margin),
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     _build.check(lib, err, "quantize_fused")

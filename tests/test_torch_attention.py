@@ -188,6 +188,68 @@ def test_arena_attend_only_and_alibi_raises():
                                torch.from_numpy(lengths), alibi_slopes=(1.0,) * q.shape[1])
 
 
+@pytest.mark.parametrize("append", [False, True])
+def test_arena_zero_length_gives_zeros_and_appends_nothing(append):
+    """A zero-length sequence among the lengths: JAX's kernel runs no key
+    chunk and returns 0 for its row, and so does the port. With a new token
+    the port leaves that sequence's arena as it was (JAX's append at
+    position -1 is an out-of-range tile copy, a port choice); the other
+    sequences' outputs and appended codes are JAX's."""
+    ka, va, q, nk, nv, _, cos, sin, ks, vs = _arena_case("e4m3", 7)
+    lengths = np.asarray([0, 50, 128], np.int32)
+    kw = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    tkw = dict(k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    if append:
+        kw.update(new_k=nk, new_v=nv, rope_cos_sin=(jnp.asarray(cos), jnp.asarray(sin)))
+        tkw.update(new_k=_t(nk), new_v=_t(nv),
+                   rope_cos_sin=(torch.from_numpy(cos), torch.from_numpy(sin)))
+    ref = jax_arena(q, ka, va, jnp.asarray(lengths), 1, interpret=True, **kw)
+    ka_t, va_t = _to_port_layout(ka), _to_port_layout(va)
+    ka0, va0 = ka_t.clone(), va_t.clone()
+    out = decode_attention_arena(_t(q), ka_t, va_t, torch.from_numpy(lengths), 1, **tkw)
+    if append:
+        ref, ka_j, va_j = ref
+        out = out[0]
+        for got, before, jax_arena_out in ((ka_t, ka0, ka_j), (va_t, va0, va_j)):
+            assert torch.equal(got[:, 0].view(torch.uint8), before[:, 0].view(torch.uint8))
+            np.testing.assert_array_equal(
+                got[:, 1:].view(torch.uint8).numpy(),
+                _to_port_layout(jax_arena_out)[:, 1:].view(torch.uint8).numpy())
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert np.abs(ref[0]).max() == 0.0
+    assert out[0].abs().max().item() == 0.0
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=_ulp(ref))
+
+
+@pytest.mark.parametrize("B,Hk,S,window", [
+    (8, 8, 1024, None), (8, 8, 1024, 100), (1, 8, 1024, None), (2, 2, 128, None),
+    (3, 8, 700, 100), (4, 4, 300, 50), (16, 8, 64, None), (1, 1, 5000, 1000), (2, 8, 33, 7)])
+def test_arena_split_plan_partitions_every_length(B, Hk, S, window):
+    """K2's split plan (computed on the host from the shapes alone): for
+    every length the arena can hold, the splits' key ranges cover ``[0,
+    length)`` (or the window's tail of it) exactly once, in order, and
+    exactly one split holds position ``length - 1``, the one that appends.
+    At the 1B decode shape the grid fills the 132 SMs four deep. (The
+    ranges are K5's arithmetic with 32-key groups for pages.)"""
+    from llm_fp8_tpu_torch.kernels.decode_attention import split_plan
+    from llm_fp8_tpu_torch.kernels.paged_attention import split_ranges
+
+    splits, span = split_plan(B, Hk, S, sms=132)
+    assert split_plan(B, Hk, S, sms=132) == (splits, span)
+    assert span % 32 == 0 and (splits - 1) * span < S <= splits * span
+    assert splits == 1 or B * Hk * splits <= 4 * 132 or span == 32
+    if (B, Hk, S) == (8, 8, 1024):
+        assert (splits, span) == (8, 128)
+    for length in sorted({n for n in (0, 1, 31, 32, 33, span - 1, span, span + 1, S // 2,
+                                      S - 1, S) if 0 <= n <= S}):
+        ranges = split_ranges(length, 32, splits, span // 32, window)
+        start = max(0, length - window) if window else 0
+        covered = [t for lo, hi in ranges for t in range(lo, hi)]
+        assert covered == list(range(start, length))
+        holders = [z for z, (lo, hi) in enumerate(ranges) if lo <= length - 1 < hi]
+        assert holders == ([] if length == 0 else [(length - 1) // span])
+
+
 REF_CASES = {
     "causal_gqa": dict(causal=True),
     "offset_lens": dict(causal=True, q_offset=np.asarray([5, 9], np.int32),

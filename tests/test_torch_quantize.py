@@ -101,3 +101,54 @@ def test_wrapper_checks_and_counts_no_launch_on_the_cpu():
         quantize_fused(torch.randn(2, 3, 4), E4M3)
     with pytest.raises(TypeError, match="float32 or bf16"):
         quantize_fused(torch.randn(4, 8).half(), E4M3)
+
+
+#: The shapes chip_smoke.py runs K9 at, and the route each takes: the
+#: training step's float32 gradients [4096, N] (rows and columns), the
+#: serving route's bf16 rows at a prefill bucket and at decode, one case of
+#: each remaining route, and a ragged shape (the scalar edge).
+ROUTE_CASES = [
+    (4096, 3072, "f32", 1, ("rows_regs", 4, 8)),
+    (4096, 2048, "f32", 1, ("rows_regs", 2, 8)),
+    (4096, 16384, "f32", 1, ("rows_regs", 16, 8)),
+    (4096, 16384, "bf16", 1, ("rows_regs", 16, 4)),
+    (4096, 3072, "f32", 0, ("cols_cluster", 0, 0)),
+    (4096, 16384, "f32", 0, ("cols_cluster", 0, 0)),
+    (4096, 2048, "bf16", 0, ("cols_cluster", 0, 0)),
+    (8192, 2048, "bf16", 1, ("rows_regs", 2, 4)),
+    (8192, 8192, "bf16", 1, ("rows_regs", 8, 4)),
+    (8, 2048, "bf16", 1, ("rows_regs", 2, 4)),
+    (8, 8192, "bf16", 1, ("rows_regs", 8, 4)),
+    (64, 32768, "f32", 1, ("rows_smem", 0, 0)),
+    (16, 65536, "f32", 1, ("rows_stream", 0, 0)),
+    (16384, 512, "f32", 0, ("cols_stream", 0, 0)),
+    (300, 1001, "f32", 1, ("rows_regs", 1, 8)),
+    (300, 1001, "bf16", 0, ("cols_cluster", 0, 0)),
+]
+
+
+@pytest.mark.parametrize("M,N,dtype,axis,want", ROUTE_CASES,
+                         ids=[f"{m}x{n}-{d}-axis{a}" for m, n, d, a, _ in ROUTE_CASES])
+def test_route_of_each_chip_shape(M, N, dtype, axis, want):
+    """K9's route follows from (M, N, dtype, axis) alone, and each route
+    holds its operand where the source note says: rows_regs' warps x 32
+    lanes x vecs 16-byte vectors cover the row with the fewest warps (at
+    most 32 elements a lane), rows_smem's row and cols_cluster's slab fit
+    192 KiB, and the streaming routes take only what those cannot."""
+    from llm_fp8_tpu_torch.kernels.quantize import ROUTES, route
+
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    got = route(M, N, dt, axis)
+    assert got == want and got == route(M, N, dt, axis - 2) and got[0] in ROUTES
+    name, warps, vecs = got
+    esize = 4 if dtype == "f32" else 2
+    nv, vecs_max = -(-N * esize // 16), 32 * esize // 16
+    if name == "rows_regs":
+        assert 32 * warps * vecs >= nv and vecs <= vecs_max and warps <= 16
+        assert warps == 1 or 32 * (warps // 2) * vecs_max < nv
+        assert vecs == 1 or 32 * warps * (vecs // 2) < nv
+    elif name.startswith("rows"):
+        assert nv > 16 * 32 * vecs_max and (nv * 16 <= 192 * 1024) == (name == "rows_smem")
+    else:
+        slab = -(-M // 8) * 32 * esize
+        assert (slab <= 192 * 1024) == (name == "cols_cluster")
