@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero before the last line:
    yardstick (timed only) and the bound (bytes or FLOPs over the card's peak).
    K1 runs at M = 8, 128 and 8192 (its decode and its wgmma prefill
    kernel), each beside torch.matmul on the dequantized weight and the
-   fp8native route (K9 + fp8 products, not the same function). K2 at the
+   fp8native route (K9 + fp8 products, not the same function); at M = 8
+   with its split plan, its kernel times and a bit-identical rerun, and
+   among the features at M = 1..100, ragged shapes, e5m2 and every MX scale
+   against every code bit for bit. K2 at the
    arena decode shape in four arena dtypes (its split plan logged; the e4m3
    case run twice, bit-identical), then at its split edges: single-key
    splits beside a zero-length slot (a zero row, an untouched arena), and a
@@ -57,7 +60,8 @@ Phases, in order; any failure exits non-zero before the last line:
    launch their per-step counts.
 6. ``fp8_kernels``: K7 (FP8-compute flash attention, no caller in the JAX
    package) through its public function at the 1B prefill shape (8192
-   tokens; its launch counts read around that call), then on both routes
+   tokens; its launch counts read around that call; its pre-pass bit for
+   bit against the plain version), then on both routes
    (e4m3 tensor-core products, and operands widened to bf16) against its
    plain version row by row at that shape, the training shape (8 x 512) and
    decode (kv_lens 1..1024), with window, softcap, float32 out and dead rows;
@@ -249,16 +253,23 @@ def k1_launches() -> int:
     return KERNEL_WRAPPERS["quant_matmul"].launches
 
 
+def k1_decode_kernel_launches() -> int:
+    """K1's launches that took its decode kernel (below PREFILL_MIN_M rows)."""
+    from llm_fp8_tpu_torch.kernels import KERNEL_WRAPPERS
+
+    return KERNEL_WRAPPERS["quant_matmul"].decode_launches
+
+
 class Instrumented:
     """Engine mixin: whether every logits row was finite, the host time of
     prefills and decode bursts (each ends in a sync), the decode steps run
     and the steps run in bursts, and K1's launches in prefills and in
-    decode steps."""
+    decode steps (and of those, the ones on its decode kernel)."""
 
     finite = None
     prefill_s = decode_s = 0.0
     decode_steps = burst_steps = 0
-    k1_prefill = k1_decode = 0
+    k1_prefill = k1_decode = k1_decode_kernel = 0
 
     def _note(self, logits):
         import torch
@@ -277,9 +288,10 @@ class Instrumented:
         return out
 
     def _decode_step(self, *args):
-        n0 = k1_launches()
+        n0, d0 = k1_launches(), k1_decode_kernel_launches()
         logits, g = super()._decode_step(*args)
         self.k1_decode += k1_launches() - n0
+        self.k1_decode_kernel += k1_decode_kernel_launches() - d0
         self._note(logits)
         self.decode_steps += 1
         return logits, g
@@ -292,25 +304,45 @@ class Instrumented:
         return out
 
 
-def kernel_ms(fn, calls: int = 20) -> dict:
-    """Device ms per call of each kernel ``fn`` launches, by name
-    (torch.profiler over ``calls`` eager calls)."""
+def kernel_ms(fn, calls: int = 20, tries: int = 3) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by name:
+    torch.profiler over one replay of ``calls`` calls captured in a CUDA
+    graph, as ``cuda_ms`` times them (eager calls read K7's wgmma kernel at
+    1178-1990 µs across runs on the H100 where graphs read 2001-2033).
+    Instances of one kernel add up. A session that recorded no kernel, or
+    in which a kernel's record count is not a multiple of ``calls``, lost
+    records; it is taken again, up to ``tries`` times, and after that each
+    reading is None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
+    graph.replay()
+    torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        if t:
-            name = e.key.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0]
-            out[name.split("::")[-1].split()[-1]] = t / calls / 1e3
-    return out
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        out, counts = {}, {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+            if t:
+                name = e.key.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0]
+                name = name.split("::")[-1].split()[-1]
+                out[name] = out.get(name, 0.0) + t / calls / 1e3
+                counts[name] = counts.get(name, 0) + e.count
+        if counts and all(n % calls == 0 for n in counts.values()):
+            return out
+    return dict.fromkeys(out)
 
 
 def launch_floor_ms(dev) -> float:
@@ -411,12 +443,17 @@ def kernel_cases(dev, bw, peak, log):
         x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
         got = k1.quant_matmul(x, qt.qvalue, qt.scale, mode=mode)
         ref = k1.quant_matmul_plain(x, qt.qvalue, qt.scale, mode=mode)
+        # The decode kernel's splits meet in a fixed order: a rerun is
+        # bit-identical.
+        again = k1.quant_matmul(x, qt.qvalue, qt.scale, mode=mode) if not big else got
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         tol = 2.0 ** -7 * ref.float().abs().max().item()
-        del got, ref
+        rerun_identical = bool(torch.equal(got.view(torch.int16), again.view(torch.int16)))
+        del got, ref, again
         check(math.isfinite(err) and err <= tol,
               f"K1 {name} M={M} {mode} {fmt.name}: err {err} > tol {tol}")
+        check(rerun_identical, f"K1 {name} M={M} {mode} {fmt.name}: two runs differ")
         # Rotate weight copies past the L2 cache: decode finds weights cold.
         copies = 1 if big else max(1, math.ceil(200e6 / (K * N)))
         ws = [qt.qvalue.clone() for _ in range(copies)]
@@ -438,11 +475,20 @@ def kernel_cases(dev, bw, peak, log):
         b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, bw, peak)
         case = dict(kernel="quant_matmul", case=f"{name} M={M} {mode} {fmt.name}",
                     route="prefill (wgmma)" if M >= k1.PREFILL_MIN_M else "decode",
-                    max_abs_err=err, tol=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                    max_abs_err=err, tol=tol, rerun_identical=rerun_identical, ms=ms,
+                    call_ms=call_ms, plain_ms=plain_ms,
                     library_ms=lib_ms, vs_library=ms / lib_ms, bound_ms=b_ms, bound_by=b_by,
                     tflops=2.0 * M * N * K / (ms * 1e-3) / 1e12,
                     fp8native_ms=native_ms,
                     fp8native_note="K9 rows + fp8 products; not the same function")
+        if M < k1.PREFILL_MIN_M:
+            # The decode kernel's split plan (shapes only) and its kernels'
+            # device times by name: one kernel, the splits of a column tile
+            # summed over the cluster's shared memory inside it.
+            splits, per = k1.split_plan(M, N, K, num_sms(dev))
+            case.update(split_plan=dict(splits=splits, k_tiles_per_split=per),
+                        kernel_parts_ms=kernel_ms(
+                            lambda: k1.quant_matmul(x, nw(), qt.scale, mode=mode)))
         cases.append(case)
         log(case)
         del ws, wdq, x, qt
@@ -592,7 +638,7 @@ def feature_cases(dev, g, log):
     from llm_fp8_tpu_torch.kernels import decode_attention as k2
     from llm_fp8_tpu_torch.kernels import flash_attention as k3
     from llm_fp8_tpu_torch.kernels import quant_matmul as k1
-    from llm_fp8_tpu_torch.quant import E4M3, quantize, quantize_mx
+    from llm_fp8_tpu_torch.quant import E4M3, E5M2, INT8, quantize, quantize_mx
 
     cases = []
 
@@ -603,12 +649,20 @@ def feature_cases(dev, g, log):
         cases.append(c)
         log(c)
 
-    for M, K, N, mode in ((1, 2048, 3072, "channel"), (5, 2040, 3000, "channel"),
-                          (33, 2016, 1000, "mx"), (300, 2048, 2048, "tensor"),
-                          (2048, 2048, 3072, "channel")):
+    # K1: ragged M, N and K; the decode kernel's row groups (M = 16, 40 and 63
+    # at the qkv shape, MX and int8), e5m2 at one row, and M = 100 at a shape
+    # TMA cannot take (the decode kernel's loop over groups of 64 rows).
+    for M, K, N, mode, fmt in ((1, 2048, 3072, "channel", E4M3), (5, 2040, 3000, "channel", E4M3),
+                               (33, 2016, 1000, "mx", E4M3), (300, 2048, 2048, "tensor", E4M3),
+                               (2048, 2048, 3072, "channel", E4M3),
+                               (16, 2048, 3072, "mx", E4M3), (16, 2048, 3072, "channel", INT8),
+                               (40, 2048, 3072, "mx", E4M3), (40, 2048, 3072, "channel", INT8),
+                               (63, 2048, 3072, "mx", E4M3), (63, 2048, 3072, "channel", INT8),
+                               (1, 2048, 3072, "channel", E5M2),
+                               (100, 2040, 3000, "channel", E4M3)):
         w = torch.randn((K, N), generator=g, device=dev) * 0.02
-        qt = (quantize_mx(w, E4M3, block_axis=0, flush_subnormal=True) if mode == "mx"
-              else quantize(w, E4M3, axes=None if mode == "tensor" else (0,),
+        qt = (quantize_mx(w, fmt, block_axis=0, flush_subnormal=True) if mode == "mx"
+              else quantize(w, fmt, axes=None if mode == "tensor" else (0,),
                             flush_subnormal=True))
         x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
         for out_dtype in (torch.bfloat16, torch.float32):
@@ -620,7 +674,29 @@ def feature_cases(dev, g, log):
             # tensor cores' float32 sums over K ~ 2048 in another order (and
             # not rounded to nearest) than the plain version's, 1e-3 of it.
             tol = (2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-3) * ref.abs().max().item()
-            record("quant_matmul", f"M={M} K={K} N={N} {mode} out {out_dtype}", err, tol)
+            record("quant_matmul", f"M={M} K={K} N={N} {mode} {fmt.name} out {out_dtype}", err,
+                   tol, route="prefill" if k1._prefill_ok(x, qt.qvalue, M, N, K) else "decode")
+    # K1's MX scaling bit for bit: one-hot x picks single weight rows, so each
+    # output is one dequantized code times its power-of-two scale (2^-133 ..
+    # 2^118: subnormal scales and products included), as the plain version
+    # rounds it; every e4m3 and int8 code meets 31 scales.
+    for wdtype in (torch.float8_e4m3fn, torch.int8):
+        K, exps = 256, torch.arange(-133, 119, dtype=torch.float32, device=dev)
+        N = exps.numel()
+        wq = torch.arange(256, device=dev).to(torch.uint8)[:, None].expand(K, N)
+        wq = wq.contiguous().view(wdtype)
+        sc = torch.stack([torch.roll(torch.exp2(exps), 31 * i) for i in range(K // 32)])
+        sc = sc.to(torch.bfloat16)
+        x = torch.eye(K, device=dev).to(torch.bfloat16)
+        got = k1.quant_matmul(x, wq, sc, mode="mx", out_dtype=torch.float32)
+        ref = k1.quant_matmul_plain(x, wq, sc, mode="mx", out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(ref)
+        same = bool(torch.equal(fin, torch.isfinite(got)) and torch.equal(got[fin], ref[fin]))
+        check(same, f"K1 MX scaling {wdtype}: {int((got[fin] != ref[fin]).sum())} products "
+              "differ from the plain version's bits")
+        record("quant_matmul", f"MX scaling bit for bit, every {wdtype} code x 2^-133..2^118",
+               0.0, None, bit_equal=same, products=int(fin.sum()))
 
     for (B, Hq, Hk, D, S, dtype, window, softcap) in (
             (3, 8, 8, 64, 700, torch.float8_e4m3fn, 100, 30.0),
@@ -1218,6 +1294,9 @@ def serving(dev, num_layers, card, log):
             check(eng.k1_prefill > 0 and eng.k1_decode > 0,
                   f"serve int8 weights: K1 launched {eng.k1_prefill} times in prefills and "
                   f"{eng.k1_decode} in decode steps")
+            check(eng.k1_decode_kernel == eng.k1_decode,
+                  f"serve int8 weights: {eng.k1_decode_kernel} of K1's {eng.k1_decode} decode "
+                  "launches took its decode kernel")
         else:
             check(counts["quant_matmul"] == 0, f"serve {tag}: K1 ran {counts['quant_matmul']} "
                   "times on the fp8native route")
@@ -1232,7 +1311,7 @@ def serving(dev, num_layers, card, log):
                    ttft_p50_s=ttfts[len(ttfts) // 2],
                    peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
                    launches=counts, k1_prefill=eng.k1_prefill, k1_decode=eng.k1_decode,
-                   init_s=init_s, prefill_s=eng.prefill_s,
+                   k1_decode_kernel=eng.k1_decode_kernel, init_s=init_s, prefill_s=eng.prefill_s,
                    decode_s=eng.decode_s, decode_steps=eng.decode_steps,
                    burst_steps=eng.burst_steps,
                    decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1))
@@ -1353,6 +1432,9 @@ def _paged_run(engine_cls, params, cfg, dev, card, num_layers, rng, tag, kv, n_r
         check(eng.k1_prefill == 4 * num_layers * n_req and eng.k1_decode > 0,
               f"paged {tag}: K1 launched {eng.k1_prefill} times in {n_req} prefills of "
               f"{num_layers} layers and {eng.k1_decode} in decode steps")
+        check(eng.k1_decode_kernel == eng.k1_decode,
+              f"paged {tag}: {eng.k1_decode_kernel} of K1's {eng.k1_decode} decode launches "
+              "took its decode kernel")
     else:
         check(counts["quant_matmul"] == 0, f"paged {tag}: K1 ran {counts['quant_matmul']} "
               "times on the fp8native route")
@@ -1374,7 +1456,7 @@ def _paged_run(engine_cls, params, cfg, dev, card, num_layers, rng, tag, kv, n_r
                pool_gb=2 * eng.k_pages.numel() * eng.k_pages.element_size() / 2 ** 30,
                pages_in_use_max=eng.max_pages, launches=counts,
                k1_prefill=eng.k1_prefill, k1_decode=eng.k1_decode,
-               prefill_s=eng.prefill_s, decode_steps=eng.decode_steps,
+               k1_decode_kernel=eng.k1_decode_kernel, prefill_s=eng.prefill_s, decode_steps=eng.decode_steps,
                burst_s=eng.decode_s, burst_steps=eng.burst_steps,
                decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1))
     del eng
@@ -2002,10 +2084,12 @@ def profile_train_step(trainer, state, batch):
 #: row's largest |value|: every row within K7_ROW_ULPS, and at most
 #: K7_LOOSE_ROWS of the rows beyond 1 ulp. Both versions walk the same key
 #: tiles and round P to e4m3; their scores differ in the float32 sum order of
-#: Q·Kᵀ, which now and then flips one e4m3 code of P and moves a row by up to
-#: about 2 ulps (readings: 1-2 of 262,144 rows beyond 1 ulp at the 8192
-#: prefill, worst 1.87; none at the other shapes). P kept in bf16 or a
-#: 128-key tile moves most rows beyond 1 ulp (PERF.md has the readings).
+#: Q·Kᵀ and p in the kernels' ex2 against torch.exp, which now and then flips
+#: one e4m3 code of P and moves a row by a few ulps (readings on the H100:
+#: 15 of 262,144 rows beyond 1 ulp at the 8192 prefill, worst 3.5; 8 of
+#: 131,072 at the training shape, worst 2.6; none at the others). P kept in
+#: bf16 or a 128-key tile moves most rows beyond 1 ulp (PERF.md has the
+#: readings).
 K7_ROW_ULPS = 4
 K7_LOOSE_ROWS = 1e-3
 #: Native route against the dequant route (float32 out), the JAX package's
@@ -2140,6 +2224,16 @@ def fp8_kernel_cases(dev, bw, peak, log):
                    block_k=k7.auto_block(Sk), out_dtype=torch.bfloat16)
         cfg.update(extra)
         if n_case == 0:
+            # The wgmma route's pre-pass (q and k widened to bf16, v in slot
+            # order) bit for bit against its plain version.
+            pre = k7.fp8_prepass(*codes)
+            pre_ref = k7.fp8_prepass_plain(*codes)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a.view(torch.int16 if a.element_size() == 2 else torch.uint8),
+                                  b.view(torch.int16 if b.element_size() == 2 else torch.uint8))
+                      for a, b in zip(pre, pre_ref)),
+                  "K7 pre-pass: differs from its plain version")
+            del pre, pre_ref
             # K7's path: its public function at the 1B prefill shape, both routes.
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
@@ -2234,6 +2328,12 @@ def fp8_kernel_cases(dev, bw, peak, log):
                 deq[0], kh, vh, attn_mask=mask), **timed_calls)
             case["library"] = "SDPA on the dequantized bf16 q/k/v (not the same function)"
             del deq, kh, vh, mask
+        if n_case < 2:
+            # The native call's kernels by name: the pre-pass's kernels, the
+            # wgmma kernel and the wrapper's descale copy. Their sum is the
+            # case's time less the gaps between launches.
+            case["kernel_parts_ms"] = kernel_ms(
+                lambda: call(codes, descale, qo, kl, cfg, True), calls=5)
         if n_case == 0:
             case["launches_on_path"] = path_launches["flash_attention_fp8"]
             del path_out
@@ -2475,6 +2575,8 @@ def kernels_line(report):
             line[-1]["split_ms"] = c["split_ms"]
         if kname == "decode_attention_arena":  # its split plan beside its time
             line[-1]["split_plan"] = {"splits": c["splits"], "span": c["span"]}
+        elif "split_plan" in c:
+            line[-1]["split_plan"] = c["split_plan"]
         if "kernel_parts_ms" in c:  # the split kernel and the merge
             line[-1]["kernel_parts_ms"] = c["kernel_parts_ms"]
         if kname == "quantize_fused":  # the serving route's prefill rows beside the gradients

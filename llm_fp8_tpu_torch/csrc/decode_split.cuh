@@ -91,31 +91,52 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Two floats → a bf16 pair (lo in the low half), rounded to nearest even.
+__device__ __forceinline__ uint32_t pack2_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
 // Four stored one-byte codes (bytes b0..b3 of w) → their bf16 values, two a
-// word: lo = (b0, b1), hi = (b2, b3). fp8 by the TPU kernels' route: the
-// payload bits shifted into a bf16 pattern, codes with a zero exponent
-// field flushed to ±0 first (integer mask), then one exact bf16x2 multiply
-// by 2^120 (e4m3) or 2^112 (e5m2); int8 converts exactly.
-template <int KIND>
+// word: lo = (b0, b1), hi = (b2, b3). fp8 by the TPU kernels' route: codes
+// with a zero exponent field keep only their sign (the field plus itself
+// carries into bit 7 unless it is 0, and a sign-replicating prmt spreads
+// that bit over the byte); each code's 7 payload bits are shifted into a
+// bf16 half and its sign moved to bit 15 by adding a multiple of itself
+// (the bits between are 0, so no carry leaves the half); one exact bf16x2
+// multiply by 2^120 (e4m3) or 2^112 (e5m2) rebiases. With E5M2_EXACT (K1's
+// weights, which quant_matmul_plain converts exactly) e5m2 keeps its
+// subnormals: it is an fp16's top byte. int8 converts exactly: v + 128 in
+// the low byte of 2^23's float pattern, less 2^23 + 128.
+template <int KIND, bool E5M2_EXACT = false>
 __device__ __forceinline__ void codes4_to_bf16x2(uint32_t w, uint32_t& lo, uint32_t& hi) {
   if constexpr (KIND == kCodeInt8) {
-    const float f0 = static_cast<float>(static_cast<int8_t>(w & 0xffu));
-    const float f1 = static_cast<float>(static_cast<int8_t>((w >> 8) & 0xffu));
-    const float f2 = static_cast<float>(static_cast<int8_t>((w >> 16) & 0xffu));
-    const float f3 = static_cast<float>(static_cast<int8_t>(w >> 24));
-    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(lo) : "f"(f1), "f"(f0));
-    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(hi) : "f"(f3), "f"(f2));
+    const uint32_t u = w ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + j)) - 8388736.0f;
+    lo = pack2_bf16(f[0], f[1]);
+    hi = pack2_bf16(f[2], f[3]);
+  } else if constexpr (KIND == kCodeE5M2 && E5M2_EXACT) {
+    uint32_t h0 = __byte_perm(w, 0u, 0x1404), h1 = __byte_perm(w, 0u, 0x3424);
+    const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&h0));
+    const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&h1));
+    lo = pack2_bf16(a.x, a.y);
+    hi = pack2_bf16(b.x, b.y);
   } else {
     constexpr uint32_t kExp = KIND == kCodeE4M3 ? 0x78787878u : 0x7C7C7C7Cu;
-    constexpr int kShift = KIND == kCodeE4M3 ? 4 : 5;
+    constexpr uint32_t kShift = KIND == kCodeE4M3 ? 4 : 5;
+    constexpr uint32_t kSign = 0x00800080u << kShift;      // the sign after the shift
+    constexpr uint32_t kMove = (1u << (8 - kShift)) - 1u;  // to bit 15: add it this often
     constexpr uint32_t kRebias = KIND == kCodeE4M3 ? 0x7B807B80u : 0x77807780u;
-    // 0x7f in each byte whose exponent field is not zero (no carries: the
-    // field plus itself stays below 0x100), so subnormal codes become ±0.
-    const uint32_t keep = ((((w & kExp) + kExp) & 0x80808080u) >> 7) * 0x7fu;
+    uint32_t keep;
+    asm("prmt.b32 %0, %1, %2, 0xBA98;\n" : "=r"(keep) : "r"((w & kExp) + kExp), "r"(0u));
     w &= keep | 0x80808080u;
-    const uint32_t x0 = __byte_perm(w, 0u, 0x4140), x1 = __byte_perm(w, 0u, 0x4342);
-    const uint32_t p0 = ((x0 & 0x00800080u) << 8) | ((x0 & 0x007f007fu) << kShift);
-    const uint32_t p1 = ((x1 & 0x00800080u) << 8) | ((x1 & 0x007f007fu) << kShift);
+    const uint32_t u0 = __byte_perm(w, 0u, 0x4140) << kShift;
+    const uint32_t u1 = __byte_perm(w, 0u, 0x4342) << kShift;
+    const uint32_t p0 = u0 + (u0 & kSign) * kMove, p1 = u1 + (u1 & kSign) * kMove;
     asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(lo) : "r"(p0), "r"(kRebias), "r"(0x80008000u));
     asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(hi) : "r"(p1), "r"(kRebias), "r"(0x80008000u));
   }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's attention kernels and
 // K1's prefill kernel: mbarriers, TMA tile loads through a tensor map, wgmma
-// matrix descriptors and the bf16 wgmma shapes the kernels issue, and the
-// host-side tensor maps over a [B, S, H, D] bf16 tensor and a 2-D matrix.
+// matrix descriptors and the bf16 and e4m3 wgmma shapes the kernels issue,
+// and the host-side tensor maps over a [B, S, H, D] bf16 tensor, a 2-D
+// matrix and a 4-D tensor of any element type.
 //
 // Shared-memory tiles are written by TMA in the canonical swizzled layouts
 // wgmma reads: a [rows][D] bf16 tile is stored as D / CW column chunks, each
@@ -328,6 +329,47 @@ __device__ __forceinline__ void wgmma_rs_n64_bt(float (&d)[32], const uint32_t (
 }
 
 
+// ---- the e4m3 shapes K7's P·V issues (k = 32 bytes; B K-major, the only
+// layout 8-bit wgmma reads), one asm each ----
+
+// D[64 x 32] (+)= A·B, A (e4m3, the m64k32 fragment: four bytes of one row
+// a register) in registers, B e4m3 in shared memory.
+__device__ __forceinline__ void wgmma_rs_e4m3_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.f32.e4m3.e4m3 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A·B, A e4m3 in registers, B e4m3 in shared memory.
+__device__ __forceinline__ void wgmma_rs_e4m3_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.f32.e4m3.e4m3 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 }  // namespace hopper
 
 // ---- host: the tensor map of a bshd tensor ----
@@ -397,5 +439,35 @@ static inline int encode_2d(CUtensorMap* map, CUtensorMapDataType dtype, const v
                             CU_TENSOR_MAP_INTERLEAVE_NONE,
                             swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A tensor map over the 4-D tensor at `ptr` (dims and box innermost first,
+// strides in bytes of dims 1..3), swizzle 128, 64 or 0 bytes (the box's
+// inner extent in bytes must then equal it). Reads past the tensor are
+// zeros. Returns a CUDA error code (0 on success).
+static inline int encode_4d(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr,
+                            const long long (&dims)[4], const long long (&strides)[3],
+                            const int (&box)[4], int swizzle) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  for (long long st : strides)
+    if (st % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t d[4], st[3];
+  cuuint32_t bx[4];
+  const cuuint32_t estr[4] = {1u, 1u, 1u, 1u};
+  for (int i = 0; i < 4; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = static_cast<cuuint32_t>(box[i]);
+  }
+  for (int i = 0; i < 3; ++i) st[i] = static_cast<cuuint64_t>(strides[i]);
+  const CUtensorMapSwizzle sw = swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = encode(map, dtype, 4, const_cast<void*>(ptr), d, st, bx, estr,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -39,7 +39,7 @@ _HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: Library → {launcher: its C argument types}; every launcher returns int.
 _SIGNATURES = {
-    "quant_matmul": {"qmm_launch": [_P] * 5 + [_I] * 9 + [_P],
+    "quant_matmul": {"qmm_launch": [_P] * 4 + [_I] * 8 + [_P],
                      "qmm_prefill_launch": [_P] * 5 + [_I] * 9 + [_P]},
     "decode_attention": {"decode_arena_launch":
                          [_P] * 4 + [_I] + [_P] * 10 + [_I] * 8 + [_F, _I, _F, _P]},
@@ -49,7 +49,9 @@ _SIGNATURES = {
         "flash_bwd_dkv_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _P],
         "flash_bwd_dq_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _P]},
     "quantize": {"quantize_launch": [_P] * 3 + [_I] * 7 + [_F, _F, _P]},
-    "flash_attention_fp8": {"flash_fp8_launch": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _F, _I, _I, _P]},
+    "flash_attention_fp8": {
+        "flash_fp8_launch": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _F, _I, _I, _P],
+        "flash_fp8_prep_launch": [_P] * 6 + [_I] * 7 + [_P]},
     "rmsnorm": {"rmsnorm_residual_launch": [_P] * 5 + [_I] * 3 + [_F, _P]},
 }
 

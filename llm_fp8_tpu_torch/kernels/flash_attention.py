@@ -9,7 +9,11 @@ shared memory for consumer warpgroups that run Q·Kᵀ and P·V on ``wgmma``
 with the scores, P and O kept in registers (its source note has the design).
 :func:`flash_attention_fp8` (K7, ``csrc/flash_attention_fp8.cu``, plain
 version :func:`flash_fp8_plain`) is the counterpart of the JAX
-``flash_attention_fp8``: e4m3 q/k/v with FA3 descales, forward only.
+``flash_attention_fp8``: e4m3 q/k/v with FA3 descales, forward only. Its
+native route from 64 query rows up runs on ``wgmma`` with a TMA ring
+(:func:`fp8_wgmma_ok`), after a pre-pass that widens Q and K to bf16 and
+lays V out key-contiguous (:func:`fp8_prepass`); shorter queries and the
+dequant route take its ``mma.sync`` kernel.
 
 Supported: causal with a per-batch ``q_offset``, ``kv_lens``, GQA through the
 head map, sliding window, softcap and the logit scale. ALiBi,
@@ -31,6 +35,7 @@ from ._common import aligned16
 from .flash_attention_bwd import flash_attention_bwd
 
 __all__ = ["flash_attention", "flash_fwd_plain", "flash_attention_fp8", "flash_fp8_plain",
+           "fp8_prepass", "fp8_prepass_plain", "fp8_v_slots_plain", "fp8_wgmma_ok",
            "auto_block", "MASK_VALUE"]
 
 #: -0.7 * f32 max, as the TPU kernel: finite so the online update never NaNs.
@@ -240,19 +245,85 @@ def flash_fp8_plain(q, k, v, descale, q_offset, kv_lens, *, causal, window, soft
     return out.to(out_dtype).permute(0, 2, 1, 3).contiguous()
 
 
+def _slot_keys() -> torch.Tensor:
+    """The key held by each slot of a 32-key group of :func:`fp8_v_slots_plain`:
+    slot ``16h + 4t + u`` holds key ``16h + 2t + (u & 1) + 8 (u >> 1)``, the
+    keys lane ``t`` of a quad holds in the scores' accumulator, so that P's
+    e4m3 codes form P·V's A fragment where they stand
+    (``csrc/flash_attention_fp8.cu::slot_key``)."""
+    j = torch.arange(32)
+    u, t, h = j & 3, (j >> 2) & 3, (j >> 4) & 1
+    return 16 * h + 2 * t + (u & 1) + 8 * (u >> 1)
+
+
+def fp8_v_slots_plain(v: torch.Tensor) -> torch.Tensor:
+    """The wgmma route's V pre-pass in plain PyTorch: ``v [B, Sk, Hk, D]`` →
+    ``[B, Hk, D, Skp]`` (``Skp`` = Sk rounded up to 32), each 32-key group in
+    slot order (:func:`_slot_keys`), zeros past Sk."""
+    B, Sk, Hk, D = v.shape
+    Skp = -(-Sk // 32) * 32
+    codes = v.view(torch.uint8)
+    if Skp > Sk:
+        codes = torch.cat([codes, codes.new_zeros((B, Skp - Sk, Hk, D))], dim=1)
+    keys = (torch.arange(Skp) // 32 * 32 + _slot_keys().repeat(Skp // 32)).to(v.device)
+    return codes[:, keys].permute(0, 2, 3, 1).contiguous().view(v.dtype)
+
+
+def fp8_prepass_plain(q, k, v):
+    """The wgmma route's pre-pass in plain PyTorch: q and k widened to bf16
+    (exactly: every e4m3 value is a bf16 value) and v in slot order
+    (:func:`fp8_v_slots_plain`)."""
+    return q.to(torch.bfloat16), k.to(torch.bfloat16), fp8_v_slots_plain(v)
+
+
+def fp8_prepass(q, k, v):
+    """:func:`fp8_prepass_plain`: its CUDA kernels on CUDA tensors (K7's
+    wgmma route runs it inside its call), the plain version on CPU tensors."""
+    if not q.is_cuda:
+        return fp8_prepass_plain(q, k, v)
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    Skp = -(-Sk // 32) * 32
+    q, k, v = aligned16(q), aligned16(k), aligned16(v)
+    qb = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    kb = torch.empty(k.shape, dtype=torch.bfloat16, device=q.device)
+    vt = torch.empty((B, Hk, D, Skp), dtype=v.dtype, device=q.device)
+    lib = _build.library("flash_attention_fp8")
+    p = ctypes.c_void_p
+    err = lib.flash_fp8_prep_launch(p(q.data_ptr()), p(k.data_ptr()), p(v.data_ptr()),
+                                    p(qb.data_ptr()), p(kb.data_ptr()), p(vt.data_ptr()), B, Sq,
+                                    Sk, Hq, Hk, D, Skp,
+                                    p(torch.cuda.current_stream(q.device).cuda_stream))
+    _build.check(lib, err, "flash_attention_fp8 (pre-pass)")
+    return qb, kb, vt
+
+
+def fp8_wgmma_ok(Sq: int, D: int, block_k: int, fp8_native: bool) -> bool:
+    """Whether K7 runs on its wgmma kernel: the native route, at least one
+    64-row query tile, and two stages of a block_k tile of K and Vᵀ in shared
+    memory (``block_k · D <= 32768``). Otherwise its ``mma.sync`` kernel."""
+    return fp8_native and Sq >= 64 and block_k * D <= 32768
+
+
 def _launch_fp8(q, k, v, descale, q_offset, kv_lens, *, causal, window, softcap, scale,
                 block_k, out_dtype, fp8_native):
     lib = _build.library("flash_attention_fp8")
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     q, k, v = aligned16(q), aligned16(k), aligned16(v)
+    qb = kb = vt = None
+    if fp8_wgmma_ok(Sq, D, block_k, fp8_native):
+        qb, kb, vt = fp8_prepass(q, k, v)
     out = torch.empty((B, Sq, Hq, D), dtype=out_dtype, device=q.device)
     p = ctypes.c_void_p
+    ptr = lambda t: p(t.data_ptr() if t is not None else 0)  # noqa: E731
     err = lib.flash_fp8_launch(
-        p(q.data_ptr()), p(k.data_ptr()), p(v.data_ptr()), p(out.data_ptr()),
+        p(q.data_ptr()), p(k.data_ptr()), p(v.data_ptr()), ptr(qb), ptr(kb), ptr(vt),
+        p(out.data_ptr()),
         p(descale[0].data_ptr()), p(descale[1].data_ptr()), p(descale[2].data_ptr()),
         p(q_offset.data_ptr()), p(kv_lens.data_ptr()), ctypes.c_int(B), ctypes.c_int(Sq),
-        ctypes.c_int(Sk), ctypes.c_int(Hq), ctypes.c_int(Hk), ctypes.c_int(D),
+        ctypes.c_int(Sk), ctypes.c_int(vt.shape[-1] if vt is not None else 0),
+        ctypes.c_int(Hq), ctypes.c_int(Hk), ctypes.c_int(D),
         ctypes.c_int(block_k), ctypes.c_float(scale), ctypes.c_int(int(causal)),
         ctypes.c_int(window or 0), ctypes.c_float(softcap or 0.0),
         ctypes.c_int(int(fp8_native)), ctypes.c_int(int(out_dtype == torch.float32)),
@@ -286,14 +357,14 @@ def flash_attention_fp8(
     V descale in the epilogue. Returns ``out [B, Sq, Hq, D]`` in ``out_dtype``
     (bf16 or float32).
 
-    ``fp8_native`` picks the kernel's route (e4m3 tensor-core products, or
-    operands widened to bf16 exactly); default
-    :func:`..utils.backend.native_fp8_matmul`. The products are exact on both,
-    so they differ only in the accumulation; the plain version (CPU tensors)
-    has one route. ``block_k`` is the key tile, part of the function (default
-    :func:`auto_block` of Sk); ``block_q`` does not change the result and is
-    accepted for API parity. Counts kernel launches in
-    ``flash_attention_fp8.launches``.
+    ``fp8_native`` picks the kernel's route (e4m3 tensor-core products, on
+    ``wgmma`` where :func:`fp8_wgmma_ok`, or operands widened to bf16
+    exactly); default :func:`..utils.backend.native_fp8_matmul`. The products
+    are exact on both, so they differ only in the accumulation; the plain
+    version (CPU tensors) has one route. ``block_k`` is the key tile, part of
+    the function (default :func:`auto_block` of Sk); ``block_q`` does not
+    change the result and is accepted for API parity. Counts kernel launches
+    in ``flash_attention_fp8.launches``.
     """
     del block_q
     if not (q.dtype == k.dtype == v.dtype == torch.float8_e4m3fn):

@@ -4,14 +4,16 @@ Counterpart of ``llm_fp8_tpu/kernels/quant_matmul.py``. On a CUDA tensor the
 wrapper launches one of the hand-written kernels of ``csrc/quant_matmul.cu``,
 which dequantize the weight on its way into the tensor cores (the weight
 never exists in bf16 in device memory): the decode kernel below
-:data:`PREFILL_MIN_M` rows (and where TMA cannot take the shape: K not a
-multiple of 8, N not of 16), the wgmma prefill kernel from there up. On a
-CPU tensor it takes :func:`quant_matmul_plain`, the same arithmetic in
+:data:`PREFILL_MIN_M` rows and for every shape TMA cannot take (K not a
+multiple of 8, N not of 16, unaligned operands), split across the blocks of
+a cluster by :func:`split_plan`; the wgmma prefill kernel from there up. On
+a CPU tensor it takes :func:`quant_matmul_plain`, the same arithmetic in
 plain PyTorch.
 
 Modes: ``tensor`` (scale ``[1, 1]``) and ``channel`` (scale ``[1, N]``)
 scale the float32 accumulator after the dot; ``mx`` (bf16 power-of-two
-scales ``[K/32, N]``) scales each 32-row weight block before it.
+scales ``[K/32, N]``, read by the kernels as stored) scales each 32-row
+weight block before it.
 """
 from __future__ import annotations
 
@@ -21,14 +23,21 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._common import W_KINDS, e4m3_to_bf16_ftz, num_sms
+from ._common import W_KINDS, aligned16, e4m3_to_bf16_ftz, num_sms
 
-__all__ = ["quant_matmul", "quant_matmul_plain", "qdot_fused"]
+__all__ = ["quant_matmul", "quant_matmul_plain", "qdot_fused", "split_plan"]
 
 _MODES = {"tensor": 0, "channel": 1, "mx": 2}
 MX_BLOCK = 32  # quant.qtensor.MX_BLOCK
-_BN, _BK = 128, 64  # csrc/quant_matmul.cu kBN, kBK (decode kernel)
+_DCOLS, _DROWS = 64, 32  # csrc/quant_matmul.cu kDCols, kDRows (decode kernel)
 _PBN, _PBK = 128, 64  # kPBN, kPBK (prefill kernel)
+#: Decode blocks a split plan aims at for each SM: two measured faster than
+#: four at every 1B projection (PERF.md), the merge over a cluster
+#: costing more than the extra splits gain.
+_DBLOCKS_PER_SM = 2
+#: A split is a block of a thread-block cluster: 1, 2, 4 or 8 (the portable
+#: cluster size).
+MAX_SPLITS = 8
 
 
 def _check(x, w_q, scale, mode, out_dtype):
@@ -51,6 +60,10 @@ def _check(x, w_q, scale, mode, out_dtype):
     if (mode == "mx" and K % MX_BLOCK) or scale.numel() != want:
         raise ValueError(f"{mode} scale of {tuple(scale.shape)} does not fit "
                          f"w {tuple(w_q.shape)}")
+    if mode == "mx" and scale.dtype != torch.bfloat16:
+        raise TypeError(f"MX scales are bf16 powers of two (quantize_mx), got {scale.dtype}")
+    if not scale.dtype.is_floating_point:
+        raise TypeError(f"{mode} scale must be floating point, got {scale.dtype}")
     if not (x.device == w_q.device == scale.device):
         raise ValueError("x, w_q and scale must be on one device")
 
@@ -74,14 +87,26 @@ def quant_matmul_plain(x, w_q, scale, *, mode: str, out_dtype=None) -> torch.Ten
 PREFILL_MIN_M = 64
 
 
-def _splits(blocks: int, k_tiles: int, sms: int):
-    """``(splits, k_tiles_per_split)`` of the decode kernel: split K so that
-    about two waves of blocks stream the weight when the (M, N) grid alone
-    cannot."""
-    if blocks >= 2 * sms:
-        return 1, k_tiles
-    per = -(-k_tiles // min(k_tiles, -(-2 * sms // blocks)))
-    return -(-k_tiles // per), per
+def _group_rows(M: int) -> int:
+    """Rows of x a decode block takes (csrc/quant_matmul.cu ``qmm_launch``):
+    8, 16, 32 or, from 33 rows up, 64 (larger M loops over groups of 64)."""
+    return 8 if M <= 8 else 16 if M <= 16 else 32 if M <= 32 else 64
+
+
+def split_plan(M: int, N: int, K: int, sms: int = 132):
+    """``(splits, k_tiles_per_split)`` of the decode kernel, from the shapes
+    alone: the 32-row k tiles of each (64-column tile, group of rows) are cut
+    into ``splits`` runs, the blocks of one cluster (a power of two, at most
+    :data:`MAX_SPLITS`), so that the grid fills about one wave of
+    ``_DBLOCKS_PER_SM`` blocks an SM, each run keeping at least 8 k tiles
+    (two a warp) where K has them. Every run holds at least one k tile."""
+    k_tiles = max(1, -(-K // _DROWS))
+    blocks = -(-N // _DCOLS) * -(-M // _group_rows(M))
+    want = min(MAX_SPLITS, _DBLOCKS_PER_SM * sms // max(1, blocks), k_tiles // 8)
+    splits = 1
+    while splits * 2 <= want:
+        splits *= 2
+    return splits, -(-k_tiles // splits)
 
 
 def _prefill_splits(blocks: int, k_tiles: int, sms: int):
@@ -105,34 +130,35 @@ def _launch(x, w_q, scale, mode, out_dtype):
     M, K = x.shape
     N = w_q.shape[1]
     x = x.contiguous()
-    scale32 = scale.reshape(-1).to(torch.float32).contiguous()
+    # The kernels read the scales as stored: float32 tensor and channel
+    # scales, bf16 MX scales (no conversion pass).
+    scale = aligned16(scale.reshape(-1).to(torch.bfloat16 if mode == "mx" else torch.float32))
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     sms = num_sms(x.device)
+    p = ctypes.c_void_p
+    common = (ctypes.c_int(M), ctypes.c_int(N), ctypes.c_int(K),
+              ctypes.c_int(W_KINDS[w_q.dtype]), ctypes.c_int(_MODES[mode]),
+              ctypes.c_int(int(out_dtype == torch.float32)))
+    stream = p(torch.cuda.current_stream(x.device).cuda_stream)
     prefill = _prefill_ok(x, w_q, M, N, K)
     if prefill:
         # 256 rows a block when that grid still covers the card, else 128.
         rows = 256 if -(-M // 256) * -(-N // _PBN) >= sms else 128
         splits, per = _prefill_splits(-(-N // _PBN) * -(-M // rows), -(-K // _PBK), sms)
+        partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+                   if splits > 1 else None)
+        err = lib.qmm_prefill_launch(
+            p(x.data_ptr()), p(w_q.data_ptr()), p(scale.data_ptr()), p(out.data_ptr()),
+            p(partial.data_ptr() if partial is not None else 0), *common, ctypes.c_int(rows),
+            ctypes.c_int(splits), ctypes.c_int(per), stream)
     else:
-        small = M <= 16
-        splits, per = _splits(-(-N // _BN) * -(-M // (16 if small else 64)), -(-K // _BK), sms)
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    args = (ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w_q.data_ptr()),
-            ctypes.c_void_p(scale32.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(partial.data_ptr() if partial is not None else 0),
-            ctypes.c_int(M), ctypes.c_int(N), ctypes.c_int(K),
-            ctypes.c_int(W_KINDS[w_q.dtype]), ctypes.c_int(_MODES[mode]),
-            ctypes.c_int(int(out_dtype == torch.float32)))
-    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-    if prefill:
-        err = lib.qmm_prefill_launch(*args, ctypes.c_int(rows), ctypes.c_int(splits),
-                                     ctypes.c_int(per), stream)
-    else:
-        err = lib.qmm_launch(*args, ctypes.c_int(int(small)), ctypes.c_int(splits),
+        splits, per = split_plan(M, N, K, sms)
+        err = lib.qmm_launch(p(x.data_ptr()), p(w_q.data_ptr()), p(scale.data_ptr()),
+                             p(out.data_ptr()), *common, ctypes.c_int(splits),
                              ctypes.c_int(per), stream)
     _build.check(lib, err, "quant_matmul")
     quant_matmul.launches += 1
+    quant_matmul.decode_launches += int(not prefill)
     return out
 
 
@@ -145,7 +171,8 @@ def quant_matmul(
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """``x @ dequant(w_q)``: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor. Counts kernel launches in ``quant_matmul.launches``."""
+    version on a CPU tensor. Counts kernel launches in ``quant_matmul.launches``,
+    and of those the decode kernel's in ``quant_matmul.decode_launches``."""
     out_dtype = out_dtype or x.dtype
     _check(x, w_q, scale, mode, out_dtype)
     N = w_q.shape[1]
@@ -159,6 +186,7 @@ def quant_matmul(
 
 
 quant_matmul.launches = 0
+quant_matmul.decode_launches = 0
 
 
 def qdot_fused(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:

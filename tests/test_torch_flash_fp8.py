@@ -182,3 +182,60 @@ def test_descale_shapes_and_input_checks():
     with pytest.raises(TypeError):
         flash_attention_fp8(t, t, t, q_descale=1.0, k_descale=1.0, v_descale=1.0,
                             out_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("Sk", [1, 31, 64, 200, 256])
+def test_prepass_widens_q_k_and_puts_each_v_key_in_its_slot(Sk):
+    # The wgmma route's pre-pass: q and k in bf16, exactly; V as [B, Hk, D,
+    # Skp] with slot j of a 32-key group holding key 16h + 2t + (u & 1) +
+    # 8 (u >> 1) (j = 16h + 4t + u), zeros past Sk. On CPU tensors the
+    # wrapper is the plain version.
+    rng = np.random.default_rng(Sk)
+    v = torch.from_numpy(rng.integers(1, 127, (2, Sk, 3, 32), dtype=np.uint8)).view(
+        torch.float8_e4m3fn)
+    q = torch.from_numpy(rng.integers(0, 256, (2, 5, 6, 32), dtype=np.uint8)).view(
+        torch.float8_e4m3fn)
+    qb, kb, vt = k7.fp8_prepass(q, v, v)
+    for codes, wide in ((q, qb), (v, kb)):
+        assert wide.dtype == torch.bfloat16
+        want = codes.float()
+        assert torch.equal(wide.float().isnan(), want.isnan())
+        assert torch.equal(wide.float().nan_to_num(), want.nan_to_num())
+    Skp = -(-Sk // 32) * 32
+    assert vt.shape == (2, 3, 32, Skp) and vt.dtype == torch.float8_e4m3fn
+    codes, got = v.view(torch.uint8), vt.view(torch.uint8)
+    for j in range(Skp):
+        h, t, u = j % 32 // 16, j % 16 // 4, j % 4
+        key = j // 32 * 32 + 16 * h + 2 * t + (u & 1) + 8 * (u >> 1)
+        want = codes[:, key] if key < Sk else torch.zeros_like(got[..., j])
+        assert torch.equal(got[..., j], want), (j, key)
+
+
+def test_p_codes_meet_their_v_rows():
+    # The kernel packs p8 straight from the scores' accumulator into P·V's A
+    # fragment: accumulator element i of lane t is key 8 (i >> 2) + 2t + (i & 1)
+    # of its 64-key chunk (rows gid and gid + 8 by (i >> 1) & 1); register rr
+    # of k-step kk takes elements i_a, i_a + 1, i_a + 4, i_a + 5 with
+    # i_a = 16kk + 8 (rr >> 1) + 2 (rr & 1), as A slots 32kk + 16 (rr >> 1) +
+    # 4t + byte. Each slot must hold the key whose V row the pre-pass put there.
+    slot_key = k7._slot_keys().tolist()
+    for t in range(4):
+        for kk in range(2):
+            for rr in range(4):
+                i_a = 16 * kk + 8 * (rr >> 1) + 2 * (rr & 1)
+                for byte, i in enumerate((i_a, i_a + 1, i_a + 4, i_a + 5)):
+                    key = 8 * (i >> 2) + 2 * t + (i & 1)
+                    row = (i >> 1) & 1
+                    assert row == (rr & 1)
+                    slot = 16 * (rr >> 1) + 4 * t + byte
+                    assert key == 32 * kk + slot_key[slot], (t, kk, rr, byte)
+
+
+def test_wgmma_route_takes_what_it_can():
+    # The native route from one 64-row query tile up, while two stages of a
+    # block_k tile of K and Vᵀ fit in shared memory; else the mma.sync kernel.
+    assert k7.fp8_wgmma_ok(8192, 64, 512, True)
+    assert k7.fp8_wgmma_ok(100, 128, 256, True) and k7.fp8_wgmma_ok(64, 32, 1024, True)
+    assert not k7.fp8_wgmma_ok(8192, 64, 512, False)
+    assert not k7.fp8_wgmma_ok(63, 64, 512, True) and not k7.fp8_wgmma_ok(1, 64, 512, True)
+    assert not k7.fp8_wgmma_ok(8192, 128, 512, True)

@@ -33,6 +33,7 @@ PORT_MODULES = [
     "llm_fp8_tpu_torch.kernels.flash_attention_bwd", "llm_fp8_tpu_torch.kernels.quantize",
     "llm_fp8_tpu_torch.kernels.rmsnorm", "llm_fp8_tpu_torch.scripts",
     "llm_fp8_tpu_torch.scripts.profile_fwd_parts",
+    "llm_fp8_tpu_torch.scripts.kernel_variants",
     "llm_fp8_tpu_torch.quant.delayed", "llm_fp8_tpu_torch.training",
     "llm_fp8_tpu_torch.training.trainer", "llm_fp8_tpu_torch.training.losses",
     "llm_fp8_tpu_torch.training.quant_state", "llm_fp8_tpu_torch.training.data",

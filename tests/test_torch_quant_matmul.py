@@ -17,6 +17,7 @@ from llm_fp8_tpu.quant import formats as jfmt
 from llm_fp8_tpu.quant import qtensor as jqt
 from llm_fp8_tpu_torch.convert import tensor_from_numpy
 from llm_fp8_tpu_torch.kernels import KERNEL_WRAPPERS
+from llm_fp8_tpu_torch.kernels import quant_matmul as qmm
 from llm_fp8_tpu_torch.kernels.quant_matmul import quant_matmul
 from llm_fp8_tpu_torch.quant import dot as tdot
 from llm_fp8_tpu_torch.quant import formats as tfmt
@@ -105,3 +106,36 @@ def test_rejects_inputs_the_kernel_does_not_take():
         quant_matmul(x, w, torch.ones((1, 31)), mode="channel")
     with pytest.raises(ValueError):
         quant_matmul(x, w, torch.ones((1, 1)), mode="rows")
+    # The kernels read MX scales as stored: bf16 powers of two.
+    assert quant_matmul(x, w, torch.ones((2, 32), dtype=torch.bfloat16), mode="mx").shape == (2, 32)
+    with pytest.raises(TypeError, match="bf16"):
+        quant_matmul(x, w, torch.ones((2, 32)), mode="mx")
+    with pytest.raises(ValueError):
+        quant_matmul(x[:, :48], w[:48], torch.ones((1, 32), dtype=torch.bfloat16), mode="mx")
+    with pytest.raises(TypeError, match="floating point"):
+        quant_matmul(x, w, torch.ones((1, 32), dtype=torch.int32), mode="channel")
+    with pytest.raises(ValueError):
+        quant_matmul(x[None], w, torch.ones((1, 1)), mode="tensor")
+
+
+#: The (K, N) shapes chip_smoke.py runs through K1: the Llama-3.2-1B
+#: projections and lm_head, and its ragged ones.
+PLAN_SHAPES = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048), (2048, 128256),
+               (2040, 3000), (2016, 1000), (256, 252)]
+
+
+@pytest.mark.parametrize("K,N", PLAN_SHAPES)
+def test_split_plan_covers_k_once_in_order(K, N):
+    # The decode kernel's split plan, from the shapes alone: splits are the
+    # blocks of one cluster (1, 2, 4 or 8) taking consecutive runs of the
+    # 32-row k tiles; every run holds at least one tile and together they
+    # cover K exactly once, in order.
+    k_tiles = -(-K // qmm.split_plan.__globals__["_DROWS"])
+    for M in range(1, 64):
+        splits, per = qmm.split_plan(M, N, K, 132)
+        assert splits in (1, 2, 4, 8)
+        runs = [(z * per, min((z + 1) * per, k_tiles)) for z in range(splits)]
+        assert runs[0][0] == 0 and runs[-1][1] == k_tiles
+        assert all(lo < hi for lo, hi in runs)
+        assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+        assert splits == 1 or per >= 8  # eight tiles (two a warp) a run where K has them
