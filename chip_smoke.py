@@ -20,7 +20,8 @@ Phases, in order; any failure exits non-zero before the last line:
    arena decode shape in four arena dtypes (its split plan logged; the e4m3
    case run twice, bit-identical), then at its split edges: single-key
    splits beside a zero-length slot (a zero row, an untouched arena), and a
-   window that empties the early splits. The launch floor (a one-element
+   window that empties the early splits. K3 at the speculative verify block
+   (5 query rows a slot at ragged offsets). The launch floor (a one-element
    torch add) is timed beside them.
    ``paged_kernels``: K5 at the paged serve shape (8 sequences of ~8k
    tokens, e4m3, int8 and bf16 pools, with append: codes must equal the
@@ -36,12 +37,29 @@ Phases, in order; any failure exits non-zero before the last line:
 4. serving: Llama-3.2-1B, all 16 layers, fp8 weights (qdot's default
    route on the card, fp8native: K9 quantizes x, then fp8 products), fp8 KV
    through the arena engine (8 requests), then int8 KV (2 requests,
-   calibration), then int8 weights (2 requests; K1 must launch in prefill
-   and in decode). ``paged_serve``: the paged engine, e4m3 pool, 8 requests
-   of 8184-token prompts and 64 new tokens each, on the default route and
-   again with LLM_FP8_QDOT=xla (K1 at every projection), then a short
-   int8-pool run. Each path's launch counts are set to 0 just before its run
-   and read just after; every kernel of the path must have been launched.
+   calibration), bf16 KV (the KVCache path), fp8 weights on
+   LLM_FP8_QDOT=xla and int8 weights (2 requests each; K1 must launch in
+   prefill and in decode). ``paged_serve``: the paged engine, e4m3 pool, 8
+   requests of 8184-token prompts and 64 new tokens each, on the default
+   route and again with LLM_FP8_QDOT=xla (K1 at every projection), then a
+   short int8-pool run. The engines' decode step is a CUDA graph, captured
+   once and replayed a step; each run is repeated on the engine's eager
+   twin (its own step method in a Python loop), the greedy tokens must be
+   equal, and both step times (and for the main runs both profiles' device
+   busy shares) are logged. Each path's launch counts are set to 0 just
+   before its run and read just after; every kernel of the path must have
+   been launched (its decode kernels inside the captured step), and a
+   kernel's launches on the card are its counted ones plus the captured
+   step's times the replays after the first.
+   ``spec_serve``: speculative serving, target Llama-3.1-8B (full width, 16
+   of 32 layers) and draft Llama-3.2-1B, LAYERWISE fp8, fp8 KV, 8 slots,
+   gamma 4, after K1, K9 and K3 at the 8B shapes against their plain
+   versions: greedy on the round's CUDA graph and eagerly (tokens equal),
+   each token against a teacher-forced target forward (``SPEC_MARGIN``),
+   sampled with top_k 20, and the 1B drafting for itself (gamma accepted).
+   ``checkpoint``: Llama-3.2-1B exported, written as safetensors by this
+   script, loaded bit for bit and served by ``cli.serve --weights_path``
+   with the tokens of ``--random_init``.
 5. training. ``train_kernels``: K6 (flash backward) against its plain
    version row by row at the training shape and its features, with planted
    errors the tolerance must catch and a determinism check (and K3's
@@ -96,7 +114,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_serve",
-          "train_kernels", "train_slice", "train", "fp8_kernels", "profile")
+          "spec_serve", "checkpoint", "train_kernels", "train_slice", "train", "fp8_kernels",
+          "profile")
 #: The kernels each path runs (launch counts read around its run). On the
 #: card fp8 weights take qdot's fp8native route (K9 quantizes x per row, then
 #: fp8 products), as the JAX package picks it where fp8 products exist; K1
@@ -261,10 +280,12 @@ def k1_decode_kernel_launches() -> int:
 
 
 class Instrumented:
-    """Engine mixin: whether every logits row was finite, the host time of
-    prefills and decode bursts (each ends in a sync), the decode steps run
-    and the steps run in bursts, and K1's launches in prefills and in
-    decode steps (and of those, the ones on its decode kernel)."""
+    """Engine mixin: whether every logits row read was finite, the host time
+    of prefills and decode bursts (each ends in a read-back), the Python
+    forward calls of the decode step (on the card the warm-up and the capture
+    of its CUDA graph, and none a step; every step of the eager twin) and the
+    steps run in bursts, and K1's launches in prefills and in those forward
+    calls (and of those, the ones on its decode kernel)."""
 
     finite = None
     prefill_s = decode_s = 0.0
@@ -288,20 +309,47 @@ class Instrumented:
         return out
 
     def _decode_step(self, *args):
+        import torch
+
         n0, d0 = k1_launches(), k1_decode_kernel_launches()
         logits, g = super()._decode_step(*args)
         self.k1_decode += k1_launches() - n0
         self.k1_decode_kernel += k1_decode_kernel_launches() - d0
-        self._note(logits)
+        if not torch.cuda.is_current_stream_capturing():  # the capture records, runs nothing
+            self._note(logits)
         self.decode_steps += 1
         return logits, g
 
     def _run_decode_burst(self, *args):
         t0 = time.perf_counter()
-        out = super()._run_decode_burst(*args)  # reads back: synced
+        block, logits = super()._run_decode_burst(*args)  # reads back: synced
         self.decode_s += time.perf_counter() - t0
         self.burst_steps += args[-1]
-        return out
+        self._note(logits)
+        return block, logits
+
+
+def device_launches(counts, graph):
+    """Kernel launches on the card in a run whose launch counts are
+    ``counts`` and whose decode step is the CUDA graph ``graph``: the
+    wrappers count at the warm-up and in the capture (which launches
+    nothing), and each replay launches the captured kernels again."""
+    out = dict(counts)
+    for name, n in graph.launches.items():
+        if name in out:
+            out[name] += (graph.replays - graph.captures) * n
+    return out
+
+
+def graph_checks(what, eng, graph, steps):
+    """Every decode step of ``eng`` was a replay of its one captured graph:
+    ``steps`` replays, and the step's Python forward ran twice (its warm-up
+    and its capture), not once a step."""
+    check(graph.captures == 1 and graph.replays == steps,
+          f"{what}: {graph.captures} captures and {graph.replays} replays for {steps} steps")
+    check(eng.decode_steps == 2 * graph.captures,
+          f"{what}: the decode step's forward ran {eng.decode_steps} times through Python "
+          f"for {graph.captures} capture(s)")
 
 
 def kernel_ms(fn, calls: int = 20, tries: int = 3) -> dict:
@@ -625,8 +673,54 @@ def kernel_cases(dev, bw, peak, log):
                     tflops=4.0 * Hq * D * pairs * Bq / (ms * 1e-3) / 1e12)
         cases.append(case)
         log(case)
+    # K3 at the speculative verify block (gamma 4: five query rows a slot,
+    # each slot at its own offset, kv_lens = offset + 5) over a 1024-key cache.
+    cases.append(k3_verify_case(k3, dev, g, bw, peak, log, Hq=32, Hk=8, D=64, Sk=1024))
     cases += feature_cases(dev, g, log)
     return cases
+
+
+def k3_verify_case(k3, dev, g, bw, peak, log, *, Hq, Hk, D, Sk, B=8, Sq=5):
+    """K3 over a speculative verify block: ``Sq`` query rows a slot at ragged
+    ``q_offset``s (one slot at 0, one at the cache's end), ``kv_lens =
+    q_offset + Sq``, against its plain version row by row (ROW_ULPS) and its
+    LSE within 1e-3; timed beside SDPA on the same mask."""
+    import torch
+    import torch.nn.functional as F
+
+    offs = [0, 1, 37, 150, Sk // 4 + 3, Sk // 2, Sk - 2 * Sq - 1, Sk - Sq][:B]
+    qo = torch.tensor(offs, dtype=torch.int32, device=dev)
+    kl = qo + Sq
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, Sk, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, Sk, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+    cfg = dict(causal=True, window=None, softcap=None, scale=D ** -0.5)
+    got, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **cfg)
+    ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, **cfg)
+    torch.cuda.synchronize()
+    name = f"verify B{B} Sq={Sq} Sk={Sk} Hq{Hq} Hk{Hk} D{D} causal, ragged q_offset"
+    err, ulps = rows_within(got, ref, f"K3 {name}")
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(math.isfinite(lse_err) and lse_err <= 1e-3, f"K3 {name}: lse err {lse_err}")
+    call = lambda: k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **cfg)  # noqa: E731
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(Hq // Hk, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(Hq // Hk, dim=1)
+    pos = qo.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    mask = (torch.arange(Sk, device=dev)[None, None, :] <= pos[:, :, None])[:, None]
+    pairs = int(mask.sum()) * Hq
+    nbytes = (2 * q.numel() + 2 * int(kl.sum()) * Hk * D) * 2 + B * Hq * Sq * 4
+    b_ms, b_by = bound_ms(nbytes, 4.0 * D * pairs, bw, peak)
+    case = dict(kernel="flash_attention", case=name, q_offset=offs, max_abs_err=err,
+                err_ulps=ulps, lse_err=lse_err, ms=cuda_ms(call), call_ms=eager_ms(call),
+                plain_ms=cuda_ms(lambda: k3.flash_fwd_plain(q, k, v, qo, kl, **cfg),
+                                 calls=4, rounds=3),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                          attn_mask=mask)),
+                bound_ms=b_ms, bound_by=b_by)
+    case["vs_library"] = case["ms"] / case["library_ms"]
+    log(case)
+    return case
 
 
 def feature_cases(dev, g, log):
@@ -1229,48 +1323,94 @@ def _paged_slice_check(dev, log, route, forced):
 
 
 def serving(dev, num_layers, card, log):
+    """The arena engine at full 1B width on every path it serves: fp8
+    weights on qdot's default route (fp8native) and on LLM_FP8_QDOT=xla (K1),
+    fp8, int8 (calibrated) and bf16 KV (the KVCache path), int8 weights (K1).
+    Each runs on the engine (its decode step a CUDA graph, replayed) and on
+    its eager twin (the engine's own step method, a Python forward a step):
+    the greedy tokens must be equal, and both step times are logged; the
+    main run (fp8, 8 requests) is also profiled both ways for the device's
+    busy share."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from llm_fp8_tpu_torch import kernels
     from llm_fp8_tpu_torch.models import get_config
     from llm_fp8_tpu_torch.models.llama import init_params, quantize_params
     from llm_fp8_tpu_torch.quant import LAYERWISE, recipe_set_by_name
-    from llm_fp8_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+    from llm_fp8_tpu_torch.serving import Engine
 
-    class CheckedEngine(Instrumented, Engine):
+    class TimedPrefill(Instrumented):
         def _run_prefill(self, padded, true_len, slot):
             last = self._timed_prefill(super()._run_prefill, padded, true_len, slot)
             self._note(last)
             return last
 
+    class CheckedEngine(TimedPrefill, Engine):
+        pass
+
+    class EagerLoop(Engine):
+        def _run_decode_burst(self, toks, lens, steps):
+            return self._decode_loop(toks, lens, steps)
+
+    class EagerEngine(TimedPrefill, EagerLoop):
+        pass
+
     cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=num_layers)
-    t0 = time.perf_counter()
-    params = quantize_params(init_params(cfg, device=dev, seed=0), LAYERWISE)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     rng = np.random.RandomState(0)
     results = {}
-    # fp8 weights (LAYERWISE) with fp8 KV, then int8 KV; then int8 weights
-    # (K1 at prefill and decode) with fp8 KV.
-    for tag, kv, n_req in (("fp8", "fp8", 8), ("int8", "int8", 2),
-                           ("int8_weights", "fp8", 2)):
-        if tag == "int8_weights":
-            del params
-            torch.cuda.empty_cache()
-            params = quantize_params(init_params(cfg, device=dev, seed=0),
-                                     recipe_set_by_name("int8"))
-        ecfg = EngineConfig(max_slots=8, max_seq_len=1024, prefill_buckets=(128, 256),
-                            kv_dtype=kv)
-        warm = CheckedEngine(params, cfg, ecfg, device=dev)
-        warm.add_request(np.arange(1, 17, dtype=np.int32), SamplingParams(max_new_tokens=4))
-        warm.run()
-        del warm
-        eng = CheckedEngine(params, cfg, ecfg, device=dev)
-        prompts = [rng.randint(1, cfg.vocab_size, rng.randint(100, 251)).astype(np.int32)
-                   for _ in range(n_req)]
+    # tag: (LLM_FP8_QDOT, weights, KV, requests); one weight set per route.
+    runs = (("fp8", None, "fp8", "fp8", 8), ("int8", None, "fp8", "int8", 2),
+            ("bf16_kv", None, "fp8", "bf16", 2), ("fp8_xla", "xla", "fp8", "fp8", 2),
+            ("int8_weights", None, "int8", "fp8", 2))
+    params, params_key = None, None
+    for tag, qdot_env, weights, kv, n_req in runs:
+        saved = os.environ.get("LLM_FP8_QDOT")
+        if qdot_env is not None:
+            os.environ["LLM_FP8_QDOT"] = qdot_env
+        try:
+            if params_key != (qdot_env, weights):
+                del params
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                params = quantize_params(init_params(cfg, device=dev, seed=0),
+                                         LAYERWISE if weights == "fp8"
+                                         else recipe_set_by_name("int8"))
+                torch.cuda.synchronize()
+                init_s = time.perf_counter() - t0
+                params_key = (qdot_env, weights)
+            res = _arena_run(CheckedEngine, EagerEngine, params, cfg, dev, card, num_layers,
+                             rng, tag, weights, kv, n_req, qdot_env)
+        finally:
+            restore_env("LLM_FP8_QDOT", saved)
+        res["init_s"] = init_s
+        log(res)
+        results[tag] = res
+    del params
+    return results
+
+
+def _arena_run(engine_cls, eager_cls, params, cfg, dev, card, num_layers, rng, tag, weights,
+               kv, n_req, qdot_env):
+    """One arena serve on the graph and on its eager twin (after a warm-up
+    request), launch counts set to 0 before each and read after."""
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.serving import EngineConfig, SamplingParams
+
+    ecfg = EngineConfig(max_slots=8, max_seq_len=1024, prefill_buckets=(128, 256), kv_dtype=kv)
+    warm = engine_cls(params, cfg, ecfg, device=dev)
+    warm.add_request(np.arange(1, 17, dtype=np.int32), SamplingParams(max_new_tokens=4))
+    warm.run()
+    del warm
+    prompts = [rng.randint(1, cfg.vocab_size, rng.randint(100, 251)).astype(np.int32)
+               for _ in range(n_req)]
+    runs = {}
+    for mode, cls in (("graph", engine_cls), ("eager", eager_cls)):
+        eng = cls(params, cfg, ecfg, device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launch_counts()
@@ -1281,53 +1421,88 @@ def serving(dev, num_layers, card, log):
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
         for r in reqs:
-            check(r.done and r.error is None, f"serve {tag}: request {r.request_id} {r.error}")
-            check(len(r.output) == 32, f"serve {tag}: {len(r.output)} tokens, not 32")
+            check(r.done and r.error is None, f"serve {tag} {mode}: request {r.request_id} "
+                  f"{r.error}")
+            check(len(r.output) == 32, f"serve {tag} {mode}: {len(r.output)} tokens, not 32")
             check(all(0 <= t < cfg.vocab_size for t in r.output), f"serve {tag}: bad token")
-        check(eng.finite is not None and bool(eng.finite), f"serve {tag}: non-finite logits")
-        path = ARENA_PATH if tag != "int8_weights" else ("decode_attention_arena",
-                                                         "flash_attention") + K1_PATH
-        for name in path:
-            check(counts[name] > 0, f"serve {tag}: kernel {name} was launched "
-                  f"{counts[name]} times")
-        if tag == "int8_weights":
-            check(eng.k1_prefill > 0 and eng.k1_decode > 0,
-                  f"serve int8 weights: K1 launched {eng.k1_prefill} times in prefills and "
-                  f"{eng.k1_decode} in decode steps")
-            check(eng.k1_decode_kernel == eng.k1_decode,
-                  f"serve int8 weights: {eng.k1_decode_kernel} of K1's {eng.k1_decode} decode "
-                  "launches took its decode kernel")
-        else:
-            check(counts["quant_matmul"] == 0, f"serve {tag}: K1 ran {counts['quant_matmul']} "
-                  "times on the fp8native route")
-        if kv == "int8":
-            check(bool(torch.isfinite(eng._kscales).all() and (eng._kscales > 0).all()),
-                  "serve int8: bad calibrated scales")
-        ttfts = sorted(r.ttft for r in reqs)
-        res = dict(card=card, kv_dtype=kv, weights="int8" if tag == "int8_weights" else "fp8",
-                   requests=n_req, layers=num_layers,
-                   prompt_lens=[len(p) for p in prompts], generated=32 * n_req,
-                   wall_s=wall, tokens_per_s=32 * n_req / wall,
-                   ttft_p50_s=ttfts[len(ttfts) // 2],
-                   peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-                   launches=counts, k1_prefill=eng.k1_prefill, k1_decode=eng.k1_decode,
-                   k1_decode_kernel=eng.k1_decode_kernel, init_s=init_s, prefill_s=eng.prefill_s,
-                   decode_s=eng.decode_s, decode_steps=eng.decode_steps,
-                   burst_steps=eng.burst_steps,
-                   decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1))
-        if tag == "fp8":
-            res["profile"] = profile_run(CheckedEngine, params, cfg, ecfg, prompts, dev)
-        log(res)
-        results[tag] = res
-        del eng
-    return results
+        check(eng.finite is not None and bool(eng.finite), f"serve {tag} {mode}: non-finite logits")
+        runs[mode] = (eng, reqs, wall, counts)
+    eng, reqs, wall, counts = runs["graph"]
+    e_eng, e_reqs, e_wall, e_counts = runs["eager"]
+    graph = eng.step_graph
+    graph_checks(f"serve {tag}", eng, graph, eng.burst_steps)
+    check(e_eng.step_graph.captures == 0 and e_eng.decode_steps == e_eng.burst_steps,
+          f"serve {tag} eager: {e_eng.step_graph.captures} captures")
+    equal = [r.output for r in reqs] == [r.output for r in e_reqs]
+    check(equal, f"serve {tag}: the graph's greedy tokens differ from the eager step's")
+    launches = device_launches(counts, graph)
+    k1 = weights == "int8" or qdot_env == "xla"
+    # The path's kernels: K3 at prefill, the decode step's in the graph.
+    decode = ((("decode_attention_arena",) if kv != "bf16" else ())
+              + (K1_PATH if k1 else ("quantize_fused",)))
+    for name in ("flash_attention",) + decode:
+        check(counts[name] > 0, f"serve {tag}: kernel {name} was launched {counts[name]} times")
+    for name in decode:
+        check(graph.launches.get(name, 0) > 0,
+              f"serve {tag}: kernel {name} is not in the captured decode step")
+    if k1:
+        check(eng.k1_prefill > 0 and graph.launches.get("quant_matmul", 0) > 0,
+              f"serve {tag}: K1 launched {eng.k1_prefill} times in prefills and "
+              f"{graph.launches.get('quant_matmul', 0)} in a decode step")
+        check(eng.k1_decode_kernel == eng.k1_decode and graph.launches.get("quant_matmul_decode")
+              == graph.launches.get("quant_matmul"),
+              f"serve {tag}: {graph.launches.get('quant_matmul_decode')} of K1's "
+              f"{graph.launches.get('quant_matmul')} launches a decode step took its decode kernel")
+    else:
+        check(counts["quant_matmul"] == 0, f"serve {tag}: K1 ran {counts['quant_matmul']} "
+              "times on the fp8native route")
+    if kv == "int8":
+        check(bool(torch.isfinite(eng._kscales).all() and (eng._kscales > 0).all()),
+              f"serve {tag}: bad calibrated scales")
+    ttfts = sorted(r.ttft for r in reqs)
+    res = dict(card=card, kv_dtype=kv, weights=weights,
+               qdot_route="xla (K1)" if qdot_env == "xla" else "default",
+               requests=n_req, layers=num_layers,
+               prompt_lens=[len(p) for p in prompts], generated=32 * n_req,
+               wall_s=wall, tokens_per_s=32 * n_req / wall,
+               ttft_p50_s=ttfts[len(ttfts) // 2],
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               launches=launches, launches_counted=counts, launches_a_replay=graph.launches,
+               replays=graph.replays, captures=graph.captures,
+               python_forward_calls=eng.decode_steps,
+               k1_prefill=eng.k1_prefill, k1_decode=eng.k1_decode,
+               k1_decode_kernel=eng.k1_decode_kernel, prefill_s=eng.prefill_s,
+               decode_s=eng.decode_s, burst_steps=eng.burst_steps,
+               decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1),
+               eager=dict(wall_s=e_wall, tokens_per_s=32 * n_req / e_wall,
+                          decode_s=e_eng.decode_s, steps=e_eng.burst_steps,
+                          decode_step_ms=1e3 * e_eng.decode_s / max(e_eng.burst_steps, 1),
+                          launches=e_counts),
+               tokens_equal_eager=equal)
+    if tag == "fp8":
+        res["profile"] = profile_run(engine_cls, params, cfg, ecfg, prompts, dev)
+        res["eager"]["profile"] = profile_run(eager_cls, params, cfg, ecfg, prompts, dev)
+        # Sampled requests decode one step at a time: each step a replay of
+        # the same graph, sampled from its static logits.
+        eng = engine_cls(params, cfg, ecfg, device=dev)
+        sp = SamplingParams(max_new_tokens=8, temperature=0.8, top_k=20)
+        reqs = [eng.add_request(p, sp) for p in prompts[:2]]
+        eng.run()
+        check(all(r.done and len(r.output) == 8 and all(0 <= t < cfg.vocab_size
+                                                        for t in r.output) for r in reqs),
+              "serve sampled: bad output")
+        graph_checks("serve sampled", eng, eng.step_graph, eng.burst_steps)
+        res["sampled"] = dict(steps=eng.burst_steps, replays=eng.step_graph.replays,
+                              decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1))
+    return res
 
 
 def paged_serving(dev, num_layers, card, log):
     """The paged engine at full 1B width: e4m3 pool, 8 requests of 8184-token
     prompts (bucket 8192) and 64 new tokens each, on qdot's default route and
-    with LLM_FP8_QDOT=xla; then int8 pool, 2 short requests. Launch counts
-    are set to 0 before each measured run."""
+    with LLM_FP8_QDOT=xla; then int8 pool, 2 short requests. Each runs on the
+    engine (its decode step a CUDA graph) and on its eager twin; the greedy
+    tokens must be equal. Launch counts are set to 0 before each run."""
     import dataclasses
 
     import numpy as np
@@ -1338,7 +1513,7 @@ def paged_serving(dev, num_layers, card, log):
     from llm_fp8_tpu_torch.quant import LAYERWISE
     from llm_fp8_tpu_torch.serving import PagedEngine
 
-    class CheckedPagedEngine(Instrumented, PagedEngine):
+    class PagedChecks(Instrumented):
         """Prefill time includes the insert; also the most pages held."""
 
         max_pages = 0
@@ -1356,6 +1531,16 @@ def paged_serving(dev, num_layers, card, log):
             self.max_pages = max(self.max_pages, self.pages_in_use)
             return out
 
+    class CheckedPagedEngine(PagedChecks, PagedEngine):
+        pass
+
+    class EagerLoop(PagedEngine):
+        def _run_decode_burst(self, toks, tables, lens, steps):
+            return self._decode_loop(toks, tables, lens, steps)
+
+    class EagerPagedEngine(PagedChecks, EagerLoop):
+        pass
+
     cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=num_layers)
     rng = np.random.RandomState(1)
     results = {}
@@ -1372,9 +1557,9 @@ def paged_serving(dev, num_layers, card, log):
             os.environ["LLM_FP8_QDOT"] = qdot_env
         try:
             params = quantize_params(init_params(cfg, device=dev, seed=0), LAYERWISE)
-            res = _paged_run(CheckedPagedEngine, params, cfg, dev, card, num_layers, rng, tag,
-                             kv, n_req, n_prompt, max_new, bucket, kv_scale,
-                             prompts_fp8 if tag == "fp8_xla" else None)
+            res = _paged_run(CheckedPagedEngine, EagerPagedEngine, params, cfg, dev, card,
+                             num_layers, rng, tag, kv, n_req, n_prompt, max_new, bucket,
+                             kv_scale, prompts_fp8 if tag == "fp8_xla" else None)
         finally:
             restore_env("LLM_FP8_QDOT", saved)
         if tag == "fp8":
@@ -1388,9 +1573,10 @@ def paged_serving(dev, num_layers, card, log):
     return results
 
 
-def _paged_run(engine_cls, params, cfg, dev, card, num_layers, rng, tag, kv, n_req, n_prompt,
-               max_new, bucket, kv_scale, prompts):
-    """One measured run of the paged engine (after a warm-up request)."""
+def _paged_run(engine_cls, eager_cls, params, cfg, dev, card, num_layers, rng, tag, kv, n_req,
+               n_prompt, max_new, bucket, kv_scale, prompts):
+    """One measured run of the paged engine and one of its eager twin (after
+    a warm-up request)."""
     import numpy as np
     import torch
 
@@ -1409,60 +1595,92 @@ def _paged_run(engine_cls, params, cfg, dev, card, num_layers, rng, tag, kv, n_r
     warm.add_request(prompts[0], SamplingParams(max_new_tokens=4))
     warm.run()
     del warm
-    eng = engine_cls(params, cfg, ecfg, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new)) for p in prompts]
-    eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    for r in reqs:
-        check(r.done and r.error is None, f"paged {tag}: request {r.request_id} {r.error}")
-        check(len(r.output) == max_new, f"paged {tag}: {len(r.output)} tokens, not {max_new}")
-        check(all(0 <= t < cfg.vocab_size for t in r.output), f"paged {tag}: bad token")
-    check(eng.finite is not None and bool(eng.finite), f"paged {tag}: non-finite logits")
-    path = (("flash_attention", "paged_attention") + K1_PATH if tag == "fp8_xla"
-            else PAGED_PATH)
-    for name in path:
+    runs = {}
+    for mode, cls in (("graph", engine_cls), ("eager", eager_cls)):
+        eng = cls(params, cfg, ecfg, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new)) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for r in reqs:
+            check(r.done and r.error is None, f"paged {tag} {mode}: request {r.request_id} "
+                  f"{r.error}")
+            check(len(r.output) == max_new, f"paged {tag} {mode}: {len(r.output)} tokens, "
+                  f"not {max_new}")
+            check(all(0 <= t < cfg.vocab_size for t in r.output), f"paged {tag}: bad token")
+        check(eng.finite is not None and bool(eng.finite), f"paged {tag} {mode}: non-finite "
+              "logits")
+        check(eng.pages_in_use == 0 and eng.max_pages == n_req * per_seq,
+              f"paged {tag} {mode}: {eng.max_pages} pages held at most, {eng.pages_in_use} at "
+              "the end")
+        runs[mode] = (eng, reqs, wall, counts, torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    eng, reqs, wall, counts, peak = runs["graph"]
+    e_eng, e_reqs, e_wall, e_counts, e_peak = runs["eager"]
+    graph = eng.step_graph
+    graph_checks(f"paged {tag}", eng, graph, eng.burst_steps)
+    equal = [r.output for r in reqs] == [r.output for r in e_reqs]
+    check(equal, f"paged {tag}: the graph's greedy tokens differ from the eager step's")
+    launches = device_launches(counts, graph)
+    decode = ("paged_attention",) + (K1_PATH if tag == "fp8_xla" else ("quantize_fused",))
+    for name in ("flash_attention",) + decode:
         check(counts[name] > 0, f"paged {tag}: kernel {name} was launched {counts[name]} times")
+    for name in decode:
+        check(graph.launches.get(name, 0) > 0,
+              f"paged {tag}: kernel {name} is not in the captured decode step")
     if tag == "fp8_xla":
-        check(eng.k1_prefill == 4 * num_layers * n_req and eng.k1_decode > 0,
+        check(eng.k1_prefill == 4 * num_layers * n_req and graph.launches.get("quant_matmul", 0) > 0,
               f"paged {tag}: K1 launched {eng.k1_prefill} times in {n_req} prefills of "
-              f"{num_layers} layers and {eng.k1_decode} in decode steps")
-        check(eng.k1_decode_kernel == eng.k1_decode,
-              f"paged {tag}: {eng.k1_decode_kernel} of K1's {eng.k1_decode} decode launches "
-              "took its decode kernel")
+              f"{num_layers} layers and {graph.launches.get('quant_matmul', 0)} a decode step")
+        check(eng.k1_decode_kernel == eng.k1_decode and graph.launches.get("quant_matmul_decode")
+              == graph.launches.get("quant_matmul"),
+              f"paged {tag}: {graph.launches.get('quant_matmul_decode')} of K1's "
+              f"{graph.launches.get('quant_matmul')} launches a decode step took its decode kernel")
     else:
         check(counts["quant_matmul"] == 0, f"paged {tag}: K1 ran {counts['quant_matmul']} "
               "times on the fp8native route")
     check(counts["decode_attention_arena"] == 0, "paged: the arena kernel ran")
-    check(counts["paged_attention"] == num_layers * eng.decode_steps,
-          f"paged {tag}: {counts['paged_attention']} K5 launches for "
-          f"{eng.decode_steps} decode steps of {num_layers} layers")
+    # K5 runs once a layer a step: the warm-up and every replay.
+    check(launches["paged_attention"] == num_layers * (graph.replays + graph.captures),
+          f"paged {tag}: {launches['paged_attention']} K5 launches for {graph.replays} "
+          f"replays and {graph.captures} warm-up of {num_layers} layers")
+    check(e_counts["paged_attention"] == num_layers * e_eng.decode_steps,
+          f"paged {tag} eager: {e_counts['paged_attention']} K5 launches for "
+          f"{e_eng.decode_steps} steps of {num_layers} layers")
     check(counts["flash_attention"] == num_layers * n_req,
           f"paged {tag}: {counts['flash_attention']} K3 launches for {n_req} prefills")
-    check(eng.pages_in_use == 0 and eng.max_pages == n_req * per_seq,
-          f"paged {tag}: {eng.max_pages} pages held at most, {eng.pages_in_use} at the end")
     ttfts = sorted(r.ttft for r in reqs)
     res = dict(card=card, kv_dtype=kv, kv_scale=kv_scale,
                qdot_route="xla (K1)" if tag == "fp8_xla" else "default",
                requests=n_req, layers=num_layers, prompt_len=n_prompt, bucket=bucket,
                page_size=page, generated=max_new * n_req, wall_s=wall,
                tokens_per_s=max_new * n_req / wall, ttft_p50_s=ttfts[len(ttfts) // 2],
-               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-               pool_gb=2 * eng.k_pages.numel() * eng.k_pages.element_size() / 2 ** 30,
-               pages_in_use_max=eng.max_pages, launches=counts,
+               peak_memory_gb=peak,
+               pool_gb=2 * e_eng.k_pages.numel() * e_eng.k_pages.element_size() / 2 ** 30,
+               pages_in_use_max=eng.max_pages, launches=launches, launches_counted=counts,
+               launches_a_replay=graph.launches, replays=graph.replays,
+               captures=graph.captures, python_forward_calls=eng.decode_steps,
                k1_prefill=eng.k1_prefill, k1_decode=eng.k1_decode,
-               k1_decode_kernel=eng.k1_decode_kernel, prefill_s=eng.prefill_s, decode_steps=eng.decode_steps,
+               k1_decode_kernel=eng.k1_decode_kernel, prefill_s=eng.prefill_s,
                burst_s=eng.decode_s, burst_steps=eng.burst_steps,
-               decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1))
-    del eng
+               decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1),
+               eager=dict(wall_s=e_wall, tokens_per_s=max_new * n_req / e_wall,
+                          ttft_p50_s=sorted(r.ttft for r in e_reqs)[len(e_reqs) // 2],
+                          peak_memory_gb=e_peak, decode_s=e_eng.decode_s,
+                          steps=e_eng.burst_steps,
+                          decode_step_ms=1e3 * e_eng.decode_s / max(e_eng.burst_steps, 1),
+                          launches=e_counts),
+               tokens_equal_eager=equal)
+    del eng, e_eng
     if tag == "fp8":
         res["profile"] = profile_run(engine_cls, params, cfg, ecfg, prompts, dev,
                                      max_new=max_new)
+        res["eager"]["profile"] = profile_run(eager_cls, params, cfg, ecfg, prompts, dev,
+                                              max_new=max_new)
     res["prompts"] = prompts
     return res
 
@@ -1493,6 +1711,331 @@ def profile_run(engine_cls, params, cfg, ecfg, prompts, dev, max_new=32):
                 device_busy_share=device_us / 1e6 / wall,
                 top=[dict(name=e.key[:90], calls=e.count,
                           device_ms=e.self_device_time_total / 1e3) for e in top])
+
+
+# --------------------------------------------------------------------------
+# phase 4b: speculative serving and checkpoint loading
+# --------------------------------------------------------------------------
+
+#: A greedy speculative token is held to the argmax of a plain teacher-forced
+#: target forward over the committed stream, except where that position's
+#: top-2 logit margin is below this: the verify block (M = slots x 5 in the
+#: projections, K3 at Sq = 5) and the teacher-forced forward (one sequence,
+#: M = its length) round differently, and the fp8native route quantizes each
+#: row of x to e4m3, where one bf16 ulp can move a code a whole step (0.37
+#: in the 2-layer slice's free-running logits, PERF.md).
+SPEC_MARGIN = 0.5
+
+
+def spec_kernel_cases(dev, g, bw, peak, log):
+    """The kernels the 8B target launches, at its shapes, against their plain
+    versions with the kernel phases' tolerances: K1 (decode kernel) at every
+    projection at M = 8 and at the verify block's M = 40 (8 slots x 5), K9
+    bit for bit on the projections' bf16 rows at M = 40 and at the 256-token
+    prefill bucket, K3 at the verify block (head_dim 128, ragged offsets)."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels import quant_matmul as k1
+    from llm_fp8_tpu_torch.kernels import quantize as k9
+    from llm_fp8_tpu_torch.kernels._common import num_sms
+    from llm_fp8_tpu_torch.quant import E4M3, quantize
+
+    cases = []
+    shapes = {"wqkv": (4096, 6144), "wo": (4096, 4096), "w_gate_up": (4096, 28672),
+              "w_down": (14336, 4096)}
+    for name, (K, N) in shapes.items():
+        qt = quantize(torch.randn((K, N), generator=g, device=dev) * 0.02, E4M3, axes=(0,),
+                      flush_subnormal=True)
+        wdq = qt.dequantize(torch.bfloat16)  # the library yardstick's weight
+        for M in (8, 40):
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            got = k1.quant_matmul(x, qt.qvalue, qt.scale, mode="channel")
+            again = k1.quant_matmul(x, qt.qvalue, qt.scale, mode="channel")
+            ref = k1.quant_matmul_plain(x, qt.qvalue, qt.scale, mode="channel")
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 2.0 ** -7 * ref.float().abs().max().item()
+            label = f"8B {name} M={M} channel e4m3"
+            check(math.isfinite(err) and err <= tol, f"K1 {label}: err {err} > tol {tol}")
+            same = bool(torch.equal(got.view(torch.int16), again.view(torch.int16)))
+            check(same, f"K1 {label}: two runs differ")
+            splits, per = k1.split_plan(M, N, K, num_sms(dev))
+            nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+            b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, bw, peak)
+            case = dict(kernel="quant_matmul", case=label, max_abs_err=err, tol=tol,
+                        rerun_identical=same, route="decode",
+                        split_plan=dict(splits=splits, k_tiles_per_split=per),
+                        ms=cuda_ms(lambda: k1.quant_matmul(x, qt.qvalue, qt.scale,
+                                                           mode="channel")),
+                        plain_ms=cuda_ms(lambda: k1.quant_matmul_plain(
+                            x, qt.qvalue, qt.scale, mode="channel"), calls=4, rounds=3),
+                        library_ms=cuda_ms(lambda: torch.matmul(x, wdq)),
+                        bound_ms=b_ms, bound_by=b_by)
+            case["vs_library"] = case["ms"] / case["library_ms"]
+            cases.append(case)
+            log(case)
+        del qt, wdq
+    for M, N in ((40, 4096), (40, 14336), (256, 4096), (256, 14336)):
+        x = (torch.randn((M, N), generator=g, device=dev) * 3.0).to(torch.bfloat16)
+        a = k9.quantize_fused(x, E4M3)
+        b = k9.quantize_fused_plain(x, E4M3)
+        torch.cuda.synchronize()
+        codes = torch.equal(a.qvalue.view(torch.uint8), b.qvalue.view(torch.uint8))
+        scales = torch.equal(a.scale, b.scale)
+        label = f"8B [{M}, {N}] rows bfloat16 e4m3"
+        check(codes and scales, f"K9 {label}: codes {codes}, scales {scales}")
+        case = dict(kernel="quantize_fused", case=label, max_abs_err=0.0, codes_equal=codes,
+                    scales_equal=scales, route=k9.route(M, N, torch.bfloat16, -1))
+        cases.append(case)
+        log(case)
+    cases.append(k3_verify_case(k3, dev, g, bw, peak, log, Hq=32, Hk=8, D=128, Sk=512))
+    return cases
+
+
+def spec_serving(dev, card, bw, peak, log, target_layers=16):
+    """Speculative serving at full width: target Llama-3.1-8B (cut to
+    ``target_layers`` layers), draft Llama-3.2-1B, both LAYERWISE fp8 from
+    seeds 0 and 1, fp8 KV, 8 slots, prompts of 180-220 tokens, 32 new
+    tokens, gamma 4. Greedy on the engine (a round is a CUDA graph, replayed)
+    and on its eager twin (tokens equal); each greedy token against a plain
+    teacher-forced target forward; sampled (top_k 20) on the graph; then the
+    1B drafting for itself, which must accept gamma in some round."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.models.llama import (forward, init_kv_cache, init_params,
+                                                quantize_params)
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+    from llm_fp8_tpu_torch.serving import EngineConfig, SamplingParams, SpecEngine
+
+    class Rounds(SpecEngine):
+        """Host time of each burst of rounds (ends in a read-back), rounds
+        run, and the round's Python calls (on the card: its warm-up and its
+        capture)."""
+
+        rounds_s = 0.0
+        rounds_run = round_calls = 0
+
+        def _spec_round(self, toks, lens):
+            self.round_calls += 1
+            return super()._spec_round(toks, lens)
+
+        def _timed(self, fn, toks, lens, rounds):
+            t0 = time.perf_counter()
+            out = fn(toks, lens, rounds)
+            self.rounds_s += time.perf_counter() - t0
+            self.rounds_run += rounds
+            return out
+
+        def _run_spec_rounds(self, toks, lens, rounds):
+            return self._timed(super()._run_spec_rounds, toks, lens, rounds)
+
+    class EagerRounds(Rounds):
+        def _run_spec_rounds(self, toks, lens, rounds):
+            return self._timed(self._round_loop, toks, lens, rounds)
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    cases = spec_kernel_cases(dev, g, bw, peak, log)
+    tcfg = dataclasses.replace(get_config("llama-3.1-8b"), num_layers=target_layers)
+    dcfg = get_config("llama-3.2-1b")
+    t0 = time.perf_counter()
+    tparams = quantize_params(init_params(tcfg, device=dev, seed=0), LAYERWISE)
+    torch.cuda.empty_cache()
+    dparams = quantize_params(init_params(dcfg, device=dev, seed=1), LAYERWISE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gamma, max_new = 4, 32
+    ecfg = EngineConfig(max_slots=8, max_seq_len=512, prefill_buckets=(256,), kv_dtype="fp8")
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, tcfg.vocab_size, rng.randint(180, 221)).astype(np.int32)
+               for _ in range(8)]
+
+    def serve(cls, tp, tc, dp, dc, what, **kw):
+        eng = cls(tp, tc, dp, dc, ecfg, gamma=gamma, device=dev, **kw)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new)) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for r in reqs:
+            check(r.done and r.error is None, f"spec {what}: request {r.request_id} {r.error}")
+            check(len(r.output) == max_new, f"spec {what}: {len(r.output)} tokens")
+            check(all(0 <= t < tc.vocab_size for t in r.output), f"spec {what}: bad token")
+        hist = list(eng.accepted_histogram)
+        run = dict(wall_s=wall, tokens_per_s=max_new * len(prompts) / wall,
+                   ttft_p50_s=sorted(r.ttft for r in reqs)[len(reqs) // 2],
+                   rounds=eng.rounds_run, round_ms=1e3 * eng.rounds_s / max(eng.rounds_run, 1),
+                   mean_accepted=float(np.mean(hist)), max_accepted=max(hist),
+                   tokens_per_round=float(np.mean(hist)) + 1, round_python_calls=eng.round_calls)
+        if eng.round_graph.captured:
+            graph = eng.round_graph
+            check(graph.captures == 1 and graph.replays == eng.rounds_run
+                  and eng.round_calls == 2,
+                  f"spec {what}: {graph.captures} captures, {graph.replays} replays for "
+                  f"{eng.rounds_run} rounds, {eng.round_calls} Python rounds")
+            run.update(replays=graph.replays, captures=graph.captures,
+                       launches_a_replay=graph.launches,
+                       launches=device_launches(counts, graph))
+        else:
+            check(eng.round_calls == eng.rounds_run, f"spec {what}: eager rounds")
+            run["launches"] = counts
+        return eng, [r.output for r in reqs], run
+
+    # Warm-up: builds and sets up every kernel at these shapes.
+    warm = Rounds(tparams, tcfg, dparams, dcfg, ecfg, gamma=gamma, device=dev)
+    warm.add_request(prompts[0], SamplingParams(max_new_tokens=4))
+    warm.run()
+    del warm
+    eng, greedy_tokens, greedy = serve(Rounds, tparams, tcfg, dparams, dcfg, "greedy")
+    for name in ("flash_attention", "quantize_fused"):
+        check(eng.round_graph.launches.get(name, 0) > 0,
+              f"spec greedy: kernel {name} is not in the captured round")
+    check(greedy["launches"]["decode_attention_arena"] == 0
+          and greedy["launches"]["quant_matmul"] == 0,
+          "spec greedy: the arena kernel or K1 ran on the KVCache fp8native path")
+    del eng
+    _, eager_tokens, eager = serve(EagerRounds, tparams, tcfg, dparams, dcfg, "eager")
+    equal = greedy_tokens == eager_tokens
+    check(equal, "spec: the round graph's greedy tokens differ from the eager round's")
+
+    # Teacher forcing: one plain target forward (fp8 KV cache, as the engine
+    # keeps it) over prompt + committed stream a request.
+    agree = exempt = 0
+    exempt_margins = []
+    for prompt, out in zip(prompts, greedy_tokens):
+        seq = np.concatenate([prompt, np.asarray(out[:-1], np.int32)])
+        cache = init_kv_cache(tcfg, 1, len(seq), dtype=torch.float8_e4m3fn, device=dev)
+        logits, _ = forward(tparams, torch.as_tensor(seq, device=dev)[None], tcfg, cache=cache,
+                            start_pos=0,
+                            kv_lens=torch.tensor([len(seq)], dtype=torch.int32, device=dev))
+        rows = logits[0, len(prompt) - 1:]
+        top2 = rows.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        arg = rows.argmax(dim=-1).cpu().numpy()
+        for i, tok in enumerate(out):
+            if arg[i] == tok:
+                agree += 1
+                continue
+            check(margin[i] < SPEC_MARGIN,
+                  f"spec: committed token {tok} at step {i} is not the teacher-forced argmax "
+                  f"{arg[i]} (top-2 margin {margin[i]:.4f} >= {SPEC_MARGIN})")
+            exempt += 1
+            exempt_margins.append(float(margin[i]))
+    check(agree > exempt, f"spec: {agree} tokens agree with teacher forcing, {exempt} exempt")
+
+    _, sampled_tokens, sampled = serve(Rounds, tparams, tcfg, dparams, dcfg, "sampled",
+                                       temperature=0.8, top_k=20, seed=5)
+    del tparams
+    torch.cuda.empty_cache()
+    _, _, self_draft = serve(Rounds, dparams, dcfg, dparams, dcfg, "self-draft")
+    check(self_draft["max_accepted"] == gamma,
+          f"spec self-draft: at most {self_draft['max_accepted']} of {gamma} accepted")
+    res = dict(card=card, target=f"llama-3.1-8b, {target_layers} of 32 layers",
+               draft="llama-3.2-1b", weights="LAYERWISE fp8, random (seeds 0 and 1)",
+               kv_dtype="fp8", slots=8, gamma=gamma, max_new=max_new,
+               prompt_lens=[len(p) for p in prompts], init_s=init_s, greedy=greedy,
+               eager=eager, tokens_equal_eager=equal,
+               teacher_forced=dict(agree=agree, exempt=exempt, margin=SPEC_MARGIN,
+                                   exempt_margins=exempt_margins),
+               sampled=dict(sampled, temperature=0.8, top_k=20), self_draft=self_draft,
+               acceptance_note="random weights: acceptance is not that of trained models")
+    log(res)
+    return dict(res, cases=cases)
+
+
+def write_safetensors(path, tensors):
+    """A safetensors file of bf16 tensors, written without the safetensors
+    package: an 8-byte little-endian header length, the JSON header (dtype,
+    shape, data offsets), then the raw bytes in header order."""
+    import torch
+
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * 2
+        header[name] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.int16).numpy().tobytes())
+
+
+def checkpoint_check(dev, card, log):
+    """Random Llama-3.2-1B bf16 params (seed 0) exported to HF names by the
+    port, written as one safetensors file by ``write_safetensors``, read back
+    by the port's loader (bit for bit), then served by ``cli.serve`` from
+    the file (``--weights_path``) and from the same seed in memory
+    (``--random_init``): the greedy tokens must be equal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from llm_fp8_tpu_torch.cli import serve
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.models.hf_loader import export_hf_state_dict, load_hf_checkpoint
+    from llm_fp8_tpu_torch.models.llama import init_params
+
+    cfg = get_config("llama-3.2-1b")
+    params = init_params(cfg, device=dev, seed=0)
+    t0 = time.perf_counter()
+    sd = {k: torch.from_numpy(v).to(torch.bfloat16)
+          for k, v in export_hf_state_dict(params, cfg).items()}
+    export_s = time.perf_counter() - t0
+    tmp = Path(tempfile.mkdtemp(prefix="_smoke_ckpt_", dir=ROOT))
+    try:
+        t0 = time.perf_counter()
+        write_safetensors(tmp / "model.safetensors", sd)
+        write_s = time.perf_counter() - t0
+        size_gb = (tmp / "model.safetensors").stat().st_size / 2 ** 30
+        del sd
+        t0 = time.perf_counter()
+        loaded = load_hf_checkpoint(str(tmp), cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+
+        def leaves(tree, prefix=""):
+            for k, v in tree.items():
+                yield from (leaves(v, prefix + k + ".") if isinstance(v, dict)
+                            else [(prefix + k, v)])
+
+        mine = dict(leaves(params))
+        got = dict(leaves(loaded))
+        check(sorted(mine) == sorted(got), f"checkpoint: names {sorted(got)} != {sorted(mine)}")
+        for name, t in mine.items():
+            check(got[name].dtype == t.dtype and torch.equal(got[name].view(torch.int16),
+                                                             t.view(torch.int16)),
+                  f"checkpoint: {name} differs from the written tensor")
+        del loaded, params
+        torch.cuda.empty_cache()
+        argv = ["--model_name", "llama-3.2-1b", "--precision", "fp8", "--kv_dtype", "fp8",
+                "--num_requests", "4", "--prompt_len", "128", "--max_new_tokens", "16",
+                "--max_seq_len", "512", "--max_slots", "4"]
+        t0 = time.perf_counter()
+        from_file = serve.main(argv + ["--weights_path", str(tmp)])
+        file_s = time.perf_counter() - t0
+        in_memory = serve.main(argv + ["--random_init"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = [r.output for r in from_file] == [r.output for r in in_memory]
+    check(same and all(len(r.output) == 16 for r in from_file),
+          "checkpoint: serving from the file and from memory gave different tokens")
+    res = dict(card=card, model="llama-3.2-1b", file_gb=size_gb, tensors=len(mine),
+               export_s=export_s, write_s=write_s, load_s=load_s, serve_from_file_s=file_s,
+               loaded_bits_equal=True, tokens_equal=same)
+    log(res)
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -2478,6 +3021,8 @@ def main(argv=None) -> int:
              ("paged_slice", lambda: paged_slice_check(dev, log)),
              ("serve", lambda: serving(dev, 16, card, log)),
              ("paged_serve", lambda: paged_serving(dev, 16, card, log)),
+             ("spec_serve", lambda: spec_serving(dev, card, bw, peak, log)),
+             ("checkpoint", lambda: checkpoint_check(dev, card, log)),
              ("train_kernels", lambda: train_kernel_cases(dev, bw, peak, log)),
              ("train_slice", lambda: train_slice_check(dev, log)),
              ("train", lambda: training(dev, 16, card, log)),
@@ -2488,6 +3033,7 @@ def main(argv=None) -> int:
             if phase in phases:
                 t0 = time.perf_counter()
                 report[phase] = run()
+                report.setdefault("phase_s", {})[phase] = time.perf_counter() - t0
                 print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
                 torch.cuda.empty_cache()
     except SmokeFailure as e:
@@ -2515,6 +3061,7 @@ def kernels_line(report):
                "arena int8 weights": report["serve"]["int8_weights"]["launches"],
                "paged": report["paged_serve"]["fp8"]["launches"],
                "paged LLM_FP8_QDOT=xla": report["paged_serve"]["fp8_xla"]["launches"],
+               "spec (greedy, 8B target)": report["spec_serve"]["greedy"]["launches"],
                "train": report["train"]["launches"],
                "profile": report["profile"]["launches"],
                "fp8_kernels (K7's public call at the 1B prefill shape, both routes; no path "

@@ -1,12 +1,19 @@
-"""Serving CLI: random init → quantize → continuous-batching run on the card
-(counterpart of ``llm_fp8_tpu/cli/serve.py``, Llama-family models only):
+"""Serving CLI: random init or an HF checkpoint → quantize → continuous-
+batching run on the card (counterpart of ``llm_fp8_tpu/cli/serve.py``,
+Llama-family models only):
 
   python -m llm_fp8_tpu_torch.cli.serve --model_name llama-3.2-1b --random_init \\
       --precision fp8 --kv_dtype fp8 [--paged --page_size 128 --num_pages 512]
+  python -m llm_fp8_tpu_torch.cli.serve --model_name llama-3.1-8b \\
+      --weights_path DIR --draft_model llama-3.2-1b --draft_weights DIR2 --gamma 4
 
+``--weights_path``/``--draft_weights`` read safetensors directories
+(``models/hf_loader.py``); ``--draft_model`` serves through the speculative
+engine (random draft weights from seed 1 unless ``--draft_weights``).
 Prints one JSON line with the JAX CLI's keys: tokens/s, p50/p99 TTFT and the
-peak device memory (``torch.cuda.max_memory_allocated``); ``--paged`` serves
-through the paged-KV engine and adds ``pages_in_use``.
+peak device memory (``torch.cuda.max_memory_allocated``); ``--paged`` adds
+``pages_in_use``, ``--draft_model`` the ``spec_*`` statistics. ``main``
+returns the finished requests.
 """
 from __future__ import annotations
 
@@ -41,7 +48,16 @@ def build_parser():
     p.add_argument("--prompt_len", type=int, default=128)
     p.add_argument("--max_new_tokens", type=int, default=64)
     p.add_argument("--temperature", type=float, default=0.0)
-    p.add_argument("--draft_model", type=str, default=None, help="not ported yet")
+    # Speculative decoding: a draft model proposes --gamma tokens per slot a
+    # round; the target verifies them in one forward. temperature 0 commits
+    # the tokens of plain greedy serving.
+    p.add_argument("--draft_model", type=str, default=None,
+                   help="serve speculatively with this model as the draft (random "
+                        "weights from seed 1 unless --draft_weights)")
+    p.add_argument("--draft_weights", type=str, default=None)
+    p.add_argument("--gamma", type=int, default=4, help="proposals a round")
+    p.add_argument("--spec_top_k", type=int, default=0)
+    p.add_argument("--spec_top_p", type=float, default=0.0)
     p.add_argument("--device", type=str, default=None,
                    help="default cuda; 'cpu' runs the plain versions of the kernels")
     return p
@@ -50,10 +66,11 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from ..models.config import get_config
+    from ..models.hf_loader import load_hf_checkpoint
     from ..models.llama import init_params, quantize_params
     from ..quant import recipe_set_by_name
     from ..serving import (Engine, EngineConfig, PagedEngine, PagedEngineConfig,
-                           SamplingParams)
+                           SamplingParams, SpecEngine)
     from ..utils.backend import resolve_device
 
     if args.paged and args.draft_model is not None:
@@ -66,18 +83,39 @@ def main(argv=None):
             "--paged with --kv_dtype int8 is refused: the paged engine stores K/V at "
             "kv_scale = 1 (it has no calibration and the CLI no scale flag), so the int8 "
             "pool would hold round(K), mostly zeros; use --kv_dtype fp8 or bf16")
-    for flag, on in (("--draft_model", args.draft_model),
-                     ("--weights_path", args.weights_path and not args.random_init)):
-        if on:
-            raise SystemExit(f"{flag} is not ported yet")
     device = resolve_device(args.device)
-    cfg = get_config(args.model_name)
-    params = init_params(cfg, dtype=torch.bfloat16, device=device, seed=0)
-    if args.precision == "fp8":
-        params = quantize_params(params, recipe_set_by_name(args.fp8_scenario))
-    elif args.precision in ("int8", "int4"):
-        params = quantize_params(params, recipe_set_by_name(args.precision))
-    if args.paged:
+
+    def model(name, weights, seed):
+        """The config and bf16 params of ``name``: random from ``seed``, or
+        read from the checkpoint directory ``weights``."""
+        try:
+            cfg = get_config(name)
+        except ValueError as e:
+            raise SystemExit(f"{e} (the zoo families are not ported yet)")
+        if weights is None:
+            return cfg, init_params(cfg, dtype=torch.bfloat16, device=device, seed=seed)
+        return cfg, load_hf_checkpoint(weights, cfg, dtype=torch.bfloat16, device=device)
+
+    def quantized(params):
+        if args.precision == "fp8":
+            return quantize_params(params, recipe_set_by_name(args.fp8_scenario))
+        if args.precision in ("int8", "int4"):
+            return quantize_params(params, recipe_set_by_name(args.precision))
+        return params
+
+    cfg, params = model(args.model_name,
+                        None if args.random_init else args.weights_path, seed=0)
+    params = quantized(params)
+    if args.draft_model is not None:
+        # The draft's bf16 params come from seed 1, as the JAX CLI's
+        # PRNGKey(1); as there, the draft is not quantized.
+        dcfg, dparams = model(args.draft_model, args.draft_weights, seed=1)
+        eng = SpecEngine(params, cfg, dparams, dcfg,
+                         EngineConfig(max_slots=args.max_slots, max_seq_len=args.max_seq_len,
+                                      kv_dtype=args.kv_dtype),
+                         gamma=args.gamma, temperature=args.temperature,
+                         top_k=args.spec_top_k, top_p=args.spec_top_p, device=device)
+    elif args.paged:
         eng = PagedEngine(params, cfg, PagedEngineConfig(
             max_slots=args.max_slots, num_pages=args.num_pages, page_size=args.page_size,
             max_pages_per_seq=-(-args.max_seq_len // args.page_size),
@@ -103,6 +141,11 @@ def main(argv=None):
     ttfts = sorted(r.ttft for r in done if r.ttft is not None)
     peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
             if device.type == "cuda" else None)
+    spec_stats = {}
+    if args.draft_model is not None and eng.accepted_histogram:
+        mean = float(np.mean(eng.accepted_histogram))
+        spec_stats = {"spec_gamma": args.gamma, "spec_mean_accepted": round(mean, 3),
+                      "spec_tokens_per_round": round(mean + 1, 3)}
     print(json.dumps({
         "requests": len(done),
         "generated_tokens": new_tokens,
@@ -115,8 +158,10 @@ def main(argv=None):
         "precision": args.precision,
         "kv_dtype": str(eng.ecfg.kv_dtype).replace("torch.", ""),
         **({"pages_in_use": eng.pages_in_use} if args.paged else {}),
+        **spec_stats,
         **({"kv_drift": eng.kv_drift_stats()} if getattr(eng, "_int8_kv", False) else {}),
     }))
+    return done
 
 
 if __name__ == "__main__":

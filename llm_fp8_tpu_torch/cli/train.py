@@ -4,16 +4,17 @@ Llama-family models):
   python -m llm_fp8_tpu_torch.cli.train --model_name meta-llama/Llama-3.2-1B \\
       --random_init --synthetic_samples 400 --mixed_precision fp8 --fp8_scenario default
 
-``--synthetic_samples N --random_init`` trains on the built-in corpus with
-random weights and a byte tokenizer (the only data path until local data and
-checkpoints are ported). On the card the per-channel quantizes of the fp8
+``--synthetic_samples N`` trains on the built-in corpus with a byte
+tokenizer (the only data path until local data is ported), from random
+weights (``--random_init``) or an HF safetensors directory
+(``--weights_path``, float32 master weights). On the card the per-channel quantizes of the fp8
 dots (the native route's gradients) go through K9. Logs one JSON line per
 ``--log_every`` steps and per epoch's eval (also appended to
 ``--log_dir/metrics.jsonl``), writes the stability report to
 ``--output_dir/stability_report.json`` and prints it as the last line.
 
 Not ported yet (they raise): the mesh flags and ``--multihost`` (one
-device), ``--weights_path`` (HF checkpoints), ``--checkpoint_dir`` /
+device), ``--checkpoint_dir`` /
 ``--save_every`` (checkpointing), ``--use_wandb``, ``--remat``, and the HF
 export that the JAX CLI writes at the end. ``--unroll`` is a JAX scan knob
 with no counterpart here.
@@ -35,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--dataset_name", type=str, default="nvidia/OpenMathInstruct-2")
     g.add_argument("--split_name", type=str, default="train_1M")
     g.add_argument("--num_of_samples", type=int, default=None)
-    g.add_argument("--weights_path", type=str, default=None, help="not ported yet")
+    g.add_argument("--weights_path", type=str, default=None,
+                   help="an HF safetensors directory (models/hf_loader.py)")
     g.add_argument("--random_init", action="store_true", help="random weights")
     g.add_argument("--synthetic_samples", type=int, default=None,
                    help="use the built-in synthetic corpus with N samples")
@@ -87,7 +89,6 @@ def _refuse_unported(args) -> None:
         "--dp/--tp/--cp/--ep/--fsdp (a device mesh)": (args.dp, args.tp, args.cp, args.ep,
                                                          args.fsdp) != (1, 1, 1, 1, -1),
         "--multihost": args.multihost,
-        "--weights_path (HF checkpoints)": args.weights_path is not None,
         "--checkpoint_dir/--save_every (checkpointing)": (args.checkpoint_dir is not None
                                                           or args.save_every != 0),
         "--use_wandb": args.use_wandb,
@@ -119,6 +120,7 @@ def main(argv=None):
     import torch
 
     from ..models.config import get_config
+    from ..models.hf_loader import load_hf_checkpoint
     from ..models.llama import init_params
     from ..training import (DataConfig, DataManager, StabilityTracker, TrainConfig, Trainer,
                             synthetic_examples)
@@ -141,7 +143,10 @@ def main(argv=None):
     steps_per_epoch = len(train_seqs) // args.batch_size
     total_steps = max(steps_per_epoch * args.num_epochs, 1)
 
-    params = init_params(cfg, dtype=torch.float32, device=dev, seed=0)
+    if args.random_init or args.weights_path is None:
+        params = init_params(cfg, dtype=torch.float32, device=dev, seed=0)
+    else:
+        params = load_hf_checkpoint(args.weights_path, cfg, dtype=torch.float32, device=dev)
     trainer = Trainer(cfg, TrainConfig(
         learning_rate=args.learning_rate, warmup_steps=args.num_warmup_steps,
         total_steps=total_steps, schedule=args.schedule, grad_clip=args.grad_clip,

@@ -336,9 +336,11 @@ int launch_nc(const void* q, const void* k, const void* v, void* out, void* lse,
   if (e == 0) e = encode_bshd<D>(&tv, v, B, Sk, Hk, kBN);
   if (e != 0) return e;
   constexpr int bytes = FwdSmem<D, NC>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // The shared-memory limit is set once per kernel instance (a
+  // function-local static), not on every launch.
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      flash_fwd_kernel<D, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
   dim3 grid(Hq, B, (Sq + NC * 64 - 1) / (NC * 64));
   flash_fwd_kernel<D, NC><<<grid, (NC + 1) * 128, bytes, s>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),

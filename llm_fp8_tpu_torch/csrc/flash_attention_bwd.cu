@@ -525,9 +525,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   if (e == 0) e = encode_bshd<D>(&tv, v, B, Sk, Hk, L::BK);
   if (e != 0) return e;
   constexpr int bytes = L::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // Set once per kernel instance (a function-local static), not per launch.
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
   dim3 grid(Hk, B, (Sk + L::BK - 1) / L::BK);
   flash_bwd_dkv_kernel<D><<<grid, (L::NC + 1) * 128, bytes, s>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(di),
@@ -551,9 +552,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o, const 
   if (e == 0) e = encode_bshd<D>(&tv, v, B, Sk, Hk, 64);
   if (e != 0) return e;
   constexpr int bytes = DqSmem<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // Set once per kernel instance (a function-local static), not per launch.
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
   dim3 grid(Hq, B, (Sq + 127) / 128);
   flash_bwd_dq_kernel<D><<<grid, 384, bytes, s>>>(
       tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o),

@@ -23,6 +23,8 @@ backward on the card).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -257,9 +259,19 @@ def cache_append_attend(q, kk, vv, cache_kv: Tuple, start_pos: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq(head_dim: int, theta: float, scaling: Optional[str], device: torch.device):
+    """The rotary inverse frequencies on ``device``, built once per model
+    shape and device (``scaling`` is the config's dict as sorted JSON): a
+    decode step reads them without a host-to-device copy, as a captured
+    CUDA graph must."""
+    return rope_frequencies(head_dim, theta, scaling and json.loads(scaling)).to(device)
+
+
 def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
-    inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
-    return rope_cos_sin(positions, inv_freq.to(positions.device), cfg.rope_scaling)
+    scaling = json.dumps(cfg.rope_scaling, sort_keys=True) if cfg.rope_scaling else None
+    inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, scaling, positions.device)
+    return rope_cos_sin(positions, inv_freq, cfg.rope_scaling)
 
 
 def _site_dot(x, w, site: str, dots, amaxes):

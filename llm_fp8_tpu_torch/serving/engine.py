@@ -5,9 +5,14 @@ A fixed pool of decode slots; requests prefill into free slots (prompts
 padded to a bucket length) and leave on EOS or length while the other slots
 keep decoding. fp8/int8 KV runs the arena path: a ``[L, B, Hk, S, Dh]`` arena
 decoded by K2 (``forward_decode_arena``); bf16 KV runs the generic
-:class:`KVCache` path. Greedy bursts of decode steps run as a Python loop
-with the tokens kept on the device (a CUDA graph of it is later work). The
-arena and cache are updated in place.
+:class:`KVCache` path. The arena and cache are updated in place.
+
+On the card a decode step is captured once as a CUDA graph over static
+buffers (tokens, lengths, logits, a ``[32, slots]`` burst output; see
+``cuda_graph.py``), and a burst of ``n`` greedy steps is ``n`` replays and
+one read-back: the counterpart of the JAX engine's one-dispatch ``lax.scan``
+burst. A sampled step replays the same graph and samples from its logits.
+On the CPU a burst is a Python loop of the same step.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from ..models.llama import (KVCache, forward, forward_decode_arena, init_kv_cach
                             quantize_kv, storage_max)
 from ..ops.sampling import greedy, sample
 from ..utils.backend import resolve_device, resolve_kv_dtype
+from .cuda_graph import StepGraph
 
 __all__ = ["EngineConfig", "SamplingParams", "Request", "RequestQueue", "Engine"]
 
@@ -78,11 +84,15 @@ class EngineConfig:
 
 
 class RequestQueue:
-    """Request intake, prefill buckets, stop rules and slot retirement shared
-    by the slot-arena and the paged engine. The engine provides ``waiting``,
-    ``_next_id``, ``slot_req``, ``slot_lens``, ``slot_last_tok``,
-    ``ecfg.prefill_buckets``, ``eos``, ``_generator`` and ``step``, and may
-    override the hooks ``_slot_full`` and ``_release``."""
+    """Request intake, prefill buckets, stop rules, slot retirement and the
+    decode step's CUDA graph, shared by the slot-arena and the paged engine.
+    The engine provides ``waiting``, ``_next_id``, ``slot_req``,
+    ``slot_lens``, ``slot_last_tok``, ``ecfg.prefill_buckets``, ``eos``,
+    ``_generator``, ``step``, ``_decode_step(toks, ..., lens)`` and
+    ``_static_inputs()`` (the static buffers in ``_decode_step``'s argument
+    order), and may override the hooks ``_slot_full`` and ``_release``."""
+
+    _BURST_BUCKETS = (32, 16, 8, 4, 2)
 
     def add_request(self, prompt: np.ndarray,
                     params: SamplingParams = SamplingParams()) -> Request:
@@ -124,6 +134,67 @@ class RequestQueue:
     def _slot_full(self, slot: int) -> bool:
         """Hook: whether ``slot`` has no room for another token."""
         return False
+
+    # ------------------------------------------------------------------
+    # the decode step: a CUDA graph on the card, a loop on the CPU
+    # ------------------------------------------------------------------
+
+    def _init_step_graph(self, slots: int, vocab: int, device) -> None:
+        """The decode step's static buffers (the captured graph reads and
+        writes only these, the weights and the caches) and its graph. An
+        engine with more inputs adds their buffers to ``_static_inputs``."""
+        self._toks = torch.zeros((slots,), dtype=torch.int32, device=device)
+        self._lens = torch.zeros((slots,), dtype=torch.int32, device=device)
+        self._logits = torch.zeros((slots, vocab), dtype=torch.float32, device=device)
+        self._burst_out = torch.zeros((max(self._BURST_BUCKETS), slots), dtype=torch.int32,
+                                      device=device)
+        self._row = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.step_graph = StepGraph(
+            self._graph_step, (self._toks, self._lens, self._logits, self._burst_out, self._row))
+
+    def _graph_step(self):
+        """The step the CUDA graph captures, over the static buffers: the
+        greedy token goes back into ``_toks`` and into row ``_row`` of
+        ``_burst_out``, the logits into ``_logits``; ``_lens`` advances."""
+        logits, toks = self._decode_step(*self._static_inputs())
+        self._logits.copy_(logits)
+        self._toks.copy_(toks)
+        self._burst_out.index_copy_(0, self._row, toks[None])
+        self._row.add_(1)
+        self._lens.add_(1)
+
+    def _replay_steps(self, *args):
+        """``args = (*inputs, steps)``: ``steps`` replays of the captured step
+        from ``inputs`` (captured at the first call); one read-back."""
+        *inputs, steps = args
+        for buf, x in zip(self._static_inputs(), inputs):
+            buf.copy_(x)
+        self._row.zero_()
+        if not self.step_graph.captured:
+            self.step_graph.capture()
+        for _ in range(steps):
+            self.step_graph.replay()
+        return self._burst_out[:steps].cpu().numpy(), self._logits
+
+    def _decode_loop(self, *args):
+        """``args = (toks, ..., lens, steps)``: ``steps`` eager decode steps;
+        tokens stay on the device and are read back once."""
+        *inputs, steps = args
+        out = []
+        for _ in range(steps):
+            logits, toks = self._decode_step(*inputs)
+            inputs[0], inputs[-1] = toks, inputs[-1] + 1
+            out.append(toks)
+        return torch.stack(out).cpu().numpy(), logits
+
+    def _run_decode_burst(self, *args):
+        """``args = (toks, ..., lens, steps)``: ``steps`` greedy decode steps,
+        ``(tokens [steps, slots] on the host, the last step's logits [slots,
+        V])``. Replays of the captured step on the card, the loop on the
+        CPU."""
+        if self.device.type == "cuda":
+            return self._replay_steps(*args)
+        return self._decode_loop(*args)
 
     def _release(self, slot: int) -> None:
         """Hook: give back what ``slot`` holds beyond its request."""
@@ -204,6 +275,7 @@ class Engine(RequestQueue):
         self.waiting: List[Request] = []
         self._next_id = 0
         self._generator = generator or torch.Generator(device=dev).manual_seed(0)
+        self._init_step_graph(B, model_cfg.vocab_size, dev)
 
     # ------------------------------------------------------------------
     # compute
@@ -250,8 +322,9 @@ class Engine(RequestQueue):
         n = int(true_len)
         amax_k = k[:, 0, :n].float().abs().amax(dim=(0, 1, 3))
         amax_v = v[:, 0, :n].float().abs().amax(dim=(0, 1, 3))
-        self._kscales = torch.clamp(amax_k, min=1e-6) * 1.05 / 127.0
-        self._vscales = torch.clamp(amax_v, min=1e-6) * 1.05 / 127.0
+        # In place: the captured decode step reads these tensors.
+        self._kscales.copy_(torch.clamp(amax_k, min=1e-6) * 1.05 / 127.0)
+        self._vscales.copy_(torch.clamp(amax_v, min=1e-6) * 1.05 / 127.0)
         self._calibrated = True
         self._store_arena(self.ka, k, self._kscales, slot)
         self._store_arena(self.va, v, self._vscales, slot)
@@ -309,7 +382,8 @@ class Engine(RequestQueue):
                                 (self.va, self._vscales, new_vs)):
             ratio = (old / new).reshape(1, 1, -1, 1, 1)
             arena.copy_(torch.clamp(torch.round(arena.float() * ratio), -127, 127).to(arena.dtype))
-        self._kscales, self._vscales = new_ks, new_vs
+        self._kscales.copy_(new_ks)
+        self._vscales.copy_(new_vs)
 
     def kv_drift_stats(self) -> Dict[str, Any]:
         return {
@@ -321,29 +395,23 @@ class Engine(RequestQueue):
         }
 
     def _decode_step(self, toks, lens):
-        """One decode step over every slot: ``(logits [B, V], greedy [B])``."""
+        """One decode step over every slot: ``(logits [B, V], greedy [B])``.
+        The arena or cache is written in place (the forwards return the same
+        tensors), so a captured step writes the engine's own storage."""
         if self._fp8_arena:
-            logits, self.ka, self.va = forward_decode_arena(
+            logits, _, _ = forward_decode_arena(
                 self.params, toks[:, None], self.cfg, self.ka, self.va, lens,
                 kv_scale=(self._kscales, self._vscales), window=self.cfg.sliding_window)
         else:
-            logits, self.cache = forward(
+            logits, cache = forward(
                 self.params, toks[:, None], self.cfg, cache=self.cache, start_pos=lens,
                 kv_lens=lens + 1)
+            self.cache.lens.copy_(cache.lens)
         logits = logits[:, 0]
         return logits, greedy(logits)
 
-    def _run_decode_burst(self, toks, lens, steps) -> np.ndarray:
-        """``steps`` greedy decode steps; tokens stay on the device and are
-        read back once. Returns ``[steps, slots]``."""
-        out = []
-        for _ in range(steps):
-            _, toks = self._decode_step(toks, lens)
-            lens = lens + 1
-            out.append(toks)
-        return torch.stack(out).cpu().numpy()
-
-    _BURST_BUCKETS = (32, 16, 8, 4, 2)
+    def _static_inputs(self):
+        return self._toks, self._lens
 
     def _burst_size(self) -> int:
         """Largest safe burst: greedy-only active slots, capped by each slot's
@@ -409,19 +477,17 @@ class Engine(RequestQueue):
             lens = torch.as_tensor(self.slot_lens, device=dev)
             toks = torch.as_tensor(self.slot_last_tok, device=dev)
             burst = self._burst_size()
+            block, logits = self._run_decode_burst(toks, lens, burst)
             if burst > 1:
-                block = self._run_decode_burst(toks, lens, burst)
                 for i in range(burst):
                     for slot, req in enumerate(self.slot_req):
                         if req is not None:
                             self._accept(slot, req, int(block[i, slot]), finished)
                 return finished
-            logits, greedy_toks = self._decode_step(toks, lens)
-            greedy_toks = greedy_toks.cpu().numpy()
             for slot, req in enumerate(self.slot_req):
                 if req is None:
                     continue
-                tok = (int(greedy_toks[slot]) if req.params.temperature == 0.0
+                tok = (int(block[0, slot]) if req.params.temperature == 0.0
                        else int(self._sample_one(logits[slot], req.params)))
                 self._accept(slot, req, tok, finished)
         return finished

@@ -10,8 +10,13 @@ admitted instead of ``max_slots × max_seq_len`` up front.
 
 Port choices: the pools are ``[P, L, Hk, page, Dh]`` and are updated in
 place; the prefill maps only the last prompt position through the lm_head
-(the one row the engine reads) instead of the whole bucket; greedy bursts of
-decode steps run as a Python loop with the tokens kept on the device.
+(the one row the engine reads) instead of the whole bucket.
+
+On the card a decode step is captured once as a CUDA graph over static
+tokens, lengths and block tables ``[slots, width]`` (pages are reserved to
+``max_new`` at admission, so the tables hold still within a burst); a burst
+is that many replays and one read-back, as in the arena engine. On the CPU
+a burst is a Python loop of the same step.
 """
 from __future__ import annotations
 
@@ -64,8 +69,6 @@ class PagedEngine(RequestQueue):
     Runs on ``cuda`` unless ``device`` is given (``device="cpu"`` runs the
     plain versions of the kernels)."""
 
-    _BURST_BUCKETS = (32, 16, 8, 4, 2)
-
     def __init__(self, params: Dict[str, Any], model_cfg: ModelConfig,
                  engine_cfg: PagedEngineConfig = PagedEngineConfig(), *,
                  eos_token_id: Optional[int] = None, device=None,
@@ -94,6 +97,10 @@ class PagedEngine(RequestQueue):
         self.waiting: List[Request] = []
         self._next_id = 0
         self._generator = generator or torch.Generator(device=dev).manual_seed(0)
+        self._init_step_graph(B, model_cfg.vocab_size, dev)
+        # The block tables are static within a burst: the graph reads them.
+        self._tables = torch.zeros((B, engine_cfg.max_pages_per_seq), dtype=torch.int32,
+                                   device=dev)
 
     # ------------------------------------------------------------------
     # compute
@@ -125,22 +132,16 @@ class PagedEngine(RequestQueue):
                 pool[self.scratch_page] = codes[n_pages - 1]
 
     def _decode_step(self, toks: torch.Tensor, tables: torch.Tensor, lens: torch.Tensor):
-        """One decode step over every slot: ``(logits [B, V], greedy [B])``."""
-        logits, self.k_pages, self.v_pages = forward_paged(
+        """One decode step over every slot: ``(logits [B, V], greedy [B])``.
+        K5 writes the pools in place (the forward returns the same tensors)."""
+        logits, _, _ = forward_paged(
             self.params, toks[:, None], self.cfg, self.k_pages, self.v_pages, tables, lens,
             kv_scale=self.ecfg.kv_scale)
         logits = logits[:, 0]
         return logits, greedy(logits)
 
-    def _run_decode_burst(self, toks, tables, lens, steps: int) -> np.ndarray:
-        """``steps`` greedy decode steps; tokens stay on the device and are
-        read back once. Returns ``[steps, slots]``."""
-        out = []
-        for _ in range(steps):
-            _, toks = self._decode_step(toks, tables, lens)
-            lens = lens + 1
-            out.append(toks)
-        return torch.stack(out).cpu().numpy()
+    def _static_inputs(self):
+        return self._toks, self._tables, self._lens
 
     # ------------------------------------------------------------------
     # public API (add_request, run: RequestQueue)
@@ -199,8 +200,8 @@ class PagedEngine(RequestQueue):
             toks = torch.as_tensor(self.slot_last_tok, device=dev)
             lens = torch.as_tensor(self.slot_lens, device=dev)
             burst = self._burst_size()
+            block, logits = self._run_decode_burst(toks, tables, lens, burst)
             if burst > 1:
-                block = self._run_decode_burst(toks, tables, lens, burst)
                 for i in range(burst):
                     for slot, req in enumerate(self.slot_req):
                         if req is not None:
@@ -209,12 +210,10 @@ class PagedEngine(RequestQueue):
                             # admission.
                             self._accept(slot, req, int(block[i, slot]), finished)
                 return finished
-            logits, greedy_toks = self._decode_step(toks, tables, lens)
-            greedy_toks = greedy_toks.cpu().numpy()
             for slot, req in enumerate(self.slot_req):
                 if req is None:
                     continue
-                tok = (int(greedy_toks[slot]) if req.params.temperature == 0.0
+                tok = (int(block[0, slot]) if req.params.temperature == 0.0
                        else int(self._sample_one(logits[slot], req.params)))
                 self._accept(slot, req, tok, finished)
         return finished

@@ -57,3 +57,25 @@ def test_every_launcher_of_a_kernel_source_is_declared(lib):
 def test_headers_name_every_shared_header():
     on_disk = {p.name for p in _build.CSRC.glob("*.cuh")}
     assert set(_build._HEADERS) == on_disk
+
+
+@pytest.mark.parametrize("lib", _build.KERNELS)
+def test_shared_memory_limits_are_set_once_per_kernel_instance(lib):
+    """``cudaFuncSetAttribute`` runs once per kernel instance (the initializer
+    of a function-local static, directly or through a helper that only such
+    initializers call), never on every launch: the decode step is captured
+    as a CUDA graph, and its launchers must set nothing inside a capture."""
+    src = re.sub(r"//[^\n]*", "", (_build.CSRC / f"{lib}.cu").read_text())
+
+    def statement(pos):  # the text from the statement's start up to pos
+        return src[max(src.rfind(";", 0, pos), src.rfind("{", 0, pos),
+                       src.rfind("}", 0, pos)) + 1:pos]
+
+    for m in re.finditer(r"\bcudaFuncSetAttribute\s*\(", src):
+        head = statement(m.start())
+        if "static" in head:
+            continue
+        helper = re.findall(r"(\w+)\s*\([^()]*\)\s*\{", src[:m.start()])[-1]
+        calls = [c.start() for c in re.finditer(rf"\b{helper}\s*\(", src)]
+        uses = [c for c in calls if "static" in statement(c)]
+        assert len(uses) == len(calls) - 1 and uses, (lib, head.strip())

@@ -164,3 +164,82 @@ def test_oversized_request_rejected_not_crashed(models):
     assert big.done and big.error is not None and "rejected" in big.error and not big.output
     assert ok.done and ok.error is None and len(ok.output) == 4
     assert {r.request_id for r in done} == {big.request_id, ok.request_id}
+
+
+class BodySteps(tengine.Engine):
+    """Runs the step the CUDA graph captures, eagerly over its static
+    buffers, where the card would replay it."""
+
+    def _run_decode_burst(self, toks, lens, steps):
+        self._toks.copy_(toks)
+        self._lens.copy_(lens)
+        self._row.zero_()
+        for _ in range(steps):
+            self._graph_step()
+        return self._burst_out[:steps].numpy().copy(), self._logits
+
+
+@pytest.mark.parametrize("kv,temperature", [("fp8", 0.0), ("int8", 0.0), ("bf16", 0.0),
+                                            ("fp8", 0.8)])
+def test_graph_step_body_matches_the_loop(models, kv, temperature):
+    """The captured step's body over the static buffers commits the loop's
+    tokens: greedy bursts (every arena dtype and the bf16 KVCache path) and
+    sampled single steps, which sample from the static logits."""
+    _, tc, _, tp = models
+    ecfg = tengine.EngineConfig(max_slots=2, max_seq_len=128, prefill_buckets=(32,),
+                                kv_dtype=kv, decode_burst=32)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, tc.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
+    outs = []
+    for cls in (tengine.Engine, BodySteps):
+        eng = cls(tp, tc, ecfg, device="cpu", generator=torch.Generator().manual_seed(2))
+        reqs = [eng.add_request(p, tengine.SamplingParams(max_new_tokens=10,
+                                                          temperature=temperature))
+                for p in prompts]
+        eng.run()
+        assert all(r.done and r.error is None and len(r.output) == 10 for r in reqs)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def test_int8_calibration_and_rescale_keep_the_scale_storage(models):
+    """The captured step reads the per-head scales by address: calibration
+    and the drift guard's requantization update them in place."""
+    _, tc, _, tp = models
+    eng = tengine.Engine(tp, tc, tengine.EngineConfig(
+        max_slots=2, max_seq_len=128, prefill_buckets=(32,), kv_dtype="int8",
+        kv_recalibrate=True, kv_sat_threshold=1e-4), device="cpu")
+    ptrs = [t.data_ptr() for t in (eng._kscales, eng._vscales, eng.ka, eng.va)]
+    rng = np.random.default_rng(9)
+    for n in PROMPT_LENS:
+        eng.add_request(rng.integers(1, tc.vocab_size, n).astype(np.int32),
+                        tengine.SamplingParams(max_new_tokens=4))
+    eng.run()
+    assert eng.kv_recalibrations > 0
+    assert not torch.equal(eng._kscales, torch.ones_like(eng._kscales))
+    assert [t.data_ptr() for t in (eng._kscales, eng._vscales, eng.ka, eng.va)] == ptrs
+
+
+def test_rotary_frequencies_are_built_once_per_device(models, monkeypatch):
+    from llm_fp8_tpu_torch.models import llama as tl
+    from llm_fp8_tpu_torch.ops.rotary import rope_cos_sin, rope_frequencies
+
+    _, tc, _, tp = models
+    tl._inv_freq.cache_clear()
+    calls = []
+    monkeypatch.setattr(tl, "rope_frequencies",
+                        lambda *a: (calls.append(a), rope_frequencies(*a))[1])
+    cfg = tconfig.get_config("llama-3.2-1b")  # llama3 scaling: the dict is part of the key
+    for start in (0, 7, 100):
+        pos = torch.arange(start, start + 3, dtype=torch.int32)[None]
+        got = tl._rope_tables(cfg, pos)
+        want = rope_cos_sin(pos, rope_frequencies(cfg.head_dim, cfg.rope_theta,
+                                                  cfg.rope_scaling), cfg.rope_scaling)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert len(calls) == 1
+    eng = tengine.Engine(tp, tc, tengine.EngineConfig(max_slots=2, max_seq_len=64,
+                                                      prefill_buckets=(16,)), device="cpu")
+    eng.add_request(np.arange(1, 9, dtype=np.int32), tengine.SamplingParams(max_new_tokens=5))
+    eng.run()
+    assert len(calls) == 2  # one more model shape, built once for all its steps
+    tl._inv_freq.cache_clear()

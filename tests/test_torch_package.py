@@ -44,7 +44,9 @@ PORT_MODULES = [
     "llm_fp8_tpu_torch.models", "llm_fp8_tpu_torch.models.config",
     "llm_fp8_tpu_torch.models.llama", "llm_fp8_tpu_torch.serving",
     "llm_fp8_tpu_torch.serving.engine", "llm_fp8_tpu_torch.serving.block_table",
-    "llm_fp8_tpu_torch.serving.paged_engine", "llm_fp8_tpu_torch.cli.serve",
+    "llm_fp8_tpu_torch.serving.paged_engine", "llm_fp8_tpu_torch.serving.cuda_graph",
+    "llm_fp8_tpu_torch.serving.speculative", "llm_fp8_tpu_torch.serving.spec_engine",
+    "llm_fp8_tpu_torch.models.hf_loader", "llm_fp8_tpu_torch.cli.serve",
     "llm_fp8_tpu_torch.convert", "chip_smoke",
 ]
 
@@ -194,7 +196,7 @@ def test_serve_cli_paged_runs_on_cpu():
 
 
 @pytest.mark.parametrize("flag", [["--paged", "--draft_model", "debug-tiny"],
-                                  ["--draft_model", "debug-tiny"],
+                                  ["--draft_model", "debug-gpt2"],
                                   ["--paged", "--kv_dtype", "int8"]])
 def test_serve_cli_refuses_unported_options(flag):
     from llm_fp8_tpu_torch.cli.serve import main

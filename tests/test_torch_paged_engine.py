@@ -203,3 +203,28 @@ def test_pool_exhaustion_queues_and_overlong_is_rejected(models):
     assert eng.pages_in_use == 0
     with pytest.raises(ValueError, match="multiple of page_size"):
         tpe.PagedEngineConfig(page_size=PAGE, prefill_buckets=(24,))
+
+
+class BodySteps(tpe.PagedEngine):
+    """Runs the step the CUDA graph captures, eagerly over its static
+    buffers (tokens, lengths, block tables), where the card would replay it."""
+
+    def _run_decode_burst(self, toks, tables, lens, steps):
+        self._toks.copy_(toks)
+        self._tables.copy_(tables)
+        self._lens.copy_(lens)
+        self._row.zero_()
+        for _ in range(steps):
+            self._graph_step()
+        return self._burst_out[:steps].numpy().copy(), self._logits
+
+
+def test_graph_step_body_matches_the_loop(models):
+    _, tc, _, tp = models
+    prompts = _prompts(tc, (7, PAGE + 3, 30))
+    want = _run(tpe.PagedEngine(tp, tc, _engine_cfg(tpe, "fp8", decode_burst=32), device="cpu"),
+                prompts, max_new=20)
+    body = BodySteps(tp, tc, _engine_cfg(tpe, "fp8", decode_burst=32), device="cpu")
+    got = _run(body, prompts, max_new=20)
+    assert [r.output for r in got] == [r.output for r in want]
+    assert body.pages_in_use == 0
