@@ -91,7 +91,28 @@ Phases, in order; any failure exits non-zero before the last line:
    probe (``llm_fp8_tpu_torch.scripts.profile_fwd_parts``) at full 1B width,
    B 8 x S 512, with its parts through K3 and K8 and the whole forward; K3
    and K8 must launch their counts.
-7. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
+7. ALiBi and dropout. ``alibi_kernels``: K2 (arena, 8 x 1024), K5 (paged, 8
+   x ~3.5k), K3 (a 4096-token prefill, a non-causal case with q_offset,
+   softcap) and K6 with ALiBi at Baichuan-13B's heads (40 of 128, the
+   interleaved slopes), row by row against their plain versions, appends
+   and reruns bit-identical, a planted wrong slope (each head given its
+   neighbour's) caught, each timed beside the kernel without ALiBi and
+   SDPA with the bias as a float mask. ``dropout_kernels``: K3 and K6 with
+   attention dropout 0.1 at the training shape (B 8, S 512, Hq 32, Hk 8,
+   D 64, causal) within their dropout-free limits, and the keep mask read
+   back from each kernel (V one-hot for K3, dO one-hot for K6's dV) equal to
+   the plain mask bit for bit; each timed beside its dropout-free time.
+   ``alibi_serve``: Baichuan-13B at full width: 2-layer slices card against
+   CPU (arena, paged), then all 40 layers with LAYERWISE fp8 weights (made
+   a layer at a time) and fp8 KV through the arena engine and the paged
+   engine (8 prompts of 3500 tokens), graph against eager tokens.
+8. ``train_rest``: 16 layers at 1B width, 10 steps under remat none, full
+   and dots (the first loss bit-equal, all within 1e-3, full's peak memory
+   below none's), 10 steps with attention dropout 0.1, a checkpoint at step
+   5 resumed in a fresh Trainer equal to the uninterrupted run bit for bit,
+   and the HF export read back bit for bit. ``compare``: ``cli.compare``
+   at 1B width, 8 layers, all five configs for 5 steps, then ``--resume``.
+9. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 With ``--out DIR`` the details of every case go to ``DIR/chip_smoke.json``
@@ -102,6 +123,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -115,7 +137,7 @@ ROOT = Path(__file__).resolve().parent
 
 PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_serve",
           "spec_serve", "checkpoint", "train_kernels", "train_slice", "train", "fp8_kernels",
-          "profile")
+          "profile", "alibi_kernels", "dropout_kernels", "alibi_serve", "train_rest", "compare")
 #: The kernels each path runs (launch counts read around its run). On the
 #: card fp8 weights take qdot's fp8native route (K9 quantizes x per row, then
 #: fp8 products), as the JAX package picks it where fp8 products exist; K1
@@ -1136,8 +1158,9 @@ def paged_slice_check(dev, log):
             for route, forced in SLICE_PASSES]
 
 
-def _slice_check(dev, log, route, forced):
-    """One pass: checked unless it is the free-running fp8native reading."""
+def _slice_check(dev, log, route, forced, model="llama-3.2-1b", free_checked=True):
+    """One pass: checked unless it is the free-running fp8native reading (or,
+    with ``free_checked`` False, any free-running pass)."""
     import dataclasses
 
     import torch
@@ -1146,7 +1169,7 @@ def _slice_check(dev, log, route, forced):
     from llm_fp8_tpu_torch.models.llama import init_params, quantize_params
     from llm_fp8_tpu_torch.quant import LAYERWISE
 
-    cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=2)
+    cfg = dataclasses.replace(get_config(model), num_layers=2)
     params = quantize_params(init_params(cfg, device=dev, seed=7), LAYERWISE)
 
     cpu_params = to_cpu(params)
@@ -1160,7 +1183,7 @@ def _slice_check(dev, log, route, forced):
     runs = {}
     rec = ForcedQdotInputs()
     side = rec.side if forced else (lambda name: contextlib.nullcontext())
-    checked = route == "xla" or forced
+    checked = (route == "xla" and free_checked) or forced
     for name, p, d in (("cuda", params, dev), ("cpu", cpu_params, torch.device("cpu"))):
         with side(name):
             lg, (k, v) = forward(p, prompt.to(d), cfg, kv_lens=torch.tensor([n], device=d),
@@ -1197,7 +1220,7 @@ def _slice_check(dev, log, route, forced):
     for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
         check(bool(torch.isfinite(a).all()), "slice: non-finite logits on the card")
         errs.append((a - b).abs().max().item())
-    res = dict(config="llama-3.2-1b, 2 layers, LAYERWISE fp8; fp8 arena (prefill + 2 "
+    res = dict(config=f"{model}, 2 layers, LAYERWISE fp8; fp8 arena (prefill + 2 "
                "decode steps), then bf16 KVCache (prefill + 1 decode step)", qdot_route=route,
                cpu_takes_card_qdot_inputs=forced, forced_calls=rec.forced,
                checked=checked,
@@ -1211,7 +1234,7 @@ def _slice_check(dev, log, route, forced):
     return res
 
 
-def _paged_slice_check(dev, log, route, forced):
+def _paged_slice_check(dev, log, route, forced, model="llama-3.2-1b", free_checked=True):
     """The paged path at full 1B width, 2 layers: two prompts (200 tokens,
     and 128, which ends a page) prefilled and inserted into an e4m3 pool,
     then two ``forward_paged`` steps, on the card and on the CPU."""
@@ -1226,7 +1249,7 @@ def _paged_slice_check(dev, log, route, forced):
     from llm_fp8_tpu_torch.serving import PagedEngine, PagedEngineConfig
     from llm_fp8_tpu_torch.serving.block_table import SequenceTable
 
-    cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=2)
+    cfg = dataclasses.replace(get_config(model), num_layers=2)
     params = quantize_params(init_params(cfg, device=dev, seed=7), LAYERWISE)
 
     ecfg = PagedEngineConfig(max_slots=2, num_pages=8, page_size=128, max_pages_per_seq=3,
@@ -1236,7 +1259,7 @@ def _paged_slice_check(dev, log, route, forced):
     runs = {}
     rec = ForcedQdotInputs()
     side = rec.side if forced else (lambda name: contextlib.nullcontext())
-    checked = route == "xla" or forced
+    checked = (route == "xla" and free_checked) or forced
     for name, p, d in (("cuda", params, dev), ("cpu", to_cpu(params), torch.device("cpu"))):
         eng = PagedEngine(p, cfg, ecfg, device=d)
         logits, tables, kv = [], [], []
@@ -1297,7 +1320,7 @@ def _paged_slice_check(dev, log, route, forced):
             worst = (float(beyond.flatten()[i]), attr, float(a.flatten()[i]),
                      float(b.flatten()[i]))
     excess_max = max(max(e) for e in excess)
-    res = dict(config="llama-3.2-1b, 2 layers, LAYERWISE fp8, e4m3 page pool (page 128): "
+    res = dict(config=f"{model}, 2 layers, LAYERWISE fp8, e4m3 page pool (page 128): "
                "prefills of 200 and 128 tokens inserted, then 2 forward_paged steps",
                qdot_route=route, cpu_takes_card_qdot_inputs=forced,
                forced_calls=rec.forced, checked=checked,
@@ -1322,7 +1345,13 @@ def _paged_slice_check(dev, log, route, forced):
 # --------------------------------------------------------------------------
 
 
-def serving(dev, num_layers, card, log):
+#: serving()'s runs: (tag, LLM_FP8_QDOT, weights, KV, requests).
+ARENA_RUNS = (("fp8", None, "fp8", "fp8", 8), ("int8", None, "fp8", "int8", 2),
+              ("bf16_kv", None, "fp8", "bf16", 2), ("fp8_xla", "xla", "fp8", "fp8", 2),
+              ("int8_weights", None, "int8", "fp8", 2))
+
+
+def serving(dev, num_layers, card, log, model="llama-3.2-1b", runs=ARENA_RUNS, params=None):
     """The arena engine at full 1B width on every path it serves: fp8
     weights on qdot's default route (fp8native) and on LLM_FP8_QDOT=xla (K1),
     fp8, int8 (calibrated) and bf16 KV (the KVCache path), int8 weights (K1).
@@ -1330,7 +1359,8 @@ def serving(dev, num_layers, card, log):
     its eager twin (the engine's own step method, a Python forward a step):
     the greedy tokens must be equal, and both step times are logged; the
     main run (fp8, 8 requests) is also profiled both ways for the device's
-    busy share."""
+    busy share. ``params`` given: every run serves them (built elsewhere,
+    for the default route)."""
     import dataclasses
 
     import numpy as np
@@ -1357,20 +1387,18 @@ def serving(dev, num_layers, card, log):
     class EagerEngine(TimedPrefill, EagerLoop):
         pass
 
-    cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=num_layers)
+    cfg = dataclasses.replace(get_config(model), num_layers=num_layers)
     rng = np.random.RandomState(0)
     results = {}
-    # tag: (LLM_FP8_QDOT, weights, KV, requests); one weight set per route.
-    runs = (("fp8", None, "fp8", "fp8", 8), ("int8", None, "fp8", "int8", 2),
-            ("bf16_kv", None, "fp8", "bf16", 2), ("fp8_xla", "xla", "fp8", "fp8", 2),
-            ("int8_weights", None, "int8", "fp8", 2))
-    params, params_key = None, None
+    # One weight set per (route, weights) unless given.
+    given = params is not None
+    params_key, init_s = None, None
     for tag, qdot_env, weights, kv, n_req in runs:
         saved = os.environ.get("LLM_FP8_QDOT")
         if qdot_env is not None:
             os.environ["LLM_FP8_QDOT"] = qdot_env
         try:
-            if params_key != (qdot_env, weights):
+            if not given and params_key != (qdot_env, weights):
                 del params
                 torch.cuda.empty_cache()
                 t0 = time.perf_counter()
@@ -1497,7 +1525,18 @@ def _arena_run(engine_cls, eager_cls, params, cfg, dev, card, num_layers, rng, t
     return res
 
 
-def paged_serving(dev, num_layers, card, log):
+#: paged_serving()'s runs: (tag, LLM_FP8_QDOT, KV, requests, prompt length,
+#: new tokens, prefill bucket, kv_scale). The fp8 workload twice: qdot's
+#: default route (fp8native) and LLM_FP8_QDOT=xla (K1 at every projection);
+#: the weights are quantized under the route in force, which lays their
+#: codes out for it.
+PAGED_RUNS = (("fp8", None, "fp8", 8, 8184, 64, 8192, 1.0),
+              ("fp8_xla", "xla", "fp8", 8, 8184, 64, 8192, 1.0),
+              ("int8", None, "int8", 2, 1000, 16, 1024, 1 / 16))
+
+
+def paged_serving(dev, num_layers, card, log, model="llama-3.2-1b", runs=PAGED_RUNS,
+                  params=None):
     """The paged engine at full 1B width: e4m3 pool, 8 requests of 8184-token
     prompts (bucket 8192) and 64 new tokens each, on qdot's default route and
     with LLM_FP8_QDOT=xla; then int8 pool, 2 short requests. Each runs on the
@@ -1541,22 +1580,18 @@ def paged_serving(dev, num_layers, card, log):
     class EagerPagedEngine(PagedChecks, EagerLoop):
         pass
 
-    cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=num_layers)
+    cfg = dataclasses.replace(get_config(model), num_layers=num_layers)
     rng = np.random.RandomState(1)
     results = {}
-    # The fp8 workload twice: qdot's default route (fp8native) and
-    # LLM_FP8_QDOT=xla (K1 at every projection); the weights are quantized
-    # under the route in force, which lays their codes out for it.
-    runs = (("fp8", None, "fp8", 8, 8184, 64, 8192, 1.0),
-            ("fp8_xla", "xla", "fp8", 8, 8184, 64, 8192, 1.0),
-            ("int8", None, "int8", 2, 1000, 16, 1024, 1 / 16))
+    given = params
     prompts_fp8 = None
     for tag, qdot_env, kv, n_req, n_prompt, max_new, bucket, kv_scale in runs:
         saved = os.environ.get("LLM_FP8_QDOT")
         if qdot_env is not None:
             os.environ["LLM_FP8_QDOT"] = qdot_env
         try:
-            params = quantize_params(init_params(cfg, device=dev, seed=0), LAYERWISE)
+            params = (given if given is not None
+                      else quantize_params(init_params(cfg, device=dev, seed=0), LAYERWISE))
             res = _paged_run(CheckedPagedEngine, EagerPagedEngine, params, cfg, dev, card,
                              num_layers, rng, tag, kv, n_req, n_prompt, max_new, bucket,
                              kv_scale, prompts_fp8 if tag == "fp8_xla" else None)
@@ -2967,6 +3002,779 @@ def profile_probe(dev, log):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 7: ALiBi and dropout in K2, K3, K5 and K6
+# --------------------------------------------------------------------------
+
+#: Baichuan-13B's attention: 40 heads of 128, one kv head per q head.
+ALIBI_HEADS, ALIBI_D = 40, 128
+
+
+def alibi_kernel_cases(dev, bw, peak, log):
+    """K2, K5, K3 and K6 with ALiBi at Baichuan-13B's heads (Hq = Hk = 40, D
+    128, the interleaved slopes of a head count that is not a power of two)
+    against their plain versions row by row (ROW_ULPS), appends equal, two
+    runs bit-identical, and a planted wrong slope (each head given its
+    neighbour's) that the row tolerance must catch. Each timed case is timed
+    without ALiBi too, in the same call; SDPA with the bias as a float mask
+    is the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_fp8_tpu_torch.kernels import decode_attention as k2
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels import flash_attention_bwd as k6
+    from llm_fp8_tpu_torch.kernels import paged_attention as k5
+    from llm_fp8_tpu_torch.kernels._common import fp8_to_bf16_ftz
+    from llm_fp8_tpu_torch.ops.attention import default_alibi_slopes
+
+    g = torch.Generator(device=dev).manual_seed(1357)
+    H, D = ALIBI_HEADS, ALIBI_D
+    slopes = default_alibi_slopes(H, dev)
+    wrong = torch.roll(slopes, 1)  # the planted fault: each head takes its neighbour's slope
+    cases = []
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(torch.bfloat16)
+
+    # ---- K2: the arena at 8 slots x 1024, e4m3, append without rotary ----
+    L, B, S = 4, 8, 1024
+    lengths = torch.tensor([1, 37, 200, 511, 512, 640, 1000, 1024], dtype=torch.int32,
+                           device=dev)
+    ks = (torch.rand((H,), generator=g, device=dev) + 0.5)
+    vs = (torch.rand((H,), generator=g, device=dev) + 0.5)
+
+    def arena(sc):
+        x = torch.randn((L, B, H, S, D), generator=g, device=dev) / sc.reshape(1, 1, H, 1, 1)
+        return torch.clamp(x, -448.0, 448.0).to(torch.float8_e4m3fn)
+
+    ka, va = arena(ks), arena(vs)
+    q, nk, nv = randn(B, H, D), randn(B, H, D), randn(B, H, D)
+    kw = dict(new_k=nk, new_v=nv, k_scale=ks, v_scale=vs)
+    plain_kw = dict(new_k=nk, new_v=nv, cos=None, sin=None, k_scale=ks, v_scale=vs,
+                    scale=D ** -0.5, window=None, softcap=None)
+    ka_k, va_k, ka_p, va_p, ka_r, va_r = (t.clone() for t in (ka, va, ka, va, ka, va))
+    got, _, _ = k2.decode_attention_arena(q, ka_k, va_k, lengths, L - 1, alibi_slopes=slopes,
+                                          **kw)
+    again, _, _ = k2.decode_attention_arena(q, ka_r, va_r, lengths, L - 1, alibi_slopes=slopes,
+                                            **kw)
+    ref = k2.decode_attention_arena_plain(q, ka_p, va_p, lengths, L - 1, alibi=slopes,
+                                          **plain_kw)
+    bad = k2.decode_attention_arena_plain(q, ka.clone(), va.clone(), lengths, L - 1,
+                                          alibi=wrong, **plain_kw)
+    torch.cuda.synchronize()
+    name = f"B{B} Hq{H} Hk{H} D{D} S{S} e4m3 alibi"
+    err, ulps = rows_within(got, ref, f"K2 {name}")
+    codes = bool(torch.equal(ka_k.view(torch.uint8), ka_p.view(torch.uint8))
+                 and torch.equal(va_k.view(torch.uint8), va_p.view(torch.uint8)))
+    rerun = bool(torch.equal(got.view(torch.int16), again.view(torch.int16))
+                 and torch.equal(ka_r.view(torch.uint8), ka_k.view(torch.uint8)))
+    check(codes, f"K2 {name}: appended arena codes differ from the plain version")
+    check(rerun, f"K2 {name}: two runs differ")
+    multi = (lengths > 1)[:, None].expand(B, H)  # one key: no bias to get wrong
+    caught = caught_share(bad, ref, multi)
+    check(caught >= 0.5, f"K2 {name}: a wrong slope passes in {1 - caught:.0%} of the rows")
+    layers = cycler(list(range(L)))
+    call = lambda al: (lambda: k2.decode_attention_arena(  # noqa: E731
+        q, ka, va, lengths, layers(), alibi_slopes=al, **kw))
+    ms, ms_off = cuda_ms(call(slopes)), cuda_ms(call(None))
+    kdq = (fp8_to_bf16_ftz(ka[L - 1]).float() * ks.reshape(1, H, 1, 1)).to(torch.bfloat16)
+    vdq = (fp8_to_bf16_ftz(va[L - 1]).float() * vs.reshape(1, H, 1, 1)).to(torch.bfloat16)
+    pos = torch.arange(S, device=dev)
+    bias = (slopes.reshape(1, H, 1, 1) * (pos[None, :] - (lengths[:, None].long() - 1))
+            .float()[:, None, None, :])
+    bias = torch.where((pos[None, :] < lengths[:, None])[:, None, None, :], bias,
+                       torch.full_like(bias, -float("inf"))).to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kdq, vdq,
+                                                            attn_mask=bias))
+    del kdq, vdq, bias
+    tokens = int(lengths.sum())
+    b_ms, b_by = bound_ms(2 * tokens * H * D + q.numel() * 4 + nk.numel() * 4 + H * 4,
+                          4.0 * H * D * tokens, bw, peak)
+    case = dict(kernel="decode_attention_arena", case=name, max_abs_err=err, err_ulps=ulps,
+                arena_codes_equal=codes, reruns_identical=rerun, wrong_slope_caught=caught,
+                ms=ms, ms_without_alibi=ms_off, alibi_cost=ms / ms_off, call_ms=eager_ms(
+                    call(slopes)),
+                plain_ms=cuda_ms(lambda: k2.decode_attention_arena_plain(
+                    q, ka, va, lengths, layers(), alibi=slopes, **plain_kw), calls=4, rounds=3),
+                library_ms=lib_ms, vs_library=ms / lib_ms, bound_ms=b_ms, bound_by=b_by,
+                splits_span=k2.split_plan(B, H, S, torch.cuda.get_device_properties(dev)
+                                          .multi_processor_count))
+    cases.append(case)
+    log(case)
+    del ka, va, ka_k, va_k, ka_p, va_p, ka_r, va_r
+
+    # ---- K5: the paged pool at 8 sequences of ~3.5k tokens, e4m3 ----
+    page, L = 128, 4
+    lens = torch.tensor([3500, 3511, 3527, 3540, 3553, 3561, 3575, 3584], dtype=torch.int32,
+                        device=dev)
+    width = -(-int(lens.max()) // page)
+    P = B * width + 2
+    kp, vp = (k5.quantize_to_pool(torch.randn((P, L, H, page, D), generator=g, device=dev),
+                                  1.0, torch.float8_e4m3fn) for _ in range(2))
+    perm = torch.randperm(P - 2, generator=g, device=dev) + 1
+    tables = perm[:B * width].reshape(B, width).int().contiguous()
+    q, nk, nv = randn(B, H, D), randn(B, H, D), randn(B, H, D)
+    kw = dict(new_k=nk, new_v=nv)
+    kk, vk, kq, vq, kr, vr = (t.clone() for t in (kp, vp, kp, vp, kp, vp))
+    got, _, _ = k5.paged_attention(q, kk, vk, lens, tables, L - 1, alibi_slopes=slopes, **kw)
+    again, _, _ = k5.paged_attention(q, kr, vr, lens, tables, L - 1, alibi_slopes=slopes, **kw)
+    ref = k5.paged_attention_plain(q, kq, vq, lens, tables, L - 1, scale=D ** -0.5,
+                                   kv_scale=1.0, window=None, softcap=None, alibi=slopes, **kw)
+    bad = k5.paged_attention_plain(q, kp.clone(), vp.clone(), lens, tables, L - 1,
+                                   scale=D ** -0.5, kv_scale=1.0, window=None, softcap=None,
+                                   alibi=wrong, **kw)
+    torch.cuda.synchronize()
+    name = f"B{B} Hq{H} Hk{H} D{D} page{page} ~3.5k e4m3 alibi"
+    err, ulps = rows_within(got, ref, f"K5 {name}")
+    codes = bool(torch.equal(kk.view(torch.uint8), kq.view(torch.uint8))
+                 and torch.equal(vk.view(torch.uint8), vq.view(torch.uint8)))
+    rerun = bool(torch.equal(got.view(torch.int16), again.view(torch.int16))
+                 and torch.equal(kr.view(torch.uint8), kk.view(torch.uint8)))
+    check(codes, f"K5 {name}: appended pool codes differ from the plain version")
+    check(rerun, f"K5 {name}: two runs differ")
+    caught = caught_share(bad, ref, torch.ones((B, H), dtype=torch.bool, device=dev))
+    check(caught >= 0.5, f"K5 {name}: a wrong slope passes in {1 - caught:.0%} of the rows")
+    layers = cycler(list(range(L)))
+    call = lambda al: (lambda: k5.paged_attention(  # noqa: E731
+        q, kp, vp, lens, tables, layers(), alibi_slopes=al, **kw))
+    ms, ms_off = cuda_ms(call(slopes)), cuda_ms(call(None))
+
+    def gathered(pool):
+        x = fp8_to_bf16_ftz(pool[:, L - 1][tables.long()])
+        return x.permute(0, 2, 1, 3, 4).reshape(B, H, width * page, D)
+
+    kd, vd = gathered(kp), gathered(vp)
+    pos = torch.arange(width * page, device=dev)
+    bias = slopes.reshape(1, H, 1, 1) * (pos[None, :] - (lens[:, None].long() - 1)).float()[
+        :, None, None, :]
+    bias = torch.where((pos[None, :] < lens[:, None])[:, None, None, :], bias,
+                       torch.full_like(bias, -float("inf"))).to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kd, vd,
+                                                            attn_mask=bias))
+    del kd, vd, bias
+    tokens = int(lens.sum())
+    b_ms, b_by = bound_ms(2 * tokens * H * D + q.numel() * 4 + nk.numel() * 4
+                          + tables.numel() * 4, 4.0 * H * D * tokens, bw, peak)
+    case = dict(kernel="paged_attention", case=name, max_abs_err=err, err_ulps=ulps,
+                pool_codes_equal=codes, reruns_identical=rerun, wrong_slope_caught=caught,
+                ms=ms, ms_without_alibi=ms_off, alibi_cost=ms / ms_off,
+                call_ms=eager_ms(call(slopes)),
+                plain_ms=cuda_ms(lambda: k5.paged_attention_plain(
+                    q, kp, vp, lens, tables, layers(), scale=D ** -0.5, kv_scale=1.0,
+                    window=None, softcap=None, alibi=slopes, **kw), calls=2, rounds=3),
+                library_ms=lib_ms, vs_library=ms / lib_ms, bound_ms=b_ms, bound_by=b_by,
+                lengths=lens.tolist())
+    cases.append(case)
+    log(case)
+    del kp, vp, kk, vk, kq, vq, kr, vr
+
+    # ---- K3: a 4096-token causal prefill (kv_len 3584), then features ----
+    k3_cases = (
+        # name, B, Sq, Sk, causal, softcap, q_offset, kv_lens, timed
+        ("prefill B1 Sq=Sk=4096 kv_len 3584 causal", 1, 4096, 4096, True, None, [0], [3584],
+         True),
+        ("not causal, q_offset", 2, 200, 700, False, None, [500, 120], [700, 640], False),
+        ("softcap 30, q_offset", 2, 256, 512, True, 30.0, [256, 100], [512, 400], False),
+    )
+    for name, B, Sq, Sk, causal, softcap, q_off, kv, timed in k3_cases:
+        q, k, v = randn(B, Sq, H, D), randn(B, Sk, H, D), randn(B, Sk, H, D)
+        qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kv, dtype=torch.int32, device=dev)
+        cfg = dict(causal=causal, window=None, softcap=softcap, scale=D ** -0.5)
+        al = slopes[None, :].expand(B, H).contiguous()
+        out, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, alibi_slopes=slopes,
+                                      return_lse=True, **cfg)
+        out2 = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, alibi_slopes=slopes, **cfg)
+        ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, alibi=al, **cfg)
+        bad, _ = k3.flash_fwd_plain(q, k, v, qo, kl, alibi=torch.roll(al, 1, dims=1), **cfg)
+        torch.cuda.synchronize()
+        err, ulps = rows_within(out, ref, f"K3 {name}")
+        live = torch.isfinite(ref_lse).transpose(1, 2)
+        lse_err = (lse - ref_lse)[torch.isfinite(ref_lse)].abs().max().item()
+        check(math.isfinite(lse_err) and lse_err <= 1e-3, f"K3 {name}: lse err {lse_err}")
+        rerun = bool(torch.equal(out.view(torch.int16), out2.view(torch.int16)))
+        check(rerun, f"K3 {name}: two runs differ")
+        caught = caught_share(bad, ref, live)
+        check(caught >= 0.5, f"K3 {name}: a wrong slope passes in {1 - caught:.0%} of the rows")
+        case = dict(kernel="flash_attention", case=f"alibi Hq{H} D{D} {name}", max_abs_err=err,
+                    err_ulps=ulps, lse_err=lse_err, reruns_identical=rerun,
+                    wrong_slope_caught=caught)
+        del ref, ref_lse, bad
+        if timed:
+            call = lambda al_: (lambda: k3.flash_attention(  # noqa: E731
+                q, k, v, q_offset=qo, kv_lens=kl, alibi_slopes=al_, **cfg))
+            ms, ms_off = cuda_ms(call(slopes)), cuda_ms(call(None))
+            pairs = int(live_pairs(B, Sq, Sk, qo, kl, causal, None, dev).sum()) * H
+            qpos = qo.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+            kpos = torch.arange(Sk, device=dev)
+            bias = -(al[:, :, None, None] * (qpos[:, :, None] - kpos[None, None, :]).abs()
+                     .float()[:, None])
+            bias = torch.where(live_pairs(B, Sq, Sk, qo, kl, causal, None, dev)[:, None], bias,
+                               torch.full_like(bias, -float("inf"))).to(torch.bfloat16)
+            qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
+                                                                    scale=cfg["scale"]),
+                             calls=4, rounds=3)
+            del bias
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4 + H * 4
+            b_ms, b_by = bound_ms(nbytes, 4.0 * D * pairs, bw, peak)
+            case.update(ms=ms, ms_without_alibi=ms_off, alibi_cost=ms / ms_off,
+                        call_ms=eager_ms(call(slopes)),
+                        plain_ms=cuda_ms(lambda: k3.flash_fwd_plain(q, k, v, qo, kl, alibi=al,
+                                                                    **cfg), calls=1, rounds=2),
+                        library_ms=lib_ms, vs_library=ms / lib_ms, bound_ms=b_ms,
+                        bound_by=b_by, tflops=4.0 * D * pairs / (ms * 1e-3) / 1e12)
+        cases.append(case)
+        log(case)
+        del q, k, v, out, out2, lse
+
+    # ---- K6: B 2 x S 1024 causal, then q_offset with softcap ----
+    k6_cases = (
+        ("B2 S1024 causal", 2, 1024, 1024, True, None, [0, 0], [1024, 1024], True),
+        ("q_offset, ragged kv_lens, softcap 20", 2, 100, 300, True, 20.0, [200, 150],
+         [300, 260], False),
+    )
+    for name, B, Sq, Sk, causal, softcap, q_off, kv, timed in k6_cases:
+        q, do = randn(B, Sq, H, D), randn(B, Sq, H, D)
+        k, v = randn(B, Sk, H, D), randn(B, Sk, H, D)
+        qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kv, dtype=torch.int32, device=dev)
+        cfg = dict(causal=causal, window=None, softcap=softcap, scale=D ** -0.5)
+        al = slopes[None, :].expand(B, H).contiguous()
+        out, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, alibi_slopes=slopes,
+                                      return_lse=True, **cfg)
+        args = (q, k, v, out, lse, do)
+        got = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, alibi=al, **cfg)
+        again = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, alibi=al, **cfg)
+        ref = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl, alibi=al, **cfg)
+        bad = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl,
+                                           alibi=torch.roll(al, 1, dims=1), **cfg)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(same, f"K6 alibi {name}: two runs are not bit-identical")
+        live = live_pairs(B, Sq, Sk, qo, kl, causal, None, dev)
+        nkeys = live.sum(dim=-1)
+        key_multi = (live & (nkeys > 1)[:, :, None]).any(dim=1)
+        ex = {"dq": (nkeys == 1)[:, :, None].expand(B, Sq, H),
+              "dk": (live.any(dim=1) & ~key_multi)[:, :, None].expand(B, Sk, H),
+              "dv": torch.zeros((B, Sk, H), dtype=torch.bool, device=dev)}
+        # Keys far from every query of a steep head get p below float32's
+        # smallest normal (2^-126): the card's ex2.approx flushes such p to 0
+        # (as the TPU flushes subnormals), the plain exp keeps them, and their
+        # ds and p·dO terms (each under 2^-120 here) move the rows that hold
+        # nothing larger. Rows whose every value is below 2^-100 are held as
+        # the zero rows are (ZERO_ROW_NOISE of the tensor's largest value).
+        sub = {w: (r.float().abs().amax(dim=-1) < 2.0 ** -100)
+               & (r.float().abs().amax(dim=-1) > 0) for w, r in zip(("dq", "dk", "dv"), ref)}
+        ex = {w: ex[w] | sub[w] for w in ex}
+        case = dict(kernel="flash_attention_bwd", case=f"alibi Hq{H} D{D} {name}",
+                    deterministic=same, subnormal_rows={w: int(t.sum()) for w, t in sub.items()})
+        errs = []
+        for what, a, b, c in zip(("dq", "dk", "dv"), got, ref, bad):
+            e, u, n_ex, noise = grad_rows_within(a, b, ex[what], f"K6 alibi {name} {what}")
+            rows = ~ex[what] & (b.float().abs().amax(dim=-1) > 0)
+            case[what] = dict(max_abs_err=e, err_ulps=u, zero_rows=n_ex, zero_row_err=noise,
+                              wrong_slope_caught=caught_share(c, b, rows))
+            errs.append(e)
+        case["max_abs_err"] = max(errs)
+        check(case["dq"]["wrong_slope_caught"] >= 0.5, f"K6 alibi {name}: a wrong slope "
+              f"passes in {1 - case['dq']['wrong_slope_caught']:.0%} of the dq rows")
+        if timed:
+            call = lambda al_: (lambda: k6.flash_attention_bwd(  # noqa: E731
+                *args, q_offset=qo, kv_lens=kl, alibi=al_, **cfg))
+            pairs = int(live.sum()) * H
+            case.update(ms=cuda_ms(call(al)), ms_without_alibi=cuda_ms(call(None)),
+                        call_ms=eager_ms(call(al)),
+                        plain_ms=cuda_ms(lambda: k6.flash_attention_bwd_plain(
+                            *args, q_offset=qo, kv_lens=kl, alibi=al, **cfg), calls=1,
+                            rounds=2),
+                        library_ms=None)
+            case["alibi_cost"] = case["ms"] / case["ms_without_alibi"]
+            nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) \
+                + lse.numel() * 4
+            case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 10.0 * D * pairs, bw, peak)
+        cases.append(case)
+        log(case)
+        del q, k, v, do, out, lse, got, again, ref, bad
+    return cases
+
+
+#: The training shape of the dropout phase (Llama-3.2-1B heads, 8 x 512).
+DROPOUT_SHAPE = dict(B=8, S=512, Hq=32, Hk=8, D=64)
+DROPOUT_P, DROPOUT_SEED = 0.1, 20260
+
+
+def dropout_kernel_cases(dev, bw, peak, log):
+    """K3 and K6 with attention dropout (p 0.1) at the training shape (B 8,
+    S 512, Hq 32, Hk 8, D 64, causal) against their plain versions within
+    the limits of the dropout-free cases (rows within ROW_ULPS, lse within
+    1e-3), two runs bit-identical, and the keep mask read back from each
+    kernel bit for bit against ``dropout_keep_mask``: K3's from its output
+    with V one-hot over 64 keys at a time (an output element is 0 exactly
+    where its key was dropped or masked), K6's from dV with dO one-hot over
+    64 queries of one head of each kv group at a time. Each kernel's time
+    stands beside its time without dropout."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels import flash_attention_bwd as k6
+
+    g = torch.Generator(device=dev).manual_seed(9753)
+    B, S, Hq, Hk, D = (DROPOUT_SHAPE[k] for k in ("B", "S", "Hq", "Hk", "D"))
+    grp = Hq // Hk
+    rate, seed = DROPOUT_P, DROPOUT_SEED
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(torch.bfloat16)
+
+    q, k, v, do = randn(B, S, Hq, D), randn(B, S, Hk, D), randn(B, S, Hk, D), randn(B, S, Hq, D)
+    qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+    kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+    cfg = dict(causal=True, window=None, softcap=None, scale=D ** -0.5)
+    drop = dict(dropout_p=rate, dropout_seed=seed)
+    live = live_pairs(B, S, S, qo, kl, True, None, dev)
+    keep = k6.dropout_keep(seed, rate, qo, B, Hq, S, S) & live[:, None]  # [B, Hq, S, S]
+    cases = []
+
+    # ---- K3 ----
+    out, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **cfg, **drop)
+    out2 = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **cfg, **drop)
+    ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, **cfg, **drop)
+    torch.cuda.synchronize()
+    err, ulps = rows_within(out, ref, "K3 dropout")
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(math.isfinite(lse_err) and lse_err <= 1e-3, f"K3 dropout: lse err {lse_err}")
+    rerun = bool(torch.equal(out.view(torch.int16), out2.view(torch.int16)))
+    check(rerun, "K3 dropout: two runs differ")
+    # The mask read back: V one-hot, key 64·j + d → column d. Small q and k
+    # keep every p far from underflow.
+    qs, ksm = (q.float() * 0.05).to(torch.bfloat16), (k.float() * 0.05).to(torch.bfloat16)
+    seen = torch.zeros((B, Hq, S, S), dtype=torch.bool, device=dev)
+    for j in range(S // D):
+        onehot = torch.zeros((B, S, Hk, D), dtype=torch.bfloat16, device=dev)
+        idx = torch.arange(D, device=dev)
+        onehot[:, j * D + idx, :, idx] = 1.0
+        o = k3.flash_attention(qs, ksm, onehot, q_offset=qo, kv_lens=kl, **cfg, **drop)  # [B, S, Hq, D]
+        seen[:, :, :, j * D:(j + 1) * D] = (o != 0).permute(0, 2, 1, 3)
+    torch.cuda.synchronize()
+    k3_mask = bool(torch.equal(seen, keep))
+    check(k3_mask, f"K3 dropout: the kernel's keep mask differs from the plain mask in "
+          f"{int((seen != keep).sum())} entries")
+    pairs = int(live.sum()) * Hq
+    call = lambda d: (lambda: k3.flash_attention(  # noqa: E731
+        q, k, v, q_offset=qo, kv_lens=kl, **cfg, **d))
+    ms, ms_off = cuda_ms(call(drop)), cuda_ms(call({}))
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(grp, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(grp, dim=1)
+    sdpa_drop_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, dropout_p=rate, scale=cfg["scale"]))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 4.0 * D * pairs, bw, peak)
+    case = dict(kernel="flash_attention", case=f"dropout {rate} train B{B} S{S} Hq{Hq} Hk{Hk} "
+                f"D{D} causal", max_abs_err=err, err_ulps=ulps, lse_err=lse_err,
+                reruns_identical=rerun, keep_mask_equal=k3_mask,
+                kept_share=float(keep.sum()) / float(live.sum() * Hq), ms=ms,
+                ms_without_dropout=ms_off, dropout_cost=ms / ms_off, call_ms=eager_ms(call(drop)),
+                plain_ms=cuda_ms(lambda: k3.flash_fwd_plain(q, k, v, qo, kl, **cfg, **drop),
+                                 calls=2, rounds=3),
+                library_ms=None, sdpa_dropout_ms=sdpa_drop_ms,
+                sdpa_note="SDPA's dropout draws another mask: not the same function",
+                bound_ms=b_ms, bound_by=b_by)
+    cases.append(case)
+    log(case)
+    del out2, ref, ref_lse, seen
+
+    # ---- K6 ----
+    args = (q, k, v, out, lse, do)
+    got = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg, **drop)
+    again = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg, **drop)
+    ref = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl, **cfg, **drop)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(same, "K6 dropout: two runs are not bit-identical")
+    nkeys = live.sum(dim=-1)
+    key_multi = (live & (nkeys > 1)[:, :, None]).any(dim=1)
+    ex = {"dq": (nkeys == 1)[:, :, None].expand(B, S, Hq),
+          "dk": (live.any(dim=1) & ~key_multi)[:, :, None].expand(B, S, Hk),
+          "dv": torch.zeros((B, S, Hk), dtype=torch.bool, device=dev)}
+    case = dict(kernel="flash_attention_bwd", case=f"dropout {rate} train B{B} S{S} Hq{Hq} "
+                f"Hk{Hk} D{D} causal", deterministic=same)
+    errs = []
+    for what, a, b in zip(("dq", "dk", "dv"), got, ref):
+        e, u, n_ex, noise = grad_rows_within(a, b, ex[what], f"K6 dropout {what}")
+        case[what] = dict(max_abs_err=e, err_ulps=u, zero_rows=n_ex, zero_row_err=noise)
+        errs.append(e)
+    case["max_abs_err"] = max(errs)
+    # The mask read back through dV = Σ p_v·dO with dO one-hot: query 64·j + d
+    # of head g of every kv group → column d of that group's dV.
+    seen = torch.zeros((B, Hq, S, S), dtype=torch.bool, device=dev)
+    idx = torch.arange(D, device=dev)
+    out_s, lse_s = k3.flash_attention(qs, ksm, v, q_offset=qo, kv_lens=kl, return_lse=True,
+                                      **cfg, **drop)
+    for gi in range(grp):
+        for j in range(S // D):
+            onehot = torch.zeros((B, S, Hq, D), dtype=torch.bfloat16, device=dev)
+            onehot[:, j * D + idx, gi::grp, idx] = 1.0
+            _, _, dv = k6.flash_attention_bwd(qs, ksm, v, out_s, lse_s, onehot, q_offset=qo,
+                                              kv_lens=kl, **cfg, **drop)
+            # dv [B, Sk, Hk, D] → [B, Hk (head gi of each group), D (query), Sk]
+            seen[:, gi::grp, j * D:(j + 1) * D, :] = (dv != 0).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    k6_mask = bool(torch.equal(seen, keep))
+    check(k6_mask, f"K6 dropout: the kernel's keep mask differs from the plain mask in "
+          f"{int((seen != keep).sum())} entries")
+    call = lambda d: (lambda: k6.flash_attention_bwd(  # noqa: E731
+        *args, q_offset=qo, kv_lens=kl, **cfg, **d))
+    case.update(keep_mask_equal=k6_mask, ms=cuda_ms(call(drop)),
+                ms_without_dropout=cuda_ms(call({})), call_ms=eager_ms(call(drop)),
+                plain_ms=cuda_ms(lambda: k6.flash_attention_bwd_plain(
+                    *args, q_offset=qo, kv_lens=kl, **cfg, **drop), calls=2, rounds=3),
+                library_ms=None)
+    case["dropout_cost"] = case["ms"] / case["ms_without_dropout"]
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) \
+        + lse.numel() * 4
+    case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 10.0 * D * pairs, bw, peak)
+    cases.append(case)
+    log(case)
+    return cases
+
+
+#: Baichuan-13B's depth in alibi_serve (its full 40 layers).
+ALIBI_SERVE_LAYERS = 40
+
+
+def fp8_params_by_layer(cfg, dev, seed=0):
+    """LAYERWISE fp8 params of ``cfg``, made and quantized one layer at a time
+    (layer li from seed ``seed·1000 + li``): a 13B model's whole bf16 copy and
+    its float32 quantize temporaries do not fit beside each other on one
+    card. The stacked codes are laid out for the route in force at the end
+    (``serving_layout``)."""
+    import dataclasses
+
+    import torch
+
+    from llm_fp8_tpu_torch.models.llama import init_params, quantize_params
+    from llm_fp8_tpu_torch.quant import LAYERWISE, QTensor
+    from llm_fp8_tpu_torch.quant.dot import serving_layout
+
+    one = dataclasses.replace(cfg, num_layers=1)
+    layers, top = {}, None
+    for li in range(cfg.num_layers):
+        p = quantize_params(init_params(one, device=dev, seed=seed * 1000 + li), LAYERWISE)
+        if top is None:
+            top = {k: v for k, v in p.items() if k != "layers"}
+        for k, v in p["layers"].items():
+            layers.setdefault(k, []).append(
+                dataclasses.replace(v, qvalue=v.qvalue.contiguous()) if isinstance(v, QTensor)
+                else v)
+        del p
+    out = dict(top)
+    out["layers"] = {}
+    for k, parts in layers.items():
+        if isinstance(parts[0], QTensor):
+            q = dataclasses.replace(parts[0], qvalue=torch.cat([t.qvalue for t in parts]),
+                                    scale=torch.cat([t.scale for t in parts]))
+            out["layers"][k] = serving_layout(q)
+        else:
+            out["layers"][k] = torch.cat(parts)
+        layers[k] = None
+    torch.cuda.synchronize()
+    return out
+
+
+def alibi_slice_planted(dev, log, model, sound):
+    """The slice's prefill logits (2 layers, xla route) on the card against
+    the CPU's with every head given its neighbour's ALiBi slope: the free
+    card-vs-CPU difference (``sound``, the xla slice's worst reading) must be
+    a third of what a wrong slope does to the model's logits or less."""
+    import dataclasses
+
+    import torch
+
+    from llm_fp8_tpu_torch.models import forward, get_config
+    from llm_fp8_tpu_torch.models import llama
+    from llm_fp8_tpu_torch.models.llama import init_params, quantize_params
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+
+    cfg = dataclasses.replace(get_config(model), num_layers=2)
+    params = quantize_params(init_params(cfg, device=dev, seed=7), LAYERWISE)
+    n = 40
+    prompt = torch.randint(1, cfg.vocab_size, (1, 64), generator=torch.Generator().manual_seed(3))
+    lens = torch.tensor([n])
+    card = forward(params, prompt.to(dev), cfg, kv_lens=lens.to(dev))[0][0, :n].float().cpu()
+    real = llama._alibi
+    llama._alibi = lambda c, d: torch.roll(real(c, d), 1)
+    try:
+        bad = forward(to_cpu(params), prompt, cfg, kv_lens=lens)[0][0, :n].float()
+    finally:
+        llama._alibi = real
+    err = (card - bad).abs().max().item()
+    res = dict(case=f"{model} 2-layer prefill, CPU with each head's neighbour's slope",
+               logits_max_abs_err=err, sound_max_abs_err=sound, margin=err / sound)
+    log(res)
+    check(err >= 3 * sound, f"alibi slice: a wrong slope moves the logits by {err}, under 3x "
+          f"the sound run's {sound}")
+    return res
+
+
+def alibi_serving(dev, card, log, num_layers=ALIBI_SERVE_LAYERS):
+    """Baichuan-13B (ALiBi, 40 heads of 128, vocab 64000) at full width: the
+    2-layer slices card against CPU (arena and paged: qdot pinned to xla, a
+    reading; fp8native with the CPU fed the card's projection inputs, held to
+    the existing limits; a wrong slope on the CPU must part from the card 3x
+    the xla reading or more), then all ``num_layers`` layers with
+    LAYERWISE fp8 weights and fp8 KV through the arena engine (8 requests of
+    100-250 tokens, 32 new each; 8 slots x 1024) and the paged engine (8
+    prompts of 3500 tokens, bucket 4096 = max_position_embeddings, page 128,
+    32 new each), each on its CUDA graph and on its eager twin (greedy
+    tokens equal), with K2 / K5 / K3 launch counts checked."""
+    import dataclasses
+
+    import torch
+
+    from llm_fp8_tpu_torch.models import get_config
+
+    model = "baichuan-13b"
+    # The free passes are readings here: at Baichuan-13B's width the card and
+    # the CPU part by more than the 1B's 0.06 (PERF.md); the forced fp8native
+    # passes are held to it, and the free xla pass must part from a wrong
+    # slope's logits by 3x its own difference or more.
+    res = {"slices": [pinned(r, lambda: _slice_check(dev, log, r, f, model=model,
+                                                     free_checked=False))
+                      for r, f in (("xla", False), ("fp8native", True))],
+           "paged_slices": [pinned(r, lambda: _paged_slice_check(dev, log, r, f, model=model,
+                                                                 free_checked=False))
+                            for r, f in (("xla", False), ("fp8native", True))]}
+    sound = max(r["logits_max_abs_err"] for r in res["slices"] + res["paged_slices"]
+                if r["qdot_route"] == "xla")
+    res["slice_wrong_slope"] = pinned("xla", lambda: alibi_slice_planted(dev, log, model, sound))
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(model), num_layers=num_layers)
+    check(cfg.alibi and cfg.num_heads == 40 and cfg.hidden_size == 5120
+          and cfg.vocab_size == 64000, f"alibi_serve: {model} is not Baichuan-13B's shape")
+    t0 = time.perf_counter()
+    params = fp8_params_by_layer(cfg, dev)
+    res["init_s"] = time.perf_counter() - t0
+    res["weights_gb"] = sum(
+        (v.qvalue.numel() * v.qvalue.element_size() if hasattr(v, "qvalue") else
+         v.numel() * v.element_size()) for v in list(params["layers"].values())
+        + [params[k] for k in params if k != "layers"]) / 1e9
+    res["arena"] = serving(dev, num_layers, card, log, model=model,
+                           runs=(("alibi_fp8", None, "fp8", "fp8", 8),), params=params)
+    gc.collect()  # the arena engines' graphs, before the paged run's peak is read
+    torch.cuda.empty_cache()
+    res["paged"] = paged_serving(dev, num_layers, card, log, model=model,
+                                 runs=(("alibi_fp8", None, "fp8", 8, 3500, 32, 4096, 1.0),),
+                                 params=params)
+    del params
+    res["config"] = (f"{model}: hidden 5120, 40 heads of 128, vocab 64000, ALiBi; "
+                     f"{num_layers} of 40 layers; LAYERWISE fp8 weights, fp8 KV")
+    log({k: v for k, v in res.items() if k not in ("arena", "paged", "slices", "paged_slice")})
+    return res
+
+
+def train_rest(dev, card, log, num_layers=16, steps=10):
+    """The rest of training at Llama-3.2-1B width (16 layers, 8 x 512,
+    LAYERWISE, native fp8 dots): 10 steps under remat none, full and dots
+    from the same weights and batches (the first step's loss equal bit for
+    bit, every step within 1e-3 relative and bit-equality recorded; full's
+    peak memory below none's); 10 steps with attention dropout 0.1 (finite,
+    falling, K3 and K6 launched a layer a step); a checkpoint at step 5
+    restored into a fresh Trainer whose steps 6-10 must equal the
+    uninterrupted run's bit for bit; and the trained params exported as HF
+    safetensors and read back by ``load_hf_checkpoint`` bit for bit."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.cli.train import ByteTokenizer
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.models.hf_loader import load_hf_checkpoint
+    from llm_fp8_tpu_torch.models.llama import init_params
+    from llm_fp8_tpu_torch.training import (CheckpointManager, DataConfig, DataManager,
+                                            TrainConfig, Trainer, export_hf,
+                                            synthetic_examples)
+    from llm_fp8_tpu_torch.training.trainer import _leaves
+
+    cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=num_layers)
+    saved_env = os.environ.pop("LLM_FP8_NATIVE_DOT", None)
+    dm = DataManager(DataConfig(max_seq_length=512, batch_size=8), ByteTokenizer(cfg.vocab_size))
+    batches = list(dm.batches(dm.build(synthetic_examples(100))[0], 8, shuffle=True, seed=0))
+    check(len(batches) >= steps, f"train_rest: {len(batches)} batches for {steps} steps")
+
+    def trainer(**kw):
+        return Trainer(cfg, TrainConfig(**{**dict(recipes="default", learning_rate=3e-4,
+                                                  warmup_steps=1, total_steps=steps), **kw}),
+                       device=dev)
+
+    def run(tr, state, first, last):
+        losses, step_s = [], []
+        for b in batches[first:last]:
+            t1 = time.perf_counter()
+            state, m = tr.train_step(state, b)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            check(int(m["finite"]) == 1 and math.isfinite(loss), f"train_rest: step "
+                  f"{state.step} not finite (loss {loss})")
+            losses.append(loss)
+        return state, losses, step_s
+
+    res = {"card": card, "config": f"llama-3.2-1b, {num_layers} layers, 8 x 512, LAYERWISE, "
+           "float32 master weights, native fp8 dots"}
+    ckdir = ROOT / "_smoke_ckpt_train"
+    try:
+        ref_params = None  # the uninterrupted remat-free run's, on the host
+        for mode in ("none", "full", "dots"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            before_gb = torch.cuda.memory_allocated(dev) / 2 ** 30
+            tr = trainer(remat=mode)
+            state = tr.init_state(init_params(cfg, dtype=torch.float32, device=dev, seed=0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            kernels.reset_launch_counts()
+            state, losses, step_s = run(tr, state, 0, steps)
+            res[mode] = dict(losses=losses, step_ms=1e3 * statistics.median(step_s[1:]),
+                             peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                             allocated_before_gb=before_gb, launches=kernels.launch_counts())
+            if mode == "none":
+                ref_params = {path: t.detach().cpu() for path, t in _leaves(state.params)}
+            del state, tr
+            torch.cuda.empty_cache()
+        base = res["none"]["losses"]
+        check(statistics.mean(base[-3:]) < base[0], f"train_rest: the loss did not fall ({base})")
+        for mode in ("full", "dots"):
+            got = res[mode]["losses"]
+            res[mode]["losses_bit_equal_none"] = got == base
+            res[mode]["max_rel_diff_none"] = max(abs(a - b) / abs(b) for a, b in zip(got, base))
+            check(got[0] == base[0], f"train_rest: remat {mode}'s first loss {got[0]} is not "
+                  f"none's {base[0]}")
+            check(res[mode]["max_rel_diff_none"] <= 1e-3, f"train_rest: remat {mode}'s losses "
+                  f"{got} part from none's {base}")
+        # K3 forward: once a layer a step, twice under full (the recompute).
+        for mode, k3 in (("none", 1), ("full", 2), ("dots", 1)):
+            n = res[mode]["launches"]["flash_attention"]
+            check(n == k3 * num_layers * steps, f"train_rest: remat {mode} launched K3 {n} "
+                  f"times in {steps} steps, not {k3 * num_layers * steps}")
+        check(res["full"]["peak_memory_gb"] < res["none"]["peak_memory_gb"],
+              f"train_rest: remat full's peak {res['full']['peak_memory_gb']:.2f} GB is not "
+              f"below none's {res['none']['peak_memory_gb']:.2f} GB")
+
+        # Attention dropout 0.1.
+        tr = trainer(attention_dropout=0.1)
+        state = tr.init_state(init_params(cfg, dtype=torch.float32, device=dev, seed=0))
+        kernels.reset_launch_counts()
+        state, losses, step_s = run(tr, state, 0, steps)
+        counts = kernels.launch_counts()
+        check(statistics.mean(losses[-3:]) < losses[0],
+              f"train_rest dropout: the loss did not fall ({losses})")
+        for k in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            check(counts[k] == num_layers * steps, f"train_rest dropout: {k} launched "
+                  f"{counts[k]} times")
+        res["dropout"] = dict(rate=0.1, losses=losses, losses_differ_from_none=losses != base,
+                              step_ms=1e3 * statistics.median(step_s[1:]), launches=counts)
+        del state, tr
+        torch.cuda.empty_cache()
+
+        # Checkpoint at step 5, restored into a fresh Trainer: steps 6-10.
+        half = steps // 2
+        tr = trainer()
+        state = tr.init_state(init_params(cfg, dtype=torch.float32, device=dev, seed=0))
+        state, first, _ = run(tr, state, 0, half)
+        t1 = time.perf_counter()
+        CheckpointManager(str(ckdir), keep=1).save(state, state.step)
+        save_s = time.perf_counter() - t1
+        del state, tr
+        torch.cuda.empty_cache()
+        tr = trainer()
+        t1 = time.perf_counter()
+        state = CheckpointManager(str(ckdir), keep=1).restore(
+            tr.init_state(init_params(cfg, dtype=torch.float32, device=dev, seed=1)))
+        restore_s = time.perf_counter() - t1
+        check(state.step == half, f"train_rest: restored step {state.step}")
+        state, second, _ = run(tr, state, half, steps)
+        resumed = first + second
+        params_equal = all(torch.equal(t.detach().cpu(), ref_params[path])
+                           for path, t in _leaves(state.params))
+        res["checkpoint"] = dict(saved_at=half, losses=resumed, losses_bit_equal=resumed == base,
+                                 params_bit_equal=params_equal, save_s=save_s,
+                                 restore_s=restore_s,
+                                 file_gb=sum(f.stat().st_size for f in ckdir.rglob("*")
+                                             if f.is_file()) / 1e9)
+        check(resumed == base, f"train_rest: the resumed run's losses {resumed} are not the "
+              f"uninterrupted run's {base}")
+        check(params_equal, "train_rest: the resumed run's params differ from the "
+              "uninterrupted run's")
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+        # The HF export of the trained params (the resumed run's, equal to
+        # the uninterrupted run's), read back.
+        t1 = time.perf_counter()
+        export_hf(state.params, cfg, str(ckdir))
+        back = load_hf_checkpoint(str(ckdir), cfg, dtype=torch.float32, device=dev)
+        same = all(torch.equal(a, ref_params[path].to(dev)) for path, a in _leaves(back))
+        res["export"] = dict(bit_equal=same, seconds=time.perf_counter() - t1,
+                             file_gb=(ckdir / "model.safetensors").stat().st_size / 1e9)
+        check(same, "train_rest: the exported params read back differ from the trained ones")
+        del back, state, tr, ref_params
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        restore_env("LLM_FP8_NATIVE_DOT", saved_env)
+    log({k: v for k, v in res.items()})
+    return res
+
+
+def compare_study(dev, log, num_layers=8):
+    """``cli.compare`` (the FP8-vs-BF16 study) at Llama-3.2-1B width cut to
+    ``num_layers`` layers: all five configs for 5 steps each, then a
+    ``--resume`` run that keeps them and adds nothing; the JSON must hold
+    every config with its eval perplexity and the bf16 delta."""
+    import json
+    import shutil
+
+    from llm_fp8_tpu_torch.cli.compare import main as compare_main
+
+    out_dir = ROOT / "_smoke_ckpt_compare"
+    out = out_dir / "comparison.json"
+    configs = ["bf16", "default", "hybrid", "mxfp8", "int8_train"]
+    argv = ["--model_name", "meta-llama/Llama-3.2-1B", "--num_layers", str(num_layers),
+            "--random_init", "--synthetic_samples", "100", "--batch_size", "8",
+            "--max_seq_length", "512", "--max_steps", "5", "--max_eval_batches", "2",
+            "--num_warmup_steps", "1", "--learning_rate", "3e-4", "--out", str(out)]
+    saved_env = os.environ.pop("LLM_FP8_NATIVE_DOT", None)
+    try:
+        out_dir.mkdir(exist_ok=True)
+        t0 = time.perf_counter()
+        first = compare_main(argv + ["--configs", *configs[:3]])
+        t1 = time.perf_counter()
+        merged = compare_main(argv + ["--configs", *configs, "--resume"])
+        t2 = time.perf_counter()
+        written = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        restore_env("LLM_FP8_NATIVE_DOT", saved_env)
+    check(sorted(first) == sorted(configs[:3]) and sorted(merged) == sorted(configs),
+          f"compare: configs {sorted(first)} then {sorted(merged)}")
+    for name in configs[:3]:
+        check(merged[name]["train_wall_s"] == first[name]["train_wall_s"],
+              f"compare --resume reran {name}")
+    for name, r in written.items():
+        check(r["steps"] == 5 and math.isfinite(r["eval_loss"]) and math.isfinite(r["perplexity"])
+              and "delta_ppl_vs_bf16_pct" in r, f"compare: bad entry {name}: {r}")
+    res = dict(configs=configs, layers=num_layers, first_s=t1 - t0, resume_s=t2 - t1,
+               results={k: {kk: v[kk] for kk in ("step_s", "compile_s", "eval_loss", "perplexity",
+                                                  "delta_ppl_vs_bf16_pct")}
+                        for k, v in written.items()})
+    log(res)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3027,7 +3835,12 @@ def main(argv=None) -> int:
              ("train_slice", lambda: train_slice_check(dev, log)),
              ("train", lambda: training(dev, 16, card, log)),
              ("fp8_kernels", lambda: fp8_kernel_cases(dev, bw, peak, log)),
-             ("profile", lambda: profile_probe(dev, log)))
+             ("profile", lambda: profile_probe(dev, log)),
+             ("alibi_kernels", lambda: alibi_kernel_cases(dev, bw, peak, log)),
+             ("dropout_kernels", lambda: dropout_kernel_cases(dev, bw, peak, log)),
+             ("alibi_serve", lambda: alibi_serving(dev, card, log)),
+             ("train_rest", lambda: train_rest(dev, card, log)),
+             ("compare", lambda: compare_study(dev, log)))
     try:
         for phase, run in steps:
             if phase in phases:
@@ -3035,6 +3848,7 @@ def main(argv=None) -> int:
                 report[phase] = run()
                 report.setdefault("phase_s", {})[phase] = time.perf_counter() - t0
                 print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+                gc.collect()  # engines and their graphs' memory pools sit in cycles
                 torch.cuda.empty_cache()
     except SmokeFailure as e:
         save_report()
@@ -3067,7 +3881,12 @@ def kernels_line(report):
                "fp8_kernels (K7's public call at the 1B prefill shape, both routes; no path "
                "of the JAX package calls K7)": {"flash_attention_fp8": next(
                    c["launches_on_path"] for c in report["fp8_kernels"]
-                   if "launches_on_path" in c)}}
+                   if "launches_on_path" in c)},
+               "alibi arena (baichuan-13b)":
+                   report["alibi_serve"]["arena"]["alibi_fp8"]["launches"],
+               "alibi paged (baichuan-13b)":
+                   report["alibi_serve"]["paged"]["alibi_fp8"]["launches"],
+               "train, attention dropout 0.1": report["train_rest"]["dropout"]["launches"]}
     for counts in by_path.values():
         counts["flash_attention_bwd"] = (counts.get("flash_attention_bwd_dkv", 0)
                                          + counts.get("flash_attention_bwd_dq", 0))
@@ -3085,6 +3904,17 @@ def kernels_line(report):
     # of its launches on the training path.
     also = {"quantize_fused": ("train_kernels", "gate_up [4096, 16384] rows float32 e4m3"),
             "rmsnorm_residual_fused": ("fp8_kernels", "[4096, 2048] float32")}
+    features = {
+        "decode_attention_arena": {"alibi": ("alibi_kernels", "B8 Hq40")},
+        "paged_attention": {"alibi": ("alibi_kernels", "B8 Hq40")},
+        "flash_attention": {"alibi": ("alibi_kernels", "alibi Hq40 D128 prefill"),
+                            "dropout": ("dropout_kernels", "dropout")},
+        "flash_attention_bwd": {"alibi": ("alibi_kernels", "alibi Hq40 D128 B2 S1024"),
+                                "dropout": ("dropout_kernels", "dropout")}}
+    headers = {"decode_attention_arena": ["decode_split.cuh", "fp8_ftz.cuh"],
+               "paged_attention": ["decode_split.cuh", "fp8_ftz.cuh"],
+               "flash_attention": ["hopper.cuh", "dropout.cuh"],
+               "flash_attention_bwd": ["hopper.cuh", "dropout.cuh"]}
     meta = {"quant_matmul": ("csrc/quant_matmul.cu", "llm_fp8_tpu/kernels/quant_matmul.py:126"),
             "decode_attention_arena": ("csrc/decode_attention.cu",
                                        "llm_fp8_tpu/kernels/decode_attention.py:300"),
@@ -3133,6 +3963,16 @@ def kernels_line(report):
                                                      "bound_ms", "bound_by", "library_ms")}
         if kname == "flash_attention_fp8":
             line[-1].update(route_ms=c["routes"], no_jax_path_calls_it=True)
+        if kname in features:  # the ALiBi and dropout cases beside the main one
+            line[-1]["headers"] = headers[kname]
+            line[-1]["features"] = {}
+            for tag, (phase, prefix) in features[kname].items():
+                o = next(o for o in report[phase]
+                         if o["kernel"] == kname and o["case"].startswith(prefix))
+                line[-1]["features"][tag] = {k: o.get(k) for k in (
+                    "case", "max_abs_err", "ms", "ms_without_alibi", "ms_without_dropout",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms", "keep_mask_equal")
+                    if k in o}
         if kname in also:
             phase, prefix = also[kname]
             o = next(o for o in report[phase]

@@ -10,14 +10,17 @@ weights (``--random_init``) or an HF safetensors directory
 (``--weights_path``, float32 master weights). On the card the per-channel quantizes of the fp8
 dots (the native route's gradients) go through K9. Logs one JSON line per
 ``--log_every`` steps and per epoch's eval (also appended to
-``--log_dir/metrics.jsonl``), writes the stability report to
-``--output_dir/stability_report.json`` and prints it as the last line.
+``--log_dir/metrics.jsonl``), checkpoints the train state every
+``--save_every`` steps and after each epoch's eval into
+``--checkpoint_dir`` (``training/checkpoint.py``: the newest two and the
+best eval loss kept), writes the trained model as HF safetensors
+(``model.safetensors`` and ``config.json``) and the stability report
+(``stability_report.json``) into ``--output_dir``, and prints the report as
+the last line. ``--remat none|full|dots`` checkpoints each layer.
 
 Not ported yet (they raise): the mesh flags and ``--multihost`` (one
-device), ``--checkpoint_dir`` /
-``--save_every`` (checkpointing), ``--use_wandb``, ``--remat``, and the HF
-export that the JAX CLI writes at the end. ``--unroll`` is a JAX scan knob
-with no counterpart here.
+device), ``--use_wandb`` and the HF dataset and tokenizer (no network).
+``--unroll`` is a JAX scan knob with no counterpart here.
 """
 from __future__ import annotations
 
@@ -57,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["linear", "cosine", "constant"])
     t.add_argument("--grad_clip", type=float, default=1.0)
     t.add_argument("--remat", type=str, default="none", choices=["none", "full", "dots"],
-                   help="only 'none' is ported")
+                   help="per-layer checkpointing: 'full' saves nothing, 'dots' keeps the "
+                        "GEMM outputs and recomputes the elementwise ops")
     t.add_argument("--ce_chunks", type=int, default=0,
                    help=">1: fuse the lm_head into a chunked cross-entropy")
     t.add_argument("--unroll", type=int, default=1, help="a JAX scan knob: only 1")
@@ -75,8 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
     lg = p.add_argument_group("Logging and Saving")
     lg.add_argument("--log_dir", type=str, default="./runs")
     lg.add_argument("--output_dir", type=str, default="./saved_model")
-    lg.add_argument("--checkpoint_dir", type=str, default=None, help="not ported yet")
-    lg.add_argument("--save_every", type=int, default=0, help="not ported yet")
+    lg.add_argument("--checkpoint_dir", type=str, default=None)
+    lg.add_argument("--save_every", type=int, default=0,
+                    help="checkpoint every N steps (0: after each epoch's eval only)")
     lg.add_argument("--use_wandb", action="store_true", help="not ported yet")
     lg.add_argument("--wandb_project", type=str, default="llm-fp8-tpu")
     lg.add_argument("--wandb_run_name", type=str, default=None)
@@ -89,10 +94,7 @@ def _refuse_unported(args) -> None:
         "--dp/--tp/--cp/--ep/--fsdp (a device mesh)": (args.dp, args.tp, args.cp, args.ep,
                                                          args.fsdp) != (1, 1, 1, 1, -1),
         "--multihost": args.multihost,
-        "--checkpoint_dir/--save_every (checkpointing)": (args.checkpoint_dir is not None
-                                                          or args.save_every != 0),
         "--use_wandb": args.use_wandb,
-        "--remat": args.remat != "none",
         "--unroll (a JAX scan knob)": args.unroll != 1,
         "the HF dataset (use --synthetic_samples)": not args.synthetic_samples,
     }
@@ -122,8 +124,8 @@ def main(argv=None):
     from ..models.config import get_config
     from ..models.hf_loader import load_hf_checkpoint
     from ..models.llama import init_params
-    from ..training import (DataConfig, DataManager, StabilityTracker, TrainConfig, Trainer,
-                            synthetic_examples)
+    from ..training import (CheckpointManager, DataConfig, DataManager, StabilityTracker,
+                            TrainConfig, Trainer, export_hf, synthetic_examples)
     from ..utils.backend import resolve_device
 
     dev = resolve_device(args.device)
@@ -151,12 +153,15 @@ def main(argv=None):
         learning_rate=args.learning_rate, warmup_steps=args.num_warmup_steps,
         total_steps=total_steps, schedule=args.schedule, grad_clip=args.grad_clip,
         grad_accum=args.gradient_accumulation_steps, recipes=recipes,
+        remat={"none": False, "full": True, "dots": "dots"}[args.remat],
         ce_chunks=args.ce_chunks), device=dev)
     state = trainer.init_state(params)
     stability = StabilityTracker(precision_name=f"fp8-{args.fp8_scenario}"
                                  if args.mixed_precision == "fp8" else "bf16")
+    ckpt = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir else None
     print(json.dumps({"device": str(dev), "steps_per_epoch": steps_per_epoch,
-                      "total_steps": total_steps, "recipes": recipes}), flush=True)
+                      "total_steps": total_steps, "recipes": recipes,
+                      "remat": args.remat}), flush=True)
 
     os.makedirs(args.log_dir, exist_ok=True)
     log_file = open(os.path.join(args.log_dir, "metrics.jsonl"), "a")
@@ -181,13 +186,17 @@ def main(argv=None):
                 log({"train": {**inst, "step": step, "epoch": epoch,
                                "perplexity": math.exp(min(loss, 20.0)),
                                "tokens_per_s": tokens / wall}})
+            if args.save_every and ckpt and step % args.save_every == 0:
+                ckpt.save(state, step)
         ev = trainer.evaluate(state.params, dm.batches(eval_seqs, dm.config.eval_bs,
                                                        shuffle=False, drop_last=False))
         log({"eval": {**ev, "step": step, "epoch": epoch}})
+        if ckpt:
+            ckpt.save(state, step, eval_loss=ev["eval_loss"])
     log_file.close()
 
     report = stability.report()
-    os.makedirs(args.output_dir, exist_ok=True)
+    export_hf(state.params, cfg, args.output_dir)
     with open(os.path.join(args.output_dir, "stability_report.json"), "w") as f:
         json.dump(report, f, default=str, indent=2)
     print(json.dumps({"stability_report": report}, default=str), flush=True)

@@ -4,9 +4,10 @@
 // Replaces llm_fp8_tpu/kernels/decode_attention.py::decode_attention_arena
 // (Pallas _kernel). Features: append of the new K/V token at lengths-1, in-
 // kernel rotary of q and the new K, per-KV-head k/v descales, GQA (up to 8
-// q heads per kv head), sliding window and softcap, over e4m3, e5m2, int8
-// and bf16 arenas. A zero-length sequence reads nothing, appends nothing and
-// gives zeros.
+// q heads per kv head), sliding window, softcap and ALiBi (slope·(t - (len -
+// 1)) per q head, after softcap; ALiBi models append without rotary), over
+// e4m3, e5m2, int8 and bf16 arenas. A zero-length sequence reads nothing,
+// appends nothing and gives zeros.
 //
 // Layout: the arena is [L, B, Hk, S, D] here, not the TPU's lane-major
 // [L, B, Hk, D, S]: each token's D codes are contiguous, so a lane reads a
@@ -85,8 +86,8 @@ decode_arena_split_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_arena,
                           const __nv_bfloat16* __restrict__ new_v,
                           const float* __restrict__ cos, const float* __restrict__ sin,
                           const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-                          Partials part, int B, int Hq, int Hk, int S, int span, float scale,
-                          int window, float softcap) {
+                          const float* __restrict__ alibi, Partials part, int B, int Hq, int Hk,
+                          int S, int span, float scale, int window, float softcap) {
   using W = Walk<D, KIND, ArenaRows>;
   __shared__ float q_raw[kMaxG][D];
   __shared__ float raw_s[2][D];
@@ -150,15 +151,16 @@ decode_arena_split_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_arena,
   __syncthreads();
 
   // 3. The walk over [lo, hi) and this split's partial.
-  walk.attend(q_b, new_code, G, softcap, part, row0);
+  walk.attend(q_b, new_code, G, softcap, alibi != nullptr ? alibi + kvh * G : nullptr,
+              length - 1, part, row0);
 }
 
 template <int D>
 int launch_kind(int kind, dim3 grid, cudaStream_t s, const __nv_bfloat16* q, uint8_t* ka,
                 uint8_t* va, const int* lengths, int layer, const __nv_bfloat16* nk,
                 const __nv_bfloat16* nv, const float* cos, const float* sin, const float* ks,
-                const float* vs, Partials part, __nv_bfloat16* out, int B, int Hq, int Hk,
-                int S, int span, float scale, int window, float softcap) {
+                const float* vs, const float* alibi, Partials part, __nv_bfloat16* out, int B,
+                int Hq, int Hk, int S, int span, float scale, int window, float softcap) {
   // The stage's shared-memory limit is set once per kernel instance (a
   // function-local static), not on every launch of the decode step.
 #define K2_LAUNCH(KIND)                                                               \
@@ -169,8 +171,8 @@ int launch_kind(int kind, dim3 grid, cudaStream_t s, const __nv_bfloat16* q, uin
         bytes);                                                                       \
     if (attr != cudaSuccess) return static_cast<int>(attr);                           \
     decode_arena_split_kernel<D, KIND><<<grid, kThreads, bytes, s>>>(                 \
-        q, ka, va, lengths, layer, nk, nv, cos, sin, ks, vs, part, B, Hq, Hk, S, span,  \
-        scale, window, softcap);                                                      \
+        q, ka, va, lengths, layer, nk, nv, cos, sin, ks, vs, alibi, part, B, Hq, Hk, S, \
+        span, scale, window, softcap);                                                \
   } while (0)
   switch (kind) {
     case kCodeE4M3: K2_LAUNCH(kCodeE4M3); break;
@@ -190,14 +192,16 @@ int launch_kind(int kind, dim3 grid, cudaStream_t s, const __nv_bfloat16* q, uin
 
 }  // namespace
 
-// new_k/new_v (and cos/sin) may be null: no append (no rotary). window <= 0
-// and softcap <= 0 mean "off". D is 32, 64 or 128; Hq / Hk <= 8. The arena
+// new_k/new_v (and cos/sin) may be null: no append (no rotary). alibi
+// ([Hq] float32 slopes) may be null: no bias. window <= 0 and softcap <= 0
+// mean "off". D is 32, 64 or 128; Hq / Hk <= 8. The arena
 // rows are cut into `splits` runs of `span` keys (span a multiple of 32);
 // part_m and part_l hold B·Hk·splits·(Hq/Hk) floats, part_o that times D.
 extern "C" int decode_arena_launch(const void* q, void* k_arena, void* v_arena,
                                    const void* lengths, int layer, const void* new_k,
                                    const void* new_v, const void* cos, const void* sin,
-                                   const void* k_scale, const void* v_scale, void* out,
+                                   const void* k_scale, const void* v_scale, const void* alibi,
+                                   void* out,
                                    void* part_m, void* part_l, void* part_o, int B, int Hq,
                                    int Hk, int S, int D, int kind, int splits, int span,
                                    float scale, int window, float softcap, void* stream) {
@@ -219,17 +223,18 @@ extern "C" int decode_arena_launch(const void* q, void* k_arena, void* v_arena,
   const auto* sp = static_cast<const float*>(sin);
   const auto* ksp = static_cast<const float*>(k_scale);
   const auto* vsp = static_cast<const float*>(v_scale);
+  const auto* ap = static_cast<const float*>(alibi);
   auto* op = static_cast<__nv_bfloat16*>(out);
   switch (D) {
     case 32:
       return launch_kind<32>(kind, grid, s, qp, ka, va, lp, layer, nk, nv, cp, sp, ksp, vsp,
-                             part, op, B, Hq, Hk, S, span, scale, window, softcap);
+                             ap, part, op, B, Hq, Hk, S, span, scale, window, softcap);
     case 64:
       return launch_kind<64>(kind, grid, s, qp, ka, va, lp, layer, nk, nv, cp, sp, ksp, vsp,
-                             part, op, B, Hq, Hk, S, span, scale, window, softcap);
+                             ap, part, op, B, Hq, Hk, S, span, scale, window, softcap);
     case 128:
       return launch_kind<128>(kind, grid, s, qp, ka, va, lp, layer, nk, nv, cp, sp, ksp, vsp,
-                              part, op, B, Hq, Hk, S, span, scale, window, softcap);
+                             ap, part, op, B, Hq, Hk, S, span, scale, window, softcap);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

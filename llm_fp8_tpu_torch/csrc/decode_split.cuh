@@ -24,6 +24,10 @@
 // stands in, so no thread reads back what another block just wrote. The
 // block merges its warps in warp order into the split's partial.
 //
+// ALiBi (when the caller passes its kv head's slopes) adds slope·(t - qpos)
+// to head g's score of key t after softcap, qpos = length - 1 being the
+// decode token's position.
+//
 // The merge applies 1/sum and the V descale and is the same order every
 // run, so two runs are bit-identical (no float atomics). A split with no
 // live key writes max -inf and sum 0 and returns early; the merge skips it.
@@ -216,9 +220,11 @@ struct Walk {
   // The online softmax over the warp's groups, then the block's merge into
   // the partial at rows row0 .. row0+G-1. q_b is [kMaxG][D] bf16 (rows past
   // G zero), new_code the appended K and V rows; the caller has synchronised
-  // the block after writing both.
+  // the block after writing both. slopes: the G ALiBi slopes of this kv
+  // head's q heads (null: no bias); qpos: the decode token's position.
   __device__ void attend(const __nv_bfloat16 (*q_b)[D], const uint8_t (*new_code)[ROW], int G,
-                         float softcap, Partials part, size_t row0) const {
+                         float softcap, const float* slopes, int qpos, Partials part,
+                         size_t row0) const {
     __shared__ __align__(16) float acc_w[kWarps][kMaxG][D];
     __shared__ __align__(16) __nv_bfloat16 p_s[kWarps][kMaxG][32];
     __shared__ float m_w[kWarps][kMaxG], l_w[kWarps][kMaxG];
@@ -232,6 +238,11 @@ struct Walk {
       qf[j][1] = v.y;
     }
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // heads 2c, 2c+1
+    float sl[2] = {0.0f, 0.0f};  // their ALiBi slopes
+    if (slopes != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) sl[e] = 2 * c + e < G ? slopes[2 * c + e] : 0.0f;
+    }
     float acc[KS][4];
 #pragma unroll
     for (int i = 0; i < KS; ++i)
@@ -277,8 +288,11 @@ struct Walk {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           float v = s[tt][k];
+          const int t = base + kl + (k >= 2 ? 8 : 0);
           if (softcap > 0.0f) v = softcap * tanhf(v / softcap);
-          s[tt][k] = base + kl + (k >= 2 ? 8 : 0) < hi ? v : -INFINITY;
+          if (slopes != nullptr)
+            v = __fadd_rn(v, __fmul_rn(sl[k & 1], static_cast<float>(t - qpos)));
+          s[tt][k] = t < hi ? v : -INFINITY;
         }
       }
 

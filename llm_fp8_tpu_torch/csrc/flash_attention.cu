@@ -3,9 +3,19 @@
 // Replaces llm_fp8_tpu/kernels/flash_attention.py::flash_attention (forward:
 // _flash_fwd_call / _fwd_kernel). Features: causal with a per-batch q_offset,
 // per-batch kv_lens, GQA through the head map (K/V are never repeated),
-// sliding window, softcap and the logit scale. Masked scores take the TPU
-// kernel's finite MASK_VALUE; dead rows (no live key) give out 0 and lse
-// -inf, as on the TPU. P is rounded to bf16 before the P·V product.
+// sliding window, softcap, the logit scale, ALiBi and attention dropout.
+// Masked scores take the TPU kernel's finite MASK_VALUE; dead rows (no live
+// key) give out 0 and lse -inf, as on the TPU. P is rounded to bf16 before
+// the P·V product.
+// - ALiBi: -slope·|q_pos - k_pos| on absolute positions (q_pos = q_offset +
+//   row), added after softcap and before the mask, per [B, Hq] slope. The
+//   softmax runs in the log2 domain, so the bias is scaled by log2(e) with
+//   the scores; the LSE stays in natural units.
+// - Dropout: the keep mask of dropout.cuh over (seed, b·Hq + h, q_pos,
+//   k_pos); the row sum l (and so the LSE) takes the undropped p, P·V the
+//   kept p times 1/(1 - rate), as the TPU kernel.
+// Both take the kernel's EXTRA instance, so the plain causal path's code is
+// the one without them.
 //
 // Bound on the H100: operations at long prompts, 4·D FLOPs per live (query,
 // key) pair at 989 TFLOP/s bf16 (an 8192-token causal prefill of
@@ -38,6 +48,7 @@
 //   query tiles (the last) are scheduled first.
 #include <math.h>
 
+#include "dropout.cuh"
 #include "fp8_ftz.cuh"
 #include "hopper.cuh"
 
@@ -62,26 +73,31 @@ struct FwdSmem {
 
 // The online softmax of one consumer thread's two rows (row and row + 8 of
 // its warp's 16) over one 128-key tile of scores held as a m64n128
-// accumulator, in the log2 domain.
+// accumulator, in the log2 domain. EXTRA: ALiBi and dropout may be on.
+template <bool EXTRA>
 struct Rows {
   float scale, softcap;
   int causal, window, kv_len;
   int q_pos;   // position of the thread's first row (the second is + 8)
   int wg_min;  // position of the warpgroup's first row (its last is + 63)
   int quad;    // lane % 4: the thread's columns are 8·(i / 4) + 2·quad + (i & 1)
+  float slope2;          // ALiBi slope · log2(e) (0: no bias)
+  dropout::Params drop;  // off unless EXTRA
+  uint32_t h0;           // drop.head(b·Hq + h)
 
-  // Scales (and caps) and masks sc in place, updates the running max m and
-  // sum l, leaves p = 2^(x - m) in sc and the factor alpha by which the
-  // output accumulator must be rescaled.
+  // Scales (and caps), biases and masks sc in place, updates the running max
+  // m and sum l, leaves p = 2^(x - m) in sc (dropped and scaled under
+  // dropout) and the factor alpha by which the output accumulator must be
+  // rescaled.
   __device__ __forceinline__ void softmax(float (&sc)[kBN / 2], int k0, float (&m)[2],
                                           float (&l)[2], float (&alpha)[2]) const {
     const float scale2 = scale * kLog2e;
     const bool need_mask = k0 + kBN > kv_len || (causal && k0 + kBN - 1 > wg_min) ||
                            (window > 0 && k0 <= wg_min + 63 - window);
     float mx[2] = {-INFINITY, -INFINITY};
-    // Unmasked, uncapped tiles (most of a long prompt) take the max of the raw
-    // scores and fold the scale into the exponent's multiply-add.
-    const bool fold = !need_mask && softcap <= 0.0f && scale2 > 0.0f;
+    // Unmasked, uncapped, unbiased tiles (most of a long prompt) take the max
+    // of the raw scores and fold the scale into the exponent's multiply-add.
+    const bool fold = !need_mask && softcap <= 0.0f && scale2 > 0.0f && (!EXTRA || slope2 == 0.0f);
     if (fold) {
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
@@ -92,8 +108,9 @@ struct Rows {
       for (int i = 0; i < kBN / 2; ++i) {
         float x = softcap > 0.0f ? softcap * tanhf(sc[i] * scale / softcap) * kLog2e
                                  : sc[i] * scale2;
+        const int kp = k0 + 8 * (i / 4) + 2 * quad + (i & 1), q = q_pos + 8 * ((i >> 1) & 1);
+        if (EXTRA) x = fmaf(-slope2, fabsf(static_cast<float>(q - kp)), x);
         if (need_mask) {
-          const int kp = k0 + 8 * (i / 4) + 2 * quad + (i & 1), q = q_pos + 8 * ((i >> 1) & 1);
           bool live = kp < kv_len;
           if (causal) live = live && kp <= q;
           if (window > 0) live = live && kp > q - window;
@@ -129,16 +146,24 @@ struct Rows {
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    if (EXTRA && drop.on()) {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const int kp = k0 + 8 * (i / 4) + 2 * quad + (i & 1), q = q_pos + 8 * ((i >> 1) & 1);
+        sc[i] = drop.keep(h0, q, kp) ? sc[i] * drop.scale : 0.0f;
+      }
+    }
   }
 };
 
-template <int D, int NC>
+template <int D, int NC, bool EXTRA>
 __global__ void __launch_bounds__((NC + 1) * 128, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                  float* __restrict__ lse, const int* __restrict__ q_offset,
-                 const int* __restrict__ kv_lens, int Sq, int Sk, int Hq, int Hk, float scale,
-                 int causal, int window, float softcap) {
+                 const int* __restrict__ kv_lens, const float* __restrict__ alibi, int Sq,
+                 int Sk, int Hq, int Hk, float scale, int causal, int window, float softcap,
+                 dropout::Params drop) {
   using T = Tile<D>;
   using L = FwdSmem<D, NC>;
   constexpr int CH = T::CW / 2;  // accumulator floats of one column chunk
@@ -200,8 +225,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     const int wg = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
     const int warp = t / 32, lane = t % 32, quad = lane % 4;
     const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
-    const Rows rows{scale, softcap, causal, window, kv_len, q_off + row0,
-                    q_off + q0 + 64 * wg, quad};
+    const int bh = b * Hq + h;
+    const Rows<EXTRA> rows{scale, softcap, causal, window, kv_len, q_off + row0,
+                           q_off + q0 + 64 * wg, quad,
+                           EXTRA && alibi != nullptr ? alibi[bh] * kLog2e : 0.0f, drop,
+                           EXTRA ? drop.head(static_cast<uint32_t>(bh)) : 0u};
 
     float o[T::NCH][CH];
 #pragma unroll
@@ -326,65 +354,80 @@ int num_sms() {
   return n;
 }
 
-template <int D, int NC>
-int launch_nc(const void* q, const void* k, const void* v, void* out, void* lse,
-              const void* q_offset, const void* kv_lens, int B, int Sq, int Sk, int Hq, int Hk,
-              float scale, int causal, int window, float softcap, cudaStream_t s) {
+// One launch's inputs past the tensor maps.
+struct FwdArgs {
+  void* out;
+  void* lse;
+  const void* q_offset;
+  const void* kv_lens;
+  const float* alibi;  // [B, Hq] or null
+  int B, Sq, Sk, Hq, Hk;
+  float scale;
+  int causal, window;
+  float softcap;
+  dropout::Params drop;
+};
+
+template <int D, int NC, bool EXTRA>
+int launch_nc(const void* q, const void* k, const void* v, const FwdArgs& a, cudaStream_t s) {
   CUtensorMap tq, tk, tv;
-  int e = encode_bshd<D>(&tq, q, B, Sq, Hq, NC * 64);
-  if (e == 0) e = encode_bshd<D>(&tk, k, B, Sk, Hk, kBN);
-  if (e == 0) e = encode_bshd<D>(&tv, v, B, Sk, Hk, kBN);
+  int e = encode_bshd<D>(&tq, q, a.B, a.Sq, a.Hq, NC * 64);
+  if (e == 0) e = encode_bshd<D>(&tk, k, a.B, a.Sk, a.Hk, kBN);
+  if (e == 0) e = encode_bshd<D>(&tv, v, a.B, a.Sk, a.Hk, kBN);
   if (e != 0) return e;
   constexpr int bytes = FwdSmem<D, NC>::BYTES;
   // The shared-memory limit is set once per kernel instance (a
   // function-local static), not on every launch.
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_kernel<D, NC, EXTRA>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
-  dim3 grid(Hq, B, (Sq + NC * 64 - 1) / (NC * 64));
-  flash_fwd_kernel<D, NC><<<grid, (NC + 1) * 128, bytes, s>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
-      static_cast<const int*>(q_offset), static_cast<const int*>(kv_lens), Sq, Sk, Hq, Hk, scale,
-      causal, window, softcap);
+  dim3 grid(a.Hq, a.B, (a.Sq + NC * 64 - 1) / (NC * 64));
+  flash_fwd_kernel<D, NC, EXTRA><<<grid, (NC + 1) * 128, bytes, s>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.lse),
+      static_cast<const int*>(a.q_offset), static_cast<const int*>(a.kv_lens), a.alibi, a.Sq,
+      a.Sk, a.Hq, a.Hk, a.scale, a.causal, a.window, a.softcap, a.drop);
   return static_cast<int>(cudaGetLastError());
 }
 
 // 128 query rows a block when that grid still covers 90% of the SMs, else 64.
 // At D = 128 always 64: a consumer thread's S, P and O (64 + 32 + 64
 // registers) exceed the 168 a thread of a 384-thread block can hold.
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           const void* q_offset, const void* kv_lens, int B, int Sq, int Sk, int Hq, int Hk,
-           float scale, int causal, int window, float softcap, cudaStream_t s) {
-  const long long blocks128 = static_cast<long long>((Sq + 127) / 128) * Hq * B;
+template <int D, bool EXTRA>
+int launch(const void* q, const void* k, const void* v, const FwdArgs& a, cudaStream_t s) {
+  const long long blocks128 = static_cast<long long>((a.Sq + 127) / 128) * a.Hq * a.B;
   if constexpr (D != 128)
-    if (blocks128 * 10 >= 9LL * num_sms())
-      return launch_nc<D, 2>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk, scale,
-                             causal, window, softcap, s);
-  return launch_nc<D, 1>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk, scale, causal,
-                         window, softcap, s);
+    if (blocks128 * 10 >= 9LL * num_sms()) return launch_nc<D, 2, EXTRA>(q, k, v, a, s);
+  return launch_nc<D, 1, EXTRA>(q, k, v, a, s);
+}
+
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, const FwdArgs& a, cudaStream_t s) {
+  if (a.alibi != nullptr || a.drop.threshold != 0u || a.drop.scale != 1.0f)
+    return launch<D, true>(q, k, v, a, s);
+  return launch<D, false>(q, k, v, a, s);
 }
 
 }  // namespace
 
-// window <= 0 and softcap <= 0 mean "off". D is 32, 64 or 128; q, k and v
+// window <= 0 and softcap <= 0 mean "off"; alibi ([B, Hq] float32 slopes)
+// may be null; drop_threshold 0 and drop_scale 1 mean no dropout (the
+// threshold and the seed are uint32 bits). D is 32, 64 or 128; q, k and v
 // are contiguous and 16-byte aligned.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
-                                void* lse, const void* q_offset, const void* kv_lens, int B,
-                                int Sq, int Sk, int Hq, int Hk, int D, float scale, int causal,
-                                int window, float softcap, void* stream) {
+                                void* lse, const void* q_offset, const void* kv_lens,
+                                const void* alibi, int B, int Sq, int Sk, int Hq, int Hk, int D,
+                                float scale, int causal, int window, float softcap,
+                                int drop_threshold, int drop_seed, float drop_scale,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FwdArgs a{out, lse, q_offset, kv_lens, static_cast<const float*>(alibi), B, Sq, Sk, Hq,
+                  Hk, scale, causal, window, softcap,
+                  dropout::Params{static_cast<uint32_t>(drop_threshold),
+                                  static_cast<uint32_t>(drop_seed), drop_scale}};
   switch (D) {
-    case 32:
-      return launch<32>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk, scale, causal,
-                        window, softcap, s);
-    case 64:
-      return launch<64>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk, scale, causal,
-                        window, softcap, s);
-    case 128:
-      return launch<128>(q, k, v, out, lse, q_offset, kv_lens, B, Sq, Sk, Hq, Hk, scale, causal,
-                         window, softcap, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 32: return launch_d<32>(q, k, v, a, s);
+    case 64: return launch_d<64>(q, k, v, a, s);
+    case 128: return launch_d<128>(q, k, v, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

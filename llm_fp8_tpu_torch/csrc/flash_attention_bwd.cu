@@ -10,8 +10,13 @@
 //   dV += bf16(p)ᵀ·dO,  dK += bf16(ds)ᵀ·Q,  dQ += bf16(ds)·K
 // with p and ds rounded to bf16 before their products, as the TPU kernel.
 // Features: causal with a per-batch q_offset, kv_lens, GQA, sliding window,
-// softcap and the logit scale (ALiBi, attention_chunk, segments and dropout
-// are not ported and raise in the wrapper).
+// softcap, the logit scale, ALiBi and dropout (attention_chunk and segments
+// are not ported and raise in the wrapper). ALiBi's -slope·|q_pos - k_pos|
+// is added to z (after softcap) before p is formed; being additive it leaves
+// the dS chain as it is (the softcap factor reads the unbiased z). Dropout
+// rebuilds K3's keep mask (dropout.cuh): dV takes the kept p times
+// 1/(1 - rate), dP is masked and scaled alike, dS takes the undropped p.
+// Both ride the kernels' EXTRA instances.
 //
 // Bound on the H100: operations. The backward's function is 2.5x the
 // forward's matrix work (five products per live pair to the forward's two;
@@ -49,6 +54,7 @@
 //        the most queries reach, are scheduled first.
 #include <math.h>
 
+#include "dropout.cuh"
 #include "fp8_ftz.cuh"
 #include "hopper.cuh"
 
@@ -97,6 +103,27 @@ struct Mask {
       p = ok ? fast_exp2(fmaf(qk, scale * kLog2e, nl)) : 0.0f;
       ds = p * (dp - di) * scale;
     }
+  }
+
+  // The same with ALiBi and dropout: nlb = nl - slope·log2(e)·|q - k| (the
+  // bias enters p's exponent only), and under dropout p (the dV operand)
+  // becomes the kept p times drop.scale, dP the kept dP times drop.scale,
+  // while ds takes the undropped p.
+  __device__ __forceinline__ void p_ds_extra(float qk, float dp, float nlb, float di, bool ok,
+                                             bool kept, float drop_scale, float& p,
+                                             float& ds) const {
+    float t2 = 1.0f, pe;
+    if (softcap > 0.0f) {
+      const float z = softcap * tanhf(qk * scale / softcap);
+      pe = ok ? fast_exp2(fmaf(z, kLog2e, nlb)) : 0.0f;
+      const float t = z / softcap;
+      t2 = 1.0f - t * t;
+    } else {
+      pe = ok ? fast_exp2(fmaf(qk, scale * kLog2e, nlb)) : 0.0f;
+    }
+    const float dpm = kept ? dp * drop_scale : 0.0f;
+    ds = pe * (dpm - di) * t2 * scale;
+    p = kept ? pe * drop_scale : 0.0f;
   }
 };
 
@@ -187,15 +214,15 @@ struct DkvSmem {
   static constexpr int BYTES = BAR + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int D>
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__((DkvSmem<D>::NC + 1) * 128, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                      const float* __restrict__ lse, const float* __restrict__ di,
                      const int* __restrict__ q_offset, const int* __restrict__ kv_lens,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
-                     int Sk, int Hq, int Hk, float scale, int causal, int window,
-                     float softcap) {
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                     const float* __restrict__ alibi, int Sq, int Sk, int Hq, int Hk,
+                     float scale, int causal, int window, float softcap, dropout::Params drop) {
   using T = Tile<D>;
   using L = DkvSmem<D>;
   constexpr int BQ = L::BQ, BK = L::BK;
@@ -287,6 +314,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       const int s = i & 1;
       const uint32_t ph = (i >> 1) & 1;
       const int q0 = (qt_begin + i % per_head) * BQ;
+      float slope2 = 0.0f;  // this step's head's ALiBi slope · log2(e)
+      uint32_t h0 = 0u;     // and its dropout hash half
+      if constexpr (EXTRA) {
+        const int bh = b * Hq + hk * groups + i / per_head;
+        if (alibi != nullptr) slope2 = alibi[bh] * kLog2e;
+        h0 = drop.head(static_cast<uint32_t>(bh));
+      }
       const bool need_mask = mask.cuts(q_off + q0, q_off + q0 + BQ - 1, key_lo, key_lo + 63);
       float st[BQ / 2], dpt[BQ / 2];
 
@@ -308,7 +342,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         const int kp = key0 + 8 * ((e >> 1) & 1);
         float p, ds;
         const bool ok = !need_mask || mask.live(q_off + q0 + col, kp);
-        mask.p_ds(st[e], dpt[e], ls[col], ls[BQ + col], ok, p, ds);
+        if constexpr (EXTRA) {
+          const int qp = q_off + q0 + col;
+          mask.p_ds_extra(st[e], dpt[e],
+                          fmaf(-slope2, fabsf(static_cast<float>(qp - kp)), ls[col]),
+                          ls[BQ + col], ok, drop.keep(h0, qp, kp), drop.scale, p, ds);
+        } else {
+          mask.p_ds(st[e], dpt[e], ls[col], ls[BQ + col], ok, p, ds);
+        }
         st[e] = p;
         dpt[e] = ds;
       }
@@ -384,15 +425,16 @@ __device__ __forceinline__ void row_di(const __nv_bfloat16* o, const __nv_bfloat
   }
 }
 
-template <int D>
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(384, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ di_out,
                     const int* __restrict__ q_offset, const int* __restrict__ kv_lens,
-                    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int Hq, int Hk, float scale,
-                    int causal, int window, float softcap) {
+                    __nv_bfloat16* __restrict__ dq, const float* __restrict__ alibi, int Sq,
+                    int Sk, int Hq, int Hk, float scale, int causal, int window, float softcap,
+                    dropout::Params drop) {
   using T = Tile<D>;
   using L = DqSmem<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -463,6 +505,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       if (in && quad == 0) di_out[row_base + row0 + 8 * r] = di_r[r];
     }
     const int wg_min = q_off + q0 + 64 * wg;
+    float slope2 = 0.0f;  // ALiBi slope · log2(e)
+    uint32_t h0 = 0u;     // the dropout hash half of (b, h)
+    if constexpr (EXTRA) {
+      if (alibi != nullptr) slope2 = alibi[b * Hq + h] * kLog2e;
+      h0 = drop.head(static_cast<uint32_t>(b * Hq + h));
+    }
 
     float dq_acc[T::NCH][T::CW / 2];
     zero<D>(dq_acc);
@@ -491,7 +539,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         const int kp = kt0 + 8 * (e / 4) + 2 * quad + (e & 1);
         float p, ds;
         const bool ok = !need_mask || mask.live(q_off + row0 + 8 * r, kp);
-        mask.p_ds(sc[e], dp[e], nl_r[r], di_r[r], ok, p, ds);
+        if constexpr (EXTRA) {
+          const int qp = q_off + row0 + 8 * r;
+          mask.p_ds_extra(sc[e], dp[e], fmaf(-slope2, fabsf(static_cast<float>(qp - kp)), nl_r[r]),
+                          di_r[r], ok, drop.keep(h0, qp, kp), drop.scale, p, ds);
+        } else {
+          mask.p_ds(sc[e], dp[e], nl_r[r], di_r[r], ok, p, ds);
+        }
         dp[e] = ds;
       }
       uint32_t dsf[4][4];
@@ -512,104 +566,126 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   }
 }
 
-template <int D>
+// One launch's inputs past the tensors the tensor maps cover.
+struct BwdArgs {
+  const float* alibi;  // [B, Hq] or null
+  int B, Sq, Sk, Hq, Hk;
+  float scale;
+  int causal, window;
+  float softcap;
+  dropout::Params drop;
+
+  bool extra() const { return alibi != nullptr || drop.threshold != 0u || drop.scale != 1.0f; }
+};
+
+template <int D, bool EXTRA>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* di, const void* q_offset, const void* kv_lens, void* dk, void* dv,
-               int B, int Sq, int Sk, int Hq, int Hk, float scale, int causal, int window,
-               float softcap, cudaStream_t s) {
+               const BwdArgs& a, cudaStream_t s) {
   CUtensorMap tq, tk, tv, tdo;
   using L = DkvSmem<D>;
-  int e = encode_bshd<D>(&tq, q, B, Sq, Hq, L::BQ);
-  if (e == 0) e = encode_bshd<D>(&tdo, dout, B, Sq, Hq, L::BQ);
-  if (e == 0) e = encode_bshd<D>(&tk, k, B, Sk, Hk, L::BK);
-  if (e == 0) e = encode_bshd<D>(&tv, v, B, Sk, Hk, L::BK);
+  int e = encode_bshd<D>(&tq, q, a.B, a.Sq, a.Hq, L::BQ);
+  if (e == 0) e = encode_bshd<D>(&tdo, dout, a.B, a.Sq, a.Hq, L::BQ);
+  if (e == 0) e = encode_bshd<D>(&tk, k, a.B, a.Sk, a.Hk, L::BK);
+  if (e == 0) e = encode_bshd<D>(&tv, v, a.B, a.Sk, a.Hk, L::BK);
   if (e != 0) return e;
   constexpr int bytes = L::BYTES;
   // Set once per kernel instance (a function-local static), not per launch.
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_bwd_dkv_kernel<D, EXTRA>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
-  dim3 grid(Hk, B, (Sk + L::BK - 1) / L::BK);
-  flash_bwd_dkv_kernel<D><<<grid, (L::NC + 1) * 128, bytes, s>>>(
+  dim3 grid(a.Hk, a.B, (a.Sk + L::BK - 1) / L::BK);
+  flash_bwd_dkv_kernel<D, EXTRA><<<grid, (L::NC + 1) * 128, bytes, s>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(di),
       static_cast<const int*>(q_offset), static_cast<const int*>(kv_lens),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq, Sk, Hq, Hk, scale,
-      causal, window, softcap);
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.alibi, a.Sq, a.Sk,
+      a.Hq, a.Hk, a.scale, a.causal, a.window, a.softcap, a.drop);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool EXTRA>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const void* lse, void* di, const void* q_offset, const void* kv_lens, void* dq,
-              int B, int Sq, int Sk, int Hq, int Hk, float scale, int causal, int window,
-              float softcap, cudaStream_t s) {
+              const BwdArgs& a, cudaStream_t s) {
   if (reinterpret_cast<uintptr_t>(o) % 16 != 0 || reinterpret_cast<uintptr_t>(dout) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   CUtensorMap tq, tk, tv, tdo;
-  int e = encode_bshd<D>(&tq, q, B, Sq, Hq, 128);
-  if (e == 0) e = encode_bshd<D>(&tdo, dout, B, Sq, Hq, 128);
-  if (e == 0) e = encode_bshd<D>(&tk, k, B, Sk, Hk, 64);
-  if (e == 0) e = encode_bshd<D>(&tv, v, B, Sk, Hk, 64);
+  int e = encode_bshd<D>(&tq, q, a.B, a.Sq, a.Hq, 128);
+  if (e == 0) e = encode_bshd<D>(&tdo, dout, a.B, a.Sq, a.Hq, 128);
+  if (e == 0) e = encode_bshd<D>(&tk, k, a.B, a.Sk, a.Hk, 64);
+  if (e == 0) e = encode_bshd<D>(&tv, v, a.B, a.Sk, a.Hk, 64);
   if (e != 0) return e;
   constexpr int bytes = DqSmem<D>::BYTES;
   // Set once per kernel instance (a function-local static), not per launch.
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_bwd_dq_kernel<D, EXTRA>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
-  dim3 grid(Hq, B, (Sq + 127) / 128);
-  flash_bwd_dq_kernel<D><<<grid, 384, bytes, s>>>(
+  dim3 grid(a.Hq, a.B, (a.Sq + 127) / 128);
+  flash_bwd_dq_kernel<D, EXTRA><<<grid, 384, bytes, s>>>(
       tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(di), static_cast<const int*>(q_offset),
-      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(dq), Sq, Sk, Hq, Hk, scale,
-      causal, window, softcap);
+      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(dq), a.alibi, a.Sq, a.Sk,
+      a.Hq, a.Hk, a.scale, a.causal, a.window, a.softcap, a.drop);
   return static_cast<int>(cudaGetLastError());
+}
+
+BwdArgs bwd_args(const void* alibi, int B, int Sq, int Sk, int Hq, int Hk, float scale,
+                 int causal, int window, float softcap, int drop_threshold, int drop_seed,
+                 float drop_scale) {
+  return BwdArgs{static_cast<const float*>(alibi), B, Sq, Sk, Hq, Hk, scale, causal, window,
+                 softcap,
+                 dropout::Params{static_cast<uint32_t>(drop_threshold),
+                                 static_cast<uint32_t>(drop_seed), drop_scale}};
 }
 
 }  // namespace
 
-// window <= 0 and softcap <= 0 mean "off". D is 32, 64 or 128; q, k, v, o
-// and dout are contiguous and 16-byte aligned. The dQ kernel also writes di
-// (float32 [B, Hq, Sq]), which the dKV kernel reads: launch dQ first.
+// window <= 0 and softcap <= 0 mean "off"; alibi ([B, Hq] float32 slopes)
+// may be null; drop_threshold 0 and drop_scale 1 mean no dropout (K3's
+// arguments). D is 32, 64 or 128; q, k, v, o and dout are contiguous and
+// 16-byte aligned. The dQ kernel also writes di (float32 [B, Hq, Sq]), which
+// the dKV kernel reads: launch dQ first.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* di,
                                     const void* q_offset, const void* kv_lens, void* dk,
-                                    void* dv, int B, int Sq, int Sk, int Hq, int Hk, int D,
-                                    float scale, int causal, int window, float softcap,
-                                    void* stream) {
+                                    void* dv, const void* alibi, int B, int Sq, int Sk, int Hq,
+                                    int Hk, int D, float scale, int causal, int window,
+                                    float softcap, int drop_threshold, int drop_seed,
+                                    float drop_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdArgs a = bwd_args(alibi, B, Sq, Sk, Hq, Hk, scale, causal, window, softcap,
+                             drop_threshold, drop_seed, drop_scale);
+#define K6_DKV(DD)                                                                        \
+  return a.extra() ? launch_dkv<DD, true>(q, k, v, dout, lse, di, q_offset, kv_lens, dk, dv, a, s) \
+                   : launch_dkv<DD, false>(q, k, v, dout, lse, di, q_offset, kv_lens, dk, dv, a, s)
   switch (D) {
-    case 32:
-      return launch_dkv<32>(q, k, v, dout, lse, di, q_offset, kv_lens, dk, dv, B, Sq, Sk, Hq,
-                            Hk, scale, causal, window, softcap, s);
-    case 64:
-      return launch_dkv<64>(q, k, v, dout, lse, di, q_offset, kv_lens, dk, dv, B, Sq, Sk, Hq,
-                            Hk, scale, causal, window, softcap, s);
-    case 128:
-      return launch_dkv<128>(q, k, v, dout, lse, di, q_offset, kv_lens, dk, dv, B, Sq, Sk, Hq,
-                             Hk, scale, causal, window, softcap, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 32: K6_DKV(32);
+    case 64: K6_DKV(64);
+    case 128: K6_DKV(128);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef K6_DKV
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* di,
-                                   const void* q_offset, const void* kv_lens, void* dq, int B,
-                                   int Sq, int Sk, int Hq, int Hk, int D, float scale,
-                                   int causal, int window, float softcap, void* stream) {
+                                   const void* q_offset, const void* kv_lens, void* dq,
+                                   const void* alibi, int B, int Sq, int Sk, int Hq, int Hk,
+                                   int D, float scale, int causal, int window, float softcap,
+                                   int drop_threshold, int drop_seed, float drop_scale,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdArgs a = bwd_args(alibi, B, Sq, Sk, Hq, Hk, scale, causal, window, softcap,
+                             drop_threshold, drop_seed, drop_scale);
+#define K6_DQ(DD)                                                                          \
+  return a.extra() ? launch_dq<DD, true>(q, k, v, o, dout, lse, di, q_offset, kv_lens, dq, a, s) \
+                   : launch_dq<DD, false>(q, k, v, o, dout, lse, di, q_offset, kv_lens, dq, a, s)
   switch (D) {
-    case 32:
-      return launch_dq<32>(q, k, v, o, dout, lse, di, q_offset, kv_lens, dq, B, Sq, Sk, Hq, Hk,
-                           scale, causal, window, softcap, s);
-    case 64:
-      return launch_dq<64>(q, k, v, o, dout, lse, di, q_offset, kv_lens, dq, B, Sq, Sk, Hq, Hk,
-                           scale, causal, window, softcap, s);
-    case 128:
-      return launch_dq<128>(q, k, v, o, dout, lse, di, q_offset, kv_lens, dq, B, Sq, Sk, Hq,
-                            Hk, scale, causal, window, softcap, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 32: K6_DQ(32);
+    case 64: K6_DQ(64);
+    case 128: K6_DQ(128);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef K6_DQ
 }

@@ -4,8 +4,8 @@
 // Replaces llm_fp8_tpu/kernels/paged_attention.py::paged_attention (Pallas
 // _kernel). Features: append of the new K/V token at lengths-1 of each
 // sequence, one kv_scale for K and V, GQA (up to 8 q heads per kv head),
-// sliding window and softcap, over e4m3, e5m2, int8 and bf16 pools. ALiBi is
-// not ported (the wrapper raises).
+// sliding window, softcap and ALiBi (slope·(t - (len - 1)) per q head, after
+// softcap), over e4m3, e5m2, int8 and bf16 pools.
 //
 // Layout: the pools are [P, L, Hk, page, D] here, not the TPU's lane-major
 // [P, L, Hk, D, page]: a token's D codes are contiguous, so a lane reads a
@@ -65,9 +65,9 @@ __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pages, uint8_t* v_pages,
                    const int* __restrict__ lengths, const int* __restrict__ tables,
                    const __nv_bfloat16* __restrict__ new_k,
-                   const __nv_bfloat16* __restrict__ new_v, Partials part, int Hq,
-                   PoolGeom geo, int pps, float qscale, float kv_scale, int window,
-                   float softcap) {
+                   const __nv_bfloat16* __restrict__ new_v, const float* __restrict__ alibi,
+                   Partials part, int Hq, PoolGeom geo, int pps, float qscale, float kv_scale,
+                   int window, float softcap) {
   using W = Walk<D, KIND, PageRows>;
   __shared__ __align__(16) __nv_bfloat16 q_b[kMaxG][D];  // q folded, bf16; zero past G
   __shared__ __align__(16) uint8_t new_code[2][W::ROW];  // the appended K and V rows
@@ -111,15 +111,16 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pages, uint8_
     }
   }
   __syncthreads();
-  walk.attend(q_b, new_code, G, softcap, part, row0);
+  walk.attend(q_b, new_code, G, softcap, alibi != nullptr ? alibi + kvh * G : nullptr,
+              length - 1, part, row0);
 }
 
 template <int D>
 int launch_kind(int kind, dim3 grid, cudaStream_t s, const __nv_bfloat16* q, uint8_t* kp,
                 uint8_t* vp, const int* lengths, const int* tables, const __nv_bfloat16* nk,
-                const __nv_bfloat16* nv, Partials part, __nv_bfloat16* out, int Hq,
-                PoolGeom geo, int pps, float qscale, float kv_scale, int window,
-                float softcap) {
+                const __nv_bfloat16* nv, const float* alibi, Partials part,
+                __nv_bfloat16* out, int Hq, PoolGeom geo, int pps, float qscale,
+                float kv_scale, int window, float softcap) {
   // The stage's shared-memory limit is set once per kernel instance (a
   // function-local static), not on every launch of the decode step.
 #define K5_LAUNCH(KIND)                                                              \
@@ -130,8 +131,8 @@ int launch_kind(int kind, dim3 grid, cudaStream_t s, const __nv_bfloat16* q, uin
         bytes);                                                                      \
     if (attr != cudaSuccess) return static_cast<int>(attr);                          \
     paged_split_kernel<D, KIND><<<grid, kThreads, bytes, s>>>(                       \
-        q, kp, vp, lengths, tables, nk, nv, part, Hq, geo, pps, qscale, kv_scale,    \
-        window, softcap);                                                            \
+        q, kp, vp, lengths, tables, nk, nv, alibi, part, Hq, geo, pps, qscale,       \
+        kv_scale, window, softcap);                                                  \
   } while (0)
   switch (kind) {
     case kCodeE4M3: K5_LAUNCH(kCodeE4M3); break;
@@ -151,14 +152,16 @@ int launch_kind(int kind, dim3 grid, cudaStream_t s, const __nv_bfloat16* q, uin
 
 }  // namespace
 
-// new_k/new_v may be null: no append. qscale = scale·kv_scale (folded into q
+// new_k/new_v may be null: no append; alibi ([Hq] float32 slopes) may be null:
+// no bias. qscale = scale·kv_scale (folded into q
 // on the host, as the TPU kernel folds it). window <= 0 and softcap <= 0 mean
 // "off". D is 32, 64 or 128; Hq / Hk <= 8; the pools are [P, L, Hk, page, D].
 // The sequence is cut into `splits` runs of `pps` pages; part_m and part_l
 // hold B·Hk·splits·(Hq/Hk) floats, part_o that times D.
 extern "C" int paged_attn_launch(const void* q, void* k_pages, void* v_pages,
                                  const void* lengths, const void* tables, const void* new_k,
-                                 const void* new_v, void* out, void* part_m, void* part_l,
+                                 const void* new_v, const void* alibi, void* out, void* part_m,
+                                 void* part_l,
                                  void* part_o, int B, int Hq, int Hk, int D, int P, int L,
                                  int page, int max_pages, int layer, int kind, int splits,
                                  int pps, float qscale, float kv_scale, int window,
@@ -179,16 +182,17 @@ extern "C" int paged_attn_launch(const void* q, void* k_pages, void* v_pages,
   const auto* tp = static_cast<const int*>(tables);
   const auto* nk = static_cast<const __nv_bfloat16*>(new_k);
   const auto* nv = static_cast<const __nv_bfloat16*>(new_v);
+  const auto* ap = static_cast<const float*>(alibi);
   auto* op = static_cast<__nv_bfloat16*>(out);
   switch (D) {
     case 32:
-      return launch_kind<32>(kind, grid, s, qp, kp, vp, lp, tp, nk, nv, part, op, Hq, geo, pps,
-                             qscale, kv_scale, window, softcap);
+      return launch_kind<32>(kind, grid, s, qp, kp, vp, lp, tp, nk, nv, ap, part, op, Hq, geo,
+                             pps, qscale, kv_scale, window, softcap);
     case 64:
-      return launch_kind<64>(kind, grid, s, qp, kp, vp, lp, tp, nk, nv, part, op, Hq, geo, pps,
-                             qscale, kv_scale, window, softcap);
+      return launch_kind<64>(kind, grid, s, qp, kp, vp, lp, tp, nk, nv, ap, part, op, Hq, geo,
+                             pps, qscale, kv_scale, window, softcap);
     case 128:
-      return launch_kind<128>(kind, grid, s, qp, kp, vp, lp, tp, nk, nv, part, op, Hq, geo,
+      return launch_kind<128>(kind, grid, s, qp, kp, vp, lp, tp, nk, nv, ap, part, op, Hq, geo,
                               pps, qscale, kv_scale, window, softcap);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

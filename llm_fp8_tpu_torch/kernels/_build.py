@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 _REPO_CSRC = _PKG.parent / "csrc"
 BUILD_DIR = _PKG / "_build"
-_HEADERS = ("fp8_ftz.cuh", "hopper.cuh", "decode_split.cuh")
+_HEADERS = ("fp8_ftz.cuh", "hopper.cuh", "decode_split.cuh", "dropout.cuh")
 KERNELS = ("quant_matmul", "decode_attention", "flash_attention", "paged_attention",
            "flash_attention_bwd", "quantize", "flash_attention_fp8", "rmsnorm")
 #: Host-side C++ libraries (no CUDA) → source, built with g++ and the flags
@@ -42,12 +42,13 @@ _SIGNATURES = {
     "quant_matmul": {"qmm_launch": [_P] * 4 + [_I] * 8 + [_P],
                      "qmm_prefill_launch": [_P] * 5 + [_I] * 9 + [_P]},
     "decode_attention": {"decode_arena_launch":
-                         [_P] * 4 + [_I] + [_P] * 10 + [_I] * 8 + [_F, _I, _F, _P]},
-    "flash_attention": {"flash_fwd_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _F, _P]},
-    "paged_attention": {"paged_attn_launch": [_P] * 11 + [_I] * 12 + [_F, _F, _I, _F, _P]},
+                         [_P] * 4 + [_I] + [_P] * 11 + [_I] * 8 + [_F, _I, _F, _P]},
+    "flash_attention": {"flash_fwd_launch":
+                        [_P] * 8 + [_I] * 6 + [_F, _I, _I, _F, _I, _I, _F, _P]},
+    "paged_attention": {"paged_attn_launch": [_P] * 12 + [_I] * 12 + [_F, _F, _I, _F, _P]},
     "flash_attention_bwd": {
-        "flash_bwd_dkv_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _P],
-        "flash_bwd_dq_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _P]},
+        "flash_bwd_dkv_launch": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _F, _I, _I, _F, _P],
+        "flash_bwd_dq_launch": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _F, _I, _I, _F, _P]},
     "quantize": {"quantize_launch": [_P] * 3 + [_I] * 7 + [_F, _F, _P]},
     "flash_attention_fp8": {
         "flash_fp8_launch": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _F, _I, _I, _P],

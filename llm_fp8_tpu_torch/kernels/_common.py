@@ -15,7 +15,8 @@ import functools
 import torch
 
 __all__ = ["e4m3_to_bf16_ftz", "fp8_to_bf16_ftz", "pad_to_multiple", "aligned16",
-           "num_sms", "KV_KINDS", "W_KINDS"]
+           "num_sms", "KV_KINDS", "W_KINDS", "dropout_keep_mask", "dropout_threshold",
+           "dropout_seed_u32", "per_batch_slopes"]
 
 #: dtype → kind code of ``csrc/fp8_ftz.cuh`` (``kCodeE4M3`` ...).
 W_KINDS = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1, torch.int8: 2}
@@ -61,7 +62,69 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def per_batch_slopes(alibi_slopes, B: int, Hq: int, device) -> torch.Tensor:
+    """ALiBi slopes (a sequence or a tensor, ``[Hq]`` or ``[B, Hq]``) as a
+    contiguous float32 ``[B, Hq]`` tensor on ``device``."""
+    slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=device)
+    if slopes.ndim == 1:
+        slopes = slopes[None, :].expand(B, Hq)
+    if tuple(slopes.shape) != (B, Hq):
+        raise ValueError(f"alibi_slopes of shape {tuple(slopes.shape)}, want [{Hq}] or "
+                         f"[{B}, {Hq}]")
+    return slopes.detach().contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def num_sms(device: torch.device) -> int:
     """Streaming multiprocessors of the card ``device``."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# --------------------------------------------------------------------------
+# Attention dropout: the stateless counter hash of the TPU kernels
+# --------------------------------------------------------------------------
+
+_GOLD = 0x9E3779B9  # 2^32 / phi, the Weyl increment
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x · c mod 2^32`` for uint32 values held in int64, without leaving
+    int64's range: x = hi·2^16 + lo, and hi·c's high half vanishes mod 2^32."""
+    return ((x & 0xFFFF) * c + (((x >> 16) * (c & 0xFFFF)) << 16)) & _M32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on uint32 values held in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def dropout_threshold(rate: float) -> int:
+    """The uint32 a hash must reach for its entry to be kept (the TPU
+    kernels' ``min(int(rate·2^32), 2^32 - 1)``)."""
+    return min(int(rate * 2 ** 32), 2 ** 32 - 1)
+
+
+def dropout_seed_u32(seed) -> int:
+    """A seed as the int32 the TPU kernels take, read as uint32."""
+    return int(seed) & _M32
+
+
+def dropout_keep_mask(seed, bh, q_pos, k_pos, rate: float) -> torch.Tensor:
+    """Counter-based keep mask (True = keep) of ``llm_fp8_tpu/kernels/
+    _common.py::dropout_keep_mask``, bit for bit: ``fmix32(fmix32(seed +
+    bh·φ) ^ (q_pos·φ + k_pos)) >= threshold`` in uint32 arithmetic, emulated
+    on int64 and masked to 32 bits (``csrc/dropout.cuh`` is its device form).
+    ``bh`` = batch·Hq + q head; ``bh``, ``q_pos`` and ``k_pos`` are integer
+    tensors (or ints) that broadcast."""
+    def u32(t):
+        return torch.as_tensor(t, dtype=torch.int64) & _M32
+
+    bh, q_pos, k_pos = u32(bh), u32(q_pos), u32(k_pos)
+    h0 = _fmix32((dropout_seed_u32(seed) + _mul32(bh, _GOLD)) & _M32)
+    ctr = (_mul32(q_pos, _GOLD) + k_pos) & _M32
+    return _fmix32(h0 ^ ctr) >= dropout_threshold(rate)

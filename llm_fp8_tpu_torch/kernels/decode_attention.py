@@ -13,6 +13,11 @@ The CUDA kernel splits each sequence's arena rows into runs of ``span``
 keys (:func:`split_plan`, from the shapes alone, so a later CUDA graph can
 capture the call) and merges the runs' partial softmaxes in order.
 
+ALiBi (``alibi_slopes``, ``[Hq]``) adds ``slope·(pos - (length - 1))`` to
+each head's scores after softcap (the decode token sits at ``length - 1``,
+past every live key); ALiBi models have no rotary, so the kernel appends
+without it there.
+
 A zero-length sequence gives zeros and appends nothing, on both devices.
 The TPU kernel also gives zeros (it runs no key chunk), but its append at
 position -1 is an out-of-range copy of a 128-lane tile; the port writes
@@ -27,6 +32,7 @@ import torch
 
 from . import _build
 from ._common import KV_KINDS, fp8_to_bf16_ftz, num_sms
+from .paged_attention import alibi_tensor, decode_alibi_bias
 from .paged_attention import split_plan as paged_split_plan
 
 __all__ = ["decode_attention_arena", "decode_attention_arena_plain", "split_plan",
@@ -83,7 +89,7 @@ def _quantize_token(x, scale, dtype):
 
 def decode_attention_arena_plain(q, k_arena, v_arena, lengths, layer_idx, *,
                                  new_k, new_v, cos, sin, k_scale, v_scale,
-                                 scale, window, softcap):
+                                 scale, window, softcap, alibi=None):
     """The kernel's function in plain PyTorch. Appends in place when
     ``new_k`` is given; returns ``out [B, Hq, D]``."""
     B, Hq, D = q.shape
@@ -114,6 +120,8 @@ def decode_attention_arena_plain(q, k_arena, v_arena, lengths, layer_idx, *,
     s = torch.einsum("bhgd,bhsd->bhgs", qs, fp8_to_bf16_ftz(ka).float())
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
+    if alibi is not None:
+        s = s + decode_alibi_bias(alibi, lengths, ka.shape[2], Hk)
     pos = torch.arange(ka.shape[2], device=q.device)
     mask = pos[None, :] < lengths[:, None]
     if window is not None:
@@ -131,7 +139,7 @@ def decode_attention_arena_plain(q, k_arena, v_arena, lengths, layer_idx, *,
 
 
 def _launch(q, k_arena, v_arena, lengths, layer_idx, new_k, new_v, cos, sin,
-            k_scale, v_scale, scale, window, softcap):
+            k_scale, v_scale, scale, window, softcap, alibi):
     lib = _build.library("decode_attention")
     B, Hq, D = q.shape
     L, _, Hk, S, _ = k_arena.shape
@@ -143,7 +151,7 @@ def _launch(q, k_arena, v_arena, lengths, layer_idx, new_k, new_v, cos, sin,
     err = lib.decode_arena_launch(
         ptr(q), ptr(k_arena), ptr(v_arena), ptr(lengths), ctypes.c_int(layer_idx),
         ptr(new_k), ptr(new_v), ptr(cos), ptr(sin), ptr(k_scale), ptr(v_scale),
-        ptr(out), ptr(part), ptr(part[rows:]), ptr(part[2 * rows:]), ctypes.c_int(B),
+        ptr(alibi), ptr(out), ptr(part), ptr(part[rows:]), ptr(part[2 * rows:]), ctypes.c_int(B),
         ctypes.c_int(Hq), ctypes.c_int(Hk), ctypes.c_int(S), ctypes.c_int(D),
         ctypes.c_int(KV_KINDS[k_arena.dtype]), ctypes.c_int(splits), ctypes.c_int(span),
         ctypes.c_float(scale), ctypes.c_int(window or 0),
@@ -178,10 +186,9 @@ def decode_attention_arena(
     quantized by the per-head descales and written at ``lengths - 1`` of
     layer ``layer_idx`` in place, then attended over; returns ``(out,
     k_arena, v_arena)``. Without them it only attends and returns ``out``.
-    Counts kernel launches in ``decode_attention_arena.launches``.
+    ``alibi_slopes``: ``[Hq]`` floats (a tensor on q's device is read in
+    place). Counts kernel launches in ``decode_attention_arena.launches``.
     """
-    if alibi_slopes is not None:
-        raise NotImplementedError("decode attention: ALiBi is not ported yet")
     B, Hq, D = q.shape
     if k_arena.ndim != 5 or k_arena.shape != v_arena.shape or k_arena.dtype != v_arena.dtype:
         raise ValueError(f"arenas must be matching [L, B, Hk, S, D], got "
@@ -211,8 +218,9 @@ def decode_attention_arena(
     if append:
         new_k = new_k.to(torch.bfloat16).contiguous()
         new_v = new_v.to(torch.bfloat16).contiguous()
+    alibi = alibi_tensor(alibi_slopes, Hq, dev)
     args = dict(new_k=new_k, new_v=new_v, cos=cos, sin=sin, k_scale=k_scale,
-                v_scale=v_scale, scale=scale, window=window, softcap=softcap)
+                v_scale=v_scale, scale=scale, window=window, softcap=softcap, alibi=alibi)
     if not (k_arena.device == v_arena.device == dev
             and (new_k is None or new_k.device == new_v.device == dev)):
         raise ValueError("q, the arenas and the new token must be on one device")
@@ -221,7 +229,7 @@ def decode_attention_arena(
             raise ValueError("the arenas must be contiguous")
         out = _launch(q.contiguous(), k_arena, v_arena, lengths, layer_idx,
                       args["new_k"], args["new_v"], cos, sin, k_scale, v_scale,
-                      scale, window, softcap)
+                      scale, window, softcap, alibi)
     else:
         out = decode_attention_arena_plain(q, k_arena, v_arena, lengths, layer_idx, **args)
     return (out, k_arena, v_arena) if append else out

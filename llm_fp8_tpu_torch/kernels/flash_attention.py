@@ -16,11 +16,14 @@ lays V out key-contiguous (:func:`fp8_prepass`); shorter queries and the
 dequant route take its ``mma.sync`` kernel.
 
 Supported: causal with a per-batch ``q_offset``, ``kv_lens``, GQA through the
-head map, sliding window, softcap and the logit scale. ALiBi,
-``attention_chunk``, segment ids and dropout are not ported yet and raise on
-both devices. The autograd function's backward is K6
-(:mod:`.flash_attention_bwd`): its kernels on CUDA tensors, its plain version
-on CPU tensors.
+head map, sliding window, softcap, the logit scale, ALiBi (``-slope·|q_pos -
+k_pos|`` after softcap, ``[Hq]`` or ``[B, Hq]`` slopes) and attention dropout
+(``dropout_p``, ``dropout_seed``: the counter hash of
+``_common.dropout_keep_mask``, ``csrc/dropout.cuh`` on the card, applied to P
+before P·V with the LSE taken from the undropped P). ``attention_chunk`` and
+segment ids are not ported yet and raise on both devices. The autograd
+function's backward is K6 (:mod:`.flash_attention_bwd`): its kernels on CUDA
+tensors, its plain version on CPU tensors.
 """
 from __future__ import annotations
 
@@ -31,8 +34,8 @@ import torch
 
 from ..utils.backend import native_fp8_matmul
 from . import _build
-from ._common import aligned16
-from .flash_attention_bwd import flash_attention_bwd
+from ._common import aligned16, per_batch_slopes
+from .flash_attention_bwd import alibi_bias, dropout_args, dropout_inv, dropout_keep, flash_attention_bwd
 
 __all__ = ["flash_attention", "flash_fwd_plain", "flash_attention_fp8", "flash_fp8_plain",
            "fp8_prepass", "fp8_prepass_plain", "fp8_v_slots_plain", "fp8_wgmma_ok",
@@ -42,9 +45,13 @@ __all__ = ["flash_attention", "flash_fwd_plain", "flash_attention_fp8", "flash_f
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def flash_fwd_plain(q, k, v, q_offset, kv_lens, *, causal, window, softcap, scale):
+def flash_fwd_plain(q, k, v, q_offset, kv_lens, *, causal, window, softcap, scale,
+                    alibi=None, dropout_p: float = 0.0, dropout_seed=0):
     """The kernel's function in plain PyTorch: float32 scores, bf16 P for the
-    PV product, dead rows → out 0 and lse -inf. Returns ``(out, lse [B, Hq, Sq])``."""
+    PV product, dead rows → out 0 and lse -inf. ``alibi``: float32 ``[B,
+    Hq]`` slopes or None. With dropout the kept entries of P, times
+    ``1/(1 - p)``, feed P·V and the LSE is the undropped P's. Returns
+    ``(out, lse [B, Hq, Sq])``."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     g = Hq // Hk
@@ -54,6 +61,8 @@ def flash_fwd_plain(q, k, v, q_offset, kv_lens, *, causal, window, softcap, scal
     s = (qf @ kf.transpose(-1, -2)) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
+    if alibi is not None:
+        s = s + alibi_bias(alibi, q_offset, Sq, Sk)
     q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=q.device)[None, :]
     k_pos = torch.arange(Sk, device=q.device)
     mask = k_pos[None, None, :] < kv_lens.long()[:, None, None]
@@ -65,6 +74,9 @@ def flash_fwd_plain(q, k, v, q_offset, kv_lens, *, causal, window, softcap, scal
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    if dropout_p > 0.0:
+        keep = dropout_keep(dropout_seed, dropout_p, q_offset, B, Hq, Sq, Sk)
+        p = torch.where(keep, p, torch.zeros_like(p)) * dropout_inv(dropout_p)
     pv = p.to(v.dtype).float() @ vf
     dead = (l == 0.0) | (m <= MASK_VALUE * 0.5)
     l_inv = torch.where(dead, torch.zeros_like(l), 1.0 / torch.where(l == 0.0, torch.ones_like(l), l))
@@ -73,7 +85,8 @@ def flash_fwd_plain(q, k, v, q_offset, kv_lens, *, causal, window, softcap, scal
     return out, lse[..., 0]
 
 
-def _launch(q, k, v, q_offset, kv_lens, causal, window, softcap, scale):
+def _launch(q, k, v, q_offset, kv_lens, causal, window, softcap, scale, alibi=None,
+            dropout_p=0.0, dropout_seed=0):
     lib = _build.library("flash_attention")
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
@@ -84,10 +97,12 @@ def _launch(q, k, v, q_offset, kv_lens, causal, window, softcap, scale):
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(lse.data_ptr()), ctypes.c_void_p(q_offset.data_ptr()),
-        ctypes.c_void_p(kv_lens.data_ptr()), ctypes.c_int(B), ctypes.c_int(Sq),
-        ctypes.c_int(Sk), ctypes.c_int(Hq), ctypes.c_int(Hk), ctypes.c_int(D),
+        ctypes.c_void_p(kv_lens.data_ptr()),
+        ctypes.c_void_p(alibi.data_ptr() if alibi is not None else 0), ctypes.c_int(B),
+        ctypes.c_int(Sq), ctypes.c_int(Sk), ctypes.c_int(Hq), ctypes.c_int(Hk), ctypes.c_int(D),
         ctypes.c_float(scale), ctypes.c_int(int(causal)),
         ctypes.c_int(window or 0), ctypes.c_float(softcap or 0.0),
+        *dropout_args(dropout_p, dropout_seed),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(lib, err, "flash_attention")
@@ -112,22 +127,23 @@ class _FlashForward(torch.autograd.Function):
     (the LSE itself gets no gradient)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_offset, kv_lens, cfg):
+    def forward(ctx, q, k, v, q_offset, kv_lens, alibi, cfg):
         if q.is_cuda:
-            out, lse = _launch(q, k, v, q_offset, kv_lens, **cfg)
+            out, lse = _launch(q, k, v, q_offset, kv_lens, alibi=alibi, **cfg)
         else:
-            out, lse = flash_fwd_plain(q, k, v, q_offset, kv_lens, **cfg)
+            out, lse = flash_fwd_plain(q, k, v, q_offset, kv_lens, alibi=alibi, **cfg)
         ctx.mark_non_differentiable(lse)
-        ctx.save_for_backward(q, k, v, out, lse, q_offset, kv_lens)
+        ctx.save_for_backward(q, k, v, out, lse, q_offset, kv_lens, alibi)
         ctx.cfg = cfg
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, out, lse, q_offset, kv_lens = ctx.saved_tensors
+        q, k, v, out, lse, q_offset, kv_lens, alibi = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
-                                         q_offset=q_offset, kv_lens=kv_lens, **ctx.cfg)
-        return dq, dk, dv, None, None, None
+                                         q_offset=q_offset, kv_lens=kv_lens, alibi=alibi,
+                                         **ctx.cfg)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -146,21 +162,21 @@ def flash_attention(
     q_segment_ids=None,
     kv_segment_ids=None,
     dropout_p: float = 0.0,
+    dropout_seed=0,
     return_lse: bool = False,
 ):
     """Flash attention forward; semantics of :func:`..ops.attention.attention_ref`.
 
     Returns ``out [B, Sq, Hq, D]``, or ``(out, lse [B, Hq, Sq] float32)``
     with ``return_lse``. Counts kernel launches in ``flash_attention.launches``.
+    ``alibi_slopes`` (``[Hq]`` or ``[B, Hq]``) gets no gradient.
     """
-    if alibi_slopes is not None:
-        raise NotImplementedError("flash attention: ALiBi is not ported yet")
     if attention_chunk is not None:
         raise NotImplementedError("flash attention: attention_chunk is not ported yet")
     if q_segment_ids is not None or kv_segment_ids is not None:
         raise NotImplementedError("flash attention: segment ids are not ported yet")
-    if dropout_p != 0.0:
-        raise NotImplementedError("flash attention: dropout is not ported yet")
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p {dropout_p} outside [0, 1)")
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     if Hq % Hk or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
@@ -173,10 +189,12 @@ def flash_attention(
     if not (k.device == v.device == dev):
         raise ValueError("q, k and v must be on one device")
     q_offset, kv_lens = _per_row(q_offset, kv_lens, B, Sk, dev)
+    alibi = None if alibi_slopes is None else per_batch_slopes(alibi_slopes, B, Hq, dev)
     cfg = dict(causal=causal, window=window, softcap=softcap,
-               scale=scale if scale is not None else D ** -0.5)
+               scale=scale if scale is not None else D ** -0.5,
+               dropout_p=float(dropout_p), dropout_seed=int(dropout_seed))
     out, lse = _FlashForward.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   q_offset, kv_lens, cfg)
+                                   q_offset, kv_lens, alibi, cfg)
     return (out, lse) if return_lse else out
 
 

@@ -17,9 +17,14 @@ float32, as in the TPU kernel (its module docstring says the sum happens
 outside the kernel; the code does it inside). ``di = rowsum(o·do)``, which
 JAX leaves to XLA, is computed by the dQ kernel on the card (so dQ runs
 first) and by :func:`row_di` in the plain version. Causal with a per-batch
-``q_offset``, ``kv_lens``, GQA, sliding window, softcap and the logit scale
-are supported; ALiBi, ``attention_chunk``, segment ids and dropout are not
-ported (the forward raises on them).
+``q_offset``, ``kv_lens``, GQA, sliding window, softcap, the logit scale,
+ALiBi and attention dropout are supported: the ALiBi bias is additive, so
+the recomputed scores carry it and the dS chain is unchanged (the softcap
+derivative reads the unbiased capped score); dropout rebuilds the forward's
+keep mask from the same counter hash (``csrc/dropout.cuh``), feeds the
+kept and scaled p to dV and masks dP, while dS uses the undropped p and
+``di`` (``o`` is the dropped output). ``attention_chunk`` and segment ids
+are not ported (the forward raises on them).
 """
 from __future__ import annotations
 
@@ -29,10 +34,48 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._common import aligned16
+from ._common import aligned16, dropout_keep_mask, dropout_seed_u32, dropout_threshold
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "flash_bwd_dkv",
-           "flash_bwd_dq", "recompute_p_ds", "row_di"]
+           "flash_bwd_dq", "recompute_p_ds", "row_di", "alibi_bias", "dropout_keep",
+           "dropout_inv", "dropout_args"]
+
+
+def alibi_bias(alibi, q_offset, Sq: int, Sk: int) -> torch.Tensor:
+    """``-slope·|q_pos - k_pos|`` as float32 ``[B, Hq, Sq, Sk]`` from the
+    ``[B, Hq]`` slopes."""
+    q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=alibi.device)[None, :]
+    dist = (q_pos[:, :, None] - torch.arange(Sk, device=alibi.device)[None, None, :]).abs()
+    return -(alibi[:, :, None, None] * dist[:, None].float())
+
+
+def dropout_keep(seed, rate, q_offset, B: int, Hq: int, Sq: int, Sk: int) -> torch.Tensor:
+    """The dropout keep mask ``[B, Hq, Sq, Sk]`` on absolute positions."""
+    dev = q_offset.device
+    bh = torch.arange(B, device=dev)[:, None] * Hq + torch.arange(Hq, device=dev)[None, :]
+    q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    return dropout_keep_mask(seed, bh[:, :, None, None], q_pos[:, None, :, None],
+                             torch.arange(Sk, device=dev)[None, None, None, :], rate)
+
+
+def dropout_inv(rate: float) -> float:
+    """The survivors' factor ``1/(1 - rate)`` as the float32 the kernels
+    multiply by."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+
+
+def _i32(u: int) -> ctypes.c_int:
+    """A uint32 as the bits of a C int."""
+    return ctypes.c_int(u - 2 ** 32 if u >= 2 ** 31 else u)
+
+
+def dropout_args(dropout_p: float, dropout_seed) -> list:
+    """The kernels' dropout arguments: the hash threshold (0: no dropout),
+    the seed and the survivors' factor."""
+    if dropout_p <= 0.0:
+        return [_i32(0), _i32(0), ctypes.c_float(1.0)]
+    return [_i32(dropout_threshold(dropout_p)), _i32(dropout_seed_u32(dropout_seed)),
+            ctypes.c_float(dropout_inv(dropout_p))]
 
 
 def row_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -41,9 +84,12 @@ def row_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def recompute_p_ds(q, k, v, lse, do, di, q_offset, kv_lens, *, causal: bool,
-                   window: Optional[int], softcap: Optional[float], scale: float):
-    """p and ds ``[B, Hq, Sq, Sk]`` in float32 (before their bf16 rounding),
-    the TPU kernel's ``_recompute_p_and_ds`` over the whole score matrix."""
+                   window: Optional[int], softcap: Optional[float], scale: float,
+                   alibi=None, dropout_p: float = 0.0, dropout_seed=0):
+    """p (as applied to V in the forward: kept and scaled under dropout) and
+    ds ``[B, Hq, Sq, Sk]`` in float32 (before their bf16 rounding), the TPU
+    kernel's ``_recompute_p_and_ds`` over the whole score matrix."""
+
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     g = Hq // Hk
@@ -52,6 +98,7 @@ def recompute_p_ds(q, k, v, lse, do, di, q_offset, kv_lens, *, causal: bool,
     vf = v.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
     s = (qf @ kf.transpose(-1, -2)) * scale
     z = softcap * torch.tanh(s / softcap) if softcap is not None else s
+    z_b = z + alibi_bias(alibi, q_offset, Sq, Sk) if alibi is not None else z
     q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=q.device)[None, :]
     k_pos = torch.arange(Sk, device=q.device)
     mask = k_pos[None, None, :] < kv_lens.long()[:, None, None]
@@ -61,23 +108,31 @@ def recompute_p_ds(q, k, v, lse, do, di, q_offset, kv_lens, *, causal: bool,
         mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
     finite = torch.isfinite(lse)[..., None]
     lse0 = torch.where(finite, lse[..., None], torch.zeros_like(lse[..., None]))
-    p = torch.where(mask[:, None] & finite, torch.exp(z - lse0), torch.zeros_like(z))
+    p = torch.where(mask[:, None] & finite, torch.exp(z_b - lse0), torch.zeros_like(z))
     dp = do.float().permute(0, 2, 1, 3) @ vf.transpose(-1, -2)
+    p_v = p
+    if dropout_p > 0.0:
+        keep = dropout_keep(dropout_seed, dropout_p, q_offset, B, Hq, Sq, Sk)
+        inv = dropout_inv(dropout_p)
+        p_v = torch.where(keep, p, torch.zeros_like(p)) * inv
+        dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
     ds = p * (dp - di[..., None])
     if softcap is not None:
         ds = ds * (1.0 - (z / softcap) ** 2)
-    return p, ds * scale
+    return p_v, ds * scale
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool, window: Optional[int],
-                              softcap: Optional[float], scale: float, q_offset, kv_lens):
+                              softcap: Optional[float], scale: float, q_offset, kv_lens,
+                              alibi=None, dropout_p: float = 0.0, dropout_seed=0):
     """The kernels' function in plain PyTorch. Returns ``dq, dk, dv`` (bshd,
     in q's, k's and v's dtypes)."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     g = Hq // Hk
     p, ds = recompute_p_ds(q, k, v, lse, do, row_di(o, do), q_offset, kv_lens,
-                           causal=causal, window=window, softcap=softcap, scale=scale)
+                           causal=causal, window=window, softcap=softcap, scale=scale,
+                           alibi=alibi, dropout_p=dropout_p, dropout_seed=dropout_seed)
     pb = p.to(torch.bfloat16).float()
     dsb = ds.to(torch.bfloat16).float()
     qf = q.float().permute(0, 2, 1, 3)
@@ -96,10 +151,13 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool, window: Opti
 def _common_args(q, k, cfg):
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
-    return [ctypes.c_int(B), ctypes.c_int(Sq), ctypes.c_int(Sk), ctypes.c_int(Hq),
+    alibi = cfg.get("alibi")
+    return [ctypes.c_void_p(alibi.data_ptr() if alibi is not None else 0),
+            ctypes.c_int(B), ctypes.c_int(Sq), ctypes.c_int(Sk), ctypes.c_int(Hq),
             ctypes.c_int(Hk), ctypes.c_int(D), ctypes.c_float(cfg["scale"]),
             ctypes.c_int(int(cfg["causal"])), ctypes.c_int(cfg["window"] or 0),
             ctypes.c_float(cfg["softcap"] or 0.0),
+            *dropout_args(cfg.get("dropout_p", 0.0), cfg.get("dropout_seed", 0)),
             ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)]
 
 
@@ -135,11 +193,15 @@ def flash_bwd_dq(q, k, v, o, do, lse, q_offset, kv_lens, **cfg):
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: Optional[int],
                         softcap: Optional[float], scale: float, q_offset: torch.Tensor,
-                        kv_lens: torch.Tensor):
+                        kv_lens: torch.Tensor, alibi: Optional[torch.Tensor] = None,
+                        dropout_p: float = 0.0, dropout_seed=0):
     """``dq, dk, dv`` of flash attention from the forward's ``o`` and ``lse``
     (``[B, Hq, Sq]`` float32) and the output gradient ``do``. ``q_offset``
-    and ``kv_lens`` are int32 ``[B]`` tensors on q's device."""
-    cfg = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    and ``kv_lens`` are int32 ``[B]`` tensors on q's device; ``alibi`` the
+    float32 ``[B, Hq]`` slopes or None; ``dropout_p``/``dropout_seed`` the
+    forward's."""
+    cfg = dict(causal=causal, window=window, softcap=softcap, scale=scale, alibi=alibi,
+               dropout_p=dropout_p, dropout_seed=dropout_seed)
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, o, lse, do, q_offset=q_offset,
                                          kv_lens=kv_lens, **cfg)

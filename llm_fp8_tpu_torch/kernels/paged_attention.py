@@ -32,7 +32,7 @@ from . import _build
 from ._common import KV_KINDS, fp8_to_bf16_ftz, num_sms
 
 __all__ = ["paged_attention", "paged_attention_plain", "quantize_to_pool", "split_plan",
-           "split_ranges", "MASK_VALUE"]
+           "split_ranges", "decode_alibi_bias", "alibi_tensor", "MASK_VALUE"]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _MAX_GROUPS = 8  # csrc/paged_attention.cu kMaxG
@@ -83,8 +83,27 @@ def split_ranges(length: int, page: int, splits: int, pages_per_split: int, wind
     return [(max(z * span, start), min(length, (z + 1) * span)) for z in range(splits)]
 
 
+def decode_alibi_bias(alibi, lengths, S: int, Hk: int) -> torch.Tensor:
+    """``slope·(pos - (length - 1))`` as float32 ``[B, Hk, G, S]`` from the
+    ``[Hq]`` slopes (q heads in the packed GQA order, kv head major)."""
+    pos = torch.arange(S, device=lengths.device)
+    rel = (pos[None, :] - (lengths.long()[:, None] - 1)).float()  # [B, S]
+    return alibi.reshape(1, Hk, -1, 1) * rel[:, None, None, :]
+
+
+def alibi_tensor(alibi_slopes, Hq: int, device) -> Optional[torch.Tensor]:
+    """The slopes as the kernels read them: float32 ``[Hq]`` on ``device``
+    (no copy when they already are; a sequence is copied in)."""
+    if alibi_slopes is None:
+        return None
+    t = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=device).contiguous()
+    if tuple(t.shape) != (Hq,):
+        raise ValueError(f"alibi_slopes of shape {tuple(t.shape)}, want [{Hq}]")
+    return t
+
+
 def paged_attention_plain(q, k_pages, v_pages, lengths, page_tables, layer_idx, *,
-                          new_k, new_v, scale, kv_scale, window, softcap):
+                          new_k, new_v, scale, kv_scale, window, softcap, alibi=None):
     """The kernel's function in plain PyTorch. Appends in place when
     ``new_k`` is given; returns ``out [B, Hq, D]``."""
     B, Hq, D = q.shape
@@ -115,6 +134,8 @@ def paged_attention_plain(q, k_pages, v_pages, lengths, page_tables, layer_idx, 
     s = torch.einsum("bhgd,bhsd->bhgs", qs, gather(kl))
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
+    if alibi is not None:
+        s = s + decode_alibi_bias(alibi, lengths, max_pages * page, Hk)
     pos = torch.arange(max_pages * page, device=dev)
     mask = pos[None, :] < lengths[:, None]
     if window is not None:
@@ -131,7 +152,7 @@ def paged_attention_plain(q, k_pages, v_pages, lengths, page_tables, layer_idx, 
 
 
 def _launch(q, k_pages, v_pages, lengths, tables, layer_idx, new_k, new_v, scale,
-            kv_scale, window, softcap):
+            kv_scale, window, softcap, alibi):
     lib = _build.library("paged_attention")
     B, Hq, D = q.shape
     P, L, Hk, page, _ = k_pages.shape
@@ -142,7 +163,7 @@ def _launch(q, k_pages, v_pages, lengths, tables, layer_idx, new_k, new_v, scale
     ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
     err = lib.paged_attn_launch(
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(lengths), ptr(tables), ptr(new_k),
-        ptr(new_v), ptr(out), ptr(part), ptr(part[rows:]), ptr(part[2 * rows:]),
+        ptr(new_v), ptr(alibi), ptr(out), ptr(part), ptr(part[rows:]), ptr(part[2 * rows:]),
         ctypes.c_int(B), ctypes.c_int(Hq), ctypes.c_int(Hk),
         ctypes.c_int(D), ctypes.c_int(P), ctypes.c_int(L), ctypes.c_int(page),
         ctypes.c_int(tables.shape[1]), ctypes.c_int(layer_idx),
@@ -177,10 +198,10 @@ def paged_attention(
     With ``new_k``/``new_v`` the new token is quantized by ``kv_scale`` and
     written at ``lengths - 1`` of layer ``layer_idx`` in place, then attended
     over; returns ``(out, k_pages, v_pages)``. Without them it only attends
-    and returns ``out``. Counts kernel launches in ``paged_attention.launches``.
+    and returns ``out``. ``alibi_slopes``: ``[Hq]`` floats, ``slope·(pos -
+    (length - 1))`` added after softcap. Counts kernel launches in
+    ``paged_attention.launches``.
     """
-    if alibi_slopes is not None:
-        raise NotImplementedError("paged attention: ALiBi is not ported yet")
     if q.ndim != 3:
         raise ValueError(f"q must be [B, Hq, D], got {tuple(q.shape)}")
     B, Hq, D = q.shape
@@ -216,15 +237,17 @@ def paged_attention(
     if append:
         new_k = new_k.to(torch.bfloat16).reshape(B, Hk, D).contiguous()
         new_v = new_v.to(torch.bfloat16).reshape(B, Hk, D).contiguous()
+    alibi = alibi_tensor(alibi_slopes, Hq, dev)
     if q.is_cuda:
         if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
             raise ValueError("the pools must be contiguous")
         out = _launch(q.contiguous(), k_pages, v_pages, lengths, tables, layer_idx,
-                      new_k, new_v, scale, kv_scale, window, softcap)
+                      new_k, new_v, scale, kv_scale, window, softcap, alibi)
     else:
         out = paged_attention_plain(q, k_pages, v_pages, lengths, tables, layer_idx,
                                     new_k=new_k, new_v=new_v, scale=scale,
-                                    kv_scale=kv_scale, window=window, softcap=softcap)
+                                    kv_scale=kv_scale, window=window, softcap=softcap,
+                                    alibi=alibi)
     return (out, k_pages, v_pages) if append else out
 
 

@@ -28,6 +28,7 @@ its ``dtype``, ``shape`` and ``data_offsets`` (relative to the end of the
 header), then the raw little-endian bytes. Files are memory-mapped
 copy-on-write, so a tensor is read from disk when it is first used; BF16
 (which numpy lacks) is read as ``uint16`` and viewed as ``torch.bfloat16``.
+:func:`write_safetensors` writes the same format (the HF export).
 """
 from __future__ import annotations
 
@@ -41,8 +42,8 @@ import torch
 from ..utils.backend import resolve_device
 from .config import ModelConfig
 
-__all__ = ["read_safetensors", "load_hf_checkpoint", "pack_hf_state_dict",
-           "export_hf_state_dict"]
+__all__ = ["read_safetensors", "write_safetensors", "load_hf_checkpoint",
+           "pack_hf_state_dict", "export_hf_state_dict"]
 
 #: safetensors dtype → (numpy dtype of the stored bytes, torch dtype).
 _DTYPES = {
@@ -85,6 +86,35 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
         t = torch.from_numpy(arr.view(np_dtype).reshape(shape))
         out[name] = t.view(torch_dtype) if t.dtype != torch_dtype else t
     return out
+
+
+def write_safetensors(path: str, tensors: Dict[str, Any]) -> None:
+    """Write ``{name: tensor or numpy array}`` as one ``.safetensors`` file:
+    names in sorted order, tensors back to back, the header padded with
+    spaces to a multiple of 8 bytes (as the ``safetensors`` package pads
+    it)."""
+    by_dtype = {t: name for name, (_, t) in _DTYPES.items() if name not in ("F8_E4M3", "F8_E5M2")}
+    by_dtype.update({torch.float8_e4m3fn: "F8_E4M3", torch.float8_e5m2: "F8_E5M2"})
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = torch.as_tensor(tensors[name]).detach().cpu().contiguous()
+        if t.dtype not in by_dtype:
+            raise TypeError(f"{name}: dtype {t.dtype} has no safetensors name")
+        np_dtype = _DTYPES[by_dtype[t.dtype]][0]
+        raw = t.view(torch.uint8) if t.element_size() == 1 else t
+        data = (raw.view(torch.int16) if t.dtype == torch.bfloat16 else raw).numpy()
+        data = np.ascontiguousarray(data).view(np_dtype).tobytes()
+        header[name] = {"dtype": by_dtype[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for data in blobs:
+            f.write(data)
 
 
 def _iter_shards(path: str) -> Iterable[str]:

@@ -18,7 +18,21 @@ computes them there.
 Training: :func:`forward` differentiates into float32 parameters (the bf16
 recipe), and :func:`forward_fp8_train` runs the four GEMM sites of every
 layer through ``quant.fp8_dot`` (attention through K3 forward and K6
-backward on the card).
+backward on the card). Both take attention dropout (``dropout_p``, with the
+per-layer seed ``dropout_seed + layer·7919``, K3/K6's counter hash) and
+per-layer rematerialization (``remat``): ``"full"`` checkpoints each layer
+whole (``torch.utils.checkpoint``, non-reentrant: the backward re-runs the
+layer's forward, K3 included); ``"dots"`` checkpoints only the elementwise
+segments between the GEMM sites and K3 (the norms, the bias, split and
+rotary of q/k/v, SwiGLU), so the GEMM outputs and K3's residuals are kept
+and the backward recomputes only those segments: JAX's ``dots`` policy with
+its ``flash_res`` names. A layer's amaxes are the first forward's (the
+recompute's are dropped); the fp8 dots keep their quantized residuals on
+their autograd context either way.
+
+ALiBi models (``cfg.alibi``: Baichuan-13B) have no rotary: their slopes
+(:func:`~..ops.attention.default_alibi_slopes`, built once per head count
+and device) go to K3, K2, K5 and the plain attention.
 """
 from __future__ import annotations
 
@@ -29,10 +43,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attention import decode_attention_arena
 from ..kernels.paged_attention import paged_attention
-from ..ops.attention import attention
+from ..ops.attention import attention, default_alibi_slopes
 from ..ops.rmsnorm import rmsnorm
 from ..ops.rotary import apply_rope, rope_cos_sin, rope_frequencies
 from ..quant import DotAmaxes, QTensor, RecipeSet, fp8_dot, qdot, quantize, quantize_mx
@@ -42,7 +57,8 @@ from .config import ModelConfig
 
 __all__ = ["init_params", "quantize_params", "KVCache", "init_kv_cache",
            "cache_append_attend", "forward", "forward_decode_arena", "forward_paged",
-           "unstack_layers", "DOT_SITES", "SITE_ROLE", "forward_fp8_train", "lm_head_weight"]
+           "unstack_layers", "DOT_SITES", "SITE_ROLE", "forward_fp8_train", "lm_head_weight",
+           "remat_mode", "DROPOUT_LAYER_STRIDE"]
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
@@ -223,7 +239,7 @@ def quantize_kv(t: torch.Tensor, scale, dtype: torch.dtype) -> torch.Tensor:
 def cache_append_attend(q, kk, vv, cache_kv: Tuple, start_pos: torch.Tensor,
                         kv_lens: Optional[torch.Tensor], *,
                         scale: Optional[float] = None, window: Optional[int] = None,
-                        softcap: Optional[float] = None):
+                        softcap: Optional[float] = None, alibi_slopes=None):
     """Write the new K/V at each sequence's ``start_pos`` (quantizing when the
     cache is narrower) in place, then attend over the masked cache.
 
@@ -250,7 +266,7 @@ def cache_append_attend(q, kk, vv, cache_kv: Tuple, start_pos: torch.Tensor,
         k_all = k_all * torch.as_tensor(k_scale, device=q.device).to(q.dtype)
         v_all = v_all * torch.as_tensor(v_scale, device=q.device).to(q.dtype)
     attn = attention(q, k_all, v_all, causal=True, q_offset=start_pos, kv_lens=kv_lens,
-                     scale=scale, window=window, softcap=softcap)
+                     scale=scale, window=window, softcap=softcap, alibi_slopes=alibi_slopes)
     return attn, (k_cache, v_cache)
 
 
@@ -269,9 +285,45 @@ def _inv_freq(head_dim: int, theta: float, scaling: Optional[str], device: torch
 
 
 def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    """``(cos, sin)`` at ``positions``; ``(None, None)`` for an ALiBi model."""
+    if cfg.alibi:
+        return None, None
     scaling = json.dumps(cfg.rope_scaling, sort_keys=True) if cfg.rope_scaling else None
     inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, scaling, positions.device)
     return rope_cos_sin(positions, inv_freq, cfg.rope_scaling)
+
+
+def _alibi(cfg: ModelConfig, device) -> Optional[torch.Tensor]:
+    """The ALiBi slopes ``[Hq]`` on ``device`` (built once), or None."""
+    return default_alibi_slopes(cfg.num_heads, device) if cfg.alibi else None
+
+
+#: Layer li's dropout seed is ``dropout_seed + li · DROPOUT_LAYER_STRIDE``
+#: (without it every layer would drop the same entries).
+DROPOUT_LAYER_STRIDE = 7919
+
+
+def remat_mode(remat) -> str:
+    """The JAX knob's values (False/None/"none", True/"full", "dots") as a
+    mode name: off, save nothing, save the GEMM outputs (JAX ``_remat_policy``)."""
+    if remat in (False, None, "none"):
+        return "none"
+    if remat in (True, "full"):
+        return "full"
+    if remat == "dots":
+        return "dots"
+    raise ValueError(f"unknown remat policy {remat!r}; use False/'none', True/'full' or 'dots'")
+
+
+def _ckpt(fn, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint: its saved tensors are
+    dropped after the forward and rebuilt by running ``fn`` again in the
+    backward (nothing in a layer draws random numbers: dropout is a hash)."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _call(fn, *args):
+    return fn(*args)
 
 
 def _site_dot(x, w, site: str, dots, amaxes):
@@ -283,8 +335,8 @@ def _site_dot(x, w, site: str, dots, amaxes):
     return y
 
 
-def _qkv(h, lp, cfg: ModelConfig, B: int, S: int, dots=None, amaxes=None):
-    qkv = _site_dot(h, lp["wqkv"], "attn_qkv", dots, amaxes)
+def _split_qkv(qkv, lp, cfg: ModelConfig, B: int, S: int):
+    """The QKV projection's output → q, k, v heads (bias added, QK-norm)."""
     if "bqkv" in lp:
         qkv = qkv + lp["bqkv"].to(qkv.dtype)
     q, kk, vv = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
@@ -297,35 +349,60 @@ def _qkv(h, lp, cfg: ModelConfig, B: int, S: int, dots=None, amaxes=None):
     return q, kk, vv
 
 
-def _mlp(x, lp, cfg: ModelConfig, dots=None, amaxes=None):
-    h = rmsnorm(x, lp["norm_mlp"], cfg.rms_eps)
-    gate, up = torch.chunk(_site_dot(h, lp["w_gate_up"], "mlp_gate_up", dots, amaxes), 2, dim=-1)
-    h = F.silu(gate.float()).to(up.dtype) * up
+def _qkv(h, lp, cfg: ModelConfig, B: int, S: int, dots=None, amaxes=None):
+    return _split_qkv(_site_dot(h, lp["wqkv"], "attn_qkv", dots, amaxes), lp, cfg, B, S)
+
+
+def _swiglu(gate_up: torch.Tensor) -> torch.Tensor:
+    gate, up = torch.chunk(gate_up, 2, dim=-1)
+    return F.silu(gate.float()).to(up.dtype) * up
+
+
+def _mlp(x, lp, cfg: ModelConfig, dots=None, amaxes=None, seg=_call):
+    h = seg(rmsnorm, x, lp["norm_mlp"], cfg.rms_eps)
+    h = seg(_swiglu, _site_dot(h, lp["w_gate_up"], "mlp_gate_up", dots, amaxes))
     return x + _site_dot(h, lp["w_down"], "mlp_down", dots, amaxes)
 
 
-def _layer_body(x, lp, cos, sin, cfg: ModelConfig, attend, dots=None, amaxes=None):
+def _layer_body(x, lp, cos, sin, cfg: ModelConfig, attend, dots=None, amaxes=None,
+                seg=_call):
     """One decoder layer over a sequence: ``attend(q, k, v) -> attn`` (causal
     self-attention or the cache), the GEMMs through ``dots`` when given (the
-    FP8 training path; their amaxes land in ``amaxes``)."""
+    FP8 training path; their amaxes land in ``amaxes``). ``seg(fn, *args)``
+    runs each elementwise segment between the GEMM sites and attention
+    (``_ckpt`` under ``remat="dots"``). No rotary for ALiBi models (``cos``
+    None)."""
     B, S, _ = x.shape
-    h = rmsnorm(x, lp["norm_attn"], cfg.rms_eps)
-    q, kk, vv = _qkv(h, lp, cfg, B, S, dots, amaxes)
-    attn = attend(apply_rope(q, cos, sin), apply_rope(kk, cos, sin), vv)
+
+    def rotary(qkv):
+        q, kk, vv = _split_qkv(qkv, lp, cfg, B, S)
+        if cos is None:
+            return q, kk, vv
+        return apply_rope(q, cos, sin), apply_rope(kk, cos, sin), vv
+
+    h = seg(rmsnorm, x, lp["norm_attn"], cfg.rms_eps)
+    attn = attend(*seg(rotary, _site_dot(h, lp["wqkv"], "attn_qkv", dots, amaxes)))
     x = x + _site_dot(attn.reshape(B, S, -1), lp["wo"], "attn_out", dots, amaxes)
-    return _mlp(x, lp, cfg, dots, amaxes)
+    return _mlp(x, lp, cfg, dots, amaxes, seg)
 
 
-def _check_family(cfg: ModelConfig):
-    if cfg.alibi:
-        raise NotImplementedError(f"{cfg.name}: ALiBi models are not ported yet")
+def _run_layer(x, lp, cos, sin, cfg: ModelConfig, attend, mode: str, dots=None):
+    """One training layer under the remat ``mode``; returns ``(x, amaxes)``,
+    the amaxes of the first forward."""
+    def body(x):
+        amaxes = {}
+        return _layer_body(x, lp, cos, sin, cfg, attend, dots, amaxes,
+                           _ckpt if mode == "dots" else _call), amaxes
+
+    return _ckpt(body, x) if mode == "full" else body(x)
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
             cache: Optional[KVCache] = None, start_pos=0,
             kv_lens: Optional[torch.Tensor] = None,
             compute_dtype=torch.bfloat16, return_kv: bool = False,
-            return_hidden: bool = False):
+            return_hidden: bool = False, remat=False, dropout_p: float = 0.0,
+            dropout_seed: int = 0):
     """``tokens [B, S] -> (logits [B, S, V] float32, cache)``.
 
     ``cache=None``: causal self-attention; with ``return_kv`` the second
@@ -333,8 +410,14 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
     cache: K/V are written at ``start_pos`` in place and the returned cache
     carries the new ``lens``. ``return_hidden`` returns the final-norm hidden
     states ``[B, S, D]`` in place of the logits (``_lm_head`` maps them).
+    ``remat`` (``none|full|dots``) and ``dropout_p``/``dropout_seed`` apply
+    to the cache-free (training) forward.
     """
-    _check_family(cfg)
+    mode = remat_mode(remat)
+    if cache is not None and (mode != "none" or dropout_p):
+        raise ValueError("remat and dropout are training options: no cache")
+    if return_kv and mode != "none":
+        raise ValueError("return_kv reads the layers' K/V: not under remat")
     dev = params["embed"].device
     tokens = tokens.to(dev)
     x = params["embed"][tokens.long()].to(compute_dtype)
@@ -342,21 +425,25 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
     start_pos = torch.as_tensor(start_pos, dtype=torch.int32, device=dev).reshape(-1).expand(B)
     positions = start_pos[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
     cos, sin = _rope_tables(cfg, positions)
+    slopes = _alibi(cfg, dev)
     ks, vs = [], []
     for li, lp in enumerate(unstack_layers(params["layers"])):
         if cache is None:
-            def attend(q, kk, vv):
+            def attend(q, kk, vv, li=li):
                 if return_kv:
                     ks.append(kk)
                     vs.append(vv)
                 return attention(q, kk, vv, causal=True, kv_lens=kv_lens,
-                                 window=cfg.sliding_window)
+                                 window=cfg.sliding_window, alibi_slopes=slopes,
+                                 dropout_p=dropout_p,
+                                 dropout_seed=dropout_seed + li * DROPOUT_LAYER_STRIDE)
+            x = _run_layer(x, lp, cos, sin, cfg, attend, mode)[0]
         else:
             def attend(q, kk, vv, li=li):
                 return cache_append_attend(
                     q, kk, vv, (cache.k, cache.v, cache.k_scale[li], cache.v_scale[li], li),
-                    start_pos, kv_lens, window=cfg.sliding_window)[0]
-        x = _layer_body(x, lp, cos, sin, cfg, attend)
+                    start_pos, kv_lens, window=cfg.sliding_window, alibi_slopes=slopes)[0]
+            x = _layer_body(x, lp, cos, sin, cfg, attend)
     if cache is None:
         new_cache = (torch.stack(ks), torch.stack(vs)) if return_kv else None
     else:
@@ -404,8 +491,7 @@ def forward_decode_arena(params: Dict[str, Any], tokens: torch.Tensor, cfg: Mode
     """Single-token decode over the ``[L, B, Hk, S, Dh]`` arena through K2,
     which rotates q and the new K, quantizes and appends the new token at
     ``lens`` (in place) and attends. Returns ``(logits [B, 1, V], k_arena,
-    v_arena)``."""
-    _check_family(cfg)
+    v_arena)``. ALiBi models take their slopes in K2 and no rotary."""
     B, S_tok = tokens.shape
     if S_tok != 1:
         raise ValueError(f"forward_decode_arena takes one token per sequence, got {S_tok}")
@@ -413,6 +499,7 @@ def forward_decode_arena(params: Dict[str, Any], tokens: torch.Tensor, cfg: Mode
     lens = lens.to(device=dev, dtype=torch.int32)
     x = params["embed"][tokens.to(dev).long()].to(torch.bfloat16)
     cos, sin = _rope_tables(cfg, lens[:, None])
+    slopes = _alibi(cfg, dev)
     k_sc, v_sc = kv_scale if isinstance(kv_scale, tuple) else (kv_scale, kv_scale)
     lengths = lens + 1
     for li, lp in enumerate(unstack_layers(params["layers"])):
@@ -420,8 +507,8 @@ def forward_decode_arena(params: Dict[str, Any], tokens: torch.Tensor, cfg: Mode
         q, kk, vv = _qkv(h, lp, cfg, B, 1)
         attn, k_arena, v_arena = decode_attention_arena(
             q[:, 0], k_arena, v_arena, lengths, li, new_k=kk[:, 0], new_v=vv[:, 0],
-            rope_cos_sin=(cos[:, 0], sin[:, 0]), k_scale=k_sc, v_scale=v_sc,
-            window=window)
+            rope_cos_sin=None if cos is None else (cos[:, 0], sin[:, 0]), k_scale=k_sc,
+            v_scale=v_sc, window=window, alibi_slopes=slopes)
         x = x + _dot(attn.reshape(B, 1, -1), lp["wo"])
         x = _mlp(x, lp, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
@@ -437,9 +524,8 @@ def forward_paged(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
     Rotary is applied to q and the new K at positions ``lens`` here; K5 then
     quantizes and appends each slot's new K/V at ``lens`` through its block
     table row (in place) and attends. Returns ``(logits [B, 1, V] float32,
-    k_pages, v_pages)``.
+    k_pages, v_pages)``. ALiBi models take their slopes in K5 and no rotary.
     """
-    _check_family(cfg)
     B, S_tok = tokens.shape
     if S_tok != 1:
         raise ValueError(f"forward_paged takes one token per sequence, got {S_tok}")
@@ -448,14 +534,16 @@ def forward_paged(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
     tables = page_tables.to(device=dev, dtype=torch.int32)
     x = params["embed"][tokens.to(dev).long()].to(compute_dtype)
     cos, sin = _rope_tables(cfg, lens[:, None])
+    slopes = _alibi(cfg, dev)
     lengths = lens + 1
     for li, lp in enumerate(unstack_layers(params["layers"])):
         h = rmsnorm(x, lp["norm_attn"], cfg.rms_eps)
         q, kk, vv = _qkv(h, lp, cfg, B, 1)
-        q, kk = apply_rope(q, cos, sin), apply_rope(kk, cos, sin)
+        if cos is not None:
+            q, kk = apply_rope(q, cos, sin), apply_rope(kk, cos, sin)
         attn, k_pages, v_pages = paged_attention(
             q[:, 0], k_pages, v_pages, lengths, tables, li, kv_scale=kv_scale,
-            window=cfg.sliding_window, new_k=kk[:, 0], new_v=vv[:, 0])
+            window=cfg.sliding_window, new_k=kk[:, 0], new_v=vv[:, 0], alibi_slopes=slopes)
         x = x + _dot(attn.reshape(B, 1, -1), lp["wo"])
         x = _mlp(x, lp, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
@@ -465,7 +553,8 @@ def forward_paged(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
 def forward_fp8_train(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
                       recipes: RecipeSet, scales: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
                       sinks: Dict[str, torch.Tensor], *, compute_dtype=torch.bfloat16,
-                      remat: bool = False, return_hidden: bool = False):
+                      remat=False, return_hidden: bool = False, dropout_p: float = 0.0,
+                      dropout_seed: int = 0):
     """FP8 training forward: the four GEMM sites of every layer run through
     :func:`~..quant.fp8_dot` with the recipe the set assigns to their role.
 
@@ -473,28 +562,31 @@ def forward_fp8_train(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelCo
     ``sinks[site]`` = zeros [L] that require a gradient — after ``backward``
     their gradients are the backward-pass amaxes. Returns ``(logits
     [B, S, V] float32 — or the final-norm hidden states [B, S, D] with
-    ``return_hidden`` — , {site: DotAmaxes stacked [L]})``. ``remat``
-    (per-layer rematerialization) is not ported yet.
+    ``return_hidden`` — , {site: DotAmaxes stacked [L]})``. ``remat``:
+    ``none|full|dots`` per layer (each sink still gets one backward, and the
+    amaxes are the first forward's). ``dropout_p``/``dropout_seed``:
+    attention dropout as in :func:`forward` (the JAX package applies it on
+    the bf16 recipe only; the port on both).
     """
-    if remat:
-        raise NotImplementedError("forward_fp8_train: remat is not ported yet")
-    _check_family(cfg)
+    mode = remat_mode(remat)
     dev = params["embed"].device
     tokens = tokens.to(dev)
     x = params["embed"][tokens.long()].to(compute_dtype)
     S = tokens.shape[1]
     cos, sin = _rope_tables(cfg, torch.arange(S, dtype=torch.int32, device=dev)[None, :])
-
-    def attend(q, kk, vv):
-        return attention(q, kk, vv, causal=True, window=cfg.sliding_window)
+    slopes = _alibi(cfg, dev)
 
     per_layer = []
     for li, lp in enumerate(unstack_layers(params["layers"])):
+        def attend(q, kk, vv, li=li):
+            return attention(q, kk, vv, causal=True, window=cfg.sliding_window,
+                             alibi_slopes=slopes, dropout_p=dropout_p,
+                             dropout_seed=dropout_seed + li * DROPOUT_LAYER_STRIDE)
+
         dots = _make_train_dots(
             recipes, {s: (scales[s][0][li], scales[s][1][li]) for s in DOT_SITES},
             {s: sinks[s][li] for s in DOT_SITES})
-        amaxes = {}
-        x = _layer_body(x, lp, cos, sin, cfg, attend, dots, amaxes)
+        x, amaxes = _run_layer(x, lp, cos, sin, cfg, attend, mode, dots)
         per_layer.append(amaxes)
     stacked = {s: DotAmaxes(*(torch.stack(t) for t in zip(*(a[s] for a in per_layer))))
                for s in DOT_SITES}

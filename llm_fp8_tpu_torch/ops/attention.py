@@ -5,16 +5,50 @@
 JAX package, so plain PyTorch is their faithful port. ``attention`` sends
 Sq == 1 to ``decode_attention`` and everything else to K3 (the flash kernel)
 on a CUDA tensor or to ``attention_ref`` on a CPU tensor.
+
+ALiBi (``alibi_slopes``, ``[Hq]`` or ``[B, Hq]``) adds ``-slope·|q_pos -
+k_pos|`` on absolute positions after softcap; attention dropout
+(``dropout_p``, ``dropout_seed``) drops softmax weights by the stateless
+counter hash of ``kernels/_common.py::dropout_keep_mask`` and scales the
+survivors by ``1/(1 - p)``, so the golden and K3/K6 drop the same entries.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
 
+from ..kernels._common import dropout_keep_mask, per_batch_slopes
 from ..kernels.flash_attention import flash_attention
 
-__all__ = ["attention_ref", "decode_attention", "attention"]
+__all__ = ["attention_ref", "decode_attention", "attention", "alibi_slopes_list",
+           "default_alibi_slopes"]
+
+
+def alibi_slopes_list(nheads: int) -> list:
+    """The ALiBi slope schedule (Press et al.) as Python floats: head i of n
+    gets ``2^(-8(i+1)/n)`` for a power-of-two n; other head counts take the
+    slopes of the power of two below and every other slope of the one
+    above (the published interleaving, as Baichuan-13B's 40 heads use)."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(nheads).is_integer():
+        return pow2_slopes(nheads)
+    closest = 2 ** math.floor(math.log2(nheads))
+    return pow2_slopes(closest) + pow2_slopes(2 * closest)[0::2][: nheads - closest]
+
+
+@functools.lru_cache(maxsize=None)
+def default_alibi_slopes(nheads: int, device=None) -> torch.Tensor:
+    """:func:`alibi_slopes_list` as a float32 ``[nheads]`` tensor on
+    ``device``, built once per head count and device (a decode step reads it
+    without a host-to-device copy, as a captured CUDA graph must)."""
+    return torch.tensor(alibi_slopes_list(nheads), dtype=torch.float32,
+                        device=torch.device(device) if device is not None else None)
 
 
 def _build_mask(q_len, k_len, causal, window, q_offset, kv_lens, batch, device,
@@ -44,13 +78,9 @@ def attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                   q_offset=0, kv_lens: Optional[torch.Tensor] = None,
                   attention_chunk: Optional[int] = None,
                   kv_start: Optional[torch.Tensor] = None, alibi_slopes=None,
-                  dropout_p: float = 0.0):
+                  dropout_p: float = 0.0, dropout_seed=0):
     """Golden attention in float32. q ``[B, Sq, Hq, D]``, k/v ``[B, Sk, Hk, D]``
     (bshd); returns ``[B, Sq, Hq, D]`` in q's dtype."""
-    if alibi_slopes is not None:
-        raise NotImplementedError("attention_ref: ALiBi is not ported yet")
-    if dropout_p != 0.0:
-        raise NotImplementedError("attention_ref: dropout is not ported yet")
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     g = Hq // Hk
@@ -63,11 +93,24 @@ def attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
+    q_pos = (torch.as_tensor(q_offset, dtype=torch.int64, device=q.device).reshape(-1)
+             .expand(B)[:, None] + torch.arange(Sq, device=q.device)[None, :])  # [B, Sq]
+    k_pos = torch.arange(Sk, device=q.device)
+    if alibi_slopes is not None:
+        slopes = per_batch_slopes(alibi_slopes, B, Hq, q.device)
+        dist = (q_pos[:, :, None] - k_pos[None, None, :]).abs()  # [B, Sq, Sk]
+        logits = logits - slopes[:, :, None, None] * dist[:, None].float()
     mask = _build_mask(Sq, Sk, causal, window, q_offset, kv_lens, B, q.device,
                        attention_chunk, kv_start)
     logits = torch.where(mask, logits, torch.full_like(logits, -float("inf")))
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(mask.any(dim=-1, keepdim=True), probs, torch.zeros_like(probs))
+    if dropout_p > 0.0:
+        bh = (torch.arange(B, device=q.device)[:, None] * Hq
+              + torch.arange(Hq, device=q.device)[None, :])
+        keep = dropout_keep_mask(dropout_seed, bh[:, :, None, None], q_pos[:, None, :, None],
+                                 k_pos[None, None, None, :], dropout_p)
+        probs = torch.where(keep, probs, torch.zeros_like(probs)) / (1.0 - dropout_p)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
 
 
@@ -78,8 +121,6 @@ def decode_attention(q, k, v, *, scale: Optional[float] = None,
                      kv_start: Optional[torch.Tensor] = None, alibi_slopes=None):
     """Single-token decode attention, GQA-grouped, float32 (unsplit: the JAX
     ``num_splits`` lever resolves to 1 off multi-core TPUs and is not ported)."""
-    if alibi_slopes is not None:
-        raise NotImplementedError("decode_attention: ALiBi is not ported yet")
     B, Sq, Hq, D = q.shape
     if Sq != 1:
         raise ValueError(f"decode_attention takes one query position, got {Sq}")
@@ -92,6 +133,10 @@ def decode_attention(q, k, v, *, scale: Optional[float] = None,
         s = softcap * torch.tanh(s / softcap)
     k_pos = torch.arange(S, device=q.device)
     q_pos = torch.as_tensor(q_offset, dtype=torch.int64, device=q.device).reshape(-1).expand(B)
+    if alibi_slopes is not None:
+        slopes = per_batch_slopes(alibi_slopes, B, Hq, q.device).reshape(B, Hk, g, 1)
+        dist = (q_pos[:, None] - k_pos[None, :]).abs()  # [B, S]
+        s = s - slopes * dist[:, None, None, :].float()
     mask = k_pos[None, :] <= q_pos[:, None]
     if kv_lens is not None:
         mask = mask & (k_pos[None, :] < kv_lens.to(q.device).long()[:, None])
@@ -114,9 +159,10 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               q_offset=0, kv_lens: Optional[torch.Tensor] = None,
               attention_chunk: Optional[int] = None,
               kv_start: Optional[torch.Tensor] = None, alibi_slopes=None,
-              dropout_p: float = 0.0):
-    """Public attention entry: :func:`decode_attention` for Sq == 1, K3 (the
-    flash kernel) on a CUDA tensor, :func:`attention_ref` on a CPU tensor."""
+              dropout_p: float = 0.0, dropout_seed=0):
+    """Public attention entry: :func:`decode_attention` for Sq == 1 without
+    dropout, K3 (the flash kernel) on a CUDA tensor, :func:`attention_ref`
+    on a CPU tensor."""
     if q.shape[1] == 1 and causal and dropout_p == 0.0:
         return decode_attention(q, k, v, scale=scale, kv_lens=kv_lens, window=window,
                                 softcap=softcap, q_offset=q_offset,
@@ -128,8 +174,9 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
         return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
                                scale=scale, q_offset=q_offset, kv_lens=kv_lens,
                                alibi_slopes=alibi_slopes, attention_chunk=attention_chunk,
-                               dropout_p=dropout_p)
+                               dropout_p=dropout_p, dropout_seed=dropout_seed)
     return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
                          scale=scale, q_offset=q_offset, kv_lens=kv_lens,
                          attention_chunk=attention_chunk, kv_start=kv_start,
-                         alibi_slopes=alibi_slopes, dropout_p=dropout_p)
+                         alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+                         dropout_seed=dropout_seed)

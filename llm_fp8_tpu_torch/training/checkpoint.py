@@ -1,0 +1,170 @@
+"""Train-state checkpoints with best-loss retention, and the HF export
+(counterpart of ``llm_fp8_tpu/training/checkpoint.py``).
+
+The file layout is JAX's: ``ckpt_<step>/`` per saved step, ``meta_<step>.json``
+beside it (``{"step", "eval_loss"}``), a copy under ``ckpt_best/`` of the
+step with the best eval loss this manager has seen, and all but the newest
+``keep`` step checkpoints removed. Where JAX writes Orbax, the port writes
+one ``torch.save`` file per step (``ckpt_<step>/state.pt``): the float32
+master parameters, the AdamW state (count, moments, the ``MultiSteps``
+accumulator), the delayed-scaling state and the step. :meth:`restore`
+copies the saved tensors into a template state's own tensors (the
+trainer's parameters stay the leaves it differentiates) bit for bit, so a
+run resumed from step n continues as the uninterrupted run would.
+
+:func:`export_hf` writes ``model.safetensors`` (float32, HF names, through
+``models/hf_loader.py``'s own writer: the port never imports
+``safetensors``) and the ``config.json`` JAX writes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..models.config import ModelConfig
+from ..models.hf_loader import export_hf_state_dict, write_safetensors
+from ..quant import QTensor
+
+__all__ = ["CheckpointManager", "export_hf"]
+
+_STATE_FILE = "state.pt"
+
+
+def _plain(x):
+    """A train state as nested dicts of detached tensors, ints and None."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: _plain(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    return x
+
+
+def _fill(template, saved, path="state"):
+    """``template`` with the values of ``saved`` (its :func:`_plain` form):
+    tensors copied into the template's tensors in place, dataclasses
+    rebuilt around them, other leaves taken from ``saved``."""
+    if isinstance(template, torch.Tensor):
+        if not isinstance(saved, torch.Tensor) or saved.shape != template.shape:
+            raise ValueError(f"{path}: the checkpoint holds {getattr(saved, 'shape', saved)}, "
+                             f"the template {tuple(template.shape)}")
+        with torch.no_grad():
+            template.copy_(saved)
+        return template
+    if dataclasses.is_dataclass(template):
+        return dataclasses.replace(template, **{
+            f.name: _fill(getattr(template, f.name), saved[f.name], f"{path}.{f.name}")
+            for f in dataclasses.fields(template)})
+    if isinstance(template, dict):
+        if set(template) != set(saved):
+            raise ValueError(f"{path}: keys {sorted(saved)} in the checkpoint, "
+                             f"{sorted(template)} in the template")
+        return {k: _fill(v, saved[k], f"{path}/{k}") for k, v in template.items()}
+    return saved
+
+
+class CheckpointManager:
+    """Step-tagged train-state checkpoints with best-loss tracking and
+    cleanup."""
+
+    def __init__(self, directory: str, *, keep: int = 2):
+        self.dir = os.path.abspath(directory)
+        self.keep = keep
+        os.makedirs(self.dir, exist_ok=True)
+        self._best_loss = float("inf")
+
+    def _path(self, tag) -> str:
+        return os.path.join(self.dir, f"ckpt_{tag}")
+
+    def save(self, state, step: int, *, eval_loss: Optional[float] = None) -> str:
+        path = self._path(step)
+        os.makedirs(path, exist_ok=True)
+        torch.save(_plain(state), os.path.join(path, _STATE_FILE))
+        with open(os.path.join(self.dir, f"meta_{step}.json"), "w") as f:
+            json.dump({"step": step, "eval_loss": eval_loss}, f)
+        if eval_loss is not None and eval_loss < self._best_loss:
+            self._best_loss = eval_loss
+            best = self._path("best")
+            if os.path.exists(best):
+                shutil.rmtree(best)
+            shutil.copytree(path, best)
+        self._cleanup()
+        return path
+
+    def restore(self, template, tag="latest"):
+        """The state saved under ``tag`` ("latest", a step, or "best"),
+        written into ``template`` (a state of the same structure, e.g. a
+        fresh ``Trainer.init_state``) and returned."""
+        if tag == "latest":
+            steps = self._steps()
+            if not steps:
+                raise FileNotFoundError(f"no checkpoints under {self.dir}")
+            tag = steps[-1]
+        file = os.path.join(self._path(tag), _STATE_FILE)
+        if not os.path.exists(file):
+            raise FileNotFoundError(f"no checkpoint {tag!r} under {self.dir}")
+        saved = torch.load(file, map_location="cpu", weights_only=True)
+        return _fill(template, saved)
+
+    def _steps(self):
+        return sorted(int(n[5:]) for n in os.listdir(self.dir)
+                      if n.startswith("ckpt_") and n[5:].isdigit())
+
+    def _cleanup(self):
+        for old in self._steps()[: -self.keep]:
+            shutil.rmtree(self._path(old), ignore_errors=True)
+            try:
+                os.remove(os.path.join(self.dir, f"meta_{old}.json"))
+            except OSError:
+                pass
+
+
+def export_hf(params: Dict[str, Any], cfg: ModelConfig, out_dir: str, *,
+              dequantize: bool = True) -> str:
+    """Write HF-layout ``model.safetensors`` (float32) and ``config.json``
+    into ``out_dir``. Quantized leaves are dequantized to float32 (the HF
+    layout has no scale sidecar); ``dequantize=False`` refuses them."""
+    def deq(tree):
+        if isinstance(tree, dict):
+            return {k: deq(v) for k, v in tree.items()}
+        if isinstance(tree, QTensor):
+            if not dequantize:
+                raise ValueError("quantized leaf in export with dequantize=False")
+            return tree.dequantize(torch.float32)
+        return tree
+
+    os.makedirs(out_dir, exist_ok=True)
+    write_safetensors(os.path.join(out_dir, "model.safetensors"),
+                      export_hf_state_dict(deq(params), cfg))
+    # model_type from the architectural features, as JAX derives it, so that
+    # transformers reloads with the right class.
+    if cfg.qk_norm:
+        model_type, arch = "qwen3", "Qwen3ForCausalLM"
+    elif cfg.qkv_bias:
+        model_type, arch = "qwen2", "Qwen2ForCausalLM"
+    else:
+        model_type, arch = "llama", "LlamaForCausalLM"
+    hf_cfg = {
+        "architectures": [arch],
+        "model_type": model_type,
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim,
+        "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_eps,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "max_position_embeddings": cfg.max_position_embeddings,
+    }
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
+    return out_dir

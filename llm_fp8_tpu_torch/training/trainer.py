@@ -13,9 +13,12 @@ Where JAX donates the state to a jitted step, ``train_step`` updates the
 given state in place and returns it. The non-finite guard reads the loss and
 the gradient norm on the host: a non-finite step leaves the parameters, the
 optimizer state (Adam's count included) and the delayed-scaling state as
-they were, and only the step counter moves on. ``remat`` and attention
-dropout are not ported and raise; ``unroll`` (a JAX scan knob) has no
-counterpart in an eager loop over the layers and must stay 1.
+they were, and only the step counter moves on. ``remat`` (``none``/False,
+``full``/True, ``dots``) checkpoints each layer (``models/llama.py``);
+``attention_dropout`` drops softmax weights with the step as the seed, as
+JAX passes ``dropout_seed=step``, on the fp8 recipes as well (the JAX
+trainer applies it on the bf16 recipe only). ``unroll`` (a JAX scan knob)
+has no counterpart in an eager loop over the layers and must stay 1.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import _lm_head, forward, forward_fp8_train, lm_head_weight
+from ..models.llama import _lm_head, remat_mode, forward, forward_fp8_train, lm_head_weight
 from ..quant import RecipeSet, recipe_set_by_name
 from ..utils.backend import resolve_device
 from .losses import causal_lm_loss, chunked_causal_lm_loss
@@ -54,9 +57,9 @@ class TrainConfig:
     z_loss: float = 0.0
     label_smoothing: float = 0.0
     unroll: int = 1  # a JAX scan knob: must stay 1 here
-    remat: Any = False  # not ported: must stay off
+    remat: Any = False  # False/"none", True/"full" or "dots"
     adam_mu_dtype: Optional[str] = None
-    attention_dropout: float = 0.0  # not ported: must stay 0
+    attention_dropout: float = 0.0  # softmax-weight dropout, seeded by the step
     ce_chunks: int = 0
 
 
@@ -207,13 +210,12 @@ class Trainer:
     """The train and eval steps of one model configuration on one device."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig, *, device=None):
-        if train_cfg.remat not in (False, None, "none"):
-            raise NotImplementedError("Trainer: remat is not ported yet")
+        remat_mode(train_cfg.remat)  # raises on an unknown policy
         if train_cfg.unroll != 1:
             raise NotImplementedError("Trainer: unroll is a JAX scan knob; the port's "
                                       "layer loop has no counterpart (leave it at 1)")
-        if train_cfg.attention_dropout != 0.0:
-            raise NotImplementedError("Trainer: attention dropout is not ported yet")
+        if not 0.0 <= train_cfg.attention_dropout < 1.0:
+            raise ValueError(f"attention_dropout {train_cfg.attention_dropout} outside [0, 1)")
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.device = resolve_device(device)
@@ -240,16 +242,18 @@ class Trainer:
 
     # ---- steps ----
 
-    def _forward_loss(self, params, sinks, batch, qstate):
+    def _forward_loss(self, params, sinks, batch, qstate, step: int = 0):
         tokens = _batch_tensor(batch["input_ids"], self.device)
         mask = batch.get("attention_mask")
         mask = None if mask is None else _batch_tensor(mask, self.device)
+        kw = dict(return_hidden=True, remat=self.cfg.remat,
+                  dropout_p=self.cfg.attention_dropout, dropout_seed=step)
         if self.recipes.enabled:
             scales = forward_scales(qstate, self.model_cfg, self.device)
             hidden, amaxes = forward_fp8_train(params, tokens, self.model_cfg, self.recipes,
-                                               scales, sinks, return_hidden=True)
+                                               scales, sinks, **kw)
         else:
-            hidden, _ = forward(params, tokens, self.model_cfg, return_hidden=True)
+            hidden, _ = forward(params, tokens, self.model_cfg, **kw)
             amaxes = {}
         with torch.no_grad():
             hidden32 = hidden.float()
@@ -269,7 +273,7 @@ class Trainer:
         {path: parameter gradient}, {site: backward amaxes [L]})``."""
         sinks = make_sinks(self.model_cfg, self.device) if self.recipes.enabled else {}
         loss, n, amaxes, act_stats = self._forward_loss(state.params, sinks, batch,
-                                                        state.qstate)
+                                                        state.qstate, state.step)
         leaves = _leaves(state.params)
         wrt = [t for _, t in leaves] + list(sinks.values())
         grads = [torch.zeros_like(t) if g is None else g

@@ -83,9 +83,20 @@ def test_flash_plain_matches_jax_flash_forward(name):
 @pytest.mark.parametrize("feature", ["alibi_slopes", "attention_chunk", "q_segment_ids",
                                      "dropout_p"])
 def test_flash_unported_features_raise(feature):
+    # ALiBi and dropout are ported: those cases check that K3 (its plain
+    # version) follows attention_ref with them, within two bf16 ulps (P is
+    # rounded to bf16 in K3 only); the others still raise.
+    value = {"alibi_slopes": torch.tensor([0.5, 0.125]), "attention_chunk": 2,
+             "q_segment_ids": torch.zeros((1, 4), dtype=torch.int32), "dropout_p": 0.3}[feature]
+    if feature in ("alibi_slopes", "dropout_p"):
+        rng = np.random.default_rng(2)
+        q = torch.from_numpy(rng.standard_normal((1, 16, 2, 32)).astype(np.float32)).to(
+            torch.bfloat16)
+        out = flash_attention(q, q, q, **{feature: value}).float().numpy()
+        ref = attention_ref(q.float(), q.float(), q.float(), **{feature: value}).numpy()
+        np.testing.assert_allclose(out, ref, rtol=0, atol=2 * _ulp(ref))
+        return
     q = torch.zeros((1, 4, 2, 32), dtype=torch.bfloat16)
-    value = {"alibi_slopes": torch.ones(2), "attention_chunk": 2,
-             "q_segment_ids": torch.zeros((1, 4), dtype=torch.int32), "dropout_p": 0.1}[feature]
     with pytest.raises(NotImplementedError):
         flash_attention(q, q, q, **{feature: value})
 
@@ -183,9 +194,19 @@ def test_arena_attend_only_and_alibi_raises():
                                  v_scale=torch.from_numpy(vs))
     ref = np.asarray(ref.astype(jnp.float32))
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=_ulp(ref))
-    with pytest.raises(NotImplementedError):
+    # ALiBi is ported: attend-only with the slopes follows the JAX kernel,
+    # and slopes for other than Hq heads raise.
+    slopes = tuple(0.5 ** (i + 1) for i in range(q.shape[1]))
+    ref = jax_arena(q, ka, va, jnp.asarray(lengths), 0, k_scale=jnp.asarray(ks),
+                    v_scale=jnp.asarray(vs), alibi_slopes=slopes, interpret=True)
+    out = decode_attention_arena(_t(q), _to_port_layout(ka), _to_port_layout(va),
+                                 torch.from_numpy(lengths), 0, k_scale=torch.from_numpy(ks),
+                                 v_scale=torch.from_numpy(vs), alibi_slopes=slopes)
+    ref = np.asarray(ref.astype(jnp.float32))
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=_ulp(ref))
+    with pytest.raises(ValueError, match="alibi_slopes"):
         decode_attention_arena(_t(q), _to_port_layout(ka), _to_port_layout(va),
-                               torch.from_numpy(lengths), alibi_slopes=(1.0,) * q.shape[1])
+                               torch.from_numpy(lengths), alibi_slopes=(1.0,) * (q.shape[1] + 1))
 
 
 @pytest.mark.parametrize("append", [False, True])

@@ -94,9 +94,21 @@ def test_plain_k6_matches_jax_backward(name):
 
 
 def test_backward_raises_on_what_the_forward_refuses():
+    # ALiBi and dropout are ported: their backward matches the gradient of
+    # attention_ref under torch autograd (tolerances of the cases above).
+    rng = np.random.default_rng(5)
+    qkv = [torch.from_numpy(rng.standard_normal((1, 8, 2, 32)).astype(np.float32))
+           .to(torch.bfloat16).requires_grad_() for _ in range(3)]
+    for kw in ({"alibi_slopes": torch.tensor([0.5, 0.25])},
+               {"dropout_p": 0.25, "dropout_seed": 3}):
+        out = flash_attention(*qkv, **kw)
+        got = torch.autograd.grad(out, qkv, torch.ones_like(out))
+        f32 = [t.detach().float().requires_grad_() for t in qkv]
+        want = torch.autograd.grad(attention_ref(*f32, **kw), f32, torch.ones_like(out).float())
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=2e-2, atol=2e-2)
     q = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, requires_grad=True)
-    for kw in ({"alibi_slopes": torch.ones(2)}, {"attention_chunk": 4},
-               {"q_segment_ids": torch.zeros((1, 8), dtype=torch.int32)}, {"dropout_p": 0.1}):
+    for kw in ({"attention_chunk": 4}, {"q_segment_ids": torch.zeros((1, 8), dtype=torch.int32)}):
         with pytest.raises(NotImplementedError, match="not ported"):
             flash_attention(q, q, q, **kw)
 

@@ -38,6 +38,7 @@ PORT_MODULES = [
     "llm_fp8_tpu_torch.training.trainer", "llm_fp8_tpu_torch.training.losses",
     "llm_fp8_tpu_torch.training.quant_state", "llm_fp8_tpu_torch.training.data",
     "llm_fp8_tpu_torch.training.stability", "llm_fp8_tpu_torch.cli.train",
+    "llm_fp8_tpu_torch.training.checkpoint", "llm_fp8_tpu_torch.cli.compare",
     "llm_fp8_tpu_torch.ops",
     "llm_fp8_tpu_torch.ops.attention", "llm_fp8_tpu_torch.ops.rmsnorm",
     "llm_fp8_tpu_torch.ops.rotary", "llm_fp8_tpu_torch.ops.sampling",

@@ -130,15 +130,15 @@ def test_refuses_what_the_kernel_does_not_take(bad):
     pool = torch.zeros((5, 1, 2, 16, 32), dtype=torch.float8_e4m3fn)
     lengths, tables = torch.tensor([3, 4]), torch.zeros((2, 2), dtype=torch.int32)
     kw = {}
-    if bad == "alibi":
-        kw["alibi_slopes"] = (1.0,) * 4
+    if bad == "alibi":  # ALiBi is ported: slopes for other than Hq heads are refused
+        kw["alibi_slopes"] = (1.0,) * 5
     elif bad == "page_size":
         pool = torch.zeros((5, 1, 2, 24, 32), dtype=torch.float8_e4m3fn)
     elif bad == "groups":
         q = torch.zeros((2, 18, 32), dtype=torch.bfloat16)
     else:
         pool = pool.float()
-    err = NotImplementedError if bad == "alibi" else (TypeError if bad == "dtype" else ValueError)
+    err = TypeError if bad == "dtype" else ValueError
     with pytest.raises(err):
         paged_attention(q, pool, pool.clone(), lengths, tables, **kw)
 

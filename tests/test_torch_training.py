@@ -224,8 +224,16 @@ def test_forward_fp8_train_matches_jax():
                 assert a[0] == b[0], (site, t)
             np.testing.assert_allclose(a, b, rtol=2e-2, err_msg=f"{site}.{t}")
         assert (pam[site].g.numpy() == 0).all()
-    with pytest.raises(NotImplementedError, match="remat"):
-        PL.forward_fp8_train(pp, torch.from_numpy(ids), CFG, prec, {}, {}, remat=True)
+    # Per-layer remat (ported): the same forward, logits and amaxes bit for
+    # bit (tests/test_torch_remat.py holds the gradients).
+    with torch.no_grad():
+        rlogits, ram = PL.forward_fp8_train(
+            pp, torch.from_numpy(ids), CFG, prec,
+            quant_state.forward_scales(quant_state.init_train_quant_state(CFG, prec), CFG),
+            quant_state.make_sinks(CFG), remat=True)
+    assert torch.equal(rlogits, plogits)
+    assert all(torch.equal(getattr(ram[s], t), getattr(pam[s], t))
+               for s in PL.DOT_SITES for t in ("x", "w", "g"))
 
 
 def test_tied_lm_head_gradient_matches_jax():
@@ -404,9 +412,13 @@ def test_evaluate_matches_jax():
     np.testing.assert_allclose(ev_p["perplexity"], ev_j["perplexity"], rtol=1e-3)
 
 
-@pytest.mark.parametrize("kw", [dict(remat=True), dict(unroll=2), dict(attention_dropout=0.1)])
+# remat and attention dropout are ported: their cases now pin what the
+# Trainer still refuses of them (an unknown policy, a rate that drops all).
+@pytest.mark.parametrize("kw", [dict(remat="selective"), dict(unroll=2),
+                                dict(attention_dropout=1.0)])
 def test_trainer_refuses_unported_options(kw):
-    with pytest.raises(NotImplementedError, match="not ported|scan knob"):
+    with pytest.raises((NotImplementedError, ValueError),
+                       match="not ported|scan knob|remat policy|outside"):
         Trainer(CFG, TrainConfig(**kw), device="cpu")
 
 
@@ -417,14 +429,20 @@ def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
                    "--device", "cpu", "--mixed_precision", "fp8", "--fp8_scenario", "default",
                    "--batch_size", "4", "--max_seq_length", "64", "--num_epochs", "1",
                    "--num_warmup_steps", "1", "--log_every", "3",
-                   "--log_dir", str(tmp_path / "runs"), "--output_dir", str(tmp_path / "out")])
+                   "--log_dir", str(tmp_path / "runs"), "--output_dir", str(tmp_path / "out"),
+                   "--checkpoint_dir", str(tmp_path / "ckpt"), "--save_every", "4"])
     assert report["steps"] == 9 and report["non_finite_steps"] == 0
     assert (tmp_path / "out" / "stability_report.json").exists()
     lines = (tmp_path / "runs" / "metrics.jsonl").read_text().splitlines()
     assert any('"eval"' in line for line in lines)
+    # Checkpointing (ported): steps 4 and 8, then 9 after the epoch's eval;
+    # the newest two kept, the eval's the best; the HF export at the end.
+    ckpt = sorted(p.name for p in (tmp_path / "ckpt").iterdir())
+    assert ckpt == ["ckpt_8", "ckpt_9", "ckpt_best", "meta_8.json", "meta_9.json"]
+    assert {"model.safetensors", "config.json"} <= {p.name for p in (tmp_path / "out").iterdir()}
     with pytest.raises(SystemExit, match="not ported yet"):
         main(["--model_name", "debug-tiny", "--random_init", "--synthetic_samples", "8",
-              "--device", "cpu", "--checkpoint_dir", str(tmp_path / "ckpt")])
+              "--device", "cpu", "--use_wandb"])
 
 
 def test_cpu_train_step_on_the_native_route_with_k9_counts_no_launch(monkeypatch):
@@ -456,3 +474,19 @@ def test_cpu_train_step_on_the_native_route_with_k9_counts_no_launch(monkeypatch
     assert calls == ["cpu"] * (2 * 4 * CFG.num_layers * 3)
     assert all(math.isfinite(v) for v in losses_seen)
     assert float(state.qstate["attn_qkv"]["g"].history.max()) > 0
+
+
+def test_dropout_train_steps_match_jax():
+    """Two steps with attention dropout 0.1 under the bf16 recipe (where the
+    JAX trainer applies it): the step is the seed on both sides and the
+    counter hash drops the same entries, so the steps agree as the
+    dropout-free bf16 steps do; a step without dropout reads another
+    gradient norm (the loss itself barely moves at init)."""
+    init, (js, jm, _), (ps, pm, _) = _train_both("bf16", steps=2, attention_dropout=0.1)
+    for a, b in zip(pm, jm):
+        assert a["finite"] == b["finite"] == 1
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-3)
+        np.testing.assert_allclose(a["grad_norm"], b["grad_norm"], rtol=5e-3)
+    _check_params(init, js, ps, 0.2)
+    _, _, (_, plain, _) = _train_both("bf16", steps=1)
+    assert plain[0]["grad_norm"] != pm[0]["grad_norm"]
