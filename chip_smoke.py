@@ -97,18 +97,20 @@ Phases, in order; any failure exits non-zero before the last line:
    interleaved slopes), row by row against their plain versions, appends
    and reruns bit-identical, a planted wrong slope (each head given its
    neighbour's) caught, each timed beside the kernel without ALiBi and
-   SDPA with the bias as a float mask. ``dropout_kernels``: K3 and K6 with
+   SDPA with the bias as a float mask (K6: SDPA's backward with it).
+   ``dropout_kernels``: K3 and K6 with
    attention dropout 0.1 at the training shape (B 8, S 512, Hq 32, Hk 8,
    D 64, causal) within their dropout-free limits, and the keep mask read
    back from each kernel (V one-hot for K3, dO one-hot for K6's dV) equal to
    the plain mask bit for bit; each timed beside its dropout-free time.
    ``alibi_serve``: Baichuan-13B at full width: 2-layer slices card against
-   CPU (arena, paged), then all 40 layers with LAYERWISE fp8 weights (made
+   CPU (arena, paged; the xla passes held to a share of the logits' std,
+   the 1B's 0.06 not being met at this width), then all 40 layers with LAYERWISE fp8 weights (made
    a layer at a time) and fp8 KV through the arena engine and the paged
    engine (8 prompts of 3500 tokens), graph against eager tokens.
 8. ``train_rest``: 16 layers at 1B width, 10 steps under remat none, full
-   and dots (the first loss bit-equal, all within 1e-3, full's peak memory
-   below none's), 10 steps with attention dropout 0.1, a checkpoint at step
+   and dots (every loss bit-equal, full's peak memory below none's), 10
+   steps of the bf16 recipe with attention dropout 0.1, a checkpoint at step
    5 resumed in a fresh Trainer equal to the uninterrupted run bit for bit,
    and the HF export read back bit for bit. ``compare``: ``cli.compare``
    at 1B width, 8 layers, all five configs for 5 steps, then ``--resume``.
@@ -1158,9 +1160,25 @@ def paged_slice_check(dev, log):
             for route, forced in SLICE_PASSES]
 
 
-def _slice_check(dev, log, route, forced, model="llama-3.2-1b", free_checked=True):
-    """One pass: checked unless it is the free-running fp8native reading (or,
-    with ``free_checked`` False, any free-running pass)."""
+#: The 1B's slice limit on the logits' largest card-vs-CPU difference.
+SLICE_TOL = 0.06
+
+#: Baichuan-13B's xla slices are held in units of the CPU logits' standard
+#: deviation. The card-vs-CPU difference is a fixed share of the logits'
+#: scale at every width (prefills: 0.052-0.056 of the std from Llama-3.2-1B
+#: to Baichuan-13B, with or without ALiBi, K1 or torch.mm products), and
+#: that scale grows as sqrt(hidden) (std 0.90 at 1B, 1.43 at 13B), so the
+#: 1B's 0.06 absolute (0.066 std there) is not met at 13B width (0.088
+#: arena, 0.098 paged: its decode steps over the fp8 KV read up to 0.068
+#: std); ``llm_fp8_tpu_torch/scripts/slice_width.py`` has the readings and
+#: PERF.md the standing failure. This limit sits 10% over the worst reading.
+BAICHUAN_XLA_TOL_STD = 0.075
+
+
+def _slice_check(dev, log, route, forced, model="llama-3.2-1b", tol_std=None):
+    """One pass: checked unless it is the free-running fp8native reading; the
+    logits held to ``SLICE_TOL``, or with ``tol_std`` to that share of the
+    CPU logits' standard deviation."""
     import dataclasses
 
     import torch
@@ -1178,12 +1196,11 @@ def _slice_check(dev, log, route, forced, model="llama-3.2-1b", free_checked=Tru
     prompt = torch.zeros((1, bucket), dtype=torch.int64)
     prompt[0, :n] = torch.randint(1, cfg.vocab_size, (n,), generator=rng)
     L, Hk, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    tol = 0.06  # bf16 activations, other sum orders, bf16-rounded logits on the card
     errs, tokens = [], []
     runs = {}
     rec = ForcedQdotInputs()
     side = rec.side if forced else (lambda name: contextlib.nullcontext())
-    checked = (route == "xla" and free_checked) or forced
+    checked = route == "xla" or forced
     for name, p, d in (("cuda", params, dev), ("cpu", cpu_params, torch.device("cpu"))):
         with side(name):
             lg, (k, v) = forward(p, prompt.to(d), cfg, kv_lens=torch.tensor([n], device=d),
@@ -1220,11 +1237,15 @@ def _slice_check(dev, log, route, forced, model="llama-3.2-1b", free_checked=Tru
     for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
         check(bool(torch.isfinite(a).all()), "slice: non-finite logits on the card")
         errs.append((a - b).abs().max().item())
+    std = float(torch.stack(runs["cpu"][0]).std())
+    # bf16 activations, other sum orders
+    tol = SLICE_TOL if tol_std is None else tol_std * std
     res = dict(config=f"{model}, 2 layers, LAYERWISE fp8; fp8 arena (prefill + 2 "
                "decode steps), then bf16 KVCache (prefill + 1 decode step)", qdot_route=route,
                cpu_takes_card_qdot_inputs=forced, forced_calls=rec.forced,
                checked=checked,
                steps=len(errs), logits_max_abs_err=max(errs), per_step=errs, tol=tol,
+               tol_std=tol_std, logits_std=std, err_over_std=max(errs) / std,
                logits_max_abs=max(float(x.abs().max()) for x in runs["cpu"][0]))
     log(res)
     check(not checked or max(errs) <= tol,
@@ -1234,7 +1255,7 @@ def _slice_check(dev, log, route, forced, model="llama-3.2-1b", free_checked=Tru
     return res
 
 
-def _paged_slice_check(dev, log, route, forced, model="llama-3.2-1b", free_checked=True):
+def _paged_slice_check(dev, log, route, forced, model="llama-3.2-1b", tol_std=None):
     """The paged path at full 1B width, 2 layers: two prompts (200 tokens,
     and 128, which ends a page) prefilled and inserted into an e4m3 pool,
     then two ``forward_paged`` steps, on the card and on the CPU."""
@@ -1259,7 +1280,7 @@ def _paged_slice_check(dev, log, route, forced, model="llama-3.2-1b", free_check
     runs = {}
     rec = ForcedQdotInputs()
     side = rec.side if forced else (lambda name: contextlib.nullcontext())
-    checked = (route == "xla" and free_checked) or forced
+    checked = route == "xla" or forced
     for name, p, d in (("cuda", params, dev), ("cpu", to_cpu(params), torch.device("cpu"))):
         eng = PagedEngine(p, cfg, ecfg, device=d)
         logits, tables, kv = [], [], []
@@ -1289,11 +1310,13 @@ def _paged_slice_check(dev, log, route, forced, model="llama-3.2-1b", free_check
             r["logits"].append(lg[:, 0].float().cpu())
         toks = torch.argmax(runs["cpu"]["logits"][-1], dim=-1)
         lens = lens + 1
-    tol = 0.06  # as the arena slice: bf16 activations, K3's bf16 P against float32
     errs = []
     for a, b in zip(runs["cuda"]["logits"], runs["cpu"]["logits"]):
         check(bool(torch.isfinite(a).all()), "paged slice: non-finite logits on the card")
         errs.append((a - b).abs().max().item())
+    std = float(torch.cat(runs["cpu"]["logits"]).std())
+    # as the arena slice: bf16 activations, K3's bf16 P against float32
+    tol = SLICE_TOL if tol_std is None else tol_std * std
     # Pool codes: the card's and the CPU's K/V differ before they are
     # quantized (bf16 roundings of other sum orders in K1 and K3, carried
     # through the layers: kv_input_max_abs_diff reads them per layer), so a
@@ -1325,6 +1348,7 @@ def _paged_slice_check(dev, log, route, forced, model="llama-3.2-1b", free_check
                qdot_route=route, cpu_takes_card_qdot_inputs=forced,
                forced_calls=rec.forced, checked=checked,
                steps=len(errs), logits_max_abs_err=max(errs), per_step=errs, tol=tol,
+               tol_std=tol_std, logits_std=std, err_over_std=max(errs) / std,
                logits_max_abs=max(float(x.abs().max()) for x in runs["cpu"]["logits"]),
                kv_input_max_abs_diff=kv_diff, pool_codes_identical_share=min(same),
                pool_value_max_abs_diff=diff, pool_diff_beyond_one_step=excess_max,
@@ -2136,6 +2160,60 @@ def sdpa_backward(qh, kh, vh, doh, scale):
         return torch.autograd.grad(og, (qg, kg, vg), doh, retain_graph=True)
 
     return backward, grad
+
+
+def sdpa_bias_backward(qh, kh, vh, doh, bias, scale):
+    """SDPA with ``bias`` as a float mask on ``[B, H, S, D]`` operands,
+    through the kernel SDPA picks for it (cuDNN's on the H100; else its
+    efficient-attention kernel): the backward as one aten call (no bias
+    gradient; graph-capturable, the forward's outputs made once), the same
+    backward through autograd, and the kernel's name."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    choice = torch._fused_sdp_choice(qh, kh, vh, bias, 0.0, False, scale=scale)
+    if choice == int(SDPBackend.CUDNN_ATTENTION):
+        out, lse, cum_q, cum_k, max_q, max_k, seed, offset = \
+            torch.ops.aten._scaled_dot_product_cudnn_attention(
+                qh, kh, vh, bias, True, 0.0, False, False, scale=scale)[:8]
+
+        def backward():
+            return torch.ops.aten._scaled_dot_product_cudnn_attention_backward(
+                doh, qh, kh, vh, out, lse, seed, offset, bias, cum_q, cum_k, max_q, max_k,
+                0.0, False, scale=scale)
+    elif choice == int(SDPBackend.EFFICIENT_ATTENTION):
+        out, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(
+            qh, kh, vh, bias, True, 0.0, False, scale=scale)
+
+        def backward():
+            return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+                doh, qh, kh, vh, bias, out, lse, seed, offset, 0.0, [True, True, True, False],
+                False, scale=scale)
+    else:
+        raise RuntimeError(f"SDPA picks backend {choice} for a float mask: no aten backward "
+                           "to time it by")
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qh, kh, vh))
+    og = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias, scale=scale)
+
+    def grad():
+        return torch.autograd.grad(og, (qg, kg, vg), doh, retain_graph=True)
+
+    return backward, grad, SDPBackend(choice).name
+
+
+def alibi_float_mask(al, qo, kl, B, Sq, Sk, causal, dev):
+    """``-slope·|q_pos - k_pos|`` on the live pairs and -inf elsewhere, as
+    the bf16 ``[B, Hq, Sq, Sk]`` float mask SDPA takes."""
+    import torch
+
+    qpos = qo.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    kpos = torch.arange(Sk, device=dev)
+    bias = -(al[:, :, None, None] * (qpos[:, :, None] - kpos[None, None, :]).abs()
+             .float()[:, None])
+    return torch.where(live_pairs(B, Sq, Sk, qo, kl, causal, None, dev)[:, None], bias,
+                       torch.full_like(bias, -float("inf"))).to(torch.bfloat16)
 
 
 def train_k3_case(k3, name, q, k, v, out, lse, qo, kl, cfg, qh, kh, vh, pairs, bw, peak):
@@ -3206,12 +3284,7 @@ def alibi_kernel_cases(dev, bw, peak, log):
                 q, k, v, q_offset=qo, kv_lens=kl, alibi_slopes=al_, **cfg))
             ms, ms_off = cuda_ms(call(slopes)), cuda_ms(call(None))
             pairs = int(live_pairs(B, Sq, Sk, qo, kl, causal, None, dev).sum()) * H
-            qpos = qo.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
-            kpos = torch.arange(Sk, device=dev)
-            bias = -(al[:, :, None, None] * (qpos[:, :, None] - kpos[None, None, :]).abs()
-                     .float()[:, None])
-            bias = torch.where(live_pairs(B, Sq, Sk, qo, kl, causal, None, dev)[:, None], bias,
-                               torch.full_like(bias, -float("inf"))).to(torch.bfloat16)
+            bias = alibi_float_mask(al, qo, kl, B, Sq, Sk, causal, dev)
             qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
                                                                     scale=cfg["scale"]),
@@ -3288,9 +3361,21 @@ def alibi_kernel_cases(dev, bw, peak, log):
                         call_ms=eager_ms(call(al)),
                         plain_ms=cuda_ms(lambda: k6.flash_attention_bwd_plain(
                             *args, q_offset=qo, kv_lens=kl, alibi=al, **cfg), calls=1,
-                            rounds=2),
-                        library_ms=None)
+                            rounds=2))
             case["alibi_cost"] = case["ms"] / case["ms_without_alibi"]
+            # Yardstick: SDPA's backward with the bias as a float mask (heads
+            # as they are: Hq = Hk here), and how far its dq lies from the
+            # plain dq (a reading: bf16 products in another order).
+            bias = alibi_float_mask(al, qo, kl, B, Sq, Sk, causal, dev)
+            qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))
+            lib_bwd, lib_grad, backend = sdpa_bias_backward(qh, kh, vh, doh, bias, cfg["scale"])
+            lib_dq = lib_bwd()[0].transpose(1, 2)
+            case.update(library_ms=cuda_ms(lib_bwd), library_call_ms=eager_ms(lib_grad),
+                        library=f"SDPA's backward, the bias as a float mask ({backend})",
+                        library_dq_max_abs_diff=(lib_dq.float() - ref[0].float()).abs()
+                        .max().item())
+            case["vs_library"] = case["ms"] / case["library_ms"]
+            del bias, lib_bwd, lib_grad, lib_dq
             nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) \
                 + lse.numel() * 4
             case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 10.0 * D * pairs, bw, peak)
@@ -3318,6 +3403,7 @@ def dropout_kernel_cases(dev, bw, peak, log):
     import torch
     import torch.nn.functional as F
 
+    from llm_fp8_tpu_torch.kernels._common import dropout_keep
     from llm_fp8_tpu_torch.kernels import flash_attention as k3
     from llm_fp8_tpu_torch.kernels import flash_attention_bwd as k6
 
@@ -3335,7 +3421,7 @@ def dropout_kernel_cases(dev, bw, peak, log):
     cfg = dict(causal=True, window=None, softcap=None, scale=D ** -0.5)
     drop = dict(dropout_p=rate, dropout_seed=seed)
     live = live_pairs(B, S, S, qo, kl, True, None, dev)
-    keep = k6.dropout_keep(seed, rate, qo, B, Hq, S, S) & live[:, None]  # [B, Hq, S, S]
+    keep = dropout_keep(seed, rate, qo, B, Hq, S, S) & live[:, None]  # [B, Hq, S, S]
     cases = []
 
     # ---- K3 ----
@@ -3487,7 +3573,7 @@ def fp8_params_by_layer(cfg, dev, seed=0):
 
 def alibi_slice_planted(dev, log, model, sound):
     """The slice's prefill logits (2 layers, xla route) on the card against
-    the CPU's with every head given its neighbour's ALiBi slope: the free
+    the CPU's with every head given its neighbour's ALiBi slope: the sound
     card-vs-CPU difference (``sound``, the xla slice's worst reading) must be
     a third of what a wrong slope does to the model's logits or less."""
     import dataclasses
@@ -3522,9 +3608,9 @@ def alibi_slice_planted(dev, log, model, sound):
 
 def alibi_serving(dev, card, log, num_layers=ALIBI_SERVE_LAYERS):
     """Baichuan-13B (ALiBi, 40 heads of 128, vocab 64000) at full width: the
-    2-layer slices card against CPU (arena and paged: qdot pinned to xla, a
-    reading; fp8native with the CPU fed the card's projection inputs, held to
-    the existing limits; a wrong slope on the CPU must part from the card 3x
+    2-layer slices card against CPU (arena and paged: qdot pinned to xla,
+    held to ``BAICHUAN_XLA_TOL_STD`` of the logits' std; fp8native with the
+    CPU fed the card's projection inputs, held to the 1B's limit; a wrong slope on the CPU must part from the card 3x
     the xla reading or more), then all ``num_layers`` layers with
     LAYERWISE fp8 weights and fp8 KV through the arena engine (8 requests of
     100-250 tokens, 32 new each; 8 slots x 1024) and the paged engine (8
@@ -3538,16 +3624,16 @@ def alibi_serving(dev, card, log, num_layers=ALIBI_SERVE_LAYERS):
     from llm_fp8_tpu_torch.models import get_config
 
     model = "baichuan-13b"
-    # The free passes are readings here: at Baichuan-13B's width the card and
-    # the CPU part by more than the 1B's 0.06 (PERF.md); the forced fp8native
-    # passes are held to it, and the free xla pass must part from a wrong
-    # slope's logits by 3x its own difference or more.
-    res = {"slices": [pinned(r, lambda: _slice_check(dev, log, r, f, model=model,
-                                                     free_checked=False))
-                      for r, f in (("xla", False), ("fp8native", True))],
+    # The xla passes are held to BAICHUAN_XLA_TOL_STD of the logits' std (the
+    # 1B's 0.06 is not met at this width), the forced fp8native passes to
+    # the 1B's 0.06, and the xla pass must part from a wrong slope's logits
+    # by 3x its own difference or more.
+    passes = (("xla", False, BAICHUAN_XLA_TOL_STD), ("fp8native", True, None))
+    res = {"slices": [pinned(r, lambda: _slice_check(dev, log, r, f, model=model, tol_std=t))
+                      for r, f, t in passes],
            "paged_slices": [pinned(r, lambda: _paged_slice_check(dev, log, r, f, model=model,
-                                                                 free_checked=False))
-                            for r, f in (("xla", False), ("fp8native", True))]}
+                                                                 tol_std=t))
+                            for r, f, t in passes]}
     sound = max(r["logits_max_abs_err"] for r in res["slices"] + res["paged_slices"]
                 if r["qdot_route"] == "xla")
     res["slice_wrong_slope"] = pinned("xla", lambda: alibi_slice_planted(dev, log, model, sound))
@@ -3579,10 +3665,10 @@ def alibi_serving(dev, card, log, num_layers=ALIBI_SERVE_LAYERS):
 def train_rest(dev, card, log, num_layers=16, steps=10):
     """The rest of training at Llama-3.2-1B width (16 layers, 8 x 512,
     LAYERWISE, native fp8 dots): 10 steps under remat none, full and dots
-    from the same weights and batches (the first step's loss equal bit for
-    bit, every step within 1e-3 relative and bit-equality recorded; full's
-    peak memory below none's); 10 steps with attention dropout 0.1 (finite,
-    falling, K3 and K6 launched a layer a step); a checkpoint at step 5
+    from the same weights and batches (every loss equal bit for bit; full's
+    peak memory below none's); 10 steps of the bf16 recipe (the one that
+    takes dropout, as in the JAX trainer) with attention dropout 0.1
+    (finite, falling, K3 and K6 launched a layer a step); a checkpoint at step 5
     restored into a fresh Trainer whose steps 6-10 must equal the
     uninterrupted run's bit for bit; and the trained params exported as HF
     safetensors and read back by ``load_hf_checkpoint`` bit for bit."""
@@ -3652,11 +3738,8 @@ def train_rest(dev, card, log, num_layers=16, steps=10):
         for mode in ("full", "dots"):
             got = res[mode]["losses"]
             res[mode]["losses_bit_equal_none"] = got == base
-            res[mode]["max_rel_diff_none"] = max(abs(a - b) / abs(b) for a, b in zip(got, base))
-            check(got[0] == base[0], f"train_rest: remat {mode}'s first loss {got[0]} is not "
-                  f"none's {base[0]}")
-            check(res[mode]["max_rel_diff_none"] <= 1e-3, f"train_rest: remat {mode}'s losses "
-                  f"{got} part from none's {base}")
+            check(got == base, f"train_rest: remat {mode}'s losses {got} are not none's "
+                  f"{base} bit for bit")
         # K3 forward: once a layer a step, twice under full (the recompute).
         for mode, k3 in (("none", 1), ("full", 2), ("dots", 1)):
             n = res[mode]["launches"]["flash_attention"]
@@ -3666,8 +3749,8 @@ def train_rest(dev, card, log, num_layers=16, steps=10):
               f"train_rest: remat full's peak {res['full']['peak_memory_gb']:.2f} GB is not "
               f"below none's {res['none']['peak_memory_gb']:.2f} GB")
 
-        # Attention dropout 0.1.
-        tr = trainer(attention_dropout=0.1)
+        # Attention dropout 0.1, on the bf16 recipe.
+        tr = trainer(recipes="bf16", attention_dropout=0.1)
         state = tr.init_state(init_params(cfg, dtype=torch.float32, device=dev, seed=0))
         kernels.reset_launch_counts()
         state, losses, step_s = run(tr, state, 0, steps)
@@ -3677,7 +3760,7 @@ def train_rest(dev, card, log, num_layers=16, steps=10):
         for k in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
             check(counts[k] == num_layers * steps, f"train_rest dropout: {k} launched "
                   f"{counts[k]} times")
-        res["dropout"] = dict(rate=0.1, losses=losses, losses_differ_from_none=losses != base,
+        res["dropout"] = dict(rate=0.1, recipes="bf16", losses=losses,
                               step_ms=1e3 * statistics.median(step_s[1:]), launches=counts)
         del state, tr
         torch.cuda.empty_cache()

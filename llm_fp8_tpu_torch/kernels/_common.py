@@ -10,13 +10,17 @@ as on the TPU.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+
+from typing import Optional
 
 import torch
 
 __all__ = ["e4m3_to_bf16_ftz", "fp8_to_bf16_ftz", "pad_to_multiple", "aligned16",
            "num_sms", "KV_KINDS", "W_KINDS", "dropout_keep_mask", "dropout_threshold",
-           "dropout_seed_u32", "per_batch_slopes"]
+           "dropout_seed_u32", "dropout_keep", "dropout_inv", "dropout_args",
+           "alibi_slopes_tensor", "alibi_bias", "decode_alibi_bias"]
 
 #: dtype → kind code of ``csrc/fp8_ftz.cuh`` (``kCodeE4M3`` ...).
 W_KINDS = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1, torch.int8: 2}
@@ -62,16 +66,42 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def per_batch_slopes(alibi_slopes, B: int, Hq: int, device) -> torch.Tensor:
-    """ALiBi slopes (a sequence or a tensor, ``[Hq]`` or ``[B, Hq]``) as a
-    contiguous float32 ``[B, Hq]`` tensor on ``device``."""
-    slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=device)
-    if slopes.ndim == 1:
-        slopes = slopes[None, :].expand(B, Hq)
-    if tuple(slopes.shape) != (B, Hq):
-        raise ValueError(f"alibi_slopes of shape {tuple(slopes.shape)}, want [{Hq}] or "
-                         f"[{B}, {Hq}]")
-    return slopes.detach().contiguous()
+def alibi_slopes_tensor(alibi_slopes, Hq: int, device, batch: Optional[int] = None
+                        ) -> Optional[torch.Tensor]:
+    """ALiBi slopes (a sequence or a tensor; None passes through) as the
+    kernels read them: contiguous float32 on ``device``, ``[Hq]`` when
+    ``batch`` is None (the decode kernels), else ``[batch, Hq]`` from ``[Hq]``
+    or ``[batch, Hq]`` (the prefill and training kernels)."""
+    if alibi_slopes is None:
+        return None
+    slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=device).detach()
+    want = (Hq,) if batch is None else (batch, Hq)
+    if batch is not None and slopes.ndim == 1:
+        slopes = slopes[None, :].expand(batch, Hq)
+    if tuple(slopes.shape) != want:
+        raise ValueError(f"alibi_slopes of shape {tuple(slopes.shape)}, want [{Hq}]"
+                         + ("" if batch is None else f" or [{batch}, {Hq}]"))
+    return slopes.contiguous()
+
+
+def alibi_bias(slopes: torch.Tensor, q_offset: torch.Tensor, Sq: int, Sk: int) -> torch.Tensor:
+    """``-slope·|q_pos - k_pos|`` on absolute positions (``q_pos = q_offset +
+    row``) as float32 ``[B, Hq, Sq, Sk]``, from ``[B, Hq]`` slopes and the
+    ``[B]`` offsets."""
+    dev = slopes.device
+    q_pos = q_offset.to(dev).long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    dist = (q_pos[:, :, None] - torch.arange(Sk, device=dev)[None, None, :]).abs()
+    return -(slopes[:, :, None, None] * dist[:, None].float())
+
+
+def decode_alibi_bias(slopes: torch.Tensor, lengths: torch.Tensor, S: int, Hk: int
+                      ) -> torch.Tensor:
+    """The decode form ``slope·(pos - (length - 1))`` as float32 ``[B, Hk, G,
+    S]`` from the ``[Hq]`` slopes (q heads in the packed GQA order, kv head
+    major)."""
+    pos = torch.arange(S, device=lengths.device)
+    rel = (pos[None, :] - (lengths.long()[:, None] - 1)).float()  # [B, S]
+    return slopes.reshape(1, Hk, -1, 1) * rel[:, None, None, :]
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,3 +158,34 @@ def dropout_keep_mask(seed, bh, q_pos, k_pos, rate: float) -> torch.Tensor:
     h0 = _fmix32((dropout_seed_u32(seed) + _mul32(bh, _GOLD)) & _M32)
     ctr = (_mul32(q_pos, _GOLD) + k_pos) & _M32
     return _fmix32(h0 ^ ctr) >= dropout_threshold(rate)
+
+
+def dropout_keep(seed, rate: float, q_offset: torch.Tensor, B: int, Hq: int, Sq: int, Sk: int
+                 ) -> torch.Tensor:
+    """The keep mask ``[B, Hq, Sq, Sk]`` of attention on absolute positions
+    (``q_pos = q_offset + row``, ``bh = b·Hq + h``), from the ``[B]`` offsets."""
+    dev = q_offset.device
+    bh = torch.arange(B, device=dev)[:, None] * Hq + torch.arange(Hq, device=dev)[None, :]
+    q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    return dropout_keep_mask(seed, bh[:, :, None, None], q_pos[:, None, :, None],
+                             torch.arange(Sk, device=dev)[None, None, None, :], rate)
+
+
+def dropout_inv(rate: float) -> float:
+    """The survivors' factor ``1/(1 - rate)`` as the float32 the kernels
+    multiply by."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+
+
+def _i32(u: int) -> ctypes.c_int:
+    """A uint32 as the bits of a C int."""
+    return ctypes.c_int(u - 2 ** 32 if u >= 2 ** 31 else u)
+
+
+def dropout_args(dropout_p: float, dropout_seed) -> list:
+    """K3's and K6's dropout arguments: the hash threshold (0: no dropout),
+    the seed and the survivors' factor."""
+    if dropout_p <= 0.0:
+        return [_i32(0), _i32(0), ctypes.c_float(1.0)]
+    return [_i32(dropout_threshold(dropout_p)), _i32(dropout_seed_u32(dropout_seed)),
+            ctypes.c_float(dropout_inv(dropout_p))]

@@ -31,8 +31,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._common import KV_KINDS, fp8_to_bf16_ftz, num_sms
-from .paged_attention import alibi_tensor, decode_alibi_bias
+from ._common import (KV_KINDS, alibi_slopes_tensor, decode_alibi_bias, fp8_to_bf16_ftz,
+                      num_sms)
 from .paged_attention import split_plan as paged_split_plan
 
 __all__ = ["decode_attention_arena", "decode_attention_arena_plain", "split_plan",
@@ -218,7 +218,7 @@ def decode_attention_arena(
     if append:
         new_k = new_k.to(torch.bfloat16).contiguous()
         new_v = new_v.to(torch.bfloat16).contiguous()
-    alibi = alibi_tensor(alibi_slopes, Hq, dev)
+    alibi = alibi_slopes_tensor(alibi_slopes, Hq, dev)
     args = dict(new_k=new_k, new_v=new_v, cos=cos, sin=sin, k_scale=k_scale,
                 v_scale=v_scale, scale=scale, window=window, softcap=softcap, alibi=alibi)
     if not (k_arena.device == v_arena.device == dev

@@ -34,8 +34,9 @@ import torch
 
 from ..utils.backend import native_fp8_matmul
 from . import _build
-from ._common import aligned16, per_batch_slopes
-from .flash_attention_bwd import alibi_bias, dropout_args, dropout_inv, dropout_keep, flash_attention_bwd
+from ._common import (aligned16, alibi_bias, alibi_slopes_tensor, dropout_args, dropout_inv,
+                      dropout_keep)
+from .flash_attention_bwd import flash_attention_bwd
 
 __all__ = ["flash_attention", "flash_fwd_plain", "flash_attention_fp8", "flash_fp8_plain",
            "fp8_prepass", "fp8_prepass_plain", "fp8_v_slots_plain", "fp8_wgmma_ok",
@@ -189,7 +190,7 @@ def flash_attention(
     if not (k.device == v.device == dev):
         raise ValueError("q, k and v must be on one device")
     q_offset, kv_lens = _per_row(q_offset, kv_lens, B, Sk, dev)
-    alibi = None if alibi_slopes is None else per_batch_slopes(alibi_slopes, B, Hq, dev)
+    alibi = alibi_slopes_tensor(alibi_slopes, Hq, dev, batch=B)
     cfg = dict(causal=causal, window=window, softcap=softcap,
                scale=scale if scale is not None else D ** -0.5,
                dropout_p=float(dropout_p), dropout_seed=int(dropout_seed))

@@ -34,48 +34,10 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._common import aligned16, dropout_keep_mask, dropout_seed_u32, dropout_threshold
+from ._common import aligned16, alibi_bias, dropout_args, dropout_inv, dropout_keep
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "flash_bwd_dkv",
-           "flash_bwd_dq", "recompute_p_ds", "row_di", "alibi_bias", "dropout_keep",
-           "dropout_inv", "dropout_args"]
-
-
-def alibi_bias(alibi, q_offset, Sq: int, Sk: int) -> torch.Tensor:
-    """``-slope·|q_pos - k_pos|`` as float32 ``[B, Hq, Sq, Sk]`` from the
-    ``[B, Hq]`` slopes."""
-    q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=alibi.device)[None, :]
-    dist = (q_pos[:, :, None] - torch.arange(Sk, device=alibi.device)[None, None, :]).abs()
-    return -(alibi[:, :, None, None] * dist[:, None].float())
-
-
-def dropout_keep(seed, rate, q_offset, B: int, Hq: int, Sq: int, Sk: int) -> torch.Tensor:
-    """The dropout keep mask ``[B, Hq, Sq, Sk]`` on absolute positions."""
-    dev = q_offset.device
-    bh = torch.arange(B, device=dev)[:, None] * Hq + torch.arange(Hq, device=dev)[None, :]
-    q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
-    return dropout_keep_mask(seed, bh[:, :, None, None], q_pos[:, None, :, None],
-                             torch.arange(Sk, device=dev)[None, None, None, :], rate)
-
-
-def dropout_inv(rate: float) -> float:
-    """The survivors' factor ``1/(1 - rate)`` as the float32 the kernels
-    multiply by."""
-    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
-
-
-def _i32(u: int) -> ctypes.c_int:
-    """A uint32 as the bits of a C int."""
-    return ctypes.c_int(u - 2 ** 32 if u >= 2 ** 31 else u)
-
-
-def dropout_args(dropout_p: float, dropout_seed) -> list:
-    """The kernels' dropout arguments: the hash threshold (0: no dropout),
-    the seed and the survivors' factor."""
-    if dropout_p <= 0.0:
-        return [_i32(0), _i32(0), ctypes.c_float(1.0)]
-    return [_i32(dropout_threshold(dropout_p)), _i32(dropout_seed_u32(dropout_seed)),
-            ctypes.c_float(dropout_inv(dropout_p))]
+           "flash_bwd_dq", "recompute_p_ds", "row_di"]
 
 
 def row_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:

@@ -29,10 +29,11 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._common import KV_KINDS, fp8_to_bf16_ftz, num_sms
+from ._common import (KV_KINDS, alibi_slopes_tensor, decode_alibi_bias, fp8_to_bf16_ftz,
+                      num_sms)
 
 __all__ = ["paged_attention", "paged_attention_plain", "quantize_to_pool", "split_plan",
-           "split_ranges", "decode_alibi_bias", "alibi_tensor", "MASK_VALUE"]
+           "split_ranges", "MASK_VALUE"]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _MAX_GROUPS = 8  # csrc/paged_attention.cu kMaxG
@@ -81,25 +82,6 @@ def split_ranges(length: int, page: int, splits: int, pages_per_split: int, wind
     span = pages_per_split * page
     start = max(0, length - window) if window else 0
     return [(max(z * span, start), min(length, (z + 1) * span)) for z in range(splits)]
-
-
-def decode_alibi_bias(alibi, lengths, S: int, Hk: int) -> torch.Tensor:
-    """``slope·(pos - (length - 1))`` as float32 ``[B, Hk, G, S]`` from the
-    ``[Hq]`` slopes (q heads in the packed GQA order, kv head major)."""
-    pos = torch.arange(S, device=lengths.device)
-    rel = (pos[None, :] - (lengths.long()[:, None] - 1)).float()  # [B, S]
-    return alibi.reshape(1, Hk, -1, 1) * rel[:, None, None, :]
-
-
-def alibi_tensor(alibi_slopes, Hq: int, device) -> Optional[torch.Tensor]:
-    """The slopes as the kernels read them: float32 ``[Hq]`` on ``device``
-    (no copy when they already are; a sequence is copied in)."""
-    if alibi_slopes is None:
-        return None
-    t = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=device).contiguous()
-    if tuple(t.shape) != (Hq,):
-        raise ValueError(f"alibi_slopes of shape {tuple(t.shape)}, want [{Hq}]")
-    return t
 
 
 def paged_attention_plain(q, k_pages, v_pages, lengths, page_tables, layer_idx, *,
@@ -237,7 +219,7 @@ def paged_attention(
     if append:
         new_k = new_k.to(torch.bfloat16).reshape(B, Hk, D).contiguous()
         new_v = new_v.to(torch.bfloat16).reshape(B, Hk, D).contiguous()
-    alibi = alibi_tensor(alibi_slopes, Hq, dev)
+    alibi = alibi_slopes_tensor(alibi_slopes, Hq, dev)
     if q.is_cuda:
         if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
             raise ValueError("the pools must be contiguous")

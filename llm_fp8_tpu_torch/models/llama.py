@@ -565,8 +565,9 @@ def forward_fp8_train(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelCo
     ``return_hidden`` — , {site: DotAmaxes stacked [L]})``. ``remat``:
     ``none|full|dots`` per layer (each sink still gets one backward, and the
     amaxes are the first forward's). ``dropout_p``/``dropout_seed``:
-    attention dropout as in :func:`forward` (the JAX package applies it on
-    the bf16 recipe only; the port on both).
+    attention dropout as in :func:`forward` (the JAX package's fp8 forward
+    has none, and the ``Trainer`` passes dropout on the bf16 recipe only, as
+    the JAX trainer does).
     """
     mode = remat_mode(remat)
     dev = params["embed"].device

@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels._common import dropout_keep_mask, per_batch_slopes
+from ..kernels._common import alibi_bias, alibi_slopes_tensor, dropout_keep
 from ..kernels.flash_attention import flash_attention
 
 __all__ = ["attention_ref", "decode_attention", "attention", "alibi_slopes_list",
@@ -93,23 +93,17 @@ def attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    q_pos = (torch.as_tensor(q_offset, dtype=torch.int64, device=q.device).reshape(-1)
-             .expand(B)[:, None] + torch.arange(Sq, device=q.device)[None, :])  # [B, Sq]
-    k_pos = torch.arange(Sk, device=q.device)
+    q_off = torch.as_tensor(q_offset, dtype=torch.int64, device=q.device).reshape(-1).expand(B)
     if alibi_slopes is not None:
-        slopes = per_batch_slopes(alibi_slopes, B, Hq, q.device)
-        dist = (q_pos[:, :, None] - k_pos[None, None, :]).abs()  # [B, Sq, Sk]
-        logits = logits - slopes[:, :, None, None] * dist[:, None].float()
+        logits = logits + alibi_bias(alibi_slopes_tensor(alibi_slopes, Hq, q.device, batch=B),
+                                     q_off, Sq, Sk)
     mask = _build_mask(Sq, Sk, causal, window, q_offset, kv_lens, B, q.device,
                        attention_chunk, kv_start)
     logits = torch.where(mask, logits, torch.full_like(logits, -float("inf")))
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(mask.any(dim=-1, keepdim=True), probs, torch.zeros_like(probs))
     if dropout_p > 0.0:
-        bh = (torch.arange(B, device=q.device)[:, None] * Hq
-              + torch.arange(Hq, device=q.device)[None, :])
-        keep = dropout_keep_mask(dropout_seed, bh[:, :, None, None], q_pos[:, None, :, None],
-                                 k_pos[None, None, None, :], dropout_p)
+        keep = dropout_keep(dropout_seed, dropout_p, q_off, B, Hq, Sq, Sk)
         probs = torch.where(keep, probs, torch.zeros_like(probs)) / (1.0 - dropout_p)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
 
@@ -134,9 +128,8 @@ def decode_attention(q, k, v, *, scale: Optional[float] = None,
     k_pos = torch.arange(S, device=q.device)
     q_pos = torch.as_tensor(q_offset, dtype=torch.int64, device=q.device).reshape(-1).expand(B)
     if alibi_slopes is not None:
-        slopes = per_batch_slopes(alibi_slopes, B, Hq, q.device).reshape(B, Hk, g, 1)
-        dist = (q_pos[:, None] - k_pos[None, :]).abs()  # [B, S]
-        s = s - slopes * dist[:, None, None, :].float()
+        s = s + alibi_bias(alibi_slopes_tensor(alibi_slopes, Hq, q.device, batch=B), q_pos, 1,
+                           S).reshape(B, Hk, g, S)
     mask = k_pos[None, :] <= q_pos[:, None]
     if kv_lens is not None:
         mask = mask & (k_pos[None, :] < kv_lens.to(q.device).long()[:, None])

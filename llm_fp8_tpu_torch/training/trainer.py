@@ -16,8 +16,9 @@ optimizer state (Adam's count included) and the delayed-scaling state as
 they were, and only the step counter moves on. ``remat`` (``none``/False,
 ``full``/True, ``dots``) checkpoints each layer (``models/llama.py``);
 ``attention_dropout`` drops softmax weights with the step as the seed, as
-JAX passes ``dropout_seed=step``, on the fp8 recipes as well (the JAX
-trainer applies it on the bf16 recipe only). ``unroll`` (a JAX scan knob)
+JAX passes ``dropout_seed=step``, on the bf16 recipe: the JAX trainer gives
+it to the bf16 forward only, so the port refuses it with an fp8 recipe
+rather than train otherwise than the reference. ``unroll`` (a JAX scan knob)
 has no counterpart in an eager loop over the layers and must stay 1.
 """
 from __future__ import annotations
@@ -220,6 +221,11 @@ class Trainer:
         self.cfg = train_cfg
         self.device = resolve_device(device)
         self.recipes: RecipeSet = recipe_set_by_name(train_cfg.recipes)
+        if train_cfg.attention_dropout and self.recipes.enabled:
+            raise ValueError(f"attention_dropout applies to the bf16 recipe only (the JAX "
+                             f"trainer leaves it out of the fp8 forward); recipes "
+                             f"{train_cfg.recipes!r} with attention_dropout "
+                             f"{train_cfg.attention_dropout}")
         self.tx = make_optimizer(train_cfg)
 
     # ---- state ----
@@ -246,14 +252,14 @@ class Trainer:
         tokens = _batch_tensor(batch["input_ids"], self.device)
         mask = batch.get("attention_mask")
         mask = None if mask is None else _batch_tensor(mask, self.device)
-        kw = dict(return_hidden=True, remat=self.cfg.remat,
-                  dropout_p=self.cfg.attention_dropout, dropout_seed=step)
+        kw = dict(return_hidden=True, remat=self.cfg.remat)
         if self.recipes.enabled:
             scales = forward_scales(qstate, self.model_cfg, self.device)
             hidden, amaxes = forward_fp8_train(params, tokens, self.model_cfg, self.recipes,
                                                scales, sinks, **kw)
         else:
-            hidden, _ = forward(params, tokens, self.model_cfg, **kw)
+            hidden, _ = forward(params, tokens, self.model_cfg,
+                                dropout_p=self.cfg.attention_dropout, dropout_seed=step, **kw)
             amaxes = {}
         with torch.no_grad():
             hidden32 = hidden.float()

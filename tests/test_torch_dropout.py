@@ -20,9 +20,8 @@ import torch
 
 from llm_fp8_tpu.kernels._common import dropout_keep_mask as jax_keep
 from llm_fp8_tpu.ops.attention import attention_ref as jax_attention_ref
-from llm_fp8_tpu_torch.kernels._common import dropout_keep_mask, dropout_threshold
+from llm_fp8_tpu_torch.kernels._common import dropout_keep, dropout_keep_mask, dropout_threshold
 from llm_fp8_tpu_torch.kernels.flash_attention import flash_attention
-from llm_fp8_tpu_torch.kernels.flash_attention_bwd import dropout_keep
 from llm_fp8_tpu_torch.ops.attention import attention_ref
 
 
