@@ -114,7 +114,24 @@ Phases, in order; any failure exits non-zero before the last line:
    5 resumed in a fresh Trainer equal to the uninterrupted run bit for bit,
    and the HF export read back bit for bit. ``compare``: ``cli.compare``
    at 1B width, 8 layers, all five configs for 5 steps, then ``--resume``.
-9. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
+9. The GPT-2 and NeoX families (float32 compute). ``zoo_kernels``: K3's
+   float32 instance (3xTF32 ``mma.sync``) against its plain version row by
+   row (``F32_ROW_TOL`` of each row's largest |v|) at Falcon-7B's prefill
+   (71 q heads over 1 kv head, D 64, a 2048 bucket, ragged kv_lens), GPT-J's
+   D 256, BTLM's D 80 with ALiBi and scale 1/80, gpt2-xl's 25 heads and the
+   engine's Sq = bucket against Sk = max_seq_len at a q_offset; planted
+   single-pass TF32, a lost key tile and a wrong slope must be caught; each
+   timed beside its plain version and SDPA on the same float32 q/k/v.
+   ``zoo_slice``: falcon-7b, gptj-6b and btlm-3b at full width cut to 2
+   layers, LAYERWISE fp8, an e4m3 KVCache: a prefill and two decode steps
+   card against CPU on LLM_FP8_QDOT=xla and on fp8native with the CPU taking
+   the card's projection inputs, held to ``ZOO_SLICE_TOL_STD`` of the logits'
+   std. ``zoo_serve``: Falcon-7B at all 32 layers through
+   ``Engine(forward_fn=neox_forward)`` (fp8 weights made a layer at a time,
+   fp8 KV on the KVCache path, 8 prompts of 500-1000 tokens, 32 new each),
+   graph against eager tokens, K3 float32 and K9 launch counts, the device's
+   busy share; then every GPT-2/NeoX debug config through the engine.
+10. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 With ``--out DIR`` the details of every case go to ``DIR/chip_smoke.json``
@@ -139,7 +156,8 @@ ROOT = Path(__file__).resolve().parent
 
 PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_serve",
           "spec_serve", "checkpoint", "train_kernels", "train_slice", "train", "fp8_kernels",
-          "profile", "alibi_kernels", "dropout_kernels", "alibi_serve", "train_rest", "compare")
+          "profile", "alibi_kernels", "dropout_kernels", "alibi_serve", "train_rest", "compare",
+          "zoo_kernels", "zoo_slice", "zoo_serve")
 #: The kernels each path runs (launch counts read around its run). On the
 #: card fp8 weights take qdot's fp8native route (K9 quantizes x per row, then
 #: fp8 products), as the JAX package picks it where fp8 products exist; K1
@@ -2203,9 +2221,9 @@ def sdpa_bias_backward(qh, kh, vh, doh, bias, scale):
     return backward, grad, SDPBackend(choice).name
 
 
-def alibi_float_mask(al, qo, kl, B, Sq, Sk, causal, dev):
+def alibi_float_mask(al, qo, kl, B, Sq, Sk, causal, dev, dtype=None):
     """``-slope·|q_pos - k_pos|`` on the live pairs and -inf elsewhere, as
-    the bf16 ``[B, Hq, Sq, Sk]`` float mask SDPA takes."""
+    the ``[B, Hq, Sq, Sk]`` float mask SDPA takes (bf16 unless ``dtype``)."""
     import torch
 
     qpos = qo.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
@@ -2213,7 +2231,7 @@ def alibi_float_mask(al, qo, kl, B, Sq, Sk, causal, dev):
     bias = -(al[:, :, None, None] * (qpos[:, :, None] - kpos[None, None, :]).abs()
              .float()[:, None])
     return torch.where(live_pairs(B, Sq, Sk, qo, kl, causal, None, dev)[:, None], bias,
-                       torch.full_like(bias, -float("inf"))).to(torch.bfloat16)
+                       torch.full_like(bias, -float("inf"))).to(dtype or torch.bfloat16)
 
 
 def train_k3_case(k3, name, q, k, v, out, lse, qo, kl, cfg, qh, kh, vh, pairs, bw, peak):
@@ -3532,12 +3550,13 @@ def dropout_kernel_cases(dev, bw, peak, log):
 ALIBI_SERVE_LAYERS = 40
 
 
-def fp8_params_by_layer(cfg, dev, seed=0):
+def fp8_params_by_layer(cfg, dev, seed=0, init=None, quantize=None):
     """LAYERWISE fp8 params of ``cfg``, made and quantized one layer at a time
-    (layer li from seed ``seed·1000 + li``): a 13B model's whole bf16 copy and
-    its float32 quantize temporaries do not fit beside each other on one
-    card. The stacked codes are laid out for the route in force at the end
-    (``serving_layout``)."""
+    (layer li from seed ``seed·1000 + li``) by ``init`` and ``quantize`` (the
+    Llama family's by default; a zoo family's registry entry gives its own):
+    a 13B model's whole bf16 copy and its float32 quantize temporaries do not
+    fit beside each other on one card. The stacked codes are laid out for the
+    route in force at the end (``serving_layout``)."""
     import dataclasses
 
     import torch
@@ -3546,10 +3565,12 @@ def fp8_params_by_layer(cfg, dev, seed=0):
     from llm_fp8_tpu_torch.quant import LAYERWISE, QTensor
     from llm_fp8_tpu_torch.quant.dot import serving_layout
 
+    init, quantize = init or init_params, quantize or quantize_params
     one = dataclasses.replace(cfg, num_layers=1)
     layers, top = {}, None
     for li in range(cfg.num_layers):
-        p = quantize_params(init_params(one, device=dev, seed=seed * 1000 + li), LAYERWISE)
+        p = quantize(init(one, dtype=torch.bfloat16, device=dev, seed=seed * 1000 + li),
+                     LAYERWISE)
         if top is None:
             top = {k: v for k, v in p.items() if k != "layers"}
         for k, v in p["layers"].items():
@@ -3858,6 +3879,424 @@ def compare_study(dev, log, num_layers=8):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 9: the GPT-2 and NeoX families (float32 compute, K3's float32 instance)
+# --------------------------------------------------------------------------
+
+#: The zoo's serving path: K3's float32 instance at every prefill, K9 at every
+#: fp8native projection (the decode step's attention over the KVCache is the
+#: plain decode attention, as the JAX package's).
+ZOO_PATH = ("flash_attention_f32", "quantize_fused")
+
+#: K3's float32 instance is held row by row: a row's largest error against
+#: the plain version, over the largest |v| of its batch row and kv head, at
+#: most this. An output row is a convex combination of V's rows, so the
+#: float32 errors of its products and sums scale with |v|; 3xTF32 keeps each
+#: product to about 2^-22 of its size and the plain version rounds in float32
+#: in another order (readings on an H100 at 2048 keys: up to 3.3e-6,
+#: 2^-18.2). Single-pass TF32 rounds each operand to 2^-11, but a row
+#: averages those errors over its keys: at Falcon-7B's 2048 keys 38% of its
+#: rows broke 2^-16 on an H100 and 96.6% break 2^-17 (emulated against
+#: float64 on the CPU by tests/test_torch_flash_f32.py::
+#: test_single_pass_tf32_breaks_the_card_row_tolerance).
+F32_ROW_TOL = 2.0 ** -17
+
+
+def f32_row_err(got, ref, v, Hq):
+    """``[B, Sq, Hq]``: each row's largest |got - ref| over the largest |v|
+    of its batch row and kv head."""
+    vmax = v.float().abs().amax(dim=(1, 3))  # [B, Hk]
+    vmax = vmax.repeat_interleave(Hq // v.shape[2], dim=1)[:, None, :]
+    return (got.float() - ref.float()).abs().amax(dim=-1) / vmax
+
+
+def f32_attention_over(q, k, v, live, scale, alibi=None, q_offset=None):
+    """float32 attention of ``q [B, Sq, Hq, D]`` over the ``live`` ``[B, Sq,
+    Sk]`` pairs (the reference of a planted lost key tile)."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels._common import alibi_bias
+
+    g = q.shape[2] // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    if alibi is not None:
+        s = s + alibi_bias(alibi, q_offset, q.shape[1], k.shape[1])
+    p = torch.softmax(s.masked_fill(~live[:, None], -float("inf")), dim=-1).nan_to_num(0.0)
+    return (p @ vf).permute(0, 2, 1, 3)
+
+
+def f32_tile_mass(q, k, lse, q_offset, live, scale, alibi, k0, k1):
+    """``[B, Sq, Hq]``: the softmax weight each row gives keys ``k0..k1-1``
+    (from the plain version's LSE). A row that gives a lost tile at least
+    2^-10 of its weight moves by about that share of |v|, far past
+    ``F32_ROW_TOL``; under ALiBi most rows far from the tile give it none."""
+    import torch
+
+    g = q.shape[2] // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)
+    kt = k[:, k0:k1].float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    s = (qf @ kt.transpose(-1, -2)) * scale
+    if alibi is not None:
+        q_pos = q_offset.long()[:, None] + torch.arange(q.shape[1], device=q.device)[None, :]
+        dist = (q_pos[:, :, None] - torch.arange(k0, k1, device=q.device)).abs().float()
+        s = s - alibi[:, :, None, None] * dist[:, None]
+    lse0 = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    p = torch.exp(s - lse0[..., None]) * live[:, None, :, k0:k1]
+    return p.sum(dim=-1).transpose(1, 2)
+
+
+#: zoo_kernel_cases: (name, B, Sq, Sk, Hq, Hk, D, q_offset, kv_lens, ALiBi, scale or None)
+ZOO_K3_CASES = (
+    ("falcon-7b prefill B2 Sq=Sk=2048 Hq71 Hk1 D64 kv_lens 1900/1333", 2, 2048, 2048, 71, 1,
+     64, [0, 0], [1900, 1333], False, None),
+    ("gptj-6b prefill B1 Sq=Sk=1024 Hq=Hk=16 D256", 1, 1024, 1024, 16, 16, 256, [0], [1000],
+     False, None),
+    ("btlm-3b prefill B1 Sq=Sk=1024 Hq=Hk=32 D80 alibi scale 1/80", 1, 1024, 1024, 32, 32, 80,
+     [0], [1000], True, 1.0 / 80),
+    ("gpt2-xl prefill B1 Sq=Sk=1024 Hq=Hk=25 D64", 1, 1024, 1024, 25, 25, 64, [0], [1000],
+     False, None),
+    ("engine call: Sq=512 bucket over Sk=2048 (max_seq_len) at q_offset 700, falcon heads",
+     1, 512, 2048, 71, 1, 64, [700], [1150], False, None),
+)
+
+
+def zoo_kernel_cases(dev, bw, peak, log):
+    """K3's float32 instance at the zoo's shapes against its plain version,
+    row by row (``F32_ROW_TOL``), LSE within 1e-5 relative, two runs
+    bit-identical; planted faults the tolerance must catch in at least half
+    the live rows: single-pass TF32 (the kernel's ``passes=1`` instance), a
+    lost key tile (keys 64-127 left out; held over the rows that give that
+    tile at least 2^-10 of their weight, ``f32_tile_mass``) and, with ALiBi,
+    each head given its neighbour's slope. Each case timed (CUDA graph) beside the plain version
+    and SDPA on the same float32 q/k/v (timed only); the bound is the live
+    pairs' FLOPs over the TF32 tensor cores' peak at three products per
+    float32 product (the unit the kernel runs on)."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.ops.attention import default_alibi_slopes
+
+    g = torch.Generator(device=dev).manual_seed(2468)
+    tf32 = peak / 2  # the TF32 tensor-core peak, half the bf16 one
+    cases = []
+    for name, B, Sq, Sk, Hq, Hk, D, q_off, kv, alibi, scale in ZOO_K3_CASES:
+        q, k, v = (torch.randn(s, generator=g, device=dev)
+                   for s in ((B, Sq, Hq, D), (B, Sk, Hk, D), (B, Sk, Hk, D)))
+        qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kv, dtype=torch.int32, device=dev)
+        scale = scale or D ** -0.5
+        al = default_alibi_slopes(Hq, dev)[None].expand(B, Hq).contiguous() if alibi else None
+        cfg = dict(causal=True, scale=scale, alibi=al)
+        out, lse = k3.flash_fwd_f32(q, k, v, qo, kl, **cfg)
+        again, _ = k3.flash_fwd_f32(q, k, v, qo, kl, **cfg)
+        one_pass, _ = k3.flash_fwd_f32(q, k, v, qo, kl, passes=1, **cfg)
+        ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, window=None, softcap=None,
+                                          causal=True, scale=scale, alibi=al)
+        live = live_pairs(B, Sq, Sk, qo, kl, True, None, dev)
+        lost = live.clone()
+        lost[:, :, 64:128] = False
+        bad_tile = f32_attention_over(q, k, v, lost, scale, al, qo)
+        torch.cuda.synchronize()
+        rows = torch.isfinite(ref_lse).transpose(1, 2)  # [B, Sq, Hq]: rows with a live key
+        err = f32_row_err(out, ref, v, Hq)
+        worst = float(err[rows].max())
+        check(math.isfinite(worst) and worst <= F32_ROW_TOL and bool((out[~rows] == 0).all()),
+              f"K3 f32 {name}: a row is {worst} of max|v| off (tol {F32_ROW_TOL})")
+        lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0))
+                        [torch.isfinite(ref_lse)].max())
+        check(lse_err <= 1e-5, f"K3 f32 {name}: lse err {lse_err}")
+        rerun = bool(torch.equal(out, again))
+        check(rerun, f"K3 f32 {name}: two runs differ")
+        tile_rows = rows & (f32_tile_mass(q, k, ref_lse, qo, live, scale, al, 64, 128)
+                            >= 2.0 ** -10)
+        caught = {"single_pass_tf32": float((f32_row_err(one_pass, ref, v, Hq)[rows]
+                                             > F32_ROW_TOL).float().mean()),
+                  "lost_key_tile": float((f32_row_err(bad_tile, ref, v, Hq)[tile_rows]
+                                          > F32_ROW_TOL).float().mean())}
+        if alibi:
+            bad_slope, _ = k3.flash_fwd_plain(q, k, v, qo, kl, window=None, softcap=None,
+                                              causal=True, scale=scale,
+                                              alibi=torch.roll(al, 1, dims=1))
+            caught["wrong_slope"] = float((f32_row_err(bad_slope, ref, v, Hq)[rows]
+                                           > F32_ROW_TOL).float().mean())
+            del bad_slope
+        for fault, share in caught.items():
+            check(share >= 0.5, f"K3 f32 {name}: {fault} passes in {1 - share:.0%} of the rows")
+        del one_pass, bad_tile, again
+        pairs = int(live.sum()) * Hq
+        flops = 4.0 * D * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4 + lse.numel() * 4
+        b_ms, b_by = bound_ms(nbytes, 3 * flops, bw, tf32)
+        ms = cuda_ms(lambda: k3.flash_fwd_f32(q, k, v, qo, kl, **cfg))
+        plain_ms = cuda_ms(lambda: k3.flash_fwd_plain(
+            q, k, v, qo, kl, window=None, softcap=None, causal=True, scale=scale, alibi=al),
+            calls=1, rounds=2)
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        mask = (alibi_float_mask(al, qo, kl, B, Sq, Sk, True, dev, torch.float32) if alibi
+                else live[:, None])
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, scale=scale, enable_gqa=Hq != Hk), calls=4, rounds=3)
+        del mask, qh, kh, vh
+        case = dict(kernel="flash_attention_f32", case=name, max_abs_err=float(
+            (out - ref).abs().max()), row_err_over_vmax=worst, row_tol=F32_ROW_TOL,
+            lse_err=lse_err, reruns_identical=rerun, caught=caught, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, vs_library=ms / lib_ms, bound_ms=b_ms, bound_by=b_by,
+            bound_unit="TF32 tensor cores, 3 products per float32 product",
+            float32_cuda_core_bound_ms=flops / 67e12 * 1e3,
+            tflops_float32=flops / (ms * 1e-3) / 1e12, live_pairs=pairs)
+        cases.append(case)
+        log(case)
+        del q, k, v, out, ref, lse, ref_lse, live, lost
+        torch.cuda.empty_cache()
+    return cases
+
+
+#: zoo_slice's limit on the logits' largest card-vs-CPU difference, in units
+#: of the CPU logits' standard deviation. Both sides compute in float32 (no
+#: bf16 rounding anywhere: K3's float32 instance, float32 products of the
+#: fp8 codes), so they differ by float32 sum orders, and where a K/V value
+#: the two sides compute a float32 ulp apart straddles an e4m3 rounding
+#: boundary, by one e4m3 step of that stored value (2^-3 of it): a few such
+#: codes a layer at these widths. The Llama slices' bf16 differences read
+#: 0.05-0.07 std on an H100; this is 5x tighter.
+ZOO_SLICE_TOL_STD = 0.01
+ZOO_SLICE_MODELS = ("falcon-7b", "gptj-6b", "btlm-3b")
+
+
+def zoo_slice_check(dev, log):
+    return [pinned(route, lambda: _zoo_slice_check(dev, log, model, route, forced))
+            for model in ZOO_SLICE_MODELS
+            for route, forced in (("xla", False), ("fp8native", True))]
+
+
+def _zoo_slice_check(dev, log, model, route, forced):
+    """``model`` at full width cut to 2 layers, LAYERWISE fp8 weights (on the
+    fp8native route BTLM's 6826-wide MLP takes the padded layout), an e4m3
+    ``KVCache`` as the engine keeps it: one prefill (40 tokens in a 64
+    bucket) and two decode steps on the card and on the CPU, the logits
+    held to ``ZOO_SLICE_TOL_STD`` of the CPU logits' std. ``forced``: the
+    CPU's fp8native products take the card's projection inputs
+    (``ForcedQdotInputs``)."""
+    import dataclasses
+
+    import torch
+
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.models.llama import init_kv_cache
+    from llm_fp8_tpu_torch.models.zoo import with_f32_head
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+
+    entry = resolve_model(model)
+    cfg = dataclasses.replace(entry.cfg, num_layers=2)
+    params = with_f32_head(entry.quantize_fn(
+        entry.init_fn(cfg, dtype=torch.bfloat16, device=dev, seed=7), LAYERWISE))
+    cpu_params = to_cpu(params)
+    n, bucket, S = 40, 64, 128
+    prompt = torch.zeros((1, bucket), dtype=torch.int64)
+    prompt[0, :n] = torch.randint(1, cfg.vocab_size, (n,),
+                                  generator=torch.Generator().manual_seed(3))
+    rec = ForcedQdotInputs()
+    side = rec.side if forced else (lambda name: contextlib.nullcontext())
+    runs = {}
+    for name, p, d in (("cuda", params, dev), ("cpu", cpu_params, torch.device("cpu"))):
+        cache = init_kv_cache(cfg, 1, S, dtype=torch.float8_e4m3fn, device=d)
+        with side(name):
+            lg, cache = entry.forward_fn(p, prompt.to(d), cfg, cache=cache, start_pos=0,
+                                         kv_lens=torch.tensor([n], device=d))
+        runs[name] = [[lg[0, n - 1].float().cpu()], cache, p, d]
+    tok = int(torch.argmax(runs["cpu"][0][0]))
+    for step in range(2):
+        for name in ("cuda", "cpu"):
+            out, cache, p, d = runs[name]
+            with side(name):
+                lg, runs[name][1] = entry.forward_fn(
+                    p, torch.tensor([[tok]], device=d), cfg, cache=cache,
+                    start_pos=torch.tensor([n + step], device=d),
+                    kv_lens=torch.tensor([n + step + 1], device=d))
+            out.append(lg[0, 0].float().cpu())
+        tok = int(torch.argmax(runs["cpu"][0][-1]))
+    errs = []
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        check(bool(torch.isfinite(a).all()), f"zoo slice {model}: non-finite logits on the card")
+        errs.append((a - b).abs().max().item())
+    std = float(torch.stack(runs["cpu"][0]).std())
+    codes_equal = [float((runs["cuda"][1].k.cpu().view(torch.uint8)
+                          == runs["cpu"][1].k.view(torch.uint8)).float().mean()),
+                   float((runs["cuda"][1].v.cpu().view(torch.uint8)
+                          == runs["cpu"][1].v.view(torch.uint8)).float().mean())]
+    res = dict(config=f"{model}, 2 layers at full width, LAYERWISE fp8, e4m3 KVCache: "
+               "prefill (40 of 64) + 2 decode steps", qdot_route=route,
+               cpu_takes_card_qdot_inputs=forced, forced_calls=rec.forced, steps=len(errs),
+               logits_max_abs_err=max(errs), per_step=errs, logits_std=std,
+               err_over_std=max(errs) / std, tol_std=ZOO_SLICE_TOL_STD,
+               kv_codes_equal_share=codes_equal)
+    log(res)
+    check(max(errs) <= ZOO_SLICE_TOL_STD * std,
+          f"zoo slice {model} ({route}{', forced inputs' if forced else ''}): logits err "
+          f"{max(errs)} > {ZOO_SLICE_TOL_STD} std ({std})")
+    check(not forced or (rec.forced > 0 and not rec.queue),
+          f"zoo slice {model}: {rec.forced} forced inputs, {len(rec.queue)} unused")
+    del params, cpu_params, runs
+    torch.cuda.empty_cache()
+    return res
+
+
+ZOO_SERVE_LAYERS = 32
+
+
+def zoo_serving(dev, card, log, num_layers=ZOO_SERVE_LAYERS):
+    """Falcon-7B (71 heads of 64 over one kv head, vocab 65024) at full width
+    and all 32 layers through ``Engine(forward_fn=neox_forward)``: LAYERWISE
+    fp8 weights made a layer at a time, fp8 KV on the KVCache path, 8
+    requests of 500-1000-token prompts, 32 new tokens each, max_seq_len
+    2048, after a warm-up request; the CUDA graph against the eager twin
+    (greedy tokens equal), the path's launches (K3 float32 at every prefill
+    layer, K9 at every projection, in the prefills and in the captured step)
+    and the graph run's device busy share (profiled apart).
+    Then every GPT-2/NeoX debug config through the engine on the card, 2
+    requests each, K3's float32 instance and K9 launched."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.models.gpt2 import GPT2_REGISTRY
+    from llm_fp8_tpu_torch.models.neox import NEOX_REGISTRY
+    from llm_fp8_tpu_torch.models.registry import quantize_zoo_params
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+    from llm_fp8_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    class Loop(Engine):
+        def _run_decode_burst(self, toks, lens, steps):
+            return self._decode_loop(toks, lens, steps)
+
+    def engines(fwd):
+        """The engine serving through ``fwd`` (its decode step a CUDA graph)
+        and its eager twin, both instrumented."""
+        class Zoo(Instrumented):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, forward_fn=fwd, **kw)
+
+            def _run_prefill(self, padded, true_len, slot):
+                last = self._timed_prefill(super()._run_prefill, padded, true_len, slot)
+                self._note(last)
+                return last
+
+        class Checked(Zoo, Engine):
+            pass
+
+        class Eager(Zoo, Loop):
+            pass
+
+        return Checked, Eager
+
+    def run(cls, params, cfg, ecfg, prompts, new):
+        eng = cls(params, cfg, ecfg, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=new)) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for r in reqs:
+            check(r.done and r.error is None and len(r.output) == new
+                  and all(0 <= t < cfg.vocab_size for t in r.output),
+                  f"zoo serve {cfg.name}: request {r.request_id}: {r.error}, {r.output}")
+        check(eng.finite is not None and bool(eng.finite),
+              f"zoo serve {cfg.name}: non-finite logits")
+        return eng, reqs, wall, counts
+
+    res = {"card": card}
+    entry = resolve_model("falcon-7b")
+    cfg = dataclasses.replace(entry.cfg, num_layers=num_layers)
+    check(cfg.num_heads == 71 and cfg.num_kv_heads == 1 and cfg.hidden_size == 4544
+          and cfg.vocab_size == 65024 and cfg.tie_word_embeddings,
+          "zoo_serve: falcon-7b is not Falcon-7B's shape")
+    t0 = time.perf_counter()
+    params = fp8_params_by_layer(cfg, dev, init=entry.init_fn, quantize=quantize_zoo_params)
+    res["init_s"] = time.perf_counter() - t0
+    res["weights_gb"] = sum(
+        (v.qvalue.untyped_storage().nbytes() if hasattr(v, "qvalue") else
+         v.numel() * v.element_size()) for v in list(params["layers"].values())
+        + [params[k] for k in params if k != "layers"]) / 1e9
+    ecfg = EngineConfig(max_slots=8, max_seq_len=2048, kv_dtype="fp8")
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(1, cfg.vocab_size, rng.randint(500, 1001)).astype(np.int32)
+               for _ in range(8)]
+    checked, eager = engines(entry.forward_fn)
+    # A warm-up request on an engine of its own first (cuBLAS's first calls
+    # at these shapes, the allocator's first growth), as the Llama serve runs.
+    run(checked, params, cfg, ecfg, prompts[:1], 4)
+    gc.collect()  # the warm-up engine's graph and its memory pool
+    out = {}
+    for mode, cls in (("graph", checked), ("eager", eager)):
+        out[mode] = run(cls, params, cfg, ecfg, prompts, 32)
+    eng, reqs, wall, counts = out["graph"]
+    e_eng, e_reqs, e_wall, e_counts = out["eager"]
+    graph = eng.step_graph
+    graph_checks("zoo serve falcon-7b", eng, graph, eng.burst_steps)
+    equal = [r.output for r in reqs] == [r.output for r in e_reqs]
+    check(equal, "zoo serve falcon-7b: the graph's greedy tokens differ from the eager step's")
+    check(not eng._fp8_arena and eng.cache.k.dtype == torch.float8_e4m3fn,
+          "zoo serve falcon-7b: not the e4m3 KVCache path")
+    launches = device_launches(counts, graph)
+    check(counts["flash_attention_f32"] == num_layers * len(prompts),
+          f"zoo serve falcon-7b: K3 float32 launched {counts['flash_attention_f32']} times for "
+          f"{len(prompts)} prefills of {num_layers} layers")
+    check(counts["flash_attention"] == 0 and counts["quantize_fused"] > 0
+          and graph.launches.get("quantize_fused", 0) > 0,
+          f"zoo serve falcon-7b: launches {counts}, a replay {graph.launches}")
+    ttfts = sorted(r.ttft for r in reqs)
+    head_gb = eng.params["head_f32"].numel() * 4 / 1e9
+    res["falcon"] = dict(
+        config=f"falcon-7b, {num_layers} of 32 layers, LAYERWISE fp8 weights, e4m3 KVCache, "
+        "8 slots x 2048", requests=len(prompts), prompt_lens=[len(p) for p in prompts],
+        generated=32 * len(prompts), wall_s=wall, tokens_per_s=32 * len(prompts) / wall,
+        ttft_p50_s=ttfts[len(ttfts) // 2], prefill_s=eng.prefill_s,
+        prefill_ms_per_request=1e3 * eng.prefill_s / len(prompts),
+        decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1),
+        eager_decode_step_ms=1e3 * e_eng.decode_s / max(e_eng.burst_steps, 1),
+        eager_wall_s=e_wall, peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        head_f32_gb=head_gb, launches=launches, launches_counted=counts,
+        launches_a_replay=graph.launches, eager_launches=e_counts, replays=graph.replays,
+        captures=graph.captures, tokens_equal_eager=equal)
+    del out, eng, e_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["falcon"]["profile"] = profile_run(checked, params, cfg, ecfg, prompts, dev)
+    log({k: v for k, v in res["falcon"].items() if k not in ("launches_counted",)})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Every GPT-2/NeoX debug config through the engine, 2 requests each.
+    res["debug"] = {}
+    for name in [n for n in [*GPT2_REGISTRY, *NEOX_REGISTRY] if n.startswith("debug")]:
+        entry = resolve_model(name)
+        params = entry.quantize_fn(entry.init_fn(entry.cfg, dtype=torch.bfloat16, device=dev,
+                                                 seed=1), LAYERWISE)
+        rng = np.random.RandomState(len(name))
+        prompts = [rng.randint(1, entry.cfg.vocab_size, n).astype(np.int32) for n in (37, 90)]
+        eng, reqs, wall, counts = run(engines(entry.forward_fn)[0], params, entry.cfg,
+                                      EngineConfig(max_slots=2, max_seq_len=256, kv_dtype="fp8"),
+                                      prompts, 8)
+        for kname in ZOO_PATH:
+            check(counts[kname] > 0, f"zoo serve {name}: {kname} launched {counts[kname]} times")
+        res["debug"][name] = dict(launches=device_launches(counts, eng.step_graph), wall_s=wall,
+                                  outputs=[r.output for r in reqs])
+    log({"zoo_serve_debug": {k: v["launches"] for k, v in res["debug"].items()}})
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3923,7 +4362,10 @@ def main(argv=None) -> int:
              ("dropout_kernels", lambda: dropout_kernel_cases(dev, bw, peak, log)),
              ("alibi_serve", lambda: alibi_serving(dev, card, log)),
              ("train_rest", lambda: train_rest(dev, card, log)),
-             ("compare", lambda: compare_study(dev, log)))
+             ("compare", lambda: compare_study(dev, log)),
+             ("zoo_kernels", lambda: zoo_kernel_cases(dev, bw, peak, log)),
+             ("zoo_slice", lambda: zoo_slice_check(dev, log)),
+             ("zoo_serve", lambda: zoo_serving(dev, card, log)))
     try:
         for phase, run in steps:
             if phase in phases:
@@ -3969,7 +4411,8 @@ def kernels_line(report):
                    report["alibi_serve"]["arena"]["alibi_fp8"]["launches"],
                "alibi paged (baichuan-13b)":
                    report["alibi_serve"]["paged"]["alibi_fp8"]["launches"],
-               "train, attention dropout 0.1": report["train_rest"]["dropout"]["launches"]}
+               "train, attention dropout 0.1": report["train_rest"]["dropout"]["launches"],
+               "zoo serve (falcon-7b, e4m3 KVCache)": report["zoo_serve"]["falcon"]["launches"]}
     for counts in by_path.values():
         counts["flash_attention_bwd"] = (counts.get("flash_attention_bwd_dkv", 0)
                                          + counts.get("flash_attention_bwd_dq", 0))
@@ -3982,7 +4425,8 @@ def kernels_line(report):
             "flash_attention_bwd": ("train_kernels", "train B8 S512 Hq32 Hk8 D64"),
             "quantize_fused": ("train_kernels", "gate_up [4096, 16384] columns float32 e4m3"),
             "flash_attention_fp8": ("fp8_kernels", "prefill B1 Sq=Sk=8192"),
-            "rmsnorm_residual_fused": ("fp8_kernels", "[4096, 2048] bfloat16")}
+            "rmsnorm_residual_fused": ("fp8_kernels", "[4096, 2048] bfloat16"),
+            "flash_attention_f32": ("zoo_kernels", "falcon-7b prefill")}
     # Cases shown beside the main one: K9's rows kernel makes the other half
     # of its launches on the training path.
     also = {"quantize_fused": ("train_kernels", "gate_up [4096, 16384] rows float32 e4m3"),
@@ -4010,7 +4454,9 @@ def kernels_line(report):
             "quantize_fused": ("csrc/quantize.cu", "llm_fp8_tpu/kernels/quantize.py:76"),
             "flash_attention_fp8": ("csrc/flash_attention_fp8.cu",
                                     "llm_fp8_tpu/kernels/flash_attention.py:556"),
-            "rmsnorm_residual_fused": ("csrc/rmsnorm.cu", "llm_fp8_tpu/kernels/rmsnorm.py:74")}
+            "rmsnorm_residual_fused": ("csrc/rmsnorm.cu", "llm_fp8_tpu/kernels/rmsnorm.py:74"),
+            "flash_attention_f32": ("csrc/flash_attention_f32.cu",
+                                    "llm_fp8_tpu/kernels/flash_attention.py:475")}
     line = []
     for kname, (phase, prefix) in pick.items():
         c = next(c for c in report[phase]
@@ -4046,6 +4492,11 @@ def kernels_line(report):
                                                      "bound_ms", "bound_by", "library_ms")}
         if kname == "flash_attention_fp8":
             line[-1].update(route_ms=c["routes"], no_jax_path_calls_it=True)
+        if kname == "flash_attention_f32":  # every zoo case beside the Falcon-7B prefill
+            line[-1].update(bound_unit=c["bound_unit"], caught=c["caught"], cases=[
+                {k: o[k] for k in ("case", "row_err_over_vmax", "ms", "plain_ms", "library_ms",
+                                   "vs_library", "bound_ms", "caught")}
+                for o in report["zoo_kernels"]])
         if kname in features:  # the ALiBi and dropout cases beside the main one
             line[-1]["headers"] = headers[kname]
             line[-1]["features"] = {}

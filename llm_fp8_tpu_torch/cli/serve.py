@@ -1,15 +1,20 @@
 """Serving CLI: random init or an HF checkpoint → quantize → continuous-
-batching run on the card (counterpart of ``llm_fp8_tpu/cli/serve.py``,
-Llama-family models only):
+batching run on the card (counterpart of ``llm_fp8_tpu/cli/serve.py``; the
+Llama, GPT-2 and NeoX families, resolved by ``models/registry.py``):
 
   python -m llm_fp8_tpu_torch.cli.serve --model_name llama-3.2-1b --random_init \\
       --precision fp8 --kv_dtype fp8 [--paged --page_size 128 --num_pages 512]
+  python -m llm_fp8_tpu_torch.cli.serve --model_name falcon-7b --random_init \\
+      --precision fp8 --kv_dtype fp8
   python -m llm_fp8_tpu_torch.cli.serve --model_name llama-3.1-8b \\
       --weights_path DIR --draft_model llama-3.2-1b --draft_weights DIR2 --gamma 4
 
 ``--weights_path``/``--draft_weights`` read safetensors directories
-(``models/hf_loader.py``); ``--draft_model`` serves through the speculative
-engine (random draft weights from seed 1 unless ``--draft_weights``).
+(``load_zoo_checkpoint``: the family's packer); ``--draft_model`` serves
+through the speculative engine (random draft weights from seed 1 unless
+``--draft_weights``; Llama-family target and draft only). A GPT-2/NeoX
+model serves through ``Engine(forward_fn=...)``, the slot engine's KVCache
+path; ``--paged`` is refused for it, as in the JAX CLI.
 Prints one JSON line with the JAX CLI's keys: tokens/s, p50/p99 TTFT and the
 peak device memory (``torch.cuda.max_memory_allocated``); ``--paged`` adds
 ``pages_in_use``, ``--draft_model`` the ``spec_*`` statistics. ``main``
@@ -65,9 +70,8 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from ..models.config import get_config
-    from ..models.hf_loader import load_hf_checkpoint
-    from ..models.llama import init_params, quantize_params
+    from ..models.llama import forward as llama_forward
+    from ..models.registry import load_zoo_checkpoint, resolve_model
     from ..quant import recipe_set_by_name
     from ..serving import (Engine, EngineConfig, PagedEngine, PagedEngineConfig,
                            SamplingParams, SpecEngine)
@@ -85,32 +89,42 @@ def main(argv=None):
             "pool would hold round(K), mostly zeros; use --kv_dtype fp8 or bf16")
     device = resolve_device(args.device)
 
-    def model(name, weights, seed):
-        """The config and bf16 params of ``name``: random from ``seed``, or
-        read from the checkpoint directory ``weights``."""
+    def resolved(name):
         try:
-            cfg = get_config(name)
-        except ValueError as e:
-            raise SystemExit(f"{e} (the zoo families are not ported yet)")
+            return resolve_model(name)
+        except (NotImplementedError, ValueError) as e:
+            raise SystemExit(str(e))
+
+    def params_of(entry, name, weights, seed):
+        """bf16 params of ``name``: random from ``seed``, or read from the
+        checkpoint directory ``weights``."""
         if weights is None:
-            return cfg, init_params(cfg, dtype=torch.bfloat16, device=device, seed=seed)
-        return cfg, load_hf_checkpoint(weights, cfg, dtype=torch.bfloat16, device=device)
+            return entry.init_fn(entry.cfg, dtype=torch.bfloat16, device=device, seed=seed)
+        return load_zoo_checkpoint(name, weights, dtype=torch.bfloat16, device=device)
 
-    def quantized(params):
-        if args.precision == "fp8":
-            return quantize_params(params, recipe_set_by_name(args.fp8_scenario))
-        if args.precision in ("int8", "int4"):
-            return quantize_params(params, recipe_set_by_name(args.precision))
-        return params
-
-    cfg, params = model(args.model_name,
-                        None if args.random_init else args.weights_path, seed=0)
-    params = quantized(params)
+    entry = resolved(args.model_name)
+    llama = entry.forward_fn is llama_forward
+    if args.paged and not llama:
+        raise SystemExit("--paged uses the Llama-family paged decode path; serve "
+                         f"{args.model_name} through the default (arena) engine")
+    if args.draft_model is not None and not (
+            llama and resolved(args.draft_model).forward_fn is llama_forward):
+        raise SystemExit("--draft_model: speculative serving of the GPT-2/NeoX families is "
+                         "not ported yet (the SpecEngine's forward_fn hooks are the next "
+                         "slice's); serve a Llama-family target and draft")
+    cfg = entry.cfg
+    params = params_of(entry, args.model_name,
+                       None if args.random_init else args.weights_path, seed=0)
+    if args.precision == "fp8":
+        params = entry.quantize_fn(params, recipe_set_by_name(args.fp8_scenario))
+    elif args.precision in ("int8", "int4"):
+        params = entry.quantize_fn(params, recipe_set_by_name(args.precision))
     if args.draft_model is not None:
         # The draft's bf16 params come from seed 1, as the JAX CLI's
         # PRNGKey(1); as there, the draft is not quantized.
-        dcfg, dparams = model(args.draft_model, args.draft_weights, seed=1)
-        eng = SpecEngine(params, cfg, dparams, dcfg,
+        dentry = resolved(args.draft_model)
+        dparams = params_of(dentry, args.draft_model, args.draft_weights, seed=1)
+        eng = SpecEngine(params, cfg, dparams, dentry.cfg,
                          EngineConfig(max_slots=args.max_slots, max_seq_len=args.max_seq_len,
                                       kv_dtype=args.kv_dtype),
                          gamma=args.gamma, temperature=args.temperature,
@@ -125,7 +139,7 @@ def main(argv=None):
                                                max_seq_len=args.max_seq_len,
                                                kv_dtype=args.kv_dtype,
                                                decode_burst=args.decode_burst),
-                     device=device)
+                     device=device, forward_fn=entry.forward_fn)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     rng = np.random.RandomState(0)

@@ -13,6 +13,7 @@ KERNEL_WRAPPERS = {
     "quant_matmul": quant_matmul.quant_matmul,
     "decode_attention_arena": decode_attention.decode_attention_arena,
     "flash_attention": flash_attention.flash_attention,
+    "flash_attention_f32": flash_attention.flash_fwd_f32,
     "paged_attention": paged_attention.paged_attention,
     "flash_attention_bwd_dkv": flash_attention_bwd.flash_bwd_dkv,
     "flash_attention_bwd_dq": flash_attention_bwd.flash_bwd_dq,

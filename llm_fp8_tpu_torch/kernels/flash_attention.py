@@ -7,6 +7,13 @@ Counterpart of ``llm_fp8_tpu/kernels/flash_attention.py::flash_attention``
 The kernel is built for Hopper: TMA loads K/V tiles into a ring of swizzled
 shared memory for consumer warpgroups that run Q·Kᵀ and P·V on ``wgmma``
 with the scores, P and O kept in registers (its source note has the design).
+float32 q, k and v (the GPT-2 and NeoX families serve in float32) take K3's
+float32 instance, :func:`flash_fwd_f32` (``csrc/flash_attention_f32.cu``:
+``mma.sync`` TF32 products with a 3xTF32 split, so float32 accuracy; head
+dims 32, 64, 80, 128 and 256; causal, ``q_offset``, ``kv_lens``, GQA, the
+scale and ALiBi). Its backward is not ported: the autograd backward of a
+float32 call raises on the card (K6's float32 instance is the next slice's)
+and runs the plain version on the CPU.
 :func:`flash_attention_fp8` (K7, ``csrc/flash_attention_fp8.cu``, plain
 version :func:`flash_fp8_plain`) is the counterpart of the JAX
 ``flash_attention_fp8``: e4m3 q/k/v with FA3 descales, forward only. Its
@@ -38,7 +45,8 @@ from ._common import (aligned16, alibi_bias, alibi_slopes_tensor, dropout_args, 
                       dropout_keep)
 from .flash_attention_bwd import flash_attention_bwd
 
-__all__ = ["flash_attention", "flash_fwd_plain", "flash_attention_fp8", "flash_fp8_plain",
+__all__ = ["flash_attention", "flash_fwd_plain", "flash_fwd_f32", "F32_HEAD_DIMS",
+           "flash_attention_fp8", "flash_fp8_plain",
            "fp8_prepass", "fp8_prepass_plain", "fp8_v_slots_plain", "fp8_wgmma_ok",
            "auto_block", "MASK_VALUE"]
 
@@ -48,8 +56,10 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 def flash_fwd_plain(q, k, v, q_offset, kv_lens, *, causal, window, softcap, scale,
                     alibi=None, dropout_p: float = 0.0, dropout_seed=0):
-    """The kernel's function in plain PyTorch: float32 scores, bf16 P for the
-    PV product, dead rows → out 0 and lse -inf. ``alibi``: float32 ``[B,
+    """The kernel's function in plain PyTorch: float32 scores, P rounded to
+    V's dtype for the PV product (bf16 for the bf16 kernel; float32 P for
+    float32 V, as the TPU kernel's ``p.astype(v.dtype)``), dead rows → out 0
+    and lse -inf. ``alibi``: float32 ``[B,
     Hq]`` slopes or None. With dropout the kept entries of P, times
     ``1/(1 - p)``, feed P·V and the LSE is the undropped P's. Returns
     ``(out, lse [B, Hq, Sq])``."""
@@ -111,6 +121,47 @@ def _launch(q, k, v, q_offset, kv_lens, causal, window, softcap, scale, alibi=No
     return out, lse
 
 
+#: Head dims of the float32 instance (GPT-2/OPT/Falcon 64, SantaCoder and
+#: Pythia-1.4B 128, BTLM 80, GPT-J 256, the debug configs 32).
+F32_HEAD_DIMS = (32, 64, 80, 128, 256)
+
+
+def flash_fwd_f32(q, k, v, q_offset, kv_lens, *, causal: bool, scale: float, alibi=None,
+                  passes: int = 3):
+    """K3's float32 instance on CUDA tensors: float32 ``q [B, Sq, Hq, D]``,
+    ``k``/``v [B, Sk, Hk, D]``, int32 ``[B]`` ``q_offset`` and ``kv_lens``,
+    float32 ``[B, Hq]`` ALiBi slopes or None. Returns ``(out, lse [B, Hq,
+    Sq])``, :func:`flash_fwd_plain`'s function. ``passes=1`` runs the
+    products in single-pass TF32 (2^-11 off: the planted fault the card's
+    checks must catch). Counts launches in ``flash_fwd_f32.launches``."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    if not (q.dtype == k.dtype == v.dtype == torch.float32):
+        raise TypeError(f"flash_fwd_f32 takes float32 q, k and v, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if D not in F32_HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {F32_HEAD_DIMS}")
+    if passes not in (1, 3):
+        raise ValueError(f"passes {passes} is not 1 or 3")
+    lib = _build.library("flash_attention_f32")
+    q, k, v = aligned16(q), aligned16(k), aligned16(v)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    p = ctypes.c_void_p
+    err = lib.flash_fwd_f32_launch(
+        p(q.data_ptr()), p(k.data_ptr()), p(v.data_ptr()), p(out.data_ptr()),
+        p(lse.data_ptr()), p(q_offset.data_ptr()), p(kv_lens.data_ptr()),
+        p(alibi.data_ptr() if alibi is not None else 0), B, Sq, Sk, Hq, Hk, D,
+        ctypes.c_float(scale), int(causal), passes,
+        p(torch.cuda.current_stream(q.device).cuda_stream))
+    _build.check(lib, err, "flash_attention_f32")
+    flash_fwd_f32.launches += 1
+    return out, lse
+
+
+flash_fwd_f32.launches = 0
+
+
 def _per_row(q_offset, kv_lens, B: int, Sk: int, dev):
     """``q_offset`` (a scalar or ``[B]``) and ``kv_lens`` (``[B]``, default
     Sk) as contiguous int32 ``[B]`` tensors on ``dev``: the kernels read one
@@ -129,7 +180,10 @@ class _FlashForward(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset, kv_lens, alibi, cfg):
-        if q.is_cuda:
+        if q.is_cuda and q.dtype == torch.float32:
+            out, lse = flash_fwd_f32(q, k, v, q_offset, kv_lens, causal=cfg["causal"],
+                                     scale=cfg["scale"], alibi=alibi)
+        elif q.is_cuda:
             out, lse = _launch(q, k, v, q_offset, kv_lens, alibi=alibi, **cfg)
         else:
             out, lse = flash_fwd_plain(q, k, v, q_offset, kv_lens, alibi=alibi, **cfg)
@@ -141,6 +195,10 @@ class _FlashForward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse, q_offset, kv_lens, alibi = ctx.saved_tensors
+        if q.is_cuda and q.dtype == torch.float32:
+            raise NotImplementedError(
+                "flash attention backward of float32 q/k/v on the card: K6's float32 "
+                "instance is not ported yet (the next slice's work, with zoo training)")
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
                                          q_offset=q_offset, kv_lens=kv_lens, alibi=alibi,
                                          **ctx.cfg)
@@ -148,7 +206,7 @@ class _FlashForward(torch.autograd.Function):
 
 
 def flash_attention(
-    q: torch.Tensor,  # [B, Sq, Hq, D] bf16
+    q: torch.Tensor,  # [B, Sq, Hq, D] bf16 or float32
     k: torch.Tensor,  # [B, Sk, Hk, D]
     v: torch.Tensor,
     *,
@@ -169,7 +227,9 @@ def flash_attention(
     """Flash attention forward; semantics of :func:`..ops.attention.attention_ref`.
 
     Returns ``out [B, Sq, Hq, D]``, or ``(out, lse [B, Hq, Sq] float32)``
-    with ``return_lse``. Counts kernel launches in ``flash_attention.launches``.
+    with ``return_lse``. Counts the bf16 kernel's launches in
+    ``flash_attention.launches`` (the float32 instance's in
+    ``flash_fwd_f32.launches``).
     ``alibi_slopes`` (``[Hq]`` or ``[B, Hq]``) gets no gradient.
     """
     if attention_chunk is not None:
@@ -182,10 +242,17 @@ def flash_attention(
     Sk, Hk = k.shape[1], k.shape[2]
     if Hq % Hk or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash attention takes bf16 q, k and v")
-    if D not in (32, 64, 128):
-        raise ValueError(f"head_dim {D} not in (32, 64, 128)")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash attention takes bf16 or float32 q, k and v, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    f32 = q.dtype == torch.float32
+    dims = F32_HEAD_DIMS if f32 else (32, 64, 128)
+    if D not in dims:
+        raise ValueError(f"head_dim {D} not in {dims}")
+    if f32 and q.is_cuda and (window is not None or softcap is not None or dropout_p):
+        raise NotImplementedError("flash attention's float32 instance takes no window, "
+                                  "softcap or dropout")
     dev = q.device
     if not (k.device == v.device == dev):
         raise ValueError("q, k and v must be on one device")

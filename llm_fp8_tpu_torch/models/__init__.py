@@ -1,8 +1,17 @@
-"""Model configurations and the Llama-family decoder."""
+"""Model configurations, the Llama-family decoder, the GPT-2 and NeoX
+families, and the registry that resolves a name across them."""
 from .config import MODEL_REGISTRY, SUPPORTED_MODELS, ModelConfig, get_config
+from .gpt2 import GPT2_REGISTRY, GPT2Config, gpt2_forward, init_gpt2_params
 from .llama import (KVCache, forward, forward_decode_arena, forward_paged, init_kv_cache,
                     init_params, quantize_params)
+from .neox import NEOX_REGISTRY, NeoXConfig, init_neox_params, neox_forward
+from .registry import (ZooEntry, load_zoo_checkpoint, quantize_zoo_params, resolve_model,
+                       zoo_model_names)
 
 __all__ = ["ModelConfig", "MODEL_REGISTRY", "SUPPORTED_MODELS", "get_config",
            "init_params", "quantize_params", "KVCache", "init_kv_cache", "forward",
-           "forward_decode_arena", "forward_paged"]
+           "forward_decode_arena", "forward_paged",
+           "GPT2Config", "GPT2_REGISTRY", "init_gpt2_params", "gpt2_forward",
+           "NeoXConfig", "NEOX_REGISTRY", "init_neox_params", "neox_forward",
+           "ZooEntry", "resolve_model", "zoo_model_names", "quantize_zoo_params",
+           "load_zoo_checkpoint"]

@@ -133,7 +133,7 @@ def unstack_layers(layers: Dict[str, Any]) -> List[Dict[str, Any]]:
     Under autograd the unbind's backward stacks the layer gradients once,
     where indexing layer by layer writes a zero-filled full-size gradient
     per layer and adds them up."""
-    L = layers["norm_attn"].shape[0]
+    L = next(iter(layers.values())).shape[0]
     per = {k: ([v.layer(i) for i in range(L)] if isinstance(v, QTensor) else v.unbind(0))
            for k, v in layers.items()}
     return [{k: per[k][i] for k in layers} for i in range(L)]

@@ -1,0 +1,142 @@
+"""One name → (config, init, forward, quantize) across the model families
+(counterpart of ``llm_fp8_tpu/models/registry.py``): the entry point the
+serving CLI and ``Engine(forward_fn=...)`` use to drive any ported family.
+
+Ported: the Llama family (``models/config.py``), GPT-2 (``models/gpt2.py``)
+and NeoX (``models/neox.py``). The JAX package's Gemma, MoE and MLA families
+are not ported yet: their names (kept here, since the port imports nothing
+of the JAX package) raise ``NotImplementedError`` naming the family.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple
+
+import torch
+
+from ..quant import RecipeSet, quantize, quantize_mx
+from ..quant.dot import serving_layout
+
+__all__ = ["ZooEntry", "resolve_model", "zoo_model_names", "quantize_zoo_params",
+           "load_zoo_checkpoint", "UNPORTED_FAMILIES"]
+
+
+class ZooEntry(NamedTuple):
+    cfg: Any
+    init_fn: Callable
+    forward_fn: Callable
+    quantize_fn: Callable  # (params, RecipeSet) -> params
+
+
+#: The GPT-2 and NeoX families' stacked GEMM leaves → recipe-set roles (the
+#: role split of the Llama family's ``quantize_params``).
+_ZOO_SITES = {"w_qkv": "attn_qkv", "w_out": "attn_out", "w_fc": "mlp", "w_proj": "mlp"}
+
+#: The JAX package's families not ported yet, with their registry names.
+UNPORTED_FAMILIES = {
+    "Gemma": ("gemma2-2b", "gemma2-9b", "debug-gemma2"),
+    "MoE": ("mixtral-8x7b", "debug-mixtral", "qwen3-30b-a3b", "debug-qwen3moe"),
+    "MLA": ("deepseek-v2-lite", "deepseek-v2", "debug-mla", "debug-mla-q"),
+}
+
+
+def quantize_zoo_params(params: Dict[str, Any], recipes: RecipeSet,
+                        sites: Dict[str, str] = _ZOO_SITES) -> Dict[str, Any]:
+    """Prequantize a GPT-2/NeoX-family tree's GEMM weights: per-output-channel
+    scales on the stacked ``[L, K, N]`` weights (MX blocks for the block
+    recipe), subnormal codes flushed, codes laid out for the ``qdot`` route
+    in force (``serving_layout``, which also pads K and N to multiples of 16
+    for the fp8native route once, here); norms, embeddings, biases and the
+    head stay as they are."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name, role in sites.items():
+        recipe = recipes.for_role(role)
+        if recipe is None or name not in layers:
+            continue
+        wv = layers[name].float()
+        if recipe.granularity == "block32":
+            layers[name] = quantize_mx(wv, recipe.fmt_fwd, block_axis=1, flush_subnormal=True)
+        else:
+            layers[name] = serving_layout(quantize(
+                wv, recipe.fmt_fwd, axes=(1,), margin=recipe.margin,
+                group_size=recipe.group_size, flush_subnormal=True))
+    out["layers"] = layers
+    return out
+
+
+def _unported(name: str) -> None:
+    for family, names in UNPORTED_FAMILIES.items():
+        if name in names:
+            raise NotImplementedError(
+                f"{name!r}: the {family} family is not ported to llm_fp8_tpu_torch yet "
+                "(the JAX package serves it)")
+
+
+def resolve_model(name: str) -> ZooEntry:
+    """Look ``name`` up across every ported family's registry."""
+    from .config import MODEL_REGISTRY
+    from .gpt2 import GPT2_REGISTRY, gpt2_forward, init_gpt2_params
+    from .llama import forward, init_params, quantize_params
+    from .neox import NEOX_REGISTRY, init_neox_params, neox_forward
+
+    if name in MODEL_REGISTRY:
+        return ZooEntry(MODEL_REGISTRY[name], init_params, forward, quantize_params)
+    if name in GPT2_REGISTRY:
+        return ZooEntry(GPT2_REGISTRY[name], init_gpt2_params, gpt2_forward,
+                        quantize_zoo_params)
+    if name in NEOX_REGISTRY:
+        return ZooEntry(NEOX_REGISTRY[name], init_neox_params, neox_forward,
+                        quantize_zoo_params)
+    _unported(name)
+    raise ValueError(f"unknown model {name!r}; known: {sorted(zoo_model_names())}")
+
+
+def zoo_model_names() -> list:
+    """Every name :func:`resolve_model` resolves."""
+    from .config import MODEL_REGISTRY
+    from .gpt2 import GPT2_REGISTRY
+    from .neox import NEOX_REGISTRY
+
+    return [*MODEL_REGISTRY, *GPT2_REGISTRY, *NEOX_REGISTRY]
+
+
+def load_zoo_checkpoint(name: str, path: str, dtype=torch.bfloat16, device=None):
+    """An HF safetensors directory (one file or an index of shards, read by
+    the port's own reader) → the stacked params of the zoo model ``name``,
+    through its family's packer."""
+    from .hf_loader import _load_all
+
+    entry = resolve_model(name)
+    return _pack_fn_for(name)(_load_all(path), entry.cfg, dtype, device=device)
+
+
+def _pack_fn_for(name: str) -> Callable:
+    """The HF state-dict packer of ``name``'s family (the GPT-2/NeoX flavour
+    is read from the registry name's prefix, as in the JAX package)."""
+    from . import gpt2, neox
+    from .config import MODEL_REGISTRY
+    from .hf_loader import pack_hf_state_dict
+
+    if name in MODEL_REGISTRY:
+        return pack_hf_state_dict
+    _unported(name)
+    by_prefix = [
+        ("gpt2", gpt2.pack_gpt2_state_dict),
+        ("opt-", gpt2.pack_opt_state_dict),
+        ("santacoder", gpt2.pack_bigcode_state_dict),
+        ("btlm", gpt2.pack_btlm_state_dict),
+        ("pythia", neox.pack_neox_state_dict),
+        ("debug-neox", neox.pack_neox_state_dict),
+        ("falcon", neox.pack_falcon_state_dict),
+        ("debug-falcon", neox.pack_falcon_state_dict),
+        ("gptj", neox.pack_gptj_state_dict),
+        ("debug-gptj", neox.pack_gptj_state_dict),
+        ("debug-gpt2", gpt2.pack_gpt2_state_dict),
+        ("debug-opt", gpt2.pack_opt_state_dict),
+        ("debug-bigcode", gpt2.pack_bigcode_state_dict),
+        ("debug-btlm", gpt2.pack_btlm_state_dict),
+    ]
+    for prefix, fn in by_prefix:
+        if name.startswith(prefix):
+            return fn
+    raise ValueError(f"no checkpoint packer known for {name!r}")

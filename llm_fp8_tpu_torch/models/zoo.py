@@ -1,0 +1,101 @@
+"""What the GPT-2 and NeoX families share (the JAX package repeats it in
+``models/gpt2.py`` and ``models/neox.py``): the layer loop with or without
+the :class:`~.llama.KVCache`, the float32 logits of a tied or unquantized
+head, and the state-dict readers of the HF packers.
+
+The families compute in float32 (``compute_dtype``), so their head product
+``x @ head.T`` (JAX: ``jnp.dot(x, head.T.astype(x.dtype))``, which XLA fuses)
+needs the bf16 head as float32. Converting it at every call would write a
+float32 copy of it per step (1.18 GB for Falcon-7B's 65024 x 4544
+embedding); :func:`with_f32_head` makes that copy once (the serving engine
+calls it at construction) and :func:`lm_logits` uses it when present.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+
+from ..ops.attention import attention
+from ..utils.backend import resolve_device
+from .llama import _matmul_f32, cache_append_attend, unstack_layers
+
+__all__ = ["head_weight", "with_f32_head", "lm_logits", "run_layers", "state_getter",
+           "stacker", "HEAD_F32"]
+
+#: Key of the float32 copy of the head in a parameter tree.
+HEAD_F32 = "head_f32"
+
+
+def head_weight(params: Dict[str, Any]):
+    """The ``[V, D]`` head: ``lm_head`` where the tree has one, else the tied
+    embedding ``wte`` (GPT-2 ties always; NeoX unless its config unties)."""
+    return params["lm_head"] if "lm_head" in params else params["wte"]
+
+
+def with_f32_head(params: Dict[str, Any]) -> Dict[str, Any]:
+    """``params`` with a float32 copy of a non-float32 head under
+    :data:`HEAD_F32` (made once, here); other trees unchanged."""
+    head = head_weight(params)
+    if head.dtype == torch.float32 or HEAD_F32 in params:
+        return params
+    return {**params, HEAD_F32: head.float()}
+
+
+def lm_logits(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """float32 logits ``x @ head.T`` with the head in x's dtype: a float32
+    product for a float32 x (from the :func:`with_f32_head` copy where there
+    is one), a bf16 product with float32 output for a bf16 x."""
+    if x.dtype == torch.float32:
+        head = params.get(HEAD_F32)
+        if head is None:
+            head = head_weight(params).float()
+        return x @ head.t()
+    return _matmul_f32(x, head_weight(params).to(x.dtype).t())
+
+
+def run_layers(params: Dict[str, Any], x: torch.Tensor, layer: Callable, *,
+               cache=None, start_pos: torch.Tensor, kv_lens=None, **attn_kw):
+    """The decoder layers over ``x``: ``layer(x, lp, attend) -> x`` per layer,
+    where ``attend(q, k, v)`` is causal self-attention (no cache) or the
+    cache's append-and-attend at ``start_pos`` (written in place), both
+    masked to ``kv_lens`` and given ``attn_kw`` (``scale``,
+    ``alibi_slopes``). Returns ``(x, new_cache)``."""
+    for li, lp in enumerate(unstack_layers(params["layers"])):
+        if cache is None:
+            def attend(q, k, v):
+                return attention(q, k, v, causal=True, kv_lens=kv_lens, **attn_kw)
+        else:
+            def attend(q, k, v, li=li):
+                return cache_append_attend(
+                    q, k, v, (cache.k, cache.v, cache.k_scale[li], cache.v_scale[li], li),
+                    start_pos, kv_lens, **attn_kw)[0]
+        x = layer(x, lp, attend)
+    if cache is None:
+        return x, None
+    S = x.shape[1]
+    return x, dataclasses.replace(cache, lens=torch.maximum(cache.lens, start_pos + S))
+
+
+def state_getter(sd, dtype, device):
+    """``g(name)``: the state-dict entry ``name`` (a tensor or an array) as a
+    ``dtype`` tensor on ``device``."""
+    dev = resolve_device(device)
+
+    def g(name):
+        t = sd[name]
+        t = t if isinstance(t, torch.Tensor) else torch.as_tensor(np.asarray(t))
+        return t.to(device=dev, dtype=dtype)
+
+    return g
+
+
+def stacker(g, L):
+    """``stack(fmt, tr=False)``: layers 0..L-1 of ``fmt.format(i)`` stacked,
+    each transposed (an ``nn.Linear`` ``[out, in]``) when ``tr``."""
+    def stack(fmt, tr=False):
+        return torch.stack([g(fmt.format(i)).t() if tr else g(fmt.format(i))
+                            for i in range(L)])
+    return stack

@@ -1,11 +1,12 @@
-"""Plain tensor ops of the model: norms, rotary, attention, sampling."""
+"""Plain tensor ops of the models: norms, rotary, attention, sampling."""
 from .attention import (alibi_slopes_list, attention, attention_ref, decode_attention,
                         default_alibi_slopes)
+from .layernorm import layernorm
 from .rmsnorm import rmsnorm, rmsnorm_residual
 from .rotary import apply_rope, rope_cos_sin, rope_frequencies
 from .sampling import filtered_logits, filtered_probs, greedy, sample
 
 __all__ = ["attention", "attention_ref", "decode_attention", "alibi_slopes_list",
-           "default_alibi_slopes", "rmsnorm", "rmsnorm_residual",
+           "default_alibi_slopes", "layernorm", "rmsnorm", "rmsnorm_residual",
            "apply_rope", "rope_cos_sin", "rope_frequencies",
            "greedy", "sample", "filtered_logits", "filtered_probs"]

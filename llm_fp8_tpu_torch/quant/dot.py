@@ -71,7 +71,8 @@ from .formats import E4M3
 from .qtensor import MX_BLOCK, QTensor, _unpack_int4_halves, quantize, quantize_mx
 from .recipe import Recipe
 
-__all__ = ["qdot", "qdot_route", "serving_layout", "fp8_dot", "DotAmaxes", "matmul_f32"]
+__all__ = ["qdot", "qdot_route", "serving_layout", "padded_operands", "fp8_dot", "DotAmaxes",
+           "matmul_f32"]
 
 
 class DotAmaxes(NamedTuple):
@@ -125,19 +126,37 @@ def _kmajor(q: torch.Tensor) -> bool:
     return q.stride(-2) == 1 and q.shape[-2] > 1
 
 
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _fp8native_layout(q: torch.Tensor) -> bool:
+    """Whether ``[..., K, N]`` codes are laid out as :func:`serving_layout`
+    lays them out for the fp8native route: K-major, rows a multiple of 16
+    apart (so the storage holds the zero-padded ``[Np, Kp]`` block)."""
+    return _kmajor(q) and q.stride(-1) % 16 == 0
+
+
 def serving_layout(w: QTensor) -> QTensor:
     """``w`` with its codes laid out for the route :func:`qdot` will take:
-    the ``.t()`` view of contiguous ``[..., N, K]`` codes where that route
-    is ``"fp8native"`` (``torch._scaled_mm``'s column-major second
-    operand), row-major ``[..., K, N]`` otherwise (K1). A stacked ``[L, K,
-    N]`` weight is judged by its first layer. One copy, made here."""
+    where that route is ``"fp8native"``, the ``.t()`` view of contiguous
+    ``[..., Np, Kp]`` codes (``torch._scaled_mm``'s column-major second
+    operand), K and N rounded up to multiples of 16 (which cuBLASLt needs:
+    BTLM's 6826-wide MLP is not) with zero codes, and the view cut back to
+    ``[..., K, N]``; row-major ``[..., K, N]`` otherwise (K1). A stacked
+    ``[L, K, N]`` weight is judged by its first layer. One copy, made here."""
     one = w.layer(0) if w.qvalue.ndim == 3 else w
     want_k = qdot_route(one) == "fp8native" and _fp8_weight(one)
-    if want_k == _kmajor(w.qvalue):
+    if want_k:
+        if _fp8native_layout(w.qvalue):
+            return w
+        K, N = w.qvalue.shape[-2:]
+        store = w.qvalue.new_zeros((*w.qvalue.shape[:-2], _round16(N), _round16(K)))
+        store[..., :N, :K] = w.qvalue.transpose(-1, -2)
+        return dataclasses.replace(w, qvalue=store[..., :N, :K].transpose(-1, -2))
+    if not _kmajor(w.qvalue):
         return w
-    q = w.qvalue.transpose(-1, -2).contiguous().transpose(-1, -2) if want_k \
-        else w.qvalue.contiguous()
-    return dataclasses.replace(w, qvalue=q)
+    return dataclasses.replace(w, qvalue=w.qvalue.contiguous())
 
 
 def _k1_serves(x: torch.Tensor, w: QTensor) -> bool:
@@ -197,10 +216,11 @@ def qdot(x: torch.Tensor, w: QTensor, *, out_dtype=None, impl: Optional[str] = N
         _warn_fp8native_autoselect()
     impl = qdot_route(w, impl)
     if impl == "fp8native" and _fp8_weight(w):
-        if w.qvalue.is_cuda and not _kmajor(w.qvalue):
-            raise ValueError("qdot fp8native: the weight codes are row-major (laid out "
-                             "for K1); quantize_params lays them out for the route in force "
-                             "when it runs, so set LLM_FP8_QDOT before it")
+        if w.qvalue.is_cuda and not _fp8native_layout(w.qvalue):
+            raise ValueError("qdot fp8native: the weight codes are not laid out for this "
+                             "route (row-major for K1, or unpadded); quantize_params lays them "
+                             "out for the route in force when it runs, so set LLM_FP8_QDOT "
+                             "before it")
         xq = _quantize_channel(x, E4M3, x.ndim - 1, margin=0)
         return _narrow_dot(xq, w, out_dtype or x.dtype, "fp8")
     if impl == "fused" and w.pack_axis is None:
@@ -330,25 +350,51 @@ def _unit_scale(device: torch.device) -> torch.Tensor:
     return torch.ones((), dtype=torch.float32, device=device)
 
 
+def padded_operands(a: torch.Tensor, b: torch.Tensor):
+    """``a [M, K]`` and ``b [K, N]`` codes as ``[M, Kp]`` and ``[Kp, Np]``
+    (K and N rounded up to multiples of 16) with zero codes in the padding,
+    so that ``(a_p @ b_p)[:, :N]`` is ``a @ b`` exactly (zero codes add
+    nothing; the scales post-apply). ``a`` is padded here (a copy of the
+    activation codes); ``b`` must be the K-major view :func:`serving_layout`
+    made, whose storage already holds the padded block: it is read in place,
+    never padded per call."""
+    K, N = b.shape
+    Kp, Np = _round16(K), _round16(N)
+    ld = b.stride(1)
+    if not _fp8native_layout(b) or ld < Kp or (b.storage_offset() + (Np - 1) * ld + Kp) \
+            * b.element_size() > b.untyped_storage().nbytes():
+        raise ValueError(f"fp8 matmul: a [{K}, {N}] weight needs its codes padded to "
+                         f"multiples of 16 once, by serving_layout (quantize_params and "
+                         "quantize_zoo_params call it)")
+    a_p = a.new_zeros((a.shape[0], Kp))
+    a_p[:, :K] = a
+    return a_p, b.as_strided((Kp, Np), (1, ld))
+
+
 def _codes_mm(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     """``a [M, K] @ b [K, N]`` of one-byte codes, accumulated in float32
     (``"fp8"``) or int32 (``"int"``), returned as float32. ``b`` may be any
     view (a transpose included); the card's products get the layouts
     cuBLASLt takes. ``torch._scaled_mm`` takes any M (checked on the H100
     with torch 2.11 at M = 1, 5, 8, 17, 128 and 8184), so decode slots and
-    ragged prefill rows are not padded. K and N must be multiples of 16,
-    which every projection of every ``models/config.py`` configuration is."""
+    ragged prefill rows are not padded. It needs K and N to be multiples of
+    16: a weight where they are not (BTLM's 6826-wide MLP, debug-btlm's 340)
+    is multiplied through :func:`padded_operands`, its codes padded once by
+    :func:`serving_layout`."""
     if not a.is_cuda:
         return a.float() @ b.float()
     if mode == "int":
         return torch._int_mm(a.contiguous(), b.contiguous()).float()
     if a.stride(-1) != 1:
         a = a.contiguous()
-    if b.stride(0) != 1:  # column-major second operand
+    N = b.shape[1]
+    if a.shape[1] % 16 or N % 16:
+        a, b = padded_operands(a, b)
+    elif b.stride(0) != 1:  # column-major second operand
         b = b.t().contiguous().t()
     one = _unit_scale(a.device)
     try:
-        return torch._scaled_mm(a, b, one, one, out_dtype=torch.float32)
+        return torch._scaled_mm(a, b, one, one, out_dtype=torch.float32)[:, :N]
     except RuntimeError as e:
         raise RuntimeError(f"fp8 matmul of {a.dtype} x {b.dtype} with a float32 output "
                            f"was refused: {e}") from e

@@ -7,6 +7,14 @@ keep decoding. fp8/int8 KV runs the arena path: a ``[L, B, Hk, S, Dh]`` arena
 decoded by K2 (``forward_decode_arena``); bf16 KV runs the generic
 :class:`KVCache` path. The arena and cache are updated in place.
 
+``forward_fn`` serves any family with the Llama family's cache signature
+(``fn(params, tokens, cfg, cache=, start_pos=, kv_lens=) -> (logits,
+cache)``): the GPT-2 and NeoX families (``models/registry.py``), as the JAX
+engine's ``forward_fn``. Those run the generic :class:`KVCache` path (fp8 KV
+is quantized on store at the cache's unit scales; int8 KV is refused) and
+compute in float32; their tied or unquantized head gets one float32 copy at
+construction (``models/zoo.py::with_f32_head``).
+
 On the card a decode step is captured once as a CUDA graph over static
 buffers (tokens, lengths, logits, a ``[32, slots]`` burst output; see
 ``cuda_graph.py``), and a burst of ``n`` greedy steps is ``n`` replays and
@@ -27,6 +35,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.llama import (KVCache, forward, forward_decode_arena, init_kv_cache,
                             quantize_kv, storage_max)
+from ..models.zoo import with_f32_head
 from ..ops.sampling import greedy, sample
 from ..utils.backend import resolve_device, resolve_kv_dtype
 from .cuda_graph import StepGraph
@@ -222,7 +231,8 @@ class Engine(RequestQueue):
     """Single-model engine; params may hold QTensor fp8/int8 weights.
 
     Runs on ``cuda`` unless ``device`` is given (``device="cpu"`` runs the
-    plain versions of the kernels)."""
+    plain versions of the kernels). ``forward_fn``: the family's forward
+    (default: the Llama family's ``forward``)."""
 
     #: Subclass hook: engines whose steps feed several tokens opt out of the
     #: single-token arena path (as the JAX package's speculative engine does).
@@ -231,9 +241,10 @@ class Engine(RequestQueue):
     def __init__(self, params: Dict[str, Any], model_cfg: ModelConfig,
                  engine_cfg: EngineConfig = EngineConfig(), *,
                  eos_token_id: Optional[int] = None, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, forward_fn=None):
         self.device = resolve_device(device)
-        self.params = params
+        self._forward = forward_fn if forward_fn is not None else forward
+        self.params = params if self._forward is forward else with_f32_head(params)
         self.cfg = model_cfg
         buckets = tuple(b for b in engine_cfg.prefill_buckets
                         if b <= engine_cfg.max_seq_len) or (engine_cfg.max_seq_len,)
@@ -245,7 +256,7 @@ class Engine(RequestQueue):
         B, S = engine_cfg.max_slots, engine_cfg.max_seq_len
         kv_dtype = engine_cfg.kv_dtype
         self._fp8_arena = (kv_dtype in (torch.float8_e4m3fn, torch.float8_e5m2, torch.int8)
-                           and type(self)._use_arena)
+                           and self._forward is forward and type(self)._use_arena)
         self._int8_kv = kv_dtype == torch.int8
         if self._int8_kv and not self._fp8_arena:
             # Only the arena path carries calibrated per-head scales; int8 at
@@ -341,8 +352,8 @@ class Engine(RequestQueue):
         bucket = padded.shape[0]
         one = init_kv_cache(self.cfg, 1, bucket, dtype=self.ecfg.kv_dtype, device=self.device)
         one = dataclasses.replace(one, k_scale=self.cache.k_scale, v_scale=self.cache.v_scale)
-        logits, one = forward(self.params, padded[None, :], self.cfg, cache=one,
-                              start_pos=0, kv_lens=true_len.reshape(1))
+        logits, one = self._forward(self.params, padded[None, :], self.cfg, cache=one,
+                                    start_pos=0, kv_lens=true_len.reshape(1))
         self.cache.k[:, slot, :bucket] = one.k[:, 0]
         self.cache.v[:, slot, :bucket] = one.v[:, 0]
         self.cache.lens[slot] = true_len
@@ -403,7 +414,7 @@ class Engine(RequestQueue):
                 self.params, toks[:, None], self.cfg, self.ka, self.va, lens,
                 kv_scale=(self._kscales, self._vscales), window=self.cfg.sliding_window)
         else:
-            logits, cache = forward(
+            logits, cache = self._forward(
                 self.params, toks[:, None], self.cfg, cache=self.cache, start_pos=lens,
                 kv_lens=lens + 1)
             self.cache.lens.copy_(cache.lens)

@@ -142,7 +142,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert torch.isfinite(logits).all() and torch.isfinite(out).all()
     assert torch.isfinite(paged).all() and paged.shape == (2, 1, cfg.vocab_size)
     assert launch_counts() == {"quant_matmul": 0, "decode_attention_arena": 0,
-                               "flash_attention": 0, "paged_attention": 0,
+                               "flash_attention": 0, "flash_attention_f32": 0,
+                               "paged_attention": 0,
                                "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
                                "quantize_fused": 0, "flash_attention_fp8": 0,
                                "rmsnorm_residual_fused": 0}
