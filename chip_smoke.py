@@ -131,7 +131,29 @@ Phases, in order; any failure exits non-zero before the last line:
    fp8 KV on the KVCache path, 8 prompts of 500-1000 tokens, 32 new each),
    graph against eager tokens, K3 float32 and K9 launch counts, the device's
    busy share; then every GPT-2/NeoX debug config through the engine.
-10. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
+10. Training and speculative serving of the GPT-2 and NeoX families.
+   ``zoo_train_kernels``: K6's float32 instance (its dQ and dKV kernels on
+   3xTF32 ``mma.sync``) against its plain version row by row
+   (``F32_GRAD_TOL`` of each row's largest |grad|, floored) at BTLM-3B's
+   training shape (32 heads of 80, ALiBi, scale 1/80), gpt2-xl's 25 heads,
+   SantaCoder's 16 q heads over 1 at D 128, GPT-J's D 256, the debug D 32
+   and BTLM's shape with dropout 0.1; planted single-pass TF32, a query tile
+   lost in the dKV loop, a wrong slope and a keep mask of another seed must
+   be caught; the keep masks read back bit for bit from K6's dV (dO
+   one-hot) and K3's float32 output (V one-hot); K3's float32 dropout timed
+   beside it without; each case beside its plain version and SDPA's float32
+   backward. ``zoo_train_slice``: btlm-3b at full width cut to 2 layers, one
+   bf16-recipe step card against CPU (loss and every gradient), without
+   and with dropout 0.1. ``zoo_train``: BTLM-3B at all 32 layers, float32
+   master weights and AdamW, 8 x 512 tokens, 5 steps under remat full and
+   5 under dots (losses bit-equal), K3/K6 float32 launches a step, step ms,
+   peak memory, a profiled step. ``zoo_spec_serve``: gpt2-xl (fp8 weights,
+   e4m3 KV) with a gpt2 draft through ``SpecEngine(forward_fn=,
+   draft_forward_fn=)``, 8 requests, gamma 4, greedy, graph against eager
+   tokens, against the plain engine's greedy tokens (near-ties counted);
+   then every GPT-2/NeoX debug target with a debug draft and a Llama
+   ``debug-tiny`` target with a ``debug-gpt2`` draft.
+11. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 With ``--out DIR`` the details of every case go to ``DIR/chip_smoke.json``
@@ -157,7 +179,8 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_serve",
           "spec_serve", "checkpoint", "train_kernels", "train_slice", "train", "fp8_kernels",
           "profile", "alibi_kernels", "dropout_kernels", "alibi_serve", "train_rest", "compare",
-          "zoo_kernels", "zoo_slice", "zoo_serve")
+          "zoo_kernels", "zoo_slice", "zoo_serve", "zoo_train_kernels", "zoo_train_slice",
+          "zoo_train", "zoo_spec_serve")
 #: The kernels each path runs (launch counts read around its run). On the
 #: card fp8 weights take qdot's fp8native route (K9 quantizes x per row, then
 #: fp8 products), as the JAX package picks it where fp8 products exist; K1
@@ -1870,25 +1893,12 @@ def spec_kernel_cases(dev, g, bw, peak, log):
     return cases
 
 
-def spec_serving(dev, card, bw, peak, log, target_layers=16):
-    """Speculative serving at full width: target Llama-3.1-8B (cut to
-    ``target_layers`` layers), draft Llama-3.2-1B, both LAYERWISE fp8 from
-    seeds 0 and 1, fp8 KV, 8 slots, prompts of 180-220 tokens, 32 new
-    tokens, gamma 4. Greedy on the engine (a round is a CUDA graph, replayed)
-    and on its eager twin (tokens equal); each greedy token against a plain
-    teacher-forced target forward; sampled (top_k 20) on the graph; then the
-    1B drafting for itself, which must accept gamma in some round."""
-    import dataclasses
-
-    import numpy as np
-    import torch
-
-    from llm_fp8_tpu_torch import kernels
-    from llm_fp8_tpu_torch.models import get_config
-    from llm_fp8_tpu_torch.models.llama import (forward, init_kv_cache, init_params,
-                                                quantize_params)
-    from llm_fp8_tpu_torch.quant import LAYERWISE
-    from llm_fp8_tpu_torch.serving import EngineConfig, SamplingParams, SpecEngine
+def spec_round_classes():
+    """``SpecEngine`` subclasses that time each burst of rounds (ends in a
+    read-back) and count the rounds run and the round's Python calls (on the
+    card: its warm-up and its capture): ``Rounds`` replays the captured
+    round, ``EagerRounds`` runs the round eagerly, its twin."""
+    from llm_fp8_tpu_torch.serving import SpecEngine
 
     class Rounds(SpecEngine):
         """Host time of each burst of rounds (ends in a read-back), rounds
@@ -1915,6 +1925,31 @@ def spec_serving(dev, card, bw, peak, log, target_layers=16):
     class EagerRounds(Rounds):
         def _run_spec_rounds(self, toks, lens, rounds):
             return self._timed(self._round_loop, toks, lens, rounds)
+
+    return Rounds, EagerRounds
+
+
+def spec_serving(dev, card, bw, peak, log, target_layers=16):
+    """Speculative serving at full width: target Llama-3.1-8B (cut to
+    ``target_layers`` layers), draft Llama-3.2-1B, both LAYERWISE fp8 from
+    seeds 0 and 1, fp8 KV, 8 slots, prompts of 180-220 tokens, 32 new
+    tokens, gamma 4. Greedy on the engine (a round is a CUDA graph, replayed)
+    and on its eager twin (tokens equal); each greedy token against a plain
+    teacher-forced target forward; sampled (top_k 20) on the graph; then the
+    1B drafting for itself, which must accept gamma in some round."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.models.llama import (forward, init_kv_cache, init_params,
+                                                quantize_params)
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+    from llm_fp8_tpu_torch.serving import EngineConfig, SamplingParams
+
+    Rounds, EagerRounds = spec_round_classes()
 
     g = torch.Generator(device=dev).manual_seed(4321)
     cases = spec_kernel_cases(dev, g, bw, peak, log)
@@ -4297,6 +4332,735 @@ def zoo_serving(dev, card, log, num_layers=ZOO_SERVE_LAYERS):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 10: training and speculative serving of the GPT-2 and NeoX families
+# --------------------------------------------------------------------------
+
+#: The zoo's training path on the card: K3's float32 instance forward (again
+#: in the backward under remat "full") and K6's float32 instance backward.
+ZOO_TRAIN_PATH = ("flash_attention_f32", "flash_attention_bwd_f32_dq",
+                  "flash_attention_bwd_f32_dkv")
+
+#: K6's float32 instance is held to its plain version row by row: each dq,
+#: dk and dv row's largest error at most F32_GRAD_TOL of max(the row's
+#: largest |value|, F32_GRAD_FLOOR · the tensor's largest |value|). The floor
+#: holds rows whose gradient is float32 cancellation (a query that sees one
+#: key has dq = 0 exactly; a few that see two have dq ~1% of the others) to
+#: the tensor's scale. Readings on an H100 (3xTF32, tile sums flushed by a
+#: rounding add): up to 1.35 x 2^-14 (dq at head dim 256), dk and dv under
+#: 0.22 x 2^-14; single-pass TF32 reads 200-300 x 2^-14 in dq (its S
+#: recompute's error goes through exp), 14-200 x 2^-14 in dk and dv.
+#: tests/test_torch_flash_bwd_f32.py reproduces the separation on the CPU.
+F32_GRAD_TOL = 2.0 ** -12
+F32_GRAD_FLOOR = 2.0 ** -5
+
+#: zoo_train_kernels: (name, B, S, Hq, Hk, D, ALiBi, scale or None, dropout, kv_lens short by)
+ZOO_K6_CASES = (
+    ("btlm-3b train B8 S512 Hq=Hk=32 D80 alibi scale 1/80 causal", 8, 512, 32, 32, 80, True,
+     1.0 / 80, 0.0, 0),
+    ("gpt2-xl B4 S1024 Hq=Hk=25 D64 causal", 4, 1024, 25, 25, 64, False, None, 0.0, 0),
+    ("santacoder MQA B4 S1024 Hq16 Hk1 D128 causal", 4, 1024, 16, 1, 128, False, None, 0.0, 0),
+    ("gptj-6b B2 S512 Hq=Hk=16 D256 causal", 2, 512, 16, 16, 256, False, None, 0.0, 0),
+    ("debug D32 B2 S256 Hq4 Hk2 ragged kv_lens", 2, 256, 4, 2, 32, False, None, 0.0, 37),
+    ("dropout 0.1 btlm-3b B8 S512 Hq=Hk=32 D80 alibi scale 1/80 causal", 8, 512, 32, 32, 80,
+     True, 1.0 / 80, 0.1, 0),
+)
+
+
+#: The shape of zoo_train_kernels' keep-mask read-backs and K3 float32
+#: dropout case: BTLM-3B's training step (B 8 x S 512, 32 heads of 80).
+ZOO_READBACK_SHAPE = dict(B=8, S=512, Hq=32, D=80)
+
+
+def f32_grad_err(got, ref):
+    """Each row's (last dim) largest |got - ref| over max(the row's largest
+    |ref|, F32_GRAD_FLOOR · the tensor's largest |ref|)."""
+    import torch
+
+    ref = ref.float()
+    scale = torch.maximum(ref.abs().amax(dim=-1), F32_GRAD_FLOOR * ref.abs().max())
+    return (got.float() - ref).abs().amax(dim=-1) / scale
+
+
+def sdpa_f32_backward(qh, kh, vh, doh, scale, bias=None):
+    """SDPA's float32 attention backward on ``[B, H, S, D]`` operands as one
+    aten call (graph-capturable; the forward's outputs made once): the
+    memory-efficient kernel, the one SDPA picks for float32 (its flash and
+    cuDNN kernels take no float32); causal, or ``bias`` as a float mask."""
+    import torch
+
+    causal = bias is None
+    out, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(
+        qh, kh, vh, bias, True, 0.0, causal, scale=scale)
+
+    def backward():
+        return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            doh, qh, kh, vh, bias, out, lse, seed, offset, 0.0, [True, True, True, False],
+            causal, scale=scale)
+
+    return backward
+
+
+def zoo_train_kernel_cases(dev, bw, peak, log):
+    """K6's float32 instance (``flash_attention_bwd_f32``: its dQ kernel,
+    which also writes di, then its dKV kernel) against its plain version row
+    by row (``F32_GRAD_TOL``), two runs bit-identical, di against the plain
+    reduction, at the zoo's training shapes (``ZOO_K6_CASES``), from K3's
+    float32 forward (held to ``F32_ROW_TOL`` first). Planted faults the
+    tolerance must catch in at least half the rows of one gradient:
+    single-pass TF32 (the kernels' ``passes=1``), a query tile lost in the
+    dKV loop (queries 64-127 left out of dK and dV: held over the keys they
+    give 2^-10 of weight or more), each head given its neighbour's ALiBi
+    slope, and a keep mask from another seed. Then the keep masks read back
+    bit for bit (at BTLM's shape without ALiBi, whose far keys underflow):
+    K6's from dV with dO one-hot, K3's float32 instance's from its output
+    with V one-hot. Each main case timed (CUDA graph) beside the plain
+    version, its two kernels apart, and SDPA's float32 backward on the same
+    q/k/v (timed only); the bound is five products per live pair at three
+    TF32 products each."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels import flash_attention_bwd as k6
+    from llm_fp8_tpu_torch.kernels._common import dropout_keep
+    from llm_fp8_tpu_torch.ops.attention import default_alibi_slopes
+
+    g = torch.Generator(device=dev).manual_seed(8642)
+    tf32 = peak / 2
+    cases = []
+    for name, B, S, Hq, Hk, D, alibi, scale, rate, short in ZOO_K6_CASES:
+        q, do = (torch.randn((B, S, Hq, D), generator=g, device=dev) for _ in range(2))
+        k, v = (torch.randn((B, S, Hk, D), generator=g, device=dev) for _ in range(2))
+        qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+        kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+        kl[-1] -= short
+        scale = scale or D ** -0.5
+        al = default_alibi_slopes(Hq, dev)[None].expand(B, Hq).contiguous() if alibi else None
+        drop = dict(dropout_p=rate, dropout_seed=DROPOUT_SEED)
+        cfg = dict(causal=True, scale=scale, alibi=al, **drop)
+        out, lse = k3.flash_fwd_f32(q, k, v, qo, kl, **cfg)
+        ref_o, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, window=None, softcap=None, **cfg)
+        torch.cuda.synchronize()
+        rows = torch.isfinite(ref_lse).transpose(1, 2)
+        fwd_err = float(f32_row_err(out, ref_o, v, Hq)[rows].max())
+        check(math.isfinite(fwd_err) and fwd_err <= F32_ROW_TOL,
+              f"K3 f32 {name}: a row is {fwd_err} of max|v| off (tol {F32_ROW_TOL})")
+        del ref_o, ref_lse
+        bwd = dict(q_offset=qo, kv_lens=kl, **cfg)
+        args = (q, k, v, out, lse, do)
+        got = k6.flash_attention_bwd_f32(*args, **bwd)
+        again = k6.flash_attention_bwd_f32(*args, **bwd)
+        ref = k6.flash_attention_bwd_plain(*args, window=None, softcap=None, **bwd)
+        _, di = k6.flash_bwd_f32_dq(q, k, v, out, do, lse, qo, kl, **cfg)
+        di_ref = k6.row_di(out, do)
+        di_tol = 1e-6 * (out * do).abs().sum(dim=-1).transpose(1, 2)
+        torch.cuda.synchronize()
+        check(bool(((di - di_ref).abs() <= di_tol).all()),
+              f"K6 f32 {name}: di is {(di - di_ref).abs().max().item()} off")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(same, f"K6 f32 {name}: two runs are not bit-identical")
+        case = dict(kernel="flash_attention_bwd_f32", case=name, deterministic=same,
+                    k3_row_err_over_vmax=fwd_err, grad_tol=F32_GRAD_TOL,
+                    grad_floor=F32_GRAD_FLOOR, di_max_abs_err=(di - di_ref).abs().max().item())
+        errs = []
+        for what, a, b in zip(("dq", "dk", "dv"), got, ref):
+            worst = float(f32_grad_err(a, b).max())
+            check(math.isfinite(worst) and worst <= F32_GRAD_TOL,
+                  f"K6 f32 {name} {what}: a row is {worst} off (tol {F32_GRAD_TOL} of its "
+                  "largest |value|, floored)")
+            case[what] = dict(max_abs_err=float((a - b).abs().max()), worst_row=worst)
+            errs.append(case[what]["max_abs_err"])
+        case["max_abs_err"] = max(errs)
+        del again
+
+        def caught(bad):
+            return [float((f32_grad_err(a, b) > F32_GRAD_TOL).float().mean())
+                    for a, b in zip(bad, ref)]
+
+        planted = {"single_pass_tf32": caught(k6.flash_attention_bwd_f32(*args, passes=1,
+                                                                          **bwd))}
+        lost = do.clone()
+        lost[:, 64:128] = 0.0  # queries 64-127 out of dK and dV (their dq rows too)
+        bad = k6.flash_attention_bwd_plain(q, k, v, out, lse, lost, window=None, softcap=None,
+                                           **bwd)
+        p, _ = k6.recompute_p_ds(q[:, 64:128], k, v, lse[:, :, 64:128], do[:, 64:128],
+                                 di_ref[:, :, 64:128], qo + 64, kl, causal=True, window=None,
+                                 softcap=None, scale=scale, alibi=al)
+        mass = p.sum(dim=2).reshape(B, Hk, Hq // Hk, S).sum(dim=2).transpose(1, 2)
+        tile_keys = mass >= 2.0 ** -10  # [B, S, Hk]
+        shares = [float((f32_grad_err(a, b)[tile_keys] > F32_GRAD_TOL).float().mean())
+                  for a, b in zip(bad[1:], ref[1:])]
+        planted["lost_query_tile (dk, dv over its keys)"] = shares
+        del bad, p, lost
+        if alibi:
+            planted["wrong_slope"] = caught(k6.flash_attention_bwd_plain(
+                *args, window=None, softcap=None, **dict(bwd, alibi=torch.roll(al, 1, dims=1))))
+        if rate:
+            planted["wrong_seed"] = caught(k6.flash_attention_bwd_plain(
+                *args, window=None, softcap=None, **dict(bwd, dropout_seed=DROPOUT_SEED + 1)))
+        for fault, share in planted.items():
+            check(max(share) >= 0.5, f"K6 f32 {name}: {fault} caught in {share} of the rows")
+        case["caught"] = planted
+        live = live_pairs(B, S, S, qo, kl, True, None, dev)
+        pairs = int(live.sum()) * Hq
+        case["live_pairs"] = pairs
+        if name.startswith(("btlm", "gpt2-xl", "santacoder", "gptj", "dropout")):
+            call = lambda: k6.flash_attention_bwd_f32(*args, **bwd)  # noqa: E731
+            case["ms"] = cuda_ms(call, calls=5, rounds=3)
+            case["call_ms"] = eager_ms(call, calls=5, rounds=3)
+            case["split_ms"] = {
+                "dq_and_di": cuda_ms(lambda: k6.flash_bwd_f32_dq(q, k, v, out, do, lse, qo, kl,
+                                                                 **cfg), calls=5, rounds=3),
+                "dkv": cuda_ms(lambda: k6.flash_bwd_f32_dkv(q, k, v, do, lse, di, qo, kl,
+                                                            **cfg), calls=5, rounds=3)}
+            case["plain_ms"] = cuda_ms(lambda: k6.flash_attention_bwd_plain(
+                *args, window=None, softcap=None, **bwd), calls=1, rounds=2)
+            grp = Hq // Hk
+            qh, doh = q.transpose(1, 2), do.transpose(1, 2)
+            kh = k.transpose(1, 2).repeat_interleave(grp, dim=1)
+            vh = v.transpose(1, 2).repeat_interleave(grp, dim=1)
+            if rate:
+                case["library_ms"] = None
+                case["library_note"] = "SDPA's dropout draws another mask"
+            else:
+                bias = (alibi_float_mask(al, qo, kl, B, S, S, True, dev, torch.float32)
+                        if alibi else None)
+                case["library_ms"] = cuda_ms(sdpa_f32_backward(qh, kh, vh, doh, scale, bias),
+                                             calls=5, rounds=3)
+                case["library"] = ("SDPA's memory-efficient float32 backward"
+                                   + (" (ALiBi as a float mask)" if alibi else ""))
+                case["vs_library"] = case["ms"] / case["library_ms"]
+                del bias
+            del qh, kh, vh, doh
+            flops = 10.0 * D * pairs
+            nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) \
+                + 4 * lse.numel()
+            case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 3 * flops, bw, tf32)
+            case["bound_unit"] = "TF32 tensor cores, 3 products per float32 product"
+            # The kernels' own shares: dQ's S, dP and dQ products, dKV's S,
+            # dP, dV and dK.
+            case["split_bound_ms"] = {
+                "dq_and_di": bound_ms(4 * (3 * q.numel() + k.numel() + v.numel()
+                                           + lse.numel()), 3 * 6.0 * D * pairs, bw, tf32)[0],
+                "dkv": bound_ms(4 * (2 * q.numel() + 4 * k.numel() + 2 * lse.numel()),
+                                3 * 8.0 * D * pairs, bw, tf32)[0]}
+            case["tflops_float32"] = flops / (case["ms"] * 1e-3) / 1e12
+        cases.append(case)
+        log(case)
+        del q, k, v, do, out, lse, got, ref, di, di_ref, live
+        torch.cuda.empty_cache()
+
+    # ---- the keep masks read back (BTLM's shape, no ALiBi) ----
+    B, S, Hq, D = (ZOO_READBACK_SHAPE[k] for k in ("B", "S", "Hq", "D"))
+    rate, seed = 0.1, DROPOUT_SEED
+    qs, ks_, v = (torch.randn((B, S, Hq, D), generator=g, device=dev) * s
+                  for s in (0.05, 0.05, 1.0))
+    qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+    kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+    cfg = dict(causal=True, scale=1.0 / D, alibi=None, dropout_p=rate, dropout_seed=seed)
+    live = live_pairs(B, S, S, qo, kl, True, None, dev)
+    keep = dropout_keep(seed, rate, qo, B, Hq, S, S) & live[:, None]
+    seen3 = torch.zeros((B, Hq, S, S), dtype=torch.bool, device=dev)
+    seen6 = torch.zeros((B, Hq, S, S), dtype=torch.bool, device=dev)
+    out_s, lse_s = k3.flash_fwd_f32(qs, ks_, v, qo, kl, **cfg)
+    for j in range(-(-S // D)):
+        n = min(D, S - j * D)
+        idx = torch.arange(n, device=dev)
+        onehot_v = torch.zeros((B, S, Hq, D), device=dev)
+        onehot_v[:, j * D + idx, :, idx] = 1.0
+        o, _ = k3.flash_fwd_f32(qs, ks_, onehot_v, qo, kl, **cfg)
+        seen3[:, :, :, j * D:j * D + n] = (o[..., :n] != 0).permute(0, 2, 1, 3)
+        _, _, dv = k6.flash_attention_bwd_f32(qs, ks_, v, out_s, lse_s, onehot_v, q_offset=qo,
+                                              kv_lens=kl, **cfg)
+        # dv [B, Sk, Hk, D]: column d is query j·D + d
+        seen6[:, :, j * D:j * D + n, :] = (dv[..., :n] != 0).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    k3_mask, k6_mask = bool(torch.equal(seen3, keep)), bool(torch.equal(seen6, keep))
+    check(k3_mask, f"K3 f32 dropout: the keep mask read back differs in "
+          f"{int((seen3 != keep).sum())} entries")
+    check(k6_mask, f"K6 f32 dropout: the keep mask read back differs in "
+          f"{int((seen6 != keep).sum())} entries")
+    # K3's float32 dropout at BTLM's shape (ALiBi), timed beside it without.
+    q, k, v = (torch.randn((B, S, Hq, D), generator=g, device=dev) for _ in range(3))
+    al = default_alibi_slopes(Hq, dev)[None].expand(B, Hq).contiguous()
+    cfg = dict(causal=True, scale=1.0 / D, alibi=al)
+    out, lse = k3.flash_fwd_f32(q, k, v, qo, kl, dropout_p=rate, dropout_seed=seed, **cfg)
+    ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, window=None, softcap=None,
+                                      dropout_p=rate, dropout_seed=seed, **cfg)
+    torch.cuda.synchronize()
+    worst = float(f32_row_err(out, ref, v, Hq).max())
+    lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max())
+    check(worst <= F32_ROW_TOL and lse_err <= 1e-5,
+          f"K3 f32 dropout: a row is {worst} of max|v| off, lse {lse_err}")
+    pairs = int(live.sum()) * Hq
+    call = lambda d: (lambda: k3.flash_fwd_f32(q, k, v, qo, kl, **cfg, **d))  # noqa: E731
+    drop = dict(dropout_p=rate, dropout_seed=seed)
+    case = dict(kernel="flash_attention_f32", case=f"dropout {rate} btlm-3b train B{B} S{S} "
+                f"Hq{Hq} D{D} alibi scale 1/80 causal", max_abs_err=float((out - ref).abs().max()),
+                row_err_over_vmax=worst, row_tol=F32_ROW_TOL, lse_err=lse_err,
+                keep_mask_equal=k3_mask, k6_keep_mask_equal=k6_mask,
+                kept_share=float(keep.sum()) / float(live.sum() * Hq),
+                ms=cuda_ms(call(drop)), ms_without_dropout=cuda_ms(call({})),
+                plain_ms=cuda_ms(lambda: k3.flash_fwd_plain(
+                    q, k, v, qo, kl, window=None, softcap=None, **cfg, **drop), calls=1,
+                    rounds=2), library_ms=None,
+                library_note="SDPA's dropout draws another mask")
+    case["dropout_cost"] = case["ms"] / case["ms_without_dropout"]
+    case["bound_ms"], case["bound_by"] = bound_ms(
+        4 * (2 * q.numel() + k.numel() + v.numel() + lse.numel()), 3 * 4.0 * D * pairs, bw,
+        tf32)
+    cases.append(case)
+    log(case)
+    return cases
+
+
+#: zoo_train_slice's limits, card against CPU on the same float32 weights
+#: and batch: the loss within ZOO_TRAIN_LOSS_RTOL relative, each gradient
+#: tensor's largest difference within ZOO_TRAIN_GRAD_SHARE of its largest
+#: |value|. Both sides compute in float32 (cuBLAS float32 GEMMs, TF32 off;
+#: K3's and K6's float32 instances against the plain attention), so they
+#: differ by float32 sum orders over up to 13652 terms: a few 1e-6 of a
+#: tensor's largest value.
+ZOO_TRAIN_LOSS_RTOL = 1e-5
+ZOO_TRAIN_GRAD_SHARE = 1e-4
+
+
+def zoo_train_slice(dev, log, model="btlm-3b"):
+    """``model`` at full width cut to 2 layers, float32 master weights (seed
+    5): one bf16-recipe step's loss and every parameter's gradient on the
+    card (K3 and K6 float32 instances) and on the CPU (plain versions), from
+    the same weights and batch (B 2 x S 256), then the same with attention
+    dropout 0.1; held to ``ZOO_TRAIN_LOSS_RTOL`` and ``ZOO_TRAIN_GRAD_SHARE``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.training import TrainConfig, Trainer
+
+    entry = resolve_model(model)
+    cfg = dataclasses.replace(entry.cfg, num_layers=2)
+    params = entry.init_fn(cfg, dtype=torch.float32, device=dev, seed=5)
+    cpu_params = to_cpu(params)
+    rng = np.random.RandomState(6)
+    batch = {"input_ids": rng.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32),
+             "attention_mask": np.ones((2, 256), np.int32)}
+    res = {"config": f"{model}, 2 layers at full width, float32, bf16 recipe, B 2 x S 256",
+           "loss_rtol": ZOO_TRAIN_LOSS_RTOL, "grad_share": ZOO_TRAIN_GRAD_SHARE}
+    for rate in (0.0, 0.1):
+        out = {}
+        for side, p, d in (("cuda", params, dev), ("cpu", cpu_params, torch.device("cpu"))):
+            tr = Trainer(cfg, TrainConfig(recipes="bf16", attention_dropout=rate), device=d,
+                         forward_fn=entry.forward_fn)
+            state = tr.init_state(p)
+            kernels.reset_launch_counts()
+            loss, n, _, stats, grads, _ = tr.loss_and_grads(state, batch)
+            out[side] = (float(loss), {k: g.float().cpu() for k, g in grads.items()},
+                         kernels.launch_counts(), stats)
+            del tr, state, grads
+        loss_c, grads_c, counts, _ = out["cuda"]
+        loss_h, grads_h, _, stats = out["cpu"]
+        check(math.isfinite(loss_c) and math.isnan(float(stats[0])),
+              f"zoo train slice {model}: loss {loss_c}, activation mean {stats[0]}")
+        rel = abs(loss_c - loss_h) / abs(loss_h)
+        shares = {k: float((grads_c[k] - grads_h[k]).abs().max()
+                           / grads_h[k].abs().max().clamp(min=1e-30)) for k in grads_h}
+        worst = max(shares, key=shares.get)
+        tag = f"dropout {rate}" if rate else "no dropout"
+        res[tag] = dict(loss_card=loss_c, loss_cpu=loss_h, loss_rel_err=rel,
+                        worst_grad=worst, worst_grad_share=shares[worst], grad_shares=shares,
+                        launches={k: counts[k] for k in ZOO_TRAIN_PATH})
+        check(rel <= ZOO_TRAIN_LOSS_RTOL,
+              f"zoo train slice {model} ({tag}): loss {loss_c} against {loss_h} ({rel})")
+        check(shares[worst] <= ZOO_TRAIN_GRAD_SHARE,
+              f"zoo train slice {model} ({tag}): gradient {worst} {shares[worst]} of its max")
+        for kname in ZOO_TRAIN_PATH:
+            check(counts[kname] == cfg.num_layers,
+                  f"zoo train slice {model}: {kname} launched {counts[kname]} times")
+    log(res)
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    return res
+
+
+ZOO_TRAIN_STEPS = 5
+
+
+def zoo_training(dev, card, log, model="btlm-3b", steps=ZOO_TRAIN_STEPS):
+    """``model`` (BTLM-3B: 32 layers, 2560 wide, 32 heads of 80, ALiBi, muP)
+    at full width and depth, float32 master weights and AdamW, the bf16
+    recipe (float32 compute), 8 x 512 synthetic tokens a step through
+    ``Trainer(forward_fn=gpt2_forward)``: ``steps`` steps under remat "full",
+    then the same steps from the same weights under "dots" (the losses
+    equal bit for bit; if "dots" does not fit on the card its failure is
+    recorded and "full" stands alone). Per run: step ms, tokens/s, peak
+    memory, the launches of K3's and K6's float32 instances a step (K3 twice a
+    layer under "full", once under "dots"), and one step profiled."""
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.cli.train import ByteTokenizer
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.training import (DataConfig, DataManager, TrainConfig, Trainer,
+                                            synthetic_examples)
+
+    entry = resolve_model(model)
+    cfg = entry.cfg
+    L = cfg.num_layers
+    dm = DataManager(DataConfig(max_seq_length=512, batch_size=8),
+                     ByteTokenizer(cfg.vocab_size))
+    train_seqs, _ = dm.build(synthetic_examples(100))
+    batches = list(dm.batches(train_seqs, 8, shuffle=True, seed=0))[:steps + 1]
+    check(len(batches) > steps, f"zoo train: {len(batches)} batches for {steps} steps")
+    res = {"card": card, "config": f"{model}, {L} layers at full width, float32 master "
+           "weights and AdamW, bf16 recipe (float32 compute)", "batch": "8 x 512 synthetic",
+           "steps": steps}
+    launches = {}
+    for remat in ("full", "dots"):
+        t0 = time.perf_counter()
+        params = entry.init_fn(cfg, dtype=torch.float32, device=dev, seed=0)
+        tr = Trainer(cfg, TrainConfig(recipes="bf16", learning_rate=1e-4, warmup_steps=1,
+                                      total_steps=steps, remat=remat), device=dev,
+                     forward_fn=entry.forward_fn)
+        state = tr.init_state(params)
+        n_params = sum(t.numel() for t in params.values() if isinstance(t, torch.Tensor)) + \
+            sum(t.numel() for t in params["layers"].values())
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        losses, step_s = [], []
+        try:
+            for b in batches[:steps]:
+                t1 = time.perf_counter()
+                state, m = tr.train_step(state, b)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+                losses.append(loss)
+                check(int(m["finite"]) == 1 and math.isfinite(loss),
+                      f"zoo train {remat}: step {len(losses)} not finite (loss {loss})")
+        except torch.cuda.OutOfMemoryError as e:
+            check(remat == "dots", f"zoo train {remat}: out of memory ({e})")
+            res[remat] = dict(out_of_memory=str(e).splitlines()[0],
+                              peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            del state, tr, params
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        counts = kernels.launch_counts()
+        per_step = {"flash_attention_f32": (2 if remat == "full" else 1) * L,
+                    "flash_attention_bwd_f32_dq": L, "flash_attention_bwd_f32_dkv": L}
+        for kname, n in per_step.items():
+            check(counts[kname] == n * steps, f"zoo train {remat}: {kname} launched "
+                  f"{counts[kname]} times in {steps} steps, not {n * steps}")
+        check(counts["flash_attention"] == 0 and counts["flash_attention_bwd_dq"] == 0,
+              f"zoo train {remat}: a bf16 attention kernel ran ({counts})")
+        for kname in ZOO_TRAIN_PATH:
+            launches[kname] = launches.get(kname, 0) + counts[kname]
+        step_ms = 1e3 * statistics.median(step_s[1:])
+        res[remat] = dict(losses=losses, init_s=init_s, step_ms=step_ms,
+                          first_step_ms=1e3 * step_s[0], tokens_per_s=8 * 512 / (step_ms / 1e3),
+                          peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                          params=n_params, launches_per_step=per_step,
+                          profile=profile_train_step(tr, state, batches[steps]))
+        log({remat: res[remat]})
+        del state, tr, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "losses" in res.get("dots", {}):
+        equal = res["dots"]["losses"] == res["full"]["losses"]
+        check(equal, f"zoo train: remat dots losses {res['dots']['losses']} differ from full's "
+              f"{res['full']['losses']}")
+        res["losses_equal_full_dots"] = equal
+    res["launches"] = launches
+    log({k: v for k, v in res.items() if k not in ("full", "dots")})
+    return res
+
+
+#: zoo_spec_serve: the speculative engine's verify block and the plain
+#: engine's decode step give the same target's logits on the same tokens,
+#: by two paths (K3's float32 instance over the block against the plain
+#: decode attention; fp8native products at 40 rows against 8). With fp8
+#: weights every projection quantizes its input per row to e4m3, so float32
+#: differences between the paths flip e4m3 codes and the logits of gpt2-xl's
+#: 48 layers part by up to 0.28 of their std on an H100 (before any token
+#: differs); with bf16 weights and KV (the control) by float32 sum orders
+#: only. The fp8 paths are held to this share of the logits' std, the
+#: control to ZOO_SLICE_TOL_STD.
+ZOO_SPEC_PATH_TOL_STD = 0.5
+
+
+def spec_against_plain(dev, tparams, tcfg, dparams, dcfg, ecfg, prompts, max_new, gamma, hooks,
+                       eager_cls):
+    """Eager twins of the speculative engine (``eager_cls``) and of the plain
+    engine, each recording the target's logits row for every position it
+    predicts, on ``prompts``. Per request: the first token where the two
+    streams part, the largest difference of the two rows (in the plain
+    row's std) over the positions before it, and at the parting the plain
+    row's top-2 margin, the rows' difference and whether a near-tie (margin
+    below ZOO_SLICE_TOL_STD of the std) came at or before it."""
+    import numpy as np
+
+    from llm_fp8_tpu_torch.serving import Engine, SamplingParams
+
+    class PlainRec(Engine):
+        def _run_decode_burst(self, toks, lens, steps):
+            return self._decode_loop(toks, lens, steps)
+
+        def _decode_step(self, toks, lens):
+            logits, g = super()._decode_step(toks, lens)
+            for s, r in enumerate(self.slot_req):
+                if r is not None:
+                    self.rows.setdefault(r.request_id, {})[int(lens[s]) + 1] = \
+                        logits[s].float().cpu()
+            return logits, g
+
+    class SpecRec(eager_cls):
+        def _spec_round(self, toks, lens):
+            fwd, g = self._forward, self.gamma
+
+            def verify(params, block, cfg, **kw):  # records the verify block's rows
+                out = fwd(params, block, cfg, **kw)
+                if block.shape[1] == g + 1 and params is self.params:
+                    self.verify = (out[0].float().cpu(), kw["start_pos"].cpu())
+                return out
+
+            self._forward = verify
+            try:
+                res = super()._spec_round(toks, lens)
+            finally:
+                self._forward = fwd
+            # A row stays for the committed prefix: a later round that covers
+            # its position again overwrites it.
+            logits, start = self.verify
+            for s, r in enumerate(self.slot_req):
+                if r is not None:
+                    for j in range(g + 1):
+                        self.rows.setdefault(r.request_id, {})[int(start[s]) + j + 1] = \
+                            logits[s, j]
+            return res
+
+    def run(eng):
+        eng.rows = {}
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new)) for p in prompts]
+        eng.run()
+        return reqs, eng.rows
+
+    preqs, prows = run(PlainRec(tparams, tcfg, ecfg, device=dev,
+                                forward_fn=hooks["forward_fn"]))
+    sreqs, srows = run(SpecRec(tparams, tcfg, dparams, dcfg, ecfg, gamma=gamma, device=dev,
+                               **hooks))
+    parted, worst, near_ties = [], 0.0, 0
+    for i, (pr, sr, prompt) in enumerate(zip(preqs, sreqs, prompts)):
+        a, b = prows[pr.request_id], srows[sr.request_id]
+        tie = {}
+        for k, row in a.items():
+            top2 = row.topk(2).values
+            tie[k] = float((top2[0] - top2[1]) / row.std())
+        near_ties += sum(m < ZOO_SLICE_TOL_STD for m in tie.values())
+        first = next((j for j, (x, y) in enumerate(zip(pr.output, sr.output)) if x != y), None)
+        last = len(prompt) + (first if first is not None else max_new)
+        for k in sorted(set(a) & set(b)):
+            if k < last:
+                worst = max(worst, float((a[k] - b[k]).abs().max() / a[k].std()))
+        if first is not None:
+            k = len(prompt) + first
+            parted.append(dict(
+                request=i, at=first, margin_over_std=tie.get(k, 0.0),
+                diff_over_std=(float((a[k] - b[k]).abs().max() / a[k].std())
+                               if k in a and k in b else float("inf")),
+                near_tie_before=any(m < ZOO_SLICE_TOL_STD for kk, m in tie.items() if kk <= k)))
+    return dict(requests_equal=len(prompts) - len(parted), parted=parted,
+                worst_diff_over_std=worst, near_tie_positions=near_ties,
+                tie_std=ZOO_SLICE_TOL_STD, plain_tokens=[r.output for r in preqs],
+                spec_tokens=[r.output for r in sreqs])
+
+
+#: zoo_spec_serve's prompt lengths (lowest, highest + 1) and cache length.
+ZOO_SPEC_PROMPTS, ZOO_SPEC_MAX_SEQ = (200, 501), 1024
+
+
+def zoo_spec_serving(dev, card, log, target="gpt2-xl", draft="gpt2"):
+    """Speculative serving of the GPT-2 family: ``target`` (gpt2-xl: 48
+    layers, 25 heads of 64, LAYERWISE fp8 weights made a layer at a time,
+    e4m3 KV) with ``draft`` (gpt2, bf16 and unquantized, as the JAX CLI's)
+    through ``SpecEngine(forward_fn=, draft_forward_fn=)``: 8 requests of
+    200-500-token prompts, 32 new tokens each, gamma 4, greedy; the round's
+    CUDA graph against its eager twin (tokens equal), K3's float32 instance
+    and K9 launched in the captured round. The spec tokens against the plain
+    ``Engine(forward_fn=gpt2_forward)``'s greedy tokens
+    (``spec_against_plain``): the two engines' logits on the same tokens
+    within ``ZOO_SPEC_PATH_TOL_STD`` of their std, and a request parts only
+    where the plain top-2 margin is within twice that difference; the same
+    with bf16 weights and KV (the control) within ``ZOO_SLICE_TOL_STD``,
+    parting only after a near-tie (a margin within ``ZOO_SLICE_TOL_STD`` of
+    the std); near-ties counted. Then every GPT-2/NeoX debug target with a
+    debug draft, and a Llama ``debug-tiny`` target with a ``debug-gpt2``
+    draft."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.models.gpt2 import GPT2_REGISTRY
+    from llm_fp8_tpu_torch.models.neox import NEOX_REGISTRY
+    from llm_fp8_tpu_torch.models.registry import quantize_zoo_params
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+    from llm_fp8_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    Rounds, EagerRounds = spec_round_classes()
+    tentry, dentry = resolve_model(target), resolve_model(draft)
+    tcfg, dcfg = tentry.cfg, dentry.cfg
+    check(tcfg.vocab_size == dcfg.vocab_size == 50257 and tcfg.num_layers == 48
+          and tcfg.num_heads == 25, f"zoo spec: {target}/{draft} are not gpt2-xl/gpt2's shapes")
+    t0 = time.perf_counter()
+    tparams = fp8_params_by_layer(tcfg, dev, init=tentry.init_fn, quantize=quantize_zoo_params)
+    dparams = dentry.init_fn(dcfg, dtype=torch.bfloat16, device=dev, seed=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gamma, max_new = 4, 32
+    ecfg = EngineConfig(max_slots=8, max_seq_len=ZOO_SPEC_MAX_SEQ,
+                        prefill_buckets=(ZOO_SPEC_MAX_SEQ // 4, ZOO_SPEC_MAX_SEQ // 2),
+                        kv_dtype="fp8")
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(1, tcfg.vocab_size, rng.randint(*ZOO_SPEC_PROMPTS)).astype(np.int32)
+               for _ in range(8)]
+    hooks = dict(forward_fn=tentry.forward_fn, draft_forward_fn=dentry.forward_fn)
+
+    def serve(cls, tp, tc, dp, dc, what, prompts=prompts, new=max_new, ecfg=ecfg, **kw):
+        eng = cls(tp, tc, dp, dc, ecfg, gamma=gamma, device=dev, **kw)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=new)) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for r in reqs:
+            check(r.done and r.error is None and len(r.output) == new
+                  and all(0 <= t < tc.vocab_size for t in r.output),
+                  f"zoo spec {what}: request {r.request_id}: {r.error}, {r.output}")
+        hist = list(eng.accepted_histogram)
+        run = dict(wall_s=wall, tokens_per_s=new * len(prompts) / wall,
+                   ttft_p50_s=sorted(r.ttft for r in reqs)[len(reqs) // 2],
+                   rounds=eng.rounds_run, round_ms=1e3 * eng.rounds_s / max(eng.rounds_run, 1),
+                   mean_accepted=float(np.mean(hist)), max_accepted=max(hist),
+                   tokens_per_round=float(np.mean(hist)) + 1)
+        if eng.round_graph.captured:
+            graph = eng.round_graph
+            check(graph.captures == 1 and graph.replays == eng.rounds_run
+                  and eng.round_calls == 2,
+                  f"zoo spec {what}: {graph.captures} captures, {graph.replays} replays for "
+                  f"{eng.rounds_run} rounds, {eng.round_calls} Python rounds")
+            run.update(replays=graph.replays, launches_a_replay=graph.launches,
+                       launches=device_launches(counts, graph))
+        else:
+            run["launches"] = counts
+        return eng, [r.output for r in reqs], run
+
+    warm = Rounds(tparams, tcfg, dparams, dcfg, ecfg, gamma=gamma, device=dev, **hooks)
+    warm.add_request(prompts[0], SamplingParams(max_new_tokens=4))
+    warm.run()
+    del warm
+    gc.collect()
+    eng, spec_tokens, greedy = serve(Rounds, tparams, tcfg, dparams, dcfg, "greedy", **hooks)
+    for kname in ("flash_attention_f32", "quantize_fused"):
+        check(eng.round_graph.launches.get(kname, 0) > 0,
+              f"zoo spec greedy: {kname} is not in the captured round")
+    check(greedy["launches"]["flash_attention"] == 0
+          and greedy["launches"]["decode_attention_arena"] == 0,
+          f"zoo spec greedy: a bf16/arena attention kernel ran ({greedy['launches']})")
+    del eng
+    gc.collect()
+    _, eager_tokens, eager = serve(EagerRounds, tparams, tcfg, dparams, dcfg, "eager", **hooks)
+    equal = spec_tokens == eager_tokens
+    check(equal, "zoo spec: the round graph's greedy tokens differ from the eager round's")
+
+    # The plain engine's greedy tokens for the same target, and the logits
+    # of both engines' eager twins at every position they predict.
+    plain = Engine(tparams, tcfg, ecfg, device=dev, forward_fn=tentry.forward_fn)
+    reqs = [plain.add_request(p, SamplingParams(max_new_tokens=max_new)) for p in prompts]
+    plain.run()
+    plain_tokens = [r.output for r in reqs]
+    del plain
+    gc.collect()
+    fp8_paths = spec_against_plain(dev, tparams, tcfg, dparams, dcfg, ecfg, prompts, max_new,
+                                   gamma, hooks, EagerRounds)
+    check(fp8_paths["plain_tokens"] == plain_tokens and fp8_paths["spec_tokens"] == eager_tokens,
+          "zoo spec: the recorded eager runs' tokens differ from the runs they twin")
+    check(fp8_paths["worst_diff_over_std"] <= ZOO_SPEC_PATH_TOL_STD,
+          f"zoo spec: the verify block's logits are {fp8_paths['worst_diff_over_std']} of the "
+          f"logits' std from the plain decode step's on the same tokens (tol "
+          f"{ZOO_SPEC_PATH_TOL_STD})")
+    for part in fp8_paths["parted"]:
+        check(part["margin_over_std"] <= 2 * part["diff_over_std"],
+              f"zoo spec: request {part['request']} parts from the plain engine at token "
+              f"{part['at']}, where the paths' logits differ by {part['diff_over_std']} std "
+              f"and the plain top-2 margin is {part['margin_over_std']} std")
+    # The control: bf16 weights (unquantized, float32 compute) and bf16 KV,
+    # where nothing quantizes the activations: the paths differ by float32
+    # sum orders, within ZOO_SLICE_TOL_STD, and part only after a near-tie.
+    del tparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_params = tentry.init_fn(tcfg, dtype=torch.bfloat16, device=dev, seed=0)
+    bf16_cfg = dataclasses.replace(ecfg, kv_dtype="bf16")
+    control = spec_against_plain(dev, bf16_params, tcfg, dparams, dcfg, bf16_cfg, prompts,
+                                 max_new, gamma, hooks, EagerRounds)
+    check(control["worst_diff_over_std"] <= ZOO_SLICE_TOL_STD,
+          f"zoo spec (bf16 control): the verify block's logits are "
+          f"{control['worst_diff_over_std']} std from the decode step's (tol "
+          f"{ZOO_SLICE_TOL_STD})")
+    for part in control["parted"]:
+        check(part["near_tie_before"],
+              f"zoo spec (bf16 control): request {part['request']} parts from the plain engine "
+              f"at token {part['at']} with no near-tie before it")
+    del bf16_params
+    for paths in (fp8_paths, control):  # the first token comes from the shared prefill
+        check(all(p["at"] > 0 for p in paths["parted"]),
+              f"zoo spec: a request's first token differs from the plain engine's: "
+              f"{paths['parted']}")
+    res = dict(card=card, target=f"{target}, LAYERWISE fp8, e4m3 KV", draft=f"{draft}, bf16",
+               slots=8, gamma=gamma, max_new=max_new, prompt_lens=[len(p) for p in prompts],
+               init_s=init_s, greedy=greedy, eager=eager, tokens_equal_eager=equal,
+               plain_engine={k: v for k, v in fp8_paths.items() if not k.endswith("_tokens")},
+               bf16_control={k: v for k, v in control.items() if not k.endswith("_tokens")},
+               acceptance_note="random weights: acceptance is not that of trained models")
+    log(res)
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Every GPT-2/NeoX debug target with a debug draft of the same vocabulary,
+    # and a Llama target with a zoo draft.
+    names = [n for n in [*GPT2_REGISTRY, *NEOX_REGISTRY] if n.startswith("debug")]
+    pairs = [(t, names[(i + 1) % len(names)]) for i, t in enumerate(names)]
+    pairs.append(("debug-tiny", "debug-gpt2"))
+    small = EngineConfig(max_slots=2, max_seq_len=256, kv_dtype="fp8")
+    res["debug"] = {}
+    for t, d in pairs:
+        te, de = resolve_model(t), resolve_model(d)
+        tp = te.quantize_fn(te.init_fn(te.cfg, dtype=torch.bfloat16, device=dev, seed=1),
+                            LAYERWISE)
+        dp = de.init_fn(de.cfg, dtype=torch.bfloat16, device=dev, seed=2)
+        rng = np.random.RandomState(len(t))
+        ps = [rng.randint(1, te.cfg.vocab_size, n).astype(np.int32) for n in (37, 90)]
+        eng, outs, run = serve(Rounds, tp, te.cfg, dp, de.cfg, f"{t} + {d}", prompts=ps, new=8,
+                               ecfg=small, forward_fn=te.forward_fn,
+                               draft_forward_fn=de.forward_fn)
+        res["debug"][f"{t} + {d}"] = dict(launches=run["launches"], outputs=outs,
+                                          mean_accepted=run["mean_accepted"])
+    log({"zoo_spec_debug": {k: v["mean_accepted"] for k, v in res["debug"].items()}})
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4365,7 +5129,11 @@ def main(argv=None) -> int:
              ("compare", lambda: compare_study(dev, log)),
              ("zoo_kernels", lambda: zoo_kernel_cases(dev, bw, peak, log)),
              ("zoo_slice", lambda: zoo_slice_check(dev, log)),
-             ("zoo_serve", lambda: zoo_serving(dev, card, log)))
+             ("zoo_serve", lambda: zoo_serving(dev, card, log)),
+             ("zoo_train_kernels", lambda: zoo_train_kernel_cases(dev, bw, peak, log)),
+             ("zoo_train_slice", lambda: zoo_train_slice(dev, log)),
+             ("zoo_train", lambda: zoo_training(dev, card, log)),
+             ("zoo_spec_serve", lambda: zoo_spec_serving(dev, card, log)))
     try:
         for phase, run in steps:
             if phase in phases:
@@ -4412,7 +5180,11 @@ def kernels_line(report):
                "alibi paged (baichuan-13b)":
                    report["alibi_serve"]["paged"]["alibi_fp8"]["launches"],
                "train, attention dropout 0.1": report["train_rest"]["dropout"]["launches"],
-               "zoo serve (falcon-7b, e4m3 KVCache)": report["zoo_serve"]["falcon"]["launches"]}
+               "zoo serve (falcon-7b, e4m3 KVCache)": report["zoo_serve"]["falcon"]["launches"],
+               "zoo train (btlm-3b, 32 layers, remat full and dots)":
+                   report["zoo_train"]["launches"],
+               "zoo spec (gpt2-xl target, gpt2 draft, greedy)":
+                   report["zoo_spec_serve"]["greedy"]["launches"]}
     for counts in by_path.values():
         counts["flash_attention_bwd"] = (counts.get("flash_attention_bwd_dkv", 0)
                                          + counts.get("flash_attention_bwd_dq", 0))
@@ -4426,7 +5198,9 @@ def kernels_line(report):
             "quantize_fused": ("train_kernels", "gate_up [4096, 16384] columns float32 e4m3"),
             "flash_attention_fp8": ("fp8_kernels", "prefill B1 Sq=Sk=8192"),
             "rmsnorm_residual_fused": ("fp8_kernels", "[4096, 2048] bfloat16"),
-            "flash_attention_f32": ("zoo_kernels", "falcon-7b prefill")}
+            "flash_attention_f32": ("zoo_kernels", "falcon-7b prefill"),
+            "flash_attention_bwd_f32_dq": ("zoo_train_kernels", "btlm-3b train"),
+            "flash_attention_bwd_f32_dkv": ("zoo_train_kernels", "btlm-3b train")}
     # Cases shown beside the main one: K9's rows kernel makes the other half
     # of its launches on the training path.
     also = {"quantize_fused": ("train_kernels", "gate_up [4096, 16384] rows float32 e4m3"),
@@ -4437,11 +5211,15 @@ def kernels_line(report):
         "flash_attention": {"alibi": ("alibi_kernels", "alibi Hq40 D128 prefill"),
                             "dropout": ("dropout_kernels", "dropout")},
         "flash_attention_bwd": {"alibi": ("alibi_kernels", "alibi Hq40 D128 B2 S1024"),
-                                "dropout": ("dropout_kernels", "dropout")}}
+                                "dropout": ("dropout_kernels", "dropout")},
+        "flash_attention_f32": {"dropout": ("zoo_train_kernels", "dropout")}}
     headers = {"decode_attention_arena": ["decode_split.cuh", "fp8_ftz.cuh"],
                "paged_attention": ["decode_split.cuh", "fp8_ftz.cuh"],
                "flash_attention": ["hopper.cuh", "dropout.cuh"],
-               "flash_attention_bwd": ["hopper.cuh", "dropout.cuh"]}
+               "flash_attention_bwd": ["hopper.cuh", "dropout.cuh"],
+               "flash_attention_f32": ["tf32x3.cuh", "dropout.cuh"],
+               "flash_attention_bwd_f32_dq": ["tf32x3.cuh", "dropout.cuh"],
+               "flash_attention_bwd_f32_dkv": ["tf32x3.cuh", "dropout.cuh"]}
     meta = {"quant_matmul": ("csrc/quant_matmul.cu", "llm_fp8_tpu/kernels/quant_matmul.py:126"),
             "decode_attention_arena": ("csrc/decode_attention.cu",
                                        "llm_fp8_tpu/kernels/decode_attention.py:300"),
@@ -4456,20 +5234,37 @@ def kernels_line(report):
                                     "llm_fp8_tpu/kernels/flash_attention.py:556"),
             "rmsnorm_residual_fused": ("csrc/rmsnorm.cu", "llm_fp8_tpu/kernels/rmsnorm.py:74"),
             "flash_attention_f32": ("csrc/flash_attention_f32.cu",
-                                    "llm_fp8_tpu/kernels/flash_attention.py:475")}
+                                    "llm_fp8_tpu/kernels/flash_attention.py:475"),
+            "flash_attention_bwd_f32_dq": ("csrc/flash_attention_bwd_f32.cu",
+                                           "llm_fp8_tpu/kernels/flash_attention_bwd.py:358"),
+            "flash_attention_bwd_f32_dkv": ("csrc/flash_attention_bwd_f32.cu",
+                                            "llm_fp8_tpu/kernels/flash_attention_bwd.py:302")}
     line = []
     for kname, (phase, prefix) in pick.items():
         c = next(c for c in report[phase]
-                 if c["kernel"] == kname and c["case"].startswith(prefix))
+                 if c["kernel"] in (kname, "flash_attention_bwd_f32")
+                 and c["case"].startswith(prefix))
         src, repl = meta[kname]
         counts = {path: n[kname] for path, n in by_path.items() if n.get(kname)}
+        if c["kernel"] == "flash_attention_bwd_f32":  # one entry a kernel of the pair
+            part = "dq_and_di" if kname.endswith("_dq") else "dkv"
+            c = dict(c, ms=c["split_ms"][part], bound_ms=c["split_bound_ms"][part],
+                     max_abs_err=(c["dq"] if part == "dq_and_di" else
+                                  max(c["dk"], c["dv"], key=lambda d: d["max_abs_err"])
+                                  )["max_abs_err"], library_ms=None,
+                     whole_backward=dict(ms=c["ms"], library_ms=c["library_ms"],
+                                         library=c["library"], vs_library=c["vs_library"],
+                                         bound_ms=c["bound_ms"]))
         line.append(dict(name=kname, route="cuda", source=f"llm_fp8_tpu_torch/{src}",
                          replaces=repl, launches=sum(counts.values()),
                          launches_by_path=counts,
                          max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
                          bound_ms=c["bound_ms"], bound_by=c["bound_by"],
                          library_ms=c["library_ms"], case=c["case"]))
-        if "vs_library" in c:
+        if "whole_backward" in c:
+            line[-1].update(whole_backward=c["whole_backward"], caught=c["caught"],
+                            plain_is="the whole plain backward (dq, dk and dv)")
+        if "vs_library" in c and c["library_ms"] is not None:
             line[-1]["vs_library"] = c["vs_library"]
         if kname == "quant_matmul":  # the prefill kernel's case beside the decode one
             o = next(o for o in report["kernels"]
@@ -4505,7 +5300,8 @@ def kernels_line(report):
                          if o["kernel"] == kname and o["case"].startswith(prefix))
                 line[-1]["features"][tag] = {k: o.get(k) for k in (
                     "case", "max_abs_err", "ms", "ms_without_alibi", "ms_without_dropout",
-                    "plain_ms", "bound_ms", "bound_by", "library_ms", "keep_mask_equal")
+                    "plain_ms", "bound_ms", "bound_by", "library_ms", "keep_mask_equal",
+                    "k6_keep_mask_equal")
                     if k in o}
         if kname in also:
             phase, prefix = also[kname]

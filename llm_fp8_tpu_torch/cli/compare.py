@@ -88,7 +88,10 @@ def main(argv=None):
     try:
         cfg = get_config(args.model_name)
     except ValueError as e:
-        raise SystemExit(f"{e} (the zoo families are not ported yet)")
+        # As JAX's study (its get_config): the Llama family only; the GPT-2
+        # and NeoX families train through cli.train.
+        raise SystemExit(f"{e} (the FP8-vs-BF16 study takes the Llama family, as the JAX "
+                         "package's)")
     if args.num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     dm = DataManager(DataConfig(dataset_name=args.dataset_name, split_name=args.split_name,

@@ -12,9 +12,10 @@ Llama, GPT-2 and NeoX families, resolved by ``models/registry.py``):
 ``--weights_path``/``--draft_weights`` read safetensors directories
 (``load_zoo_checkpoint``: the family's packer); ``--draft_model`` serves
 through the speculative engine (random draft weights from seed 1 unless
-``--draft_weights``; Llama-family target and draft only). A GPT-2/NeoX
-model serves through ``Engine(forward_fn=...)``, the slot engine's KVCache
-path; ``--paged`` is refused for it, as in the JAX CLI.
+``--draft_weights``; any target and draft of one vocabulary, each through
+its family's forward: ``SpecEngine(forward_fn=, draft_forward_fn=)``). A
+GPT-2/NeoX model serves through ``Engine(forward_fn=...)``, the slot
+engine's KVCache path; ``--paged`` is refused for it, as in the JAX CLI.
 Prints one JSON line with the JAX CLI's keys: tokens/s, p50/p99 TTFT and the
 peak device memory (``torch.cuda.max_memory_allocated``); ``--paged`` adds
 ``pages_in_use``, ``--draft_model`` the ``spec_*`` statistics. ``main``
@@ -107,11 +108,6 @@ def main(argv=None):
     if args.paged and not llama:
         raise SystemExit("--paged uses the Llama-family paged decode path; serve "
                          f"{args.model_name} through the default (arena) engine")
-    if args.draft_model is not None and not (
-            llama and resolved(args.draft_model).forward_fn is llama_forward):
-        raise SystemExit("--draft_model: speculative serving of the GPT-2/NeoX families is "
-                         "not ported yet (the SpecEngine's forward_fn hooks are the next "
-                         "slice's); serve a Llama-family target and draft")
     cfg = entry.cfg
     params = params_of(entry, args.model_name,
                        None if args.random_init else args.weights_path, seed=0)
@@ -128,7 +124,8 @@ def main(argv=None):
                          EngineConfig(max_slots=args.max_slots, max_seq_len=args.max_seq_len,
                                       kv_dtype=args.kv_dtype),
                          gamma=args.gamma, temperature=args.temperature,
-                         top_k=args.spec_top_k, top_p=args.spec_top_p, device=device)
+                         top_k=args.spec_top_k, top_p=args.spec_top_p, device=device,
+                         forward_fn=entry.forward_fn, draft_forward_fn=dentry.forward_fn)
     elif args.paged:
         eng = PagedEngine(params, cfg, PagedEngineConfig(
             max_slots=args.max_slots, num_pages=args.num_pages, page_size=args.page_size,

@@ -1,8 +1,10 @@
-"""Fine-tuning CLI on the card (counterpart of ``llm_fp8_tpu/cli/train.py``,
-Llama-family models):
+"""Fine-tuning CLI on the card (counterpart of ``llm_fp8_tpu/cli/train.py``;
+the Llama, GPT-2 and NeoX families, resolved by ``models/registry.py``):
 
   python -m llm_fp8_tpu_torch.cli.train --model_name meta-llama/Llama-3.2-1B \\
       --random_init --synthetic_samples 400 --mixed_precision fp8 --fp8_scenario default
+  python -m llm_fp8_tpu_torch.cli.train --model_name btlm-3b --random_init \\
+      --synthetic_samples 400 --mixed_precision bf16 --remat full
 
 ``--synthetic_samples N`` trains on the built-in corpus with a byte
 tokenizer (the only data path until local data is ported), from random
@@ -17,6 +19,13 @@ best eval loss kept), writes the trained model as HF safetensors
 (``model.safetensors`` and ``config.json``) and the stability report
 (``stability_report.json``) into ``--output_dir``, and prints the report as
 the last line. ``--remat none|full|dots`` checkpoints each layer.
+
+A GPT-2/NeoX model trains through ``Trainer(forward_fn=...)`` on the bf16
+recipe (``--mixed_precision fp8`` is refused, as in the JAX CLI), from random
+weights or a safetensors directory read by its family's packer
+(``load_zoo_checkpoint``), in float32; its trained params are written as the
+JAX CLI writes them: ``params.pkl``, a pickle of the stacked tree as numpy
+arrays under the JAX package's key names, which either package reads.
 
 Not ported yet (they raise): the mesh flags and ``--multihost`` (one
 device), ``--use_wandb`` and the HF dataset and tokenizer (no network).
@@ -119,21 +128,29 @@ class ByteTokenizer:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    import pickle
+
     import torch
 
-    from ..models.config import get_config
+    from ..convert import tree_to_numpy
     from ..models.hf_loader import load_hf_checkpoint
-    from ..models.llama import init_params
+    from ..models.llama import forward as llama_forward
+    from ..models.registry import load_zoo_checkpoint, resolve_model
     from ..training import (CheckpointManager, DataConfig, DataManager, StabilityTracker,
                             TrainConfig, Trainer, export_hf, synthetic_examples)
     from ..utils.backend import resolve_device
 
     dev = resolve_device(args.device)
     try:
-        cfg = get_config(args.model_name)
-    except ValueError as e:
-        raise SystemExit(f"{e} (the zoo families are not ported yet)")
+        entry = resolve_model(args.model_name)
+    except (NotImplementedError, ValueError) as e:
+        raise SystemExit(str(e))
+    cfg = entry.cfg
+    llama = entry.forward_fn is llama_forward
     recipes = args.fp8_scenario if args.mixed_precision == "fp8" else "bf16"
+    if recipes != "bf16" and not llama:
+        raise SystemExit("--mixed_precision fp8 implements the Llama/Qwen stack; train "
+                         f"{args.model_name} with --mixed_precision bf16")
 
     dm = DataManager(DataConfig(dataset_name=args.dataset_name, split_name=args.split_name,
                                 max_seq_length=args.max_seq_length,
@@ -146,15 +163,19 @@ def main(argv=None):
     total_steps = max(steps_per_epoch * args.num_epochs, 1)
 
     if args.random_init or args.weights_path is None:
-        params = init_params(cfg, dtype=torch.float32, device=dev, seed=0)
-    else:
+        params = entry.init_fn(cfg, dtype=torch.float32, device=dev, seed=0)
+    elif llama:
         params = load_hf_checkpoint(args.weights_path, cfg, dtype=torch.float32, device=dev)
+    else:
+        params = load_zoo_checkpoint(args.model_name, args.weights_path, dtype=torch.float32,
+                                     device=dev)
     trainer = Trainer(cfg, TrainConfig(
         learning_rate=args.learning_rate, warmup_steps=args.num_warmup_steps,
         total_steps=total_steps, schedule=args.schedule, grad_clip=args.grad_clip,
         grad_accum=args.gradient_accumulation_steps, recipes=recipes,
         remat={"none": False, "full": True, "dots": "dots"}[args.remat],
-        ce_chunks=args.ce_chunks), device=dev)
+        ce_chunks=args.ce_chunks), device=dev,
+        forward_fn=None if llama else entry.forward_fn)
     state = trainer.init_state(params)
     stability = StabilityTracker(precision_name=f"fp8-{args.fp8_scenario}"
                                  if args.mixed_precision == "fp8" else "bf16")
@@ -196,7 +217,13 @@ def main(argv=None):
     log_file.close()
 
     report = stability.report()
-    export_hf(state.params, cfg, args.output_dir)
+    if llama:
+        export_hf(state.params, cfg, args.output_dir)
+    else:
+        # The zoo families: the raw param tree, as the JAX CLI saves it.
+        os.makedirs(args.output_dir, exist_ok=True)
+        with open(os.path.join(args.output_dir, "params.pkl"), "wb") as f:
+            pickle.dump(tree_to_numpy(state.params), f)
     with open(os.path.join(args.output_dir, "stability_report.json"), "w") as f:
         json.dump(report, f, default=str, indent=2)
     print(json.dumps({"stability_report": report}, default=str), flush=True)

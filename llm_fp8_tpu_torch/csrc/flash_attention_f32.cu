@@ -9,9 +9,12 @@
 // scores, the online softmax, P kept in float32, float32 out and LSE.
 // Features: causal with a per-batch q_offset, per-batch kv_lens, GQA through
 // the head map (Falcon-7B's 71 q heads over 1 kv head), the logit scale
-// (BTLM's 1/d) and ALiBi slopes ([B, Hq], -slope·|q_pos - k_pos| before the
-// mask). Masked scores take the TPU kernel's finite MASK_VALUE; dead rows
-// give out 0 and lse -inf. Head dims 32, 64, 80, 128 and 256.
+// (BTLM's 1/d), ALiBi slopes ([B, Hq], -slope·|q_pos - k_pos| before the
+// mask) and attention dropout (the keep mask of dropout.cuh over (seed,
+// b·Hq + h, q_pos, k_pos) applied to P before P·V, the kept entries times
+// 1/(1 - rate); the row sum, and so the LSE, takes the undropped P, as the
+// bf16 instance). Masked scores take the TPU kernel's finite MASK_VALUE;
+// dead rows give out 0 and lse -inf. Head dims 32, 64, 80, 128 and 256.
 //
 // Bound on the H100: operations, 4·D FLOPs per live (query, key) pair. No
 // wgmma takes float32, so the products run on mma.sync m16n8k8 TF32 with a
@@ -21,14 +24,11 @@
 // layer, 0.23 ms at that rate; 0.57 ms at CUDA-core float32's 67 TFLOP/s).
 //
 // Design (a simple kernel that is right; not yet tuned):
-// - Precision: each operand x is split into big = tf32(x) and small =
-//   tf32(x - big); a·b is summed as small·big + big·small + big·big in the
-//   tensor core's float32 accumulator. The dropped small·small term and the
-//   rounding of the small parts are about 2^-22 of each product, so the
-//   result keeps float32's accuracy to a few ulps; single-pass TF32 (big·big
-//   alone, the PASSES == 1 instance, kept as the planted fault the checks
-//   must catch) is 2^-11 off. CUDA-core FFMA was the other design: exact
-//   float32, but 3x fewer FLOPs a cycle than 3xTF32 on the tensor cores.
+// - Precision: 3xTF32 (tf32x3.cuh: each operand split into big and small
+//   TF32 parts, three products), float32 to a few ulps; single-pass TF32
+//   (the PASSES == 1 instance) is kept as the planted fault the checks must
+//   catch. CUDA-core FFMA was the other design: exact float32, but 3x fewer
+//   FLOPs a cycle than 3xTF32 on the tensor cores.
 // - One block of 4 warps per (64 query rows, q head, batch row); each warp
 //   owns 16 rows. Q is loaded once into shared memory; the block walks key
 //   tiles of BN keys (64; 32 at D = 256) that hold a live key for some row,
@@ -46,12 +46,20 @@
 //   read with the same key order (rows 2t and 2t + 1), and the sum over the
 //   group is unchanged. O stays in registers.
 // - Warps whose rows all precede a causal tile skip its products.
+// - Dropout is a uniform runtime branch (drop.on()), so it adds no template
+//   instance; its hash runs only when a rate is set.
 #include <math.h>
 #include <stdint.h>
 
+#include "dropout.cuh"
 #include "fp8_ftz.cuh"
+#include "tf32x3.cuh"
 
 namespace {
+
+using tf32x3::load4;
+using tf32x3::mma_f32;
+using tf32x3::split;
 
 constexpr int kBM = 64;  // query rows a block: 4 warps of 16
 constexpr float kMask = -0.7f * 3.4028234663852886e38f;
@@ -64,51 +72,13 @@ struct Cfg {
   static constexpr int BYTES = (kBM + 2 * BN) * LD * 4;
 };
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small, both TF32 values (small is 0 for single-pass TF32).
-template <int PASSES>
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = PASSES == 3 ? to_tf32(x - __uint_as_float(big)) : 0u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a·b for one m16n8k8 step: small·big + big·small + big·big, or big·big.
-template <int PASSES>
-__device__ __forceinline__ void mma_f32(float (&c)[4], const uint32_t (&ab)[4],
-                                        const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
-                                        uint32_t bs0, uint32_t bs1) {
-  if (PASSES == 3) {
-    mma_tf32(c, as, bb0, bb1);
-    mma_tf32(c, ab, bs0, bs1);
-  }
-  mma_tf32(c, ab, bb0, bb1);
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 template <int D, int PASSES>
 __global__ void __launch_bounds__(128)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, const int* __restrict__ q_offset,
                      const int* __restrict__ kv_lens, const float* __restrict__ alibi, int Sq,
-                     int Sk, int Hq, int Hk, float scale, int causal) {
+                     int Sk, int Hq, int Hk, float scale, int causal, dropout::Params drop) {
   constexpr int BN = Cfg<D>::BN, LD = Cfg<D>::LD, V4 = D / 4, NT = BN / 8, DT = D / 8;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
@@ -141,6 +111,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp_min = q_off + q0 + 16 * warp, warp_max = warp_min + 15;
   const float scale2 = scale * kLog2e;
   const float slope2 = alibi != nullptr ? alibi[b * Hq + h] * kLog2e : 0.0f;
+  const bool dropping = drop.on();
+  const uint32_t h0 = drop.head(static_cast<uint32_t>(b * Hq + h));
 
   float o[DT][4];
 #pragma unroll
@@ -227,6 +199,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    if (dropping) {  // P·V takes the kept entries, scaled; l the undropped row sum
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * n + 2 * t + (e & 1), qp = pos0 + 8 * (e >> 1);
+          s[n][e] = drop.keep(h0, qp, kp) ? s[n][e] * drop.scale : 0.0f;
+        }
+    }
 #pragma unroll
     for (int c = 0; c < DT; ++c)
 #pragma unroll
@@ -236,10 +217,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       uint32_t ab[4], as[4];
-      split<PASSES>(s[n][0], ab[0], as[0]);  // row g,     key 2t
-      split<PASSES>(s[n][2], ab[1], as[1]);  // row g + 8, key 2t
-      split<PASSES>(s[n][1], ab[2], as[2]);  // row g,     key 2t + 1
-      split<PASSES>(s[n][3], ab[3], as[3]);  // row g + 8, key 2t + 1
+      tf32x3::c_as_a<PASSES>(s[n], ab, as);
       const float* vb = vs + (8 * n + 2 * t) * LD + g;
 #pragma unroll
       for (int c = 0; c < DT; ++c) {
@@ -283,6 +261,7 @@ struct Args {
   int B, Sq, Sk, Hq, Hk;
   float scale;
   int causal;
+  dropout::Params drop;
 };
 
 template <int D, int PASSES>
@@ -295,7 +274,7 @@ int launch(const Args& a, cudaStream_t s) {
   dim3 grid((a.Sq + kBM - 1) / kBM, a.Hq, a.B);
   flash_fwd_f32_kernel<D, PASSES><<<grid, 128, bytes, s>>>(
       a.q, a.k, a.v, a.out, a.lse, a.q_offset, a.kv_lens, a.alibi, a.Sq, a.Sk, a.Hq, a.Hk,
-      a.scale, a.causal);
+      a.scale, a.causal, a.drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,16 +291,21 @@ int launch_d(int passes, const Args& a, cudaStream_t s) {
 // aligned; out like q, lse [B, Hq, Sq]; q_offset and kv_lens int32 [B];
 // alibi float32 [B, Hq] slopes or null. passes: 3 (3xTF32, float32
 // accuracy) or 1 (single-pass TF32, the planted fault of the checks).
+// drop_threshold 0 and drop_scale 1 mean no dropout (K3's arguments).
 extern "C" int flash_fwd_f32_launch(const void* q, const void* k, const void* v, void* out,
                                     void* lse, const void* q_offset, const void* kv_lens,
                                     const void* alibi, int B, int Sq, int Sk, int Hq, int Hk,
-                                    int D, float scale, int causal, int passes, void* stream) {
+                                    int D, float scale, int causal, int passes,
+                                    int drop_threshold, int drop_seed, float drop_scale,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{static_cast<const float*>(q),        static_cast<const float*>(k),
                static_cast<const float*>(v),        static_cast<float*>(out),
                static_cast<float*>(lse),            static_cast<const int*>(q_offset),
                static_cast<const int*>(kv_lens),    static_cast<const float*>(alibi),
-               B, Sq, Sk, Hq, Hk, scale, causal};
+               B, Sq, Sk, Hq, Hk, scale, causal,
+               dropout::Params{static_cast<uint32_t>(drop_threshold),
+                               static_cast<uint32_t>(drop_seed), drop_scale}};
   switch (D) {
     case 32: return launch_d<32>(passes, a, s);
     case 64: return launch_d<64>(passes, a, s);

@@ -17,6 +17,8 @@ KERNEL_WRAPPERS = {
     "paged_attention": paged_attention.paged_attention,
     "flash_attention_bwd_dkv": flash_attention_bwd.flash_bwd_dkv,
     "flash_attention_bwd_dq": flash_attention_bwd.flash_bwd_dq,
+    "flash_attention_bwd_f32_dq": flash_attention_bwd.flash_bwd_f32_dq,
+    "flash_attention_bwd_f32_dkv": flash_attention_bwd.flash_bwd_f32_dkv,
     "quantize_fused": quantize.quantize_fused,
     "flash_attention_fp8": flash_attention.flash_attention_fp8,
     "rmsnorm_residual_fused": rmsnorm.rmsnorm_residual_fused,

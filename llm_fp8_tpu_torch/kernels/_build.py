@@ -26,10 +26,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 _REPO_CSRC = _PKG.parent / "csrc"
 BUILD_DIR = _PKG / "_build"
-_HEADERS = ("fp8_ftz.cuh", "hopper.cuh", "decode_split.cuh", "dropout.cuh")
+_HEADERS = ("fp8_ftz.cuh", "hopper.cuh", "decode_split.cuh", "dropout.cuh", "tf32x3.cuh")
 KERNELS = ("quant_matmul", "decode_attention", "flash_attention", "paged_attention",
            "flash_attention_bwd", "quantize", "flash_attention_fp8", "rmsnorm",
-           "flash_attention_f32")
+           "flash_attention_f32", "flash_attention_bwd_f32")
 #: Host-side C++ libraries (no CUDA) → source, built with g++ and the flags
 #: of the repo's ``csrc/Makefile``.
 HOST_LIBS = {"block_allocator": _REPO_CSRC / "block_allocator.cpp"}
@@ -55,7 +55,11 @@ _SIGNATURES = {
         "flash_fp8_launch": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _F, _I, _I, _P],
         "flash_fp8_prep_launch": [_P] * 6 + [_I] * 7 + [_P]},
     "rmsnorm": {"rmsnorm_residual_launch": [_P] * 5 + [_I] * 3 + [_F, _P]},
-    "flash_attention_f32": {"flash_fwd_f32_launch": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]},
+    "flash_attention_f32": {"flash_fwd_f32_launch":
+                            [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _I, _F, _P]},
+    "flash_attention_bwd_f32": {
+        "flash_bwd_f32_dq_launch": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _I, _I, _F, _P],
+        "flash_bwd_f32_dkv_launch": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _I, _I, _F, _P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

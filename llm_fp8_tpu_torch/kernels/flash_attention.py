@@ -11,9 +11,8 @@ float32 q, k and v (the GPT-2 and NeoX families serve in float32) take K3's
 float32 instance, :func:`flash_fwd_f32` (``csrc/flash_attention_f32.cu``:
 ``mma.sync`` TF32 products with a 3xTF32 split, so float32 accuracy; head
 dims 32, 64, 80, 128 and 256; causal, ``q_offset``, ``kv_lens``, GQA, the
-scale and ALiBi). Its backward is not ported: the autograd backward of a
-float32 call raises on the card (K6's float32 instance is the next slice's)
-and runs the plain version on the CPU.
+scale, ALiBi and dropout; no window or softcap). Its autograd backward is
+K6's float32 instance (``flash_attention_bwd.flash_attention_bwd_f32``).
 :func:`flash_attention_fp8` (K7, ``csrc/flash_attention_fp8.cu``, plain
 version :func:`flash_fp8_plain`) is the counterpart of the JAX
 ``flash_attention_fp8``: e4m3 q/k/v with FA3 descales, forward only. Its
@@ -127,13 +126,14 @@ F32_HEAD_DIMS = (32, 64, 80, 128, 256)
 
 
 def flash_fwd_f32(q, k, v, q_offset, kv_lens, *, causal: bool, scale: float, alibi=None,
-                  passes: int = 3):
+                  dropout_p: float = 0.0, dropout_seed=0, passes: int = 3):
     """K3's float32 instance on CUDA tensors: float32 ``q [B, Sq, Hq, D]``,
     ``k``/``v [B, Sk, Hk, D]``, int32 ``[B]`` ``q_offset`` and ``kv_lens``,
-    float32 ``[B, Hq]`` ALiBi slopes or None. Returns ``(out, lse [B, Hq,
-    Sq])``, :func:`flash_fwd_plain`'s function. ``passes=1`` runs the
-    products in single-pass TF32 (2^-11 off: the planted fault the card's
-    checks must catch). Counts launches in ``flash_fwd_f32.launches``."""
+    float32 ``[B, Hq]`` ALiBi slopes or None, attention dropout
+    (``dropout_p``, ``dropout_seed``). Returns ``(out, lse [B, Hq, Sq])``,
+    :func:`flash_fwd_plain`'s function. ``passes=1`` runs the products in
+    single-pass TF32 (2^-11 off: the planted fault the card's checks must
+    catch). Counts launches in ``flash_fwd_f32.launches``."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.float32):
@@ -152,7 +152,7 @@ def flash_fwd_f32(q, k, v, q_offset, kv_lens, *, causal: bool, scale: float, ali
         p(q.data_ptr()), p(k.data_ptr()), p(v.data_ptr()), p(out.data_ptr()),
         p(lse.data_ptr()), p(q_offset.data_ptr()), p(kv_lens.data_ptr()),
         p(alibi.data_ptr() if alibi is not None else 0), B, Sq, Sk, Hq, Hk, D,
-        ctypes.c_float(scale), int(causal), passes,
+        ctypes.c_float(scale), int(causal), passes, *dropout_args(dropout_p, dropout_seed),
         p(torch.cuda.current_stream(q.device).cuda_stream))
     _build.check(lib, err, "flash_attention_f32")
     flash_fwd_f32.launches += 1
@@ -182,7 +182,9 @@ class _FlashForward(torch.autograd.Function):
     def forward(ctx, q, k, v, q_offset, kv_lens, alibi, cfg):
         if q.is_cuda and q.dtype == torch.float32:
             out, lse = flash_fwd_f32(q, k, v, q_offset, kv_lens, causal=cfg["causal"],
-                                     scale=cfg["scale"], alibi=alibi)
+                                     scale=cfg["scale"], alibi=alibi,
+                                     dropout_p=cfg["dropout_p"],
+                                     dropout_seed=cfg["dropout_seed"])
         elif q.is_cuda:
             out, lse = _launch(q, k, v, q_offset, kv_lens, alibi=alibi, **cfg)
         else:
@@ -195,10 +197,8 @@ class _FlashForward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse, q_offset, kv_lens, alibi = ctx.saved_tensors
-        if q.is_cuda and q.dtype == torch.float32:
-            raise NotImplementedError(
-                "flash attention backward of float32 q/k/v on the card: K6's float32 "
-                "instance is not ported yet (the next slice's work, with zoo training)")
+        # float32 CUDA tensors take K6's float32 instance (flash_attention_bwd
+        # sends them there).
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
                                          q_offset=q_offset, kv_lens=kv_lens, alibi=alibi,
                                          **ctx.cfg)
@@ -250,9 +250,9 @@ def flash_attention(
     dims = F32_HEAD_DIMS if f32 else (32, 64, 128)
     if D not in dims:
         raise ValueError(f"head_dim {D} not in {dims}")
-    if f32 and q.is_cuda and (window is not None or softcap is not None or dropout_p):
-        raise NotImplementedError("flash attention's float32 instance takes no window, "
-                                  "softcap or dropout")
+    if f32 and q.is_cuda and (window is not None or softcap is not None):
+        raise NotImplementedError("flash attention's float32 instance takes no window or "
+                                  "softcap")
     dev = q.device
     if not (k.device == v.device == dev):
         raise ValueError("q, k and v must be on one device")

@@ -11,10 +11,11 @@ atomics, so two runs give the same bits.
 
 The softmax weights are recomputed from the forward's log-sum-exp, which is
 K3's ``[B, Hq, Sq]`` here (the TPU's is ``[B, Hq, 8, Sq_p]``). Rows whose LSE
-is ``-inf`` (no live key) get p = 0, not NaN. p and ds are rounded to bf16
-before the dV, dK and dQ products, and the GQA group sum of dK/dV runs in
-float32, as in the TPU kernel (its module docstring says the sum happens
-outside the kernel; the code does it inside). ``di = rowsum(o·do)``, which
+is ``-inf`` (no live key) get p = 0, not NaN. p and ds are rounded to q's
+dtype (bf16 here; float32 in the float32 instance) before the dV, dK and
+dQ products, and the GQA group sum of dK/dV runs in float32, as in the TPU
+kernel (its module docstring says the sum happens outside the kernel; the
+code does it inside). ``di = rowsum(o·do)``, which
 JAX leaves to XLA, is computed by the dQ kernel on the card (so dQ runs
 first) and by :func:`row_di` in the plain version. Causal with a per-batch
 ``q_offset``, ``kv_lens``, GQA, sliding window, softcap, the logit scale,
@@ -25,6 +26,14 @@ keep mask from the same counter hash (``csrc/dropout.cuh``), feeds the
 kept and scaled p to dV and masks dP, while dS uses the undropped p and
 ``di`` (``o`` is the dropped output). ``attention_chunk`` and segment ids
 are not ported (the forward raises on them).
+
+float32 q/k/v (the GPT-2 and NeoX families train in float32) take K6's
+float32 instance on the card, :func:`flash_attention_bwd_f32`
+(``csrc/flash_attention_bwd_f32.cu``: the same two kernels on ``mma.sync``
+TF32 products with a 3xTF32 split, so float32 accuracy; p and ds stay
+float32, as the TPU kernel keeps them in q's dtype; head dims 32, 64, 80,
+128 and 256; causal, ``q_offset``, ``kv_lens``, GQA, the scale, ALiBi and
+dropout; no window or softcap).
 """
 from __future__ import annotations
 
@@ -37,7 +46,12 @@ from . import _build
 from ._common import aligned16, alibi_bias, dropout_args, dropout_inv, dropout_keep
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "flash_bwd_dkv",
-           "flash_bwd_dq", "recompute_p_ds", "row_di"]
+           "flash_bwd_dq", "recompute_p_ds", "row_di", "flash_attention_bwd_f32",
+           "flash_bwd_f32_dq", "flash_bwd_f32_dkv", "F32_HEAD_DIMS"]
+
+#: Head dims of the float32 instance: K3's float32 instance's (GPT-2/OPT/
+#: Falcon 64, SantaCoder and Pythia-1.4B 128, BTLM 80, GPT-J 256, debug 32).
+F32_HEAD_DIMS = (32, 64, 80, 128, 256)
 
 
 def row_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -49,8 +63,8 @@ def recompute_p_ds(q, k, v, lse, do, di, q_offset, kv_lens, *, causal: bool,
                    window: Optional[int], softcap: Optional[float], scale: float,
                    alibi=None, dropout_p: float = 0.0, dropout_seed=0):
     """p (as applied to V in the forward: kept and scaled under dropout) and
-    ds ``[B, Hq, Sq, Sk]`` in float32 (before their bf16 rounding), the TPU
-    kernel's ``_recompute_p_and_ds`` over the whole score matrix."""
+    ds ``[B, Hq, Sq, Sk]`` in float32 (before their rounding to q's dtype),
+    the TPU kernel's ``_recompute_p_and_ds`` over the whole score matrix."""
 
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
@@ -95,8 +109,10 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool, window: Opti
     p, ds = recompute_p_ds(q, k, v, lse, do, row_di(o, do), q_offset, kv_lens,
                            causal=causal, window=window, softcap=softcap, scale=scale,
                            alibi=alibi, dropout_p=dropout_p, dropout_seed=dropout_seed)
-    pb = p.to(torch.bfloat16).float()
-    dsb = ds.to(torch.bfloat16).float()
+    # p and ds in q's dtype for the products (the TPU kernel's ``astype(q.dtype)``):
+    # bf16 for the bf16 kernel, float32 for the float32 instance.
+    pb = p.to(q.dtype).float()
+    dsb = ds.to(q.dtype).float()
     qf = q.float().permute(0, 2, 1, 3)
     dof = do.float().permute(0, 2, 1, 3)
     kf = k.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
@@ -167,6 +183,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: Optional[i
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, o, lse, do, q_offset=q_offset,
                                          kv_lens=kv_lens, **cfg)
+    if q.dtype == torch.float32:
+        return flash_attention_bwd_f32(q, k, v, o, lse, do, q_offset=q_offset,
+                                       kv_lens=kv_lens, **cfg)
     B, Sq, Hq, D = q.shape
     if D not in (32, 64, 128) or q.dtype != torch.bfloat16 or do.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_bwd: bf16 with head_dim 32/64/128, got {q.dtype} "
@@ -183,3 +202,84 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: Optional[i
 
 flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0
+
+
+def _f32_args(q, k, cfg):
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    alibi = cfg.get("alibi")
+    return [ctypes.c_void_p(alibi.data_ptr() if alibi is not None else 0),
+            ctypes.c_int(B), ctypes.c_int(Sq), ctypes.c_int(Sk), ctypes.c_int(Hq),
+            ctypes.c_int(Hk), ctypes.c_int(D), ctypes.c_float(cfg["scale"]),
+            ctypes.c_int(int(cfg["causal"])), ctypes.c_int(cfg.get("passes", 3)),
+            *dropout_args(cfg.get("dropout_p", 0.0), cfg.get("dropout_seed", 0)),
+            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)]
+
+
+def flash_bwd_f32_dq(q, k, v, o, do, lse, q_offset, kv_lens, **cfg):
+    """dQ of K6's float32 instance on the card (its dQ kernel), which also
+    computes ``di = rowsum(o·do)`` (float32 ``[B, Hq, Sq]``) for the dKV
+    kernel; counts its launches. Returns ``(dq, di)``."""
+    B, Sq, Hq, _ = q.shape
+    dq = torch.empty_like(q)
+    di = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    lib = _build.library("flash_attention_bwd_f32")
+    err = lib.flash_bwd_f32_dq_launch(*_ptrs(q, k, v, o, do, lse, di, q_offset, kv_lens, dq),
+                                      *_f32_args(q, k, cfg))
+    _build.check(lib, err, "flash_attention_bwd_f32 (dQ)")
+    flash_bwd_f32_dq.launches += 1
+    return dq, di
+
+
+def flash_bwd_f32_dkv(q, k, v, do, lse, di, q_offset, kv_lens, **cfg):
+    """dK and dV of K6's float32 instance on the card (its dKV kernel);
+    counts its launches."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _build.library("flash_attention_bwd_f32")
+    err = lib.flash_bwd_f32_dkv_launch(*_ptrs(q, k, v, do, lse, di, q_offset, kv_lens, dk, dv),
+                                       *_f32_args(q, k, cfg))
+    _build.check(lib, err, "flash_attention_bwd_f32 (dKV)")
+    flash_bwd_f32_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_f32_dq.launches = 0
+flash_bwd_f32_dkv.launches = 0
+
+
+def flash_attention_bwd_f32(q, k, v, o, lse, do, *, causal: bool, scale: float,
+                            q_offset: torch.Tensor, kv_lens: torch.Tensor,
+                            alibi: Optional[torch.Tensor] = None, dropout_p: float = 0.0,
+                            dropout_seed=0, window: Optional[int] = None,
+                            softcap: Optional[float] = None, passes: int = 3):
+    """K6's float32 instance: ``dq, dk, dv`` of float32 attention, the
+    arguments of :func:`flash_attention_bwd`. On CUDA tensors it launches
+    the dQ kernel (which writes di) and then the dKV kernel, and raises on
+    what they do not take (another dtype or head dim, a window, a softcap);
+    on CPU tensors it takes :func:`flash_attention_bwd_plain`. ``passes=1``
+    runs the products in single-pass TF32 (the planted fault of the card's
+    checks)."""
+    cfg = dict(causal=causal, scale=scale, alibi=alibi, dropout_p=dropout_p,
+               dropout_seed=dropout_seed)
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, q_offset=q_offset,
+                                         kv_lens=kv_lens, window=window, softcap=softcap, **cfg)
+    B, Sq, Hq, D = q.shape
+    if not all(t.dtype == torch.float32 for t in (q, k, v, o, do)):
+        raise TypeError(f"flash_attention_bwd_f32 takes float32 q, k, v, o and do, got "
+                        f"{[str(t.dtype) for t in (q, k, v, o, do)]}")
+    if D not in F32_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_f32: head_dim {D} not in {F32_HEAD_DIMS}")
+    if window is not None or softcap is not None:
+        raise NotImplementedError("flash_attention_bwd_f32 takes no window or softcap (no "
+                                  "GPT-2/NeoX model uses them)")
+    if passes not in (1, 3):
+        raise ValueError(f"passes {passes} is not 1 or 3")
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd_f32: lse must be float32 {(B, Hq, Sq)}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    q, k, v, o, do = (aligned16(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dq, di = flash_bwd_f32_dq(q, k, v, o, do, lse, q_offset, kv_lens, passes=passes, **cfg)
+    dk, dv = flash_bwd_f32_dkv(q, k, v, do, lse, di, q_offset, kv_lens, passes=passes, **cfg)
+    return dq, dk, dv

@@ -36,7 +36,7 @@ from ..ops.attention import default_alibi_slopes
 from ..ops.layernorm import layernorm
 from ..utils.backend import resolve_device
 from .llama import _dot
-from .zoo import lm_logits, run_layers, stacker, state_getter
+from .zoo import lm_logits, run_layers, stacker, state_getter, training_knobs
 
 __all__ = ["GPT2Config", "GPT2_REGISTRY", "init_gpt2_params", "gpt2_forward",
            "pack_gpt2_state_dict", "pack_opt_state_dict", "pack_bigcode_state_dict",
@@ -307,10 +307,17 @@ def _activation(h: torch.Tensor, kind: str) -> torch.Tensor:
 
 def gpt2_forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config, *,
                  cache=None, start_pos=0, kv_lens: Optional[torch.Tensor] = None,
-                 compute_dtype=torch.float32):
+                 attn_impl: str = "auto", compute_dtype=torch.float32, remat=False,
+                 unroll: int = 1, dropout_p: float = 0.0, dropout_seed: int = 0):
     """``tokens [B, S] -> logits [B, S, V]`` float32 (no cache), or
     ``(logits, cache)`` with a :class:`~.llama.KVCache`: K/V written at each
-    sequence's ``start_pos`` in place, attention masked to ``kv_lens``."""
+    sequence's ``start_pos`` in place, attention masked to ``kv_lens``.
+
+    ``remat``/``unroll``/``dropout_p``/``dropout_seed``: the training knobs
+    with the Llama family's semantics (``zoo.run_layers``), so the shared
+    ``Trainer(forward_fn=...)`` drives this family too; ``attn_impl`` is
+    ``"auto"`` only and ``unroll`` 1 only (``zoo.training_knobs``)."""
+    mode = training_knobs(cache, attn_impl, remat, unroll, dropout_p)
     dev = params["wte"].device
     tokens = tokens.to(dev)
     B, S = tokens.shape
@@ -327,19 +334,25 @@ def gpt2_forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config, 
                + cfg.pos_offset)
         x = x + params["wpe"][pos.long()].to(x.dtype)
 
-    def layer(x, lp, attend):
-        h = layernorm(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
-        qkv = _dot(h, lp["w_qkv"]) + lp["b_qkv"].to(x.dtype)
-        q, k, v = torch.split(qkv, [D, cfg.kv_dim, cfg.kv_dim], dim=-1)
-        a = attend(q.reshape(B, S, H, Dh), k.reshape(B, S, Hk, Dh), v.reshape(B, S, Hk, Dh))
+    def heads(qkv, b_qkv):
+        q, k, v = torch.split(qkv + b_qkv.to(qkv.dtype), [D, cfg.kv_dim, cfg.kv_dim], dim=-1)
+        return q.reshape(B, S, H, Dh), k.reshape(B, S, Hk, Dh), v.reshape(B, S, Hk, Dh)
+
+    def mlp_act(h, b_fc):
+        return _activation(h + b_fc.to(h.dtype), cfg.activation)
+
+    def layer(x, lp, attend, seg):
+        h = seg(layernorm, x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
+        a = attend(*seg(heads, _dot(h, lp["w_qkv"]), lp["b_qkv"]))
         x = x + _dot(a.reshape(B, S, D), lp["w_out"]) + lp["b_out"].to(x.dtype)
-        h = layernorm(x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps)
-        h = _activation(_dot(h, lp["w_fc"]) + lp["b_fc"].to(x.dtype), cfg.activation)
+        h = seg(layernorm, x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps)
+        h = seg(mlp_act, _dot(h, lp["w_fc"]), lp["b_fc"])
         return x + _dot(h, lp["w_proj"]) + lp["b_proj"].to(x.dtype)
 
     # As in the JAX forward, kv_lens masks the cache path only.
     x, new_cache = run_layers(params, x, layer, cache=cache, start_pos=start_pos,
-                              kv_lens=None if cache is None else kv_lens,
+                              kv_lens=None if cache is None else kv_lens, remat=mode,
+                              dropout_p=dropout_p, dropout_seed=dropout_seed,
                               scale=(1.0 / Dh) if cfg.mup_scale_qk_dot_by_d else None,
                               alibi_slopes=slopes)
     x = layernorm(x, params["lnf_w"], params["lnf_b"], cfg.ln_eps)

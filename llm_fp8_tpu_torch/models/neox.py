@@ -29,7 +29,7 @@ from ..ops.layernorm import layernorm
 from ..ops.rotary import apply_rope, rope_cos_sin, rope_frequencies
 from ..utils.backend import resolve_device
 from .llama import _dot
-from .zoo import lm_logits, run_layers, stacker, state_getter
+from .zoo import lm_logits, run_layers, stacker, state_getter, training_knobs
 
 __all__ = ["NeoXConfig", "NEOX_REGISTRY", "init_neox_params", "neox_forward",
            "pack_neox_state_dict", "pack_falcon_state_dict", "pack_gptj_state_dict"]
@@ -293,10 +293,13 @@ def _partial_rope(x: torch.Tensor, cos, sin, rotary_dim: int, interleaved: bool 
 
 def neox_forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: NeoXConfig, *,
                  cache=None, start_pos=0, kv_lens: Optional[torch.Tensor] = None,
-                 compute_dtype=torch.float32):
+                 attn_impl: str = "auto", compute_dtype=torch.float32, remat=False,
+                 unroll: int = 1, dropout_p: float = 0.0, dropout_seed: int = 0):
     """``tokens [B, S] -> logits [B, S, V]`` float32 (no cache), or
     ``(logits, cache)`` with a :class:`~.llama.KVCache`: rotary at
-    ``start_pos``, K/V written per sequence in place, ``kv_lens`` masking."""
+    ``start_pos``, K/V written per sequence in place, ``kv_lens`` masking.
+    The training knobs as :func:`~.gpt2.gpt2_forward`'s."""
+    mode = training_knobs(cache, attn_impl, remat, unroll, dropout_p)
     dev = params["wte"].device
     tokens = tokens.to(dev)
     B, S = tokens.shape
@@ -309,32 +312,38 @@ def neox_forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: NeoXConfig, 
     def bias(lp, name, like):
         return lp[name].to(like.dtype) if name in lp else 0.0
 
-    def attn_branch(h, lp, attend):
-        qkv = _dot(h, lp["w_qkv"]) + bias(lp, "b_qkv", h)
-        q, k, v = torch.split(qkv, [Hq * Dh, Hk * Dh, Hk * Dh], dim=-1)
+    def heads(qkv, b_qkv):
+        q, k, v = torch.split(qkv + b_qkv, [Hq * Dh, Hk * Dh, Hk * Dh], dim=-1)
         q = _partial_rope(q.reshape(B, S, Hq, Dh), cos, sin, cfg.rotary_dim,
                           cfg.rope_interleaved)
         k = _partial_rope(k.reshape(B, S, Hk, Dh), cos, sin, cfg.rotary_dim,
                           cfg.rope_interleaved)
-        a = attend(q, k, v.reshape(B, S, Hk, Dh))
+        return q, k, v.reshape(B, S, Hk, Dh)
+
+    def attn_branch(h, lp, attend, seg):
+        a = attend(*seg(heads, _dot(h, lp["w_qkv"]), bias(lp, "b_qkv", h)))
         return _dot(a.reshape(B, S, Hq * Dh), lp["w_out"]) + bias(lp, "b_out", h)
 
-    def mlp_branch(h, lp):
-        h = _dot(h, lp["w_fc"]) + bias(lp, "b_fc", h)
-        h = F.gelu(h.float(), approximate="tanh" if cfg.gelu_approximate else "none")
-        h = h.to(compute_dtype)
+    def mlp_act(h, b_fc):
+        h = F.gelu((h + b_fc).float(), approximate="tanh" if cfg.gelu_approximate else "none")
+        return h.to(compute_dtype)
+
+    def mlp_branch(h, lp, seg):
+        h = seg(mlp_act, _dot(h, lp["w_fc"]), bias(lp, "b_fc", h))
         return _dot(h, lp["w_proj"]) + bias(lp, "b_proj", h)
 
-    def layer(x, lp, attend):
-        h1 = layernorm(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
+    def layer(x, lp, attend, seg):
+        h1 = seg(layernorm, x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
         if cfg.parallel_residual:
-            h2 = h1 if cfg.tied_norm else layernorm(x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps)
-            return x + attn_branch(h1, lp, attend) + mlp_branch(h2, lp)
-        x = x + attn_branch(h1, lp, attend)
-        return x + mlp_branch(layernorm(x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps), lp)
+            h2 = h1 if cfg.tied_norm else seg(layernorm, x, lp["ln2_w"], lp["ln2_b"],
+                                              cfg.ln_eps)
+            return x + attn_branch(h1, lp, attend, seg) + mlp_branch(h2, lp, seg)
+        x = x + attn_branch(h1, lp, attend, seg)
+        return x + mlp_branch(seg(layernorm, x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps), lp, seg)
 
     x, new_cache = run_layers(params, x, layer, cache=cache, start_pos=start_pos,
-                              kv_lens=kv_lens)
+                              kv_lens=kv_lens, remat=mode, dropout_p=dropout_p,
+                              dropout_seed=dropout_seed)
     x = layernorm(x, params["lnf_w"], params["lnf_b"], cfg.ln_eps)
     logits = lm_logits(params, x)
     if "lm_head_b" in params:

@@ -1,14 +1,24 @@
 """What the GPT-2 and NeoX families share (the JAX package repeats it in
 ``models/gpt2.py`` and ``models/neox.py``): the layer loop with or without
-the :class:`~.llama.KVCache`, the float32 logits of a tied or unquantized
-head, and the state-dict readers of the HF packers.
+the :class:`~.llama.KVCache` and with the training knobs (remat, attention
+dropout), the float32 logits of a tied or unquantized head, and the
+state-dict readers of the HF packers.
 
 The families compute in float32 (``compute_dtype``), so their head product
 ``x @ head.T`` (JAX: ``jnp.dot(x, head.T.astype(x.dtype))``, which XLA fuses)
 needs the bf16 head as float32. Converting it at every call would write a
 float32 copy of it per step (1.18 GB for Falcon-7B's 65024 x 4544
 embedding); :func:`with_f32_head` makes that copy once (the serving engine
-calls it at construction) and :func:`lm_logits` uses it when present.
+calls it at construction) and :func:`lm_logits` uses it when present. A
+training tree carries no such copy (the ``Trainer`` refuses one): the float32
+head is the float32 master weight itself, and the gradient reaches it.
+
+Training (no cache): ``remat`` as the Llama family's (``"full"`` checkpoints
+each layer whole; ``"dots"`` checkpoints the elementwise segments a layer
+passes to ``seg``, so the GEMM outputs and the attention output are kept:
+JAX's ``dots`` policy with its ``attn_out`` name), and attention dropout with
+layer li's seed ``dropout_seed + li·DROPOUT_LAYER_STRIDE``, as JAX's
+``seed0 + aux * 7919``.
 """
 from __future__ import annotations
 
@@ -20,10 +30,11 @@ import torch
 
 from ..ops.attention import attention
 from ..utils.backend import resolve_device
-from .llama import _matmul_f32, cache_append_attend, unstack_layers
+from .llama import (DROPOUT_LAYER_STRIDE, _call, _ckpt, _matmul_f32, cache_append_attend,
+                    remat_mode, unstack_layers)
 
 __all__ = ["head_weight", "with_f32_head", "lm_logits", "run_layers", "state_getter",
-           "stacker", "HEAD_F32"]
+           "stacker", "HEAD_F32", "training_knobs"]
 
 #: Key of the float32 copy of the head in a parameter tree.
 HEAD_F32 = "head_f32"
@@ -56,23 +67,52 @@ def lm_logits(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     return _matmul_f32(x, head_weight(params).to(x.dtype).t())
 
 
+def training_knobs(cache, attn_impl: str, remat, unroll: int, dropout_p: float) -> str:
+    """Check the JAX forwards' training knobs; returns the remat mode.
+    ``attn_impl`` is ``"auto"`` only (the port has one attention route per
+    device), ``unroll`` 1 only (a JAX scan knob: the layers are a Python
+    loop), and remat and dropout need the cache-free (training) forward."""
+    mode = remat_mode(remat)
+    if attn_impl != "auto":
+        raise NotImplementedError(f"attn_impl {attn_impl!r}: the port has one attention "
+                                  "route per device ('auto')")
+    if unroll != 1:
+        raise NotImplementedError("unroll is a JAX scan knob; the port's layer loop has no "
+                                  "counterpart (leave it at 1)")
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p {dropout_p} outside [0, 1)")
+    if cache is not None and (mode != "none" or dropout_p):
+        raise ValueError("remat and dropout are training options: no cache")
+    return mode
+
+
 def run_layers(params: Dict[str, Any], x: torch.Tensor, layer: Callable, *,
-               cache=None, start_pos: torch.Tensor, kv_lens=None, **attn_kw):
-    """The decoder layers over ``x``: ``layer(x, lp, attend) -> x`` per layer,
-    where ``attend(q, k, v)`` is causal self-attention (no cache) or the
-    cache's append-and-attend at ``start_pos`` (written in place), both
-    masked to ``kv_lens`` and given ``attn_kw`` (``scale``,
-    ``alibi_slopes``). Returns ``(x, new_cache)``."""
+               cache=None, start_pos: torch.Tensor, kv_lens=None, remat: str = "none",
+               dropout_p: float = 0.0, dropout_seed: int = 0, **attn_kw):
+    """The decoder layers over ``x``: ``layer(x, lp, attend, seg) -> x`` per
+    layer, where ``attend(q, k, v)`` is causal self-attention (no cache; with
+    ``dropout_p`` at layer li's seed) or the cache's append-and-attend at
+    ``start_pos`` (written in place), both masked to ``kv_lens`` and given
+    ``attn_kw`` (``scale``, ``alibi_slopes``), and ``seg(fn, *args)`` runs one
+    of the layer's elementwise segments (checkpointed under ``remat="dots"``).
+    ``remat`` is a mode of :func:`~.llama.remat_mode` (``"full"``: each layer
+    under a checkpoint). Returns ``(x, new_cache)``."""
+    seg = _ckpt if remat == "dots" else _call
     for li, lp in enumerate(unstack_layers(params["layers"])):
         if cache is None:
-            def attend(q, k, v):
-                return attention(q, k, v, causal=True, kv_lens=kv_lens, **attn_kw)
+            def attend(q, k, v, li=li):
+                return attention(q, k, v, causal=True, kv_lens=kv_lens, dropout_p=dropout_p,
+                                 dropout_seed=dropout_seed + li * DROPOUT_LAYER_STRIDE,
+                                 **attn_kw)
         else:
             def attend(q, k, v, li=li):
                 return cache_append_attend(
                     q, k, v, (cache.k, cache.v, cache.k_scale[li], cache.v_scale[li], li),
                     start_pos, kv_lens, **attn_kw)[0]
-        x = layer(x, lp, attend)
+        if remat == "full":
+            x = _ckpt(lambda x, lp=lp, attend=attend: layer(x, lp, attend, seg), x)
+        else:
+            x = layer(x, lp, attend, seg)
     if cache is None:
         return x, None
     S = x.shape[1]

@@ -6,6 +6,12 @@ the same round:
   draft model's K/V; ``gamma`` batched single-token feeds propose tokens for
   every slot, plus one ingest-only feed so both caches cover the same
   positions. The draft's attention is the plain ``decode_attention``.
+* **families**: ``forward_fn`` and ``draft_forward_fn`` (default: the Llama
+  family's ``forward``) serve any pair with the cache signature and one
+  vocabulary, as the JAX engine's hooks: a GPT-2/NeoX target runs the slot
+  engine's KVCache path (``Engine(forward_fn=...)``), and a zoo draft gets
+  one float32 copy of its head at construction (``models/zoo.py::
+  with_f32_head``), so the captured round reads only device tensors.
 * **verify lane**: ONE target forward over the ``[slots, gamma+1]`` block
   (``[last_committed, p_1..p_gamma]``) at each slot's own ``start_pos``;
   ``kv_lens`` masks the ragged batch (K3 over the dequantized cache on the
@@ -39,6 +45,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, forward, init_kv_cache
+from ..models.zoo import with_f32_head
 from ..ops.sampling import filtered_logits, filtered_probs, greedy
 from ..utils.backend import resolve_device
 from .cuda_graph import StepGraph
@@ -92,7 +99,8 @@ class SpecEngine(Engine):
     verification; each committed token is distributed as the target's
     filtered distribution. The sampling config is the engine's; per-request
     ``SamplingParams`` govern stopping only. Runs on ``cuda`` unless
-    ``device`` is given.
+    ``device`` is given. ``forward_fn``/``draft_forward_fn``: the target's
+    and the draft's family forwards (default: the Llama family's).
     """
 
     _use_arena = False  # the verify lane feeds gamma+1 tokens: the KVCache path
@@ -102,13 +110,17 @@ class SpecEngine(Engine):
                  draft_params: Dict[str, Any], draft_cfg: ModelConfig,
                  engine_cfg: EngineConfig = EngineConfig(), *, gamma: int = 4,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
-                 eos_token_id: Optional[int] = None, device=None, seed: int = 0):
+                 eos_token_id: Optional[int] = None, device=None, seed: int = 0,
+                 forward_fn=None, draft_forward_fn=None):
         if model_cfg.vocab_size != draft_cfg.vocab_size:
             raise ValueError("target and draft must share a vocabulary")
         dev = resolve_device(device)
         super().__init__(params, model_cfg, engine_cfg, eos_token_id=eos_token_id,
-                         device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
-        self.dparams = draft_params
+                         device=dev, generator=torch.Generator(device=dev).manual_seed(seed),
+                         forward_fn=forward_fn)
+        self._dforward = draft_forward_fn if draft_forward_fn is not None else forward
+        self.dparams = (draft_params if self._dforward is forward
+                        else with_f32_head(draft_params))
         self.dcfg = draft_cfg
         self.gamma = int(gamma)
         self.temperature = float(temperature)
@@ -142,8 +154,8 @@ class SpecEngine(Engine):
         unused: the first committed token comes from the target)."""
         bucket = tokens.shape[0]
         one = init_kv_cache(self.dcfg, 1, bucket, dtype=torch.bfloat16, device=self.device)
-        _, one = forward(self.dparams, tokens[None, :], self.dcfg, cache=one, start_pos=0,
-                         kv_lens=true_len.reshape(1))
+        _, one = self._dforward(self.dparams, tokens[None, :], self.dcfg, cache=one,
+                                start_pos=0, kv_lens=true_len.reshape(1))
         self.dcache.k[:, slot, :bucket] = one.k[:, 0]
         self.dcache.v[:, slot, :bucket] = one.v[:, 0]
         self.dcache.lens[slot] = true_len
@@ -163,8 +175,8 @@ class SpecEngine(Engine):
         # --- draft lane: gamma proposal feeds + 1 ingest-only feed ---
         tok, pos, props, q_rows = toks, lens, [], []
         for _ in range(g + 1):
-            logits, _ = forward(self.dparams, tok[:, None], self.dcfg, cache=self.dcache,
-                                start_pos=pos, kv_lens=pos + 1)
+            logits, _ = self._dforward(self.dparams, tok[:, None], self.dcfg,
+                                       cache=self.dcache, start_pos=pos, kv_lens=pos + 1)
             logits = logits[:, 0]
             if greedy_mode:
                 tok = greedy(logits)
@@ -178,8 +190,8 @@ class SpecEngine(Engine):
 
         # --- verify lane: one ragged-batch target forward ---
         block = torch.cat([toks[:, None], proposals], dim=1)
-        tlogits, _ = forward(self.params, block, self.cfg, cache=self.cache, start_pos=lens,
-                             kv_lens=lens + g + 1)  # [B, g+1, V]
+        tlogits, _ = self._forward(self.params, block, self.cfg, cache=self.cache,
+                                   start_pos=lens, kv_lens=lens + g + 1)  # [B, g+1, V]
         if greedy_mode:
             targets = greedy(tlogits)
             accept = proposals == targets[:, :g]

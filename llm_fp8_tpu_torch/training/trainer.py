@@ -20,6 +20,16 @@ JAX passes ``dropout_seed=step``, on the bf16 recipe: the JAX trainer gives
 it to the bf16 forward only, so the port refuses it with an fp8 recipe
 rather than train otherwise than the reference. ``unroll`` (a JAX scan knob)
 has no counterpart in an eager loop over the layers and must stay 1.
+
+``forward_fn`` trains another family through the same steps, as the JAX
+trainer's: any forward with the zoo signature ``fn(params, tokens, cfg,
+remat=, dropout_p=, dropout_seed=) -> logits`` (the GPT-2 and NeoX families,
+``models/registry.py``), on the bf16 recipe only (the FP8 recipes implement
+the Llama stack). Such a forward exposes no hidden states, so the loss is
+never chunked and the activation mean and std are NaN (``StabilityTracker``
+skips them); its float32 params must carry no float32 head copy
+(``models/zoo.py::HEAD_F32``), which would take the head's gradient away from
+the tied embedding.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.llama import _lm_head, remat_mode, forward, forward_fp8_train, lm_head_weight
+from ..models.zoo import HEAD_F32
 from ..quant import RecipeSet, recipe_set_by_name
 from ..utils.backend import resolve_device
 from .losses import causal_lm_loss, chunked_causal_lm_loss
@@ -210,7 +221,10 @@ def _batch_tensor(x, device) -> torch.Tensor:
 class Trainer:
     """The train and eval steps of one model configuration on one device."""
 
-    def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig, *, device=None):
+    def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig, *, device=None,
+                 forward_fn=None):
+        """``forward_fn``: the family's forward (default: the Llama
+        family's); another family trains on the bf16 recipe only."""
         remat_mode(train_cfg.remat)  # raises on an unknown policy
         if train_cfg.unroll != 1:
             raise NotImplementedError("Trainer: unroll is a JAX scan knob; the port's "
@@ -221,6 +235,11 @@ class Trainer:
         self.cfg = train_cfg
         self.device = resolve_device(device)
         self.recipes: RecipeSet = recipe_set_by_name(train_cfg.recipes)
+        self._fwd = forward_fn if forward_fn is not None else forward
+        self._llama = self._fwd is forward
+        if self.recipes.enabled and not self._llama:
+            raise ValueError("FP8 recipe training implements the Llama/Qwen family stack; "
+                             "train other zoo families with recipes='bf16'")
         if train_cfg.attention_dropout and self.recipes.enabled:
             raise ValueError(f"attention_dropout applies to the bf16 recipe only (the JAX "
                              f"trainer leaves it out of the fp8 forward); recipes "
@@ -232,7 +251,14 @@ class Trainer:
 
     def init_state(self, params) -> TrainState:
         """Takes float32 master weights on the trainer's device (they become
-        leaves that require a gradient and are updated in place)."""
+        leaves that require a gradient and are updated in place). A tree with
+        a float32 head copy (:data:`~..models.zoo.HEAD_F32`, a serving
+        engine's) is refused."""
+        if HEAD_F32 in params:
+            raise ValueError(f"the parameter tree carries {HEAD_F32!r}, a serving engine's "
+                             "float32 head copy: a trained copy would take the head's "
+                             "gradient away from the tied embedding; train the tree "
+                             "without it")
         want = self.device
         if want.type == "cuda" and want.index is None:
             want = torch.device("cuda", torch.cuda.current_device())
@@ -252,6 +278,15 @@ class Trainer:
         tokens = _batch_tensor(batch["input_ids"], self.device)
         mask = batch.get("attention_mask")
         mask = None if mask is None else _batch_tensor(mask, self.device)
+        kw = dict(z_loss=self.cfg.z_loss, label_smoothing=self.cfg.label_smoothing)
+        if not self._llama:
+            # No hidden states from a zoo forward: no chunked loss and no
+            # activation series (NaN, as the JAX trainer's).
+            logits = self._fwd(params, tokens, self.model_cfg, remat=self.cfg.remat,
+                               dropout_p=self.cfg.attention_dropout, dropout_seed=step)
+            nan = torch.full((), float("nan"), device=self.device)
+            loss, n = causal_lm_loss(logits, tokens, mask, **kw)
+            return loss, n, {}, (nan, nan)
         kw = dict(return_hidden=True, remat=self.cfg.remat)
         if self.recipes.enabled:
             scales = forward_scales(qstate, self.model_cfg, self.device)
@@ -312,6 +347,9 @@ class Trainer:
         tokens = _batch_tensor(batch["input_ids"], self.device)
         mask = batch.get("attention_mask")
         mask = None if mask is None else _batch_tensor(mask, self.device)
+        if not self._llama:
+            loss, n = causal_lm_loss(self._fwd(params, tokens, self.model_cfg), tokens, mask)
+            return loss * n, n
         chunked = self.cfg.ce_chunks > 1
         out, _ = forward(params, tokens, self.model_cfg, return_hidden=chunked)
         if chunked:

@@ -36,6 +36,12 @@ from llm_fp8_tpu_torch.quant import QTensor
 from llm_fp8_tpu_torch.training import CheckpointManager, TrainConfig, Trainer, export_hf
 from llm_fp8_tpu_torch.training.trainer import _leaves
 
+# One torch thread per test process: the suite runs in several pytest-xdist
+# workers on a few cores, where torch's default of one thread a core
+# oversubscribes them (the port's engine and training tests ran 4-8x longer
+# so). Torch's thread count is per process: this holds for every file.
+torch.set_num_threads(1)
+
 CFG = get_config("debug-tiny")
 ROOT = Path(__file__).resolve().parent.parent
 

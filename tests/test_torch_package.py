@@ -145,7 +145,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                                "flash_attention": 0, "flash_attention_f32": 0,
                                "paged_attention": 0,
                                "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-                               "quantize_fused": 0, "flash_attention_fp8": 0,
+                               "flash_attention_bwd_f32_dq": 0,
+                               "flash_attention_bwd_f32_dkv": 0, "quantize_fused": 0, "flash_attention_fp8": 0,
                                "rmsnorm_residual_fused": 0}
     assert kernel_libs() == built_before
 
@@ -198,7 +199,6 @@ def test_serve_cli_paged_runs_on_cpu():
 
 
 @pytest.mark.parametrize("flag", [["--paged", "--draft_model", "debug-tiny"],
-                                  ["--draft_model", "debug-gpt2"],
                                   ["--paged", "--kv_dtype", "int8"]])
 def test_serve_cli_refuses_unported_options(flag):
     from llm_fp8_tpu_torch.cli.serve import main

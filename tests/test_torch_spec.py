@@ -42,6 +42,12 @@ from llm_fp8_tpu_torch.serving import Engine, EngineConfig, SamplingParams, Spec
 from llm_fp8_tpu_torch.serving.spec_engine import draw, leviathan_accept
 from llm_fp8_tpu_torch.serving.speculative import SpeculativeDecoder, spec_verify
 
+# One torch thread per test process: the suite runs in several pytest-xdist
+# workers on a few cores, where torch's default of one thread a core
+# oversubscribes them (the port's engine and training tests ran 4-8x longer
+# so). Torch's thread count is per process: this holds for every file.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 CFG = get_config("debug-tiny")
 ECFG = EngineConfig(max_slots=2, max_seq_len=256, kv_dtype=torch.float32,

@@ -72,6 +72,12 @@ from llm_fp8_tpu_torch.training import (StabilityTracker, TrainConfig, Trainer, 
                                         losses, quant_state)
 from llm_fp8_tpu_torch.training.trainer import _leaves
 
+# One torch thread per test process: the suite runs in several pytest-xdist
+# workers on a few cores, where torch's default of one thread a core
+# oversubscribes them (the port's engine and training tests ran 4-8x longer
+# so). Torch's thread count is per process: this holds for every file.
+torch.set_num_threads(1)
+
 JCFG = jax_get_config("debug-tiny")
 CFG = get_config("debug-tiny")
 

@@ -33,6 +33,12 @@ from llm_fp8_tpu_torch.models import neox as tneox
 from llm_fp8_tpu_torch.models.llama import init_kv_cache
 from llm_fp8_tpu_torch.serving import engine as tengine
 
+# One torch thread per test process: the suite runs in several pytest-xdist
+# workers on a few cores, where torch's default of one thread a core
+# oversubscribes them (the port's engine and training tests ran 4-8x longer
+# so). Torch's thread count is per process: this holds for every file.
+torch.set_num_threads(1)
+
 TOL = 1e-3
 PROMPT_LENS = (5, 12, 20)
 MAX_NEW = 6

@@ -54,6 +54,12 @@ from llm_fp8_tpu_torch.ops.layernorm import layernorm
 from llm_fp8_tpu_torch.quant import QTensor, recipe_set_by_name
 from llm_fp8_tpu_torch.quant.dot import padded_operands
 
+# One torch thread per test process: the suite runs in several pytest-xdist
+# workers on a few cores, where torch's default of one thread a core
+# oversubscribes them (the port's engine and training tests ran 4-8x longer
+# so). Torch's thread count is per process: this holds for every file.
+torch.set_num_threads(1)
+
 DEBUG = ["debug-gpt2", "debug-opt", "debug-bigcode", "debug-btlm", "debug-neox",
          "debug-falcon", "debug-neox-seq", "debug-gptj"]
 FAMILIES = {name: (jgpt2, tgpt2, "gpt2") if name in jgpt2.GPT2_REGISTRY
