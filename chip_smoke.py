@@ -153,7 +153,34 @@ Phases, in order; any failure exits non-zero before the last line:
    tokens, against the plain engine's greedy tokens (near-ties counted);
    then every GPT-2/NeoX debug target with a debug draft and a Llama
    ``debug-tiny`` target with a ``debug-gpt2`` draft.
-11. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
+11. Gemma-2 (bf16 compute, head dim 256). ``gemma_kernels``: K3 and K6 bf16
+   at D 256 against their plain versions row by row (``ROW_ULPS``), reruns
+   bit-identical: gemma2-9b's prefill (B 1, 8192 tokens, kv_len 8184, 16 q
+   heads over 8, softcap 50, scale 1/16) with the 4096 window and without,
+   the engine's 512 bucket over an 8192 arena at q_offsets, the speculative
+   verify block, gemma2-2b's training shape (B 4 x 1024, 8 over 4) and an
+   8192-token backward with the window, ALiBi and dropout 0.1 (the EXTRA
+   instances); planted faults (a lost key tile, the softcap dropped, the
+   window one tile wider; a head left out of K6's GQA sum, the diagonal
+   tile left out of dq) caught; each main case timed beside its bound and
+   SDPA's flash forward/backward without softcap or window (not the same
+   function). ``gemma_slice``: gemma2-9b at full width cut to 2 layers
+   (sliding, full), LAYERWISE fp8, an e4m3 KVCache, a 4160-token prefill
+   and two decode steps card against CPU on LLM_FP8_QDOT=xla and on
+   fp8native with the card's projection inputs, held to
+   ``BAICHUAN_XLA_TOL_STD`` of the logits' std. ``gemma_train_slice``:
+   gemma2-2b cut to 2 layers, one bf16-recipe step card against CPU (loss
+   and every gradient), without and with dropout 0.1. ``gemma_serve``:
+   gemma2-9b at all 42 layers through ``Engine(forward_fn=gemma_forward)``
+   (fp8 weights made two layers at a time, e4m3 KV, 8192 tokens a slot, 6
+   prompts of 500-1000 tokens and 2 of 4500-6000, 32 new each), graph
+   against eager tokens, K3 and K9 launches, step ms, TTFT, peak memory,
+   busy share. ``gemma_train``: gemma2-2b at all 26 layers, float32 master
+   weights and AdamW, 2 x 1024 tokens, 3 steps under remat full and dots
+   (losses bit-equal), K3/K6 launches a step, a profiled step.
+   ``gemma_spec_serve``: gemma2-9b (fp8, e4m3 KV) with a bf16 gemma2-2b
+   draft, 8 requests, gamma 4, greedy, graph against eager tokens.
+12. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 With ``--out DIR`` the details of every case go to ``DIR/chip_smoke.json``
@@ -180,7 +207,8 @@ PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_se
           "spec_serve", "checkpoint", "train_kernels", "train_slice", "train", "fp8_kernels",
           "profile", "alibi_kernels", "dropout_kernels", "alibi_serve", "train_rest", "compare",
           "zoo_kernels", "zoo_slice", "zoo_serve", "zoo_train_kernels", "zoo_train_slice",
-          "zoo_train", "zoo_spec_serve")
+          "zoo_train", "zoo_spec_serve", "gemma_kernels", "gemma_slice", "gemma_train_slice",
+          "gemma_serve", "gemma_train", "gemma_spec_serve")
 #: The kernels each path runs (launch counts read around its run). On the
 #: card fp8 weights take qdot's fp8native route (K9 quantizes x per row, then
 #: fp8 products), as the JAX package picks it where fp8 products exist; K1
@@ -3585,13 +3613,14 @@ def dropout_kernel_cases(dev, bw, peak, log):
 ALIBI_SERVE_LAYERS = 40
 
 
-def fp8_params_by_layer(cfg, dev, seed=0, init=None, quantize=None):
-    """LAYERWISE fp8 params of ``cfg``, made and quantized one layer at a time
-    (layer li from seed ``seed·1000 + li``) by ``init`` and ``quantize`` (the
-    Llama family's by default; a zoo family's registry entry gives its own):
-    a 13B model's whole bf16 copy and its float32 quantize temporaries do not
-    fit beside each other on one card. The stacked codes are laid out for the
-    route in force at the end (``serving_layout``)."""
+def fp8_params_by_layer(cfg, dev, seed=0, init=None, quantize=None, per=1):
+    """LAYERWISE fp8 params of ``cfg``, made and quantized ``per`` layers at a
+    time (layers li.. from seed ``seed·1000 + li``; Gemma-2's configs take
+    an even count, so 2) by ``init`` and ``quantize`` (the Llama family's by
+    default; a zoo family's registry entry gives its own): a 13B model's
+    whole bf16 copy and its float32 quantize temporaries do not fit beside
+    each other on one card. The stacked codes are laid out for the route in
+    force at the end (``serving_layout``)."""
     import dataclasses
 
     import torch
@@ -3601,9 +3630,9 @@ def fp8_params_by_layer(cfg, dev, seed=0, init=None, quantize=None):
     from llm_fp8_tpu_torch.quant.dot import serving_layout
 
     init, quantize = init or init_params, quantize or quantize_params
-    one = dataclasses.replace(cfg, num_layers=1)
+    one = dataclasses.replace(cfg, num_layers=per)
     layers, top = {}, None
-    for li in range(cfg.num_layers):
+    for li in range(0, cfg.num_layers, per):
         p = quantize(init(one, dtype=torch.bfloat16, device=dev, seed=seed * 1000 + li),
                      LAYERWISE)
         if top is None:
@@ -4183,6 +4212,61 @@ def _zoo_slice_check(dev, log, model, route, forced):
 ZOO_SERVE_LAYERS = 32
 
 
+def forward_fn_engines(fwd):
+    """The engine serving through ``fwd`` (``Engine(forward_fn=fwd)``, its
+    decode step a CUDA graph) and its eager twin, both instrumented."""
+    from llm_fp8_tpu_torch.serving import Engine
+
+    class Loop(Engine):
+        def _run_decode_burst(self, toks, lens, steps):
+            return self._decode_loop(toks, lens, steps)
+
+    class Zoo(Instrumented):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, forward_fn=fwd, **kw)
+
+        def _run_prefill(self, padded, true_len, slot):
+            last = self._timed_prefill(super()._run_prefill, padded, true_len, slot)
+            self._note(last)
+            return last
+
+    class Checked(Zoo, Engine):
+        pass
+
+    class Eager(Zoo, Loop):
+        pass
+
+    return Checked, Eager
+
+
+def forward_fn_run(cls, params, cfg, ecfg, prompts, new, dev, what):
+    """``prompts`` served by a fresh ``cls`` engine, ``new`` tokens each, with
+    the launch counts set to 0 just before and read just after; every
+    request must finish with in-vocabulary tokens and every logits row be
+    finite. Returns ``(engine, requests, wall s, launch counts)``."""
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.serving import SamplingParams
+
+    eng = cls(params, cfg, ecfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=new)) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for r in reqs:
+        check(r.done and r.error is None and len(r.output) == new
+              and all(0 <= t < cfg.vocab_size for t in r.output),
+              f"{what}: request {r.request_id}: {r.error}, {r.output}")
+    check(eng.finite is not None and bool(eng.finite), f"{what}: non-finite logits")
+    return eng, reqs, wall, counts
+
+
 def zoo_serving(dev, card, log, num_layers=ZOO_SERVE_LAYERS):
     """Falcon-7B (71 heads of 64 over one kv head, vocab 65024) at full width
     and all 32 layers through ``Engine(forward_fn=neox_forward)``: LAYERWISE
@@ -4199,56 +4283,16 @@ def zoo_serving(dev, card, log, num_layers=ZOO_SERVE_LAYERS):
     import numpy as np
     import torch
 
-    from llm_fp8_tpu_torch import kernels
     from llm_fp8_tpu_torch.models import resolve_model
     from llm_fp8_tpu_torch.models.gpt2 import GPT2_REGISTRY
     from llm_fp8_tpu_torch.models.neox import NEOX_REGISTRY
     from llm_fp8_tpu_torch.models.registry import quantize_zoo_params
     from llm_fp8_tpu_torch.quant import LAYERWISE
-    from llm_fp8_tpu_torch.serving import Engine, EngineConfig, SamplingParams
-
-    class Loop(Engine):
-        def _run_decode_burst(self, toks, lens, steps):
-            return self._decode_loop(toks, lens, steps)
-
-    def engines(fwd):
-        """The engine serving through ``fwd`` (its decode step a CUDA graph)
-        and its eager twin, both instrumented."""
-        class Zoo(Instrumented):
-            def __init__(self, *a, **kw):
-                super().__init__(*a, forward_fn=fwd, **kw)
-
-            def _run_prefill(self, padded, true_len, slot):
-                last = self._timed_prefill(super()._run_prefill, padded, true_len, slot)
-                self._note(last)
-                return last
-
-        class Checked(Zoo, Engine):
-            pass
-
-        class Eager(Zoo, Loop):
-            pass
-
-        return Checked, Eager
+    from llm_fp8_tpu_torch.serving import EngineConfig
 
     def run(cls, params, cfg, ecfg, prompts, new):
-        eng = cls(params, cfg, ecfg, device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=new)) for p in prompts]
-        eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        for r in reqs:
-            check(r.done and r.error is None and len(r.output) == new
-                  and all(0 <= t < cfg.vocab_size for t in r.output),
-                  f"zoo serve {cfg.name}: request {r.request_id}: {r.error}, {r.output}")
-        check(eng.finite is not None and bool(eng.finite),
-              f"zoo serve {cfg.name}: non-finite logits")
-        return eng, reqs, wall, counts
+        return forward_fn_run(cls, params, cfg, ecfg, prompts, new, dev,
+                              f"zoo serve {cfg.name}")
 
     res = {"card": card}
     entry = resolve_model("falcon-7b")
@@ -4267,7 +4311,7 @@ def zoo_serving(dev, card, log, num_layers=ZOO_SERVE_LAYERS):
     rng = np.random.RandomState(11)
     prompts = [rng.randint(1, cfg.vocab_size, rng.randint(500, 1001)).astype(np.int32)
                for _ in range(8)]
-    checked, eager = engines(entry.forward_fn)
+    checked, eager = forward_fn_engines(entry.forward_fn)
     # A warm-up request on an engine of its own first (cuBLAS's first calls
     # at these shapes, the allocator's first growth), as the Llama serve runs.
     run(checked, params, cfg, ecfg, prompts[:1], 4)
@@ -4321,7 +4365,7 @@ def zoo_serving(dev, card, log, num_layers=ZOO_SERVE_LAYERS):
                                                  seed=1), LAYERWISE)
         rng = np.random.RandomState(len(name))
         prompts = [rng.randint(1, entry.cfg.vocab_size, n).astype(np.int32) for n in (37, 90)]
-        eng, reqs, wall, counts = run(engines(entry.forward_fn)[0], params, entry.cfg,
+        eng, reqs, wall, counts = run(forward_fn_engines(entry.forward_fn)[0], params, entry.cfg,
                                       EngineConfig(max_slots=2, max_seq_len=256, kv_dtype="fp8"),
                                       prompts, 8)
         for kname in ZOO_PATH:
@@ -4631,6 +4675,19 @@ def zoo_train_slice(dev, log, model="btlm-3b"):
     card (K3 and K6 float32 instances) and on the CPU (plain versions), from
     the same weights and batch (B 2 x S 256), then the same with attention
     dropout 0.1; held to ``ZOO_TRAIN_LOSS_RTOL`` and ``ZOO_TRAIN_GRAD_SHARE``."""
+    return forward_fn_train_slice(dev, log, model, "zoo train slice", ZOO_TRAIN_PATH,
+                                  ZOO_TRAIN_LOSS_RTOL, ZOO_TRAIN_GRAD_SHARE, "float32 compute")
+
+
+def forward_fn_train_slice(dev, log, model, what, path, loss_rtol, grad_share, compute,
+                           absent=()):
+    """A ``Trainer(forward_fn=...)`` step card against CPU: ``model`` at full
+    width cut to 2 layers, float32 master weights (seed 5), the bf16 recipe,
+    one step's loss and every parameter's gradient from the same weights and
+    batch (B 2 x S 256), without and with attention dropout 0.1; the loss
+    within ``loss_rtol`` relative, each gradient within ``grad_share`` of its
+    largest |value|, each kernel of ``path`` launched once a layer and none
+    of ``absent``."""
     import dataclasses
 
     import numpy as np
@@ -4647,8 +4704,8 @@ def zoo_train_slice(dev, log, model="btlm-3b"):
     rng = np.random.RandomState(6)
     batch = {"input_ids": rng.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32),
              "attention_mask": np.ones((2, 256), np.int32)}
-    res = {"config": f"{model}, 2 layers at full width, float32, bf16 recipe, B 2 x S 256",
-           "loss_rtol": ZOO_TRAIN_LOSS_RTOL, "grad_share": ZOO_TRAIN_GRAD_SHARE}
+    res = {"config": f"{model}, 2 layers at full width, float32 master weights, bf16 recipe "
+           f"({compute}), B 2 x S 256", "loss_rtol": loss_rtol, "grad_share": grad_share}
     for rate in (0.0, 0.1):
         out = {}
         for side, p, d in (("cuda", params, dev), ("cpu", cpu_params, torch.device("cpu"))):
@@ -4663,7 +4720,7 @@ def zoo_train_slice(dev, log, model="btlm-3b"):
         loss_c, grads_c, counts, _ = out["cuda"]
         loss_h, grads_h, _, stats = out["cpu"]
         check(math.isfinite(loss_c) and math.isnan(float(stats[0])),
-              f"zoo train slice {model}: loss {loss_c}, activation mean {stats[0]}")
+              f"{what} {model}: loss {loss_c}, activation mean {stats[0]}")
         rel = abs(loss_c - loss_h) / abs(loss_h)
         shares = {k: float((grads_c[k] - grads_h[k]).abs().max()
                            / grads_h[k].abs().max().clamp(min=1e-30)) for k in grads_h}
@@ -4671,16 +4728,18 @@ def zoo_train_slice(dev, log, model="btlm-3b"):
         tag = f"dropout {rate}" if rate else "no dropout"
         res[tag] = dict(loss_card=loss_c, loss_cpu=loss_h, loss_rel_err=rel,
                         worst_grad=worst, worst_grad_share=shares[worst], grad_shares=shares,
-                        launches={k: counts[k] for k in ZOO_TRAIN_PATH})
-        check(rel <= ZOO_TRAIN_LOSS_RTOL,
-              f"zoo train slice {model} ({tag}): loss {loss_c} against {loss_h} ({rel})")
-        check(shares[worst] <= ZOO_TRAIN_GRAD_SHARE,
-              f"zoo train slice {model} ({tag}): gradient {worst} {shares[worst]} of its max")
-        for kname in ZOO_TRAIN_PATH:
+                        launches={k: counts[k] for k in path})
+        check(rel <= loss_rtol, f"{what} {model} ({tag}): loss {loss_c} against {loss_h} ({rel})")
+        check(shares[worst] <= grad_share,
+              f"{what} {model} ({tag}): gradient {worst} {shares[worst]} of its max")
+        for kname in path:
             check(counts[kname] == cfg.num_layers,
-                  f"zoo train slice {model}: {kname} launched {counts[kname]} times")
+                  f"{what} {model}: {kname} launched {counts[kname]} times")
+        for kname in absent:
+            check(counts[kname] == 0, f"{what} {model}: {kname} ran ({counts[kname]} launches)")
     log(res)
     del params, cpu_params
+    gc.collect()
     torch.cuda.empty_cache()
     return res
 
@@ -4698,7 +4757,21 @@ def zoo_training(dev, card, log, model="btlm-3b", steps=ZOO_TRAIN_STEPS):
     recorded and "full" stands alone). Per run: step ms, tokens/s, peak
     memory, the launches of K3's and K6's float32 instances a step (K3 twice a
     layer under "full", once under "dots"), and one step profiled."""
-    import numpy as np
+    return forward_fn_training(dev, card, log, model, steps, 8, 512, 100, ZOO_TRAIN_PATH,
+                               ("flash_attention", "flash_attention_bwd_dq"),
+                               "bf16 recipe (float32 compute)")
+
+
+def forward_fn_training(dev, card, log, model, steps, B, S, samples, path, absent, recipe):
+    """``model`` at full width and depth through ``Trainer(forward_fn=...)``,
+    float32 master weights and AdamW, ``B`` x ``S`` synthetic tokens a step
+    (from ``samples`` examples): ``steps`` steps under remat "full", then the
+    same steps from the same weights under "dots" (losses equal bit for
+    bit; an out-of-memory "dots" run is recorded and "full" stands alone).
+    ``path`` is (K3's, K6's dQ, K6's dKV) kernel names: K3 launches twice a
+    layer a step under "full", once under "dots", each K6 kernel once; no
+    kernel of ``absent`` may run. Per run: step ms, tokens/s, peak memory,
+    the launches a step, one step profiled."""
     import torch
 
     from llm_fp8_tpu_torch import kernels
@@ -4710,15 +4783,14 @@ def zoo_training(dev, card, log, model="btlm-3b", steps=ZOO_TRAIN_STEPS):
     entry = resolve_model(model)
     cfg = entry.cfg
     L = cfg.num_layers
-    dm = DataManager(DataConfig(max_seq_length=512, batch_size=8),
-                     ByteTokenizer(cfg.vocab_size))
-    train_seqs, _ = dm.build(synthetic_examples(100))
-    batches = list(dm.batches(train_seqs, 8, shuffle=True, seed=0))[:steps + 1]
-    check(len(batches) > steps, f"zoo train: {len(batches)} batches for {steps} steps")
+    dm = DataManager(DataConfig(max_seq_length=S, batch_size=B), ByteTokenizer(cfg.vocab_size))
+    train_seqs, _ = dm.build(synthetic_examples(samples))
+    batches = list(dm.batches(train_seqs, B, shuffle=True, seed=0))[:steps + 1]
+    check(len(batches) > steps, f"train {model}: {len(batches)} batches for {steps} steps")
     res = {"card": card, "config": f"{model}, {L} layers at full width, float32 master "
-           "weights and AdamW, bf16 recipe (float32 compute)", "batch": "8 x 512 synthetic",
-           "steps": steps}
+           f"weights and AdamW, {recipe}", "batch": f"{B} x {S} synthetic", "steps": steps}
     launches = {}
+    fwd, dq, dkv = path
     for remat in ("full", "dots"):
         t0 = time.perf_counter()
         params = entry.init_fn(cfg, dtype=torch.float32, device=dev, seed=0)
@@ -4742,9 +4814,9 @@ def zoo_training(dev, card, log, model="btlm-3b", steps=ZOO_TRAIN_STEPS):
                 step_s.append(time.perf_counter() - t1)
                 losses.append(loss)
                 check(int(m["finite"]) == 1 and math.isfinite(loss),
-                      f"zoo train {remat}: step {len(losses)} not finite (loss {loss})")
+                      f"train {model} {remat}: step {len(losses)} not finite (loss {loss})")
         except torch.cuda.OutOfMemoryError as e:
-            check(remat == "dots", f"zoo train {remat}: out of memory ({e})")
+            check(remat == "dots", f"train {model} {remat}: out of memory ({e})")
             res[remat] = dict(out_of_memory=str(e).splitlines()[0],
                               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
             del state, tr, params
@@ -4752,18 +4824,17 @@ def zoo_training(dev, card, log, model="btlm-3b", steps=ZOO_TRAIN_STEPS):
             torch.cuda.empty_cache()
             continue
         counts = kernels.launch_counts()
-        per_step = {"flash_attention_f32": (2 if remat == "full" else 1) * L,
-                    "flash_attention_bwd_f32_dq": L, "flash_attention_bwd_f32_dkv": L}
+        per_step = {fwd: (2 if remat == "full" else 1) * L, dq: L, dkv: L}
         for kname, n in per_step.items():
-            check(counts[kname] == n * steps, f"zoo train {remat}: {kname} launched "
+            check(counts[kname] == n * steps, f"train {model} {remat}: {kname} launched "
                   f"{counts[kname]} times in {steps} steps, not {n * steps}")
-        check(counts["flash_attention"] == 0 and counts["flash_attention_bwd_dq"] == 0,
-              f"zoo train {remat}: a bf16 attention kernel ran ({counts})")
-        for kname in ZOO_TRAIN_PATH:
+        check(all(counts[k] == 0 for k in absent),
+              f"train {model} {remat}: a kernel of another instance ran ({counts})")
+        for kname in path:
             launches[kname] = launches.get(kname, 0) + counts[kname]
         step_ms = 1e3 * statistics.median(step_s[1:])
         res[remat] = dict(losses=losses, init_s=init_s, step_ms=step_ms,
-                          first_step_ms=1e3 * step_s[0], tokens_per_s=8 * 512 / (step_ms / 1e3),
+                          first_step_ms=1e3 * step_s[0], tokens_per_s=B * S / (step_ms / 1e3),
                           peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
                           params=n_params, launches_per_step=per_step,
                           profile=profile_train_step(tr, state, batches[steps]))
@@ -4773,8 +4844,8 @@ def zoo_training(dev, card, log, model="btlm-3b", steps=ZOO_TRAIN_STEPS):
         torch.cuda.empty_cache()
     if "losses" in res.get("dots", {}):
         equal = res["dots"]["losses"] == res["full"]["losses"]
-        check(equal, f"zoo train: remat dots losses {res['dots']['losses']} differ from full's "
-              f"{res['full']['losses']}")
+        check(equal, f"train {model}: remat dots losses {res['dots']['losses']} differ from "
+              f"full's {res['full']['losses']}")
         res["losses_equal_full_dots"] = equal
     res["launches"] = launches
     log({k: v for k, v in res.items() if k not in ("full", "dots")})
@@ -4880,6 +4951,50 @@ def spec_against_plain(dev, tparams, tcfg, dparams, dcfg, ecfg, prompts, max_new
                 spec_tokens=[r.output for r in sreqs])
 
 
+def spec_run(cls, tp, tc, dp, dc, ecfg, prompts, new, gamma, dev, what, **hooks):
+    """``prompts`` served by a fresh speculative engine ``cls`` (target ``tp``
+    of ``tc``, draft ``dp`` of ``dc``), ``new`` greedy tokens each, the
+    launch counts set to 0 just before and read just after; every request
+    must finish with in-vocabulary tokens, and a captured round must have
+    been captured once and replayed a round. Returns ``(engine, tokens, the
+    run's readings)``."""
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.serving import SamplingParams
+
+    eng = cls(tp, tc, dp, dc, ecfg, gamma=gamma, device=dev, **hooks)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=new)) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for r in reqs:
+        check(r.done and r.error is None and len(r.output) == new
+              and all(0 <= t < tc.vocab_size for t in r.output),
+              f"{what}: request {r.request_id}: {r.error}, {r.output}")
+    hist = list(eng.accepted_histogram)
+    run = dict(wall_s=wall, tokens_per_s=new * len(prompts) / wall,
+               ttft_p50_s=sorted(r.ttft for r in reqs)[len(reqs) // 2],
+               rounds=eng.rounds_run, round_ms=1e3 * eng.rounds_s / max(eng.rounds_run, 1),
+               mean_accepted=float(np.mean(hist)), max_accepted=max(hist),
+               tokens_per_round=float(np.mean(hist)) + 1)
+    if eng.round_graph.captured:
+        graph = eng.round_graph
+        check(graph.captures == 1 and graph.replays == eng.rounds_run and eng.round_calls == 2,
+              f"{what}: {graph.captures} captures, {graph.replays} replays for "
+              f"{eng.rounds_run} rounds, {eng.round_calls} Python rounds")
+        run.update(replays=graph.replays, launches_a_replay=graph.launches,
+                   launches=device_launches(counts, graph))
+    else:
+        run["launches"] = counts
+    return eng, [r.output for r in reqs], run
+
+
 #: zoo_spec_serve's prompt lengths (lowest, highest + 1) and cache length.
 ZOO_SPEC_PROMPTS, ZOO_SPEC_MAX_SEQ = (200, 501), 1024
 
@@ -4906,7 +5021,6 @@ def zoo_spec_serving(dev, card, log, target="gpt2-xl", draft="gpt2"):
     import numpy as np
     import torch
 
-    from llm_fp8_tpu_torch import kernels
     from llm_fp8_tpu_torch.models import resolve_model
     from llm_fp8_tpu_torch.models.gpt2 import GPT2_REGISTRY
     from llm_fp8_tpu_torch.models.neox import NEOX_REGISTRY
@@ -4934,36 +5048,8 @@ def zoo_spec_serving(dev, card, log, target="gpt2-xl", draft="gpt2"):
     hooks = dict(forward_fn=tentry.forward_fn, draft_forward_fn=dentry.forward_fn)
 
     def serve(cls, tp, tc, dp, dc, what, prompts=prompts, new=max_new, ecfg=ecfg, **kw):
-        eng = cls(tp, tc, dp, dc, ecfg, gamma=gamma, device=dev, **kw)
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=new)) for p in prompts]
-        eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        for r in reqs:
-            check(r.done and r.error is None and len(r.output) == new
-                  and all(0 <= t < tc.vocab_size for t in r.output),
-                  f"zoo spec {what}: request {r.request_id}: {r.error}, {r.output}")
-        hist = list(eng.accepted_histogram)
-        run = dict(wall_s=wall, tokens_per_s=new * len(prompts) / wall,
-                   ttft_p50_s=sorted(r.ttft for r in reqs)[len(reqs) // 2],
-                   rounds=eng.rounds_run, round_ms=1e3 * eng.rounds_s / max(eng.rounds_run, 1),
-                   mean_accepted=float(np.mean(hist)), max_accepted=max(hist),
-                   tokens_per_round=float(np.mean(hist)) + 1)
-        if eng.round_graph.captured:
-            graph = eng.round_graph
-            check(graph.captures == 1 and graph.replays == eng.rounds_run
-                  and eng.round_calls == 2,
-                  f"zoo spec {what}: {graph.captures} captures, {graph.replays} replays for "
-                  f"{eng.rounds_run} rounds, {eng.round_calls} Python rounds")
-            run.update(replays=graph.replays, launches_a_replay=graph.launches,
-                       launches=device_launches(counts, graph))
-        else:
-            run["launches"] = counts
-        return eng, [r.output for r in reqs], run
+        return spec_run(cls, tp, tc, dp, dc, ecfg, prompts, new, gamma, dev, f"zoo spec {what}",
+                        **kw)
 
     warm = Rounds(tparams, tcfg, dparams, dcfg, ecfg, gamma=gamma, device=dev, **hooks)
     warm.add_request(prompts[0], SamplingParams(max_new_tokens=4))
@@ -5061,6 +5147,598 @@ def zoo_spec_serving(dev, card, log, target="gpt2-xl", draft="gpt2"):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 11: Gemma-2 (bf16 compute, K3 and K6 at head dim 256)
+# --------------------------------------------------------------------------
+
+#: The Gemma paths on the card: K3's bf16 instance at every prefill layer,
+#: K9 at every fp8 projection (serving), K6 in training.
+GEMMA_SERVE_PATH = ("flash_attention", "quantize_fused")
+GEMMA_TRAIN_PATH = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+#: gemma_kernels' K3 cases: name, B, Sq, Sk, Hq, Hk, window, q_offset,
+#: kv_lens, timed. Every case has gemma's softcap 50 and scale 1/16.
+GEMMA_K3_CASES = (
+    ("9b prefill B1 Sq=Sk=8192 window 4096", 1, 8192, 8192, 16, 8, 4096, [0], [8184], True),
+    ("9b prefill B1 Sq=Sk=8192 full", 1, 8192, 8192, 16, 8, None, [0], [8184], True),
+    ("engine bucket 512 over an 8192 arena at q_offset, window 4096", 2, 512, 8192, 16, 8,
+     4096, [4601, 7013], [5101, 7500], True),
+    ("spec verify B8 Sq5 over 8192 at ragged offsets, window 4096", 8, 5, 8192, 16, 8, 4096,
+     [0, 63, 64, 4095, 4100, 5000, 8000, 8186], [5, 68, 69, 4100, 4105, 5005, 8005, 8191],
+     False),
+    ("2b Sq 200 unaligned, dead rows, window 100", 2, 200, 300, 8, 4, 100, [0, 250],
+     [300, 120], False),
+)
+
+#: gemma_kernels' K6 cases: name, B, S, Hq, Hk, window, softcap, kv_lens,
+#: timed. q is drawn at 1x here, not K3's 4x: where the softmax is that
+#: peaked, dq = Σ ds·k with ds = p·(dp - di) cancels in the dominant key's
+#: dp - di, and f32-level noise in di (a sum in another order, 1e-7 of
+#: Σ|o·dO|) moves the plain version's own dq rows by up to 27 bf16 ulps at
+#: D 256 and 1300 at D 64 (PERF.md). The softcap's derivative is
+#: held at softcap 5 (1 - tanh² ~0.96 at these scores), where 50 would
+#: leave it below a bf16 ulp.
+GEMMA_K6_CASES = (
+    ("2b train B4 S1024 Hq8 Hk4", 4, 1024, 8, 4, 4096, 50.0, [1024] * 4, True),
+    ("train B1 S8192 Hq8 Hk4 window 4096", 1, 8192, 8, 4, 4096, 50.0, [8192], True),
+    ("B2 S700 window 100 ragged kv_lens softcap 5", 2, 700, 16, 8, 100, 5.0, [700, 555],
+     False),
+)
+
+#: The EXTRA instance at D 256: ALiBi (the slopes of 8 heads) and dropout.
+GEMMA_EXTRA = dict(B=2, S=1024, Hq=8, Hk=4, rate=0.1, seed=4242)
+
+
+def k3_planted_gemma(k3, q, k, v, qo, kl, cfg, ref, live):
+    """Share of the rows each planted K3 fault can move in which the row
+    tolerance catches it: a lost key tile (each row's diagonal 64-key tile
+    cut off; every live row), the window one 64-key tile wider (the rows
+    whose window cuts a whole tile more keys) and the softcap dropped (every
+    live row; ``ref`` and q are those of the steep case, see the caller)."""
+    import torch
+
+    B, Sq, Hq = q.shape[:3]
+    q_pos = qo.long()[:, None] + torch.arange(Sq, device=q.device)[None, :]
+    rows = (live.sum(-1) > 0)[:, :, None].expand(B, Sq, Hq)
+    lost = []
+    for b in range(B):
+        parts = []
+        for i0 in range(0, Sq, 64):
+            t0 = int(q_pos[b, i0]) // 64 * 64
+            parts.append(k3.flash_fwd_plain(q[b:b + 1, i0:i0 + 64], k[b:b + 1], v[b:b + 1],
+                                            qo[b:b + 1] + i0, torch.clamp(kl[b:b + 1], max=t0),
+                                            **cfg)[0])
+        lost.append(torch.cat(parts, dim=1))
+    wider = (q_pos - cfg["window"] - 63 >= 0)[:, :, None].expand(B, Sq, Hq)
+    return {"key_tile_lost": caught_share(torch.cat(lost), ref, rows),
+            "window_one_tile_wider": caught_share(
+                k3.flash_fwd_plain(q, k, v, qo, kl, **dict(cfg, window=cfg["window"] + 64))[0],
+                ref, rows & wider)}
+
+
+def gemma_kernel_cases(dev, bw, peak, log):
+    """K3 and K6 bf16 at head dim 256 (Gemma-2) against their plain versions
+    row by row (ROW_ULPS; K3's lse within 1e-3), two runs bit-identical, at
+    gemma2-9b's prefill (B 1, 8192 tokens, kv_len 8184, 16 q heads over 8,
+    softcap 50, scale 1/16, with and without the 4096 window), the engine's
+    bucket over an 8192 arena at a q_offset, the speculative verify block,
+    gemma2-2b's training shape (B 4 x 1024, 8 over 4) and an 8192-token
+    backward with the window; ALiBi and dropout 0.1 (the EXTRA instances);
+    planted faults (a lost key tile, the softcap dropped, the window one
+    tile wider; K6: a head left out of the GQA sum, the diagonal tile left
+    out of dq) that the row tolerance must catch. Timed cases stand beside
+    their bound and SDPA's flash forward/backward at the same shape, causal
+    with no window or softcap: not the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels import flash_attention_bwd as k6
+    from llm_fp8_tpu_torch.ops.attention import default_alibi_slopes
+
+    g = torch.Generator(device=dev).manual_seed(2562)
+    D, scale, cap = 256, 256 ** -0.5, 50.0
+    not_same = ("SDPA flash, causal, no softcap or window (heads expanded): not the same "
+                "function")
+    cases = []
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(torch.bfloat16)
+
+    # ---- K3 ----
+    for name, B, Sq, Sk, Hq, Hk, window, q_off, kv, timed in GEMMA_K3_CASES:
+        # q at 4x: scores of std ~4, where the softcap bends them.
+        q, k, v = randn(B, Sq, Hq, D, s=4.0), randn(B, Sk, Hk, D), randn(B, Sk, Hk, D)
+        qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kv, dtype=torch.int32, device=dev)
+        cfg = dict(causal=True, window=window, softcap=cap, scale=scale)
+        out, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **cfg)
+        again = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **cfg)
+        ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, **cfg)
+        torch.cuda.synchronize()
+        err, ulps = rows_within(out, ref, f"K3 D256 {name}")
+        fin = torch.isfinite(ref_lse)
+        check(bool((torch.isfinite(lse) == fin).all()), f"K3 D256 {name}: dead rows differ")
+        lse_err = (lse[fin] - ref_lse[fin]).abs().max().item()
+        check(lse_err <= 1e-3, f"K3 D256 {name}: lse err {lse_err}")
+        same = torch.equal(out.view(torch.int16), again.view(torch.int16))
+        check(same, f"K3 D256 {name}: two runs differ")
+        live = live_pairs(B, Sq, Sk, qo, kl, True, window, dev)
+        pairs = int(live.sum()) * Hq
+        case = dict(kernel="flash_attention", case=f"D256 {name}", max_abs_err=err,
+                    err_ulps=ulps, lse_err=lse_err, rerun_equal=same, live_pairs=pairs,
+                    dead_rows=int((~fin).sum()))
+        if timed:
+            call = lambda: k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **cfg)  # noqa: E731
+            case["ms"] = cuda_ms(call, calls=5)
+            case["plain_ms"] = cuda_ms(lambda: k3.flash_fwd_plain(q, k, v, qo, kl, **cfg),
+                                       calls=1, rounds=3)
+            grp = Hq // Hk
+            qh = q.transpose(1, 2)
+            kh = k.transpose(1, 2).repeat_interleave(grp, dim=1)
+            vh = v.transpose(1, 2).repeat_interleave(grp, dim=1)
+            case["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, scale=scale), calls=5)
+            case["library"] = not_same + (
+                "; at Sq < Sk SDPA aligns the causal mask top-left: a triangle of Sq keys"
+                if Sq < Sk else "")
+            case["vs_library"] = case["ms"] / case["library_ms"]
+            del qh, kh, vh
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
+            case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 4.0 * D * pairs, bw, peak)
+            case["tflops"] = 4.0 * D * pairs / (case["ms"] * 1e-3) / 1e12
+        cases.append(case)
+        log(case)
+        del q, k, v, out, lse, again, ref, ref_lse, live
+
+    # Planted K3 faults on a mid-size case (window 512): a lost tile and a
+    # wider window at the cases' scores (std ~4); the dropped softcap where
+    # it moves p by ~10% (q at 12x, scores of std ~12), the kernel held to
+    # its plain version there too.
+    B, S, Hq, Hk = 2, 2048, 16, 8
+    q, k, v = randn(B, S, Hq, D, s=4.0), randn(B, S, Hk, D), randn(B, S, Hk, D)
+    qo = torch.tensor([0, 37], dtype=torch.int32, device=dev)
+    kl = torch.tensor([2048, 1900], dtype=torch.int32, device=dev)
+    cfg = dict(causal=True, window=512, softcap=cap, scale=scale)
+    live = live_pairs(B, S, S, qo, kl, True, 512, dev)
+    out = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **cfg)
+    ref = k3.flash_fwd_plain(q, k, v, qo, kl, **cfg)[0]
+    err, ulps = rows_within(out, ref, "K3 D256 planted case")
+    caught = k3_planted_gemma(k3, q, k, v, qo, kl, cfg, ref, live)
+    steep = (q.float() * 3.0).to(torch.bfloat16)
+    out = k3.flash_attention(steep, k, v, q_offset=qo, kv_lens=kl, **cfg)
+    ref = k3.flash_fwd_plain(steep, k, v, qo, kl, **cfg)[0]
+    err12, ulps12 = rows_within(out, ref, "K3 D256 planted case, scores of std 12")
+    rows = (live.sum(-1) > 0)[:, :, None].expand(B, S, Hq)
+    caught["softcap_dropped"] = caught_share(
+        k3.flash_fwd_plain(steep, k, v, qo, kl, **dict(cfg, softcap=None))[0], ref, rows)
+    for tag, share in caught.items():
+        check(share >= 0.5, f"K3 D256: the tolerance lets a planted {tag} through in "
+              f"{1 - share:.0%} of the rows")
+    cases.append(dict(kernel="flash_attention", case="D256 planted B2 S2048 window 512",
+                      max_abs_err=max(err, err12), err_ulps=max(ulps, ulps12), caught=caught))
+    log(cases[-1])
+    del q, k, v, steep, out, ref, live
+
+    # ---- K6 ----
+    for name, B, S, Hq, Hk, window, softcap, kv, timed in GEMMA_K6_CASES:
+        q, k, v, do = randn(B, S, Hq, D), randn(B, S, Hk, D), randn(B, S, Hk, D), randn(B, S, Hq, D)
+        qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+        kl = torch.tensor(kv, dtype=torch.int32, device=dev)
+        cfg = dict(causal=True, window=window, softcap=softcap, scale=scale)
+        out, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **cfg)
+        args = (q, k, v, out, lse, do)
+        got = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)
+        again = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)
+        ref = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl, **cfg)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(same, f"K6 D256 {name}: two runs are not bit-identical")
+        live = live_pairs(B, S, S, qo, kl, True, window, dev)
+        nkeys = live.sum(dim=-1)
+        single = nkeys == 1
+        key_multi = (live & (nkeys > 1)[:, :, None]).any(dim=1)
+        ex = {"dq": single[:, :, None].expand(B, S, Hq),
+              "dk": (live.any(dim=1) & ~key_multi)[:, :, None].expand(B, S, Hk),
+              "dv": torch.zeros((B, S, Hk), dtype=torch.bool, device=dev)}
+        case = dict(kernel="flash_attention_bwd", case=f"D256 {name}", deterministic=same)
+        errs = []
+        for what, a, b in zip(("dq", "dk", "dv"), got, ref):
+            e, u, n_ex, noise = grad_rows_within(a, b, ex[what], f"K6 D256 {name} {what}")
+            case[what] = dict(max_abs_err=e, err_ulps=u, zero_rows=n_ex, zero_row_err=noise)
+            errs.append(e)
+        case["max_abs_err"] = max(errs)
+        pairs = int(live.sum()) * Hq
+        if S <= 1024:
+            case.update(k6_planted(k6, q, k, v, out, lse, do, qo, kl, cfg, ref, live, ex, dev))
+        if softcap < 50.0:  # the derivative's planted fault where it bites
+            bad = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl,
+                                               **dict(cfg, softcap=None))
+            rows = (nkeys > 0)[:, :, None].expand(B, S, Hq)
+            share = caught_share(bad[0], ref[0], rows & ~ex["dq"])
+            check(share >= 0.5, f"K6 D256: a dropped softcap passes in {1 - share:.0%} of the "
+                  "dq rows")
+            case.setdefault("planted_caught", {})["dq_softcap_dropped"] = share
+            del bad
+        if timed:
+            call = lambda: k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)  # noqa: E731
+            case["ms"] = cuda_ms(call, calls=5)
+            _, di = k6.flash_bwd_dq(q, k, v, out, do, lse, qo, kl, **cfg)
+            case["split_ms"] = {
+                "dq_and_di": cuda_ms(lambda: k6.flash_bwd_dq(q, k, v, out, do, lse, qo, kl,
+                                                             **cfg), calls=5),
+                "dkv": cuda_ms(lambda: k6.flash_bwd_dkv(q, k, v, do, lse, di, qo, kl, **cfg),
+                               calls=5)}
+            case["plain_ms"] = cuda_ms(lambda: k6.flash_attention_bwd_plain(
+                *args, q_offset=qo, kv_lens=kl, **cfg), calls=1, rounds=3)
+            grp = Hq // Hk
+            qh = q.transpose(1, 2)
+            kh = k.transpose(1, 2).repeat_interleave(grp, dim=1)
+            vh = v.transpose(1, 2).repeat_interleave(grp, dim=1)
+            sdpa_bwd, _ = sdpa_backward(qh, kh, vh, do.transpose(1, 2), scale)
+            case["library_ms"] = cuda_ms(sdpa_bwd, calls=5)
+            case["library"] = not_same
+            case["vs_library"] = case["ms"] / case["library_ms"]
+            del sdpa_bwd, qh, kh, vh
+            nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) \
+                + lse.numel() * 4
+            case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 10.0 * D * pairs, bw, peak)
+            # The bound's parts, as the kernels split the work: dQ with di
+            # (S, dP and dQ: 6·D a pair) and dKV (S, dP, dV and dK: 8·D).
+            case["split_bound_ms"] = {
+                "dq_and_di": bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()
+                                           + out.numel()), 6.0 * D * pairs, bw, peak)[0],
+                "dkv": bound_ms(2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()),
+                                8.0 * D * pairs, bw, peak)[0]}
+            case["tflops"] = 10.0 * D * pairs / (case["ms"] * 1e-3) / 1e12
+        cases.append(case)
+        log(case)
+        del q, k, v, do, out, lse, got, again, ref, live
+
+    # ---- EXTRA: ALiBi and dropout at D 256 ----
+    x = GEMMA_EXTRA
+    B, S, Hq, Hk = x["B"], x["S"], x["Hq"], x["Hk"]
+    q, k, v, do = randn(B, S, Hq, D), randn(B, S, Hk, D), randn(B, S, Hk, D), randn(B, S, Hq, D)
+    qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+    kl = torch.tensor([S, S - 77], dtype=torch.int32, device=dev)
+    slopes = default_alibi_slopes(Hq, dev)
+    al = slopes[None].expand(B, Hq).contiguous()
+    cfg = dict(causal=True, window=None, softcap=cap, scale=scale)
+    for tag, extra in (("alibi", dict(alibi_slopes=slopes)),
+                       ("dropout", dict(dropout_p=x["rate"], dropout_seed=x["seed"]))):
+        plain_kw = (dict(alibi=al) if tag == "alibi" else
+                    dict(dropout_p=x["rate"], dropout_seed=x["seed"]))
+        out, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **cfg,
+                                      **extra)
+        ref, _ = k3.flash_fwd_plain(q, k, v, qo, kl, **cfg, **plain_kw)
+        err, ulps = rows_within(out, ref, f"K3 D256 {tag}")
+        args = (q, k, v, out, lse, do)
+        got = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg, **plain_kw)
+        ref6 = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl, **cfg, **plain_kw)
+        live = live_pairs(B, S, S, qo, kl, True, None, dev)
+        nkeys = live.sum(dim=-1)
+        single = nkeys == 1
+        key_multi = (live & (nkeys > 1)[:, :, None]).any(dim=1)
+        ex = {"dq": single[:, :, None].expand(B, S, Hq),
+              "dk": (live.any(dim=1) & ~key_multi)[:, :, None].expand(B, S, Hk),
+              "dv": torch.zeros((B, S, Hk), dtype=torch.bool, device=dev)}
+        grads = {}
+        for what, a, b in zip(("dq", "dk", "dv"), got, ref6):
+            e, u, _, _ = grad_rows_within(a, b, ex[what], f"K6 D256 {tag} {what}")
+            grads[what] = dict(max_abs_err=e, err_ulps=u)
+        pairs = int(live.sum()) * Hq
+        call3 = lambda: k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **cfg, **extra)  # noqa: E731
+        call6 = lambda: k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg,  # noqa: E731
+                                               **plain_kw)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
+        b3 = bound_ms(nbytes, 4.0 * D * pairs, bw, peak)
+        b6 = bound_ms(2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel())
+                      + lse.numel() * 4, 10.0 * D * pairs, bw, peak)
+        cases.append(dict(kernel="flash_attention", case=f"D256 {tag} B{B} S{S} Hq{Hq} Hk{Hk}",
+                          max_abs_err=err, err_ulps=ulps, ms=cuda_ms(call3, calls=5),
+                          plain_ms=cuda_ms(lambda: k3.flash_fwd_plain(q, k, v, qo, kl, **cfg,
+                                                                      **plain_kw),
+                                           calls=1, rounds=3),
+                          bound_ms=b3[0], bound_by=b3[1], library_ms=None))
+        log(cases[-1])
+        cases.append(dict(kernel="flash_attention_bwd",
+                          case=f"D256 {tag} B{B} S{S} Hq{Hq} Hk{Hk}",
+                          max_abs_err=max(d["max_abs_err"] for d in grads.values()), **grads,
+                          ms=cuda_ms(call6, calls=5),
+                          plain_ms=cuda_ms(lambda: k6.flash_attention_bwd_plain(
+                              *args, q_offset=qo, kv_lens=kl, **cfg, **plain_kw),
+                              calls=1, rounds=3),
+                          bound_ms=b6[0], bound_by=b6[1], library_ms=None))
+        log(cases[-1])
+        del out, lse, ref, got, ref6, live
+    return cases
+
+
+#: gemma_slice: a prompt that outruns the 4096 window (its last 64 queries
+#: see a window that starts past key 0) in a bucket of the same length.
+GEMMA_SLICE_PROMPT, GEMMA_SLICE_BUCKET = 4160, 4160
+
+
+def gemma_slice_check(dev, log):
+    return [pinned(route, lambda: _gemma_slice_check(dev, log, route, forced))
+            for route, forced in (("xla", False), ("fp8native", True))]
+
+
+def _gemma_slice_check(dev, log, route, forced, model="gemma2-9b"):
+    """``model`` at full width cut to 2 layers (one sliding, one full),
+    LAYERWISE fp8 weights, an e4m3 ``KVCache`` as the engine keeps it: one
+    prefill of a 4160-token prompt (past the 4096 window) and two decode
+    steps on the card and on the CPU, the logits at the prompt's last 64
+    positions and the two steps held to ``BAICHUAN_XLA_TOL_STD`` of the CPU
+    logits' std (the bf16 width rule measured at Baichuan-13B). ``forced``:
+    the CPU's fp8native products take the card's projection inputs."""
+    import dataclasses
+
+    import torch
+
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.models.llama import init_kv_cache
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+
+    entry = resolve_model(model)
+    cfg = dataclasses.replace(entry.cfg, num_layers=2)
+    check(cfg.head_dim == 256 and cfg.sliding_window == 4096 and cfg.num_heads == 16,
+          f"gemma slice: {model} is not gemma2-9b's shape")
+    params = entry.quantize_fn(entry.init_fn(cfg, dtype=torch.bfloat16, device=dev, seed=7),
+                               LAYERWISE)
+    cpu_params = to_cpu(params)
+    n, S = GEMMA_SLICE_PROMPT, GEMMA_SLICE_BUCKET + 64
+    prompt = torch.randint(1, cfg.vocab_size, (1, GEMMA_SLICE_BUCKET),
+                           generator=torch.Generator().manual_seed(3))
+    rec = ForcedQdotInputs()
+    side = rec.side if forced else (lambda name: contextlib.nullcontext())
+    runs = {}
+    for name, p, d in (("cuda", params, dev), ("cpu", cpu_params, torch.device("cpu"))):
+        cache = init_kv_cache(cfg, 1, S, dtype=torch.float8_e4m3fn, device=d)
+        with side(name):
+            lg, cache = entry.forward_fn(p, prompt.to(d), cfg, cache=cache, start_pos=0,
+                                         kv_lens=torch.tensor([n], device=d))
+        runs[name] = [[lg[0, n - 64:n].float().cpu()], cache, p, d]
+        del lg
+    tok = int(torch.argmax(runs["cpu"][0][0][-1]))
+    for step in range(2):
+        for name in ("cuda", "cpu"):
+            out, cache, p, d = runs[name]
+            with side(name):
+                lg, runs[name][1] = entry.forward_fn(
+                    p, torch.tensor([[tok]], device=d), cfg, cache=cache,
+                    start_pos=torch.tensor([n + step], device=d),
+                    kv_lens=torch.tensor([n + step + 1], device=d))
+            out.append(lg[0].float().cpu())
+        tok = int(torch.argmax(runs["cpu"][0][-1][0]))
+    errs = []
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        check(bool(torch.isfinite(a).all()), f"gemma slice {model}: non-finite logits on the card")
+        errs.append((a - b).abs().max().item())
+    std = float(torch.cat([x.reshape(-1) for x in runs["cpu"][0]]).std())
+    res = dict(config=f"{model}, 2 layers at full width (layer 0 sliding 4096, layer 1 full), "
+               f"LAYERWISE fp8, e4m3 KVCache: prefill of {n} tokens (its last 64 positions) + 2 "
+               "decode steps", qdot_route=route, cpu_takes_card_qdot_inputs=forced,
+               forced_calls=rec.forced, steps=len(errs), logits_max_abs_err=max(errs),
+               per_step=errs, logits_std=std, err_over_std=max(errs) / std,
+               tol_std=BAICHUAN_XLA_TOL_STD,
+               logits_max_abs=max(float(x.abs().max()) for x in runs["cpu"][0]))
+    log(res)
+    check(max(errs) <= BAICHUAN_XLA_TOL_STD * std,
+          f"gemma slice {model} ({route}{', forced inputs' if forced else ''}): logits err "
+          f"{max(errs)} > {BAICHUAN_XLA_TOL_STD} std ({std})")
+    check(not forced or (rec.forced > 0 and not rec.queue),
+          f"gemma slice {model}: {rec.forced} forced inputs, {len(rec.queue)} unused")
+    del params, cpu_params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+#: gemma_train_slice's limits, those of the CPU parity test of a bf16-recipe
+#: step against JAX (tests/test_torch_gemma.py): the two sides round bf16
+#: activations at the same points but sum in other orders, so a rounding
+#: flips now and then; the loss within 1e-3 relative and each gradient
+#: within 2e-2 of its largest |value|.
+GEMMA_TRAIN_LOSS_RTOL = 1e-3
+GEMMA_TRAIN_GRAD_SHARE = 2e-2
+
+
+def gemma_train_slice(dev, log, model="gemma2-2b"):
+    """``model`` at full width cut to 2 layers, the bf16 recipe (bf16
+    compute, each dot's float32 weight cast): one step card (K3 and K6 bf16
+    at D 256) against CPU, without and with attention dropout 0.1
+    (``forward_fn_train_slice``), held to ``GEMMA_TRAIN_LOSS_RTOL`` and
+    ``GEMMA_TRAIN_GRAD_SHARE``."""
+    return forward_fn_train_slice(dev, log, model, "gemma train slice", GEMMA_TRAIN_PATH,
+                                  GEMMA_TRAIN_LOSS_RTOL, GEMMA_TRAIN_GRAD_SHARE,
+                                  "bf16 compute", absent=("flash_attention_f32",))
+
+
+#: gemma_serve's prompts: 6 of 500-1000 tokens and 2 of 4500-6000 (past the
+#: 4096 window, in the 8192 bucket), 32 new tokens each.
+GEMMA_SERVE_PROMPTS = ((6, 500, 1001), (2, 4500, 6001))
+GEMMA_SERVE_LAYERS = 42
+
+
+def gemma_serving(dev, card, log, num_layers=GEMMA_SERVE_LAYERS):
+    """gemma2-9b (16 heads of 256 over 8, vocab 256000, softcaps, the 4096
+    window on even layers) at full width and all 42 layers through
+    ``Engine(forward_fn=gemma_forward)``: LAYERWISE fp8 weights made a layer
+    at a time, e4m3 KV on the KVCache path, max_seq_len 8192, 8 requests
+    (``GEMMA_SERVE_PROMPTS``), 32 new tokens each, after a warm-up request;
+    the CUDA graph against the eager twin (greedy tokens equal), the path's
+    launches (K3 bf16 at D 256 at every prefill layer, K9 at every
+    projection in the prefills and in the captured step), step ms, TTFT,
+    tokens/s, peak memory and the graph run's device busy share (profiled
+    apart)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.serving import EngineConfig
+
+    entry = resolve_model("gemma2-9b")
+    cfg = dataclasses.replace(entry.cfg, num_layers=num_layers)
+    check(cfg.num_heads == 16 and cfg.num_kv_heads == 8 and cfg.head_dim == 256
+          and cfg.hidden_size == 3584 and cfg.vocab_size == 256000,
+          "gemma_serve: gemma2-9b is not gemma2-9b's shape")
+
+    Checked, Eager = forward_fn_engines(entry.forward_fn)
+
+    def run(cls, prompts, new):
+        return forward_fn_run(cls, params, cfg, ecfg, prompts, new, dev, "gemma serve")
+
+    res = {"card": card}
+    t0 = time.perf_counter()
+    params = fp8_params_by_layer(cfg, dev, init=entry.init_fn, quantize=entry.quantize_fn,
+                                 per=2)
+    res["init_s"] = time.perf_counter() - t0
+    res["weights_gb"] = sum(
+        (v.qvalue.untyped_storage().nbytes() if hasattr(v, "qvalue") else
+         v.numel() * v.element_size()) for v in list(params["layers"].values())
+        + [params[k] for k in params if k != "layers"]) / 1e9
+    ecfg = EngineConfig(max_slots=8, max_seq_len=8192, prefill_buckets=(1024, 2048, 4096, 8192),
+                        kv_dtype="fp8")
+    rng = np.random.RandomState(13)
+    prompts = [rng.randint(1, cfg.vocab_size, rng.randint(lo, hi)).astype(np.int32)
+               for count, lo, hi in GEMMA_SERVE_PROMPTS for _ in range(count)]
+    run(Checked, prompts[:1], 4)  # warm-up: cuBLAS's first calls, the allocator's growth
+    gc.collect()
+    out = {mode: run(cls, prompts, 32) for mode, cls in (("graph", Checked), ("eager", Eager))}
+    eng, reqs, wall, counts = out["graph"]
+    e_eng, e_reqs, e_wall, e_counts = out["eager"]
+    graph = eng.step_graph
+    graph_checks("gemma serve", eng, graph, eng.burst_steps)
+    equal = [r.output for r in reqs] == [r.output for r in e_reqs]
+    check(equal, "gemma serve: the graph's greedy tokens differ from the eager step's")
+    check(not eng._fp8_arena and eng.cache.k.dtype == torch.float8_e4m3fn
+          and "head_f32" not in eng.params,
+          "gemma serve: not the e4m3 KVCache path, or a float32 head copy was made")
+    launches = device_launches(counts, graph)
+    check(counts["flash_attention"] == num_layers * len(prompts),
+          f"gemma serve: K3 launched {counts['flash_attention']} times for {len(prompts)} "
+          f"prefills of {num_layers} layers")
+    check(counts["flash_attention_f32"] == 0 and counts["quantize_fused"] > 0
+          and graph.launches.get("quantize_fused", 0) > 0,
+          f"gemma serve: launches {counts}, a replay {graph.launches}")
+    ttfts = sorted(r.ttft for r in reqs)
+    res["gemma"] = dict(
+        config=f"gemma2-9b, {num_layers} of 42 layers, LAYERWISE fp8 weights, e4m3 KVCache, "
+        "8 slots x 8192", requests=len(prompts), prompt_lens=[len(p) for p in prompts],
+        generated=32 * len(prompts), wall_s=wall, tokens_per_s=32 * len(prompts) / wall,
+        ttft_p50_s=ttfts[len(ttfts) // 2], prefill_s=eng.prefill_s,
+        prefill_ms_per_request=1e3 * eng.prefill_s / len(prompts),
+        decode_step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1),
+        eager_decode_step_ms=1e3 * e_eng.decode_s / max(e_eng.burst_steps, 1),
+        eager_wall_s=e_wall, peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        launches=launches, launches_counted=counts, launches_a_replay=graph.launches,
+        eager_launches=e_counts, replays=graph.replays, captures=graph.captures,
+        tokens_equal_eager=equal)
+    del out, eng, e_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["gemma"]["profile"] = profile_run(Checked, params, cfg, ecfg, prompts, dev)
+    log({k: v for k, v in res["gemma"].items() if k != "launches_counted"})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+#: gemma_train: tokens a step. 4 x 1024 ran alone (peak 68.1 GB under remat
+#: dots) but not after the earlier phases in one process: the allocator
+#: then held ~17 GB reserved and unallocated, and AdamW's 4.4 GB temporaries
+#: of w_gate_up found no block. 2 x 1024 runs after them (PERF.md);
+#: its peak (66.8 GB) is the float32 state and AdamW's temporaries, about
+#: the same. The tokens a step are cut, not the widths or the layers.
+GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ, GEMMA_TRAIN_STEPS = 2, 1024, 3
+
+
+def gemma_training(dev, card, log, model="gemma2-2b", steps=GEMMA_TRAIN_STEPS):
+    """``model`` (gemma2-2b: 26 layers, 2304 wide, 8 heads of 256 over 4,
+    vocab 256000) at full width and depth, float32 master weights and AdamW,
+    the bf16 recipe (bf16 compute), 2 x 1024 synthetic tokens a step through
+    ``Trainer(forward_fn=gemma_forward)`` (``forward_fn_training``): remat
+    full, then dots (losses bit-equal), K3 and K6 bf16 at D 256 launched
+    their counts a step, no float32 instance."""
+    from llm_fp8_tpu_torch.models import resolve_model
+
+    cfg = resolve_model(model).cfg
+    check(cfg.num_layers == 26 and cfg.head_dim == 256 and cfg.vocab_size == 256000,
+          f"gemma train: {model} is not gemma2-2b's shape")
+    return forward_fn_training(dev, card, log, model, steps, GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ,
+                               200, GEMMA_TRAIN_PATH, ("flash_attention_f32",),
+                               "bf16 recipe (bf16 compute)")
+
+
+def gemma_spec_serving(dev, card, log, target="gemma2-9b", draft="gemma2-2b"):
+    """Speculative serving of Gemma-2: ``target`` (gemma2-9b, 42 layers,
+    LAYERWISE fp8 weights made a layer at a time, e4m3 KV) with ``draft``
+    (gemma2-2b, bf16 and unquantized, as the JAX CLI's) through
+    ``SpecEngine(forward_fn=, draft_forward_fn=)``: 8 requests of 500-1000
+    tokens, 32 new each, gamma 4, greedy; the round's CUDA graph against its
+    eager twin (tokens equal), K3 (the verify block, Sq = 5 over the cache)
+    and K9 launched in the captured round."""
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.serving import EngineConfig, SamplingParams
+
+    Rounds, EagerRounds = spec_round_classes()
+    tentry, dentry = resolve_model(target), resolve_model(draft)
+    tcfg, dcfg = tentry.cfg, dentry.cfg
+    check(tcfg.vocab_size == dcfg.vocab_size == 256000 and tcfg.num_layers == 42
+          and dcfg.num_layers == 26, f"gemma spec: {target}/{draft} are not gemma2-9b/2b")
+    t0 = time.perf_counter()
+    tparams = fp8_params_by_layer(tcfg, dev, init=tentry.init_fn, quantize=tentry.quantize_fn,
+                                  per=2)
+    dparams = dentry.init_fn(dcfg, dtype=torch.bfloat16, device=dev, seed=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gamma, max_new = 4, 32
+    ecfg = EngineConfig(max_slots=8, max_seq_len=2048, prefill_buckets=(1024, 2048),
+                        kv_dtype="fp8")
+    rng = np.random.RandomState(14)
+    prompts = [rng.randint(1, tcfg.vocab_size, rng.randint(500, 1001)).astype(np.int32)
+               for _ in range(8)]
+    hooks = dict(forward_fn=tentry.forward_fn, draft_forward_fn=dentry.forward_fn)
+
+    def serve(cls, what):
+        return spec_run(cls, tparams, tcfg, dparams, dcfg, ecfg, prompts, max_new, gamma, dev,
+                        f"gemma spec {what}", **hooks)
+
+    warm = Rounds(tparams, tcfg, dparams, dcfg, ecfg, gamma=gamma, device=dev, **hooks)
+    warm.add_request(prompts[0], SamplingParams(max_new_tokens=4))
+    warm.run()
+    del warm
+    gc.collect()
+    eng, spec_tokens, greedy = serve(Rounds, "greedy")
+    for kname in GEMMA_SERVE_PATH:
+        check(eng.round_graph.launches.get(kname, 0) > 0,
+              f"gemma spec greedy: {kname} is not in the captured round")
+    check(greedy["launches"]["flash_attention_f32"] == 0
+          and greedy["launches"]["decode_attention_arena"] == 0,
+          f"gemma spec greedy: a float32/arena attention kernel ran ({greedy['launches']})")
+    del eng
+    gc.collect()
+    _, eager_tokens, eager = serve(EagerRounds, "eager")
+    equal = spec_tokens == eager_tokens
+    check(equal, "gemma spec: the round graph's greedy tokens differ from the eager round's")
+    res = dict(card=card, target=f"{target}, LAYERWISE fp8, e4m3 KV", draft=f"{draft}, bf16",
+               slots=8, gamma=gamma, max_new=max_new, prompt_lens=[len(p) for p in prompts],
+               init_s=init_s, greedy=greedy, eager=eager, tokens_equal_eager=equal,
+               acceptance_note="random weights: acceptance is not that of trained models")
+    log(res)
+    del tparams, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5133,7 +5811,13 @@ def main(argv=None) -> int:
              ("zoo_train_kernels", lambda: zoo_train_kernel_cases(dev, bw, peak, log)),
              ("zoo_train_slice", lambda: zoo_train_slice(dev, log)),
              ("zoo_train", lambda: zoo_training(dev, card, log)),
-             ("zoo_spec_serve", lambda: zoo_spec_serving(dev, card, log)))
+             ("zoo_spec_serve", lambda: zoo_spec_serving(dev, card, log)),
+             ("gemma_kernels", lambda: gemma_kernel_cases(dev, bw, peak, log)),
+             ("gemma_slice", lambda: gemma_slice_check(dev, log)),
+             ("gemma_train_slice", lambda: gemma_train_slice(dev, log)),
+             ("gemma_serve", lambda: gemma_serving(dev, card, log)),
+             ("gemma_train", lambda: gemma_training(dev, card, log)),
+             ("gemma_spec_serve", lambda: gemma_spec_serving(dev, card, log)))
     try:
         for phase, run in steps:
             if phase in phases:
@@ -5147,6 +5831,9 @@ def main(argv=None) -> int:
         save_report()
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    except BaseException:
+        save_report()  # the phases run so far, for the traceback's reader
+        raise
     save_report()
 
     if phases != set(PHASES):
@@ -5184,7 +5871,13 @@ def kernels_line(report):
                "zoo train (btlm-3b, 32 layers, remat full and dots)":
                    report["zoo_train"]["launches"],
                "zoo spec (gpt2-xl target, gpt2 draft, greedy)":
-                   report["zoo_spec_serve"]["greedy"]["launches"]}
+                   report["zoo_spec_serve"]["greedy"]["launches"],
+               "gemma serve (gemma2-9b, 42 layers, e4m3 KVCache)":
+                   report["gemma_serve"]["gemma"]["launches"],
+               "gemma train (gemma2-2b, 26 layers, remat full and dots)":
+                   report["gemma_train"]["launches"],
+               "gemma spec (gemma2-9b target, gemma2-2b draft, greedy)":
+                   report["gemma_spec_serve"]["greedy"]["launches"]}
     for counts in by_path.values():
         counts["flash_attention_bwd"] = (counts.get("flash_attention_bwd_dkv", 0)
                                          + counts.get("flash_attention_bwd_dq", 0))
@@ -5209,9 +5902,18 @@ def kernels_line(report):
         "decode_attention_arena": {"alibi": ("alibi_kernels", "B8 Hq40")},
         "paged_attention": {"alibi": ("alibi_kernels", "B8 Hq40")},
         "flash_attention": {"alibi": ("alibi_kernels", "alibi Hq40 D128 prefill"),
-                            "dropout": ("dropout_kernels", "dropout")},
+                            "dropout": ("dropout_kernels", "dropout"),
+                            "head_dim 256": ("gemma_kernels", "D256 9b prefill B1 Sq=Sk=8192 "
+                                             "window"),
+                            "head_dim 256 full": ("gemma_kernels", "D256 9b prefill B1 "
+                                                  "Sq=Sk=8192 full"),
+                            "head_dim 256 engine bucket": ("gemma_kernels",
+                                                           "D256 engine bucket")},
         "flash_attention_bwd": {"alibi": ("alibi_kernels", "alibi Hq40 D128 B2 S1024"),
-                                "dropout": ("dropout_kernels", "dropout")},
+                                "dropout": ("dropout_kernels", "dropout"),
+                                "head_dim 256": ("gemma_kernels", "D256 2b train"),
+                                "head_dim 256 window 4096 S8192": ("gemma_kernels",
+                                                                   "D256 train B1 S8192")},
         "flash_attention_f32": {"dropout": ("zoo_train_kernels", "dropout")}}
     headers = {"decode_attention_arena": ["decode_split.cuh", "fp8_ftz.cuh"],
                "paged_attention": ["decode_split.cuh", "fp8_ftz.cuh"],
@@ -5300,8 +6002,8 @@ def kernels_line(report):
                          if o["kernel"] == kname and o["case"].startswith(prefix))
                 line[-1]["features"][tag] = {k: o.get(k) for k in (
                     "case", "max_abs_err", "ms", "ms_without_alibi", "ms_without_dropout",
-                    "plain_ms", "bound_ms", "bound_by", "library_ms", "keep_mask_equal",
-                    "k6_keep_mask_equal")
+                    "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+                    "keep_mask_equal", "k6_keep_mask_equal", "split_ms", "split_bound_ms")
                     if k in o}
         if kname in also:
             phase, prefix = also[kname]

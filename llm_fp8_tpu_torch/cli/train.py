@@ -1,10 +1,12 @@
 """Fine-tuning CLI on the card (counterpart of ``llm_fp8_tpu/cli/train.py``;
-the Llama, GPT-2 and NeoX families, resolved by ``models/registry.py``):
+the Llama, GPT-2, NeoX and Gemma-2 families, resolved by ``models/registry.py``):
 
   python -m llm_fp8_tpu_torch.cli.train --model_name meta-llama/Llama-3.2-1B \\
       --random_init --synthetic_samples 400 --mixed_precision fp8 --fp8_scenario default
   python -m llm_fp8_tpu_torch.cli.train --model_name btlm-3b --random_init \\
       --synthetic_samples 400 --mixed_precision bf16 --remat full
+  python -m llm_fp8_tpu_torch.cli.train --model_name gemma2-2b --random_init \\
+      --synthetic_samples 400 --mixed_precision bf16 --remat dots
 
 ``--synthetic_samples N`` trains on the built-in corpus with a byte
 tokenizer (the only data path until local data is ported), from random
@@ -20,10 +22,11 @@ best eval loss kept), writes the trained model as HF safetensors
 (``stability_report.json``) into ``--output_dir``, and prints the report as
 the last line. ``--remat none|full|dots`` checkpoints each layer.
 
-A GPT-2/NeoX model trains through ``Trainer(forward_fn=...)`` on the bf16
-recipe (``--mixed_precision fp8`` is refused, as in the JAX CLI), from random
-weights or a safetensors directory read by its family's packer
-(``load_zoo_checkpoint``), in float32; its trained params are written as the
+A GPT-2/NeoX or Gemma-2 model trains through ``Trainer(forward_fn=...)`` on
+the bf16 recipe (``--mixed_precision fp8`` is refused, as in the JAX CLI),
+from random weights or a safetensors directory read by its family's packer
+(``load_zoo_checkpoint``), with float32 master weights (GPT-2/NeoX compute in
+float32, Gemma-2 in bf16 with each dot's weight cast); its trained params are written as the
 JAX CLI writes them: ``params.pkl``, a pickle of the stacked tree as numpy
 arrays under the JAX package's key names, which either package reads.
 

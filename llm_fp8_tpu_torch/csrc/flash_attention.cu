@@ -25,13 +25,19 @@
 // Design:
 // - One block per (query tile, q head, batch row): one producer warpgroup
 //   and NC consumer warpgroups of 64 query rows each. NC is 2 (128 rows)
-//   when the grid still covers the SMs, else 1 (short prompts, and D = 128,
+//   when the grid still covers the SMs, else 1 (short prompts, and D >= 128,
 //   whose S, P and O do not fit the registers of a 384-thread block).
-// - The producer's one thread loads Q once and the 128-key K and V tiles
+// - The key tile is BN keys: 128, or 64 at D = 256 (Gemma-2), where Q and a
+//   2-stage ring of 128-key K and V tiles (288 KB) exceed shared memory and
+//   O alone takes 128 registers a thread (64 x 256 float32 a warpgroup):
+//   with 64-key tiles the ring is 4 x 32 KB (160 KB with Q), S is a m64n64
+//   accumulator (32 registers) and P·V runs as 4 k-steps over V's four
+//   64-column chunks.
+// - The producer's one thread loads Q once and the BN-key K and V tiles
 //   through TMA (a 4-D tensor map over [B, S, H, D]; rows past S arrive as
 //   zeros) into a 2-stage ring in swizzled shared memory, with full and
 //   empty mbarriers, so the next tile's copy overlaps this tile's math.
-// - Consumers: S = Q·Kᵀ on wgmma m64n128k16 with both operands in shared
+// - Consumers: S = Q·Kᵀ on wgmma m64nBNk16 with both operands in shared
 //   memory (SS, both K-major as stored); S stays in the accumulator
 //   registers. Scale, softcap and masks are applied there, and the online
 //   softmax runs in the log2 domain (one ex2 per score, log2(e) folded into
@@ -56,14 +62,21 @@ using namespace hopper;
 
 namespace {
 
-constexpr int kBN = 128, kStages = 2;
+constexpr int kStages = 2;
 constexpr float kMask = -0.7f * 3.4028234663852886e38f;
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
+// The key tile: 128 keys, 64 at D = 256 (see the design note).
+template <int D>
+constexpr int key_tile() {
+  return D == 256 ? 64 : 128;
+}
+
 template <int D, int NC>
 struct FwdSmem {
+  static constexpr int BN = key_tile<D>();
   static constexpr int QB = NC * 64 * D * 2;  // Q [NC·64][D]
-  static constexpr int KB = kBN * D * 2;      // one K or V tile [128][D]
+  static constexpr int KB = BN * D * 2;       // one K or V tile [BN][D]
   static constexpr int Q = 0;
   static constexpr int K = Q + QB;
   static constexpr int V = K + kStages * KB;
@@ -72,9 +85,9 @@ struct FwdSmem {
 };
 
 // The online softmax of one consumer thread's two rows (row and row + 8 of
-// its warp's 16) over one 128-key tile of scores held as a m64n128
+// its warp's 16) over one BN-key tile of scores held as a m64nBN
 // accumulator, in the log2 domain. EXTRA: ALiBi and dropout may be on.
-template <bool EXTRA>
+template <bool EXTRA, int BN>
 struct Rows {
   float scale, softcap;
   int causal, window, kv_len;
@@ -89,10 +102,10 @@ struct Rows {
   // m and sum l, leaves p = 2^(x - m) in sc (dropped and scaled under
   // dropout) and the factor alpha by which the output accumulator must be
   // rescaled.
-  __device__ __forceinline__ void softmax(float (&sc)[kBN / 2], int k0, float (&m)[2],
+  __device__ __forceinline__ void softmax(float (&sc)[BN / 2], int k0, float (&m)[2],
                                           float (&l)[2], float (&alpha)[2]) const {
     const float scale2 = scale * kLog2e;
-    const bool need_mask = k0 + kBN > kv_len || (causal && k0 + kBN - 1 > wg_min) ||
+    const bool need_mask = k0 + BN > kv_len || (causal && k0 + BN - 1 > wg_min) ||
                            (window > 0 && k0 <= wg_min + 63 - window);
     float mx[2] = {-INFINITY, -INFINITY};
     // Unmasked, uncapped, unbiased tiles (most of a long prompt) take the max
@@ -100,12 +113,12 @@ struct Rows {
     const bool fold = !need_mask && softcap <= 0.0f && scale2 > 0.0f && (!EXTRA || slope2 == 0.0f);
     if (fold) {
 #pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
 #pragma unroll
       for (int r = 0; r < 2; ++r) mx[r] *= scale2;
     } else {
 #pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) {
+      for (int i = 0; i < BN / 2; ++i) {
         float x = softcap > 0.0f ? softcap * tanhf(sc[i] * scale / softcap) * kLog2e
                                  : sc[i] * scale2;
         const int kp = k0 + 8 * (i / 4) + 2 * quad + (i & 1), q = q_pos + 8 * ((i >> 1) & 1);
@@ -131,14 +144,14 @@ struct Rows {
     }
     if (fold) {
 #pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) {
+      for (int i = 0; i < BN / 2; ++i) {
         const float p = fast_exp2(fmaf(sc[i], scale2, -m[(i >> 1) & 1]));
         sc[i] = p;
         rs[(i >> 1) & 1] += p;
       }
     } else {
 #pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) {
+      for (int i = 0; i < BN / 2; ++i) {
         const float p = fast_exp2(sc[i] - m[(i >> 1) & 1]);
         sc[i] = p;
         rs[(i >> 1) & 1] += p;
@@ -148,7 +161,7 @@ struct Rows {
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
     if (EXTRA && drop.on()) {
 #pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) {
+      for (int i = 0; i < BN / 2; ++i) {
         const int kp = k0 + 8 * (i / 4) + 2 * quad + (i & 1), q = q_pos + 8 * ((i >> 1) & 1);
         sc[i] = drop.keep(h0, q, kp) ? sc[i] * drop.scale : 0.0f;
       }
@@ -166,6 +179,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  dropout::Params drop) {
   using T = Tile<D>;
   using L = FwdSmem<D, NC>;
+  constexpr int BN = L::BN;
   constexpr int CH = T::CW / 2;  // accumulator floats of one column chunk
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -184,9 +198,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int q_min = q_off + q0, q_max = q_off + min(q0 + NC * 64, Sq) - 1;
   int k_hi = kv_len;
   if (causal) k_hi = min(k_hi, q_max + 1);
-  const int kt_end = k_hi > 0 ? (k_hi + kBN - 1) / kBN : 0;
+  const int kt_end = k_hi > 0 ? (k_hi + BN - 1) / BN : 0;
   int kt_begin = 0;
-  if (window > 0 && q_min - window + 1 > 0) kt_begin = (q_min - window + 1) / kBN;
+  if (window > 0 && q_min - window + 1 > 0) kt_begin = (q_min - window + 1) / BN;
   const int ntiles = max(kt_end - kt_begin, 0);
 
   if (threadIdx.x == 0) {
@@ -209,14 +223,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       for (int j = 0; j < ntiles; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(empty(s), ((j / kStages) - 1) & 1);
-        const int k0 = (kt_begin + j) * kBN;
+        const int k0 = (kt_begin + j) * BN;
         mbar_arrive_expect_tx(k_full(s), L::KB);
         for (int c = 0; c < T::NCH; ++c)
-          tma_load_4d(base + L::K + s * L::KB + c * kBN * T::SWZ, &tk, k_full(s), c * T::CW, kvh,
+          tma_load_4d(base + L::K + s * L::KB + c * BN * T::SWZ, &tk, k_full(s), c * T::CW, kvh,
                       k0, b);
         mbar_arrive_expect_tx(v_full(s), L::KB);
         for (int c = 0; c < T::NCH; ++c)
-          tma_load_4d(base + L::V + s * L::KB + c * kBN * T::SWZ, &tv, v_full(s), c * T::CW, kvh,
+          tma_load_4d(base + L::V + s * L::KB + c * BN * T::SWZ, &tv, v_full(s), c * T::CW, kvh,
                       k0, b);
       }
     }
@@ -226,7 +240,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     const int warp = t / 32, lane = t % 32, quad = lane % 4;
     const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
     const int bh = b * Hq + h;
-    const Rows<EXTRA> rows{scale, softcap, causal, window, kv_len, q_off + row0,
+    const Rows<EXTRA, BN> rows{scale, softcap, causal, window, kv_len, q_off + row0,
                            q_off + q0 + 64 * wg, quad,
                            EXTRA && alibi != nullptr ? alibi[bh] * kLog2e : 0.0f, drop,
                            EXTRA ? drop.head(static_cast<uint32_t>(bh)) : 0u};
@@ -237,8 +251,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 #pragma unroll
       for (int i = 0; i < CH; ++i) o[c][i] = 0.0f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2] = {1.0f, 1.0f};
-    float sc[kBN / 2];
-    uint32_t pf[kBN / 16][4];
+    float sc[BN / 2];
+    uint32_t pf[BN / 16][4];
 
     // S(j) = Q·K(j)ᵀ into sc (issued, not waited for).
     auto issue_s = [&](int j) {
@@ -247,9 +261,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       fence_regs(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n128(sc, T::kmajor(base + L::Q, NC * 64, 64 * wg, kk),
-                      T::kmajor(base + L::K + s * L::KB, kBN, 0, kk), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t dq = T::kmajor(base + L::Q, NC * 64, 64 * wg, kk);
+        const uint64_t dk = T::kmajor(base + L::K + s * L::KB, BN, 0, kk);
+        if constexpr (BN == 128) wgmma_ss_n128(sc, dq, dk, kk > 0);
+        else wgmma_ss_n64(sc, dq, dk, kk > 0);
+      }
       wgmma_commit();
     };
 
@@ -261,10 +278,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       for (int c = 0; c < T::NCH; ++c) fence_regs(o[c]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
+      for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
         for (int c = 0; c < T::NCH; ++c) {
-          const uint64_t dv = T::mnmajor(base + L::V + s * L::KB, kBN, c, kk);
+          const uint64_t dv = T::mnmajor(base + L::V + s * L::KB, BN, c, kk);
           if constexpr (T::CW == 64) wgmma_rs_n64_bt(o[c], pf[kk], dv);
           else wgmma_rs_n32_bt(o[c], pf[kk], dv);
         }
@@ -272,7 +289,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     };
     // P(j) from the softmax's p into pf, and O rescaled by its alpha.
     auto take_p = [&]() {
-      acc_to_a<kBN>(sc, pf);
+      acc_to_a<BN>(sc, pf);
 #pragma unroll
       for (int c = 0; c < T::NCH; ++c)
 #pragma unroll
@@ -293,7 +310,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       issue_s(0);
       wgmma_wait<0>();
       fence_regs(sc);
-      rows.softmax(sc, kt_begin * kBN, m, l, alpha);
+      rows.softmax(sc, kt_begin * BN, m, l, alpha);
     }
     // Tile j: P(j)·V(j) runs on the tensor cores while the softmax of tile
     // j + 1 runs on the scores S(j + 1), issued just before it. The last tile
@@ -305,7 +322,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       issue_pv(j);
       wgmma_wait<1>();  // S(j + 1) is done; P(j)·V(j) may still run
       fence_regs(sc);
-      rows.softmax(sc, (kt_begin + j + 1) * kBN, m, l, alpha);
+      rows.softmax(sc, (kt_begin + j + 1) * BN, m, l, alpha);
       retire(j);
     }
     if (ntiles > 0) {
@@ -371,9 +388,10 @@ struct FwdArgs {
 template <int D, int NC, bool EXTRA>
 int launch_nc(const void* q, const void* k, const void* v, const FwdArgs& a, cudaStream_t s) {
   CUtensorMap tq, tk, tv;
+  constexpr int BN = FwdSmem<D, NC>::BN;
   int e = encode_bshd<D>(&tq, q, a.B, a.Sq, a.Hq, NC * 64);
-  if (e == 0) e = encode_bshd<D>(&tk, k, a.B, a.Sk, a.Hk, kBN);
-  if (e == 0) e = encode_bshd<D>(&tv, v, a.B, a.Sk, a.Hk, kBN);
+  if (e == 0) e = encode_bshd<D>(&tk, k, a.B, a.Sk, a.Hk, BN);
+  if (e == 0) e = encode_bshd<D>(&tv, v, a.B, a.Sk, a.Hk, BN);
   if (e != 0) return e;
   constexpr int bytes = FwdSmem<D, NC>::BYTES;
   // The shared-memory limit is set once per kernel instance (a
@@ -391,11 +409,12 @@ int launch_nc(const void* q, const void* k, const void* v, const FwdArgs& a, cud
 
 // 128 query rows a block when that grid still covers 90% of the SMs, else 64.
 // At D = 128 always 64: a consumer thread's S, P and O (64 + 32 + 64
-// registers) exceed the 168 a thread of a 384-thread block can hold.
+// registers) exceed the 168 a thread of a 384-thread block can hold; at
+// D = 256 (S, P and O: 32 + 16 + 128) likewise.
 template <int D, bool EXTRA>
 int launch(const void* q, const void* k, const void* v, const FwdArgs& a, cudaStream_t s) {
   const long long blocks128 = static_cast<long long>((a.Sq + 127) / 128) * a.Hq * a.B;
-  if constexpr (D != 128)
+  if constexpr (D < 128)
     if (blocks128 * 10 >= 9LL * num_sms()) return launch_nc<D, 2, EXTRA>(q, k, v, a, s);
   return launch_nc<D, 1, EXTRA>(q, k, v, a, s);
 }
@@ -411,8 +430,8 @@ int launch_d(const void* q, const void* k, const void* v, const FwdArgs& a, cuda
 
 // window <= 0 and softcap <= 0 mean "off"; alibi ([B, Hq] float32 slopes)
 // may be null; drop_threshold 0 and drop_scale 1 mean no dropout (the
-// threshold and the seed are uint32 bits). D is 32, 64 or 128; q, k and v
-// are contiguous and 16-byte aligned.
+// threshold and the seed are uint32 bits). D is 32, 64, 128 or 256; q, k
+// and v are contiguous and 16-byte aligned.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                                 void* lse, const void* q_offset, const void* kv_lens,
                                 const void* alibi, int B, int Sq, int Sk, int Hq, int Hk, int D,
@@ -428,6 +447,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
     case 32: return launch_d<32>(q, k, v, a, s);
     case 64: return launch_d<64>(q, k, v, a, s);
     case 128: return launch_d<128>(q, k, v, a, s);
+    case 256: return launch_d<256>(q, k, v, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -36,7 +36,9 @@
 // their products as register A fragments (RS). No float32 tile and no P/dS
 // tile goes through shared memory.
 //   dQ:  launched first. One block per (128-query tile, q head, batch row),
-//        its Q and dO loaded once, walking the 64-key tiles K3 walks. Each
+//        its Q and dO loaded once, walking the 64-key tiles K3 walks (at
+//        D = 256 a 64-query tile and one consumer: dQ alone is 64 x 256
+//        float32, 128 registers a thread, beside S and dP's 32 each). Each
 //        consumer thread first sums di = rowsum(o·dO) for its two rows
 //        (a quarter row per lane, then the quad) and writes it for the dKV
 //        kernel. S = Q·Kᵀ and dP = dO·Vᵀ are SS (K-major both); dQ += dS·K
@@ -50,8 +52,12 @@
 //        Q, dO and the tile's lse and di, which the producer warp's lanes
 //        load with plain loads. Query tiles are 64 rows. At D = 128, where
 //        dK and dV take 64 registers each, a block is one consumer of 64
-//        keys with 32-row query tiles (see DkvSmem). Low key tiles, which
-//        the most queries reach, are scheduled first.
+//        keys with 32-row query tiles (see DkvSmem). At D = 256 a 64-key
+//        block's dK and dV (64 x 256 float32 each) would take 256 registers
+//        a thread, so D is split across two blocks of the grid: each holds
+//        dK and dV for 128 of the columns (the D = 128 picture) and
+//        recomputes the whole Sᵀ and dPᵀ, which contract over all of D.
+//        Low key tiles, which the most queries reach, are scheduled first.
 #include <math.h>
 
 #include "dropout.cuh"
@@ -127,18 +133,19 @@ struct Mask {
   }
 };
 
-// acc[c] (chunk c of a [64 rows][D] accumulator) += A·B, A the 64 x R bf16
-// fragments `a` (R / 16 reduction steps), B an [R][D] tile at `tile` read
-// MN-major.
-template <int D, int R>
-__device__ __forceinline__ void rs_acc(float (&acc)[Tile<D>::NCH][Tile<D>::CW / 2],
-                                       const uint32_t (&a)[R / 16][4], uint32_t tile) {
+// acc[c] (column chunk ch0 + c of a [64 rows][D] accumulator, NCO of them)
+// += A·B, A the 64 x R bf16 fragments `a` (R / 16 reduction steps), B an
+// [R][D] tile at `tile` read MN-major.
+template <int D, int R, int NCO = Tile<D>::NCH>
+__device__ __forceinline__ void rs_acc(float (&acc)[NCO][Tile<D>::CW / 2],
+                                       const uint32_t (&a)[R / 16][4], uint32_t tile,
+                                       int ch0 = 0) {
   using T = Tile<D>;
 #pragma unroll
   for (int kk = 0; kk < R / 16; ++kk)
 #pragma unroll
-    for (int c = 0; c < T::NCH; ++c) {
-      const uint64_t db = T::mnmajor(tile, R, c, kk);
+    for (int c = 0; c < NCO; ++c) {
+      const uint64_t db = T::mnmajor(tile, R, ch0 + c, kk);
       if constexpr (T::CW == 64) wgmma_rs_n64_bt(acc[c], a[kk], db);
       else wgmma_rs_n32_bt(acc[c], a[kk], db);
     }
@@ -158,10 +165,10 @@ __device__ __forceinline__ void ss_abt(float (&s)[N / 2], uint32_t a, int a_rows
   }
 }
 
-// Writes rows row0 and row0 + 8 (< rows_valid) of a [64][D] accumulator held
-// as chunks to out (row r at out + r·stride), bf16.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[Tile<D>::NCH][Tile<D>::CW / 2],
+// Writes rows row0 and row0 + 8 (< rows_valid) of a [64][NCO·CW] accumulator
+// held as chunks to out (row r at out + r·stride), bf16.
+template <int D, int NCO = Tile<D>::NCH>
+__device__ __forceinline__ void store_rows(const float (&acc)[NCO][Tile<D>::CW / 2],
                                            __nv_bfloat16* out, size_t stride, int row0,
                                            int rows_valid, int quad) {
   using T = Tile<D>;
@@ -171,7 +178,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[Tile<D>::NCH][Tile
     if (row >= rows_valid) continue;
     __nv_bfloat16* o = out + static_cast<size_t>(row) * stride;
 #pragma unroll
-    for (int c = 0; c < T::NCH; ++c)
+    for (int c = 0; c < NCO; ++c)
 #pragma unroll
       for (int nb = 0; nb < T::CW / 8; ++nb)
         *reinterpret_cast<uint32_t*>(o + c * T::CW + 8 * nb + 2 * quad) =
@@ -179,18 +186,18 @@ __device__ __forceinline__ void store_rows(const float (&acc)[Tile<D>::NCH][Tile
   }
 }
 
-template <int D>
-__device__ __forceinline__ void zero(float (&acc)[Tile<D>::NCH][Tile<D>::CW / 2]) {
+template <int N, int M>
+__device__ __forceinline__ void zero(float (&acc)[N][M]) {
 #pragma unroll
-  for (int c = 0; c < Tile<D>::NCH; ++c)
+  for (int c = 0; c < N; ++c)
 #pragma unroll
-    for (int i = 0; i < Tile<D>::CW / 2; ++i) acc[c][i] = 0.0f;
+    for (int i = 0; i < M; ++i) acc[c][i] = 0.0f;
 }
 
-template <int D>
-__device__ __forceinline__ void fence_acc(float (&acc)[Tile<D>::NCH][Tile<D>::CW / 2]) {
+template <int N, int M>
+__device__ __forceinline__ void fence_acc(float (&acc)[N][M]) {
 #pragma unroll
-  for (int c = 0; c < Tile<D>::NCH; ++c) fence_regs(acc[c]);
+  for (int c = 0; c < N; ++c) fence_regs(acc[c]);
 }
 
 // ---------------------------------------------------------------- dKV ----
@@ -198,12 +205,16 @@ __device__ __forceinline__ void fence_acc(float (&acc)[Tile<D>::NCH][Tile<D>::CW
 // A dKV block holds NC·64 keys (one consumer warpgroup per 64) and walks
 // query tiles of BQ rows. At D = 128 a consumer thread's dK and dV take 64
 // registers each, so the block has one consumer (the thread may hold 255
-// registers, against 168 in a 384-thread block) and 32-row query tiles.
+// registers, against 168 in a 384-thread block) and 32-row query tiles. At
+// D = 256 the grid splits D's columns over SPLIT = 2 blocks, each holding
+// NCO = 2 of the four 64-column chunks of dK and dV (the D = 128 registers).
 template <int D>
 struct DkvSmem {
-  static constexpr int NC = D == 128 ? 1 : 2;
+  static constexpr int NC = D >= 128 ? 1 : 2;
   static constexpr int BK = 64 * NC;
-  static constexpr int BQ = D == 128 ? 32 : 64;
+  static constexpr int BQ = D >= 128 ? 32 : 64;
+  static constexpr int SPLIT = D == 256 ? 2 : 1;
+  static constexpr int NCO = Tile<D>::NCH / SPLIT;
   static constexpr int KB = BK * D * 2;  // K or V [BK keys][D]
   static constexpr int QB = BQ * D * 2;  // Q or dO [BQ queries][D]
   static constexpr int K = 0;
@@ -235,7 +246,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   auto q_tile = [&](int s) { return base + L::RING + s * 2 * L::QB; };
   auto do_tile = [&](int s) { return base + L::RING + s * 2 * L::QB + L::QB; };
 
-  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BK;  // low (heavy) tiles first
+  const int hk = blockIdx.x / L::SPLIT, b = blockIdx.y, k0 = blockIdx.z * BK;  // low tiles first
+  const int ch0 = (blockIdx.x % L::SPLIT) * L::NCO;  // the column chunks this block holds
   const int groups = Hq / Hk;
   const int q_off = q_offset[b];
   const Mask mask{scale, softcap, causal, window, min(kv_lens[b], Sk)};
@@ -305,9 +317,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     const int key0 = k0 + 64 * wg + 16 * warp + lane / 4;  // this thread's keys: key0, key0 + 8
     const int steps = groups * per_head;
 
-    float dk_acc[T::NCH][T::CW / 2], dv_acc[T::NCH][T::CW / 2];
-    zero<D>(dk_acc);
-    zero<D>(dv_acc);
+    float dk_acc[L::NCO][T::CW / 2], dv_acc[L::NCO][T::CW / 2];
+    zero(dk_acc);
+    zero(dv_acc);
     mbar_wait(kv_full, 0);
     const int key_lo = k0 + 64 * wg;
     for (int i = 0; i < steps; ++i) {
@@ -357,15 +369,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       acc_to_a<BQ>(st, pf);
       acc_to_a<BQ>(dpt, dsf);
 
-      fence_acc<D>(dv_acc);
-      fence_acc<D>(dk_acc);
+      fence_acc(dv_acc);
+      fence_acc(dk_acc);
       wgmma_fence();
-      rs_acc<D, BQ>(dv_acc, pf, do_tile(s));  // dV += Pᵀ·dO
-      rs_acc<D, BQ>(dk_acc, dsf, q_tile(s));  // dK += dSᵀ·Q
+      rs_acc<D, BQ, L::NCO>(dv_acc, pf, do_tile(s), ch0);  // dV += Pᵀ·dO
+      rs_acc<D, BQ, L::NCO>(dk_acc, dsf, q_tile(s), ch0);  // dK += dSᵀ·Q
       wgmma_commit();
       wgmma_wait<0>();
-      fence_acc<D>(dv_acc);
-      fence_acc<D>(dk_acc);
+      fence_acc(dv_acc);
+      fence_acc(dk_acc);
       fence_regs(pf);
       fence_regs(dsf);
       __syncwarp();
@@ -373,17 +385,22 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     }
 
     const size_t kv_stride = static_cast<size_t>(Hk) * D;
-    const size_t kv_base = static_cast<size_t>(b) * Sk * kv_stride + static_cast<size_t>(hk) * D;
-    store_rows<D>(dk_acc, dk + kv_base, kv_stride, key0, Sk, quad);
-    store_rows<D>(dv_acc, dv + kv_base, kv_stride, key0, Sk, quad);
+    const size_t kv_base = static_cast<size_t>(b) * Sk * kv_stride + static_cast<size_t>(hk) * D +
+                           static_cast<size_t>(ch0) * T::CW;
+    store_rows<D, L::NCO>(dk_acc, dk + kv_base, kv_stride, key0, Sk, quad);
+    store_rows<D, L::NCO>(dv_acc, dv + kv_base, kv_stride, key0, Sk, quad);
   }
 }
 
 // ----------------------------------------------------------------- dQ ----
 
+// A dQ block holds NC·64 queries (one consumer warpgroup per 64): 128, or 64
+// at D = 256, where dQ alone takes 128 registers a thread.
 template <int D>
 struct DqSmem {
-  static constexpr int QB = 128 * D * 2;  // Q or dO [128 queries][D]
+  static constexpr int NC = D == 256 ? 1 : 2;
+  static constexpr int QR = 64 * NC;
+  static constexpr int QB = QR * D * 2;  // Q or dO [QR queries][D]
   static constexpr int KB = 64 * D * 2;   // K or V [64 keys][D]
   static constexpr int Q = 0;
   static constexpr int DO = Q + QB;
@@ -426,7 +443,7 @@ __device__ __forceinline__ void row_di(const __nv_bfloat16* o, const __nv_bfloat
 }
 
 template <int D, bool EXTRA>
-__global__ void __launch_bounds__(384, 1)
+__global__ void __launch_bounds__((DqSmem<D>::NC + 1) * 128, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
@@ -437,6 +454,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     dropout::Params drop) {
   using T = Tile<D>;
   using L = DqSmem<D>;
+  constexpr int QR = L::QR;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + L::BAR;
@@ -446,13 +464,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   auto v_tile = [&](int s) { return base + L::RING + s * 2 * L::KB + L::KB; };
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * 128;  // heavy (late) tiles first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * QR;  // heavy (late) tiles first
   const int hk = h / (Hq / Hk);
   const int q_off = q_offset[b];
   const Mask mask{scale, softcap, causal, window, min(kv_lens[b], Sk)};
 
   // Key tiles that can hold a live (q, k) pair for some row (as K3's forward).
-  const int q_min = q_off + q0, q_max = q_off + min(q0 + 128, Sq) - 1;
+  const int q_min = q_off + q0, q_max = q_off + min(q0 + QR, Sq) - 1;
   int k_hi = mask.kv_len;
   if (causal) k_hi = min(k_hi, q_max + 1);
   const int kt_end = k_hi > 0 ? (k_hi + 63) / 64 : 0;
@@ -464,7 +482,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 8);
+      mbar_init(empty(s), 4 * L::NC);
     }
     mbar_fence_init();
   }
@@ -474,8 +492,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(q_full, 2 * L::QB);
       for (int c = 0; c < T::NCH; ++c) {
-        tma_load_4d(base + L::Q + c * 128 * T::SWZ, &tq, q_full, c * T::CW, h, q0, b);
-        tma_load_4d(base + L::DO + c * 128 * T::SWZ, &tdo, q_full, c * T::CW, h, q0, b);
+        tma_load_4d(base + L::Q + c * QR * T::SWZ, &tq, q_full, c * T::CW, h, q0, b);
+        tma_load_4d(base + L::DO + c * QR * T::SWZ, &tdo, q_full, c * T::CW, h, q0, b);
       }
       for (int j = 0; j < ntiles; ++j) {
         const int s = j & 1;
@@ -513,7 +531,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     }
 
     float dq_acc[T::NCH][T::CW / 2];
-    zero<D>(dq_acc);
+    zero(dq_acc);
     mbar_wait(q_full, 0);
     for (int j = 0; j < ntiles; ++j) {
       const int s = j & 1;
@@ -526,8 +544,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       fence_regs(sc);
       fence_regs(dp);
       wgmma_fence();
-      ss_abt<D, 64>(sc, base + L::Q, 128, 64 * wg, k_tile(s));   // S = Q·Kᵀ
-      ss_abt<D, 64>(dp, base + L::DO, 128, 64 * wg, v_tile(s));  // dP = dO·Vᵀ
+      ss_abt<D, 64>(sc, base + L::Q, QR, 64 * wg, k_tile(s));   // S = Q·Kᵀ
+      ss_abt<D, 64>(dp, base + L::DO, QR, 64 * wg, v_tile(s));  // dP = dO·Vᵀ
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -551,12 +569,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       uint32_t dsf[4][4];
       acc_to_a<64>(dp, dsf);
 
-      fence_acc<D>(dq_acc);
+      fence_acc(dq_acc);
       wgmma_fence();
       rs_acc<D, 64>(dq_acc, dsf, k_tile(s));  // dQ += dS·K
       wgmma_commit();
       wgmma_wait<0>();
-      fence_acc<D>(dq_acc);
+      fence_acc(dq_acc);
       fence_regs(dsf);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(s));
@@ -594,7 +612,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   static const cudaError_t smem_set = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D, EXTRA>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
-  dim3 grid(a.Hk, a.B, (a.Sk + L::BK - 1) / L::BK);
+  dim3 grid(a.Hk * L::SPLIT, a.B, (a.Sk + L::BK - 1) / L::BK);
   flash_bwd_dkv_kernel<D, EXTRA><<<grid, (L::NC + 1) * 128, bytes, s>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(di),
       static_cast<const int*>(q_offset), static_cast<const int*>(kv_lens),
@@ -610,18 +628,19 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o, const 
   if (reinterpret_cast<uintptr_t>(o) % 16 != 0 || reinterpret_cast<uintptr_t>(dout) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   CUtensorMap tq, tk, tv, tdo;
-  int e = encode_bshd<D>(&tq, q, a.B, a.Sq, a.Hq, 128);
-  if (e == 0) e = encode_bshd<D>(&tdo, dout, a.B, a.Sq, a.Hq, 128);
+  using L = DqSmem<D>;
+  int e = encode_bshd<D>(&tq, q, a.B, a.Sq, a.Hq, L::QR);
+  if (e == 0) e = encode_bshd<D>(&tdo, dout, a.B, a.Sq, a.Hq, L::QR);
   if (e == 0) e = encode_bshd<D>(&tk, k, a.B, a.Sk, a.Hk, 64);
   if (e == 0) e = encode_bshd<D>(&tv, v, a.B, a.Sk, a.Hk, 64);
   if (e != 0) return e;
-  constexpr int bytes = DqSmem<D>::BYTES;
+  constexpr int bytes = L::BYTES;
   // Set once per kernel instance (a function-local static), not per launch.
   static const cudaError_t smem_set = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D, EXTRA>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
-  dim3 grid(a.Hq, a.B, (a.Sq + 127) / 128);
-  flash_bwd_dq_kernel<D, EXTRA><<<grid, 384, bytes, s>>>(
+  dim3 grid(a.Hq, a.B, (a.Sq + L::QR - 1) / L::QR);
+  flash_bwd_dq_kernel<D, EXTRA><<<grid, (L::NC + 1) * 128, bytes, s>>>(
       tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(di), static_cast<const int*>(q_offset),
@@ -643,8 +662,8 @@ BwdArgs bwd_args(const void* alibi, int B, int Sq, int Sk, int Hq, int Hk, float
 
 // window <= 0 and softcap <= 0 mean "off"; alibi ([B, Hq] float32 slopes)
 // may be null; drop_threshold 0 and drop_scale 1 mean no dropout (K3's
-// arguments). D is 32, 64 or 128; q, k, v, o and dout are contiguous and
-// 16-byte aligned. The dQ kernel also writes di (float32 [B, Hq, Sq]), which
+// arguments). D is 32, 64, 128 or 256; q, k, v, o and dout are contiguous
+// and 16-byte aligned. The dQ kernel also writes di (float32 [B, Hq, Sq]), which
 // the dKV kernel reads: launch dQ first.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* di,
@@ -663,6 +682,7 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
     case 32: K6_DKV(32);
     case 64: K6_DKV(64);
     case 128: K6_DKV(128);
+    case 256: K6_DKV(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef K6_DKV
@@ -685,6 +705,7 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, 
     case 32: K6_DQ(32);
     case 64: K6_DQ(64);
     case 128: K6_DQ(128);
+    case 256: K6_DQ(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef K6_DQ

@@ -140,9 +140,11 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
 }
 
 // A [rows][D] bf16 tile as TMA writes it (see the top of this file).
+// D = 256 (Gemma-2) is four 64-column chunks: each TMA box stays one
+// 128-byte swizzle span wide.
 template <int D>
 struct Tile {
-  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256, "head_dim 32, 64, 128 or 256");
   static constexpr int CW = D == 32 ? 32 : 64;  // columns per chunk
   static constexpr int NCH = D / CW;            // chunks
   static constexpr int SWZ = CW * 2;            // bytes per chunk row = swizzle span

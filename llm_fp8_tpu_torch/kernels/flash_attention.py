@@ -6,7 +6,8 @@ Counterpart of ``llm_fp8_tpu/kernels/flash_attention.py::flash_attention``
 ``csrc/flash_attention.cu``; on a CPU tensor it takes :func:`flash_fwd_plain`.
 The kernel is built for Hopper: TMA loads K/V tiles into a ring of swizzled
 shared memory for consumer warpgroups that run Q·Kᵀ and P·V on ``wgmma``
-with the scores, P and O kept in registers (its source note has the design).
+with the scores, P and O kept in registers (its source note has the design;
+head dims 32, 64, 128, and 256 on 64-key tiles for Gemma-2).
 float32 q, k and v (the GPT-2 and NeoX families serve in float32) take K3's
 float32 instance, :func:`flash_fwd_f32` (``csrc/flash_attention_f32.cu``:
 ``mma.sync`` TF32 products with a 3xTF32 split, so float32 accuracy; head
@@ -45,6 +46,7 @@ from ._common import (aligned16, alibi_bias, alibi_slopes_tensor, dropout_args, 
 from .flash_attention_bwd import flash_attention_bwd
 
 __all__ = ["flash_attention", "flash_fwd_plain", "flash_fwd_f32", "F32_HEAD_DIMS",
+           "BF16_HEAD_DIMS",
            "flash_attention_fp8", "flash_fp8_plain",
            "fp8_prepass", "fp8_prepass_plain", "fp8_v_slots_plain", "fp8_wgmma_ok",
            "auto_block", "MASK_VALUE"]
@@ -123,6 +125,10 @@ def _launch(q, k, v, q_offset, kv_lens, causal, window, softcap, scale, alibi=No
 #: Head dims of the float32 instance (GPT-2/OPT/Falcon 64, SantaCoder and
 #: Pythia-1.4B 128, BTLM 80, GPT-J 256, the debug configs 32).
 F32_HEAD_DIMS = (32, 64, 80, 128, 256)
+
+#: Head dims of the bf16 kernel (the Llama family's 64 and 128, Gemma-2's
+#: 256 on 64-key tiles, the debug configs 32).
+BF16_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def flash_fwd_f32(q, k, v, q_offset, kv_lens, *, causal: bool, scale: float, alibi=None,
@@ -247,7 +253,7 @@ def flash_attention(
         raise TypeError(f"flash attention takes bf16 or float32 q, k and v, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     f32 = q.dtype == torch.float32
-    dims = F32_HEAD_DIMS if f32 else (32, 64, 128)
+    dims = F32_HEAD_DIMS if f32 else BF16_HEAD_DIMS
     if D not in dims:
         raise ValueError(f"head_dim {D} not in {dims}")
     if f32 and q.is_cuda and (window is not None or softcap is not None):

@@ -7,7 +7,9 @@ Counterpart of ``llm_fp8_tpu/kernels/flash_attention_bwd.py::flash_attention_bwd
 :func:`flash_attention_bwd_plain`. Both kernels load their tiles through TMA
 into a ring of shared memory and run all five products on Hopper's
 ``wgmma``, with the score tiles, p and ds in registers; neither uses
-atomics, so two runs give the same bits.
+atomics, so two runs give the same bits. At head dim 256 (Gemma-2) the dQ
+kernel takes 64-query tiles and the dKV kernel's grid splits D's columns
+over two blocks, each recomputing the whole score tile.
 
 The softmax weights are recomputed from the forward's log-sum-exp, which is
 K3's ``[B, Hq, Sq]`` here (the TPU's is ``[B, Hq, 8, Sq_p]``). Rows whose LSE
@@ -187,9 +189,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: Optional[i
         return flash_attention_bwd_f32(q, k, v, o, lse, do, q_offset=q_offset,
                                        kv_lens=kv_lens, **cfg)
     B, Sq, Hq, D = q.shape
-    if D not in (32, 64, 128) or q.dtype != torch.bfloat16 or do.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention_bwd: bf16 with head_dim 32/64/128, got {q.dtype} "
-                         f"D={D}, do {do.dtype}")
+    if D not in (32, 64, 128, 256) or q.dtype != torch.bfloat16 or do.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_bwd: bf16 with head_dim 32/64/128/256, got "
+                         f"{q.dtype} D={D}, do {do.dtype}")
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be float32 {(B, Hq, Sq)}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")

@@ -2,10 +2,12 @@
 (counterpart of ``llm_fp8_tpu/models/registry.py``): the entry point the
 serving CLI and ``Engine(forward_fn=...)`` use to drive any ported family.
 
-Ported: the Llama family (``models/config.py``), GPT-2 (``models/gpt2.py``)
-and NeoX (``models/neox.py``). The JAX package's Gemma, MoE and MLA families
-are not ported yet: their names (kept here, since the port imports nothing
-of the JAX package) raise ``NotImplementedError`` naming the family.
+Ported: the Llama family (``models/config.py``), GPT-2 (``models/gpt2.py``),
+NeoX (``models/neox.py``) and Gemma-2 (``models/gemma.py``, quantized by the
+Llama family's ``quantize_params``, as in JAX: its GEMM leaves have the same
+names). The JAX package's MoE and MLA families are not ported yet: their
+names (kept here, since the port imports nothing of the JAX package) raise
+``NotImplementedError`` naming the family.
 """
 from __future__ import annotations
 
@@ -33,7 +35,6 @@ _ZOO_SITES = {"w_qkv": "attn_qkv", "w_out": "attn_out", "w_fc": "mlp", "w_proj":
 
 #: The JAX package's families not ported yet, with their registry names.
 UNPORTED_FAMILIES = {
-    "Gemma": ("gemma2-2b", "gemma2-9b", "debug-gemma2"),
     "MoE": ("mixtral-8x7b", "debug-mixtral", "qwen3-30b-a3b", "debug-qwen3moe"),
     "MLA": ("deepseek-v2-lite", "deepseek-v2", "debug-mla", "debug-mla-q"),
 }
@@ -75,6 +76,7 @@ def _unported(name: str) -> None:
 def resolve_model(name: str) -> ZooEntry:
     """Look ``name`` up across every ported family's registry."""
     from .config import MODEL_REGISTRY
+    from .gemma import GEMMA_REGISTRY, gemma_forward, init_gemma_params
     from .gpt2 import GPT2_REGISTRY, gpt2_forward, init_gpt2_params
     from .llama import forward, init_params, quantize_params
     from .neox import NEOX_REGISTRY, init_neox_params, neox_forward
@@ -87,6 +89,9 @@ def resolve_model(name: str) -> ZooEntry:
     if name in NEOX_REGISTRY:
         return ZooEntry(NEOX_REGISTRY[name], init_neox_params, neox_forward,
                         quantize_zoo_params)
+    if name in GEMMA_REGISTRY:
+        return ZooEntry(GEMMA_REGISTRY[name], init_gemma_params, gemma_forward,
+                        quantize_params)
     _unported(name)
     raise ValueError(f"unknown model {name!r}; known: {sorted(zoo_model_names())}")
 
@@ -94,10 +99,11 @@ def resolve_model(name: str) -> ZooEntry:
 def zoo_model_names() -> list:
     """Every name :func:`resolve_model` resolves."""
     from .config import MODEL_REGISTRY
+    from .gemma import GEMMA_REGISTRY
     from .gpt2 import GPT2_REGISTRY
     from .neox import NEOX_REGISTRY
 
-    return [*MODEL_REGISTRY, *GPT2_REGISTRY, *NEOX_REGISTRY]
+    return [*MODEL_REGISTRY, *GPT2_REGISTRY, *NEOX_REGISTRY, *GEMMA_REGISTRY]
 
 
 def load_zoo_checkpoint(name: str, path: str, dtype=torch.bfloat16, device=None):
@@ -115,10 +121,13 @@ def _pack_fn_for(name: str) -> Callable:
     is read from the registry name's prefix, as in the JAX package)."""
     from . import gpt2, neox
     from .config import MODEL_REGISTRY
+    from .gemma import GEMMA_REGISTRY, pack_gemma2_state_dict
     from .hf_loader import pack_hf_state_dict
 
     if name in MODEL_REGISTRY:
         return pack_hf_state_dict
+    if name in GEMMA_REGISTRY:
+        return pack_gemma2_state_dict
     _unported(name)
     by_prefix = [
         ("gpt2", gpt2.pack_gpt2_state_dict),

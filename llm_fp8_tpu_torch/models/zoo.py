@@ -1,10 +1,11 @@
-"""What the GPT-2 and NeoX families share (the JAX package repeats it in
-``models/gpt2.py`` and ``models/neox.py``): the layer loop with or without
-the :class:`~.llama.KVCache` and with the training knobs (remat, attention
-dropout), the float32 logits of a tied or unquantized head, and the
-state-dict readers of the HF packers.
+"""What the GPT-2, NeoX and Gemma families share (the JAX package repeats it
+in ``models/gpt2.py``, ``models/neox.py`` and ``models/gemma.py``): the layer
+loop with or without the :class:`~.llama.KVCache` and with the training
+knobs (remat, attention dropout) and a per-layer window, the float32 logits
+of a tied or unquantized head, and the state-dict readers of the HF packers.
 
-The families compute in float32 (``compute_dtype``), so their head product
+The GPT-2 and NeoX families compute in float32 (``compute_dtype``), so their
+head product
 ``x @ head.T`` (JAX: ``jnp.dot(x, head.T.astype(x.dtype))``, which XLA fuses)
 needs the bf16 head as float32. Converting it at every call would write a
 float32 copy of it per step (1.18 GB for Falcon-7B's 65024 x 4544
@@ -42,15 +43,20 @@ HEAD_F32 = "head_f32"
 
 def head_weight(params: Dict[str, Any]):
     """The ``[V, D]`` head: ``lm_head`` where the tree has one, else the tied
-    embedding ``wte`` (GPT-2 ties always; NeoX unless its config unties)."""
-    return params["lm_head"] if "lm_head" in params else params["wte"]
+    embedding, ``wte`` (GPT-2 ties always; NeoX unless its config unties) or
+    ``embed`` (Gemma)."""
+    for key in ("lm_head", "wte"):
+        if key in params:
+            return params[key]
+    return params["embed"]
 
 
 def with_f32_head(params: Dict[str, Any]) -> Dict[str, Any]:
     """``params`` with a float32 copy of a non-float32 head under
-    :data:`HEAD_F32` (made once, here); other trees unchanged."""
+    :data:`HEAD_F32` (made once, here); other trees, and Gemma's (head
+    ``embed``: a bf16-compute family), unchanged."""
     head = head_weight(params)
-    if head.dtype == torch.float32 or HEAD_F32 in params:
+    if head.dtype == torch.float32 or HEAD_F32 in params or "embed" in params:
         return params
     return {**params, HEAD_F32: head.float()}
 
@@ -88,27 +94,31 @@ def training_knobs(cache, attn_impl: str, remat, unroll: int, dropout_p: float) 
 
 def run_layers(params: Dict[str, Any], x: torch.Tensor, layer: Callable, *,
                cache=None, start_pos: torch.Tensor, kv_lens=None, remat: str = "none",
-               dropout_p: float = 0.0, dropout_seed: int = 0, **attn_kw):
+               dropout_p: float = 0.0, dropout_seed: int = 0, window=None, **attn_kw):
     """The decoder layers over ``x``: ``layer(x, lp, attend, seg) -> x`` per
     layer, where ``attend(q, k, v)`` is causal self-attention (no cache; with
     ``dropout_p`` at layer li's seed) or the cache's append-and-attend at
-    ``start_pos`` (written in place), both masked to ``kv_lens`` and given
-    ``attn_kw`` (``scale``, ``alibi_slopes``), and ``seg(fn, *args)`` runs one
+    ``start_pos`` (written in place), both masked to ``kv_lens``, to
+    ``window`` (None, a width, or a callable of the layer index giving
+    either: Gemma's even layers slide) and given ``attn_kw`` (``scale``,
+    ``softcap``, ``alibi_slopes``), and ``seg(fn, *args)`` runs one
     of the layer's elementwise segments (checkpointed under ``remat="dots"``).
     ``remat`` is a mode of :func:`~.llama.remat_mode` (``"full"``: each layer
     under a checkpoint). Returns ``(x, new_cache)``."""
     seg = _ckpt if remat == "dots" else _call
     for li, lp in enumerate(unstack_layers(params["layers"])):
+        w = window(li) if callable(window) else window
         if cache is None:
-            def attend(q, k, v, li=li):
-                return attention(q, k, v, causal=True, kv_lens=kv_lens, dropout_p=dropout_p,
+            def attend(q, k, v, li=li, w=w):
+                return attention(q, k, v, causal=True, kv_lens=kv_lens, window=w,
+                                 dropout_p=dropout_p,
                                  dropout_seed=dropout_seed + li * DROPOUT_LAYER_STRIDE,
                                  **attn_kw)
         else:
-            def attend(q, k, v, li=li):
+            def attend(q, k, v, li=li, w=w):
                 return cache_append_attend(
                     q, k, v, (cache.k, cache.v, cache.k_scale[li], cache.v_scale[li], li),
-                    start_pos, kv_lens, **attn_kw)[0]
+                    start_pos, kv_lens, window=w, **attn_kw)[0]
         if remat == "full":
             x = _ckpt(lambda x, lp=lp, attend=attend: layer(x, lp, attend, seg), x)
         else:

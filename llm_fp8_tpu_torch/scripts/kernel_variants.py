@@ -20,7 +20,16 @@ and the rows beyond 1 and 2 bf16 ulps of ``flash_fp8_plain`` on both routes,
 and the device time of both routes, at the 8192-token prefill, the training
 shape and the 8-slot decode.
 
+``k3k6-bits DIR``: K3 and K6 (bf16) built from another checkout's
+``csrc`` directory ``DIR`` beside the repo's, on the same inputs at head dims
+32, 64 and 128 (plain, window and softcap, ALiBi and dropout): whether the
+outputs (out and lse; dq, dk and dv) are equal bit for bit, and the device
+time of both builds in turns (old, new, new, old), so that a change to the
+kernels' sources (a new head dim) can be shown to leave the existing
+instances as they were.
+
     python -m llm_fp8_tpu_torch.scripts.kernel_variants [k1-splits] [k1-merge] [k7-exp]
+    python -m llm_fp8_tpu_torch.scripts.kernel_variants k3k6-bits OLD_CHECKOUT/llm_fp8_tpu_torch/csrc
 
 Needs a CUDA card and ``nvcc``. Times are device times of calls captured in
 a CUDA graph. Prints one JSON object per case.
@@ -262,16 +271,18 @@ def _k7_variant(exp: str) -> str:
     return src.replace("fast_exp2(m[r] - m_next)", "EXP(m[r] - m_next)")
 
 
-def _build_variants(variants: dict, lib_name: str = "flash_attention_fp8") -> dict:
-    """Each {name: source} of ``lib_name`` built beside the repo's headers
-    and loaded."""
+def _build_variants(variants: dict, lib_name: str = "flash_attention_fp8",
+                    headers: Path = _build.CSRC) -> dict:
+    """Each {name: source} of ``lib_name`` built beside the headers of
+    ``headers`` (the repo's by default) and loaded."""
     tmp = Path(tempfile.mkdtemp())
     procs = {}
     for name, src in variants.items():
         d = tmp / name
         d.mkdir()
         for h in _build._HEADERS:
-            shutil.copy(_build.CSRC / h, d / h)
+            if (headers / h).exists():
+                shutil.copy(headers / h, d / h)
         (d / f"{lib_name}.cu").write_text(src)
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build._FLAGS, "-I", str(d), "-o", str(d / "lib.so"),
@@ -351,12 +362,93 @@ def k7_exp(dev: torch.device) -> None:
         _build._LIBS["flash_attention_fp8"] = shipped
 
 
+#: k3k6-bits cases: name, B, S, Hq, Hk, D, window, softcap, ALiBi, dropout.
+_BITS_CASES = (
+    ("train B8 S512 Hq32 Hk8 D64", 8, 512, 32, 8, 64, None, None, False, 0.0),
+    ("prefill B1 S8192 Hq32 Hk8 D64", 1, 8192, 32, 8, 64, None, None, False, 0.0),
+    ("B2 S1024 Hq16 Hk4 D128 window 300 softcap 30", 2, 1024, 16, 4, 128, 300, 30.0, False,
+     0.0),
+    ("B2 S300 Hq8 Hk8 D32 window 50", 2, 300, 8, 8, 32, 50, None, False, 0.0),
+    ("B2 S1024 Hq40 Hk40 D128 alibi", 2, 1024, 40, 40, 128, None, None, True, 0.0),
+    ("B8 S512 Hq32 Hk8 D64 dropout 0.1", 8, 512, 32, 8, 64, None, None, False, 0.1),
+)
+
+
+def k3k6_bits(dev: torch.device, old: Path) -> None:
+    from ..kernels import flash_attention as k3
+    from ..kernels import flash_attention_bwd as k6
+    from ..ops.attention import default_alibi_slopes
+
+    names = ("flash_attention", "flash_attention_bwd")
+    new = {n: _build.library(n) for n in names}
+    olds = {n: _build_variants({"old": (old / f"{n}.cu").read_text()}, n, old)["old"]
+            for n in names}
+    g = torch.Generator(device=dev).manual_seed(97)
+
+    def use(libs):
+        for n in names:
+            _build._LIBS[n] = libs[n]
+
+    try:
+        for name, B, S, Hq, Hk, D, window, softcap, alibi, rate in _BITS_CASES:
+            q, do = (torch.randn((B, S, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+                     for _ in range(2))
+            k, v = (torch.randn((B, S, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+            kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+            kl[-1] = S - 37
+            slopes = default_alibi_slopes(Hq, dev) if alibi else None
+            cfg = dict(causal=True, window=window, softcap=softcap, scale=D ** -0.5)
+            drop = dict(dropout_p=rate, dropout_seed=11)
+
+            def fwd():
+                return k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True,
+                                          alibi_slopes=slopes, **cfg, **drop)
+
+            outs, times = {}, {}
+            for tag, libs in (("old", olds), ("new", new)):
+                use(libs)
+                out, lse = fwd()
+                al = None if slopes is None else slopes[None].expand(B, Hq).contiguous()
+                grads = k6.flash_attention_bwd(q, k, v, out, lse, do, q_offset=qo, kv_lens=kl,
+                                               alibi=al, **cfg, **drop)
+                outs[tag] = (out, lse, *grads)
+
+                def bwd(out=out, lse=lse, al=al):
+                    return k6.flash_attention_bwd(q, k, v, out, lse, do, q_offset=qo,
+                                                  kv_lens=kl, alibi=al, **cfg, **drop)
+                times[tag] = (fwd, bwd)
+            torch.cuda.synchronize()
+            equal = {what: bool(torch.equal(a.view(torch.int32) if a.dtype == torch.float32
+                                            else a.view(torch.int16),
+                                            b.view(torch.int32) if b.dtype == torch.float32
+                                            else b.view(torch.int16)))
+                     for what, a, b in zip(("out", "lse", "dq", "dk", "dv"), outs["old"],
+                                           outs["new"])}
+            us = {f"{tag} {part}": [] for tag in ("old", "new") for part in ("fwd", "bwd")}
+            for tag in ("old", "new", "new", "old"):
+                use(olds if tag == "old" else new)
+                for part, fn in zip(("fwd", "bwd"), times[tag]):
+                    us[f"{tag} {part}"].append(_graph_ms(fn, calls=5) * 1e3)
+            print(json.dumps({"case": name, "bits_equal": equal, "us": us}), flush=True)
+            if not all(equal.values()):
+                raise SystemExit(f"k3k6-bits {name}: outputs differ from the old build: {equal}")
+    finally:
+        use(new)
+
+
 def main(argv=None) -> None:
     parts = (argv if argv is not None else sys.argv[1:]) or ["k1-splits", "k1-merge", "k7-exp"]
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants times kernels on a CUDA card")
     dev = torch.device("cuda")
     print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
+    if parts[0] == "k3k6-bits":
+        if len(parts) != 2:
+            raise SystemExit("k3k6-bits takes one argument: an older checkout's csrc directory")
+        k3k6_bits(dev, Path(parts[1]))
+        return
     for part in parts:
         {"k1-splits": k1_splits, "k1-merge": k1_merge, "k7-exp": k7_exp}[part](dev)
 

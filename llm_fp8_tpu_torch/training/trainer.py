@@ -23,8 +23,9 @@ has no counterpart in an eager loop over the layers and must stay 1.
 
 ``forward_fn`` trains another family through the same steps, as the JAX
 trainer's: any forward with the zoo signature ``fn(params, tokens, cfg,
-remat=, dropout_p=, dropout_seed=) -> logits`` (the GPT-2 and NeoX families,
-``models/registry.py``), on the bf16 recipe only (the FP8 recipes implement
+remat=, dropout_p=, dropout_seed=) -> logits`` (the GPT-2, NeoX and Gemma-2
+families, ``models/registry.py``; Gemma-2 casts each dot's float32 master
+weight to bf16, as JAX's ``_dot``), on the bf16 recipe only (the FP8 recipes implement
 the Llama stack). Such a forward exposes no hidden states, so the loss is
 never chunked and the activation mean and std are NaN (``StabilityTracker``
 skips them); its float32 params must carry no float32 head copy

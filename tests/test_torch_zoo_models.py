@@ -25,8 +25,8 @@
 * The fp8native layout pads K and N to multiples of 16 once; the padded
   product equals the unpadded one bit for bit.
 * The float32 copy of a tied head gives ``x @ head.float().T`` bit for bit.
-* ``resolve_model`` refuses a Gemma, an MoE and an MLA name, naming the
-  family.
+* ``resolve_model`` refuses the MoE and MLA names, naming the family (Gemma
+  is ported: ``tests/test_torch_gemma.py``).
 """
 import dataclasses
 import functools
@@ -447,7 +447,7 @@ def test_float32_head_copy_gives_the_same_logits_bit_for_bit():
     assert torch.equal(zoo.lm_logits(params, x), want)
 
 
-@pytest.mark.parametrize("name,family", [("gemma2-2b", "Gemma"), ("mixtral-8x7b", "MoE"),
+@pytest.mark.parametrize("name,family", [("qwen3-30b-a3b", "MoE"), ("mixtral-8x7b", "MoE"),
                                          ("deepseek-v2-lite", "MLA")])
 def test_resolve_model_refuses_unported_families(name, family):
     assert name in jreg.zoo_model_names()
