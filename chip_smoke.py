@@ -180,7 +180,31 @@ Phases, in order; any failure exits non-zero before the last line:
    (losses bit-equal), K3/K6 launches a step, a profiled step.
    ``gemma_spec_serve``: gemma2-9b (fp8, e4m3 KV) with a bf16 gemma2-2b
    draft, 8 requests, gamma 4, greedy, graph against eager tokens.
-12. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
+12. The MoE family (Mixtral-8x7B, Qwen3-30B-A3B; no kernel of its own: the
+   experts, router, dispatch and combine are plain torch, as XLA in JAX).
+   ``moe_kernels``: K3 bf16 at D 128 at the 4096-token prefills (32 q heads
+   over 4, a GQA group of 8, and over 8) and K6 at Qwen3-30B-A3B's training
+   shape (B 8 x 512, 32 over 4), row by row against their plain versions,
+   reruns bit-identical, a planted wrong kv head (``h // 4`` where the
+   group is 8) caught, each timed beside its bound and SDPA's flash.
+   ``moe_slice``: both models at full width cut to 2 layers, LAYERWISE fp8,
+   an e4m3 KVCache, a 256-token prefill and two decode steps card against
+   CPU on LLM_FP8_QDOT=xla and on fp8native with the card's projection
+   inputs, held to ``BAICHUAN_XLA_TOL_STD`` of the logits' std, the routing
+   flips per layer and the smallest top-k margin logged.
+   ``moe_train_slice``: qwen3-30b-a3b cut to 1 layer, one bf16-recipe step
+   card against CPU (loss, router aux, every gradient). ``moe_serve``:
+   Mixtral-8x7B at all 32 layers and Qwen3-30B-A3B at all 48 through
+   ``Engine(forward_fn=moe_forward)`` (fp8 weights made a layer at a time
+   into one allocation, e4m3 KV, 4096 a slot, 8 prompts of 300-1500
+   tokens, 32 new each), graph against eager tokens, K3 and K9 launches,
+   step ms, TTFT, peak memory, busy share, the decode step split into
+   parts. ``moe_train``: qwen3-30b-a3b at 3 of 48 layers, float32 master
+   weights and AdamW, 8 x 512 tokens, remat full and dots (losses
+   bit-equal), the router aux a step. ``moe_spec_serve``: qwen3-30b-a3b
+   (fp8, e4m3 KV) with a bf16 Qwen2.5-1.5B draft, 8 requests, gamma 4,
+   greedy, graph against eager tokens.
+13. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 With ``--out DIR`` the details of every case go to ``DIR/chip_smoke.json``
@@ -208,7 +232,8 @@ PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_se
           "profile", "alibi_kernels", "dropout_kernels", "alibi_serve", "train_rest", "compare",
           "zoo_kernels", "zoo_slice", "zoo_serve", "zoo_train_kernels", "zoo_train_slice",
           "zoo_train", "zoo_spec_serve", "gemma_kernels", "gemma_slice", "gemma_train_slice",
-          "gemma_serve", "gemma_train", "gemma_spec_serve")
+          "gemma_serve", "gemma_train", "gemma_spec_serve", "moe_kernels", "moe_slice",
+          "moe_train_slice", "moe_serve", "moe_train", "moe_spec_serve")
 #: The kernels each path runs (launch counts read around its run). On the
 #: card fp8 weights take qdot's fp8native route (K9 quantizes x per row, then
 #: fp8 products), as the JAX package picks it where fp8 products exist; K1
@@ -1814,9 +1839,11 @@ def _paged_run(engine_cls, eager_cls, params, cfg, dev, card, num_layers, rng, t
 
 
 def profile_run(engine_cls, params, cfg, ecfg, prompts, dev, max_new=32):
-    """The same serving run under torch.profiler: device (kernel) time
-    against wall time, and the kernels that take most of it. A separate run,
-    so the profiler's overhead stays out of the numbers above."""
+    """The same serving run under torch.profiler (kernels only: host events
+    are not read, and recording them cost the 48-layer runs a minute each):
+    device (kernel) time against wall time, and the kernels that take most
+    of it. A separate run, so the profiler's overhead stays out of the
+    numbers above."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1826,7 +1853,7 @@ def profile_run(engine_cls, params, cfg, ecfg, prompts, dev, max_new=32):
     for p in prompts:
         eng.add_request(p, SamplingParams(max_new_tokens=max_new))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
@@ -2793,13 +2820,13 @@ def training(dev, num_layers, card, log, steps=10):
 
 
 def profile_train_step(trainer, state, batch):
-    """One train step under torch.profiler: device (kernel) time against
-    wall time and the kernels that take most of it."""
+    """One train step under torch.profiler (kernels only): device (kernel)
+    time against wall time and the kernels that take most of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.train_step(state, batch)
         torch.cuda.synchronize()
@@ -3617,10 +3644,15 @@ def fp8_params_by_layer(cfg, dev, seed=0, init=None, quantize=None, per=1):
     """LAYERWISE fp8 params of ``cfg``, made and quantized ``per`` layers at a
     time (layers li.. from seed ``seed·1000 + li``; Gemma-2's configs take
     an even count, so 2) by ``init`` and ``quantize`` (the Llama family's by
-    default; a zoo family's registry entry gives its own): a 13B model's
-    whole bf16 copy and its float32 quantize temporaries do not fit beside
-    each other on one card. The stacked codes are laid out for the route in
-    force at the end (``serving_layout``)."""
+    default; a zoo family's registry entry gives its own) and written into
+    storage allocated once for all layers: a 13B model's whole bf16 copy and
+    its float32 quantize temporaries do not fit beside each other on one
+    card, and Mixtral-8x7B's 45 GB of expert codes leave no room for a list
+    of parts beside their concatenation. The stacked codes are then laid out
+    for the route in force (``serving_layout``: one copy of the projections'
+    codes on the fp8native route; an MoE model's expert codes stay
+    row-major, as the expert products read them). Peak: the fp8 tree plus
+    ``per`` layers' init and quantize temporaries."""
     import dataclasses
 
     import torch
@@ -3631,27 +3663,31 @@ def fp8_params_by_layer(cfg, dev, seed=0, init=None, quantize=None, per=1):
 
     init, quantize = init or init_params, quantize or quantize_params
     one = dataclasses.replace(cfg, num_layers=per)
-    layers, top = {}, None
-    for li in range(0, cfg.num_layers, per):
+    L, out = cfg.num_layers, None
+
+    def empty(t):
+        return t.new_empty((L, *t.shape[1:]))
+
+    for li in range(0, L, per):
         p = quantize(init(one, dtype=torch.bfloat16, device=dev, seed=seed * 1000 + li),
                      LAYERWISE)
-        if top is None:
-            top = {k: v for k, v in p.items() if k != "layers"}
+        if out is None:
+            out = {k: v for k, v in p.items() if k != "layers"}
+            out["layers"] = {k: (dataclasses.replace(v, qvalue=empty(v.qvalue),
+                                                     scale=empty(v.scale))
+                                 if isinstance(v, QTensor) else empty(v))
+                             for k, v in p["layers"].items()}
         for k, v in p["layers"].items():
-            layers.setdefault(k, []).append(
-                dataclasses.replace(v, qvalue=v.qvalue.contiguous()) if isinstance(v, QTensor)
-                else v)
+            dst = out["layers"][k]
+            if isinstance(v, QTensor):
+                dst.qvalue[li:li + per].copy_(v.qvalue)
+                dst.scale[li:li + per].copy_(v.scale)
+            else:
+                dst[li:li + per].copy_(v)
         del p
-    out = dict(top)
-    out["layers"] = {}
-    for k, parts in layers.items():
-        if isinstance(parts[0], QTensor):
-            q = dataclasses.replace(parts[0], qvalue=torch.cat([t.qvalue for t in parts]),
-                                    scale=torch.cat([t.scale for t in parts]))
-            out["layers"][k] = serving_layout(q)
-        else:
-            out["layers"][k] = torch.cat(parts)
-        layers[k] = None
+    for k, v in out["layers"].items():
+        if isinstance(v, QTensor):
+            out["layers"][k] = serving_layout(v)
     torch.cuda.synchronize()
     return out
 
@@ -4680,14 +4716,16 @@ def zoo_train_slice(dev, log, model="btlm-3b"):
 
 
 def forward_fn_train_slice(dev, log, model, what, path, loss_rtol, grad_share, compute,
-                           absent=()):
+                           absent=(), layers=2, rates=(0.0, 0.1)):
     """A ``Trainer(forward_fn=...)`` step card against CPU: ``model`` at full
-    width cut to 2 layers, float32 master weights (seed 5), the bf16 recipe,
-    one step's loss and every parameter's gradient from the same weights and
-    batch (B 2 x S 256), without and with attention dropout 0.1; the loss
-    within ``loss_rtol`` relative, each gradient within ``grad_share`` of its
-    largest |value|, each kernel of ``path`` launched once a layer and none
-    of ``absent``."""
+    width cut to ``layers`` layers, float32 master weights (seed 5), the bf16
+    recipe, one step's loss and every parameter's gradient from the same
+    weights and batch (B 2 x S 256), at each attention dropout rate of
+    ``rates``; the loss (and an MoE model's router aux) within ``loss_rtol``
+    relative, each gradient within ``grad_share`` of its largest |value|,
+    each kernel of ``path`` launched once a layer and none of ``absent``. An
+    MoE model's CPU side takes the card's experts (``RouteRecorder``), and
+    the flips of its own router are logged."""
     import dataclasses
 
     import numpy as np
@@ -4698,27 +4736,29 @@ def forward_fn_train_slice(dev, log, model, what, path, loss_rtol, grad_share, c
     from llm_fp8_tpu_torch.training import TrainConfig, Trainer
 
     entry = resolve_model(model)
-    cfg = dataclasses.replace(entry.cfg, num_layers=2)
+    cfg = dataclasses.replace(entry.cfg, num_layers=layers)
     params = entry.init_fn(cfg, dtype=torch.float32, device=dev, seed=5)
     cpu_params = to_cpu(params)
     rng = np.random.RandomState(6)
     batch = {"input_ids": rng.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32),
              "attention_mask": np.ones((2, 256), np.int32)}
-    res = {"config": f"{model}, 2 layers at full width, float32 master weights, bf16 recipe "
-           f"({compute}), B 2 x S 256", "loss_rtol": loss_rtol, "grad_share": grad_share}
-    for rate in (0.0, 0.1):
-        out = {}
+    res = {"config": f"{model}, {layers} layers at full width, float32 master weights, bf16 "
+           f"recipe ({compute}), B 2 x S 256", "loss_rtol": loss_rtol, "grad_share": grad_share}
+    moe = hasattr(cfg, "num_experts")
+    for rate in rates:
+        out, routes = {}, RouteRecorder(force=True)
         for side, p, d in (("cuda", params, dev), ("cpu", cpu_params, torch.device("cpu"))):
             tr = Trainer(cfg, TrainConfig(recipes="bf16", attention_dropout=rate), device=d,
                          forward_fn=entry.forward_fn)
             state = tr.init_state(p)
             kernels.reset_launch_counts()
-            loss, n, _, stats, grads, _ = tr.loss_and_grads(state, batch)
+            with routes.side(side):
+                loss, n, _, stats, grads, _ = tr.loss_and_grads(state, batch)
             out[side] = (float(loss), {k: g.float().cpu() for k, g in grads.items()},
-                         kernels.launch_counts(), stats)
+                         kernels.launch_counts(), stats, tr.router_aux)
             del tr, state, grads
-        loss_c, grads_c, counts, _ = out["cuda"]
-        loss_h, grads_h, _, stats = out["cpu"]
+        loss_c, grads_c, counts, _, aux_c = out["cuda"]
+        loss_h, grads_h, _, stats, aux_h = out["cpu"]
         check(math.isfinite(loss_c) and math.isnan(float(stats[0])),
               f"{what} {model}: loss {loss_c}, activation mean {stats[0]}")
         rel = abs(loss_c - loss_h) / abs(loss_h)
@@ -4729,6 +4769,13 @@ def forward_fn_train_slice(dev, log, model, what, path, loss_rtol, grad_share, c
         res[tag] = dict(loss_card=loss_c, loss_cpu=loss_h, loss_rel_err=rel,
                         worst_grad=worst, worst_grad_share=shares[worst], grad_shares=shares,
                         launches={k: counts[k] for k in path})
+        if moe:
+            aux_rel = abs(float(aux_c) - float(aux_h)) / abs(float(aux_h))
+            res[tag].update(router_aux_card=float(aux_c), router_aux_cpu=float(aux_h),
+                            router_aux_rel_err=aux_rel, cpu_takes_card_routes=True,
+                            routing=routes.routing(cfg.num_experts_per_tok))
+            check(aux_rel <= loss_rtol, f"{what} {model} ({tag}): router aux {float(aux_c)} "
+                  f"against {float(aux_h)}")
         check(rel <= loss_rtol, f"{what} {model} ({tag}): loss {loss_c} against {loss_h} ({rel})")
         check(shares[worst] <= grad_share,
               f"{what} {model} ({tag}): gradient {worst} {shares[worst]} of its max")
@@ -4762,16 +4809,20 @@ def zoo_training(dev, card, log, model="btlm-3b", steps=ZOO_TRAIN_STEPS):
                                "bf16 recipe (float32 compute)")
 
 
-def forward_fn_training(dev, card, log, model, steps, B, S, samples, path, absent, recipe):
+def forward_fn_training(dev, card, log, model, steps, B, S, samples, path, absent, recipe,
+                        num_layers=None):
     """``model`` at full width and depth through ``Trainer(forward_fn=...)``,
     float32 master weights and AdamW, ``B`` x ``S`` synthetic tokens a step
     (from ``samples`` examples): ``steps`` steps under remat "full", then the
     same steps from the same weights under "dots" (losses equal bit for
     bit; an out-of-memory "dots" run is recorded and "full" stands alone).
-    ``path`` is (K3's, K6's dQ, K6's dKV) kernel names: K3 launches twice a
-    layer a step under "full", once under "dots", each K6 kernel once; no
-    kernel of ``absent`` may run. Per run: step ms, tokens/s, peak memory,
-    the launches a step, one step profiled."""
+    ``num_layers`` cuts the depth (never the widths). ``path`` is (K3's,
+    K6's dQ, K6's dKV) kernel names: K3 launches twice a layer a step under
+    "full", once under "dots", each K6 kernel once; no kernel of ``absent``
+    may run. Per run: step ms, tokens/s, peak memory, the launches a step,
+    an MoE model's router aux a step, one step profiled."""
+    import dataclasses
+
     import torch
 
     from llm_fp8_tpu_torch import kernels
@@ -4781,14 +4832,16 @@ def forward_fn_training(dev, card, log, model, steps, B, S, samples, path, absen
                                             synthetic_examples)
 
     entry = resolve_model(model)
-    cfg = entry.cfg
+    cfg = entry.cfg if num_layers is None else dataclasses.replace(entry.cfg,
+                                                                   num_layers=num_layers)
     L = cfg.num_layers
     dm = DataManager(DataConfig(max_seq_length=S, batch_size=B), ByteTokenizer(cfg.vocab_size))
     train_seqs, _ = dm.build(synthetic_examples(samples))
     batches = list(dm.batches(train_seqs, B, shuffle=True, seed=0))[:steps + 1]
     check(len(batches) > steps, f"train {model}: {len(batches)} batches for {steps} steps")
-    res = {"card": card, "config": f"{model}, {L} layers at full width, float32 master "
-           f"weights and AdamW, {recipe}", "batch": f"{B} x {S} synthetic", "steps": steps}
+    res = {"card": card, "config": f"{model}, {L} of {entry.cfg.num_layers} layers at full "
+           f"width, float32 master weights and AdamW, {recipe}", "batch": f"{B} x {S} synthetic",
+           "steps": steps}
     launches = {}
     fwd, dq, dkv = path
     for remat in ("full", "dots"):
@@ -4804,7 +4857,7 @@ def forward_fn_training(dev, card, log, model, steps, B, S, samples, path, absen
         init_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launch_counts()
-        losses, step_s = [], []
+        losses, step_s, auxes = [], [], []
         try:
             for b in batches[:steps]:
                 t1 = time.perf_counter()
@@ -4813,6 +4866,8 @@ def forward_fn_training(dev, card, log, model, steps, B, S, samples, path, absen
                 torch.cuda.synchronize()
                 step_s.append(time.perf_counter() - t1)
                 losses.append(loss)
+                if "router_aux" in m:
+                    auxes.append(float(m["router_aux"]))
                 check(int(m["finite"]) == 1 and math.isfinite(loss),
                       f"train {model} {remat}: step {len(losses)} not finite (loss {loss})")
         except torch.cuda.OutOfMemoryError as e:
@@ -4838,6 +4893,8 @@ def forward_fn_training(dev, card, log, model, steps, B, S, samples, path, absen
                           peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
                           params=n_params, launches_per_step=per_step,
                           profile=profile_train_step(tr, state, batches[steps]))
+        if auxes:
+            res[remat]["router_aux"] = auxes
         log({remat: res[remat]})
         del state, tr, params
         gc.collect()
@@ -5739,6 +5796,649 @@ def gemma_spec_serving(dev, card, log, target="gemma2-9b", draft="gemma2-2b"):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 12: the MoE family (Mixtral-8x7B, Qwen3-30B-A3B)
+# --------------------------------------------------------------------------
+
+MOE_SERVE_PATH = ("flash_attention", "quantize_fused")
+MOE_TRAIN_PATH = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+#: moe_kernels' K3 cases (causal prefills, B 1, D 128): name, Sq, Hq, Hk.
+MOE_K3_CASES = (("qwen3-30b-a3b prefill B1 S4096 Hq32 Hk4", 4096, 32, 4),
+                ("mixtral-8x7b prefill B1 S4096 Hq32 Hk8", 4096, 32, 8))
+#: moe_kernels' K6 case: Qwen3-30B-A3B's training shape.
+MOE_K6_SHAPE = dict(B=8, S=512, Hq=32, Hk=4)
+
+
+def wrong_kv_head(x, Hq):
+    """``x [B, S, Hk, D]`` expanded to ``Hq`` heads with q head h reading kv
+    head ``(h // 4) % Hk``: right for a group of 4 and wrong for a group of 8
+    (the planted fault of a kernel that hard-codes Mixtral's grouping)."""
+    import torch
+
+    Hk = x.shape[2]
+    return x[:, :, torch.tensor([(h // 4) % Hk for h in range(Hq)], device=x.device)]
+
+
+def sdpa_gqa_ms(q, k, v, scale):
+    """SDPA's flash forward, causal, on ``[B, S, H, D]`` operands with
+    ``enable_gqa`` (K3's function here); where the flash backend refuses
+    GQA, on heads expanded to Hq. Returns ``(ms, what ran)``."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        try:
+            F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale,
+                                           enable_gqa=True)
+            return cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, scale=scale, enable_gqa=True), calls=5), \
+                "SDPA flash, causal, enable_gqa"
+        except RuntimeError:
+            grp = q.shape[2] // k.shape[2]
+            kh, vh = kh.repeat_interleave(grp, dim=1), vh.repeat_interleave(grp, dim=1)
+            return cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, scale=scale), calls=5), \
+                "SDPA flash, causal, heads expanded (its flash backend refused enable_gqa)"
+
+
+def moe_kernel_cases(dev, bw, peak, log):
+    """K3 bf16 at D 128 at the MoE prefills (B 1, 4096 tokens, 32 q heads
+    over 4 for Qwen3-30B-A3B, a GQA group of 8, and over 8 for Mixtral) and
+    K6 at Qwen3-30B-A3B's training shape (B 8 x 512, 32 over 4): row by row
+    against their plain versions (ROW_ULPS; K3's lse within 1e-3), two runs
+    bit-identical, each timed beside its bound and SDPA's flash
+    forward/backward (causal, no softcap: the same function). A planted
+    fault must be caught: every q head reading kv head ``(h // 4) % Hk``
+    (right for Mixtral's group of 4, wrong for Qwen3's 8)."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels import flash_attention_bwd as k6
+
+    g = torch.Generator(device=dev).manual_seed(1408)
+    D = 128
+    scale = D ** -0.5
+    cfg = dict(causal=True, window=None, softcap=None, scale=scale)
+    cases = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    for name, S, Hq, Hk in MOE_K3_CASES:
+        q, k, v = randn(1, S, Hq, D), randn(1, S, Hk, D), randn(1, S, Hk, D)
+        qo = torch.zeros((1,), dtype=torch.int32, device=dev)
+        kl = torch.full((1,), S, dtype=torch.int32, device=dev)
+        out, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **cfg)
+        again = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **cfg)
+        ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, **cfg)
+        torch.cuda.synchronize()
+        err, ulps = rows_within(out, ref, f"K3 {name}")
+        lse_err = (lse - ref_lse).abs().max().item()
+        check(lse_err <= 1e-3, f"K3 {name}: lse err {lse_err}")
+        same = torch.equal(out.view(torch.int16), again.view(torch.int16))
+        check(same, f"K3 {name}: two runs differ")
+        pairs = S * (S + 1) // 2 * Hq
+        case = dict(kernel="flash_attention", case=name, max_abs_err=err, err_ulps=ulps,
+                    lse_err=lse_err, rerun_equal=same, live_pairs=pairs)
+        if Hq // Hk == 8:
+            bad = k3.flash_fwd_plain(q, wrong_kv_head(k, Hq), wrong_kv_head(v, Hq), qo, kl,
+                                     **cfg)[0]
+            moved = torch.tensor([(h // 4) % Hk != h // 8 for h in range(Hq)], device=dev)
+            share = caught_share(bad, ref, moved[None, None, :].expand(1, S, Hq))
+            check(share >= 0.5, f"K3 {name}: a q head reading the wrong kv head passes in "
+                  f"{1 - share:.0%} of its rows")
+            case["caught"] = {"kv_head_h_div_4": share}
+            del bad
+        case["ms"] = cuda_ms(lambda: k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl,
+                                                        **cfg), calls=5)
+        case["plain_ms"] = cuda_ms(lambda: k3.flash_fwd_plain(q, k, v, qo, kl, **cfg),
+                                   calls=1, rounds=3)
+        case["library_ms"], case["library"] = sdpa_gqa_ms(q, k, v, scale)
+        case["vs_library"] = case["ms"] / case["library_ms"]
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
+        case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 4.0 * D * pairs, bw, peak)
+        case["tflops"] = 4.0 * D * pairs / (case["ms"] * 1e-3) / 1e12
+        cases.append(case)
+        log(case)
+        del q, k, v, out, lse, again, ref, ref_lse
+
+    x = MOE_K6_SHAPE
+    B, S, Hq, Hk = x["B"], x["S"], x["Hq"], x["Hk"]
+    name = f"qwen3-30b-a3b train B{B} S{S} Hq{Hq} Hk{Hk}"
+    q, k, v, do = randn(B, S, Hq, D), randn(B, S, Hk, D), randn(B, S, Hk, D), randn(B, S, Hq, D)
+    qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+    kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+    out, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **cfg)
+    args = (q, k, v, out, lse, do)
+    got = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)
+    again = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)
+    ref = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl, **cfg)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(same, f"K6 {name}: two runs are not bit-identical")
+    live = live_pairs(B, S, S, qo, kl, True, None, dev)
+    nkeys = live.sum(dim=-1)
+    key_multi = (live & (nkeys > 1)[:, :, None]).any(dim=1)
+    ex = {"dq": (nkeys == 1)[:, :, None].expand(B, S, Hq),
+          "dk": (live.any(dim=1) & ~key_multi)[:, :, None].expand(B, S, Hk),
+          "dv": torch.zeros((B, S, Hk), dtype=torch.bool, device=dev)}
+    case = dict(kernel="flash_attention_bwd", case=name, deterministic=same)
+    errs = []
+    for what, a, b in zip(("dq", "dk", "dv"), got, ref):
+        e, u, n_ex, noise = grad_rows_within(a, b, ex[what], f"K6 {name} {what}")
+        case[what] = dict(max_abs_err=e, err_ulps=u, zero_rows=n_ex, zero_row_err=noise)
+        errs.append(e)
+    case["max_abs_err"] = max(errs)
+    bad = k6.flash_attention_bwd_plain(q, wrong_kv_head(k, Hq), wrong_kv_head(v, Hq), out, lse,
+                                       do, q_offset=qo, kv_lens=kl, **cfg)[0]
+    moved = torch.tensor([(h // 4) % Hk != h // 8 for h in range(Hq)], device=dev)
+    share = caught_share(bad, ref[0], moved[None, None, :].expand(B, S, Hq) & ~ex["dq"])
+    check(share >= 0.5, f"K6 {name}: a q head reading the wrong kv head passes in "
+          f"{1 - share:.0%} of its dq rows")
+    case["caught"] = {"dq_kv_head_h_div_4": share}
+    del bad
+    pairs = int(live.sum()) * Hq
+    case["ms"] = cuda_ms(lambda: k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg),
+                         calls=5)
+    _, di = k6.flash_bwd_dq(q, k, v, out, do, lse, qo, kl, **cfg)
+    case["split_ms"] = {
+        "dq_and_di": cuda_ms(lambda: k6.flash_bwd_dq(q, k, v, out, do, lse, qo, kl, **cfg),
+                             calls=5),
+        "dkv": cuda_ms(lambda: k6.flash_bwd_dkv(q, k, v, do, lse, di, qo, kl, **cfg), calls=5)}
+    case["plain_ms"] = cuda_ms(lambda: k6.flash_attention_bwd_plain(
+        *args, q_offset=qo, kv_lens=kl, **cfg), calls=1, rounds=3)
+    grp = Hq // Hk
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(grp, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(grp, dim=1)
+    sdpa_bwd, _ = sdpa_backward(qh, kh, vh, do.transpose(1, 2), scale)
+    case["library_ms"] = cuda_ms(sdpa_bwd, calls=5)
+    case["library"] = ("SDPA flash backward, causal, heads expanded to Hq (its backward takes "
+                       "no GQA; the group's dk/dv sum not included)")
+    case["vs_library"] = case["ms"] / case["library_ms"]
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) \
+        + lse.numel() * 4
+    case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 10.0 * D * pairs, bw, peak)
+    case["split_bound_ms"] = {
+        "dq_and_di": bound_ms(2 * (2 * q.numel() + k.numel() + v.numel() + out.numel()),
+                              6.0 * D * pairs, bw, peak)[0],
+        "dkv": bound_ms(2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()),
+                        8.0 * D * pairs, bw, peak)[0]}
+    case["tflops"] = 10.0 * D * pairs / (case["ms"] * 1e-3) / 1e12
+    cases.append(case)
+    log(case)
+    return cases
+
+
+class RouteRecorder:
+    """The router's choices at every MoE layer call of a run, by side
+    (``models/moe.py::route`` wrapped while a side runs). With ``force``,
+    the CPU side takes the card's experts at each call (its own
+    probabilities gathered there and renormalized): top-k routing is
+    discontinuous, and where two router probabilities lie within the card's
+    and the CPU's rounding differences of each other the sides pick
+    different experts, which moves a token's output by far more than
+    rounding. The CPU's own choice is recorded before it is replaced, so
+    :meth:`flips` counts the flips either way."""
+
+    def __init__(self, force=False):
+        self.calls = {}
+        self.force = force
+
+    @contextlib.contextmanager
+    def side(self, name):
+        from llm_fp8_tpu_torch.models import moe
+
+        real = moe.route
+
+        def record(h, w_router, cfg):
+            probs, topv, topi = real(h, w_router, cfg)
+            own = self.calls.setdefault(name, [])
+            own.append((probs.detach().float().cpu(), topi.detach().cpu()))
+            if self.force and name == "cpu":
+                topi = self.calls["cuda"][len(own) - 1][1].to(topi.device)
+                topv = probs.gather(-1, topi)
+                if cfg.norm_topk_prob:
+                    topv = topv / topv.sum(dim=-1, keepdim=True)
+            return probs, topv, topi
+
+        moe.route = record
+        try:
+            yield
+        finally:
+            moe.route = real
+
+    def flips(self, K, a="cuda", b="cpu"):
+        """Per layer call: the (token, slot) pairs whose expert differs
+        between the sides' own choices, and the smallest margin between the
+        K-th and (K+1)-th router probabilities on side ``b``."""
+        out = []
+        for (pa, ia), (pb, ib) in zip(self.calls[a], self.calls[b]):
+            srt = pb.sort(dim=-1, descending=True).values
+            out.append(dict(tokens=int(ia.shape[0]), flipped_pairs=int((ia != ib).sum()),
+                            flipped_tokens=int((ia != ib).any(-1).sum()),
+                            min_topk_margin=float((srt[:, K - 1] - srt[:, K]).min())))
+        return out
+
+    def routing(self, K):
+        """:meth:`flips` per call and summed."""
+        per = self.flips(K)
+        return dict(per_call=per, flipped_pairs=sum(f["flipped_pairs"] for f in per),
+                    assignments=sum(f["tokens"] for f in per) * K,
+                    min_topk_margin=min(f["min_topk_margin"] for f in per))
+
+
+#: moe_slice: the models and the prompt (a 256-token bucket).
+MOE_SLICE_MODELS = ("mixtral-8x7b", "qwen3-30b-a3b")
+MOE_SLICE_PROMPT = 256
+
+#: Mixtral-8x7B's xla slice (every one of its 256 prefill rows and the two
+#: steps) is over BAICHUAN_XLA_TOL_STD: 0.104 of the logits' std with the
+#: e4m3 KVCache, 0.085 with bf16 (median row 0.066 and 0.051; on an H100),
+#: the same with the CPU taking the card's experts, so not routing flips.
+#: The card's bf16 products with a float32 output sum on the tensor cores in
+#: less than float32 (1.8e-5 of the output's max at K 14336, Mixtral's
+#: expert width, against 2.9e-7 for the CPU's float32 product of the same
+#: values), which flips 0.8% of the bf16 roundings after them, and an
+#: activation a bf16 ulp apart flips an e4m3 K/V code a whole step. Qwen3's
+#: experts contract 768 (0.055 std) and the fp8native passes (the CPU takes
+#: the card's projection inputs) 0.058 and 0.015. This limit sits 10% over
+#: Mixtral's xla reading; PERF.md has the readings and the standing miss.
+MIXTRAL_XLA_TOL_STD = 0.115
+
+
+def moe_slice_check(dev, log):
+    return [pinned(route, lambda: _moe_slice_check(dev, log, route, forced, model))
+            for model in MOE_SLICE_MODELS for route, forced in (("xla", False),
+                                                                ("fp8native", True))]
+
+
+def _moe_slice_check(dev, log, route, forced, model, kv="e4m3", free=False):
+    """``model`` at full width cut to 2 layers, LAYERWISE fp8 weights (the
+    experts per channel along their contraction), an e4m3 ``KVCache``: one
+    prefill of a 256-token prompt and two decode steps (the card's greedy
+    tokens) on the card, then on the CPU. The checked CPU pass takes the
+    card's experts at every router call (``RouteRecorder(force=True)``) and,
+    with ``forced``, the card's fp8native projection inputs; its logits at
+    every prompt position and both steps are held to
+    ``BAICHUAN_XLA_TOL_STD`` of the CPU logits' std (Mixtral's xla pass to
+    ``MIXTRAL_XLA_TOL_STD``). The routing flips (the
+    (token, slot) pairs the CPU's own router sends to another expert, per
+    layer and call) and the smallest top-k margin are logged. With ``free``
+    (xla only; ``scripts/moe_slice_readings.py``) a CPU pass on its own
+    routes is read and logged, not held: a flipped token's logits move by
+    whole units."""
+    import dataclasses
+
+    import torch
+
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.models.llama import init_kv_cache
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+
+    entry = resolve_model(model)
+    cfg = dataclasses.replace(entry.cfg, num_layers=2)
+    check(cfg.num_experts in (8, 128) and cfg.head_dim == 128,
+          f"moe slice: {model} is not an MoE model at full width")
+    params = entry.quantize_fn(entry.init_fn(cfg, dtype=torch.bfloat16, device=dev, seed=7),
+                               LAYERWISE)
+    cpu_params = to_cpu(params)
+    n = MOE_SLICE_PROMPT
+    prompt = torch.randint(1, cfg.vocab_size, (1, n), generator=torch.Generator().manual_seed(3))
+    rec = ForcedQdotInputs()
+    side = rec.side if forced else (lambda name: contextlib.nullcontext())
+    t0 = time.perf_counter()
+
+    def run(name, p, d, routes, toks=None):
+        """Prefill and two decode steps; returns the logits rows and the
+        tokens fed (the card picks them greedily, the CPU reuses them)."""
+        cache = init_kv_cache(cfg, 1, n + 64, device=d, dtype=(
+            torch.float8_e4m3fn if kv == "e4m3" else torch.bfloat16))
+        with side(name), routes.side(name):
+            lg, cache = entry.forward_fn(p, prompt.to(d), cfg, cache=cache, start_pos=0,
+                                         kv_lens=torch.tensor([n], device=d))
+        rows, toks = [lg[0].float().cpu()], list(toks or [])
+        for step in range(2):
+            if len(toks) <= step:
+                toks.append(int(torch.argmax(rows[-1][-1])))
+            with side(name), routes.side(name):
+                lg, cache = entry.forward_fn(
+                    p, torch.tensor([[toks[step]]], device=d), cfg, cache=cache,
+                    start_pos=torch.tensor([n + step], device=d),
+                    kv_lens=torch.tensor([n + step + 1], device=d))
+            rows.append(lg[0].float().cpu())
+        return rows, toks
+
+    def compare(card_rows, cpu_rows):
+        errs = [(a - b).abs().max().item() for a, b in zip(card_rows, cpu_rows)]
+        std = float(torch.cat([x.reshape(-1) for x in cpu_rows]).std())
+        return errs, std
+
+    def worst(card_rows, cpu_rows, std):
+        """The prefill positions whose rows differ most (over the std)."""
+        per = (card_rows[0] - cpu_rows[0]).abs().amax(-1) / std
+        top = per.topk(5)
+        return dict(positions=top.indices.tolist(), err_over_std=top.values.tolist(),
+                    median_row_err_over_std=float(per.median()))
+
+    passes = {}
+    held = RouteRecorder(force=True)
+    card, toks = run("cuda", params, dev, held)
+    for a in card:
+        check(bool(torch.isfinite(a).all()), f"moe slice {model}: non-finite logits on the card")
+    cpu, _ = run("cpu", cpu_params, torch.device("cpu"), held, toks)
+    errs, std = compare(card, cpu)
+    check(len(held.calls["cpu"]) == 3 * cfg.num_layers,
+          f"moe slice {model}: {len(held.calls['cpu'])} router calls")
+    res = dict(config=f"{model}, 2 layers at full width, LAYERWISE fp8 (experts per channel), "
+               f"{kv} KVCache: prefill of {n} tokens (every position) + 2 decode steps",
+               qdot_route=route, cpu_takes_card_qdot_inputs=forced, forced_calls=rec.forced,
+               cpu_takes_card_routes=True, steps=len(errs), logits_max_abs_err=max(errs),
+               per_step=errs, logits_std=std, err_over_std=max(errs) / std,
+               routing=held.routing(cfg.num_experts_per_tok),
+               worst_rows=worst(card, cpu, std))
+    if free and not forced:  # the CPU's own routes
+        free = RouteRecorder()
+        free.calls["cuda"] = held.calls["cuda"]
+        rows, _ = run("cpu", cpu_params, torch.device("cpu"), free, toks)
+        ferrs, fstd = compare(card, rows)
+        flipped = torch.zeros(n, dtype=torch.bool)
+        for li in range(cfg.num_layers):  # the prefill's calls: a token flipped in any layer
+            flipped |= (free.calls["cuda"][li][1] != free.calls["cpu"][li][1]).any(-1)
+        rest = (card[0][~flipped] - rows[0][~flipped]).abs().max().item()
+        res["free_routes"] = dict(per_step=ferrs, err_over_std=max(ferrs) / fstd,
+                                  prefill_unflipped_tokens_err_over_std=rest / fstd,
+                                  prefill_flipped_tokens=int(flipped.sum()),
+                                  routing=free.routing(cfg.num_experts_per_tok))
+    tol = (MIXTRAL_XLA_TOL_STD if model == "mixtral-8x7b" and route == "xla"
+           else BAICHUAN_XLA_TOL_STD)
+    res.update(tol_std=tol, wall_s=time.perf_counter() - t0)
+    log(res)
+    check(max(errs) <= tol * std,
+          f"moe slice {model} ({route}{', forced inputs' if forced else ''}, the card's routes): "
+          f"logits err {max(errs)} > {tol} std ({std})")
+    check(not forced or (rec.forced > 0 and not rec.queue),
+          f"moe slice {model}: {rec.forced} forced inputs, {len(rec.queue)} unused")
+    del params, cpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_train_slice(dev, log, model="qwen3-30b-a3b"):
+    """``model`` at full width cut to 1 layer, the bf16 recipe (bf16
+    compute; the router in float32): one step card against CPU
+    (``forward_fn_train_slice``, B 2 x S 256), the loss, the router aux and
+    every gradient (``w_router`` included) held to the Gemma slice's limits,
+    the routing flips logged."""
+    return forward_fn_train_slice(dev, log, model, "moe train slice", MOE_TRAIN_PATH,
+                                  GEMMA_TRAIN_LOSS_RTOL, GEMMA_TRAIN_GRAD_SHARE,
+                                  "bf16 compute", absent=("flash_attention_f32",), layers=1,
+                                  rates=(0.0,))
+
+
+def tree_gb(params):
+    """Bytes of a parameter tree's storage, in GB."""
+    def nbytes(v):
+        if isinstance(v, dict):
+            return sum(nbytes(x) for x in v.values())
+        if hasattr(v, "qvalue"):
+            return v.qvalue.untyped_storage().nbytes() + v.scale.numel() * v.scale.element_size()
+        return v.numel() * v.element_size()
+
+    return nbytes(params) / 1e9
+
+
+def moe_step_parts(params, cfg, dev, slots):
+    """The decode step's MoE layer split into parts, each timed apart as a
+    CUDA graph (``cuda_ms``) at the step's shapes (``slots`` tokens,
+    lossless) on layer 0's weights, times the layer count: the experts'
+    codes converted to bf16 (dequantize), the two expert products with their
+    scales and the SwiGLU (from converted weights), the router with the
+    dispatch and combine (the whole routed MLP less those two), and the
+    attention over the cache (a decode step's append and plain
+    ``decode_attention`` at the cache's length)."""
+    import torch
+
+    from llm_fp8_tpu_torch.models import moe
+    from llm_fp8_tpu_torch.models.llama import _swiglu, cache_append_attend, init_kv_cache
+
+    lp = {k: (v.layer(0) if hasattr(v, "qvalue") else v[0]) for k, v in params["layers"].items()}
+    L, E, D = cfg.num_layers, cfg.num_experts, cfg.hidden_size
+    g = torch.Generator(device=dev).manual_seed(5)
+    h = (torch.randn((slots, D), generator=g, device=dev)).to(torch.bfloat16)
+    wg = moe.expert_weight(lp["w_gate_up"], torch.bfloat16)
+    wd = moe.expert_weight(lp["w_down"], torch.bfloat16)
+    xe = torch.randn((E, slots, D), generator=g, device=dev).to(torch.bfloat16)
+
+    def products():
+        y = (moe.bmm_f32(xe, wg) * lp["w_gate_up"].scale.float()).to(torch.bfloat16)
+        return (moe.bmm_f32(_swiglu(y), wd) * lp["w_down"].scale.float()).to(torch.bfloat16)
+
+    parts = {
+        "expert_dequantize": cuda_ms(lambda: (moe.expert_weight(lp["w_gate_up"], torch.bfloat16),
+                                              moe.expert_weight(lp["w_down"], torch.bfloat16)),
+                                     calls=3),
+        "expert_products": cuda_ms(products, calls=3),
+        "routed_mlp": cuda_ms(lambda: moe._moe_mlp(h, lp["w_router"], lp["w_gate_up"],
+                                                   lp["w_down"], cfg, lossless=True), calls=3)}
+    parts["router_dispatch_combine"] = (parts["routed_mlp"] - parts["expert_dequantize"]
+                                        - parts["expert_products"])
+    S = 2048
+    cache = init_kv_cache(cfg, slots, S, dtype=torch.float8_e4m3fn, device=dev)
+    q = torch.randn((slots, 1, cfg.num_heads, cfg.head_dim), generator=g,
+                    device=dev).to(torch.bfloat16)
+    kv = torch.randn((slots, 1, cfg.num_kv_heads, cfg.head_dim), generator=g,
+                     device=dev).to(torch.bfloat16)
+    pos = torch.full((slots,), S - 1, dtype=torch.int32, device=dev)
+    parts["attention"] = cuda_ms(lambda: cache_append_attend(
+        q, kv, kv, (cache.k, cache.v, cache.k_scale[0], cache.v_scale[0], 0), pos, pos + 1),
+        calls=3)
+    del wg, wd, xe, cache
+    return dict(per_layer_ms=parts, layers=L, kv_len=S,
+                step_parts_ms={k: v * L for k, v in parts.items() if k != "routed_mlp"},
+                how="each part a CUDA graph of 3 calls on layer 0's weights at the step's "
+                    "shapes, times the layers")
+
+
+#: moe_serve: 8 prompts of 300-1500 tokens, 32 new tokens each.
+MOE_SERVE_PROMPTS = (300, 1501)
+
+
+def moe_serving(dev, card, log):
+    """Mixtral-8x7B at all 32 layers and Qwen3-30B-A3B at all 48 through
+    ``Engine(forward_fn=moe_forward)`` (``moe_serve_model``), one model at a
+    time."""
+    import torch
+
+    res = {"card": card}
+    for model, L in (("mixtral-8x7b", 32), ("qwen3-30b-a3b", 48)):
+        res[model] = moe_serve_model(dev, log, model, L)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def moe_serve_model(dev, log, model, L):
+    """``model`` at full width and all ``L`` layers: LAYERWISE fp8 weights
+    made a layer at a time into one allocation (``fp8_params_by_layer``),
+    e4m3 KV on the KVCache path, max_seq_len 4096, 8 requests
+    (``MOE_SERVE_PROMPTS``), 32 new tokens each, after a warm-up request;
+    the CUDA graph against the eager twin (greedy tokens equal), the path's
+    launches (K3 at every prefill layer, K9 in the prefills and the captured
+    step), step ms, TTFT, tokens/s, peak memory, the device busy share of
+    the same run profiled apart with 8 new tokens a request, and the decode
+    step split into parts (``moe_step_parts``)."""
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.serving import EngineConfig
+
+    entry = resolve_model(model)
+    cfg = entry.cfg
+    check(cfg.num_layers == L and cfg.head_dim == 128,
+          f"moe serve: {model} is not its published shape")
+    Checked, Eager = forward_fn_engines(entry.forward_fn)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = fp8_params_by_layer(cfg, dev, init=entry.init_fn, quantize=entry.quantize_fn)
+    init_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ecfg = EngineConfig(max_slots=8, max_seq_len=4096, prefill_buckets=(512, 1024, 2048),
+                        kv_dtype="fp8")
+    rng = np.random.RandomState(15)
+    prompts = [rng.randint(1, cfg.vocab_size, rng.randint(*MOE_SERVE_PROMPTS)).astype(np.int32)
+               for _ in range(8)]
+
+    def run(cls, ps, new):
+        return forward_fn_run(cls, params, cfg, ecfg, ps, new, dev, f"moe serve {model}")
+
+    t0 = time.perf_counter()
+    run(Checked, prompts[:1], 4)  # warm-up: cuBLAS's first calls, the allocator's growth
+    gc.collect()
+    part_s = {"build": init_s, "warm_up": time.perf_counter() - t0}
+    out = {mode: run(cls, prompts, 32) for mode, cls in (("graph", Checked), ("eager", Eager))}
+    eng, reqs, wall, counts = out["graph"]
+    e_eng, e_reqs, e_wall, e_counts = out["eager"]
+    graph = eng.step_graph
+    graph_checks(f"moe serve {model}", eng, graph, eng.burst_steps)
+    equal = [r.output for r in reqs] == [r.output for r in e_reqs]
+    check(equal, f"moe serve {model}: the graph's greedy tokens differ from the eager step's")
+    check(not eng._fp8_arena and eng.cache.k.dtype == torch.float8_e4m3fn,
+          f"moe serve {model}: not the e4m3 KVCache path")
+    launches = device_launches(counts, graph)
+    check(counts["flash_attention"] == L * len(prompts),
+          f"moe serve {model}: K3 launched {counts['flash_attention']} times for "
+          f"{len(prompts)} prefills of {L} layers")
+    check(counts["flash_attention_f32"] == 0 and counts["quantize_fused"] > 0
+          and graph.launches.get("quantize_fused", 0) > 0,
+          f"moe serve {model}: launches {counts}, a replay {graph.launches}")
+    ttfts = sorted(r.ttft for r in reqs)
+    step_ms = 1e3 * eng.decode_s / max(eng.burst_steps, 1)
+    r = dict(config=f"{model}, all {L} layers at full width, LAYERWISE fp8 weights, e4m3 "
+             "KVCache, 8 slots x 4096", requests=len(prompts),
+             prompt_lens=[len(p) for p in prompts], generated=32 * len(prompts),
+             init_s=init_s, weights_gb=tree_gb(params), build_peak_gib=build_peak,
+             wall_s=wall, tokens_per_s=32 * len(prompts) / wall,
+             ttft_p50_s=ttfts[len(ttfts) // 2], prefill_s=eng.prefill_s,
+             prefill_ms_per_request=1e3 * eng.prefill_s / len(prompts),
+             decode_step_ms=step_ms,
+             eager_decode_step_ms=1e3 * e_eng.decode_s / max(e_eng.burst_steps, 1),
+             eager_wall_s=e_wall, peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+             launches=launches, launches_a_replay=graph.launches, eager_launches=e_counts,
+             replays=graph.replays, captures=graph.captures, tokens_equal_eager=equal)
+    # The graph holds its engine (and the weights) through its body: drop both.
+    del out, eng, e_eng, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # 8 new tokens a request: the profiler's record handling for every
+    # kernel of 31 replays of a 48-layer step took ~45 s a model.
+    r["profile"] = profile_run(Checked, params, cfg, ecfg, prompts, dev, max_new=8)
+    part_s["profile_run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r["step_parts"] = moe_step_parts(params, cfg, dev, ecfg.max_slots)
+    r["step_parts"]["measured_step_ms"] = step_ms
+    part_s["step_parts"] = time.perf_counter() - t0
+    r["phase_part_s"] = part_s
+    log(r)
+    return r
+
+
+#: moe_train: Qwen3-30B-A3B cut to 3 of 48 layers (the widths whole). At 4
+#: layers the float32 weights, gradients and AdamW moments take 50 GB and
+#: AdamW's temporaries for the 6.4 GB w_gate_up leaf (~6 of its size while
+#: it is updated) pass 80 GB; at 3 about 40 + 29 GB.
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 3, 3
+
+
+def moe_training(dev, card, log, model="qwen3-30b-a3b"):
+    """``model`` at full width cut to ``MOE_TRAIN_LAYERS``, float32 master
+    weights and AdamW, the bf16 recipe (bf16 compute), 8 x 512 synthetic
+    tokens a step at the default capacity factor 2.0 through
+    ``Trainer(forward_fn=moe_forward)`` (``forward_fn_training``): remat full,
+    then dots (losses bit-equal), the router aux a step, K3 and K6 launched
+    their counts a step."""
+    from llm_fp8_tpu_torch.models import resolve_model
+
+    cfg = resolve_model(model).cfg
+    check(cfg.num_experts == 128 and cfg.capacity_factor == 2.0,
+          f"moe train: {model} is not qwen3-30b-a3b")
+    return forward_fn_training(dev, card, log, model, MOE_TRAIN_STEPS, 8, 512, 200,
+                               MOE_TRAIN_PATH, ("flash_attention_f32",),
+                               "bf16 recipe (bf16 compute), router aux 0.02",
+                               num_layers=MOE_TRAIN_LAYERS)
+
+
+def moe_spec_serving(dev, card, log, target="qwen3-30b-a3b", draft="Qwen/Qwen2.5-1.5B"):
+    """Speculative serving of Qwen3-30B-A3B (48 layers, LAYERWISE fp8 weights
+    made a layer at a time, e4m3 KV) with a bf16 Qwen2.5-1.5B draft (vocab
+    151936 both) through ``SpecEngine(forward_fn=moe_forward,
+    draft_forward_fn=forward)``: 8 requests of 500-1000 tokens, 32 new each,
+    gamma 4, greedy; the round's CUDA graph against its eager twin (tokens
+    equal), K3 (the verify block) and K9 launched in the captured round."""
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.serving import EngineConfig, SamplingParams
+
+    Rounds, EagerRounds = spec_round_classes()
+    tentry, dentry = resolve_model(target), resolve_model(draft)
+    tcfg, dcfg = tentry.cfg, dentry.cfg
+    check(tcfg.vocab_size == dcfg.vocab_size == 151936 and tcfg.num_layers == 48,
+          f"moe spec: {target}/{draft} are not qwen3-30b-a3b/qwen2.5-1.5b")
+    t0 = time.perf_counter()
+    tparams = fp8_params_by_layer(tcfg, dev, init=tentry.init_fn,
+                                  quantize=tentry.quantize_fn)
+    dparams = dentry.init_fn(dcfg, dtype=torch.bfloat16, device=dev, seed=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gamma, max_new = 4, 32
+    ecfg = EngineConfig(max_slots=8, max_seq_len=2048, prefill_buckets=(1024, 2048),
+                        kv_dtype="fp8")
+    rng = np.random.RandomState(16)
+    prompts = [rng.randint(1, tcfg.vocab_size, rng.randint(500, 1001)).astype(np.int32)
+               for _ in range(8)]
+    hooks = dict(forward_fn=tentry.forward_fn, draft_forward_fn=dentry.forward_fn)
+
+    def serve(cls, what):
+        return spec_run(cls, tparams, tcfg, dparams, dcfg, ecfg, prompts, max_new, gamma, dev,
+                        f"moe spec {what}", **hooks)
+
+    warm = Rounds(tparams, tcfg, dparams, dcfg, ecfg, gamma=gamma, device=dev, **hooks)
+    warm.add_request(prompts[0], SamplingParams(max_new_tokens=4))
+    warm.run()
+    del warm
+    gc.collect()
+    eng, spec_tokens, greedy = serve(Rounds, "greedy")
+    for kname in MOE_SERVE_PATH:
+        check(eng.round_graph.launches.get(kname, 0) > 0,
+              f"moe spec greedy: {kname} is not in the captured round")
+    check(greedy["launches"]["flash_attention_f32"] == 0
+          and greedy["launches"]["decode_attention_arena"] == 0,
+          f"moe spec greedy: a float32/arena attention kernel ran ({greedy['launches']})")
+    del eng
+    gc.collect()
+    _, eager_tokens, eager = serve(EagerRounds, "eager")
+    equal = spec_tokens == eager_tokens
+    check(equal, "moe spec: the round graph's greedy tokens differ from the eager round's")
+    res = dict(card=card, target=f"{target}, 48 layers, LAYERWISE fp8, e4m3 KV",
+               draft=f"{draft}, bf16", slots=8, gamma=gamma, max_new=max_new,
+               prompt_lens=[len(p) for p in prompts], init_s=init_s, greedy=greedy,
+               eager=eager, tokens_equal_eager=equal,
+               acceptance_note="random weights: acceptance is not that of trained models")
+    log(res)
+    del tparams, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5817,7 +6517,13 @@ def main(argv=None) -> int:
              ("gemma_train_slice", lambda: gemma_train_slice(dev, log)),
              ("gemma_serve", lambda: gemma_serving(dev, card, log)),
              ("gemma_train", lambda: gemma_training(dev, card, log)),
-             ("gemma_spec_serve", lambda: gemma_spec_serving(dev, card, log)))
+             ("gemma_spec_serve", lambda: gemma_spec_serving(dev, card, log)),
+             ("moe_kernels", lambda: moe_kernel_cases(dev, bw, peak, log)),
+             ("moe_slice", lambda: moe_slice_check(dev, log)),
+             ("moe_train_slice", lambda: moe_train_slice(dev, log)),
+             ("moe_serve", lambda: moe_serving(dev, card, log)),
+             ("moe_train", lambda: moe_training(dev, card, log)),
+             ("moe_spec_serve", lambda: moe_spec_serving(dev, card, log)))
     try:
         for phase, run in steps:
             if phase in phases:
@@ -5877,7 +6583,15 @@ def kernels_line(report):
                "gemma train (gemma2-2b, 26 layers, remat full and dots)":
                    report["gemma_train"]["launches"],
                "gemma spec (gemma2-9b target, gemma2-2b draft, greedy)":
-                   report["gemma_spec_serve"]["greedy"]["launches"]}
+                   report["gemma_spec_serve"]["greedy"]["launches"],
+               "moe serve (mixtral-8x7b, 32 layers, e4m3 KVCache)":
+                   report["moe_serve"]["mixtral-8x7b"]["launches"],
+               "moe serve (qwen3-30b-a3b, 48 layers, e4m3 KVCache)":
+                   report["moe_serve"]["qwen3-30b-a3b"]["launches"],
+               f"moe train (qwen3-30b-a3b, {MOE_TRAIN_LAYERS} layers, remat full and dots)":
+                   report["moe_train"]["launches"],
+               "moe spec (qwen3-30b-a3b target, qwen2.5-1.5b draft, greedy)":
+                   report["moe_spec_serve"]["greedy"]["launches"]}
     for counts in by_path.values():
         counts["flash_attention_bwd"] = (counts.get("flash_attention_bwd_dkv", 0)
                                          + counts.get("flash_attention_bwd_dq", 0))
@@ -5908,12 +6622,18 @@ def kernels_line(report):
                             "head_dim 256 full": ("gemma_kernels", "D256 9b prefill B1 "
                                                   "Sq=Sk=8192 full"),
                             "head_dim 256 engine bucket": ("gemma_kernels",
-                                                           "D256 engine bucket")},
+                                                           "D256 engine bucket"),
+                            "GQA 8 (qwen3-30b-a3b prefill)": ("moe_kernels",
+                                                              "qwen3-30b-a3b prefill"),
+                            "GQA 4 (mixtral-8x7b prefill)": ("moe_kernels",
+                                                             "mixtral-8x7b prefill")},
         "flash_attention_bwd": {"alibi": ("alibi_kernels", "alibi Hq40 D128 B2 S1024"),
                                 "dropout": ("dropout_kernels", "dropout"),
                                 "head_dim 256": ("gemma_kernels", "D256 2b train"),
                                 "head_dim 256 window 4096 S8192": ("gemma_kernels",
-                                                                   "D256 train B1 S8192")},
+                                                                   "D256 train B1 S8192"),
+                                "GQA 8 (qwen3-30b-a3b train)": ("moe_kernels",
+                                                                "qwen3-30b-a3b train")},
         "flash_attention_f32": {"dropout": ("zoo_train_kernels", "dropout")}}
     headers = {"decode_attention_arena": ["decode_split.cuh", "fp8_ftz.cuh"],
                "paged_attention": ["decode_split.cuh", "fp8_ftz.cuh"],
@@ -6003,8 +6723,8 @@ def kernels_line(report):
                 line[-1]["features"][tag] = {k: o.get(k) for k in (
                     "case", "max_abs_err", "ms", "ms_without_alibi", "ms_without_dropout",
                     "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
-                    "keep_mask_equal", "k6_keep_mask_equal", "split_ms", "split_bound_ms")
-                    if k in o}
+                    "keep_mask_equal", "k6_keep_mask_equal", "split_ms", "split_bound_ms",
+                    "caught") if k in o}
         if kname in also:
             phase, prefix = also[kname]
             o = next(o for o in report[phase]

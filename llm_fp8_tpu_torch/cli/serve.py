@@ -1,6 +1,7 @@
 """Serving CLI: random init or an HF checkpoint → quantize → continuous-
 batching run on the card (counterpart of ``llm_fp8_tpu/cli/serve.py``; the
-Llama, GPT-2, NeoX and Gemma-2 families, resolved by ``models/registry.py``):
+Llama, GPT-2, NeoX, Gemma-2 and MoE families, resolved by
+``models/registry.py``):
 
   python -m llm_fp8_tpu_torch.cli.serve --model_name llama-3.2-1b --random_init \\
       --precision fp8 --kv_dtype fp8 [--paged --page_size 128 --num_pages 512]
@@ -10,14 +11,17 @@ Llama, GPT-2, NeoX and Gemma-2 families, resolved by ``models/registry.py``):
       --weights_path DIR --draft_model llama-3.2-1b --draft_weights DIR2 --gamma 4
   python -m llm_fp8_tpu_torch.cli.serve --model_name gemma2-9b --random_init \\
       --precision fp8 --kv_dtype fp8 --draft_model gemma2-2b --max_seq_len 8192
+  python -m llm_fp8_tpu_torch.cli.serve --model_name qwen3-30b-a3b --random_init \\
+      --precision fp8 --kv_dtype fp8 --draft_model Qwen/Qwen2.5-1.5B
 
 ``--weights_path``/``--draft_weights`` read safetensors directories
 (``load_zoo_checkpoint``: the family's packer); ``--draft_model`` serves
 through the speculative engine (random draft weights from seed 1 unless
 ``--draft_weights``; any target and draft of one vocabulary, each through
 its family's forward: ``SpecEngine(forward_fn=, draft_forward_fn=)``). A
-GPT-2/NeoX or Gemma-2 model serves through ``Engine(forward_fn=...)``, the
-slot engine's KVCache path; ``--paged`` is refused for it, as in the JAX CLI.
+GPT-2/NeoX, Gemma-2 or MoE model (``mixtral-8x7b``, ``qwen3-30b-a3b``, their
+``debug-*`` configs) serves through ``Engine(forward_fn=...)``, the slot
+engine's KVCache path; ``--paged`` is refused for it, as in the JAX CLI.
 Prints one JSON line with the JAX CLI's keys: tokens/s, p50/p99 TTFT and the
 peak device memory (``torch.cuda.max_memory_allocated``); ``--paged`` adds
 ``pages_in_use``, ``--draft_model`` the ``spec_*`` statistics. ``main``

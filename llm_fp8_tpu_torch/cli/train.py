@@ -1,5 +1,6 @@
 """Fine-tuning CLI on the card (counterpart of ``llm_fp8_tpu/cli/train.py``;
-the Llama, GPT-2, NeoX and Gemma-2 families, resolved by ``models/registry.py``):
+the Llama, GPT-2, NeoX, Gemma-2 and MoE families, resolved by
+``models/registry.py``):
 
   python -m llm_fp8_tpu_torch.cli.train --model_name meta-llama/Llama-3.2-1B \\
       --random_init --synthetic_samples 400 --mixed_precision fp8 --fp8_scenario default
@@ -7,6 +8,8 @@ the Llama, GPT-2, NeoX and Gemma-2 families, resolved by ``models/registry.py``)
       --synthetic_samples 400 --mixed_precision bf16 --remat full
   python -m llm_fp8_tpu_torch.cli.train --model_name gemma2-2b --random_init \\
       --synthetic_samples 400 --mixed_precision bf16 --remat dots
+  python -m llm_fp8_tpu_torch.cli.train --model_name qwen3-30b-a3b --random_init \\
+      --synthetic_samples 400 --mixed_precision bf16 --remat full
 
 ``--synthetic_samples N`` trains on the built-in corpus with a byte
 tokenizer (the only data path until local data is ported), from random
@@ -28,7 +31,11 @@ from random weights or a safetensors directory read by its family's packer
 (``load_zoo_checkpoint``), with float32 master weights (GPT-2/NeoX compute in
 float32, Gemma-2 in bf16 with each dot's weight cast); its trained params are written as the
 JAX CLI writes them: ``params.pkl``, a pickle of the stacked tree as numpy
-arrays under the JAX package's key names, which either package reads.
+arrays under the JAX package's key names, which either package reads. An
+MoE model (Mixtral, Qwen3-MoE) trains the same way with the router's
+load-balancing loss in its loss (``Trainer``; the train log carries
+``router_aux``), and is written as HF safetensors (``export_hf``), as the JAX
+CLI writes it.
 
 Not ported yet (they raise): the mesh flags and ``--multihost`` (one
 device), ``--use_wandb`` and the HF dataset and tokenizer (no network).
@@ -207,9 +214,10 @@ def main(argv=None):
                                         activation_std=float(m["activation_std"]))
             if step % args.log_every == 0:
                 wall = time.perf_counter() - t0
+                aux = {"router_aux": float(m["router_aux"])} if "router_aux" in m else {}
                 log({"train": {**inst, "step": step, "epoch": epoch,
                                "perplexity": math.exp(min(loss, 20.0)),
-                               "tokens_per_s": tokens / wall}})
+                               "tokens_per_s": tokens / wall, **aux}})
             if args.save_every and ckpt and step % args.save_every == 0:
                 ckpt.save(state, step)
         ev = trainer.evaluate(state.params, dm.batches(eval_seqs, dm.config.eval_bs,
@@ -220,7 +228,7 @@ def main(argv=None):
     log_file.close()
 
     report = stability.report()
-    if llama:
+    if llama or hasattr(cfg, "num_experts"):
         export_hf(state.params, cfg, args.output_dir)
     else:
         # The zoo families: the raw param tree, as the JAX CLI saves it.

@@ -3,11 +3,12 @@
 serving CLI and ``Engine(forward_fn=...)`` use to drive any ported family.
 
 Ported: the Llama family (``models/config.py``), GPT-2 (``models/gpt2.py``),
-NeoX (``models/neox.py``) and Gemma-2 (``models/gemma.py``, quantized by the
+NeoX (``models/neox.py``), Gemma-2 (``models/gemma.py``, quantized by the
 Llama family's ``quantize_params``, as in JAX: its GEMM leaves have the same
-names). The JAX package's MoE and MLA families are not ported yet: their
-names (kept here, since the port imports nothing of the JAX package) raise
-``NotImplementedError`` naming the family.
+names) and the MoE family (``models/moe.py``: Mixtral and Qwen3-MoE, quantized
+by ``quantize_moe_params``). The JAX package's MLA family is not ported yet:
+its names (kept here, since the port imports nothing of the JAX package)
+raise ``NotImplementedError`` naming the family.
 """
 from __future__ import annotations
 
@@ -35,7 +36,6 @@ _ZOO_SITES = {"w_qkv": "attn_qkv", "w_out": "attn_out", "w_fc": "mlp", "w_proj":
 
 #: The JAX package's families not ported yet, with their registry names.
 UNPORTED_FAMILIES = {
-    "MoE": ("mixtral-8x7b", "debug-mixtral", "qwen3-30b-a3b", "debug-qwen3moe"),
     "MLA": ("deepseek-v2-lite", "deepseek-v2", "debug-mla", "debug-mla-q"),
 }
 
@@ -79,6 +79,7 @@ def resolve_model(name: str) -> ZooEntry:
     from .gemma import GEMMA_REGISTRY, gemma_forward, init_gemma_params
     from .gpt2 import GPT2_REGISTRY, gpt2_forward, init_gpt2_params
     from .llama import forward, init_params, quantize_params
+    from .moe import MOE_REGISTRY, init_moe_params, moe_forward, quantize_moe_params
     from .neox import NEOX_REGISTRY, init_neox_params, neox_forward
 
     if name in MODEL_REGISTRY:
@@ -92,6 +93,8 @@ def resolve_model(name: str) -> ZooEntry:
     if name in GEMMA_REGISTRY:
         return ZooEntry(GEMMA_REGISTRY[name], init_gemma_params, gemma_forward,
                         quantize_params)
+    if name in MOE_REGISTRY:
+        return ZooEntry(MOE_REGISTRY[name], init_moe_params, moe_forward, quantize_moe_params)
     _unported(name)
     raise ValueError(f"unknown model {name!r}; known: {sorted(zoo_model_names())}")
 
@@ -101,9 +104,10 @@ def zoo_model_names() -> list:
     from .config import MODEL_REGISTRY
     from .gemma import GEMMA_REGISTRY
     from .gpt2 import GPT2_REGISTRY
+    from .moe import MOE_REGISTRY
     from .neox import NEOX_REGISTRY
 
-    return [*MODEL_REGISTRY, *GPT2_REGISTRY, *NEOX_REGISTRY, *GEMMA_REGISTRY]
+    return [*MODEL_REGISTRY, *GPT2_REGISTRY, *NEOX_REGISTRY, *GEMMA_REGISTRY, *MOE_REGISTRY]
 
 
 def load_zoo_checkpoint(name: str, path: str, dtype=torch.bfloat16, device=None):
@@ -118,8 +122,9 @@ def load_zoo_checkpoint(name: str, path: str, dtype=torch.bfloat16, device=None)
 
 def _pack_fn_for(name: str) -> Callable:
     """The HF state-dict packer of ``name``'s family (the GPT-2/NeoX flavour
-    is read from the registry name's prefix, as in the JAX package)."""
-    from . import gpt2, neox
+    is read from the registry name's prefix, as in the JAX package; an MoE
+    config with QK-norm is Qwen3-MoE, else Mixtral)."""
+    from . import gpt2, moe, neox
     from .config import MODEL_REGISTRY
     from .gemma import GEMMA_REGISTRY, pack_gemma2_state_dict
     from .hf_loader import pack_hf_state_dict
@@ -128,6 +133,9 @@ def _pack_fn_for(name: str) -> Callable:
         return pack_hf_state_dict
     if name in GEMMA_REGISTRY:
         return pack_gemma2_state_dict
+    if name in moe.MOE_REGISTRY:
+        return (moe.pack_qwen3_moe_state_dict if moe.MOE_REGISTRY[name].qk_norm
+                else moe.pack_mixtral_state_dict)
     _unported(name)
     by_prefix = [
         ("gpt2", gpt2.pack_gpt2_state_dict),

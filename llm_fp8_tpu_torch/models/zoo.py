@@ -1,6 +1,6 @@
-"""What the GPT-2, NeoX and Gemma families share (the JAX package repeats it
-in ``models/gpt2.py``, ``models/neox.py`` and ``models/gemma.py``): the layer
-loop with or without the :class:`~.llama.KVCache` and with the training
+"""What the GPT-2, NeoX, Gemma and MoE families share (the JAX package
+repeats it in ``models/gpt2.py``, ``models/neox.py``, ``models/gemma.py`` and
+``models/moe.py``): the layer loop with or without the :class:`~.llama.KVCache` and with the training
 knobs (remat, attention dropout) and a per-layer window, the float32 logits
 of a tied or unquantized head, and the state-dict readers of the HF packers.
 
@@ -94,7 +94,8 @@ def training_knobs(cache, attn_impl: str, remat, unroll: int, dropout_p: float) 
 
 def run_layers(params: Dict[str, Any], x: torch.Tensor, layer: Callable, *,
                cache=None, start_pos: torch.Tensor, kv_lens=None, remat: str = "none",
-               dropout_p: float = 0.0, dropout_seed: int = 0, window=None, **attn_kw):
+               dropout_p: float = 0.0, dropout_seed: int = 0, window=None, with_aux=False,
+               **attn_kw):
     """The decoder layers over ``x``: ``layer(x, lp, attend, seg) -> x`` per
     layer, where ``attend(q, k, v)`` is causal self-attention (no cache; with
     ``dropout_p`` at layer li's seed) or the cache's append-and-attend at
@@ -104,8 +105,11 @@ def run_layers(params: Dict[str, Any], x: torch.Tensor, layer: Callable, *,
     ``softcap``, ``alibi_slopes``), and ``seg(fn, *args)`` runs one
     of the layer's elementwise segments (checkpointed under ``remat="dots"``).
     ``remat`` is a mode of :func:`~.llama.remat_mode` (``"full"``: each layer
-    under a checkpoint). Returns ``(x, new_cache)``."""
+    under a checkpoint). Returns ``(x, new_cache)``; with ``with_aux`` the
+    layer returns ``(x, aux)`` (also from under a ``"full"`` checkpoint) and
+    the list of the layers' ``aux`` comes third (the MoE router's loss)."""
     seg = _ckpt if remat == "dots" else _call
+    auxes = []
     for li, lp in enumerate(unstack_layers(params["layers"])):
         w = window(li) if callable(window) else window
         if cache is None:
@@ -120,13 +124,17 @@ def run_layers(params: Dict[str, Any], x: torch.Tensor, layer: Callable, *,
                     q, k, v, (cache.k, cache.v, cache.k_scale[li], cache.v_scale[li], li),
                     start_pos, kv_lens, window=w, **attn_kw)[0]
         if remat == "full":
-            x = _ckpt(lambda x, lp=lp, attend=attend: layer(x, lp, attend, seg), x)
+            out = _ckpt(lambda x, lp=lp, attend=attend: layer(x, lp, attend, seg), x)
         else:
-            x = layer(x, lp, attend, seg)
-    if cache is None:
-        return x, None
-    S = x.shape[1]
-    return x, dataclasses.replace(cache, lens=torch.maximum(cache.lens, start_pos + S))
+            out = layer(x, lp, attend, seg)
+        if with_aux:
+            x, aux = out
+            auxes.append(aux)
+        else:
+            x = out
+    new_cache = None if cache is None else dataclasses.replace(
+        cache, lens=torch.maximum(cache.lens, start_pos + x.shape[1]))
+    return (x, new_cache, auxes) if with_aux else (x, new_cache)
 
 
 def state_getter(sd, dtype, device):

@@ -128,8 +128,10 @@ class CheckpointManager:
 def export_hf(params: Dict[str, Any], cfg: ModelConfig, out_dir: str, *,
               dequantize: bool = True) -> str:
     """Write HF-layout ``model.safetensors`` (float32) and ``config.json``
-    into ``out_dir``. Quantized leaves are dequantized to float32 (the HF
-    layout has no scale sidecar); ``dequantize=False`` refuses them."""
+    into ``out_dir``: the Llama family's layout, or an MoE config's
+    (``num_experts``) as Mixtral or, with QK-norm, Qwen3-MoE, with their
+    ``config.json`` fields. Quantized leaves are dequantized to float32 (the
+    HF layout has no scale sidecar); ``dequantize=False`` refuses them."""
     def deq(tree):
         if isinstance(tree, dict):
             return {k: deq(v) for k, v in tree.items()}
@@ -140,11 +142,22 @@ def export_hf(params: Dict[str, Any], cfg: ModelConfig, out_dir: str, *,
         return tree
 
     os.makedirs(out_dir, exist_ok=True)
-    write_safetensors(os.path.join(out_dir, "model.safetensors"),
-                      export_hf_state_dict(deq(params), cfg))
+    is_moe = hasattr(cfg, "num_experts")
+    if is_moe:
+        from ..models.moe import export_mixtral_state_dict, export_qwen3_moe_state_dict
+
+        sd = (export_qwen3_moe_state_dict if cfg.qk_norm else export_mixtral_state_dict)(
+            deq(params), cfg)
+    else:
+        sd = export_hf_state_dict(deq(params), cfg)
+    write_safetensors(os.path.join(out_dir, "model.safetensors"), sd)
     # model_type from the architectural features, as JAX derives it, so that
     # transformers reloads with the right class.
-    if cfg.qk_norm:
+    if is_moe and cfg.qk_norm:
+        model_type, arch = "qwen3_moe", "Qwen3MoeForCausalLM"
+    elif is_moe:
+        model_type, arch = "mixtral", "MixtralForCausalLM"
+    elif cfg.qk_norm:
         model_type, arch = "qwen3", "Qwen3ForCausalLM"
     elif cfg.qkv_bias:
         model_type, arch = "qwen2", "Qwen2ForCausalLM"
@@ -165,6 +178,15 @@ def export_hf(params: Dict[str, Any], cfg: ModelConfig, out_dir: str, *,
         "tie_word_embeddings": cfg.tie_word_embeddings,
         "max_position_embeddings": cfg.max_position_embeddings,
     }
+    if is_moe and cfg.qk_norm:
+        # Qwen3MoeConfig's names; the expert width is intermediate_size here.
+        hf_cfg.update(num_experts=cfg.num_experts, num_experts_per_tok=cfg.num_experts_per_tok,
+                      moe_intermediate_size=cfg.intermediate_size,
+                      norm_topk_prob=cfg.norm_topk_prob, decoder_sparse_step=1,
+                      mlp_only_layers=[], attention_bias=False)
+    elif is_moe:
+        hf_cfg.update(num_local_experts=cfg.num_experts,
+                      num_experts_per_tok=cfg.num_experts_per_tok, sliding_window=None)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(hf_cfg, f, indent=2)
     return out_dir

@@ -23,14 +23,21 @@ has no counterpart in an eager loop over the layers and must stay 1.
 
 ``forward_fn`` trains another family through the same steps, as the JAX
 trainer's: any forward with the zoo signature ``fn(params, tokens, cfg,
-remat=, dropout_p=, dropout_seed=) -> logits`` (the GPT-2, NeoX and Gemma-2
-families, ``models/registry.py``; Gemma-2 casts each dot's float32 master
+remat=, dropout_p=, dropout_seed=) -> logits`` (the GPT-2, NeoX, Gemma-2
+and MoE families, ``models/registry.py``; Gemma-2 casts each dot's float32 master
 weight to bf16, as JAX's ``_dot``), on the bf16 recipe only (the FP8 recipes implement
 the Llama stack). Such a forward exposes no hidden states, so the loss is
 never chunked and the activation mean and std are NaN (``StabilityTracker``
 skips them); its float32 params must carry no float32 head copy
 (``models/zoo.py::HEAD_F32``), which would take the head's gradient away from
-the tied embedding.
+the tied embedding. A forward that returns a tuple (the MoE family's
+``(logits, cache[, aux])``, JAX's convention) gives its first value. A config
+with ``router_aux_coef`` is an MoE config: its forward is called with
+``return_router_aux=True`` and ``token_mask=attention_mask`` (padding claims
+no expert capacity and stays out of the router statistics), and
+``router_aux_coef · aux`` joins the loss, as JAX's trainer adds it; the
+step's aux is ``Trainer.router_aux`` after the forward and ``router_aux`` in
+``train_step``'s metrics.
 """
 from __future__ import annotations
 
@@ -238,6 +245,8 @@ class Trainer:
         self.recipes: RecipeSet = recipe_set_by_name(train_cfg.recipes)
         self._fwd = forward_fn if forward_fn is not None else forward
         self._llama = self._fwd is forward
+        self._moe = hasattr(model_cfg, "router_aux_coef")
+        self.router_aux = None
         if self.recipes.enabled and not self._llama:
             raise ValueError("FP8 recipe training implements the Llama/Qwen family stack; "
                              "train other zoo families with recipes='bf16'")
@@ -283,10 +292,17 @@ class Trainer:
         if not self._llama:
             # No hidden states from a zoo forward: no chunked loss and no
             # activation series (NaN, as the JAX trainer's).
-            logits = self._fwd(params, tokens, self.model_cfg, remat=self.cfg.remat,
-                               dropout_p=self.cfg.attention_dropout, dropout_seed=step)
+            fkw = dict(remat=self.cfg.remat, dropout_p=self.cfg.attention_dropout,
+                       dropout_seed=step)
+            if self._moe:
+                fkw.update(return_router_aux=True, token_mask=mask)
+            out = self._fwd(params, tokens, self.model_cfg, **fkw)
+            logits = out[0] if isinstance(out, tuple) else out
             nan = torch.full((), float("nan"), device=self.device)
             loss, n = causal_lm_loss(logits, tokens, mask, **kw)
+            if self._moe:
+                self.router_aux = out[2].detach()
+                loss = loss + self.model_cfg.router_aux_coef * out[2]
             return loss, n, {}, (nan, nan)
         kw = dict(return_hidden=True, remat=self.cfg.remat)
         if self.recipes.enabled:
@@ -328,7 +344,7 @@ class Trainer:
         """One step on a batch (numpy or torch ``input_ids`` and
         ``attention_mask``); returns the updated ``state`` and the step's
         metrics (0-d tensors: loss, grad_norm, tokens, finite,
-        activation_mean, activation_std)."""
+        activation_mean, activation_std; an MoE model's router_aux)."""
         loss, n, amaxes, act_stats, pgrads, g_amaxes = self.loss_and_grads(state, batch)
         gnorm = global_norm(pgrads.values())
         finite = bool(torch.isfinite(loss)) and bool(torch.isfinite(gnorm))
@@ -341,6 +357,8 @@ class Trainer:
         metrics = {"loss": loss, "grad_norm": gnorm, "tokens": n,
                    "finite": torch.tensor(int(finite)),
                    "activation_mean": act_stats[0], "activation_std": act_stats[1]}
+        if self._moe:
+            metrics["router_aux"] = self.router_aux
         return state, metrics
 
     @torch.no_grad()
@@ -349,7 +367,8 @@ class Trainer:
         mask = batch.get("attention_mask")
         mask = None if mask is None else _batch_tensor(mask, self.device)
         if not self._llama:
-            loss, n = causal_lm_loss(self._fwd(params, tokens, self.model_cfg), tokens, mask)
+            out = self._fwd(params, tokens, self.model_cfg)
+            loss, n = causal_lm_loss(out[0] if isinstance(out, tuple) else out, tokens, mask)
             return loss * n, n
         chunked = self.cfg.ce_chunks > 1
         out, _ = forward(params, tokens, self.model_cfg, return_hidden=chunked)

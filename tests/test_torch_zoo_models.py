@@ -25,8 +25,9 @@
 * The fp8native layout pads K and N to multiples of 16 once; the padded
   product equals the unpadded one bit for bit.
 * The float32 copy of a tied head gives ``x @ head.float().T`` bit for bit.
-* ``resolve_model`` refuses the MoE and MLA names, naming the family (Gemma
-  is ported: ``tests/test_torch_gemma.py``).
+* ``resolve_model`` refuses the MLA names, naming the family; the MoE names
+  resolve to the port's MoE entry (ported: ``tests/test_torch_moe.py``; Gemma:
+  ``tests/test_torch_gemma.py``).
 """
 import dataclasses
 import functools
@@ -451,8 +452,12 @@ def test_float32_head_copy_gives_the_same_logits_bit_for_bit():
                                          ("deepseek-v2-lite", "MLA")])
 def test_resolve_model_refuses_unported_families(name, family):
     assert name in jreg.zoo_model_names()
-    with pytest.raises(NotImplementedError, match=f"{family} family is not ported"):
-        treg.resolve_model(name)
+    if family not in treg.UNPORTED_FAMILIES:  # MoE: ported, resolved like JAX
+        assert treg.resolve_model(name).cfg.name == jreg.resolve_model(name).cfg.name
+        assert name in treg.zoo_model_names()
+    else:
+        with pytest.raises(NotImplementedError, match=f"{family} family is not ported"):
+            treg.resolve_model(name)
     with pytest.raises(ValueError, match="unknown model"):
         treg.resolve_model("no-such-model")
 
