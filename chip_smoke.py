@@ -34,7 +34,7 @@ Phases, in order; any failure exits non-zero before the last line:
    ``forward_paged`` steps, card against CPU, logits and pool codes compared.
    Both run twice, with qdot pinned to one route on both sides:
    LLM_FP8_QDOT=xla (K1) and fp8native.
-4. serving: Llama-3.2-1B, all 16 layers, fp8 weights (qdot's default
+4. serving: Llama-3.2-1B, 8 of 16 layers (``SERVE_LAYERS``), fp8 weights (qdot's default
    route on the card, fp8native: K9 quantizes x, then fp8 products), fp8 KV
    through the arena engine (8 requests), then int8 KV (2 requests,
    calibration), bf16 KV (the KVCache path), fp8 weights on
@@ -105,10 +105,10 @@ Phases, in order; any failure exits non-zero before the last line:
    the plain mask bit for bit; each timed beside its dropout-free time.
    ``alibi_serve``: Baichuan-13B at full width: 2-layer slices card against
    CPU (arena, paged; the xla passes held to a share of the logits' std,
-   the 1B's 0.06 not being met at this width), then all 40 layers with LAYERWISE fp8 weights (made
+   the 1B's 0.06 not being met at this width), then 20 of 40 layers with LAYERWISE fp8 weights (made
    a layer at a time) and fp8 KV through the arena engine and the paged
    engine (8 prompts of 3500 tokens), graph against eager tokens.
-8. ``train_rest``: 16 layers at 1B width, 10 steps under remat none, full
+8. ``train_rest``: 8 layers at 1B width, 10 steps under remat none, full
    and dots (every loss bit-equal, full's peak memory below none's), 10
    steps of the bf16 recipe with attention dropout 0.1, a checkpoint at step
    5 resumed in a fresh Trainer equal to the uninterrupted run bit for bit,
@@ -126,7 +126,7 @@ Phases, in order; any failure exits non-zero before the last line:
    layers, LAYERWISE fp8, an e4m3 KVCache: a prefill and two decode steps
    card against CPU on LLM_FP8_QDOT=xla and on fp8native with the CPU taking
    the card's projection inputs, held to ``ZOO_SLICE_TOL_STD`` of the logits'
-   std. ``zoo_serve``: Falcon-7B at all 32 layers through
+   std. ``zoo_serve``: Falcon-7B at 16 of 32 layers through
    ``Engine(forward_fn=neox_forward)`` (fp8 weights made a layer at a time,
    fp8 KV on the KVCache path, 8 prompts of 500-1000 tokens, 32 new each),
    graph against eager tokens, K3 float32 and K9 launch counts, the device's
@@ -144,11 +144,11 @@ Phases, in order; any failure exits non-zero before the last line:
    beside it without; each case beside its plain version and SDPA's float32
    backward. ``zoo_train_slice``: btlm-3b at full width cut to 2 layers, one
    bf16-recipe step card against CPU (loss and every gradient), without
-   and with dropout 0.1. ``zoo_train``: BTLM-3B at all 32 layers, float32
+   and with dropout 0.1. ``zoo_train``: BTLM-3B at 16 of 32 layers, float32
    master weights and AdamW, 8 x 512 tokens, 5 steps under remat full and
    5 under dots (losses bit-equal), K3/K6 float32 launches a step, step ms,
-   peak memory, a profiled step. ``zoo_spec_serve``: gpt2-xl (fp8 weights,
-   e4m3 KV) with a gpt2 draft through ``SpecEngine(forward_fn=,
+   peak memory, a profiled step. ``zoo_spec_serve``: gpt2-xl (24 of 48
+   layers, fp8 weights, e4m3 KV) with a gpt2 draft through ``SpecEngine(forward_fn=,
    draft_forward_fn=)``, 8 requests, gamma 4, greedy, graph against eager
    tokens, against the plain engine's greedy tokens (near-ties counted);
    then every GPT-2/NeoX debug target with a debug draft and a Llama
@@ -171,14 +171,14 @@ Phases, in order; any failure exits non-zero before the last line:
    ``BAICHUAN_XLA_TOL_STD`` of the logits' std. ``gemma_train_slice``:
    gemma2-2b cut to 2 layers, one bf16-recipe step card against CPU (loss
    and every gradient), without and with dropout 0.1. ``gemma_serve``:
-   gemma2-9b at all 42 layers through ``Engine(forward_fn=gemma_forward)``
+   gemma2-9b at 22 of 42 layers through ``Engine(forward_fn=gemma_forward)``
    (fp8 weights made two layers at a time, e4m3 KV, 8192 tokens a slot, 6
    prompts of 500-1000 tokens and 2 of 4500-6000, 32 new each), graph
    against eager tokens, K3 and K9 launches, step ms, TTFT, peak memory,
    busy share. ``gemma_train``: gemma2-2b at all 26 layers, float32 master
    weights and AdamW, 2 x 1024 tokens, 3 steps under remat full and dots
    (losses bit-equal), K3/K6 launches a step, a profiled step.
-   ``gemma_spec_serve``: gemma2-9b (fp8, e4m3 KV) with a bf16 gemma2-2b
+   ``gemma_spec_serve``: gemma2-9b (22 layers, fp8, e4m3 KV) with a bf16 gemma2-2b
    draft, 8 requests, gamma 4, greedy, graph against eager tokens.
 12. The MoE family (Mixtral-8x7B, Qwen3-30B-A3B; no kernel of its own: the
    experts, router, dispatch and combine are plain torch, as XLA in JAX).
@@ -187,14 +187,14 @@ Phases, in order; any failure exits non-zero before the last line:
    shape (B 8 x 512, 32 over 4), row by row against their plain versions,
    reruns bit-identical, a planted wrong kv head (``h // 4`` where the
    group is 8) caught, each timed beside its bound and SDPA's flash.
-   ``moe_slice``: both models at full width cut to 2 layers, LAYERWISE fp8,
+   ``moe_slice``: both models at full width cut to 1 layer, LAYERWISE fp8,
    an e4m3 KVCache, a 256-token prefill and two decode steps card against
    CPU on LLM_FP8_QDOT=xla and on fp8native with the card's projection
    inputs, held to ``BAICHUAN_XLA_TOL_STD`` of the logits' std, the routing
    flips per layer and the smallest top-k margin logged.
    ``moe_train_slice``: qwen3-30b-a3b cut to 1 layer, one bf16-recipe step
    card against CPU (loss, router aux, every gradient). ``moe_serve``:
-   Mixtral-8x7B at all 32 layers and Qwen3-30B-A3B at all 48 through
+   Mixtral-8x7B at 16 of 32 layers and Qwen3-30B-A3B at 24 of 48 through
    ``Engine(forward_fn=moe_forward)`` (fp8 weights made a layer at a time
    into one allocation, e4m3 KV, 4096 a slot, 8 prompts of 300-1500
    tokens, 32 new each), graph against eager tokens, K3 and K9 launches,
@@ -202,9 +202,36 @@ Phases, in order; any failure exits non-zero before the last line:
    parts. ``moe_train``: qwen3-30b-a3b at 3 of 48 layers, float32 master
    weights and AdamW, 8 x 512 tokens, remat full and dots (losses
    bit-equal), the router aux a step. ``moe_spec_serve``: qwen3-30b-a3b
-   (fp8, e4m3 KV) with a bf16 Qwen2.5-1.5B draft, 8 requests, gamma 4,
-   greedy, graph against eager tokens.
-13. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
+   (24 layers, fp8, e4m3 KV) with a bf16 Qwen2.5-1.5B draft, 8 requests,
+   gamma 4, greedy, graph against eager tokens.
+13. The MLA family (DeepSeek-V2-Lite, DeepSeek-V2; serving runs no
+   attention kernel: the latent cache's absorbed attention is plain torch,
+   as XLA einsums in JAX). ``mla_kernels``: K3 and K6 bf16 at head dims 192
+   and 24, zero-padded by their wrappers onto the 256 and 32 instances, at
+   DeepSeek-V2-Lite's training shape (B 8 x 512, 16 heads), a 4096-token
+   prefill and debug-mla's (B 2 x 64, 4 heads), row by row against the
+   plain versions at the unpadded dim, reruns bit-identical, planted
+   non-zero pad columns in q and k caught, each timed beside its bound and
+   SDPA's flash forward/backward on the same q/k/v. ``mla_slice``: both
+   models at full width cut to 2 layers (dense, MoE), LAYERWISE fp8, an
+   e4m3 latent cache, a 256-token prefill and two decode steps card against
+   CPU on LLM_FP8_QDOT=xla and on fp8native with the card's projection
+   inputs and experts, held to ``BAICHUAN_XLA_TOL_STD``, the flips and the
+   top-k and group margins logged. ``mla_train_slice``: deepseek-v2-lite at
+   2 layers, one bf16-recipe step card against CPU. ``mla_serve``:
+   DeepSeek-V2-Lite at all 27 layers through ``Engine(forward_fn=
+   mla_forward)`` (fp8 weights made a layer at a time, e4m3 latent cache,
+   4096 a slot, 8 prompts of 300-1500 tokens, 32 new each), graph against
+   eager tokens, K9 launched and no attention kernel, step ms, TTFT, peak
+   memory, busy share, the decode step split into parts; then debug-mla and
+   debug-mla-q through the engine. ``mla_train``: deepseek-v2-lite at 4
+   layers, float32 master weights and AdamW, 8 x 512 tokens, remat full and
+   dots (losses bit-equal), K3/K6 at D 192 a step. ``mla_spec_serve``:
+   DeepSeek-V2 at 6 layers (fp8, e4m3 latent cache) with a bf16
+   DeepSeek-V2-Lite draft at 27 layers, 8 requests, 16 new tokens each,
+   gamma 4, greedy, graph
+   against eager tokens, held to the plain engine's greedy tokens.
+14. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 With ``--out DIR`` the details of every case go to ``DIR/chip_smoke.json``
@@ -233,7 +260,8 @@ PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_se
           "zoo_kernels", "zoo_slice", "zoo_serve", "zoo_train_kernels", "zoo_train_slice",
           "zoo_train", "zoo_spec_serve", "gemma_kernels", "gemma_slice", "gemma_train_slice",
           "gemma_serve", "gemma_train", "gemma_spec_serve", "moe_kernels", "moe_slice",
-          "moe_train_slice", "moe_serve", "moe_train", "moe_spec_serve")
+          "moe_train_slice", "moe_serve", "moe_train", "moe_spec_serve", "mla_kernels",
+          "mla_slice", "mla_train_slice", "mla_serve", "mla_train", "mla_spec_serve")
 #: The kernels each path runs (launch counts read around its run). On the
 #: card fp8 weights take qdot's fp8native route (K9 quantizes x per row, then
 #: fp8 products), as the JAX package picks it where fp8 products exist; K1
@@ -1464,6 +1492,10 @@ def _paged_slice_check(dev, log, route, forced, model="llama-3.2-1b", tol_std=No
 
 
 #: serving()'s runs: (tag, LLM_FP8_QDOT, weights, KV, requests).
+#: The depth of Llama-3.2-1B in the serve and paged_serve phases (of 16;
+#: cut so that the whole script stays within its time limit as it grows).
+SERVE_LAYERS = 8
+
 ARENA_RUNS = (("fp8", None, "fp8", "fp8", 8), ("int8", None, "fp8", "int8", 2),
               ("bf16_kv", None, "fp8", "bf16", 2), ("fp8_xla", "xla", "fp8", "fp8", 2),
               ("int8_weights", None, "int8", "fp8", 2))
@@ -3636,8 +3668,8 @@ def dropout_kernel_cases(dev, bw, peak, log):
     return cases
 
 
-#: Baichuan-13B's depth in alibi_serve (its full 40 layers).
-ALIBI_SERVE_LAYERS = 40
+#: Baichuan-13B's depth in alibi_serve (20 of its 40 layers; cut for time).
+ALIBI_SERVE_LAYERS = 20
 
 
 def fp8_params_by_layer(cfg, dev, seed=0, init=None, quantize=None, per=1):
@@ -3783,8 +3815,12 @@ def alibi_serving(dev, card, log, num_layers=ALIBI_SERVE_LAYERS):
     return res
 
 
+#: train_rest's depth at Llama-3.2-1B width (of 16; cut for time).
+TRAIN_REST_LAYERS = 8
+
+
 def train_rest(dev, card, log, num_layers=16, steps=10):
-    """The rest of training at Llama-3.2-1B width (16 layers, 8 x 512,
+    """The rest of training at Llama-3.2-1B width (``num_layers``, 8 x 512,
     LAYERWISE, native fp8 dots): 10 steps under remat none, full and dots
     from the same weights and batches (every loss equal bit for bit; full's
     peak memory below none's); 10 steps of the bf16 recipe (the one that
@@ -4245,7 +4281,7 @@ def _zoo_slice_check(dev, log, model, route, forced):
     return res
 
 
-ZOO_SERVE_LAYERS = 32
+ZOO_SERVE_LAYERS = 16
 
 
 def forward_fn_engines(fwd):
@@ -4305,7 +4341,7 @@ def forward_fn_run(cls, params, cfg, ecfg, prompts, new, dev, what):
 
 def zoo_serving(dev, card, log, num_layers=ZOO_SERVE_LAYERS):
     """Falcon-7B (71 heads of 64 over one kv head, vocab 65024) at full width
-    and all 32 layers through ``Engine(forward_fn=neox_forward)``: LAYERWISE
+    and ``num_layers`` of 32 through ``Engine(forward_fn=neox_forward)``: LAYERWISE
     fp8 weights made a layer at a time, fp8 KV on the KVCache path, 8
     requests of 500-1000-token prompts, 32 new tokens each, max_seq_len
     2048, after a warm-up request; the CUDA graph against the eager twin
@@ -4794,9 +4830,13 @@ def forward_fn_train_slice(dev, log, model, what, path, loss_rtol, grad_share, c
 ZOO_TRAIN_STEPS = 5
 
 
+#: zoo_train's depth (BTLM-3B has 32 layers; cut for time).
+ZOO_TRAIN_LAYERS = 16
+
+
 def zoo_training(dev, card, log, model="btlm-3b", steps=ZOO_TRAIN_STEPS):
     """``model`` (BTLM-3B: 32 layers, 2560 wide, 32 heads of 80, ALiBi, muP)
-    at full width and depth, float32 master weights and AdamW, the bf16
+    at full width and ``ZOO_TRAIN_LAYERS`` deep, float32 master weights and AdamW, the bf16
     recipe (float32 compute), 8 x 512 synthetic tokens a step through
     ``Trainer(forward_fn=gpt2_forward)``: ``steps`` steps under remat "full",
     then the same steps from the same weights under "dots" (the losses
@@ -4806,7 +4846,7 @@ def zoo_training(dev, card, log, model="btlm-3b", steps=ZOO_TRAIN_STEPS):
     layer under "full", once under "dots"), and one step profiled."""
     return forward_fn_training(dev, card, log, model, steps, 8, 512, 100, ZOO_TRAIN_PATH,
                                ("flash_attention", "flash_attention_bwd_dq"),
-                               "bf16 recipe (float32 compute)")
+                               "bf16 recipe (float32 compute)", num_layers=ZOO_TRAIN_LAYERS)
 
 
 def forward_fn_training(dev, card, log, model, steps, B, S, samples, path, absent, recipe,
@@ -4851,8 +4891,7 @@ def forward_fn_training(dev, card, log, model, steps, B, S, samples, path, absen
                                       total_steps=steps, remat=remat), device=dev,
                      forward_fn=entry.forward_fn)
         state = tr.init_state(params)
-        n_params = sum(t.numel() for t in params.values() if isinstance(t, torch.Tensor)) + \
-            sum(t.numel() for t in params["layers"].values())
+        n_params = tree_numel(params)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5054,6 +5093,8 @@ def spec_run(cls, tp, tc, dp, dc, ecfg, prompts, new, gamma, dev, what, **hooks)
 
 #: zoo_spec_serve's prompt lengths (lowest, highest + 1) and cache length.
 ZOO_SPEC_PROMPTS, ZOO_SPEC_MAX_SEQ = (200, 501), 1024
+#: zoo_spec_serve's target depth (gpt2-xl has 48 layers; cut for time).
+ZOO_SPEC_TARGET_LAYERS = 24
 
 
 def zoo_spec_serving(dev, card, log, target="gpt2-xl", draft="gpt2"):
@@ -5087,8 +5128,9 @@ def zoo_spec_serving(dev, card, log, target="gpt2-xl", draft="gpt2"):
 
     Rounds, EagerRounds = spec_round_classes()
     tentry, dentry = resolve_model(target), resolve_model(draft)
-    tcfg, dcfg = tentry.cfg, dentry.cfg
-    check(tcfg.vocab_size == dcfg.vocab_size == 50257 and tcfg.num_layers == 48
+    tcfg = dataclasses.replace(tentry.cfg, num_layers=ZOO_SPEC_TARGET_LAYERS)
+    dcfg = dentry.cfg
+    check(tcfg.vocab_size == dcfg.vocab_size == 50257 and tentry.cfg.num_layers == 48
           and tcfg.num_heads == 25, f"zoo spec: {target}/{draft} are not gpt2-xl/gpt2's shapes")
     t0 = time.perf_counter()
     tparams = fp8_params_by_layer(tcfg, dev, init=tentry.init_fn, quantize=quantize_zoo_params)
@@ -5615,12 +5657,12 @@ def gemma_train_slice(dev, log, model="gemma2-2b"):
 #: gemma_serve's prompts: 6 of 500-1000 tokens and 2 of 4500-6000 (past the
 #: 4096 window, in the 8192 bucket), 32 new tokens each.
 GEMMA_SERVE_PROMPTS = ((6, 500, 1001), (2, 4500, 6001))
-GEMMA_SERVE_LAYERS = 42
+GEMMA_SERVE_LAYERS = 22
 
 
 def gemma_serving(dev, card, log, num_layers=GEMMA_SERVE_LAYERS):
     """gemma2-9b (16 heads of 256 over 8, vocab 256000, softcaps, the 4096
-    window on even layers) at full width and all 42 layers through
+    window on even layers) at full width and ``num_layers`` of 42 through
     ``Engine(forward_fn=gemma_forward)``: LAYERWISE fp8 weights made a layer
     at a time, e4m3 KV on the KVCache path, max_seq_len 8192, 8 requests
     (``GEMMA_SERVE_PROMPTS``), 32 new tokens each, after a warm-up request;
@@ -5732,7 +5774,8 @@ def gemma_training(dev, card, log, model="gemma2-2b", steps=GEMMA_TRAIN_STEPS):
 
 
 def gemma_spec_serving(dev, card, log, target="gemma2-9b", draft="gemma2-2b"):
-    """Speculative serving of Gemma-2: ``target`` (gemma2-9b, 42 layers,
+    """Speculative serving of Gemma-2: ``target`` (gemma2-9b at
+    ``GEMMA_SERVE_LAYERS`` of 42 layers,
     LAYERWISE fp8 weights made a layer at a time, e4m3 KV) with ``draft``
     (gemma2-2b, bf16 and unquantized, as the JAX CLI's) through
     ``SpecEngine(forward_fn=, draft_forward_fn=)``: 8 requests of 500-1000
@@ -5745,10 +5788,13 @@ def gemma_spec_serving(dev, card, log, target="gemma2-9b", draft="gemma2-2b"):
     from llm_fp8_tpu_torch.models import resolve_model
     from llm_fp8_tpu_torch.serving import EngineConfig, SamplingParams
 
+    import dataclasses
+
     Rounds, EagerRounds = spec_round_classes()
     tentry, dentry = resolve_model(target), resolve_model(draft)
-    tcfg, dcfg = tentry.cfg, dentry.cfg
-    check(tcfg.vocab_size == dcfg.vocab_size == 256000 and tcfg.num_layers == 42
+    tcfg = dataclasses.replace(tentry.cfg, num_layers=GEMMA_SERVE_LAYERS)
+    dcfg = dentry.cfg
+    check(tcfg.vocab_size == dcfg.vocab_size == 256000 and tentry.cfg.num_layers == 42
           and dcfg.num_layers == 26, f"gemma spec: {target}/{draft} are not gemma2-9b/2b")
     t0 = time.perf_counter()
     tparams = fp8_params_by_layer(tcfg, dev, init=tentry.init_fn, quantize=tentry.quantize_fn,
@@ -5975,61 +6021,84 @@ def moe_kernel_cases(dev, bw, peak, log):
 
 class RouteRecorder:
     """The router's choices at every MoE layer call of a run, by side
-    (``models/moe.py::route`` wrapped while a side runs). With ``force``,
-    the CPU side takes the card's experts at each call (its own
-    probabilities gathered there and renormalized): top-k routing is
-    discontinuous, and where two router probabilities lie within the card's
-    and the CPU's rounding differences of each other the sides pick
-    different experts, which moves a token's output by far more than
-    rounding. The CPU's own choice is recorded before it is replaced, so
-    :meth:`flips` counts the flips either way."""
+    (``models/moe.py::route`` and the MLA family's
+    ``models/mla.py::deepseek_gate`` wrapped while a side runs). With
+    ``force``, the CPU side takes the card's experts at each call (its own
+    probabilities gathered there, renormalized where the config does, times
+    the DeepSeek gate's routed scale): top-k routing is discontinuous, and
+    where two router probabilities (or, in DeepSeek-V2's group-limited gate,
+    two group scores) lie within the card's and the CPU's rounding
+    differences of each other the sides pick different experts, which moves
+    a token's output by far more than rounding. The CPU's own choice is
+    recorded before it is replaced, so :meth:`flips` counts the flips either
+    way."""
 
     def __init__(self, force=False):
         self.calls = {}
         self.force = force
+        self.groups = None  # (n_group, topk_group) of a group-limited gate
 
     @contextlib.contextmanager
     def side(self, name):
-        from llm_fp8_tpu_torch.models import moe
+        from llm_fp8_tpu_torch.models import mla, moe
 
-        real = moe.route
+        real_route, real_gate = moe.route, mla.deepseek_gate
 
-        def record(h, w_router, cfg):
-            probs, topv, topi = real(h, w_router, cfg)
-            own = self.calls.setdefault(name, [])
-            own.append((probs.detach().float().cpu(), topi.detach().cpu()))
-            if self.force and name == "cpu":
-                topi = self.calls["cuda"][len(own) - 1][1].to(topi.device)
-                topv = probs.gather(-1, topi)
-                if cfg.norm_topk_prob:
-                    topv = topv / topv.sum(dim=-1, keepdim=True)
-            return probs, topv, topi
+        def wrap(real, deepseek):
+            def record(h, w_router, cfg):
+                probs, topv, topi = real(h, w_router, cfg)
+                own = self.calls.setdefault(name, [])
+                own.append((probs.detach().float().cpu(), topi.detach().cpu()))
+                if deepseek and cfg.topk_method == "group_limited_greedy":
+                    self.groups = (cfg.n_group, cfg.topk_group)
+                if self.force and name == "cpu":
+                    topi = self.calls["cuda"][len(own) - 1][1].to(topi.device)
+                    topv = probs.gather(-1, topi)
+                    if deepseek:
+                        topv = topv * cfg.routed_scaling_factor
+                    elif cfg.norm_topk_prob:
+                        topv = topv / topv.sum(dim=-1, keepdim=True)
+                return probs, topv, topi
+            return record
 
-        moe.route = record
+        moe.route, mla.deepseek_gate = wrap(real_route, False), wrap(real_gate, True)
         try:
             yield
         finally:
-            moe.route = real
+            moe.route, mla.deepseek_gate = real_route, real_gate
 
     def flips(self, K, a="cuda", b="cpu"):
         """Per layer call: the (token, slot) pairs whose expert differs
         between the sides' own choices, and the smallest margin between the
-        K-th and (K+1)-th router probabilities on side ``b``."""
+        K-th and (K+1)-th router probabilities on side ``b`` (and, for a
+        group-limited gate, between the last kept and the first dropped
+        group's score)."""
         out = []
         for (pa, ia), (pb, ib) in zip(self.calls[a], self.calls[b]):
             srt = pb.sort(dim=-1, descending=True).values
             out.append(dict(tokens=int(ia.shape[0]), flipped_pairs=int((ia != ib).sum()),
                             flipped_tokens=int((ia != ib).any(-1).sum()),
                             min_topk_margin=float((srt[:, K - 1] - srt[:, K]).min())))
+            if self.groups is not None:
+                G, kg = self.groups
+                gs = pb.reshape(pb.shape[0], G, -1).amax(-1).sort(dim=-1, descending=True).values
+                out[-1]["min_group_margin"] = float((gs[:, kg - 1] - gs[:, kg]).min())
         return out
 
     def routing(self, K):
         """:meth:`flips` per call and summed."""
         per = self.flips(K)
-        return dict(per_call=per, flipped_pairs=sum(f["flipped_pairs"] for f in per),
-                    assignments=sum(f["tokens"] for f in per) * K,
-                    min_topk_margin=min(f["min_topk_margin"] for f in per))
+        res = dict(per_call=per, flipped_pairs=sum(f["flipped_pairs"] for f in per),
+                   assignments=sum(f["tokens"] for f in per) * K,
+                   min_topk_margin=min(f["min_topk_margin"] for f in per))
+        if self.groups is not None:
+            res["min_group_margin"] = min(f["min_group_margin"] for f in per)
+        return res
 
+
+#: moe_slice's depth: one layer (attention and the routed MLP; cut from 2
+#: for time, its CPU pass over full-width experts being most of it).
+MOE_SLICE_LAYERS = 1
 
 #: moe_slice: the models and the prompt (a 256-token bucket).
 MOE_SLICE_MODELS = ("mixtral-8x7b", "qwen3-30b-a3b")
@@ -6051,12 +6120,14 @@ MIXTRAL_XLA_TOL_STD = 0.115
 
 
 def moe_slice_check(dev, log):
-    return [pinned(route, lambda: _moe_slice_check(dev, log, route, forced, model))
+    return [pinned(route, lambda: _moe_slice_check(dev, log, route, forced, model,
+                                                   layers=MOE_SLICE_LAYERS))
             for model in MOE_SLICE_MODELS for route, forced in (("xla", False),
                                                                 ("fp8native", True))]
 
 
-def _moe_slice_check(dev, log, route, forced, model, kv="e4m3", free=False):
+def _moe_slice_check(dev, log, route, forced, model, kv="e4m3", free=False, bf16=None,
+                     layers=2):
     """``model`` at full width cut to 2 layers, LAYERWISE fp8 weights (the
     experts per channel along their contraction), an e4m3 ``KVCache``: one
     prefill of a 256-token prompt and two decode steps (the card's greedy
@@ -6070,7 +6141,9 @@ def _moe_slice_check(dev, log, route, forced, model, kv="e4m3", free=False):
     layer and call) and the smallest top-k margin are logged. With ``free``
     (xla only; ``scripts/moe_slice_readings.py``) a CPU pass on its own
     routes is read and logged, not held: a flipped token's logits move by
-    whole units."""
+    whole units. An MLA model (``mla_slice``) takes the same pass: its
+    first layer dense, the second DeepSeekMoE, over the latent cache;
+    ``bf16`` gives its 2-layer bf16 params (made once for both routes)."""
     import dataclasses
 
     import torch
@@ -6080,11 +6153,13 @@ def _moe_slice_check(dev, log, route, forced, model, kv="e4m3", free=False):
     from llm_fp8_tpu_torch.quant import LAYERWISE
 
     entry = resolve_model(model)
-    cfg = dataclasses.replace(entry.cfg, num_layers=2)
-    check(cfg.num_experts in (8, 128) and cfg.head_dim == 128,
-          f"moe slice: {model} is not an MoE model at full width")
-    params = entry.quantize_fn(entry.init_fn(cfg, dtype=torch.bfloat16, device=dev, seed=7),
-                               LAYERWISE)
+    cfg = dataclasses.replace(entry.cfg, num_layers=layers)
+    mla = hasattr(cfg, "kv_lora_rank")
+    check(cfg.num_experts in ((64, 160) if mla else (8, 128)) and cfg.head_dim in (128, 192),
+          f"moe slice: {model} is not an MoE or MLA model at full width")
+    if bf16 is None:
+        bf16 = entry.init_fn(cfg, dtype=torch.bfloat16, device=dev, seed=7)
+    params = entry.quantize_fn(bf16, LAYERWISE)
     cpu_params = to_cpu(params)
     n = MOE_SLICE_PROMPT
     prompt = torch.randint(1, cfg.vocab_size, (1, n), generator=torch.Generator().manual_seed(3))
@@ -6131,10 +6206,13 @@ def _moe_slice_check(dev, log, route, forced, model, kv="e4m3", free=False):
         check(bool(torch.isfinite(a).all()), f"moe slice {model}: non-finite logits on the card")
     cpu, _ = run("cpu", cpu_params, torch.device("cpu"), held, toks)
     errs, std = compare(card, cpu)
-    check(len(held.calls["cpu"]) == 3 * cfg.num_layers,
+    moe_layers = cfg.num_layers - getattr(cfg, "first_k_dense_replace", 0)
+    check(len(held.calls["cpu"]) == 3 * moe_layers,
           f"moe slice {model}: {len(held.calls['cpu'])} router calls")
-    res = dict(config=f"{model}, 2 layers at full width, LAYERWISE fp8 (experts per channel), "
-               f"{kv} KVCache: prefill of {n} tokens (every position) + 2 decode steps",
+    res = dict(config=f"{model}, {layers} layer(s) at full width, LAYERWISE fp8 (experts per "
+               "channel), "
+               f"{kv} {'latent ' if mla else ''}KVCache: prefill of {n} tokens (every "
+               "position) + 2 decode steps",
                qdot_route=route, cpu_takes_card_qdot_inputs=forced, forced_calls=rec.forced,
                cpu_takes_card_routes=True, steps=len(errs), logits_max_abs_err=max(errs),
                per_step=errs, logits_std=std, err_over_std=max(errs) / std,
@@ -6146,7 +6224,7 @@ def _moe_slice_check(dev, log, route, forced, model, kv="e4m3", free=False):
         rows, _ = run("cpu", cpu_params, torch.device("cpu"), free, toks)
         ferrs, fstd = compare(card, rows)
         flipped = torch.zeros(n, dtype=torch.bool)
-        for li in range(cfg.num_layers):  # the prefill's calls: a token flipped in any layer
+        for li in range(moe_layers):  # the prefill's calls: a token flipped in any layer
             flipped |= (free.calls["cuda"][li][1] != free.calls["cpu"][li][1]).any(-1)
         rest = (card[0][~flipped] - rows[0][~flipped]).abs().max().item()
         res["free_routes"] = dict(per_step=ferrs, err_over_std=max(ferrs) / fstd,
@@ -6178,6 +6256,14 @@ def moe_train_slice(dev, log, model="qwen3-30b-a3b"):
                                   GEMMA_TRAIN_LOSS_RTOL, GEMMA_TRAIN_GRAD_SHARE,
                                   "bf16 compute", absent=("flash_attention_f32",), layers=1,
                                   rates=(0.0,))
+
+
+def tree_numel(tree):
+    """Elements of a tree of tensors (nested dicts: one ``layers`` group, or
+    the MLA family's two)."""
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    return tree.numel()
 
 
 def tree_gb(params):
@@ -6246,16 +6332,19 @@ def moe_step_parts(params, cfg, dev, slots):
 
 #: moe_serve: 8 prompts of 300-1500 tokens, 32 new tokens each.
 MOE_SERVE_PROMPTS = (300, 1501)
+#: moe_serve's (and moe_spec_serve's target) depths: half of the published
+#: 32 and 48, cut so that the whole script stays within its time limit.
+MOE_SERVE_LAYERS = {"mixtral-8x7b": 16, "qwen3-30b-a3b": 24}
 
 
 def moe_serving(dev, card, log):
-    """Mixtral-8x7B at all 32 layers and Qwen3-30B-A3B at all 48 through
+    """Mixtral-8x7B and Qwen3-30B-A3B at ``MOE_SERVE_LAYERS`` through
     ``Engine(forward_fn=moe_forward)`` (``moe_serve_model``), one model at a
     time."""
     import torch
 
     res = {"card": card}
-    for model, L in (("mixtral-8x7b", 32), ("qwen3-30b-a3b", 48)):
+    for model, L in MOE_SERVE_LAYERS.items():
         res[model] = moe_serve_model(dev, log, model, L)
         gc.collect()
         torch.cuda.empty_cache()
@@ -6272,6 +6361,8 @@ def moe_serve_model(dev, log, model, L):
     step), step ms, TTFT, tokens/s, peak memory, the device busy share of
     the same run profiled apart with 8 new tokens a request, and the decode
     step split into parts (``moe_step_parts``)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -6279,9 +6370,9 @@ def moe_serve_model(dev, log, model, L):
     from llm_fp8_tpu_torch.serving import EngineConfig
 
     entry = resolve_model(model)
-    cfg = entry.cfg
-    check(cfg.num_layers == L and cfg.head_dim == 128,
+    check(entry.cfg.num_layers in (32, 48) and entry.cfg.head_dim == 128,
           f"moe serve: {model} is not its published shape")
+    cfg = dataclasses.replace(entry.cfg, num_layers=L)
     Checked, Eager = forward_fn_engines(entry.forward_fn)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -6375,7 +6466,7 @@ def moe_training(dev, card, log, model="qwen3-30b-a3b"):
 
 
 def moe_spec_serving(dev, card, log, target="qwen3-30b-a3b", draft="Qwen/Qwen2.5-1.5B"):
-    """Speculative serving of Qwen3-30B-A3B (48 layers, LAYERWISE fp8 weights
+    """Speculative serving of Qwen3-30B-A3B (24 of 48 layers, LAYERWISE fp8 weights
     made a layer at a time, e4m3 KV) with a bf16 Qwen2.5-1.5B draft (vocab
     151936 both) through ``SpecEngine(forward_fn=moe_forward,
     draft_forward_fn=forward)``: 8 requests of 500-1000 tokens, 32 new each,
@@ -6387,10 +6478,13 @@ def moe_spec_serving(dev, card, log, target="qwen3-30b-a3b", draft="Qwen/Qwen2.5
     from llm_fp8_tpu_torch.models import resolve_model
     from llm_fp8_tpu_torch.serving import EngineConfig, SamplingParams
 
+    import dataclasses
+
     Rounds, EagerRounds = spec_round_classes()
     tentry, dentry = resolve_model(target), resolve_model(draft)
-    tcfg, dcfg = tentry.cfg, dentry.cfg
-    check(tcfg.vocab_size == dcfg.vocab_size == 151936 and tcfg.num_layers == 48,
+    tcfg = dataclasses.replace(tentry.cfg, num_layers=MOE_SERVE_LAYERS[target])
+    dcfg = dentry.cfg
+    check(tcfg.vocab_size == dcfg.vocab_size == 151936 and tentry.cfg.num_layers == 48,
           f"moe spec: {target}/{draft} are not qwen3-30b-a3b/qwen2.5-1.5b")
     t0 = time.perf_counter()
     tparams = fp8_params_by_layer(tcfg, dev, init=tentry.init_fn,
@@ -6427,10 +6521,589 @@ def moe_spec_serving(dev, card, log, target="qwen3-30b-a3b", draft="Qwen/Qwen2.5
     _, eager_tokens, eager = serve(EagerRounds, "eager")
     equal = spec_tokens == eager_tokens
     check(equal, "moe spec: the round graph's greedy tokens differ from the eager round's")
-    res = dict(card=card, target=f"{target}, 48 layers, LAYERWISE fp8, e4m3 KV",
+    res = dict(card=card, target=f"{target}, {tcfg.num_layers} of 48 layers, LAYERWISE "
+               "fp8, e4m3 KV",
                draft=f"{draft}, bf16", slots=8, gamma=gamma, max_new=max_new,
                prompt_lens=[len(p) for p in prompts], init_s=init_s, greedy=greedy,
                eager=eager, tokens_equal_eager=equal,
+               acceptance_note="random weights: acceptance is not that of trained models")
+    log(res)
+    del tparams, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 14: the MLA family (DeepSeek-V2-Lite, DeepSeek-V2)
+# --------------------------------------------------------------------------
+
+#: The MLA paths' kernels. Serving runs no attention kernel (the latent
+#: cache's absorbed attention is plain torch, as XLA einsums in JAX): K9 on
+#: the fp8native route. Training: K3 and K6 bf16 at head dim 192 (padded
+#: onto the 256 instance).
+MLA_SERVE_PATH = ("quantize_fused",)
+MLA_TRAIN_PATH = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+#: mla_kernels' cases: name, B, S, heads, head dim (causal, scale D^-0.5; V's
+#: last D - 128 columns zero at D 192, as the model pads v_head_dim 128).
+MLA_KERNEL_CASES = (("D192 deepseek-v2-lite train B8 S512 Hq16", 8, 512, 16, 192),
+                    ("D192 prefill B1 S4096 Hq16", 1, 4096, 16, 192),
+                    ("D24 debug-mla train B2 S64 Hq4", 2, 64, 4, 24))
+
+
+def sdpa_same_ms(q, k, v, do, scale):
+    """SDPA's flash attention, causal, explicit scale, no softcap, on the
+    same ``[B, S, H, D]`` q/k/v (K3's and K6's function here): its forward
+    and its backward as one aten call, each timed; ``(fwd ms, bwd ms,
+    what ran)``, or the reason SDPA refused."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale)
+            fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                                 scale=scale), calls=5)
+        bwd, _ = sdpa_backward(qh, kh, vh, doh, scale)
+        return fwd, cuda_ms(bwd, calls=5), "SDPA flash, causal, explicit scale (the same function)"
+    except RuntimeError as e:
+        return None, None, f"SDPA's flash backend refused D {q.shape[-1]}: {str(e)[:160]}"
+
+
+def mla_kernel_cases(dev, bw, peak, log):
+    """K3 and K6 bf16 at the MLA family's head dims, 192 (padded onto the
+    256 instance) and 24 (onto 32), through their wrappers against the plain
+    versions at the unpadded dim, row by row (ROW_ULPS; K3's lse within
+    1e-3; K6's zero rows as ``grad_rows_within``), two runs bit-identical:
+    DeepSeek-V2-Lite's training shape (B 8 x 512, 16 heads), a 4096-token
+    causal prefill at 16 heads, debug-mla's (B 2 x 64, 4 heads of 24). A
+    planted fault must be caught: the padded instance run on q and k whose
+    pad columns are not zero (so they enter the scores). Each case is timed
+    beside its bound (the unpadded function's bytes and FLOPs) and SDPA's
+    flash forward/backward on the same q/k/v, or SDPA's refusal."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels import flash_attention_bwd as k6
+
+    g = torch.Generator(device=dev).manual_seed(192)
+    cases = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    for name, B, S, H, D in MLA_KERNEL_CASES:
+        Dp = k3.PADDED_HEAD_DIMS[D]
+        scale = D ** -0.5
+        cfg = dict(causal=True, window=None, softcap=None, scale=scale)
+        q, k, v, do = randn(B, S, H, D), randn(B, S, H, D), randn(B, S, H, D), randn(B, S, H, D)
+        if D == 192:
+            v[..., 128:] = 0
+        qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+        kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+        n0 = k3.flash_attention.launches
+        out, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **cfg)
+        check(k3.flash_attention.launches == n0 + 1, f"K3 {name}: not one launch")
+        again = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **cfg)
+        ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, **cfg)
+        torch.cuda.synchronize()
+        err, ulps = rows_within(out, ref, f"K3 {name}")
+        lse_err = (lse - ref_lse).abs().max().item()
+        check(lse_err <= 1e-3, f"K3 {name}: lse err {lse_err}")
+        same = torch.equal(out.view(torch.int16), again.view(torch.int16))
+        check(same, f"K3 {name}: two runs differ")
+        pairs = S * (S + 1) // 2 * H * B
+        # The planted fault: pad columns left non-zero in q and k.
+        dirty = [k3.pad_head_dim(t, Dp) for t in (q, k)]
+        for t in dirty:
+            t[..., D:] = randn(*t.shape[:-1], Dp - D)
+        bad = k3.flash_attention(dirty[0], dirty[1], k3.pad_head_dim(v, Dp), q_offset=qo,
+                                 kv_lens=kl, **cfg)[..., :D]
+        live = torch.ones(out.shape[:-1], dtype=torch.bool, device=dev)
+        share = caught_share(bad, ref, live)
+        check(share >= 0.5, f"K3 {name}: non-zero pad columns pass in {1 - share:.0%} of rows")
+        case = dict(kernel="flash_attention", case=name, padded_to=Dp, max_abs_err=err,
+                    err_ulps=ulps, lse_err=lse_err, rerun_equal=same, live_pairs=pairs,
+                    caught={"pad_columns_nonzero": share})
+        case["ms"] = cuda_ms(lambda: k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **cfg),
+                             calls=5)
+        case["plain_ms"] = cuda_ms(lambda: k3.flash_fwd_plain(q, k, v, qo, kl, **cfg),
+                                   calls=1, rounds=3)
+        lib_f, lib_b, lib = sdpa_same_ms(q, k, v, do, scale)
+        case.update(library_ms=lib_f, library=lib,
+                    vs_library=None if lib_f is None else case["ms"] / lib_f)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
+        case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 4.0 * D * pairs, bw, peak)
+        case["tflops"] = 4.0 * D * pairs / (case["ms"] * 1e-3) / 1e12
+        cases.append(case)
+        log(case)
+
+        args = (q, k, v, out, lse, do)
+        n0 = (k6.flash_bwd_dq.launches, k6.flash_bwd_dkv.launches)
+        got = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)
+        check((k6.flash_bwd_dq.launches, k6.flash_bwd_dkv.launches) == (n0[0] + 1, n0[1] + 1),
+              f"K6 {name}: not one launch of each kernel")
+        again = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **cfg)
+        ref = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl, **cfg)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(same, f"K6 {name}: two runs are not bit-identical")
+        lp = live_pairs(B, S, S, qo, kl, True, None, dev)
+        nkeys = lp.sum(dim=-1)
+        key_multi = (lp & (nkeys > 1)[:, :, None]).any(dim=1)
+        ex = {"dq": (nkeys == 1)[:, :, None].expand(B, S, H),
+              "dk": (lp.any(dim=1) & ~key_multi)[:, :, None].expand(B, S, H),
+              "dv": torch.zeros((B, S, H), dtype=torch.bool, device=dev)}
+        case = dict(kernel="flash_attention_bwd", case=name, padded_to=Dp, deterministic=same)
+        errs = []
+        for what, a, b in zip(("dq", "dk", "dv"), got, ref):
+            e, u, n_ex, noise = grad_rows_within(a, b, ex[what], f"K6 {name} {what}")
+            case[what] = dict(max_abs_err=e, err_ulps=u, zero_rows=n_ex, zero_row_err=noise)
+            errs.append(e)
+        case["max_abs_err"] = max(errs)
+        dq_bad = k6.flash_attention_bwd(dirty[0], dirty[1], k3.pad_head_dim(v, Dp),
+                                        k3.pad_head_dim(out, Dp), lse,
+                                        k3.pad_head_dim(do, Dp), q_offset=qo, kv_lens=kl,
+                                        **cfg)[0][..., :D]
+        share = caught_share(dq_bad, ref[0], ~ex["dq"])
+        check(share >= 0.5, f"K6 {name}: non-zero pad columns pass in {1 - share:.0%} of dq "
+              "rows")
+        case["caught"] = {"dq_pad_columns_nonzero": share}
+        del dq_bad, bad, dirty
+        case["ms"] = cuda_ms(lambda: k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl,
+                                                            **cfg), calls=5)
+        case["plain_ms"] = cuda_ms(lambda: k6.flash_attention_bwd_plain(
+            *args, q_offset=qo, kv_lens=kl, **cfg), calls=1, rounds=3)
+        case.update(library_ms=lib_b, library=lib,
+                    vs_library=None if lib_b is None else case["ms"] / lib_b)
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) \
+            + lse.numel() * 4
+        case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 10.0 * D * pairs, bw, peak)
+        case["tflops"] = 10.0 * D * pairs / (case["ms"] * 1e-3) / 1e12
+        cases.append(case)
+        log(case)
+        del q, k, v, do, out, lse, again, ref, ref_lse, got, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cases
+
+
+#: mla_slice: the models (each cut to its dense layer and one MoE layer).
+MLA_SLICE_MODELS = ("deepseek-v2-lite", "deepseek-v2")
+
+
+def mla_slice_check(dev, log):
+    """``_moe_slice_check``'s pass for each MLA model at full width cut to 2
+    layers (the dense layer and one DeepSeekMoE layer), LAYERWISE fp8, an
+    e4m3 latent cache, a 256-token prefill and two decode steps card against
+    CPU, on LLM_FP8_QDOT=xla and on fp8native with the card's projection
+    inputs, held to ``BAICHUAN_XLA_TOL_STD`` of the logits' std, the CPU
+    taking the card's experts, the flips and the smallest top-k (and group)
+    margins logged. Each model's bf16 weights are made once for both
+    routes."""
+    import dataclasses
+
+    import torch
+
+    from llm_fp8_tpu_torch.models import resolve_model
+
+    out = []
+    for model in MLA_SLICE_MODELS:
+        entry = resolve_model(model)
+        bf16 = entry.init_fn(dataclasses.replace(entry.cfg, num_layers=2), dtype=torch.bfloat16,
+                             device=dev, seed=7)
+        for route, forced in (("xla", False), ("fp8native", True)):
+            out.append(pinned(route, lambda: _moe_slice_check(dev, log, route, forced, model,
+                                                              bf16=bf16)))
+        del bf16
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mla_train_slice(dev, log, model="deepseek-v2-lite"):
+    """``model`` at full width cut to 2 layers (dense, MoE), the bf16 recipe:
+    one step card against CPU (``forward_fn_train_slice``, B 2 x S 256), the
+    loss, the router aux and every gradient (``w_router``, ``w_kv_b``
+    included) held to the Gemma slice's limits, K3 and K6 at head dim 192
+    once a layer, the routing flips logged."""
+    return forward_fn_train_slice(dev, log, model, "mla train slice", MLA_TRAIN_PATH,
+                                  GEMMA_TRAIN_LOSS_RTOL, GEMMA_TRAIN_GRAD_SHARE,
+                                  "bf16 compute", absent=("flash_attention_f32",), layers=2,
+                                  rates=(0.0,))
+
+
+def mla_fp8_params_by_layer(cfg, dev, entry, seed=0):
+    """``fp8_params_by_layer`` for the MLA family's two groups: LAYERWISE fp8
+    params of ``cfg`` made a layer at a time (MoE layer j from a 2-layer
+    init of seed ``seed·1000 + j``, whose dense layer also gives the dense
+    group's, so DeepSeek-V2's 3.77 G expert weights a layer never meet a
+    second layer's bf16 copy) into storage allocated once, then laid out for
+    the route in force."""
+    import dataclasses
+
+    import torch
+
+    from llm_fp8_tpu_torch.quant import LAYERWISE, QTensor
+    from llm_fp8_tpu_torch.quant.dot import serving_layout
+
+    Kd = cfg.first_k_dense_replace
+    Lm = cfg.num_layers - Kd
+    check(Kd == 1 and Lm >= 1, f"mla params: {cfg.name} is not one dense layer + MoE layers")
+    two = dataclasses.replace(cfg, num_layers=2)
+    out = None
+
+    def empty(t, n):
+        return t.new_empty((n, *t.shape[1:]))
+
+    for j in range(Lm):
+        p = entry.quantize_fn(entry.init_fn(two, dtype=torch.bfloat16, device=dev,
+                                            seed=seed * 1000 + j), LAYERWISE)
+        if out is None:
+            out = {k: v for k, v in p.items() if k not in ("dense_layers", "moe_layers")}
+            out["dense_layers"] = p["dense_layers"]
+            out["moe_layers"] = {k: (dataclasses.replace(v, qvalue=empty(v.qvalue, Lm),
+                                                         scale=empty(v.scale, Lm))
+                                     if isinstance(v, QTensor) else empty(v, Lm))
+                                 for k, v in p["moe_layers"].items()}
+        for k, v in p["moe_layers"].items():
+            dst = out["moe_layers"][k]
+            if isinstance(v, QTensor):
+                dst.qvalue[j:j + 1].copy_(v.qvalue)
+                dst.scale[j:j + 1].copy_(v.scale)
+            else:
+                dst[j:j + 1].copy_(v)
+        del p
+    for k, v in out["moe_layers"].items():
+        if isinstance(v, QTensor):
+            out["moe_layers"][k] = serving_layout(v)
+    torch.cuda.synchronize()
+    return out
+
+
+def mla_step_parts(params, cfg, dev, slots):
+    """The decode step of an MLA model split into parts, each timed apart as
+    a CUDA graph (``cuda_ms``) at the step's shapes (``slots`` tokens, the
+    experts lossless) on the first MoE layer's weights, times the layers
+    that have the part: the routed experts' codes converted to bf16
+    (dequantize), the expert products with their scales and SwiGLU, the gate
+    with the dispatch and combine (the routed MLP less those two), the
+    latent attention (the e4m3 latent cache of 2048 positions read and
+    scaled, ``w_kv_b`` dequantized and split, the absorbed float32 einsums)
+    and the projections (every 2-D weight's product at M = slots: q, kv_a,
+    o, the shared experts; the dense layer's MLP once)."""
+    import torch
+
+    from llm_fp8_tpu_torch.models import mla, moe
+    from llm_fp8_tpu_torch.models.llama import _dot, _swiglu, init_kv_cache
+
+    def first(group):
+        return {k: (v.layer(0) if hasattr(v, "qvalue") else v[0])
+                for k, v in params[group].items()}
+
+    lp, dp = first("moe_layers"), first("dense_layers")
+    L, Lm, E, D = cfg.num_layers, cfg.num_layers - cfg.first_k_dense_replace, \
+        cfg.num_experts, cfg.hidden_size
+    H, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    g = torch.Generator(device=dev).manual_seed(5)
+    h = torch.randn((slots, D), generator=g, device=dev).to(torch.bfloat16)
+    wg = moe.expert_weight(lp["w_gate_up"], torch.bfloat16)
+    wd = moe.expert_weight(lp["w_down"], torch.bfloat16)
+    xe = torch.randn((E, slots, D), generator=g, device=dev).to(torch.bfloat16)
+
+    def products():
+        y = (moe.bmm_f32(xe, wg) * lp["w_gate_up"].scale.float()).to(torch.bfloat16)
+        return (moe.bmm_f32(_swiglu(y), wd) * lp["w_down"].scale.float()).to(torch.bfloat16)
+
+    def routed():
+        probs, topv, topi = mla.deepseek_gate(h, lp["w_router"], cfg)
+        return moe.dispatch_experts(h, topi, topv, lp["w_gate_up"], lp["w_down"], E,
+                                    moe_group_size=cfg.moe_group_size, lossless=True)
+
+    S = 2048
+    cache = init_kv_cache(cfg, slots, S, dtype=torch.float8_e4m3fn, device=dev)
+    qn = torch.randn((slots, 1, H, dn), generator=g, device=dev).to(torch.bfloat16)
+    qp = torch.randn((slots, 1, H, dr), generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.full((slots,), S - 1, dtype=torch.int32, device=dev)
+
+    def latent():
+        c_all = cache.k[0][:, :, 0, :].to(torch.bfloat16) * cache.k_scale[0].to(torch.bfloat16)
+        pe_all = cache.v[0][:, :, 0, :].to(torch.bfloat16) * cache.v_scale[0].to(torch.bfloat16)
+        w_uk, w_uv = mla._split_kv_b(lp["w_kv_b"], cfg, torch.bfloat16)
+        return mla._mla_attend_latent(qn, qp, c_all, pe_all, w_uk, w_uv, cfg, pos, pos + 1)
+
+    x = h[:, None, :]
+    a = torch.randn((slots, 1, H * cfg.v_head_dim), generator=g, device=dev).to(torch.bfloat16)
+    qin = x if cfg.q_lora_rank is None else torch.randn(
+        (slots, 1, cfg.q_lora_rank), generator=g, device=dev).to(torch.bfloat16)
+    q_leaf = "wq" if cfg.q_lora_rank is None else "wq_b"
+
+    def projections(layer, dense):
+        ys = [_dot(x, layer["w_kv_a"]), _dot(qin, layer[q_leaf]), _dot(a, layer["wo"])]
+        if cfg.q_lora_rank is not None:
+            ys.append(_dot(x, layer["wq_a"]))
+        if dense:
+            ys.append(_dot(_swiglu(_dot(x, layer["w_gate_up"])), layer["w_down"]))
+        else:
+            ys.append(_dot(_swiglu(_dot(x, layer["w_shared_gate_up"])), layer["w_shared_down"]))
+        return ys
+
+    parts = {
+        "expert_dequantize": cuda_ms(lambda: (moe.expert_weight(lp["w_gate_up"], torch.bfloat16),
+                                              moe.expert_weight(lp["w_down"], torch.bfloat16)),
+                                     calls=3),
+        "expert_products": cuda_ms(products, calls=3),
+        "routed_mlp": cuda_ms(routed, calls=3),
+        "latent_attention": cuda_ms(latent, calls=3),
+        "projections_moe_layer": cuda_ms(lambda: projections(lp, False), calls=3),
+        "projections_dense_layer": cuda_ms(lambda: projections(dp, True), calls=3)}
+    parts["gate_dispatch_combine"] = (parts["routed_mlp"] - parts["expert_dequantize"]
+                                      - parts["expert_products"])
+    step = {"expert_dequantize": parts["expert_dequantize"] * Lm,
+            "expert_products": parts["expert_products"] * Lm,
+            "gate_dispatch_combine": parts["gate_dispatch_combine"] * Lm,
+            "latent_attention": parts["latent_attention"] * L,
+            "projections": parts["projections_moe_layer"] * Lm
+            + parts["projections_dense_layer"] * (L - Lm)}
+    del wg, wd, xe, cache
+    return dict(per_layer_ms=parts, layers=L, moe_layers=Lm, kv_len=S, step_parts_ms=step,
+                how="each part a CUDA graph of 3 calls on the first MoE layer's (and the "
+                    "dense layer's) weights at the step's shapes, times the layers that have it")
+
+
+#: mla_serve: 8 prompts of 300-1500 tokens, 32 new tokens each.
+MLA_SERVE_PROMPTS = (300, 1501)
+
+
+def mla_serving(dev, card, log, model="deepseek-v2-lite"):
+    """DeepSeek-V2-Lite at full width and all 27 layers through
+    ``Engine(forward_fn=mla_forward)``: LAYERWISE fp8 weights made a layer
+    at a time (``mla_fp8_params_by_layer``), an e4m3 latent cache, max_seq_len
+    4096, 8 requests (``MLA_SERVE_PROMPTS``), 32 new tokens each, after a
+    warm-up request; the CUDA graph against the eager twin (greedy tokens
+    equal), the path's launches (K9 in the prefills and the captured step,
+    K3 none: the latent path runs no attention kernel), step ms, TTFT,
+    tokens/s, peak memory, the busy share of the same run profiled apart
+    with 8 new tokens a request, the decode step split into parts
+    (``mla_step_parts``); then debug-mla and debug-mla-q (fp8 weights, e4m3
+    latent cache) through the engine on the card, graph against eager."""
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+    from llm_fp8_tpu_torch.serving import EngineConfig
+
+    entry = resolve_model(model)
+    cfg = entry.cfg
+    L = cfg.num_layers
+    check(L == 27 and cfg.num_experts == 64 and cfg.kv_lora_rank == 512,
+          f"mla serve: {model} is not deepseek-v2-lite")
+    Checked, Eager = forward_fn_engines(entry.forward_fn)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = mla_fp8_params_by_layer(cfg, dev, entry)
+    init_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ecfg = EngineConfig(max_slots=8, max_seq_len=4096, prefill_buckets=(512, 1024, 2048),
+                        kv_dtype="fp8")
+    rng = np.random.RandomState(17)
+    prompts = [rng.randint(1, cfg.vocab_size, rng.randint(*MLA_SERVE_PROMPTS)).astype(np.int32)
+               for _ in range(8)]
+
+    def run(cls, ps, new):
+        return forward_fn_run(cls, params, cfg, ecfg, ps, new, dev, f"mla serve {model}")
+
+    t0 = time.perf_counter()
+    run(Checked, prompts[:1], 4)  # warm-up: cuBLAS's first calls, the allocator's growth
+    gc.collect()
+    part_s = {"build": init_s, "warm_up": time.perf_counter() - t0}
+    out = {mode: run(cls, prompts, 32) for mode, cls in (("graph", Checked), ("eager", Eager))}
+    eng, reqs, wall, counts = out["graph"]
+    e_eng, e_reqs, e_wall, e_counts = out["eager"]
+    graph = eng.step_graph
+    graph_checks(f"mla serve {model}", eng, graph, eng.burst_steps)
+    equal = [r.output for r in reqs] == [r.output for r in e_reqs]
+    check(equal, f"mla serve {model}: the graph's greedy tokens differ from the eager step's")
+    check(not eng._fp8_arena and eng.cache.k.dtype == torch.float8_e4m3fn
+          and eng.cache.k.shape[-1] == cfg.kv_lora_rank
+          and eng.cache.v.shape[-1] == cfg.qk_rope_head_dim,
+          f"mla serve {model}: not the e4m3 latent cache")
+    launches = device_launches(counts, graph)
+    check(counts["flash_attention"] == 0 and counts["flash_attention_f32"] == 0
+          and counts["decode_attention_arena"] == 0,
+          f"mla serve {model}: an attention kernel ran on the latent path ({counts})")
+    check(counts["quantize_fused"] > 0 and graph.launches.get("quantize_fused", 0) > 0,
+          f"mla serve {model}: launches {counts}, a replay {graph.launches}")
+    ttfts = sorted(r.ttft for r in reqs)
+    step_ms = 1e3 * eng.decode_s / max(eng.burst_steps, 1)
+    r = dict(config=f"{model}, all {L} layers at full width, LAYERWISE fp8 weights, e4m3 "
+             "latent cache (512 + 64 a token), 8 slots x 4096", requests=len(prompts),
+             prompt_lens=[len(p) for p in prompts], generated=32 * len(prompts),
+             init_s=init_s, weights_gb=tree_gb(params), build_peak_gib=build_peak,
+             wall_s=wall, tokens_per_s=32 * len(prompts) / wall,
+             ttft_p50_s=ttfts[len(ttfts) // 2], prefill_s=eng.prefill_s,
+             prefill_ms_per_request=1e3 * eng.prefill_s / len(prompts),
+             decode_step_ms=step_ms,
+             eager_decode_step_ms=1e3 * e_eng.decode_s / max(e_eng.burst_steps, 1),
+             eager_wall_s=e_wall, peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+             launches=launches, launches_a_replay=graph.launches, eager_launches=e_counts,
+             replays=graph.replays, captures=graph.captures, tokens_equal_eager=equal)
+    del out, eng, e_eng, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r["profile"] = profile_run(Checked, params, cfg, ecfg, prompts, dev, max_new=8)
+    part_s["profile_run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r["step_parts"] = mla_step_parts(params, cfg, dev, ecfg.max_slots)
+    r["step_parts"]["measured_step_ms"] = step_ms
+    part_s["step_parts"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r["debug"] = {}
+    for name in ("debug-mla", "debug-mla-q"):
+        d = resolve_model(name)
+        dparams = d.quantize_fn(d.init_fn(d.cfg, dtype=torch.bfloat16, device=dev, seed=3),
+                                LAYERWISE)
+        dcfg = EngineConfig(max_slots=4, max_seq_len=256, prefill_buckets=(64, 128),
+                            kv_dtype="fp8")
+        ps = [rng.randint(1, d.cfg.vocab_size, n).astype(np.int32) for n in (20, 50, 90, 120)]
+        C, E = forward_fn_engines(d.forward_fn)
+        ge, greqs, _, gcounts = forward_fn_run(C, dparams, d.cfg, dcfg, ps, 16, dev,
+                                               f"mla serve {name}")
+        _, ereqs, _, _ = forward_fn_run(E, dparams, d.cfg, dcfg, ps, 16, dev,
+                                        f"mla serve {name} eager")
+        same = [x.output for x in greqs] == [x.output for x in ereqs]
+        check(same and gcounts["flash_attention"] == 0 and gcounts["quantize_fused"] > 0,
+              f"mla serve {name}: tokens equal {same}, launches {gcounts}")
+        r["debug"][name] = dict(tokens_equal_eager=same, replays=ge.step_graph.replays,
+                                launches=device_launches(gcounts, ge.step_graph))
+        del ge
+    part_s["debug"] = time.perf_counter() - t0
+    r["phase_part_s"] = part_s
+    log(r)
+    return r
+
+
+#: mla_train: DeepSeek-V2-Lite cut to 4 of 27 layers (the dense layer and 3
+#: MoE layers; the widths whole): 2.25 G float32 parameters, 36 GB of
+#: weights, gradients and AdamW moments, and AdamW's temporaries for the
+#: 4.4 GB w_gate_up leaf beside them.
+MLA_TRAIN_LAYERS, MLA_TRAIN_STEPS = 4, 3
+
+
+def mla_training(dev, card, log, model="deepseek-v2-lite"):
+    """``model`` at full width cut to ``MLA_TRAIN_LAYERS``, float32 master
+    weights and AdamW, the bf16 recipe (bf16 compute), 8 x 512 synthetic
+    tokens a step through ``Trainer(forward_fn=mla_forward)``
+    (``forward_fn_training``): remat full, then dots (losses bit-equal), the
+    router aux a step, K3 and K6 at head dim 192 launched their counts a
+    step."""
+    from llm_fp8_tpu_torch.models import resolve_model
+
+    cfg = resolve_model(model).cfg
+    check(cfg.num_experts == 64 and cfg.qk_head_dim == 192,
+          f"mla train: {model} is not deepseek-v2-lite")
+    return forward_fn_training(dev, card, log, model, MLA_TRAIN_STEPS, 8, 512, 200,
+                               MLA_TRAIN_PATH, ("flash_attention_f32",),
+                               "bf16 recipe (bf16 compute), router aux 0.001, K3/K6 at D 192",
+                               num_layers=MLA_TRAIN_LAYERS)
+
+
+#: mla_spec_serve: DeepSeek-V2's depth (its dense layer and 5 MoE layers:
+#: ~20 GB of e4m3 codes beside the 31.4 GB bf16 draft and a layer's 7.5 GB
+#: of experts converted to bf16 in the verify block).
+MLA_SPEC_TARGET_LAYERS = 6
+#: mla_spec_serve's prompt lengths (lowest, highest + 1) and new tokens.
+MLA_SPEC_PROMPTS, MLA_SPEC_NEW = (500, 1001), 16
+
+
+def mla_spec_serving(dev, card, log, target="deepseek-v2", draft="deepseek-v2-lite"):
+    """Speculative serving of DeepSeek-V2 (full width, cut to
+    ``MLA_SPEC_TARGET_LAYERS``, LAYERWISE fp8 made a layer at a time, e4m3
+    latent cache) with a bf16 DeepSeek-V2-Lite draft at all 27 layers (vocab
+    102400 both) through ``SpecEngine(forward_fn=mla_forward,
+    draft_forward_fn=mla_forward)``: 8 requests of 500-1000 tokens, 16 new
+    each, gamma 4, greedy; the round's CUDA graph against its eager twin
+    (tokens equal), K9 in the captured round and no attention kernel; the
+    eager rounds' tokens held to the plain engine's greedy tokens for the
+    target (``spec_against_plain``, as ``zoo_spec_serving``'s fp8 paths:
+    where a request parts, after its first token, the plain top-2 margin
+    must be within twice the paths' logits difference there; the verify
+    block and the decode step quantize activations to e4m3 per row and may
+    route a token to other experts, so the worst difference before a
+    parting is logged, not held)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch.models import resolve_model
+    from llm_fp8_tpu_torch.serving import EngineConfig, SamplingParams
+
+    Rounds, EagerRounds = spec_round_classes()
+    tentry, dentry = resolve_model(target), resolve_model(draft)
+    tcfg = dataclasses.replace(tentry.cfg, num_layers=MLA_SPEC_TARGET_LAYERS)
+    dcfg = dentry.cfg
+    check(tcfg.vocab_size == dcfg.vocab_size == 102400 and tcfg.num_heads == 128
+          and dcfg.num_layers == 27, f"mla spec: {target}/{draft} are not deepseek-v2/-lite")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tparams = mla_fp8_params_by_layer(tcfg, dev, tentry)
+    dparams = dentry.init_fn(dcfg, dtype=torch.bfloat16, device=dev, seed=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gamma, max_new = 4, MLA_SPEC_NEW
+    ecfg = EngineConfig(max_slots=8, max_seq_len=2048, prefill_buckets=(1024, 2048),
+                        kv_dtype="fp8")
+    rng = np.random.RandomState(18)
+    prompts = [rng.randint(1, tcfg.vocab_size, rng.randint(*MLA_SPEC_PROMPTS)).astype(np.int32)
+               for _ in range(8)]
+    hooks = dict(forward_fn=tentry.forward_fn, draft_forward_fn=dentry.forward_fn)
+
+    def serve(cls, what):
+        return spec_run(cls, tparams, tcfg, dparams, dcfg, ecfg, prompts, max_new, gamma, dev,
+                        f"mla spec {what}", **hooks)
+
+    warm = Rounds(tparams, tcfg, dparams, dcfg, ecfg, gamma=gamma, device=dev, **hooks)
+    warm.add_request(prompts[0], SamplingParams(max_new_tokens=4))
+    warm.run()
+    del warm
+    gc.collect()
+    eng, spec_tokens, greedy = serve(Rounds, "greedy")
+    check(eng.round_graph.launches.get("quantize_fused", 0) > 0,
+          "mla spec greedy: K9 is not in the captured round")
+    check(all(greedy["launches"][k] == 0 for k in ("flash_attention", "flash_attention_f32",
+                                                   "decode_attention_arena")),
+          f"mla spec greedy: an attention kernel ran on the latent path ({greedy['launches']})")
+    del eng
+    gc.collect()
+    _, eager_tokens, eager = serve(EagerRounds, "eager")
+    equal = spec_tokens == eager_tokens
+    check(equal, "mla spec: the round graph's greedy tokens differ from the eager round's")
+    against = spec_against_plain(dev, tparams, tcfg, dparams, dcfg, ecfg, prompts, max_new,
+                                 gamma, hooks, EagerRounds)
+    check(against["spec_tokens"] == eager_tokens,
+          "mla spec: the recorded eager rounds' tokens differ from the eager run's")
+    for part in against["parted"]:
+        check(part["at"] > 0 and part["margin_over_std"] <= 2 * part["diff_over_std"],
+              f"mla spec: request {part['request']} parts from the plain engine at token "
+              f"{part['at']}, where the paths' logits differ by {part['diff_over_std']} std "
+              f"and the plain top-2 margin is {part['margin_over_std']} std")
+    res = dict(card=card, target=f"{target}, {MLA_SPEC_TARGET_LAYERS} of 60 layers at full "
+               "width, LAYERWISE fp8, e4m3 latent cache", draft=f"{draft}, 27 layers, bf16",
+               slots=8, gamma=gamma, max_new=max_new, prompt_lens=[len(p) for p in prompts],
+               init_s=init_s, weights_gb={"target": tree_gb(tparams), "draft": tree_gb(dparams)},
+               greedy=greedy, eager=eager, tokens_equal_eager=equal,
+               against_plain={k: v for k, v in against.items()
+                              if k not in ("plain_tokens", "spec_tokens")},
+               peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
                acceptance_note="random weights: acceptance is not that of trained models")
     log(res)
     del tparams, dparams
@@ -6491,8 +7164,8 @@ def main(argv=None) -> int:
              ("paged_kernels", lambda: paged_kernel_cases(dev, bw, peak, log)),
              ("slice", lambda: slice_check(dev, log)),
              ("paged_slice", lambda: paged_slice_check(dev, log)),
-             ("serve", lambda: serving(dev, 16, card, log)),
-             ("paged_serve", lambda: paged_serving(dev, 16, card, log)),
+             ("serve", lambda: serving(dev, SERVE_LAYERS, card, log)),
+             ("paged_serve", lambda: paged_serving(dev, SERVE_LAYERS, card, log)),
              ("spec_serve", lambda: spec_serving(dev, card, bw, peak, log)),
              ("checkpoint", lambda: checkpoint_check(dev, card, log)),
              ("train_kernels", lambda: train_kernel_cases(dev, bw, peak, log)),
@@ -6503,7 +7176,7 @@ def main(argv=None) -> int:
              ("alibi_kernels", lambda: alibi_kernel_cases(dev, bw, peak, log)),
              ("dropout_kernels", lambda: dropout_kernel_cases(dev, bw, peak, log)),
              ("alibi_serve", lambda: alibi_serving(dev, card, log)),
-             ("train_rest", lambda: train_rest(dev, card, log)),
+             ("train_rest", lambda: train_rest(dev, card, log, num_layers=TRAIN_REST_LAYERS)),
              ("compare", lambda: compare_study(dev, log)),
              ("zoo_kernels", lambda: zoo_kernel_cases(dev, bw, peak, log)),
              ("zoo_slice", lambda: zoo_slice_check(dev, log)),
@@ -6523,7 +7196,13 @@ def main(argv=None) -> int:
              ("moe_train_slice", lambda: moe_train_slice(dev, log)),
              ("moe_serve", lambda: moe_serving(dev, card, log)),
              ("moe_train", lambda: moe_training(dev, card, log)),
-             ("moe_spec_serve", lambda: moe_spec_serving(dev, card, log)))
+             ("moe_spec_serve", lambda: moe_spec_serving(dev, card, log)),
+             ("mla_kernels", lambda: mla_kernel_cases(dev, bw, peak, log)),
+             ("mla_slice", lambda: mla_slice_check(dev, log)),
+             ("mla_train_slice", lambda: mla_train_slice(dev, log)),
+             ("mla_serve", lambda: mla_serving(dev, card, log)),
+             ("mla_train", lambda: mla_training(dev, card, log)),
+             ("mla_spec_serve", lambda: mla_spec_serving(dev, card, log)))
     try:
         for phase, run in steps:
             if phase in phases:
@@ -6574,24 +7253,32 @@ def kernels_line(report):
                    report["alibi_serve"]["paged"]["alibi_fp8"]["launches"],
                "train, attention dropout 0.1": report["train_rest"]["dropout"]["launches"],
                "zoo serve (falcon-7b, e4m3 KVCache)": report["zoo_serve"]["falcon"]["launches"],
-               "zoo train (btlm-3b, 32 layers, remat full and dots)":
+               f"zoo train (btlm-3b, {ZOO_TRAIN_LAYERS} layers, remat full and dots)":
                    report["zoo_train"]["launches"],
                "zoo spec (gpt2-xl target, gpt2 draft, greedy)":
                    report["zoo_spec_serve"]["greedy"]["launches"],
-               "gemma serve (gemma2-9b, 42 layers, e4m3 KVCache)":
+               f"gemma serve (gemma2-9b, {GEMMA_SERVE_LAYERS} layers, e4m3 KVCache)":
                    report["gemma_serve"]["gemma"]["launches"],
                "gemma train (gemma2-2b, 26 layers, remat full and dots)":
                    report["gemma_train"]["launches"],
                "gemma spec (gemma2-9b target, gemma2-2b draft, greedy)":
                    report["gemma_spec_serve"]["greedy"]["launches"],
-               "moe serve (mixtral-8x7b, 32 layers, e4m3 KVCache)":
+               f"moe serve (mixtral-8x7b, {MOE_SERVE_LAYERS['mixtral-8x7b']} layers, e4m3 "
+               "KVCache)":
                    report["moe_serve"]["mixtral-8x7b"]["launches"],
-               "moe serve (qwen3-30b-a3b, 48 layers, e4m3 KVCache)":
+               f"moe serve (qwen3-30b-a3b, {MOE_SERVE_LAYERS['qwen3-30b-a3b']} layers, e4m3 "
+               "KVCache)":
                    report["moe_serve"]["qwen3-30b-a3b"]["launches"],
                f"moe train (qwen3-30b-a3b, {MOE_TRAIN_LAYERS} layers, remat full and dots)":
                    report["moe_train"]["launches"],
                "moe spec (qwen3-30b-a3b target, qwen2.5-1.5b draft, greedy)":
-                   report["moe_spec_serve"]["greedy"]["launches"]}
+                   report["moe_spec_serve"]["greedy"]["launches"],
+               "mla serve (deepseek-v2-lite, 27 layers, e4m3 latent cache)":
+                   report["mla_serve"]["launches"],
+               f"mla train (deepseek-v2-lite, {MLA_TRAIN_LAYERS} layers, remat full and dots)":
+                   report["mla_train"]["launches"],
+               f"mla spec (deepseek-v2 target at {MLA_SPEC_TARGET_LAYERS} layers, "
+               "deepseek-v2-lite draft, greedy)": report["mla_spec_serve"]["greedy"]["launches"]}
     for counts in by_path.values():
         counts["flash_attention_bwd"] = (counts.get("flash_attention_bwd_dkv", 0)
                                          + counts.get("flash_attention_bwd_dq", 0))
@@ -6626,14 +7313,24 @@ def kernels_line(report):
                             "GQA 8 (qwen3-30b-a3b prefill)": ("moe_kernels",
                                                               "qwen3-30b-a3b prefill"),
                             "GQA 4 (mixtral-8x7b prefill)": ("moe_kernels",
-                                                             "mixtral-8x7b prefill")},
+                                                             "mixtral-8x7b prefill"),
+                            "head_dim 192 padded to 256 (deepseek-v2-lite train)": (
+                                "mla_kernels", "D192 deepseek-v2-lite train"),
+                            "head_dim 192 padded to 256 (4096 prefill)": (
+                                "mla_kernels", "D192 prefill"),
+                            "head_dim 24 padded to 32 (debug-mla)": ("mla_kernels", "D24")},
         "flash_attention_bwd": {"alibi": ("alibi_kernels", "alibi Hq40 D128 B2 S1024"),
                                 "dropout": ("dropout_kernels", "dropout"),
                                 "head_dim 256": ("gemma_kernels", "D256 2b train"),
                                 "head_dim 256 window 4096 S8192": ("gemma_kernels",
                                                                    "D256 train B1 S8192"),
                                 "GQA 8 (qwen3-30b-a3b train)": ("moe_kernels",
-                                                                "qwen3-30b-a3b train")},
+                                                                "qwen3-30b-a3b train"),
+                                "head_dim 192 padded to 256 (deepseek-v2-lite train)": (
+                                    "mla_kernels", "D192 deepseek-v2-lite train"),
+                                "head_dim 192 padded to 256 (4096)": ("mla_kernels",
+                                                                      "D192 prefill"),
+                                "head_dim 24 padded to 32 (debug-mla)": ("mla_kernels", "D24")},
         "flash_attention_f32": {"dropout": ("zoo_train_kernels", "dropout")}}
     headers = {"decode_attention_arena": ["decode_split.cuh", "fp8_ftz.cuh"],
                "paged_attention": ["decode_split.cuh", "fp8_ftz.cuh"],
@@ -6724,7 +7421,7 @@ def kernels_line(report):
                     "case", "max_abs_err", "ms", "ms_without_alibi", "ms_without_dropout",
                     "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
                     "keep_mask_equal", "k6_keep_mask_equal", "split_ms", "split_bound_ms",
-                    "caught") if k in o}
+                    "caught", "vs_library", "padded_to") if k in o}
         if kname in also:
             phase, prefix = also[kname]
             o = next(o for o in report[phase]

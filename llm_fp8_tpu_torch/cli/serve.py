@@ -1,6 +1,6 @@
 """Serving CLI: random init or an HF checkpoint → quantize → continuous-
 batching run on the card (counterpart of ``llm_fp8_tpu/cli/serve.py``; the
-Llama, GPT-2, NeoX, Gemma-2 and MoE families, resolved by
+Llama, GPT-2, NeoX, Gemma-2, MoE and MLA families, resolved by
 ``models/registry.py``):
 
   python -m llm_fp8_tpu_torch.cli.serve --model_name llama-3.2-1b --random_init \\
@@ -19,9 +19,11 @@ Llama, GPT-2, NeoX, Gemma-2 and MoE families, resolved by
 through the speculative engine (random draft weights from seed 1 unless
 ``--draft_weights``; any target and draft of one vocabulary, each through
 its family's forward: ``SpecEngine(forward_fn=, draft_forward_fn=)``). A
-GPT-2/NeoX, Gemma-2 or MoE model (``mixtral-8x7b``, ``qwen3-30b-a3b``, their
-``debug-*`` configs) serves through ``Engine(forward_fn=...)``, the slot
-engine's KVCache path; ``--paged`` is refused for it, as in the JAX CLI.
+GPT-2/NeoX, Gemma-2, MoE (``mixtral-8x7b``, ``qwen3-30b-a3b``) or MLA model
+(``deepseek-v2-lite``, ``deepseek-v2``; their ``debug-*`` configs) serves
+through ``Engine(forward_fn=...)``, the slot engine's KVCache path (MLA's
+over its latent cache); ``--paged`` is refused for it, as in the JAX CLI,
+and so is ``--kv_dtype int8`` (only the Llama family's arena calibrates).
 Prints one JSON line with the JAX CLI's keys: tokens/s, p50/p99 TTFT and the
 peak device memory (``torch.cuda.max_memory_allocated``); ``--paged`` adds
 ``pages_in_use``, ``--draft_model`` the ``spec_*`` statistics. ``main``

@@ -1,5 +1,5 @@
 """Fine-tuning CLI on the card (counterpart of ``llm_fp8_tpu/cli/train.py``;
-the Llama, GPT-2, NeoX, Gemma-2 and MoE families, resolved by
+the Llama, GPT-2, NeoX, Gemma-2, MoE and MLA families, resolved by
 ``models/registry.py``):
 
   python -m llm_fp8_tpu_torch.cli.train --model_name meta-llama/Llama-3.2-1B \\
@@ -35,7 +35,10 @@ arrays under the JAX package's key names, which either package reads. An
 MoE model (Mixtral, Qwen3-MoE) trains the same way with the router's
 load-balancing loss in its loss (``Trainer``; the train log carries
 ``router_aux``), and is written as HF safetensors (``export_hf``), as the JAX
-CLI writes it.
+CLI writes it. An MLA model (DeepSeek-V2-Lite, DeepSeek-V2, ``debug-mla*``)
+trains as an MoE model and is written as HF ``DeepseekV2ForCausalLM``
+safetensors (the JAX CLI's export sends it to the Mixtral export, which
+raises; the port tells MLA apart first).
 
 Not ported yet (they raise): the mesh flags and ``--multihost`` (one
 device), ``--use_wandb`` and the HF dataset and tokenizer (no network).
@@ -228,7 +231,7 @@ def main(argv=None):
     log_file.close()
 
     report = stability.report()
-    if llama or hasattr(cfg, "num_experts"):
+    if llama or hasattr(cfg, "num_experts"):  # MLA configs too: export_hf tells them apart
         export_hf(state.params, cfg, args.output_dir)
     else:
         # The zoo families: the raw param tree, as the JAX CLI saves it.

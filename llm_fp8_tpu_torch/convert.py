@@ -5,7 +5,9 @@ with every array given as a numpy array and every ``QTensor`` given as a dict
 of its fields (``qvalue``, ``scale``, ``fmt`` as the format's name,
 ``block_size``, ``block_axis``, ``pack_axis``), and returns the port's tree
 on ``device`` (any shape: an MoE tree's 4-D expert QTensors, with ``[L, E,
-1, N]`` channel scales or MX blocks along axis 2, carry as the rest). bf16 and fp8 arrays are read through their dtype *name* and a
+1, N]`` channel scales or MX blocks along axis 2, carry as the rest; the MLA
+family's two groups, ``dense_layers`` and ``moe_layers``, are nested dicts
+like ``layers``). bf16 and fp8 arrays are read through their dtype *name* and a
 ``uint16``/``uint8`` view, so no ``ml_dtypes`` import is needed.
 
 ``pool_from_numpy`` carries a JAX paged KV pool (``[P, L, Hk, D, page]``,

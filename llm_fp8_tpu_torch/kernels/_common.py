@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 __all__ = ["e4m3_to_bf16_ftz", "fp8_to_bf16_ftz", "pad_to_multiple", "aligned16",
+           "PADDED_HEAD_DIMS", "pad_head_dim",
            "num_sms", "KV_KINDS", "W_KINDS", "dropout_keep_mask", "dropout_threshold",
            "dropout_seed_u32", "dropout_keep", "dropout_inv", "dropout_args",
            "alibi_slopes_tensor", "alibi_bias", "decode_alibi_bias"]
@@ -189,3 +190,16 @@ def dropout_args(dropout_p: float, dropout_seed) -> list:
         return [_i32(0), _i32(0), ctypes.c_float(1.0)]
     return [_i32(dropout_threshold(dropout_p)), _i32(dropout_seed_u32(dropout_seed)),
             ctypes.c_float(dropout_inv(dropout_p))]
+
+
+#: Head dims that no instance takes, zero-padded to one that does: the MLA
+#: family's qk head dim 192 (DeepSeek-V2 and V2-Lite: 128 + 64) onto the
+#: 256 instance, and its debug configs' 24 (16 + 8; wgmma's bf16 K step is
+#: 16) onto 32. Zero columns add nothing to q·k and give zero output
+#: columns, which are sliced off; the scale is the unpadded dim's.
+PADDED_HEAD_DIMS = {24: 32, 192: 256}
+
+
+def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """``t [..., D]`` zero-padded to ``d`` columns (``t`` itself at ``D == d``)."""
+    return t if t.shape[-1] == d else torch.nn.functional.pad(t, (0, d - t.shape[-1]))

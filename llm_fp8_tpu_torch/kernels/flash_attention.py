@@ -7,7 +7,9 @@ Counterpart of ``llm_fp8_tpu/kernels/flash_attention.py::flash_attention``
 The kernel is built for Hopper: TMA loads K/V tiles into a ring of swizzled
 shared memory for consumer warpgroups that run Q·Kᵀ and P·V on ``wgmma``
 with the scores, P and O kept in registers (its source note has the design;
-head dims 32, 64, 128, and 256 on 64-key tiles for Gemma-2).
+head dims 32, 64, 128, and 256 on 64-key tiles for Gemma-2; the MLA
+family's 192 and 24 zero-padded to 256 and 32 by the wrapper,
+:data:`PADDED_HEAD_DIMS`).
 float32 q, k and v (the GPT-2 and NeoX families serve in float32) take K3's
 float32 instance, :func:`flash_fwd_f32` (``csrc/flash_attention_f32.cu``:
 ``mma.sync`` TF32 products with a 3xTF32 split, so float32 accuracy; head
@@ -41,12 +43,12 @@ import torch
 
 from ..utils.backend import native_fp8_matmul
 from . import _build
-from ._common import (aligned16, alibi_bias, alibi_slopes_tensor, dropout_args, dropout_inv,
-                      dropout_keep)
+from ._common import (PADDED_HEAD_DIMS, aligned16, alibi_bias, alibi_slopes_tensor,
+                      dropout_args, dropout_inv, dropout_keep, pad_head_dim)
 from .flash_attention_bwd import flash_attention_bwd
 
 __all__ = ["flash_attention", "flash_fwd_plain", "flash_fwd_f32", "F32_HEAD_DIMS",
-           "BF16_HEAD_DIMS",
+           "BF16_HEAD_DIMS", "PADDED_HEAD_DIMS", "pad_head_dim",
            "flash_attention_fp8", "flash_fp8_plain",
            "fp8_prepass", "fp8_prepass_plain", "fp8_v_slots_plain", "fp8_wgmma_ok",
            "auto_block", "MASK_VALUE"]
@@ -233,9 +235,11 @@ def flash_attention(
     """Flash attention forward; semantics of :func:`..ops.attention.attention_ref`.
 
     Returns ``out [B, Sq, Hq, D]``, or ``(out, lse [B, Hq, Sq] float32)``
-    with ``return_lse``. Counts the bf16 kernel's launches in
-    ``flash_attention.launches`` (the float32 instance's in
-    ``flash_fwd_f32.launches``).
+    with ``return_lse``. A head dim of :data:`PADDED_HEAD_DIMS` (24, 192)
+    runs zero-padded to its instance's (32, 256) on either device, the
+    autograd of the pad and the slice carrying the gradients. Counts the
+    bf16 kernel's launches in ``flash_attention.launches`` (the float32
+    instance's in ``flash_fwd_f32.launches``).
     ``alibi_slopes`` (``[Hq]`` or ``[B, Hq]``) gets no gradient.
     """
     if attention_chunk is not None:
@@ -254,8 +258,16 @@ def flash_attention(
                         f"{k.dtype}, {v.dtype}")
     f32 = q.dtype == torch.float32
     dims = F32_HEAD_DIMS if f32 else BF16_HEAD_DIMS
+    if D in PADDED_HEAD_DIMS:
+        Dp = PADDED_HEAD_DIMS[D]
+        out = flash_attention(
+            pad_head_dim(q, Dp), pad_head_dim(k, Dp), pad_head_dim(v, Dp), causal=causal,
+            window=window, softcap=softcap, scale=scale if scale is not None else D ** -0.5,
+            q_offset=q_offset, kv_lens=kv_lens, alibi_slopes=alibi_slopes,
+            dropout_p=dropout_p, dropout_seed=dropout_seed, return_lse=return_lse)
+        return (out[0][..., :D], out[1]) if return_lse else out[..., :D]
     if D not in dims:
-        raise ValueError(f"head_dim {D} not in {dims}")
+        raise ValueError(f"head_dim {D} not in {dims} (or {tuple(PADDED_HEAD_DIMS)}, padded)")
     if f32 and q.is_cuda and (window is not None or softcap is not None):
         raise NotImplementedError("flash attention's float32 instance takes no window or "
                                   "softcap")

@@ -45,7 +45,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._common import aligned16, alibi_bias, dropout_args, dropout_inv, dropout_keep
+from ._common import (PADDED_HEAD_DIMS, aligned16, alibi_bias, dropout_args, dropout_inv,
+                      dropout_keep, pad_head_dim)
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "flash_bwd_dkv",
            "flash_bwd_dq", "recompute_p_ds", "row_di", "flash_attention_bwd_f32",
@@ -179,9 +180,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: Optional[i
     (``[B, Hq, Sq]`` float32) and the output gradient ``do``. ``q_offset``
     and ``kv_lens`` are int32 ``[B]`` tensors on q's device; ``alibi`` the
     float32 ``[B, Hq]`` slopes or None; ``dropout_p``/``dropout_seed`` the
-    forward's."""
+    forward's. On the card a head dim of 24 or 192 runs zero-padded to the
+    32 or 256 instance (``PADDED_HEAD_DIMS``) and dq, dk, dv are sliced back
+    (the autograd path pads before the forward, so it arrives padded)."""
     cfg = dict(causal=causal, window=window, softcap=softcap, scale=scale, alibi=alibi,
                dropout_p=dropout_p, dropout_seed=dropout_seed)
+    D = q.shape[-1]
+    if q.is_cuda and D in PADDED_HEAD_DIMS:  # onto the padded instance, as the forward
+        Dp = PADDED_HEAD_DIMS[D]
+        q, k, v, o, do = (pad_head_dim(t, Dp) for t in (q, k, v, o, do))
+        return tuple(g[..., :D] for g in flash_attention_bwd(
+            q, k, v, o, lse, do, q_offset=q_offset, kv_lens=kv_lens, **cfg))
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, o, lse, do, q_offset=q_offset,
                                          kv_lens=kv_lens, **cfg)
@@ -190,8 +199,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: Optional[i
                                        kv_lens=kv_lens, **cfg)
     B, Sq, Hq, D = q.shape
     if D not in (32, 64, 128, 256) or q.dtype != torch.bfloat16 or do.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention_bwd: bf16 with head_dim 32/64/128/256, got "
-                         f"{q.dtype} D={D}, do {do.dtype}")
+        raise ValueError(f"flash_attention_bwd: bf16 with head_dim 32/64/128/256 (24/192 "
+                         f"padded), got {q.dtype} D={D}, do {do.dtype}")
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be float32 {(B, Hq, Sq)}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")

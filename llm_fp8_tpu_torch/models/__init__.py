@@ -1,10 +1,11 @@
-"""Model configurations, the Llama-family decoder, the GPT-2, NeoX, Gemma-2
-and MoE families, and the registry that resolves a name across them."""
+"""Model configurations, the Llama-family decoder, the GPT-2, NeoX, Gemma-2,
+MoE and MLA families, and the registry that resolves a name across them."""
 from .config import MODEL_REGISTRY, SUPPORTED_MODELS, ModelConfig, get_config
 from .gemma import GEMMA_REGISTRY, GemmaConfig, gemma_forward, init_gemma_params
 from .gpt2 import GPT2_REGISTRY, GPT2Config, gpt2_forward, init_gpt2_params
 from .llama import (KVCache, forward, forward_decode_arena, forward_paged, init_kv_cache,
                     init_params, quantize_params)
+from .mla import MLA_REGISTRY, MLAConfig, init_mla_params, mla_forward, quantize_mla_params
 from .moe import MOE_REGISTRY, MoEConfig, init_moe_params, moe_forward, quantize_moe_params
 from .neox import NEOX_REGISTRY, NeoXConfig, init_neox_params, neox_forward
 from .registry import (ZooEntry, load_zoo_checkpoint, quantize_zoo_params, resolve_model,
@@ -17,5 +18,6 @@ __all__ = ["ModelConfig", "MODEL_REGISTRY", "SUPPORTED_MODELS", "get_config",
            "NeoXConfig", "NEOX_REGISTRY", "init_neox_params", "neox_forward",
            "GemmaConfig", "GEMMA_REGISTRY", "init_gemma_params", "gemma_forward",
            "MoEConfig", "MOE_REGISTRY", "init_moe_params", "moe_forward", "quantize_moe_params",
+           "MLAConfig", "MLA_REGISTRY", "init_mla_params", "mla_forward", "quantize_mla_params",
            "ZooEntry", "resolve_model", "zoo_model_names", "quantize_zoo_params",
            "load_zoo_checkpoint"]

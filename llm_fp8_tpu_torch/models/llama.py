@@ -211,11 +211,17 @@ class KVCache:
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16,
                   device=None) -> KVCache:
+    """Zeroed cache arena for ``cfg``. A family whose K and V stores differ
+    in shape (the MLA latent cache: K the compressed latent, V the rotary
+    slice) gives ``cfg.kv_cache_dims() -> (Hk, Dk, Dv)``, as in JAX; the
+    default is the symmetric per-head layout."""
     device = resolve_device(device)
-    L, Hk, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    L = cfg.num_layers
+    dims = getattr(cfg, "kv_cache_dims", None)
+    Hk, Dk, Dv = dims() if dims else (cfg.num_kv_heads, cfg.head_dim, cfg.head_dim)
     return KVCache(
-        k=torch.zeros((L, batch, max_len, Hk, Dh), dtype=dtype, device=device),
-        v=torch.zeros((L, batch, max_len, Hk, Dh), dtype=dtype, device=device),
+        k=torch.zeros((L, batch, max_len, Hk, Dk), dtype=dtype, device=device),
+        v=torch.zeros((L, batch, max_len, Hk, Dv), dtype=dtype, device=device),
         lens=torch.zeros((batch,), dtype=torch.int32, device=device),
         k_scale=torch.ones((L,), dtype=torch.float32, device=device),
         v_scale=torch.ones((L,), dtype=torch.float32, device=device),

@@ -5,10 +5,10 @@ serving CLI and ``Engine(forward_fn=...)`` use to drive any ported family.
 Ported: the Llama family (``models/config.py``), GPT-2 (``models/gpt2.py``),
 NeoX (``models/neox.py``), Gemma-2 (``models/gemma.py``, quantized by the
 Llama family's ``quantize_params``, as in JAX: its GEMM leaves have the same
-names) and the MoE family (``models/moe.py``: Mixtral and Qwen3-MoE, quantized
-by ``quantize_moe_params``). The JAX package's MLA family is not ported yet:
-its names (kept here, since the port imports nothing of the JAX package)
-raise ``NotImplementedError`` naming the family.
+names), the MoE family (``models/moe.py``: Mixtral and Qwen3-MoE, quantized
+by ``quantize_moe_params``) and the MLA family (``models/mla.py``:
+DeepSeek-V2-Lite and DeepSeek-V2, quantized by ``quantize_mla_params``).
+Every family of the JAX package's registry is ported.
 """
 from __future__ import annotations
 
@@ -34,10 +34,9 @@ class ZooEntry(NamedTuple):
 #: role split of the Llama family's ``quantize_params``).
 _ZOO_SITES = {"w_qkv": "attn_qkv", "w_out": "attn_out", "w_fc": "mlp", "w_proj": "mlp"}
 
-#: The JAX package's families not ported yet, with their registry names.
-UNPORTED_FAMILIES = {
-    "MLA": ("deepseek-v2-lite", "deepseek-v2", "debug-mla", "debug-mla-q"),
-}
+#: The JAX package's families not ported yet, with their registry names:
+#: none is left.
+UNPORTED_FAMILIES: Dict[str, tuple] = {}
 
 
 def quantize_zoo_params(params: Dict[str, Any], recipes: RecipeSet,
@@ -65,20 +64,13 @@ def quantize_zoo_params(params: Dict[str, Any], recipes: RecipeSet,
     return out
 
 
-def _unported(name: str) -> None:
-    for family, names in UNPORTED_FAMILIES.items():
-        if name in names:
-            raise NotImplementedError(
-                f"{name!r}: the {family} family is not ported to llm_fp8_tpu_torch yet "
-                "(the JAX package serves it)")
-
-
 def resolve_model(name: str) -> ZooEntry:
     """Look ``name`` up across every ported family's registry."""
     from .config import MODEL_REGISTRY
     from .gemma import GEMMA_REGISTRY, gemma_forward, init_gemma_params
     from .gpt2 import GPT2_REGISTRY, gpt2_forward, init_gpt2_params
     from .llama import forward, init_params, quantize_params
+    from .mla import MLA_REGISTRY, init_mla_params, mla_forward, quantize_mla_params
     from .moe import MOE_REGISTRY, init_moe_params, moe_forward, quantize_moe_params
     from .neox import NEOX_REGISTRY, init_neox_params, neox_forward
 
@@ -95,7 +87,8 @@ def resolve_model(name: str) -> ZooEntry:
                         quantize_params)
     if name in MOE_REGISTRY:
         return ZooEntry(MOE_REGISTRY[name], init_moe_params, moe_forward, quantize_moe_params)
-    _unported(name)
+    if name in MLA_REGISTRY:
+        return ZooEntry(MLA_REGISTRY[name], init_mla_params, mla_forward, quantize_mla_params)
     raise ValueError(f"unknown model {name!r}; known: {sorted(zoo_model_names())}")
 
 
@@ -104,10 +97,12 @@ def zoo_model_names() -> list:
     from .config import MODEL_REGISTRY
     from .gemma import GEMMA_REGISTRY
     from .gpt2 import GPT2_REGISTRY
+    from .mla import MLA_REGISTRY
     from .moe import MOE_REGISTRY
     from .neox import NEOX_REGISTRY
 
-    return [*MODEL_REGISTRY, *GPT2_REGISTRY, *NEOX_REGISTRY, *GEMMA_REGISTRY, *MOE_REGISTRY]
+    return [*MODEL_REGISTRY, *GPT2_REGISTRY, *NEOX_REGISTRY, *GEMMA_REGISTRY, *MOE_REGISTRY,
+            *MLA_REGISTRY]
 
 
 def load_zoo_checkpoint(name: str, path: str, dtype=torch.bfloat16, device=None):
@@ -123,8 +118,9 @@ def load_zoo_checkpoint(name: str, path: str, dtype=torch.bfloat16, device=None)
 def _pack_fn_for(name: str) -> Callable:
     """The HF state-dict packer of ``name``'s family (the GPT-2/NeoX flavour
     is read from the registry name's prefix, as in the JAX package; an MoE
-    config with QK-norm is Qwen3-MoE, else Mixtral)."""
-    from . import gpt2, moe, neox
+    config with QK-norm is Qwen3-MoE, else Mixtral; an MLA config is
+    DeepSeek-V2)."""
+    from . import gpt2, mla, moe, neox
     from .config import MODEL_REGISTRY
     from .gemma import GEMMA_REGISTRY, pack_gemma2_state_dict
     from .hf_loader import pack_hf_state_dict
@@ -136,7 +132,8 @@ def _pack_fn_for(name: str) -> Callable:
     if name in moe.MOE_REGISTRY:
         return (moe.pack_qwen3_moe_state_dict if moe.MOE_REGISTRY[name].qk_norm
                 else moe.pack_mixtral_state_dict)
-    _unported(name)
+    if name in mla.MLA_REGISTRY:
+        return mla.pack_deepseek_state_dict
     by_prefix = [
         ("gpt2", gpt2.pack_gpt2_state_dict),
         ("opt-", gpt2.pack_opt_state_dict),

@@ -9,12 +9,14 @@ decoded by K2 (``forward_decode_arena``); bf16 KV runs the generic
 
 ``forward_fn`` serves any family with the Llama family's cache signature
 (``fn(params, tokens, cfg, cache=, start_pos=, kv_lens=) -> (logits,
-cache)``): the GPT-2, NeoX, Gemma-2 and MoE families (``models/registry.py``),
-as the JAX engine's ``forward_fn``. Those run the generic :class:`KVCache` path
+cache)``): the GPT-2, NeoX, Gemma-2, MoE and MLA families
+(``models/registry.py``), as the JAX engine's ``forward_fn``. Those run the
+generic :class:`KVCache` path (MLA's latent cache: ``init_kv_cache`` takes the
+config's ``kv_cache_dims``)
 (fp8 KV is quantized on store at the cache's unit scales; int8 KV is
 refused). GPT-2 and NeoX compute in float32, and their tied or unquantized
 head gets one float32 copy at construction (``models/zoo.py::
-with_f32_head``); Gemma-2 and MoE compute in bf16 and get none.
+with_f32_head``); Gemma-2, MoE and MLA compute in bf16 and get none.
 
 On the card a decode step is captured once as a CUDA graph over static
 buffers (tokens, lengths, logits, a ``[32, slots]`` burst output; see

@@ -11,8 +11,8 @@ the same round:
   vocabulary, as the JAX engine's hooks: a GPT-2/NeoX target runs the slot
   engine's KVCache path (``Engine(forward_fn=...)``), and a float32-compute
   zoo draft (GPT-2, NeoX) gets one float32 copy of its head at construction
-  (``models/zoo.py::with_f32_head``; a Gemma-2 or MoE draft computes in
-  bf16 and gets none), so the captured round reads only device tensors.
+  (``models/zoo.py::with_f32_head``; a Gemma-2, MoE or MLA draft computes
+  in bf16 and gets none), so the captured round reads only device tensors.
 * **verify lane**: ONE target forward over the ``[slots, gamma+1]`` block
   (``[last_committed, p_1..p_gamma]``) at each slot's own ``start_pos``;
   ``kv_lens`` masks the ragged batch (K3 over the dequantized cache on the

@@ -128,10 +128,13 @@ class CheckpointManager:
 def export_hf(params: Dict[str, Any], cfg: ModelConfig, out_dir: str, *,
               dequantize: bool = True) -> str:
     """Write HF-layout ``model.safetensors`` (float32) and ``config.json``
-    into ``out_dir``: the Llama family's layout, or an MoE config's
-    (``num_experts``) as Mixtral or, with QK-norm, Qwen3-MoE, with their
-    ``config.json`` fields. Quantized leaves are dequantized to float32 (the
-    HF layout has no scale sidecar); ``dequantize=False`` refuses them."""
+    into ``out_dir``: the Llama family's layout, an MLA config's
+    (``kv_lora_rank``) as DeepSeek-V2, or an MoE config's (``num_experts``)
+    as Mixtral or, with QK-norm, Qwen3-MoE, with their ``config.json``
+    fields. Quantized leaves are dequantized to float32 (the HF layout has
+    no scale sidecar); ``dequantize=False`` refuses them. MLA is told apart
+    before the ``num_experts`` test, which its config also passes (the JAX
+    ``export_hf`` sends an MLA tree to the Mixtral export, which raises)."""
     def deq(tree):
         if isinstance(tree, dict):
             return {k: deq(v) for k, v in tree.items()}
@@ -142,6 +145,8 @@ def export_hf(params: Dict[str, Any], cfg: ModelConfig, out_dir: str, *,
         return tree
 
     os.makedirs(out_dir, exist_ok=True)
+    if hasattr(cfg, "kv_lora_rank"):
+        return _export_deepseek(deq(params), cfg, out_dir)
     is_moe = hasattr(cfg, "num_experts")
     if is_moe:
         from ..models.moe import export_mixtral_state_dict, export_qwen3_moe_state_dict
@@ -187,6 +192,50 @@ def export_hf(params: Dict[str, Any], cfg: ModelConfig, out_dir: str, *,
     elif is_moe:
         hf_cfg.update(num_local_experts=cfg.num_experts,
                       num_experts_per_tok=cfg.num_experts_per_tok, sliding_window=None)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
+    return out_dir
+
+
+def _export_deepseek(params: Dict[str, Any], cfg, out_dir: str) -> str:
+    """An MLA tree as HF ``DeepseekV2ForCausalLM``: the tensors of
+    ``export_deepseek_state_dict`` and ``DeepseekV2Config``'s fields."""
+    from ..models.mla import export_deepseek_state_dict
+
+    write_safetensors(os.path.join(out_dir, "model.safetensors"),
+                      export_deepseek_state_dict(params, cfg))
+    hf_cfg = {
+        "architectures": ["DeepseekV2ForCausalLM"],
+        "model_type": "deepseek_v2",
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "moe_intermediate_size": cfg.moe_intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_heads,
+        "n_routed_experts": cfg.num_experts,
+        "n_shared_experts": cfg.n_shared_experts,
+        "num_experts_per_tok": cfg.num_experts_per_tok,
+        "first_k_dense_replace": cfg.first_k_dense_replace,
+        "routed_scaling_factor": cfg.routed_scaling_factor,
+        "topk_method": cfg.topk_method,
+        "n_group": cfg.n_group,
+        "topk_group": cfg.topk_group,
+        "norm_topk_prob": False,
+        "q_lora_rank": cfg.q_lora_rank,
+        "kv_lora_rank": cfg.kv_lora_rank,
+        "qk_nope_head_dim": cfg.qk_nope_head_dim,
+        "qk_rope_head_dim": cfg.qk_rope_head_dim,
+        "v_head_dim": cfg.v_head_dim,
+        "rope_theta": cfg.rope_theta,
+        "rope_scaling": cfg.rope_scaling,
+        "rms_norm_eps": cfg.rms_eps,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "attention_bias": False,
+        "aux_loss_alpha": cfg.router_aux_coef,
+    }
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(hf_cfg, f, indent=2)
     return out_dir

@@ -23,16 +23,16 @@ has no counterpart in an eager loop over the layers and must stay 1.
 
 ``forward_fn`` trains another family through the same steps, as the JAX
 trainer's: any forward with the zoo signature ``fn(params, tokens, cfg,
-remat=, dropout_p=, dropout_seed=) -> logits`` (the GPT-2, NeoX, Gemma-2
-and MoE families, ``models/registry.py``; Gemma-2 casts each dot's float32 master
+remat=, dropout_p=, dropout_seed=) -> logits`` (the GPT-2, NeoX, Gemma-2,
+MoE and MLA families, ``models/registry.py``; Gemma-2 casts each dot's float32 master
 weight to bf16, as JAX's ``_dot``), on the bf16 recipe only (the FP8 recipes implement
 the Llama stack). Such a forward exposes no hidden states, so the loss is
 never chunked and the activation mean and std are NaN (``StabilityTracker``
 skips them); its float32 params must carry no float32 head copy
 (``models/zoo.py::HEAD_F32``), which would take the head's gradient away from
-the tied embedding. A forward that returns a tuple (the MoE family's
+the tied embedding. A forward that returns a tuple (the MoE and MLA families'
 ``(logits, cache[, aux])``, JAX's convention) gives its first value. A config
-with ``router_aux_coef`` is an MoE config: its forward is called with
+with ``router_aux_coef`` is an MoE config (MLA's DeepSeekMoE too): its forward is called with
 ``return_router_aux=True`` and ``token_mask=attention_mask`` (padding claims
 no expert capacity and stays out of the router statistics), and
 ``router_aux_coef · aux`` joins the loss, as JAX's trainer adds it; the

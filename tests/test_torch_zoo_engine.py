@@ -13,9 +13,8 @@ the CPU.
   commits the loop's tokens (greedy bursts).
 * int8 KV is refused for a zoo model (no calibrated scales off the arena).
 * ``cli.serve --model_name debug-gpt2 --random_init --device cpu`` prints
-  the JAX CLI's keys; ``--paged`` with a zoo name (Gemma's and MoE's too)
-  exits with the JAX CLI's reason, an unported family's name (MLA) with its
-  family.
+  the JAX CLI's keys; ``--paged`` with a zoo name (Gemma's, MoE's and
+  MLA's too) exits with the JAX CLI's reason.
 """
 import json
 
@@ -228,5 +227,5 @@ def test_serve_cli_refuses_paged_for_a_zoo_model():
         main(["--model_name", "debug-gemma2", "--paged"] + SERVE_ARGS)
     with pytest.raises(SystemExit, match="Llama-family paged decode path"):
         main(["--model_name", "debug-mixtral", "--paged"] + SERVE_ARGS)
-    with pytest.raises(SystemExit, match="MLA family is not ported"):
-        main(["--model_name", "debug-mla"] + SERVE_ARGS)
+    with pytest.raises(SystemExit, match="Llama-family paged decode path"):
+        main(["--model_name", "debug-mla", "--paged"] + SERVE_ARGS)

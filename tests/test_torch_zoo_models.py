@@ -25,9 +25,9 @@
 * The fp8native layout pads K and N to multiples of 16 once; the padded
   product equals the unpadded one bit for bit.
 * The float32 copy of a tied head gives ``x @ head.float().T`` bit for bit.
-* ``resolve_model`` refuses the MLA names, naming the family; the MoE names
-  resolve to the port's MoE entry (ported: ``tests/test_torch_moe.py``; Gemma:
-  ``tests/test_torch_gemma.py``).
+* The MoE and MLA names resolve to the port's entries, named as JAX's
+  (ported: ``tests/test_torch_moe.py``, ``tests/test_torch_mla.py``; Gemma:
+  ``tests/test_torch_gemma.py``); an unknown name raises.
 """
 import dataclasses
 import functools
@@ -452,7 +452,7 @@ def test_float32_head_copy_gives_the_same_logits_bit_for_bit():
                                          ("deepseek-v2-lite", "MLA")])
 def test_resolve_model_refuses_unported_families(name, family):
     assert name in jreg.zoo_model_names()
-    if family not in treg.UNPORTED_FAMILIES:  # MoE: ported, resolved like JAX
+    if family not in treg.UNPORTED_FAMILIES:  # MoE and MLA: ported, resolved like JAX
         assert treg.resolve_model(name).cfg.name == jreg.resolve_model(name).cfg.name
         assert name in treg.zoo_model_names()
     else:
