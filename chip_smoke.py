@@ -105,7 +105,7 @@ Phases, in order; any failure exits non-zero before the last line:
    the plain mask bit for bit; each timed beside its dropout-free time.
    ``alibi_serve``: Baichuan-13B at full width: 2-layer slices card against
    CPU (arena, paged; the xla passes held to a share of the logits' std,
-   the 1B's 0.06 not being met at this width), then 20 of 40 layers with LAYERWISE fp8 weights (made
+   the 1B's 0.06 not being met at this width), then 12 of 40 layers with LAYERWISE fp8 weights (made
    a layer at a time) and fp8 KV through the arena engine and the paged
    engine (8 prompts of 3500 tokens), graph against eager tokens.
 8. ``train_rest``: 8 layers at 1B width, 10 steps under remat none, full
@@ -147,7 +147,7 @@ Phases, in order; any failure exits non-zero before the last line:
    and with dropout 0.1. ``zoo_train``: BTLM-3B at 16 of 32 layers, float32
    master weights and AdamW, 8 x 512 tokens, 5 steps under remat full and
    5 under dots (losses bit-equal), K3/K6 float32 launches a step, step ms,
-   peak memory, a profiled step. ``zoo_spec_serve``: gpt2-xl (24 of 48
+   peak memory, a profiled step. ``zoo_spec_serve``: gpt2-xl (12 of 48
    layers, fp8 weights, e4m3 KV) with a gpt2 draft through ``SpecEngine(forward_fn=,
    draft_forward_fn=)``, 8 requests, gamma 4, greedy, graph against eager
    tokens, against the plain engine's greedy tokens (near-ties counted);
@@ -171,14 +171,14 @@ Phases, in order; any failure exits non-zero before the last line:
    ``BAICHUAN_XLA_TOL_STD`` of the logits' std. ``gemma_train_slice``:
    gemma2-2b cut to 2 layers, one bf16-recipe step card against CPU (loss
    and every gradient), without and with dropout 0.1. ``gemma_serve``:
-   gemma2-9b at 22 of 42 layers through ``Engine(forward_fn=gemma_forward)``
+   gemma2-9b at 12 of 42 layers through ``Engine(forward_fn=gemma_forward)``
    (fp8 weights made two layers at a time, e4m3 KV, 8192 tokens a slot, 6
    prompts of 500-1000 tokens and 2 of 4500-6000, 32 new each), graph
    against eager tokens, K3 and K9 launches, step ms, TTFT, peak memory,
    busy share. ``gemma_train``: gemma2-2b at all 26 layers, float32 master
    weights and AdamW, 2 x 1024 tokens, 3 steps under remat full and dots
    (losses bit-equal), K3/K6 launches a step, a profiled step.
-   ``gemma_spec_serve``: gemma2-9b (22 layers, fp8, e4m3 KV) with a bf16 gemma2-2b
+   ``gemma_spec_serve``: gemma2-9b (12 layers, fp8, e4m3 KV) with a bf16 gemma2-2b
    draft, 8 requests, gamma 4, greedy, graph against eager tokens.
 12. The MoE family (Mixtral-8x7B, Qwen3-30B-A3B; no kernel of its own: the
    experts, router, dispatch and combine are plain torch, as XLA in JAX).
@@ -194,7 +194,7 @@ Phases, in order; any failure exits non-zero before the last line:
    flips per layer and the smallest top-k margin logged.
    ``moe_train_slice``: qwen3-30b-a3b cut to 1 layer, one bf16-recipe step
    card against CPU (loss, router aux, every gradient). ``moe_serve``:
-   Mixtral-8x7B at 16 of 32 layers and Qwen3-30B-A3B at 24 of 48 through
+   Mixtral-8x7B at 8 of 32 layers and Qwen3-30B-A3B at 12 of 48 through
    ``Engine(forward_fn=moe_forward)`` (fp8 weights made a layer at a time
    into one allocation, e4m3 KV, 4096 a slot, 8 prompts of 300-1500
    tokens, 32 new each), graph against eager tokens, K3 and K9 launches,
@@ -202,7 +202,7 @@ Phases, in order; any failure exits non-zero before the last line:
    parts. ``moe_train``: qwen3-30b-a3b at 3 of 48 layers, float32 master
    weights and AdamW, 8 x 512 tokens, remat full and dots (losses
    bit-equal), the router aux a step. ``moe_spec_serve``: qwen3-30b-a3b
-   (24 layers, fp8, e4m3 KV) with a bf16 Qwen2.5-1.5B draft, 8 requests,
+   (12 layers, fp8, e4m3 KV) with a bf16 Qwen2.5-1.5B draft, 8 requests,
    gamma 4, greedy, graph against eager tokens.
 13. The MLA family (DeepSeek-V2-Lite, DeepSeek-V2; serving runs no
    attention kernel: the latent cache's absorbed attention is plain torch,
@@ -231,7 +231,28 @@ Phases, in order; any failure exits non-zero before the last line:
    DeepSeek-V2-Lite draft at 27 layers, 8 requests, 16 new tokens each,
    gamma 4, greedy, graph
    against eager tokens, held to the plain engine's greedy tokens.
-14. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
+14. The BERT and ViT encoders (float32 compute: K3's float32 instance,
+   non-causal), packed segments, the chunk and split-KV. ``encoder_kernels``:
+   K3's float32 instance at bert-large's shape (B 8 x 512, 16 heads of 64,
+   kv_lens 512..160), vit-large's (B 32 x 197) and debug-vit's head dim 16
+   (padded onto 32), against the plain version (``F32_ROW_TOL``), the
+   kernel run causal as the planted fault; K3 bf16 with packed segment ids
+   (``pack_sequences`` of 37-300-token sequences) at Llama-3.2-1B's
+   training shape and with attention_chunk 2048 at its 8192-token prefill,
+   K6 bf16 with the segments and a 128-token chunk at the training shape,
+   row by row, planted faults (segment ids ignored on one key tile, the kv
+   id read from the neighbouring column, the chunk start one tile early)
+   caught; split-KV (16 rows at q_offset 32752 of a 32768-token cache, 8
+   splits) against K3 unsplit and the plain version. Each case timed beside
+   the same shape without the mask, its bound and SDPA with the same mask.
+   ``encoder_slice``: bert-base (12 layers, B 4 x 512, ragged) and vit-base
+   (12 layers, 8 images) with float32 and with fp8 weights (the CPU taking
+   the card's projection inputs), card against CPU in units of each
+   output's std. ``encoder_forward``: bert-large (24 layers, B 8 x 512,
+   ragged, with its MLM logits) and vit-large (24 layers, 64 images) at full
+   depth, float32 and fp8 weights: K3 float32 launches a layer, K9's at the
+   fp8 projections, ms a forward, peak memory, the busy share.
+15. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 With ``--out DIR`` the details of every case go to ``DIR/chip_smoke.json``
@@ -261,7 +282,8 @@ PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_se
           "zoo_train", "zoo_spec_serve", "gemma_kernels", "gemma_slice", "gemma_train_slice",
           "gemma_serve", "gemma_train", "gemma_spec_serve", "moe_kernels", "moe_slice",
           "moe_train_slice", "moe_serve", "moe_train", "moe_spec_serve", "mla_kernels",
-          "mla_slice", "mla_train_slice", "mla_serve", "mla_train", "mla_spec_serve")
+          "mla_slice", "mla_train_slice", "mla_serve", "mla_train", "mla_spec_serve",
+          "encoder_kernels", "encoder_slice", "encoder_forward")
 #: The kernels each path runs (launch counts read around its run). On the
 #: card fp8 weights take qdot's fp8native route (K9 quantizes x per row, then
 #: fp8 products), as the JAX package picks it where fp8 products exist; K1
@@ -2854,21 +2876,7 @@ def training(dev, num_layers, card, log, steps=10):
 def profile_train_step(trainer, state, batch):
     """One train step under torch.profiler (kernels only): device (kernel)
     time against wall time and the kernels that take most of it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kern)
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:15]
-    return dict(wall_s=wall, device_s=device_us / 1e6, device_busy_share=device_us / 1e6 / wall,
-                top=[dict(name=e.key[:90], calls=e.count,
-                          device_ms=e.self_device_time_total / 1e3) for e in top])
+    return profile_fn(lambda: trainer.train_step(state, batch))
 
 
 # --------------------------------------------------------------------------
@@ -3668,8 +3676,8 @@ def dropout_kernel_cases(dev, bw, peak, log):
     return cases
 
 
-#: Baichuan-13B's depth in alibi_serve (20 of its 40 layers; cut for time).
-ALIBI_SERVE_LAYERS = 20
+#: Baichuan-13B's depth in alibi_serve (12 of its 40 layers; cut for time).
+ALIBI_SERVE_LAYERS = 12
 
 
 def fp8_params_by_layer(cfg, dev, seed=0, init=None, quantize=None, per=1):
@@ -5094,7 +5102,7 @@ def spec_run(cls, tp, tc, dp, dc, ecfg, prompts, new, gamma, dev, what, **hooks)
 #: zoo_spec_serve's prompt lengths (lowest, highest + 1) and cache length.
 ZOO_SPEC_PROMPTS, ZOO_SPEC_MAX_SEQ = (200, 501), 1024
 #: zoo_spec_serve's target depth (gpt2-xl has 48 layers; cut for time).
-ZOO_SPEC_TARGET_LAYERS = 24
+ZOO_SPEC_TARGET_LAYERS = 12
 
 
 def zoo_spec_serving(dev, card, log, target="gpt2-xl", draft="gpt2"):
@@ -5657,7 +5665,9 @@ def gemma_train_slice(dev, log, model="gemma2-2b"):
 #: gemma_serve's prompts: 6 of 500-1000 tokens and 2 of 4500-6000 (past the
 #: 4096 window, in the 8192 bucket), 32 new tokens each.
 GEMMA_SERVE_PROMPTS = ((6, 500, 1001), (2, 4500, 6001))
-GEMMA_SERVE_LAYERS = 22
+#: gemma_serve's (and gemma_spec_serve's target) depth: 12 of gemma2-9b's 42
+#: (cut for time).
+GEMMA_SERVE_LAYERS = 12
 
 
 def gemma_serving(dev, card, log, num_layers=GEMMA_SERVE_LAYERS):
@@ -6332,9 +6342,10 @@ def moe_step_parts(params, cfg, dev, slots):
 
 #: moe_serve: 8 prompts of 300-1500 tokens, 32 new tokens each.
 MOE_SERVE_PROMPTS = (300, 1501)
-#: moe_serve's (and moe_spec_serve's target) depths: half of the published
-#: 32 and 48, cut so that the whole script stays within its time limit.
-MOE_SERVE_LAYERS = {"mixtral-8x7b": 16, "qwen3-30b-a3b": 24}
+#: moe_serve's (and moe_spec_serve's target) depths: a quarter of the
+#: published 32 and 48, cut so that the whole script stays within its time
+#: limit.
+MOE_SERVE_LAYERS = {"mixtral-8x7b": 8, "qwen3-30b-a3b": 12}
 
 
 def moe_serving(dev, card, log):
@@ -6466,7 +6477,7 @@ def moe_training(dev, card, log, model="qwen3-30b-a3b"):
 
 
 def moe_spec_serving(dev, card, log, target="qwen3-30b-a3b", draft="Qwen/Qwen2.5-1.5B"):
-    """Speculative serving of Qwen3-30B-A3B (24 of 48 layers, LAYERWISE fp8 weights
+    """Speculative serving of Qwen3-30B-A3B (12 of 48 layers, LAYERWISE fp8 weights
     made a layer at a time, e4m3 KV) with a bf16 Qwen2.5-1.5B draft (vocab
     151936 both) through ``SpecEngine(forward_fn=moe_forward,
     draft_forward_fn=forward)``: 8 requests of 500-1000 tokens, 32 new each,
@@ -7112,6 +7123,684 @@ def mla_spec_serving(dev, card, log, target="deepseek-v2", draft="deepseek-v2-li
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 14: the BERT and ViT encoders; packed segments, the chunk, split-KV
+# --------------------------------------------------------------------------
+
+#: The encoders' forward runs K3's float32 instance at every layer and, with
+#: fp8 weights on the fp8native route, K9 at every projection.
+ENCODER_PATH = ("flash_attention_f32",)
+ENCODER_FP8_PATH = ("flash_attention_f32", "quantize_fused")
+
+#: encoder_kernels' float32 cases (non-causal): name, B, S, heads, head dim,
+#: kv_lens (None: every key).
+ENC_F32_CASES = (
+    ("bert-large B8 S512 Hq=Hk=16 D64 non-causal kv_lens 512..160", 8, 512, 16, 64,
+     [512 - (352 * i) // 7 for i in range(8)]),
+    ("vit-large B32 S197 Hq=Hk=16 D64 non-causal", 32, 197, 16, 64, None),
+    ("debug-vit D16 padded to 32, B2 S17 Hq=Hk=4 non-causal kv_lens 17/11", 2, 17, 4, 16,
+     [17, 11]),
+)
+#: The bf16 cases: Llama-3.2-1B's training shape with packed segments and
+#: with a chunk, and its 8192-token prefill with attention_chunk 2048.
+ENC_TRAIN_SHAPE = dict(B=8, S=512, Hq=32, Hk=8, D=64)
+ENC_TRAIN_CHUNK = 128
+ENC_PREFILL = dict(S=8192, Hq=32, Hk=8, D=64, chunk=2048)
+#: Split-KV: one 16-row query block at the end of a 32768-token cache.
+ENC_SPLIT = dict(Sq=16, Sk=32768, Hq=32, Hk=8, D=128, splits=8)
+
+
+@contextlib.contextmanager
+def planted_mask(module, live):
+    """K3's or K6's plain version (``module``) with its live mask replaced by
+    ``live`` ``[B, Sq, Sk]``: the function a kernel with a planted mask fault
+    computes."""
+    real = module.live_mask
+    module.live_mask = lambda *a, **kw: live
+    try:
+        yield
+    finally:
+        module.live_mask = real
+
+
+def packed_segment_ids(B, S, seed, lo=37, hi=300):
+    """``[B, S]`` int32 ids: each row packed by ``ops/varlen.py::pack_sequences``
+    from sequences of lo..hi tokens drawn until one does not fit (its tail id
+    0, the padding)."""
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch.ops.varlen import pack_sequences
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(B):
+        lens, total = [], 0
+        while total <= S:
+            lens.append(int(rng.integers(lo, hi + 1)))
+            total += lens[-1]
+        rows.append(pack_sequences([np.zeros(n, np.int32) for n in lens], S)[1])
+    return torch.from_numpy(np.stack(rows))
+
+
+def sdpa_masked_ms(q, k, v, live, scale):
+    """SDPA on the same ``[B, S, H, D]`` q/k/v with ``live [B, Sq, Sk]`` as a
+    boolean ``attn_mask`` (K/V heads expanded to Hq), through whatever
+    kernel SDPA picks for it: ``(ms, what ran)``."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    grp = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2)
+    kh, vh = (t.transpose(1, 2).repeat_interleave(grp, dim=1) for t in (k, v))
+    mask = None if live is None else live[:, None]
+    choice = torch._fused_sdp_choice(qh, kh, vh, mask, 0.0, False, scale=scale)
+    ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                        scale=scale), calls=3, rounds=3)
+    return ms, (f"SDPA {SDPBackend(choice).name}, "
+                + ("no mask" if live is None else "boolean mask") + ", heads expanded")
+
+
+def sdpa_masked_backward_ms(q, k, v, do, live, scale):
+    """SDPA's backward with ``live`` as a float mask (0 / -inf) over every
+    head, K/V heads expanded, as one aten call (``sdpa_bias_backward``):
+    ``(ms, what ran)``."""
+    import torch
+
+    grp = q.shape[2] // k.shape[2]
+    qh, doh = q.transpose(1, 2), do.transpose(1, 2)
+    kh, vh = (t.transpose(1, 2).repeat_interleave(grp, dim=1) for t in (k, v))
+    bias = torch.where(live[:, None], 0.0, -float("inf")).to(q.dtype).expand(
+        -1, q.shape[2], -1, -1).contiguous()
+    backward, _, backend = sdpa_bias_backward(qh, kh, vh, doh, bias, scale)
+    return cuda_ms(backward, calls=3, rounds=3), f"SDPA {backend} backward, float mask"
+
+
+def enc_f32_cases(dev, g, bw, peak, log):
+    """K3's float32 instance non-causal at bert-large's and vit-large's
+    shapes and debug-vit's head dim 16 (through the wrapper, which pads it
+    onto the 32 instance), against the plain version at the unpadded dim row
+    by row (``F32_ROW_TOL``), LSE within 1e-5 relative, reruns bit-identical;
+    the planted fault (the kernel run causal) caught in at least half of the
+    rows it moves (those that see a key past their own position)."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels._common import live_mask
+
+    tf32 = peak / 2
+    cases = []
+    for name, B, S, H, D, lens in ENC_F32_CASES:
+        q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev) for _ in range(3))
+        qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+        kl = torch.tensor(lens or [S] * B, dtype=torch.int32, device=dev)
+        scale = D ** -0.5
+
+        def run(causal=False):
+            return k3.flash_attention(q, k, v, causal=causal, kv_lens=kl, return_lse=True)
+
+        n0 = k3.flash_fwd_f32.launches
+        out, lse = run()
+        check(k3.flash_fwd_f32.launches == n0 + 1, f"K3 f32 {name}: not one launch")
+        again, _ = run()
+        causal_out, _ = run(causal=True)
+        ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, causal=False, window=None,
+                                          softcap=None, scale=scale)
+        torch.cuda.synchronize()
+        err = f32_row_err(out, ref, v, H)
+        worst = float(err.max())
+        check(math.isfinite(worst) and worst <= F32_ROW_TOL,
+              f"K3 f32 {name}: a row is {worst} of max|v| off (tol {F32_ROW_TOL})")
+        lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max())
+        check(lse_err <= 1e-5, f"K3 f32 {name}: lse err {lse_err}")
+        rerun = bool(torch.equal(out, again))
+        check(rerun, f"K3 f32 {name}: two runs differ")
+        live = live_mask(qo, kl, S, S, causal=False, window=None)
+        moved = (torch.arange(S, device=dev)[None, :] < kl[:, None] - 1)[:, :, None].expand(
+            B, S, H)
+        share = float((f32_row_err(causal_out, ref, v, H)[moved] > F32_ROW_TOL).float().mean())
+        check(share >= 0.5, f"K3 f32 {name}: run causal, it passes in {1 - share:.0%} of rows")
+        pairs = int(live.sum()) * H
+        flops = 4.0 * D * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4 + lse.numel() * 4
+        b_ms, b_by = bound_ms(nbytes, 3 * flops, bw, tf32)
+        ms = cuda_ms(lambda: k3.flash_attention(q, k, v, causal=False, q_offset=qo, kv_lens=kl))
+        plain_ms = cuda_ms(lambda: k3.flash_fwd_plain(q, k, v, qo, kl, causal=False,
+                                                      window=None, softcap=None, scale=scale),
+                           calls=1, rounds=2)
+        lib_ms, lib = sdpa_masked_ms(q, k, v, None if lens is None else live, scale)
+        case = dict(kernel="flash_attention_f32", case=name, max_abs_err=float(
+            (out - ref).abs().max()), row_err_over_vmax=worst, row_tol=F32_ROW_TOL,
+            lse_err=lse_err, reruns_identical=rerun, caught={"run_causal": share}, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, library=lib, vs_library=ms / lib_ms,
+            bound_ms=b_ms, bound_by=b_by,
+            bound_unit="TF32 tensor cores, 3 products per float32 product", live_pairs=pairs)
+        if D in k3.PADDED_HEAD_DIMS:
+            case["padded_to"] = k3.PADDED_HEAD_DIMS[D]
+        cases.append(case)
+        log(case)
+        del q, k, v, out, again, causal_out, ref, lse, ref_lse, live
+    return cases
+
+
+def enc_k3_case(k3, name, q, k, v, qo, kl, masks, faults, bw, peak, extra_ms):
+    """K3 bf16 with ``masks`` (``attention_chunk``, segment ids) against its
+    plain version row by row (``ROW_ULPS``, LSE within 1e-3), two runs
+    bit-identical, one launch; ``faults`` (tag → a planted live mask) each
+    caught in at least half of the rows it moves; timed beside ``extra_ms``
+    (tag → a callable: the same shape without the masks), the plain version
+    and SDPA with the same boolean mask."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels._common import live_mask
+
+    B, S, Hq, D = q.shape
+    Sk = k.shape[1]
+    cfg = dict(causal=True, window=None, softcap=None, scale=D ** -0.5)
+    n0 = k3.flash_attention.launches
+    out, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **masks,
+                                  **cfg)
+    check(k3.flash_attention.launches == n0 + 1, f"K3 {name}: not one launch")
+    again = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **masks, **cfg)
+    ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, **masks, **cfg)
+    torch.cuda.synchronize()
+    err, ulps = rows_within(out, ref, f"K3 {name}")
+    finite = torch.isfinite(ref_lse)
+    check(bool((torch.isfinite(lse) == finite).all()), f"K3 {name}: dead rows differ")
+    lse_err = (lse - ref_lse)[finite].abs().max().item()
+    check(lse_err <= 1e-3, f"K3 {name}: lse err {lse_err}")
+    same = torch.equal(out.view(torch.int16), again.view(torch.int16))
+    check(same, f"K3 {name}: two runs differ")
+    del again
+    live = live_mask(qo, kl, S, Sk, causal=True, window=None, **masks)
+    caught = {}
+    for tag, bad_live in faults.items():
+        with planted_mask(k3, bad_live):
+            bad = k3.flash_fwd_plain(q, k, v, qo, kl, **masks, **cfg)[0]
+        moved = (bad_live != live).any(dim=-1)[:, :, None].expand(B, S, Hq)
+        caught[tag] = caught_share(bad, ref, moved)
+        check(caught[tag] >= 0.5, f"K3 {name}: planted {tag} passes in "
+              f"{1 - caught[tag]:.0%} of the rows it moves")
+        del bad
+    pairs = int(live.sum()) * Hq
+    case = dict(kernel="flash_attention", case=name, max_abs_err=err, err_ulps=ulps,
+                lse_err=lse_err, rerun_equal=same, caught=caught, live_pairs=pairs)
+    case["ms"] = cuda_ms(lambda: k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **masks,
+                                                    **cfg), calls=5)
+    for tag, fn in extra_ms.items():
+        case[tag] = cuda_ms(fn, calls=5)
+    case["plain_ms"] = cuda_ms(lambda: k3.flash_fwd_plain(q, k, v, qo, kl, **masks, **cfg),
+                               calls=1, rounds=2)
+    case["library_ms"], case["library"] = sdpa_masked_ms(q, k, v, live, cfg["scale"])
+    case["vs_library"] = case["ms"] / case["library_ms"]
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4 + sum(
+        t.numel() * 4 for t in masks.values() if torch.is_tensor(t))
+    case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 4.0 * D * pairs, bw, peak)
+    case["tflops"] = 4.0 * D * pairs / (case["ms"] * 1e-3) / 1e12
+    return case, out, lse, live
+
+
+def enc_k6_case(k6, name, q, k, v, out, lse, do, qo, kl, masks, live, faults, bw, peak,
+                extra_ms):
+    """K6 bf16 with ``masks`` against its plain version row by row
+    (``grad_rows_within``: rows whose query sees one key have dq = 0 up to
+    noise), two runs bit-identical, one launch of each kernel; ``faults``
+    (tag → a planted live mask, with the forward's LSE) caught in at least
+    half of the dq rows they move; timed beside ``extra_ms``, the plain
+    version and SDPA's backward with the same mask."""
+    import torch
+
+    B, S, Hq, D = q.shape
+    cfg = dict(causal=True, window=None, softcap=None, scale=D ** -0.5)
+    args = (q, k, v, out, lse, do)
+    n0 = (k6.flash_bwd_dq.launches, k6.flash_bwd_dkv.launches)
+    got = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **masks, **cfg)
+    check((k6.flash_bwd_dq.launches, k6.flash_bwd_dkv.launches) == (n0[0] + 1, n0[1] + 1),
+          f"K6 {name}: not one launch of each kernel")
+    again = k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **masks, **cfg)
+    ref = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl, **masks, **cfg)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(same, f"K6 {name}: two runs are not bit-identical")
+    del again
+    nkeys = live.sum(dim=-1)
+    key_multi = (live & (nkeys > 1)[:, :, None]).any(dim=1)
+    ex = {"dq": (nkeys <= 1)[:, :, None].expand(B, S, Hq),
+          "dk": (~key_multi)[:, :, None].expand(B, S, k.shape[2]),
+          "dv": (~live.any(dim=1))[:, :, None].expand(B, S, k.shape[2])}
+    case = dict(kernel="flash_attention_bwd", case=name, deterministic=same)
+    errs = []
+    for what, a, b in zip(("dq", "dk", "dv"), got, ref):
+        e, u, n_ex, noise = grad_rows_within(a, b, ex[what], f"K6 {name} {what}")
+        case[what] = dict(max_abs_err=e, err_ulps=u, zero_rows=n_ex, zero_row_err=noise)
+        errs.append(e)
+    case["max_abs_err"] = max(errs)
+    caught = {}
+    for tag, bad_live in faults.items():
+        with planted_mask(k6, bad_live):
+            bad = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl, **masks, **cfg)[0]
+        moved = (bad_live != live).any(dim=-1)[:, :, None].expand(B, S, Hq) & ~ex["dq"]
+        caught[tag] = caught_share(bad, ref[0], moved)
+        check(caught[tag] >= 0.5, f"K6 {name}: planted {tag} passes in "
+              f"{1 - caught[tag]:.0%} of the dq rows it moves")
+        del bad
+    case["caught"] = caught
+    case["ms"] = cuda_ms(lambda: k6.flash_attention_bwd(*args, q_offset=qo, kv_lens=kl, **masks,
+                                                        **cfg), calls=5)
+    for tag, fn in extra_ms.items():
+        case[tag] = cuda_ms(fn, calls=5)
+    case["plain_ms"] = cuda_ms(lambda: k6.flash_attention_bwd_plain(
+        *args, q_offset=qo, kv_lens=kl, **masks, **cfg), calls=1, rounds=2)
+    case["library_ms"], case["library"] = sdpa_masked_backward_ms(q, k, v, do, live,
+                                                                  cfg["scale"])
+    case["vs_library"] = case["ms"] / case["library_ms"]
+    pairs = int(live.sum()) * Hq
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) \
+        + lse.numel() * 4
+    case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 10.0 * D * pairs, bw, peak)
+    case["tflops"] = 10.0 * D * pairs / (case["ms"] * 1e-3) / 1e12
+    case["live_pairs"] = pairs
+    return case
+
+
+def enc_split_case(k3, dev, g, bw, peak):
+    """Split-KV (``ops/split_kv.py``): 16 query rows at q_offset 32752 over a
+    32768-token cache, 32 heads over 8, D 128, 8 splits of 4096 keys (one K3
+    launch each) against the plain version unsplit and against K3 unsplit,
+    row by row; a ragged pair (rows at 100 and 20000 of the same cache:
+    later chunks see negative offsets and empty lengths, LSE -inf, weight 0);
+    the planted fault (the last chunk's partial dropped) caught."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels._common import live_mask
+    from llm_fp8_tpu_torch.ops.split_kv import split_kv_attention
+
+    Sq, Sk, Hq, Hk, D, N = (ENC_SPLIT[x] for x in ("Sq", "Sk", "Hq", "Hk", "D", "splits"))
+    cfg = dict(causal=True, window=None, softcap=None, scale=D ** -0.5)
+    case = dict(kernel="flash_attention", case=f"split-KV {N} splits B1 Sq{Sq} at q_offset "
+                f"{Sk - Sq} Sk{Sk} Hq{Hq} Hk{Hk} D{D}")
+    for tag, offs in (("main", [Sk - Sq]), ("ragged", [100, 20000])):
+        B = len(offs)
+        q = torch.randn((B, Sq, Hq, D), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((B, Sk, Hk, D), generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        qo = torch.tensor(offs, dtype=torch.int32, device=dev)
+        kl = qo + Sq
+
+        def split():
+            return split_kv_attention(q, k, v, num_splits=N, q_offset=qo, kv_lens=kl)
+
+        n0 = k3.flash_attention.launches
+        out = split()
+        check(k3.flash_attention.launches == n0 + N, f"split-KV {tag}: not {N} K3 launches")
+        ref, _ = k3.flash_fwd_plain(q, k, v, qo, kl, **cfg)
+        full = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, **cfg)
+        torch.cuda.synchronize()
+        err, ulps = rows_within(out, ref, f"split-KV {tag} against the plain version")
+        f_err, f_ulps = rows_within(out, full, f"split-KV {tag} against K3 unsplit")
+        case[tag] = dict(max_abs_err=err, err_ulps=ulps, vs_unsplit_err=f_err,
+                         vs_unsplit_ulps=f_ulps)
+        if tag != "main":
+            continue
+        dropped, _ = k3.flash_fwd_plain(q, k, v, qo, torch.clamp(kl, max=Sk - Sk // N), **cfg)
+        live = torch.ones(out.shape[:-1], dtype=torch.bool, device=dev)
+        case["caught"] = {"last_chunk_dropped": caught_share(dropped, ref, live)}
+        check(case["caught"]["last_chunk_dropped"] >= 0.5,
+              "split-KV: a dropped chunk passes the row tolerance")
+        case.update(max_abs_err=err, ms=cuda_ms(split, calls=5),
+                    ms_unsplit=cuda_ms(lambda: k3.flash_attention(q, k, v, q_offset=qo,
+                                                                  kv_lens=kl, **cfg), calls=5),
+                    plain_ms=cuda_ms(lambda: k3.flash_fwd_plain(q, k, v, qo, kl, **cfg),
+                                     calls=1, rounds=2))
+        mask = live_mask(qo, kl, Sq, Sk, causal=True, window=None)
+        case["library_ms"], case["library"] = sdpa_masked_ms(q, k, v, mask, cfg["scale"])
+        case["vs_library"] = case["ms"] / case["library_ms"]
+        pairs = int(mask.sum()) * Hq
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 4.0 * D * pairs, bw, peak)
+        case["live_pairs"] = pairs
+    return case
+
+
+def encoder_kernel_cases(dev, bw, peak, log):
+    """K3's float32 instance non-causal at the encoders' shapes
+    (:func:`enc_f32_cases`); K3 bf16 with packed segment ids at
+    Llama-3.2-1B's training shape (B 8 x 512, 32 q heads over 8, D 64,
+    causal; ids from ``pack_sequences`` of 37-300-token sequences, a padded
+    tail) and with attention_chunk 2048 at its 8192-token causal prefill;
+    K6 bf16 with the segments and with a 128-token chunk at the training
+    shape; split-KV. Planted faults (segment ids ignored on the key tile
+    128-255, the kv id read from the neighbouring column, the chunk start
+    one 128-key tile early) must be caught; each case timed beside the same
+    shape without the mask, its bound and SDPA with the same mask."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels import flash_attention_bwd as k6
+    from llm_fp8_tpu_torch.kernels._common import live_mask
+
+    g = torch.Generator(device=dev).manual_seed(1616)
+    cases = enc_f32_cases(dev, g, bw, peak, log)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+    def chunk_live(qo, kl, S, chunk, early):
+        """The chunk mask with each query's chunk start ``early`` keys early."""
+        q_pos = qo.long()[:, None] + torch.arange(S, device=dev)[None, :]
+        start = torch.div(q_pos, chunk, rounding_mode="floor")[:, :, None] * chunk
+        k_pos = torch.arange(S, device=dev)[None, None, :]
+        return (live_mask(qo, kl, S, S, causal=True, window=None) & (k_pos >= start - early)
+                & (k_pos < start + chunk))
+
+    B, S, Hq, Hk, D = (ENC_TRAIN_SHAPE[x] for x in ("B", "S", "Hq", "Hk", "D"))
+    q, k, v, do = randn(B, S, Hq, D), randn(B, S, Hk, D), randn(B, S, Hk, D), randn(B, S, Hq, D)
+    qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+    kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+    ids = packed_segment_ids(B, S, seed=16).to(dev)
+    seg = dict(q_segment_ids=ids, kv_segment_ids=ids)
+    causal = live_mask(qo, kl, S, S, causal=True, window=None)
+    live = live_mask(qo, kl, S, S, causal=True, window=None, **seg)
+    tile_ignored = live.clone()
+    tile_ignored[:, :, 128:256] = causal[:, :, 128:256]
+    neighbour = ids[:, torch.arange(S, device=dev) ^ 1]
+    faults = {"segments_ignored_on_key_tile_128_255": tile_ignored,
+              "kv_id_from_neighbouring_column": live_mask(
+                  qo, kl, S, S, causal=True, window=None, q_segment_ids=ids,
+                  kv_segment_ids=neighbour)}
+    plain_causal = dict(causal=True, scale=D ** -0.5, q_offset=qo, kv_lens=kl)
+    name = f"segments train B{B} S{S} Hq{Hq} Hk{Hk} D{D} packed 37-300"
+    case, out, lse, live = enc_k3_case(
+        k3, name, q, k, v, qo, kl, seg, faults, bw, peak,
+        {"ms_without_segments": lambda: k3.flash_attention(q, k, v, **plain_causal)})
+    case["segments"] = int(ids.max())
+    cases.append(case)
+    log(case)
+    out_plain, lse_plain = k3.flash_attention(q, k, v, return_lse=True, **plain_causal)
+    case = enc_k6_case(k6, name, q, k, v, out, lse, do, qo, kl, seg, live,
+                       {"kv_id_from_neighbouring_column": faults[
+                           "kv_id_from_neighbouring_column"]}, bw, peak,
+                       {"ms_without_segments": lambda: k6.flash_attention_bwd(
+                           q, k, v, out_plain, lse_plain, do, window=None, softcap=None,
+                           **plain_causal)})
+    cases.append(case)
+    log(case)
+
+    C = ENC_TRAIN_CHUNK
+    chunk = dict(attention_chunk=C)
+    out, lse = k3.flash_attention(q, k, v, return_lse=True, **chunk, **plain_causal)
+    live = chunk_live(qo, kl, S, C, 0)
+    case = enc_k6_case(k6, f"chunk {C} train B{B} S{S} Hq{Hq} Hk{Hk} D{D}", q, k, v, out, lse,
+                       do, qo, kl, chunk, live,
+                       {"chunk_start_one_tile_early": chunk_live(qo, kl, S, C, 64)}, bw, peak,
+                       {"ms_unchunked": lambda: k6.flash_attention_bwd(
+                           q, k, v, out_plain, lse_plain, do, window=None, softcap=None,
+                           **plain_causal)})
+    cases.append(case)
+    log(case)
+    del q, k, v, do, out, lse, out_plain, lse_plain, causal, live, tile_ignored, faults
+    torch.cuda.empty_cache()
+
+    # Both masks at once at D 128 (K3's one-consumer instance, K6's 32-row
+    # dKV query tiles): packed segments of 100-600 tokens and chunk 256.
+    B, S, Hq, Hk, D = 2, 1024, 16, 4, 128
+    q, k, v, do = randn(B, S, Hq, D), randn(B, S, Hk, D), randn(B, S, Hk, D), randn(B, S, Hq, D)
+    qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+    kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+    ids = packed_segment_ids(B, S, seed=17, lo=100, hi=600).to(dev)
+    both = dict(attention_chunk=256, q_segment_ids=ids, kv_segment_ids=ids)
+    neighbour = {"kv_id_from_neighbouring_column": live_mask(
+        qo, kl, S, S, causal=True, window=None, attention_chunk=256, q_segment_ids=ids,
+        kv_segment_ids=ids[:, torch.arange(S, device=dev) ^ 1])}
+    name = f"segments and chunk 256 B{B} S{S} Hq{Hq} Hk{Hk} D{D}"
+    case, out, lse, live = enc_k3_case(k3, name, q, k, v, qo, kl, both, neighbour, bw, peak, {})
+    cases.append(case)
+    log(case)
+    case = enc_k6_case(k6, name, q, k, v, out, lse, do, qo, kl, both, live, neighbour, bw, peak,
+                       {})
+    cases.append(case)
+    log(case)
+    del q, k, v, do, out, lse, live, neighbour
+    torch.cuda.empty_cache()
+
+    S, Hq, Hk, D, C = (ENC_PREFILL[x] for x in ("S", "Hq", "Hk", "D", "chunk"))
+    q, k, v = randn(1, S, Hq, D), randn(1, S, Hk, D), randn(1, S, Hk, D)
+    qo = torch.zeros((1,), dtype=torch.int32, device=dev)
+    kl = torch.full((1,), S, dtype=torch.int32, device=dev)
+    case, out, lse, live = enc_k3_case(
+        k3, f"chunk {C} prefill B1 Sq=Sk={S} Hq{Hq} Hk{Hk} D{D}", q, k, v, qo, kl,
+        dict(attention_chunk=C), {"chunk_start_one_tile_early": chunk_live(qo, kl, S, C, 128)},
+        bw, peak, {"ms_unchunked": lambda: k3.flash_attention(q, k, v, q_offset=qo,
+                                                              kv_lens=kl)})
+    cases.append(case)
+    log(case)
+    del q, k, v, out, lse, live
+    torch.cuda.empty_cache()
+
+    case = enc_split_case(k3, dev, g, bw, peak)
+    cases.append(case)
+    log(case)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cases
+
+
+#: encoder_slice's limit on each output's largest card-vs-CPU difference, in
+#: units of the CPU output's standard deviation. Both sides compute in
+#: float32 (K3's float32 instance at float32 accuracy; float32 products,
+#: TF32 off), so they differ by float32 sum orders; with fp8 weights the
+#: CPU's fp8native products take the card's projection inputs
+#: (``ForcedQdotInputs``), so their e4m3 codes agree, and float32 sum orders
+#: again remain. The zoo slices' float32 limit.
+ENC_SLICE_TOL_STD = ZOO_SLICE_TOL_STD
+ENC_SLICE_MODELS = ("bert-base-uncased", "vit-base-patch16-224")
+
+
+def encoder_inputs(cfg, B, S, dev, seed):
+    """BERT: ``(tokens [B, S], token types, lens)`` with ragged lengths S down
+    to S/5 and each row's second half of type 1; ViT: ``(pixels [B, 3, 224,
+    224],)``. Drawn on the card from ``seed``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if hasattr(cfg, "image_size"):
+        return (torch.randn((B, cfg.num_channels, cfg.image_size, cfg.image_size), generator=g,
+                            device=dev),)
+    lens = torch.tensor([S - (4 * S // 5) * i // max(B - 1, 1) for i in range(B)],
+                        dtype=torch.int32, device=dev)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=g, device=dev)
+    pos = torch.arange(S, device=dev)[None, :]
+    tokens = torch.where(pos < lens[:, None].long(), tokens, torch.zeros_like(tokens))
+    types = (pos >= lens[:, None].long() // 2).long()
+    return tokens, types, lens
+
+
+def encoder_params(cfg, dev, weights, seed):
+    """Seeded float32 parameters of ``cfg`` on ``dev``; with ``weights="fp8"``
+    the layers' four products quantized as the JAX package's tests do
+    (``quantize(w, E4M3, axes=(1,))``) and laid out for the qdot route in
+    force (``serving_layout``)."""
+    from llm_fp8_tpu_torch.models.bert import init_bert_params
+    from llm_fp8_tpu_torch.models.vit import init_vit_params
+    from llm_fp8_tpu_torch.quant import E4M3, quantize
+    from llm_fp8_tpu_torch.quant.dot import serving_layout
+
+    init = init_vit_params if hasattr(cfg, "image_size") else init_bert_params
+    params = init(cfg, device=dev, seed=seed)
+    if weights == "fp8":
+        for site in ("w_qkv", "w_out", "w_fc", "w_proj"):
+            params["layers"][site] = serving_layout(quantize(params["layers"][site], E4M3,
+                                                             axes=(1,)))
+    return params
+
+
+def encoder_run(cfg, params, inputs):
+    """The encoder's outputs: BERT's (sequence output, pooled, MLM logits),
+    ViT's last hidden state."""
+    from llm_fp8_tpu_torch.models.bert import bert_forward, bert_mlm_logits
+    from llm_fp8_tpu_torch.models.vit import vit_forward
+
+    if hasattr(cfg, "image_size"):
+        return (vit_forward(params, inputs[0], cfg),)
+    tokens, types, lens = inputs
+    seq, pooled = bert_forward(params, tokens, cfg, lens=lens, token_type_ids=types)
+    return seq, pooled, bert_mlm_logits(params, seq, cfg)
+
+
+def encoder_slice_check(dev, log):
+    """Each of ``ENC_SLICE_MODELS`` at full width and depth (bert-base: 12
+    layers, B 4 x 512, ragged lens, token types; vit-base: 12 layers, 8
+    images of 224), float32 weights and fp8 weights on the card's default
+    route (fp8native, the CPU taking the card's projection inputs), card
+    against CPU: BERT's rows below lens, its pooled output and MLM logits,
+    ViT's last hidden state, each held to ``ENC_SLICE_TOL_STD`` of its std."""
+    return [pinned(route, lambda: _encoder_slice(dev, log, model, weights))
+            for model in ENC_SLICE_MODELS
+            for weights, route in (("float32", "fp8native"), ("fp8", "fp8native"))]
+
+
+def _encoder_slice(dev, log, model, weights):
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models.bert import BERT_REGISTRY
+    from llm_fp8_tpu_torch.models.vit import VIT_REGISTRY
+
+    cfg = {**BERT_REGISTRY, **VIT_REGISTRY}[model]
+    params = encoder_params(cfg, dev, weights, seed=31)
+    inputs = encoder_inputs(cfg, 4 if model.startswith("bert") else 8, 512, dev, seed=32)
+    rec = ForcedQdotInputs()
+    side = rec.side if weights == "fp8" else (lambda name: contextlib.nullcontext())
+    kernels.reset_launch_counts()
+    with side("cuda"), torch.no_grad():
+        card = [t.float().cpu() for t in encoder_run(cfg, params, inputs)]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    cpu_params, cpu_inputs = to_cpu(params), [t.cpu() for t in inputs]
+    t0 = time.perf_counter()
+    with side("cpu"), torch.no_grad():
+        cpu = [t.float() for t in encoder_run(cfg, cpu_params, cpu_inputs)]
+    cpu_s = time.perf_counter() - t0
+    names = ("last_hidden_state",) if len(cpu) == 1 else ("sequence_output", "pooled",
+                                                           "mlm_logits")
+    res = dict(config=f"{model}, {cfg.num_layers} layers at full width, {weights} weights",
+               qdot_route=os.environ.get("LLM_FP8_QDOT"), cpu_takes_card_qdot_inputs=
+               weights == "fp8", forced_calls=rec.forced, cpu_s=cpu_s,
+               launches={k: n for k, n in counts.items() if n})
+    worst = 0.0
+    for what, a, b in zip(names, card, cpu):
+        check(bool(torch.isfinite(a).all()), f"encoder slice {model}: non-finite {what}")
+        if what in ("sequence_output", "mlm_logits"):  # the rows below lens
+            rows = torch.arange(a.shape[1])[None, :] < inputs[2].cpu()[:, None]
+            a, b = a[rows], b[rows]
+        std = float(b.std())
+        e = (a - b).abs().max().item()
+        res[what] = dict(max_abs_err=e, std=std, err_over_std=e / std)
+        worst = max(worst, e / std)
+    res["err_over_std"], res["tol_std"] = worst, ENC_SLICE_TOL_STD
+    log(res)
+    check(worst <= ENC_SLICE_TOL_STD, f"encoder slice {model} ({weights}): err {worst} std "
+          f"> {ENC_SLICE_TOL_STD}")
+    check(counts["flash_attention_f32"] == cfg.num_layers,
+          f"encoder slice {model}: {counts['flash_attention_f32']} K3 float32 launches, want "
+          f"{cfg.num_layers}")
+    check(weights != "fp8" or (counts["quantize_fused"] > 0 and rec.forced > 0
+                               and not rec.queue),
+          f"encoder slice {model}: K9 {counts['quantize_fused']}, {rec.forced} forced inputs, "
+          f"{len(rec.queue)} unused")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    return res
+
+
+#: encoder_forward: model, batch, sequence length (BERT) at full depth.
+ENC_FORWARD = (("bert-large-uncased", 8, 512), ("vit-large-patch16-224", 64, None))
+
+
+def profile_fn(fn):
+    """``fn()`` under torch.profiler (kernels only): device (kernel) time
+    against wall time and the kernels that take most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:15]
+    return dict(wall_s=wall, device_s=device_us / 1e6, device_busy_share=device_us / 1e6 / wall,
+                top=[dict(name=e.key[:90], calls=e.count,
+                          device_ms=e.self_device_time_total / 1e3) for e in top])
+
+
+def encoder_forward(dev, card, log):
+    """bert-large (24 layers, B 8 x 512, ragged lens 512..103, token types,
+    the MLM logits) and vit-large (24 layers, 64 images of 224: 197 rows) at
+    full width and depth with seeded float32 weights and with fp8 weights on
+    the card's default route: finite outputs of the right shape, K3's
+    float32 instance launched once a layer (counts set to 0 just before one
+    forward and read just after), K9 at the fp8 projections and not
+    otherwise, ms a forward (eager, host launches included; CUDA events over
+    2 calls, median of 3), peak memory and the device's busy share over a
+    profiled forward."""
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models.bert import BERT_REGISTRY
+    from llm_fp8_tpu_torch.models.vit import VIT_REGISTRY
+
+    res = {"card": card}
+    for model, B, S in ENC_FORWARD:
+        cfg = {**BERT_REGISTRY, **VIT_REGISTRY}[model]
+        inputs = encoder_inputs(cfg, B, S, dev, seed=41)
+        for weights in ("float32", "fp8"):
+            params = encoder_params(cfg, dev, weights, seed=42)
+
+            def fwd():
+                with torch.no_grad():
+                    return encoder_run(cfg, params, inputs)
+
+            fwd()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            outs = fwd()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            want = (B, cfg.num_patches + 1 if S is None else S, cfg.hidden_size)
+            check(tuple(outs[0].shape) == want and all(bool(torch.isfinite(t).all())
+                                                       for t in outs),
+                  f"encoder forward {model} {weights}: shape {tuple(outs[0].shape)} or "
+                  "non-finite outputs")
+            path = ENCODER_FP8_PATH if weights == "fp8" else ENCODER_PATH
+            check(counts["flash_attention_f32"] == cfg.num_layers and all(counts[n] > 0
+                                                                          for n in path),
+                  f"encoder forward {model} {weights}: launches {counts}")
+            check(weights == "fp8" or counts["quantize_fused"] == 0,
+                  f"encoder forward {model} float32: K9 launched")
+            del outs
+            ms = eager_ms(fwd, calls=2, rounds=3)
+            tokens = B * want[1]
+            run = dict(model=model, layers=cfg.num_layers, batch=B, rows=want[1],
+                       weights=weights, qdot_route=os.environ.get("LLM_FP8_QDOT", "default"),
+                       ms=ms, timing="eager forward (CUDA events over 2 calls, median of 3)",
+                       tokens_per_s=tokens / (ms * 1e-3), peak_gb=peak_gb,
+                       launches={k: n for k, n in counts.items() if n},
+                       profile=profile_fn(fwd))
+            res[f"{model} {weights}"] = run
+            log(run)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7202,7 +7891,10 @@ def main(argv=None) -> int:
              ("mla_train_slice", lambda: mla_train_slice(dev, log)),
              ("mla_serve", lambda: mla_serving(dev, card, log)),
              ("mla_train", lambda: mla_training(dev, card, log)),
-             ("mla_spec_serve", lambda: mla_spec_serving(dev, card, log)))
+             ("mla_spec_serve", lambda: mla_spec_serving(dev, card, log)),
+             ("encoder_kernels", lambda: encoder_kernel_cases(dev, bw, peak, log)),
+             ("encoder_slice", lambda: encoder_slice_check(dev, log)),
+             ("encoder_forward", lambda: encoder_forward(dev, card, log)))
     try:
         for phase, run in steps:
             if phase in phases:
@@ -7278,7 +7970,10 @@ def kernels_line(report):
                f"mla train (deepseek-v2-lite, {MLA_TRAIN_LAYERS} layers, remat full and dots)":
                    report["mla_train"]["launches"],
                f"mla spec (deepseek-v2 target at {MLA_SPEC_TARGET_LAYERS} layers, "
-               "deepseek-v2-lite draft, greedy)": report["mla_spec_serve"]["greedy"]["launches"]}
+               "deepseek-v2-lite draft, greedy)": report["mla_spec_serve"]["greedy"]["launches"],
+               **{f"encoder forward ({run['model']}, {run['layers']} layers, {run['weights']} "
+                  "weights)": run["launches"] for key, run in report["encoder_forward"].items()
+                  if key != "card"}}
     for counts in by_path.values():
         counts["flash_attention_bwd"] = (counts.get("flash_attention_bwd_dkv", 0)
                                          + counts.get("flash_attention_bwd_dq", 0))
@@ -7318,7 +8013,13 @@ def kernels_line(report):
                                 "mla_kernels", "D192 deepseek-v2-lite train"),
                             "head_dim 192 padded to 256 (4096 prefill)": (
                                 "mla_kernels", "D192 prefill"),
-                            "head_dim 24 padded to 32 (debug-mla)": ("mla_kernels", "D24")},
+                            "head_dim 24 padded to 32 (debug-mla)": ("mla_kernels", "D24"),
+                            "segment ids (packed, llama-3.2-1b train shape)": (
+                                "encoder_kernels", "segments train"),
+                            "attention_chunk 2048 (8192 prefill)": ("encoder_kernels",
+                                                                    "chunk 2048 prefill"),
+                            "split-KV, 8 K3 launches (32768-token cache)": (
+                                "encoder_kernels", "split-KV")},
         "flash_attention_bwd": {"alibi": ("alibi_kernels", "alibi Hq40 D128 B2 S1024"),
                                 "dropout": ("dropout_kernels", "dropout"),
                                 "head_dim 256": ("gemma_kernels", "D256 2b train"),
@@ -7330,8 +8031,16 @@ def kernels_line(report):
                                     "mla_kernels", "D192 deepseek-v2-lite train"),
                                 "head_dim 192 padded to 256 (4096)": ("mla_kernels",
                                                                       "D192 prefill"),
-                                "head_dim 24 padded to 32 (debug-mla)": ("mla_kernels", "D24")},
-        "flash_attention_f32": {"dropout": ("zoo_train_kernels", "dropout")}}
+                                "head_dim 24 padded to 32 (debug-mla)": ("mla_kernels", "D24"),
+                                "segment ids (packed, llama-3.2-1b train shape)": (
+                                    "encoder_kernels", "segments train"),
+                                "attention_chunk 128 (train shape)": ("encoder_kernels",
+                                                                      "chunk 128 train")},
+        "flash_attention_f32": {"dropout": ("zoo_train_kernels", "dropout"),
+                                "non-causal, bert-large": ("encoder_kernels", "bert-large"),
+                                "non-causal, vit-large": ("encoder_kernels", "vit-large"),
+                                "head_dim 16 padded to 32 (debug-vit)": ("encoder_kernels",
+                                                                         "debug-vit D16")}}
     headers = {"decode_attention_arena": ["decode_split.cuh", "fp8_ftz.cuh"],
                "paged_attention": ["decode_split.cuh", "fp8_ftz.cuh"],
                "flash_attention": ["hopper.cuh", "dropout.cuh"],
@@ -7421,7 +8130,8 @@ def kernels_line(report):
                     "case", "max_abs_err", "ms", "ms_without_alibi", "ms_without_dropout",
                     "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
                     "keep_mask_equal", "k6_keep_mask_equal", "split_ms", "split_bound_ms",
-                    "caught", "vs_library", "padded_to") if k in o}
+                    "caught", "vs_library", "padded_to", "ms_without_segments",
+                    "ms_unchunked", "ms_unsplit") if k in o}
         if kname in also:
             phase, prefix = also[kname]
             o = next(o for o in report[phase]

@@ -3,7 +3,8 @@
 // Replaces llm_fp8_tpu/kernels/flash_attention.py::flash_attention (forward:
 // _flash_fwd_call / _fwd_kernel). Features: causal with a per-batch q_offset,
 // per-batch kv_lens, GQA through the head map (K/V are never repeated),
-// sliding window, softcap, the logit scale, ALiBi and attention dropout.
+// sliding window, softcap, the logit scale, ALiBi, attention dropout,
+// segment ids and attention_chunk.
 // Masked scores take the TPU kernel's finite MASK_VALUE; dead rows (no live
 // key) give out 0 and lse -inf, as on the TPU. P is rounded to bf16 before
 // the P·V product.
@@ -16,6 +17,16 @@
 //   kept p times 1/(1 - rate), as the TPU kernel.
 // Both take the kernel's EXTRA instance, so the plain causal path's code is
 // the one without them.
+// - Segment ids (packed sequences) and attention_chunk (Llama-4's chunked
+//   attention): hopper.cuh's SegChunk, in the MASKS instance (MODE 2, which
+//   takes ALiBi and dropout too), so neither of the others carries their
+//   code. Each consumer thread reads its two rows' q ids and chunk starts
+//   once (RowsLive) and, on every tile, the kv id of each of its columns
+//   (the accumulator's 8·(i / 4) + 2·quad + (i & 1)) from global memory;
+//   the chunk test goes beside the causal and window tests. Tiles outside
+//   every row's chunk are never loaded (the TPU kernel's dead-tile rule);
+//   with ids every tile takes the mask test. Negative q offsets (split-KV's
+//   later chunks) leave rows with no live key: out 0, lse -inf.
 //
 // Bound on the H100: operations at long prompts, 4·D FLOPs per live (query,
 // key) pair at 989 TFLOP/s bf16 (an 8192-token causal prefill of
@@ -86,7 +97,13 @@ struct FwdSmem {
 
 // The online softmax of one consumer thread's two rows (row and row + 8 of
 // its warp's 16) over one BN-key tile of scores held as a m64nBN
-// accumulator, in the log2 domain. EXTRA: ALiBi and dropout may be on.
+// accumulator, in the log2 domain. EXTRA: ALiBi and dropout may be on. The
+// MASKS instance takes the second softmax, the same code with an `extra`
+// mask (RowsLive) beside the causal and window tests. The other instances
+// keep the first: one softmax for all, given a mask that folds away
+// (AllLive), left the same function but changed ptxas's register
+// allocation of the existing instances (D 128's EXTRA one spilled and ran
+// 11% slower on the H100), so they keep the code they had.
 template <bool EXTRA, int BN>
 struct Rows {
   float scale, softcap;
@@ -167,16 +184,91 @@ struct Rows {
       }
     }
   }
+
+  // The same, with the MASKS instance's `extra` mask as well.
+  template <class Extra>
+  __device__ __forceinline__ void softmax(float (&sc)[BN / 2], int k0, float (&m)[2],
+                                          float (&l)[2], float (&alpha)[2],
+                                          const Extra& extra) const {
+    const float scale2 = scale * kLog2e;
+    const bool need_mask = k0 + BN > kv_len || (causal && k0 + BN - 1 > wg_min) ||
+                           (window > 0 && k0 <= wg_min + 63 - window) ||
+                           extra.cuts(k0, k0 + BN - 1);
+    float mx[2] = {-INFINITY, -INFINITY};
+    // Unmasked, uncapped, unbiased tiles (most of a long prompt) take the max
+    // of the raw scores and fold the scale into the exponent's multiply-add.
+    const bool fold = !need_mask && softcap <= 0.0f && scale2 > 0.0f && (!EXTRA || slope2 == 0.0f);
+    if (fold) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) mx[r] *= scale2;
+    } else {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        float x = softcap > 0.0f ? softcap * tanhf(sc[i] * scale / softcap) * kLog2e
+                                 : sc[i] * scale2;
+        const int kp = k0 + 8 * (i / 4) + 2 * quad + (i & 1), q = q_pos + 8 * ((i >> 1) & 1);
+        if (EXTRA) x = fmaf(-slope2, fabsf(static_cast<float>(q - kp)), x);
+        if (need_mask) {
+          bool live = kp < kv_len;
+          if (causal) live = live && kp <= q;
+          if (window > 0) live = live && kp > q - window;
+          live = live && extra((i >> 1) & 1, kp);
+          x = live ? x : kMask;
+        }
+        sc[i] = x;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+      }
+    }
+    float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+    }
+    if (fold) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const float p = fast_exp2(fmaf(sc[i], scale2, -m[(i >> 1) & 1]));
+        sc[i] = p;
+        rs[(i >> 1) & 1] += p;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const float p = fast_exp2(sc[i] - m[(i >> 1) & 1]);
+        sc[i] = p;
+        rs[(i >> 1) & 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    if (EXTRA && drop.on()) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int kp = k0 + 8 * (i / 4) + 2 * quad + (i & 1), q = q_pos + 8 * ((i >> 1) & 1);
+        sc[i] = drop.keep(h0, q, kp) ? sc[i] * drop.scale : 0.0f;
+      }
+    }
+  }
 };
 
-template <int D, int NC, bool EXTRA>
+// MODE 0: the plain instance; 1 (EXTRA): ALiBi and dropout; 2 (MASKS):
+// segment ids and the chunk, with ALiBi and dropout.
+template <int D, int NC, int MODE>
 __global__ void __launch_bounds__((NC + 1) * 128, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                  float* __restrict__ lse, const int* __restrict__ q_offset,
                  const int* __restrict__ kv_lens, const float* __restrict__ alibi, int Sq,
                  int Sk, int Hq, int Hk, float scale, int causal, int window, float softcap,
-                 dropout::Params drop) {
+                 dropout::Params drop, const int* __restrict__ q_seg,
+                 const int* __restrict__ kv_seg, int chunk) {
+  constexpr bool EXTRA = MODE >= 1, MASKS = MODE == 2;
   using T = Tile<D>;
   using L = FwdSmem<D, NC>;
   constexpr int BN = L::BN;
@@ -194,13 +286,23 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int q_off = q_offset[b];
   const int kv_len = min(kv_lens[b], Sk);
 
+  // This batch row's segment ids and the chunk (MASKS only).
+  const SegChunk segc{MASKS && q_seg != nullptr ? q_seg + static_cast<size_t>(b) * Sq : nullptr,
+                      MASKS && kv_seg != nullptr ? kv_seg + static_cast<size_t>(b) * Sk : nullptr,
+                      Sq, Sk, MASKS ? chunk : 0};
+
   // Key tiles that can hold a live (q, k) pair for some row of this block.
   const int q_min = q_off + q0, q_max = q_off + min(q0 + NC * 64, Sq) - 1;
   int k_hi = kv_len;
   if (causal) k_hi = min(k_hi, q_max + 1);
-  const int kt_end = k_hi > 0 ? (k_hi + BN - 1) / BN : 0;
   int kt_begin = 0;
   if (window > 0 && q_min - window + 1 > 0) kt_begin = (q_min - window + 1) / BN;
+  if constexpr (MASKS) {  // the keys of the rows' chunks
+    int k_lo = 0;
+    segc.key_range(q_min, q_max, &k_lo, &k_hi);
+    kt_begin = max(kt_begin, k_lo / BN);
+  }
+  const int kt_end = k_hi > 0 ? (k_hi + BN - 1) / BN : 0;
   const int ntiles = max(kt_end - kt_begin, 0);
 
   if (threadIdx.x == 0) {
@@ -244,6 +346,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                            q_off + q0 + 64 * wg, quad,
                            EXTRA && alibi != nullptr ? alibi[bh] * kLog2e : 0.0f, drop,
                            EXTRA ? drop.head(static_cast<uint32_t>(bh)) : 0u};
+    const auto extra = rows_live<MASKS>(segc, row0, q_off + row0, q_off + q0 + 64 * wg);
 
     float o[T::NCH][CH];
 #pragma unroll
@@ -310,7 +413,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       issue_s(0);
       wgmma_wait<0>();
       fence_regs(sc);
-      rows.softmax(sc, kt_begin * BN, m, l, alpha);
+      if constexpr (MASKS) rows.softmax(sc, kt_begin * BN, m, l, alpha, extra);
+      else rows.softmax(sc, kt_begin * BN, m, l, alpha);
     }
     // Tile j: P(j)·V(j) runs on the tensor cores while the softmax of tile
     // j + 1 runs on the scores S(j + 1), issued just before it. The last tile
@@ -322,7 +426,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       issue_pv(j);
       wgmma_wait<1>();  // S(j + 1) is done; P(j)·V(j) may still run
       fence_regs(sc);
-      rows.softmax(sc, (kt_begin + j + 1) * BN, m, l, alpha);
+      if constexpr (MASKS) rows.softmax(sc, (kt_begin + j + 1) * BN, m, l, alpha, extra);
+      else rows.softmax(sc, (kt_begin + j + 1) * BN, m, l, alpha);
       retire(j);
     }
     if (ntiles > 0) {
@@ -383,9 +488,12 @@ struct FwdArgs {
   int causal, window;
   float softcap;
   dropout::Params drop;
+  const int* q_seg;  // [B, Sq] segment ids or null
+  const int* kv_seg;  // [B, Sk]
+  int chunk;
 };
 
-template <int D, int NC, bool EXTRA>
+template <int D, int NC, int MODE>
 int launch_nc(const void* q, const void* k, const void* v, const FwdArgs& a, cudaStream_t s) {
   CUtensorMap tq, tk, tv;
   constexpr int BN = FwdSmem<D, NC>::BN;
@@ -397,13 +505,14 @@ int launch_nc(const void* q, const void* k, const void* v, const FwdArgs& a, cud
   // The shared-memory limit is set once per kernel instance (a
   // function-local static), not on every launch.
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, NC, EXTRA>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_kernel<D, NC, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
   dim3 grid(a.Hq, a.B, (a.Sq + NC * 64 - 1) / (NC * 64));
-  flash_fwd_kernel<D, NC, EXTRA><<<grid, (NC + 1) * 128, bytes, s>>>(
+  flash_fwd_kernel<D, NC, MODE><<<grid, (NC + 1) * 128, bytes, s>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.lse),
       static_cast<const int*>(a.q_offset), static_cast<const int*>(a.kv_lens), a.alibi, a.Sq,
-      a.Sk, a.Hq, a.Hk, a.scale, a.causal, a.window, a.softcap, a.drop);
+      a.Sk, a.Hq, a.Hk, a.scale, a.causal, a.window, a.softcap, a.drop, a.q_seg, a.kv_seg,
+      a.chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -411,38 +520,41 @@ int launch_nc(const void* q, const void* k, const void* v, const FwdArgs& a, cud
 // At D = 128 always 64: a consumer thread's S, P and O (64 + 32 + 64
 // registers) exceed the 168 a thread of a 384-thread block can hold; at
 // D = 256 (S, P and O: 32 + 16 + 128) likewise.
-template <int D, bool EXTRA>
+template <int D, int MODE>
 int launch(const void* q, const void* k, const void* v, const FwdArgs& a, cudaStream_t s) {
   const long long blocks128 = static_cast<long long>((a.Sq + 127) / 128) * a.Hq * a.B;
   if constexpr (D < 128)
-    if (blocks128 * 10 >= 9LL * num_sms()) return launch_nc<D, 2, EXTRA>(q, k, v, a, s);
-  return launch_nc<D, 1, EXTRA>(q, k, v, a, s);
+    if (blocks128 * 10 >= 9LL * num_sms()) return launch_nc<D, 2, MODE>(q, k, v, a, s);
+  return launch_nc<D, 1, MODE>(q, k, v, a, s);
 }
 
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, const FwdArgs& a, cudaStream_t s) {
+  if (a.q_seg != nullptr || a.chunk > 0) return launch<D, 2>(q, k, v, a, s);
   if (a.alibi != nullptr || a.drop.threshold != 0u || a.drop.scale != 1.0f)
-    return launch<D, true>(q, k, v, a, s);
-  return launch<D, false>(q, k, v, a, s);
+    return launch<D, 1>(q, k, v, a, s);
+  return launch<D, 0>(q, k, v, a, s);
 }
 
 }  // namespace
 
-// window <= 0 and softcap <= 0 mean "off"; alibi ([B, Hq] float32 slopes)
-// may be null; drop_threshold 0 and drop_scale 1 mean no dropout (the
-// threshold and the seed are uint32 bits). D is 32, 64, 128 or 256; q, k
-// and v are contiguous and 16-byte aligned.
+// window <= 0, softcap <= 0 and chunk <= 0 mean "off"; alibi ([B, Hq]
+// float32 slopes) may be null; q_seg and kv_seg (int32 [B, Sq] and [B, Sk]
+// segment ids) are both null or both set; drop_threshold 0 and drop_scale 1
+// mean no dropout (the threshold and the seed are uint32 bits). D is 32,
+// 64, 128 or 256; q, k and v are contiguous and 16-byte aligned.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                                 void* lse, const void* q_offset, const void* kv_lens,
-                                const void* alibi, int B, int Sq, int Sk, int Hq, int Hk, int D,
-                                float scale, int causal, int window, float softcap,
-                                int drop_threshold, int drop_seed, float drop_scale,
-                                void* stream) {
+                                const void* alibi, const void* q_seg, const void* kv_seg, int B,
+                                int Sq, int Sk, int Hq, int Hk, int D, float scale, int causal,
+                                int window, float softcap, int chunk, int drop_threshold,
+                                int drop_seed, float drop_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const FwdArgs a{out, lse, q_offset, kv_lens, static_cast<const float*>(alibi), B, Sq, Sk, Hq,
                   Hk, scale, causal, window, softcap,
                   dropout::Params{static_cast<uint32_t>(drop_threshold),
-                                  static_cast<uint32_t>(drop_seed), drop_scale}};
+                                  static_cast<uint32_t>(drop_seed), drop_scale},
+                  static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), chunk};
   switch (D) {
     case 32: return launch_d<32>(q, k, v, a, s);
     case 64: return launch_d<64>(q, k, v, a, s);

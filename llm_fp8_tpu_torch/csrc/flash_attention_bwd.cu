@@ -10,13 +10,18 @@
 //   dV += bf16(p)ᵀ·dO,  dK += bf16(ds)ᵀ·Q,  dQ += bf16(ds)·K
 // with p and ds rounded to bf16 before their products, as the TPU kernel.
 // Features: causal with a per-batch q_offset, kv_lens, GQA, sliding window,
-// softcap, the logit scale, ALiBi and dropout (attention_chunk and segments
-// are not ported and raise in the wrapper). ALiBi's -slope·|q_pos - k_pos|
+// softcap, the logit scale, ALiBi, dropout, segment ids and
+// attention_chunk. ALiBi's -slope·|q_pos - k_pos|
 // is added to z (after softcap) before p is formed; being additive it leaves
 // the dS chain as it is (the softcap factor reads the unbiased z). Dropout
 // rebuilds K3's keep mask (dropout.cuh): dV takes the kept p times
 // 1/(1 - rate), dP is masked and scaled alike, dS takes the undropped p.
-// Both ride the kernels' EXTRA instances.
+// Both ride the kernels' EXTRA instances (MODE 1). Segment ids and the
+// chunk are K3's masks (hopper.cuh's SegChunk) in the MASKS instances (MODE
+// 2, which take ALiBi and dropout too): the dQ kernel reads its rows' q ids
+// and chunk starts once (RowsLive) and each tile's kv ids per column, the
+// dKV kernel its keys' ids once and each query tile's q ids per column;
+// both skip the tiles outside every row's chunk.
 //
 // Bound on the H100: operations. The backward's function is 2.5x the
 // forward's matrix work (five products per live pair to the forward's two;
@@ -58,6 +63,7 @@
 //        dK and dV for 128 of the columns (the D = 128 picture) and
 //        recomputes the whole Sᵀ and dPᵀ, which contract over all of D.
 //        Low key tiles, which the most queries reach, are scheduled first.
+#include <limits.h>
 #include <math.h>
 
 #include "dropout.cuh"
@@ -225,7 +231,7 @@ struct DkvSmem {
   static constexpr int BYTES = BAR + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int D, bool EXTRA>
+template <int D, int MODE>
 __global__ void __launch_bounds__((DkvSmem<D>::NC + 1) * 128, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -233,7 +239,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
                      const int* __restrict__ q_offset, const int* __restrict__ kv_lens,
                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                      const float* __restrict__ alibi, int Sq, int Sk, int Hq, int Hk,
-                     float scale, int causal, int window, float softcap, dropout::Params drop) {
+                     float scale, int causal, int window, float softcap, dropout::Params drop,
+                     const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int chunk) {
+  constexpr bool EXTRA = MODE >= 1, MASKS = MODE == 2;
   using T = Tile<D>;
   using L = DkvSmem<D>;
   constexpr int BQ = L::BQ, BK = L::BK;
@@ -262,6 +270,17 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   if (window > 0) {
     const int n = k0 + window + BK - 2 - q_off;  // last query index a key here reaches
     qt_end = min(qt_end, n >= 0 ? n / BQ + 1 : 0);
+  }
+  // This batch row's segment ids and the chunk (MASKS only).
+  const SegChunk segc{MASKS && q_seg != nullptr ? q_seg + static_cast<size_t>(b) * Sq : nullptr,
+                      MASKS && kv_seg != nullptr ? kv_seg + static_cast<size_t>(b) * Sk : nullptr,
+                      Sq, Sk, MASKS ? chunk : 0};
+  if constexpr (MASKS) {  // the queries in the chunks of this block's keys
+    int lo = INT_MIN, hi = INT_MAX;
+    segc.key_range(k0, k0 + BK - 1, &lo, &hi);
+    const int n0 = lo - q_off, n1 = hi - 1 - q_off;  // first and last query index
+    qt_begin = max(qt_begin, n0 > 0 ? n0 / BQ : 0);
+    qt_end = min(qt_end, n1 >= 0 ? n1 / BQ + 1 : 0);
   }
   const int per_head = max(qt_end - qt_begin, 0);
 
@@ -316,6 +335,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     const int warp = t / 32, lane = t % 32, quad = lane % 4;
     const int key0 = k0 + 64 * wg + 16 * warp + lane / 4;  // this thread's keys: key0, key0 + 8
     const int steps = groups * per_head;
+    int kid[2] = {0, 0};  // the two keys' segment ids (MASKS)
+    if (MASKS && segc.q_ids != nullptr) {
+      kid[0] = segc.kv_id(key0);
+      kid[1] = segc.kv_id(key0 + 8);
+    }
 
     float dk_acc[L::NCO][T::CW / 2], dv_acc[L::NCO][T::CW / 2];
     zero(dk_acc);
@@ -333,7 +357,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         if (alibi != nullptr) slope2 = alibi[bh] * kLog2e;
         h0 = drop.head(static_cast<uint32_t>(bh));
       }
-      const bool need_mask = mask.cuts(q_off + q0, q_off + q0 + BQ - 1, key_lo, key_lo + 63);
+      const bool need_mask =
+          mask.cuts(q_off + q0, q_off + q0 + BQ - 1, key_lo, key_lo + 63) ||
+          (MASKS && segc.cuts(q_off + q0, q_off + q0 + BQ - 1, key_lo, key_lo + 63));
+      // MASKS: the chunk start of this query tile where its rows share one
+      // chunk (the usual case), so that a score's chunk test divides nothing.
+      const int tile_cs = MASKS ? segc.shared_start(q_off + q0, q_off + q0 + BQ - 1) : 0;
       float st[BQ / 2], dpt[BQ / 2];
 
       mbar_wait(full(s), ph);
@@ -353,7 +382,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         const int col = 8 * (e / 4) + 2 * quad + (e & 1);  // query within the tile
         const int kp = key0 + 8 * ((e >> 1) & 1);
         float p, ds;
-        const bool ok = !need_mask || mask.live(q_off + q0 + col, kp);
+        const bool ok = !need_mask || (mask.live(q_off + q0 + col, kp) &&
+                                       (!MASKS || segc.live(q_off + q0 + col, tile_cs,
+                                                            segc.q_ids ? segc.q_id(q0 + col) : 0,
+                                                            kp, kid[(e >> 1) & 1])));
         if constexpr (EXTRA) {
           const int qp = q_off + q0 + col;
           mask.p_ds_extra(st[e], dpt[e],
@@ -442,7 +474,7 @@ __device__ __forceinline__ void row_di(const __nv_bfloat16* o, const __nv_bfloat
   }
 }
 
-template <int D, bool EXTRA>
+template <int D, int MODE>
 __global__ void __launch_bounds__((DqSmem<D>::NC + 1) * 128, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -451,7 +483,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     const int* __restrict__ q_offset, const int* __restrict__ kv_lens,
                     __nv_bfloat16* __restrict__ dq, const float* __restrict__ alibi, int Sq,
                     int Sk, int Hq, int Hk, float scale, int causal, int window, float softcap,
-                    dropout::Params drop) {
+                    dropout::Params drop, const int* __restrict__ q_seg,
+                    const int* __restrict__ kv_seg, int chunk) {
+  constexpr bool EXTRA = MODE >= 1, MASKS = MODE == 2;
   using T = Tile<D>;
   using L = DqSmem<D>;
   constexpr int QR = L::QR;
@@ -471,11 +505,19 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
   // Key tiles that can hold a live (q, k) pair for some row (as K3's forward).
   const int q_min = q_off + q0, q_max = q_off + min(q0 + QR, Sq) - 1;
+  const SegChunk segc{MASKS && q_seg != nullptr ? q_seg + static_cast<size_t>(b) * Sq : nullptr,
+                      MASKS && kv_seg != nullptr ? kv_seg + static_cast<size_t>(b) * Sk : nullptr,
+                      Sq, Sk, MASKS ? chunk : 0};
   int k_hi = mask.kv_len;
   if (causal) k_hi = min(k_hi, q_max + 1);
-  const int kt_end = k_hi > 0 ? (k_hi + 63) / 64 : 0;
   int kt_begin = 0;
   if (window > 0 && q_min - window + 1 > 0) kt_begin = (q_min - window + 1) / 64;
+  if constexpr (MASKS) {  // the keys of the rows' chunks
+    int k_lo = 0;
+    segc.key_range(q_min, q_max, &k_lo, &k_hi);
+    kt_begin = max(kt_begin, k_lo / 64);
+  }
+  const int kt_end = k_hi > 0 ? (k_hi + 63) / 64 : 0;
   const int ntiles = max(kt_end - kt_begin, 0);
 
   if (threadIdx.x == 0) {
@@ -523,6 +565,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       if (in && quad == 0) di_out[row_base + row0 + 8 * r] = di_r[r];
     }
     const int wg_min = q_off + q0 + 64 * wg;
+    const auto extra = rows_live<MASKS>(segc, row0, q_off + row0, wg_min);
     float slope2 = 0.0f;  // ALiBi slope · log2(e)
     uint32_t h0 = 0u;     // the dropout hash half of (b, h)
     if constexpr (EXTRA) {
@@ -537,7 +580,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       const int s = j & 1;
       const uint32_t ph = (j >> 1) & 1;
       const int kt0 = (kt_begin + j) * 64;
-      const bool need_mask = mask.cuts(wg_min, wg_min + 63, kt0, kt0 + 63);
+      const bool need_mask = mask.cuts(wg_min, wg_min + 63, kt0, kt0 + 63) ||
+                             extra.cuts(kt0, kt0 + 63);
       float sc[32], dp[32];
 
       mbar_wait(full(s), ph);
@@ -556,7 +600,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         const int r = (e >> 1) & 1;
         const int kp = kt0 + 8 * (e / 4) + 2 * quad + (e & 1);
         float p, ds;
-        const bool ok = !need_mask || mask.live(q_off + row0 + 8 * r, kp);
+        const bool ok = !need_mask || (mask.live(q_off + row0 + 8 * r, kp) && extra(r, kp));
         if constexpr (EXTRA) {
           const int qp = q_off + row0 + 8 * r;
           mask.p_ds_extra(sc[e], dp[e], fmaf(-slope2, fabsf(static_cast<float>(qp - kp)), nl_r[r]),
@@ -592,11 +636,18 @@ struct BwdArgs {
   int causal, window;
   float softcap;
   dropout::Params drop;
+  const int* q_seg;  // [B, Sq] segment ids or null
+  const int* kv_seg;  // [B, Sk]
+  int chunk;
 
-  bool extra() const { return alibi != nullptr || drop.threshold != 0u || drop.scale != 1.0f; }
+  // The kernels' instance: 2 (MASKS), 1 (EXTRA) or 0.
+  int mode() const {
+    if (q_seg != nullptr || chunk > 0) return 2;
+    return alibi != nullptr || drop.threshold != 0u || drop.scale != 1.0f ? 1 : 0;
+  }
 };
 
-template <int D, bool EXTRA>
+template <int D, int MODE>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* di, const void* q_offset, const void* kv_lens, void* dk, void* dv,
                const BwdArgs& a, cudaStream_t s) {
@@ -610,18 +661,18 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   constexpr int bytes = L::BYTES;
   // Set once per kernel instance (a function-local static), not per launch.
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D, EXTRA>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_bwd_dkv_kernel<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
   dim3 grid(a.Hk * L::SPLIT, a.B, (a.Sk + L::BK - 1) / L::BK);
-  flash_bwd_dkv_kernel<D, EXTRA><<<grid, (L::NC + 1) * 128, bytes, s>>>(
+  flash_bwd_dkv_kernel<D, MODE><<<grid, (L::NC + 1) * 128, bytes, s>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(di),
       static_cast<const int*>(q_offset), static_cast<const int*>(kv_lens),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.alibi, a.Sq, a.Sk,
-      a.Hq, a.Hk, a.scale, a.causal, a.window, a.softcap, a.drop);
+      a.Hq, a.Hk, a.scale, a.causal, a.window, a.softcap, a.drop, a.q_seg, a.kv_seg, a.chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool EXTRA>
+template <int D, int MODE>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const void* lse, void* di, const void* q_offset, const void* kv_lens, void* dq,
               const BwdArgs& a, cudaStream_t s) {
@@ -637,47 +688,53 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o, const 
   constexpr int bytes = L::BYTES;
   // Set once per kernel instance (a function-local static), not per launch.
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D, EXTRA>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_bwd_dq_kernel<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
   dim3 grid(a.Hq, a.B, (a.Sq + L::QR - 1) / L::QR);
-  flash_bwd_dq_kernel<D, EXTRA><<<grid, (L::NC + 1) * 128, bytes, s>>>(
+  flash_bwd_dq_kernel<D, MODE><<<grid, (L::NC + 1) * 128, bytes, s>>>(
       tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(di), static_cast<const int*>(q_offset),
       static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(dq), a.alibi, a.Sq, a.Sk,
-      a.Hq, a.Hk, a.scale, a.causal, a.window, a.softcap, a.drop);
+      a.Hq, a.Hk, a.scale, a.causal, a.window, a.softcap, a.drop, a.q_seg, a.kv_seg, a.chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
-BwdArgs bwd_args(const void* alibi, int B, int Sq, int Sk, int Hq, int Hk, float scale,
-                 int causal, int window, float softcap, int drop_threshold, int drop_seed,
-                 float drop_scale) {
+BwdArgs bwd_args(const void* alibi, const void* q_seg, const void* kv_seg, int B, int Sq,
+                 int Sk, int Hq, int Hk, float scale, int causal, int window, float softcap,
+                 int chunk, int drop_threshold, int drop_seed, float drop_scale) {
   return BwdArgs{static_cast<const float*>(alibi), B, Sq, Sk, Hq, Hk, scale, causal, window,
                  softcap,
                  dropout::Params{static_cast<uint32_t>(drop_threshold),
-                                 static_cast<uint32_t>(drop_seed), drop_scale}};
+                                 static_cast<uint32_t>(drop_seed), drop_scale},
+                 static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), chunk};
 }
 
 }  // namespace
 
-// window <= 0 and softcap <= 0 mean "off"; alibi ([B, Hq] float32 slopes)
-// may be null; drop_threshold 0 and drop_scale 1 mean no dropout (K3's
-// arguments). D is 32, 64, 128 or 256; q, k, v, o and dout are contiguous
+// window <= 0, softcap <= 0 and chunk <= 0 mean "off"; alibi ([B, Hq]
+// float32 slopes) may be null, q_seg and kv_seg (int32 [B, Sq], [B, Sk]) are
+// both null or both set; drop_threshold 0 and drop_scale 1 mean no dropout
+// (K3's arguments). D is 32, 64, 128 or 256; q, k, v, o and dout are contiguous
 // and 16-byte aligned. The dQ kernel also writes di (float32 [B, Hq, Sq]), which
 // the dKV kernel reads: launch dQ first.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* di,
                                     const void* q_offset, const void* kv_lens, void* dk,
-                                    void* dv, const void* alibi, int B, int Sq, int Sk, int Hq,
-                                    int Hk, int D, float scale, int causal, int window,
-                                    float softcap, int drop_threshold, int drop_seed,
+                                    void* dv, const void* alibi, const void* q_seg,
+                                    const void* kv_seg, int B, int Sq, int Sk, int Hq, int Hk,
+                                    int D, float scale, int causal, int window, float softcap,
+                                    int chunk, int drop_threshold, int drop_seed,
                                     float drop_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BwdArgs a = bwd_args(alibi, B, Sq, Sk, Hq, Hk, scale, causal, window, softcap,
-                             drop_threshold, drop_seed, drop_scale);
-#define K6_DKV(DD)                                                                        \
-  return a.extra() ? launch_dkv<DD, true>(q, k, v, dout, lse, di, q_offset, kv_lens, dk, dv, a, s) \
-                   : launch_dkv<DD, false>(q, k, v, dout, lse, di, q_offset, kv_lens, dk, dv, a, s)
+  const BwdArgs a = bwd_args(alibi, q_seg, kv_seg, B, Sq, Sk, Hq, Hk, scale, causal, window,
+                             softcap, chunk, drop_threshold, drop_seed, drop_scale);
+#define K6_DKV_MODE(DD, M) \
+  launch_dkv<DD, M>(q, k, v, dout, lse, di, q_offset, kv_lens, dk, dv, a, s)
+#define K6_DKV(DD)                                        \
+  return a.mode() == 2   ? K6_DKV_MODE(DD, 2)              \
+         : a.mode() == 1 ? K6_DKV_MODE(DD, 1)              \
+                         : K6_DKV_MODE(DD, 0)
   switch (D) {
     case 32: K6_DKV(32);
     case 64: K6_DKV(64);
@@ -686,21 +743,25 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef K6_DKV
+#undef K6_DKV_MODE
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* di,
                                    const void* q_offset, const void* kv_lens, void* dq,
-                                   const void* alibi, int B, int Sq, int Sk, int Hq, int Hk,
-                                   int D, float scale, int causal, int window, float softcap,
+                                   const void* alibi, const void* q_seg, const void* kv_seg,
+                                   int B, int Sq, int Sk, int Hq, int Hk, int D, float scale,
+                                   int causal, int window, float softcap, int chunk,
                                    int drop_threshold, int drop_seed, float drop_scale,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BwdArgs a = bwd_args(alibi, B, Sq, Sk, Hq, Hk, scale, causal, window, softcap,
-                             drop_threshold, drop_seed, drop_scale);
-#define K6_DQ(DD)                                                                          \
-  return a.extra() ? launch_dq<DD, true>(q, k, v, o, dout, lse, di, q_offset, kv_lens, dq, a, s) \
-                   : launch_dq<DD, false>(q, k, v, o, dout, lse, di, q_offset, kv_lens, dq, a, s)
+  const BwdArgs a = bwd_args(alibi, q_seg, kv_seg, B, Sq, Sk, Hq, Hk, scale, causal, window,
+                             softcap, chunk, drop_threshold, drop_seed, drop_scale);
+#define K6_DQ_MODE(DD, M) launch_dq<DD, M>(q, k, v, o, dout, lse, di, q_offset, kv_lens, dq, a, s)
+#define K6_DQ(DD)                                       \
+  return a.mode() == 2   ? K6_DQ_MODE(DD, 2)             \
+         : a.mode() == 1 ? K6_DQ_MODE(DD, 1)             \
+                         : K6_DQ_MODE(DD, 0)
   switch (D) {
     case 32: K6_DQ(32);
     case 64: K6_DQ(64);
@@ -709,4 +770,5 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, 
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef K6_DQ
+#undef K6_DQ_MODE
 }

@@ -22,6 +22,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -175,6 +176,110 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// floor(a / c) for c > 0 (C's / truncates toward zero; positions go
+// negative under split-KV's offsets).
+__device__ __forceinline__ int floor_div(int a, int c) {
+  const int q = a / c;
+  return (a % c != 0 && a < 0) ? q - 1 : q;
+}
+
+// The segment-id and chunk masks of K3's and K6's MASKS instances (the TPU
+// kernels' has_segments and attention_chunk): a query at position q_pos
+// with id q_id sees key k_pos only if k_pos lies in the query's chunk,
+// floor(q_pos / chunk)·chunk .. + chunk - 1 (chunk > 0), and the key's id
+// equals q_id (ids non-null). Queries past Sq take id -1 and keys past Sk
+// id -2, as the TPU kernel pads them, so neither ever matches.
+struct SegChunk {
+  const int* q_ids;   // this batch row's [Sq] query ids, or null (no segments)
+  const int* kv_ids;  // its [Sk] key ids
+  int Sq, Sk, chunk;  // chunk <= 0: no chunk mask
+
+  __device__ __forceinline__ int q_id(int row) const {
+    return row < Sq ? __ldg(q_ids + row) : -1;
+  }
+  __device__ __forceinline__ int kv_id(int key) const {
+    return key < Sk ? __ldg(kv_ids + key) : -2;
+  }
+  // The chunk start that the query positions [q_lo, q_hi] share, or INT_MIN
+  // where they span chunks (or there is no chunk).
+  __device__ __forceinline__ int shared_start(int q_lo, int q_hi) const {
+    if (chunk <= 0) return INT_MIN;
+    const int c = floor_div(q_lo, chunk);
+    return c == floor_div(q_hi, chunk) ? c * chunk : INT_MIN;
+  }
+  // Whether (q_pos, k_pos) survives the chunk mask (the query's chunk start
+  // is `start` unless that is INT_MIN) and, with ids, whether the query's id
+  // qid matches the key's id kid.
+  __device__ __forceinline__ bool live(int q_pos, int start, int qid, int k_pos, int kid) const {
+    if (chunk > 0) {
+      if (start == INT_MIN) start = floor_div(q_pos, chunk) * chunk;
+      if (k_pos < start || k_pos >= start + chunk) return false;
+    }
+    return q_ids == nullptr || kid == qid;
+  }
+  // Whether some pair of query positions [q_lo, q_hi] and keys [k_lo, k_hi]
+  // is masked by them (with ids: always, as the ids are not known here).
+  __device__ __forceinline__ bool cuts(int q_lo, int q_hi, int k_lo, int k_hi) const {
+    if (q_ids != nullptr) return true;
+    if (chunk <= 0) return false;
+    const int c = floor_div(q_lo, chunk);
+    return c != floor_div(q_hi, chunk) || k_lo < c * chunk || k_hi >= c * chunk + chunk;
+  }
+  // The chunk's bounds on the key positions that the query positions
+  // [q_lo, q_hi] can see: [*lo, *hi) narrowed (tile skipping). A query
+  // sees a key only in its own chunk, so the same rule, keys for queries,
+  // gives the query positions that can see the keys [k_lo, k_hi].
+  __device__ __forceinline__ void key_range(int q_lo, int q_hi, int* lo, int* hi) const {
+    if (chunk <= 0) return;
+    *lo = max(*lo, floor_div(q_lo, chunk) * chunk);
+    *hi = min(*hi, floor_div(q_hi, chunk) * chunk + chunk);
+  }
+};
+
+// No extra mask: the plain and EXTRA instances' (folds away).
+struct AllLive {
+  __device__ __forceinline__ bool cuts(int, int) const { return false; }
+  __device__ __forceinline__ bool operator()(int, int) const { return true; }
+};
+
+// SegChunk for the two rows of one consumer thread (row0 and row0 + 8 at
+// positions q_pos0 and + 8) in a group of 64 rows from position grp_lo: the
+// rows' ids and chunk starts are read once, so a score's test is two
+// compares and, with ids, one cached load of the key's id.
+struct RowsLive {
+  SegChunk s;
+  int qid[2], cs[2];
+  int cs_lo, cs_hi;  // chunk starts of the group's first and last rows
+
+  __device__ __forceinline__ bool cuts(int k_lo, int k_hi) const {
+    return s.q_ids != nullptr ||
+           (s.chunk > 0 && (cs_lo != cs_hi || k_lo < cs_lo || k_hi >= cs_lo + s.chunk));
+  }
+  // Row r (0: row0, 1: row0 + 8) against key k_pos.
+  __device__ __forceinline__ bool operator()(int r, int k_pos) const {
+    return (s.chunk <= 0 || (k_pos >= cs[r] && k_pos < cs[r] + s.chunk)) &&
+           (s.q_ids == nullptr || s.kv_id(k_pos) == qid[r]);
+  }
+};
+
+// The extra mask of a thread's two rows: RowsLive in the MASKS instances,
+// else AllLive.
+template <bool MASKS>
+__device__ __forceinline__ auto rows_live(const SegChunk& s, int row0, int q_pos0, int grp_lo) {
+  if constexpr (MASKS) {
+    const int c = s.chunk > 0 ? s.chunk : 1;
+    RowsLive r{s, {0, 0}, {floor_div(q_pos0, c) * c, floor_div(q_pos0 + 8, c) * c},
+               floor_div(grp_lo, c) * c, floor_div(grp_lo + 63, c) * c};
+    if (s.q_ids != nullptr) {
+      r.qid[0] = s.q_id(row0);
+      r.qid[1] = s.q_id(row0 + 8);
+    }
+    return r;
+  } else {
+    return AllLive{};
+  }
 }
 
 // A m64nNk16 accumulator (N/2 floats a thread: element i is row

@@ -45,11 +45,11 @@ _SIGNATURES = {
     "decode_attention": {"decode_arena_launch":
                          [_P] * 4 + [_I] + [_P] * 11 + [_I] * 8 + [_F, _I, _F, _P]},
     "flash_attention": {"flash_fwd_launch":
-                        [_P] * 8 + [_I] * 6 + [_F, _I, _I, _F, _I, _I, _F, _P]},
+                        [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _I, _I, _I, _F, _P]},
     "paged_attention": {"paged_attn_launch": [_P] * 12 + [_I] * 12 + [_F, _F, _I, _F, _P]},
     "flash_attention_bwd": {
-        "flash_bwd_dkv_launch": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _F, _I, _I, _F, _P],
-        "flash_bwd_dq_launch": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _F, _I, _I, _F, _P]},
+        "flash_bwd_dkv_launch": [_P] * 13 + [_I] * 6 + [_F, _I, _I, _F, _I, _I, _I, _F, _P],
+        "flash_bwd_dq_launch": [_P] * 13 + [_I] * 6 + [_F, _I, _I, _F, _I, _I, _I, _F, _P]},
     "quantize": {"quantize_launch": [_P] * 3 + [_I] * 7 + [_F, _F, _P]},
     "flash_attention_fp8": {
         "flash_fp8_launch": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _F, _I, _I, _P],

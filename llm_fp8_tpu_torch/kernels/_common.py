@@ -21,7 +21,8 @@ __all__ = ["e4m3_to_bf16_ftz", "fp8_to_bf16_ftz", "pad_to_multiple", "aligned16"
            "PADDED_HEAD_DIMS", "pad_head_dim",
            "num_sms", "KV_KINDS", "W_KINDS", "dropout_keep_mask", "dropout_threshold",
            "dropout_seed_u32", "dropout_keep", "dropout_inv", "dropout_args",
-           "alibi_slopes_tensor", "alibi_bias", "decode_alibi_bias"]
+           "alibi_slopes_tensor", "alibi_bias", "decode_alibi_bias", "live_mask",
+           "segment_ids_tensor", "f32_card_refuses"]
 
 #: dtype → kind code of ``csrc/fp8_ftz.cuh`` (``kCodeE4M3`` ...).
 W_KINDS = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1, torch.int8: 2}
@@ -93,6 +94,59 @@ def alibi_bias(slopes: torch.Tensor, q_offset: torch.Tensor, Sq: int, Sk: int) -
     q_pos = q_offset.to(dev).long()[:, None] + torch.arange(Sq, device=dev)[None, :]
     dist = (q_pos[:, :, None] - torch.arange(Sk, device=dev)[None, None, :]).abs()
     return -(slopes[:, :, None, None] * dist[:, None].float())
+
+
+def live_mask(q_offset: torch.Tensor, kv_lens: torch.Tensor, Sq: int, Sk: int, *,
+              causal: bool, window: Optional[int], attention_chunk: Optional[int] = None,
+              q_segment_ids: Optional[torch.Tensor] = None,
+              kv_segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3's and K6's live (query, key) pairs as bool ``[B, Sq, Sk]``, from
+    the ``[B]`` offsets and lengths: ``k_pos < kv_len``, causal, the window,
+    the query's chunk (``floor(q_pos / C)·C <= k_pos < + C``) and equal
+    segment ids (``[B, Sq]`` and ``[B, Sk]``)."""
+    dev = q_offset.device
+    q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    k_pos = torch.arange(Sk, device=dev)
+    mask = k_pos[None, None, :] < kv_lens.long()[:, None, None]
+    if causal:
+        mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
+    if attention_chunk is not None:
+        start = torch.div(q_pos, attention_chunk, rounding_mode="floor")[:, :, None] \
+            * attention_chunk
+        mask = mask & (k_pos[None, None, :] >= start) & (k_pos[None, None, :] < start
+                                                         + attention_chunk)
+    if q_segment_ids is not None:
+        mask = mask & (q_segment_ids[:, :, None] == kv_segment_ids[:, None, :])
+    return mask.expand(q_pos.shape[0], Sq, Sk)
+
+
+def segment_ids_tensor(q_segment_ids, kv_segment_ids, B: int, Sq: int, Sk: int, device):
+    """The segment ids as the kernels read them: contiguous int32 ``[B, Sq]``
+    and ``[B, Sk]`` on ``device``, or ``(None, None)``. Both or neither."""
+    if q_segment_ids is None and kv_segment_ids is None:
+        return None, None
+    if q_segment_ids is None or kv_segment_ids is None:
+        raise ValueError("q_segment_ids and kv_segment_ids go together")
+    qs = torch.as_tensor(q_segment_ids, device=device).to(torch.int32).contiguous()
+    ks = torch.as_tensor(kv_segment_ids, device=device).to(torch.int32).contiguous()
+    if tuple(qs.shape) != (B, Sq) or tuple(ks.shape) != (B, Sk):
+        raise ValueError(f"segment ids of shapes {tuple(qs.shape)}, {tuple(ks.shape)}, want "
+                         f"[{B}, {Sq}] and [{B}, {Sk}]")
+    return qs, ks
+
+
+def f32_card_refuses(window=None, softcap=None, attention_chunk=None, segment_ids=None):
+    """Raise NotImplementedError on what K3's and K6's float32 instances do
+    not take on the card: a window, a softcap, a chunk or segment ids (no
+    float32 family uses them; their plain versions take all four)."""
+    named = [n for n, v in (("window", window), ("softcap", softcap),
+                            ("attention_chunk", attention_chunk),
+                            ("segment ids", segment_ids)) if v is not None]
+    if named:
+        raise NotImplementedError(f"flash attention's float32 instances take no "
+                                  f"{', '.join(named)} on the card")
 
 
 def decode_alibi_bias(slopes: torch.Tensor, lengths: torch.Tensor, S: int, Hk: int
@@ -194,10 +248,11 @@ def dropout_args(dropout_p: float, dropout_seed) -> list:
 
 #: Head dims that no instance takes, zero-padded to one that does: the MLA
 #: family's qk head dim 192 (DeepSeek-V2 and V2-Lite: 128 + 64) onto the
-#: 256 instance, and its debug configs' 24 (16 + 8; wgmma's bf16 K step is
-#: 16) onto 32. Zero columns add nothing to q·k and give zero output
-#: columns, which are sliced off; the scale is the unpadded dim's.
-PADDED_HEAD_DIMS = {24: 32, 192: 256}
+#: 256 instance, its debug configs' 24 (16 + 8; wgmma's bf16 K step is
+#: 16) onto 32, and debug-vit's 16 (4 heads of 16, float32) onto 32. Zero
+#: columns add nothing to q·k and give zero output columns, which are
+#: sliced off; the scale is the unpadded dim's.
+PADDED_HEAD_DIMS = {16: 32, 24: 32, 192: 256}
 
 
 def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:

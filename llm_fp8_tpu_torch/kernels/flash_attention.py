@@ -8,13 +8,14 @@ The kernel is built for Hopper: TMA loads K/V tiles into a ring of swizzled
 shared memory for consumer warpgroups that run Q·Kᵀ and P·V on ``wgmma``
 with the scores, P and O kept in registers (its source note has the design;
 head dims 32, 64, 128, and 256 on 64-key tiles for Gemma-2; the MLA
-family's 192 and 24 zero-padded to 256 and 32 by the wrapper,
-:data:`PADDED_HEAD_DIMS`).
+family's 192 and 24 and debug-vit's 16 zero-padded to 256 and 32 by the
+wrapper, :data:`PADDED_HEAD_DIMS`).
 float32 q, k and v (the GPT-2 and NeoX families serve in float32) take K3's
 float32 instance, :func:`flash_fwd_f32` (``csrc/flash_attention_f32.cu``:
 ``mma.sync`` TF32 products with a 3xTF32 split, so float32 accuracy; head
 dims 32, 64, 80, 128 and 256; causal, ``q_offset``, ``kv_lens``, GQA, the
-scale, ALiBi and dropout; no window or softcap). Its autograd backward is
+scale, ALiBi and dropout; no window, softcap, chunk or segment ids: the
+wrapper raises on them for CUDA tensors). Its autograd backward is
 K6's float32 instance (``flash_attention_bwd.flash_attention_bwd_f32``).
 :func:`flash_attention_fp8` (K7, ``csrc/flash_attention_fp8.cu``, plain
 version :func:`flash_fp8_plain`) is the counterpart of the JAX
@@ -29,8 +30,12 @@ head map, sliding window, softcap, the logit scale, ALiBi (``-slope·|q_pos -
 k_pos|`` after softcap, ``[Hq]`` or ``[B, Hq]`` slopes) and attention dropout
 (``dropout_p``, ``dropout_seed``: the counter hash of
 ``_common.dropout_keep_mask``, ``csrc/dropout.cuh`` on the card, applied to P
-before P·V with the LSE taken from the undropped P). ``attention_chunk`` and
-segment ids are not ported yet and raise on both devices. The autograd
+before P·V with the LSE taken from the undropped P), ``attention_chunk``
+(a query sees only keys of its own length-C chunk, ``floor(q_pos/C)·C <=
+k_pos < + C``) and segment ids (``q_segment_ids [B, Sq]``, ``kv_segment_ids
+[B, Sk]``: a query sees only keys of its own id, the packed sequences of
+``ops/varlen.py``). A negative ``q_offset`` (split-KV's later chunks) is
+taken: rows with no live key give out 0 and LSE -inf. The autograd
 function's backward is K6 (:mod:`.flash_attention_bwd`): its kernels on CUDA
 tensors, its plain version on CPU tensors.
 """
@@ -44,10 +49,12 @@ import torch
 from ..utils.backend import native_fp8_matmul
 from . import _build
 from ._common import (PADDED_HEAD_DIMS, aligned16, alibi_bias, alibi_slopes_tensor,
-                      dropout_args, dropout_inv, dropout_keep, pad_head_dim)
+                      dropout_args, dropout_inv, dropout_keep, f32_card_refuses, live_mask,
+                      pad_head_dim, segment_ids_tensor)
 from .flash_attention_bwd import flash_attention_bwd
 
 __all__ = ["flash_attention", "flash_fwd_plain", "flash_fwd_f32", "F32_HEAD_DIMS",
+           "f32_card_refuses",
            "BF16_HEAD_DIMS", "PADDED_HEAD_DIMS", "pad_head_dim",
            "flash_attention_fp8", "flash_fp8_plain",
            "fp8_prepass", "fp8_prepass_plain", "fp8_v_slots_plain", "fp8_wgmma_ok",
@@ -58,14 +65,16 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def flash_fwd_plain(q, k, v, q_offset, kv_lens, *, causal, window, softcap, scale,
-                    alibi=None, dropout_p: float = 0.0, dropout_seed=0):
+                    alibi=None, dropout_p: float = 0.0, dropout_seed=0,
+                    attention_chunk=None, q_segment_ids=None, kv_segment_ids=None):
     """The kernel's function in plain PyTorch: float32 scores, P rounded to
     V's dtype for the PV product (bf16 for the bf16 kernel; float32 P for
     float32 V, as the TPU kernel's ``p.astype(v.dtype)``), dead rows → out 0
     and lse -inf. ``alibi``: float32 ``[B,
     Hq]`` slopes or None. With dropout the kept entries of P, times
-    ``1/(1 - p)``, feed P·V and the LSE is the undropped P's. Returns
-    ``(out, lse [B, Hq, Sq])``."""
+    ``1/(1 - p)``, feed P·V and the LSE is the undropped P's. The mask is
+    :func:`._common.live_mask` (``kv_lens``, causal, window, chunk, segment
+    ids). Returns ``(out, lse [B, Hq, Sq])``."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     g = Hq // Hk
@@ -77,13 +86,9 @@ def flash_fwd_plain(q, k, v, q_offset, kv_lens, *, causal, window, softcap, scal
         s = softcap * torch.tanh(s / softcap)
     if alibi is not None:
         s = s + alibi_bias(alibi, q_offset, Sq, Sk)
-    q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=q.device)[None, :]
-    k_pos = torch.arange(Sk, device=q.device)
-    mask = k_pos[None, None, :] < kv_lens.long()[:, None, None]
-    if causal:
-        mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
-    if window is not None:
-        mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
+    mask = live_mask(q_offset, kv_lens, Sq, Sk, causal=causal, window=window,
+                     attention_chunk=attention_chunk, q_segment_ids=q_segment_ids,
+                     kv_segment_ids=kv_segment_ids)
     s = torch.where(mask[:, None], s, torch.full_like(s, MASK_VALUE))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -100,7 +105,8 @@ def flash_fwd_plain(q, k, v, q_offset, kv_lens, *, causal, window, softcap, scal
 
 
 def _launch(q, k, v, q_offset, kv_lens, causal, window, softcap, scale, alibi=None,
-            dropout_p=0.0, dropout_seed=0):
+            dropout_p=0.0, dropout_seed=0, attention_chunk=None, q_segment_ids=None,
+            kv_segment_ids=None):
     lib = _build.library("flash_attention")
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
@@ -112,11 +118,13 @@ def _launch(q, k, v, q_offset, kv_lens, causal, window, softcap, scale, alibi=No
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(lse.data_ptr()), ctypes.c_void_p(q_offset.data_ptr()),
         ctypes.c_void_p(kv_lens.data_ptr()),
-        ctypes.c_void_p(alibi.data_ptr() if alibi is not None else 0), ctypes.c_int(B),
-        ctypes.c_int(Sq), ctypes.c_int(Sk), ctypes.c_int(Hq), ctypes.c_int(Hk), ctypes.c_int(D),
-        ctypes.c_float(scale), ctypes.c_int(int(causal)),
+        ctypes.c_void_p(alibi.data_ptr() if alibi is not None else 0),
+        ctypes.c_void_p(q_segment_ids.data_ptr() if q_segment_ids is not None else 0),
+        ctypes.c_void_p(kv_segment_ids.data_ptr() if kv_segment_ids is not None else 0),
+        ctypes.c_int(B), ctypes.c_int(Sq), ctypes.c_int(Sk), ctypes.c_int(Hq), ctypes.c_int(Hk),
+        ctypes.c_int(D), ctypes.c_float(scale), ctypes.c_int(int(causal)),
         ctypes.c_int(window or 0), ctypes.c_float(softcap or 0.0),
-        *dropout_args(dropout_p, dropout_seed),
+        ctypes.c_int(attention_chunk or 0), *dropout_args(dropout_p, dropout_seed),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(lib, err, "flash_attention")
@@ -184,33 +192,36 @@ def _per_row(q_offset, kv_lens, B: int, Sk: int, dev):
 
 class _FlashForward(torch.autograd.Function):
     """Forward through K3, backward through K6 from the saved out and LSE
-    (the LSE itself gets no gradient)."""
+    (the LSE itself gets no gradient; the segment ids ride along, as JAX's
+    ``_flash_bwd_rule`` passes them and the chunk to its backward)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_offset, kv_lens, alibi, cfg):
+    def forward(ctx, q, k, v, q_offset, kv_lens, alibi, q_seg, kv_seg, cfg):
+        seg = dict(q_segment_ids=q_seg, kv_segment_ids=kv_seg)
         if q.is_cuda and q.dtype == torch.float32:
             out, lse = flash_fwd_f32(q, k, v, q_offset, kv_lens, causal=cfg["causal"],
                                      scale=cfg["scale"], alibi=alibi,
                                      dropout_p=cfg["dropout_p"],
                                      dropout_seed=cfg["dropout_seed"])
         elif q.is_cuda:
-            out, lse = _launch(q, k, v, q_offset, kv_lens, alibi=alibi, **cfg)
+            out, lse = _launch(q, k, v, q_offset, kv_lens, alibi=alibi, **seg, **cfg)
         else:
-            out, lse = flash_fwd_plain(q, k, v, q_offset, kv_lens, alibi=alibi, **cfg)
+            out, lse = flash_fwd_plain(q, k, v, q_offset, kv_lens, alibi=alibi, **seg, **cfg)
         ctx.mark_non_differentiable(lse)
-        ctx.save_for_backward(q, k, v, out, lse, q_offset, kv_lens, alibi)
+        ctx.save_for_backward(q, k, v, out, lse, q_offset, kv_lens, alibi, q_seg, kv_seg)
         ctx.cfg = cfg
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, out, lse, q_offset, kv_lens, alibi = ctx.saved_tensors
+        q, k, v, out, lse, q_offset, kv_lens, alibi, q_seg, kv_seg = ctx.saved_tensors
         # float32 CUDA tensors take K6's float32 instance (flash_attention_bwd
         # sends them there).
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
                                          q_offset=q_offset, kv_lens=kv_lens, alibi=alibi,
+                                         q_segment_ids=q_seg, kv_segment_ids=kv_seg,
                                          **ctx.cfg)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -235,17 +246,17 @@ def flash_attention(
     """Flash attention forward; semantics of :func:`..ops.attention.attention_ref`.
 
     Returns ``out [B, Sq, Hq, D]``, or ``(out, lse [B, Hq, Sq] float32)``
-    with ``return_lse``. A head dim of :data:`PADDED_HEAD_DIMS` (24, 192)
-    runs zero-padded to its instance's (32, 256) on either device, the
+    with ``return_lse``. A head dim of :data:`PADDED_HEAD_DIMS` (16, 24, 192)
+    runs zero-padded to its instance's (32, 32, 256) on either device, the
     autograd of the pad and the slice carrying the gradients. Counts the
     bf16 kernel's launches in ``flash_attention.launches`` (the float32
     instance's in ``flash_fwd_f32.launches``).
-    ``alibi_slopes`` (``[Hq]`` or ``[B, Hq]``) gets no gradient.
+    ``alibi_slopes`` (``[Hq]`` or ``[B, Hq]``) gets no gradient; segment ids
+    (``[B, Sq]`` and ``[B, Sk]`` integers, both or neither) and
+    ``attention_chunk`` (a positive int) mask as :func:`._common.live_mask`.
     """
-    if attention_chunk is not None:
-        raise NotImplementedError("flash attention: attention_chunk is not ported yet")
-    if q_segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError("flash attention: segment ids are not ported yet")
+    if attention_chunk is not None and attention_chunk <= 0:
+        raise ValueError(f"attention_chunk {attention_chunk} is not positive")
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p {dropout_p} outside [0, 1)")
     B, Sq, Hq, D = q.shape
@@ -264,23 +275,26 @@ def flash_attention(
             pad_head_dim(q, Dp), pad_head_dim(k, Dp), pad_head_dim(v, Dp), causal=causal,
             window=window, softcap=softcap, scale=scale if scale is not None else D ** -0.5,
             q_offset=q_offset, kv_lens=kv_lens, alibi_slopes=alibi_slopes,
-            dropout_p=dropout_p, dropout_seed=dropout_seed, return_lse=return_lse)
+            attention_chunk=attention_chunk, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids, dropout_p=dropout_p, dropout_seed=dropout_seed,
+            return_lse=return_lse)
         return (out[0][..., :D], out[1]) if return_lse else out[..., :D]
     if D not in dims:
         raise ValueError(f"head_dim {D} not in {dims} (or {tuple(PADDED_HEAD_DIMS)}, padded)")
-    if f32 and q.is_cuda and (window is not None or softcap is not None):
-        raise NotImplementedError("flash attention's float32 instance takes no window or "
-                                  "softcap")
+    if f32 and q.is_cuda:
+        f32_card_refuses(window, softcap, attention_chunk, q_segment_ids)
     dev = q.device
     if not (k.device == v.device == dev):
         raise ValueError("q, k and v must be on one device")
     q_offset, kv_lens = _per_row(q_offset, kv_lens, B, Sk, dev)
     alibi = alibi_slopes_tensor(alibi_slopes, Hq, dev, batch=B)
+    q_seg, kv_seg = segment_ids_tensor(q_segment_ids, kv_segment_ids, B, Sq, Sk, dev)
     cfg = dict(causal=causal, window=window, softcap=softcap,
                scale=scale if scale is not None else D ** -0.5,
-               dropout_p=float(dropout_p), dropout_seed=int(dropout_seed))
+               dropout_p=float(dropout_p), dropout_seed=int(dropout_seed),
+               attention_chunk=attention_chunk)
     out, lse = _FlashForward.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   q_offset, kv_lens, alibi, cfg)
+                                   q_offset, kv_lens, alibi, q_seg, kv_seg, cfg)
     return (out, lse) if return_lse else out
 
 

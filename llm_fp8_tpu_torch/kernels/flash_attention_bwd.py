@@ -27,7 +27,8 @@ derivative reads the unbiased capped score); dropout rebuilds the forward's
 keep mask from the same counter hash (``csrc/dropout.cuh``), feeds the
 kept and scaled p to dV and masks dP, while dS uses the undropped p and
 ``di`` (``o`` is the dropped output). ``attention_chunk`` and segment ids
-are not ported (the forward raises on them).
+mask as in the forward (``_common.live_mask``; the EXTRA instances on the
+card, which skip the tiles outside every row's chunk).
 
 float32 q/k/v (the GPT-2 and NeoX families train in float32) take K6's
 float32 instance on the card, :func:`flash_attention_bwd_f32`
@@ -35,7 +36,7 @@ float32 instance on the card, :func:`flash_attention_bwd_f32`
 TF32 products with a 3xTF32 split, so float32 accuracy; p and ds stay
 float32, as the TPU kernel keeps them in q's dtype; head dims 32, 64, 80,
 128 and 256; causal, ``q_offset``, ``kv_lens``, GQA, the scale, ALiBi and
-dropout; no window or softcap).
+dropout; no window, softcap, chunk or segment ids on the card).
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ import torch
 
 from . import _build
 from ._common import (PADDED_HEAD_DIMS, aligned16, alibi_bias, dropout_args, dropout_inv,
-                      dropout_keep, pad_head_dim)
+                      dropout_keep, f32_card_refuses, live_mask, pad_head_dim)
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "flash_bwd_dkv",
            "flash_bwd_dq", "recompute_p_ds", "row_di", "flash_attention_bwd_f32",
@@ -64,7 +65,8 @@ def row_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def recompute_p_ds(q, k, v, lse, do, di, q_offset, kv_lens, *, causal: bool,
                    window: Optional[int], softcap: Optional[float], scale: float,
-                   alibi=None, dropout_p: float = 0.0, dropout_seed=0):
+                   alibi=None, dropout_p: float = 0.0, dropout_seed=0,
+                   attention_chunk=None, q_segment_ids=None, kv_segment_ids=None):
     """p (as applied to V in the forward: kept and scaled under dropout) and
     ds ``[B, Hq, Sq, Sk]`` in float32 (before their rounding to q's dtype),
     the TPU kernel's ``_recompute_p_and_ds`` over the whole score matrix."""
@@ -78,13 +80,9 @@ def recompute_p_ds(q, k, v, lse, do, di, q_offset, kv_lens, *, causal: bool,
     s = (qf @ kf.transpose(-1, -2)) * scale
     z = softcap * torch.tanh(s / softcap) if softcap is not None else s
     z_b = z + alibi_bias(alibi, q_offset, Sq, Sk) if alibi is not None else z
-    q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=q.device)[None, :]
-    k_pos = torch.arange(Sk, device=q.device)
-    mask = k_pos[None, None, :] < kv_lens.long()[:, None, None]
-    if causal:
-        mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
-    if window is not None:
-        mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
+    mask = live_mask(q_offset, kv_lens, Sq, Sk, causal=causal, window=window,
+                     attention_chunk=attention_chunk, q_segment_ids=q_segment_ids,
+                     kv_segment_ids=kv_segment_ids)
     finite = torch.isfinite(lse)[..., None]
     lse0 = torch.where(finite, lse[..., None], torch.zeros_like(lse[..., None]))
     p = torch.where(mask[:, None] & finite, torch.exp(z_b - lse0), torch.zeros_like(z))
@@ -103,7 +101,8 @@ def recompute_p_ds(q, k, v, lse, do, di, q_offset, kv_lens, *, causal: bool,
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool, window: Optional[int],
                               softcap: Optional[float], scale: float, q_offset, kv_lens,
-                              alibi=None, dropout_p: float = 0.0, dropout_seed=0):
+                              alibi=None, dropout_p: float = 0.0, dropout_seed=0,
+                              attention_chunk=None, q_segment_ids=None, kv_segment_ids=None):
     """The kernels' function in plain PyTorch. Returns ``dq, dk, dv`` (bshd,
     in q's, k's and v's dtypes)."""
     B, Sq, Hq, D = q.shape
@@ -111,7 +110,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool, window: Opti
     g = Hq // Hk
     p, ds = recompute_p_ds(q, k, v, lse, do, row_di(o, do), q_offset, kv_lens,
                            causal=causal, window=window, softcap=softcap, scale=scale,
-                           alibi=alibi, dropout_p=dropout_p, dropout_seed=dropout_seed)
+                           alibi=alibi, dropout_p=dropout_p, dropout_seed=dropout_seed,
+                           attention_chunk=attention_chunk, q_segment_ids=q_segment_ids,
+                           kv_segment_ids=kv_segment_ids)
     # p and ds in q's dtype for the products (the TPU kernel's ``astype(q.dtype)``):
     # bf16 for the bf16 kernel, float32 for the float32 instance.
     pb = p.to(q.dtype).float()
@@ -132,12 +133,16 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool, window: Opti
 def _common_args(q, k, cfg):
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
-    alibi = cfg.get("alibi")
-    return [ctypes.c_void_p(alibi.data_ptr() if alibi is not None else 0),
+
+    def ptr(key):
+        t = cfg.get(key)
+        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+    return [ptr("alibi"), ptr("q_segment_ids"), ptr("kv_segment_ids"),
             ctypes.c_int(B), ctypes.c_int(Sq), ctypes.c_int(Sk), ctypes.c_int(Hq),
             ctypes.c_int(Hk), ctypes.c_int(D), ctypes.c_float(cfg["scale"]),
             ctypes.c_int(int(cfg["causal"])), ctypes.c_int(cfg["window"] or 0),
-            ctypes.c_float(cfg["softcap"] or 0.0),
+            ctypes.c_float(cfg["softcap"] or 0.0), ctypes.c_int(cfg.get("attention_chunk") or 0),
             *dropout_args(cfg.get("dropout_p", 0.0), cfg.get("dropout_seed", 0)),
             ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)]
 
@@ -175,16 +180,22 @@ def flash_bwd_dq(q, k, v, o, do, lse, q_offset, kv_lens, **cfg):
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: Optional[int],
                         softcap: Optional[float], scale: float, q_offset: torch.Tensor,
                         kv_lens: torch.Tensor, alibi: Optional[torch.Tensor] = None,
-                        dropout_p: float = 0.0, dropout_seed=0):
+                        dropout_p: float = 0.0, dropout_seed=0,
+                        attention_chunk: Optional[int] = None,
+                        q_segment_ids: Optional[torch.Tensor] = None,
+                        kv_segment_ids: Optional[torch.Tensor] = None):
     """``dq, dk, dv`` of flash attention from the forward's ``o`` and ``lse``
     (``[B, Hq, Sq]`` float32) and the output gradient ``do``. ``q_offset``
     and ``kv_lens`` are int32 ``[B]`` tensors on q's device; ``alibi`` the
-    float32 ``[B, Hq]`` slopes or None; ``dropout_p``/``dropout_seed`` the
-    forward's. On the card a head dim of 24 or 192 runs zero-padded to the
-    32 or 256 instance (``PADDED_HEAD_DIMS``) and dq, dk, dv are sliced back
-    (the autograd path pads before the forward, so it arrives padded)."""
+    float32 ``[B, Hq]`` slopes or None; ``dropout_p``/``dropout_seed``,
+    ``attention_chunk`` and the int32 segment ids (``[B, Sq]``, ``[B, Sk]``)
+    the forward's. On the card a head dim of 16, 24 or 192 runs zero-padded
+    to the 32 or 256 instance (``PADDED_HEAD_DIMS``) and dq, dk, dv are
+    sliced back (the autograd path pads before the forward, so it arrives
+    padded)."""
     cfg = dict(causal=causal, window=window, softcap=softcap, scale=scale, alibi=alibi,
-               dropout_p=dropout_p, dropout_seed=dropout_seed)
+               dropout_p=dropout_p, dropout_seed=dropout_seed, attention_chunk=attention_chunk,
+               q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
     D = q.shape[-1]
     if q.is_cuda and D in PADDED_HEAD_DIMS:  # onto the padded instance, as the forward
         Dp = PADDED_HEAD_DIMS[D]
@@ -199,7 +210,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: Optional[i
                                        kv_lens=kv_lens, **cfg)
     B, Sq, Hq, D = q.shape
     if D not in (32, 64, 128, 256) or q.dtype != torch.bfloat16 or do.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention_bwd: bf16 with head_dim 32/64/128/256 (24/192 "
+        raise ValueError(f"flash_attention_bwd: bf16 with head_dim 32/64/128/256 (16/24/192 "
                          f"padded), got {q.dtype} D={D}, do {do.dtype}")
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be float32 {(B, Hq, Sq)}, "
@@ -262,28 +273,30 @@ def flash_attention_bwd_f32(q, k, v, o, lse, do, *, causal: bool, scale: float,
                             q_offset: torch.Tensor, kv_lens: torch.Tensor,
                             alibi: Optional[torch.Tensor] = None, dropout_p: float = 0.0,
                             dropout_seed=0, window: Optional[int] = None,
-                            softcap: Optional[float] = None, passes: int = 3):
+                            softcap: Optional[float] = None, attention_chunk=None,
+                            q_segment_ids=None, kv_segment_ids=None, passes: int = 3):
     """K6's float32 instance: ``dq, dk, dv`` of float32 attention, the
     arguments of :func:`flash_attention_bwd`. On CUDA tensors it launches
     the dQ kernel (which writes di) and then the dKV kernel, and raises on
-    what they do not take (another dtype or head dim, a window, a softcap);
-    on CPU tensors it takes :func:`flash_attention_bwd_plain`. ``passes=1``
-    runs the products in single-pass TF32 (the planted fault of the card's
-    checks)."""
+    what they do not take (another dtype or head dim, a window, a softcap, a
+    chunk, segment ids); on CPU tensors it takes
+    :func:`flash_attention_bwd_plain`. ``passes=1`` runs the products in
+    single-pass TF32 (the planted fault of the card's checks)."""
     cfg = dict(causal=causal, scale=scale, alibi=alibi, dropout_p=dropout_p,
                dropout_seed=dropout_seed)
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, o, lse, do, q_offset=q_offset,
-                                         kv_lens=kv_lens, window=window, softcap=softcap, **cfg)
+                                         kv_lens=kv_lens, window=window, softcap=softcap,
+                                         attention_chunk=attention_chunk,
+                                         q_segment_ids=q_segment_ids,
+                                         kv_segment_ids=kv_segment_ids, **cfg)
     B, Sq, Hq, D = q.shape
     if not all(t.dtype == torch.float32 for t in (q, k, v, o, do)):
         raise TypeError(f"flash_attention_bwd_f32 takes float32 q, k, v, o and do, got "
                         f"{[str(t.dtype) for t in (q, k, v, o, do)]}")
     if D not in F32_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd_f32: head_dim {D} not in {F32_HEAD_DIMS}")
-    if window is not None or softcap is not None:
-        raise NotImplementedError("flash_attention_bwd_f32 takes no window or softcap (no "
-                                  "GPT-2/NeoX model uses them)")
+    f32_card_refuses(window, softcap, attention_chunk, q_segment_ids)
     if passes not in (1, 3):
         raise ValueError(f"passes {passes} is not 1 or 3")
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:

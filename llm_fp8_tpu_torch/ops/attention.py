@@ -6,6 +6,15 @@ JAX package, so plain PyTorch is their faithful port. ``attention`` sends
 Sq == 1 to ``decode_attention`` and everything else to K3 (the flash kernel)
 on a CUDA tensor or to ``attention_ref`` on a CPU tensor.
 
+Segment ids (``q_segment_ids [B, Sq]``, ``kv_segment_ids [B, Sk]``, the
+packed-varlen mask of ``ops/varlen.py::pack_sequences``) are taken by
+``attention_ref`` and K3, not by ``attention``, as in the JAX package: a
+position attends only to keys of its own id (0, the packer's padding, is an
+id like any other). ``decode_attention(num_splits=N)`` cuts the cache into N
+chunks whose partial attentions merge by their log-sum-exps
+(``ops/split_kv.py::combine_partials``); ``"auto"`` resolves through
+``split_kv.auto_num_splits``, which gives 1 unless told the core count.
+
 ALiBi (``alibi_slopes``, ``[Hq]`` or ``[B, Hq]``) adds ``-slope·|q_pos -
 k_pos|`` on absolute positions after softcap; attention dropout
 (``dropout_p``, ``dropout_seed``) drops softmax weights by the stateless
@@ -52,8 +61,10 @@ def default_alibi_slopes(nheads: int, device=None) -> torch.Tensor:
 
 
 def _build_mask(q_len, k_len, causal, window, q_offset, kv_lens, batch, device,
-                attention_chunk=None, kv_start=None):
-    """Boolean mask ``[B or 1, 1, q_len, k_len]``, True = attend."""
+                attention_chunk=None, kv_start=None, q_segment_ids=None,
+                kv_segment_ids=None):
+    """Boolean mask ``[B or 1, 1, q_len, k_len]``, True = attend. With
+    ``q_segment_ids`` a query attends only to keys of its own id."""
     q_offset = torch.as_tensor(q_offset, dtype=torch.int64, device=device).reshape(-1)
     q_pos = (q_offset[:, None] + torch.arange(q_len, device=device)[None, :])[:, :, None]
     k_pos = torch.arange(k_len, device=device)[None, None, :]
@@ -70,17 +81,23 @@ def _build_mask(q_len, k_len, causal, window, q_offset, kv_lens, batch, device,
         mask = mask & (k_pos < kv_lens.to(device).long()[:, None, None])[:, None]
     if kv_start is not None:
         mask = mask & (k_pos >= kv_start.to(device).long()[:, None, None])[:, None]
+    if q_segment_ids is not None:
+        qs = torch.as_tensor(q_segment_ids, device=device).long()
+        ks = torch.as_tensor(kv_segment_ids, device=device).long()
+        mask = mask & (qs[:, None, :, None] == ks[:, None, None, :])
     return mask
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                   softcap: Optional[float] = None, scale: Optional[float] = None,
                   q_offset=0, kv_lens: Optional[torch.Tensor] = None,
+                  q_segment_ids=None, kv_segment_ids=None,
                   attention_chunk: Optional[int] = None,
                   kv_start: Optional[torch.Tensor] = None, alibi_slopes=None,
                   dropout_p: float = 0.0, dropout_seed=0):
     """Golden attention in float32. q ``[B, Sq, Hq, D]``, k/v ``[B, Sk, Hk, D]``
-    (bshd); returns ``[B, Sq, Hq, D]`` in q's dtype."""
+    (bshd); returns ``[B, Sq, Hq, D]`` in q's dtype. A row with no live key
+    gives zeros."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     g = Hq // Hk
@@ -98,7 +115,7 @@ def attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
         logits = logits + alibi_bias(alibi_slopes_tensor(alibi_slopes, Hq, q.device, batch=B),
                                      q_off, Sq, Sk)
     mask = _build_mask(Sq, Sk, causal, window, q_offset, kv_lens, B, q.device,
-                       attention_chunk, kv_start)
+                       attention_chunk, kv_start, q_segment_ids, kv_segment_ids)
     logits = torch.where(mask, logits, torch.full_like(logits, -float("inf")))
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(mask.any(dim=-1, keepdim=True), probs, torch.zeros_like(probs))
@@ -112,15 +129,33 @@ def decode_attention(q, k, v, *, scale: Optional[float] = None,
                      kv_lens: Optional[torch.Tensor] = None, window: Optional[int] = None,
                      softcap: Optional[float] = None, q_offset=0,
                      attention_chunk: Optional[int] = None,
-                     kv_start: Optional[torch.Tensor] = None, alibi_slopes=None):
-    """Single-token decode attention, GQA-grouped, float32 (unsplit: the JAX
-    ``num_splits`` lever resolves to 1 off multi-core TPUs and is not ported)."""
+                     kv_start: Optional[torch.Tensor] = None, alibi_slopes=None,
+                     num_splits=1):
+    """Single-token decode attention, GQA-grouped, float32. ``num_splits``:
+    an integer that divides S cuts the cache into that many chunks merged by
+    LSE (:func:`_decode_attention_split`); ``"auto"`` takes
+    :func:`..ops.split_kv.auto_num_splits` (1 unless a core count is given)
+    and falls back to 1 where its choice does not divide S."""
     B, Sq, Hq, D = q.shape
     if Sq != 1:
         raise ValueError(f"decode_attention takes one query position, got {Sq}")
     S, Hk = k.shape[1], k.shape[2]
     g = Hq // Hk
     scale = scale if scale is not None else D ** -0.5
+    if num_splits == "auto":
+        from .split_kv import auto_num_splits
+
+        num_splits = auto_num_splits(B, Hk, S)
+        if S % num_splits:
+            num_splits = 1
+    elif num_splits > 1 and S % num_splits:
+        raise ValueError(f"num_splits={num_splits} must divide the KV length S={S}; "
+                         "pass num_splits='auto' for a divisibility-safe choice")
+    if num_splits > 1:
+        return _decode_attention_split(q, k, v, int(num_splits), scale=scale, kv_lens=kv_lens,
+                                       window=window, softcap=softcap, q_offset=q_offset,
+                                       alibi_slopes=alibi_slopes,
+                                       attention_chunk=attention_chunk, kv_start=kv_start)
     qg = (q.float() * scale).reshape(B, Hk, g, D)
     s = torch.einsum("bhgd,bshd->bhgs", qg, k.float())
     if softcap is not None:
@@ -130,21 +165,73 @@ def decode_attention(q, k, v, *, scale: Optional[float] = None,
     if alibi_slopes is not None:
         s = s + alibi_bias(alibi_slopes_tensor(alibi_slopes, Hq, q.device, batch=B), q_pos, 1,
                            S).reshape(B, Hk, g, S)
-    mask = k_pos[None, :] <= q_pos[:, None]
-    if kv_lens is not None:
-        mask = mask & (k_pos[None, :] < kv_lens.to(q.device).long()[:, None])
-    if kv_start is not None:
-        mask = mask & (k_pos[None, :] >= kv_start.to(q.device).long()[:, None])
-    if window is not None:
-        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
-    if attention_chunk is not None:
-        mask = mask & (k_pos[None, :] >= torch.div(
-            q_pos[:, None], attention_chunk, rounding_mode="floor") * attention_chunk)
+    mask = _decode_mask(k_pos[None, :], q_pos[:, None], kv_lens, kv_start, window,
+                        attention_chunk)
     s = torch.where(mask[:, None, None, :], s, torch.full_like(s, -float("inf")))
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), torch.zeros_like(p), p)
     o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def _decode_mask(k_pos, q_pos, kv_lens, kv_start, window, attention_chunk):
+    """The decode step's live keys: ``k_pos`` absolute key positions and
+    ``q_pos`` the ``[B]`` query positions, broadcast against each other
+    (``[B, 1]`` against ``[S]``, or ``[B, 1, 1]`` against ``[N, C]``)."""
+    def per_row(t):
+        return t.to(q_pos.device).long().reshape(q_pos.shape)
+
+    mask = k_pos <= q_pos
+    if kv_lens is not None:
+        mask = mask & (k_pos < per_row(kv_lens))
+    if kv_start is not None:
+        mask = mask & (k_pos >= per_row(kv_start))
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
+    if attention_chunk is not None:
+        mask = mask & (k_pos >= torch.div(q_pos, attention_chunk, rounding_mode="floor")
+                       * attention_chunk)
+    return mask
+
+
+def _decode_attention_split(q, k, v, num_splits: int, *, scale: float, kv_lens, window,
+                            softcap, q_offset, alibi_slopes, attention_chunk, kv_start=None):
+    """Decode attention as ``num_splits`` KV-chunk partials merged by
+    :func:`..ops.split_kv.combine_partials` (JAX's ``_decode_attention_split``,
+    in XLA there): per chunk the max, the weights, the normalized partial
+    output and its LSE (-inf for a chunk with no live key)."""
+    from .split_kv import combine_partials
+
+    B, _, Hq, D = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    g = Hq // Hk
+    N, C = num_splits, S // num_splits
+    kc = k.float().reshape(B, N, C, Hk, D)
+    vc = v.float().reshape(B, N, C, Hk, D)
+    qg = (q.float() * scale).reshape(B, Hk, g, D)
+    s = torch.einsum("bhgd,bnchd->bnhgc", qg, kc)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    k_pos = (torch.arange(N, device=q.device) * C)[:, None] + torch.arange(C, device=q.device)
+    q_pos = torch.as_tensor(q_offset, dtype=torch.int64, device=q.device).reshape(-1).expand(B)
+    if alibi_slopes is not None:
+        slopes = alibi_slopes_tensor(alibi_slopes, Hq, q.device, batch=B)
+        dist = (q_pos[:, None, None] - k_pos[None]).abs().float()  # [B, N, C]
+        s = s - slopes.reshape(B, 1, Hk, g, 1) * dist[:, :, None, None, :]
+    mask = _decode_mask(k_pos[None], q_pos[:, None, None], kv_lens, kv_start, window,
+                        attention_chunk)
+    s = torch.where(mask[:, :, None, None, :], s, torch.full_like(s, -float("inf")))
+    m = s.amax(dim=-1)  # [B, N, Hk, g]
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]), torch.zeros_like(s))
+    denom = w.sum(dim=-1)
+    o = torch.einsum("bnhgc,bnchd->bnhgd", w, vc)
+    o = o / torch.where(denom == 0.0, torch.ones_like(denom), denom)[..., None]
+    lse = torch.where(denom > 0.0, m_safe + torch.log(denom.clamp_min(1e-37)),
+                      torch.full_like(denom, -float("inf")))
+    outs = o.permute(1, 0, 2, 3, 4).reshape(N, B, 1, Hq, D)
+    lses = lse.permute(1, 0, 2, 3).reshape(N, B, 1, Hq)
+    return combine_partials(outs, lses).to(q.dtype)
 
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -160,7 +247,7 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
         return decode_attention(q, k, v, scale=scale, kv_lens=kv_lens, window=window,
                                 softcap=softcap, q_offset=q_offset,
                                 attention_chunk=attention_chunk, kv_start=kv_start,
-                                alibi_slopes=alibi_slopes)
+                                alibi_slopes=alibi_slopes, num_splits="auto")
     if q.is_cuda:
         if kv_start is not None:
             raise NotImplementedError("kv_start is a decode-path feature")

@@ -25,8 +25,9 @@ shape and the 8-slot decode.
 32, 64 and 128 (plain, window and softcap, ALiBi and dropout): whether the
 outputs (out and lse; dq, dk and dv) are equal bit for bit, and the device
 time of both builds in turns (old, new, new, old), so that a change to the
-kernels' sources (a new head dim) can be shown to leave the existing
-instances as they were.
+kernels' sources (a new head dim, a new mask) can be shown to leave the
+existing instances as they were. A build older than the segment ids and the
+chunk is called without those arguments.
 
     python -m llm_fp8_tpu_torch.scripts.kernel_variants [k1-splits] [k1-merge] [k7-exp]
     python -m llm_fp8_tpu_torch.scripts.kernel_variants k3k6-bits OLD_CHECKOUT/llm_fp8_tpu_torch/csrc
@@ -370,8 +371,32 @@ _BITS_CASES = (
      0.0),
     ("B2 S300 Hq8 Hk8 D32 window 50", 2, 300, 8, 8, 32, 50, None, False, 0.0),
     ("B2 S1024 Hq40 Hk40 D128 alibi", 2, 1024, 40, 40, 128, None, None, True, 0.0),
+    ("B1 S4096 Hq40 Hk40 D128 alibi", 1, 4096, 40, 40, 128, None, None, True, 0.0),
     ("B8 S512 Hq32 Hk8 D64 dropout 0.1", 8, 512, 32, 8, 64, None, None, False, 0.1),
 )
+
+
+class _WithoutMasks:
+    """An older K3 or K6 build whose launchers predate segment ids and the
+    chunk: the wrappers' calls reach it with those three arguments (null
+    ids, chunk 0) left out."""
+
+    #: launcher → positions of q_seg, kv_seg and chunk in its arguments
+    MASK_ARGS = {"flash_fwd_launch": (8, 9, 20), "flash_bwd_dkv_launch": (11, 12, 23),
+                 "flash_bwd_dq_launch": (11, 12, 23)}
+
+    def __init__(self, lib, name):
+        self._lib = lib
+        for fn, argtypes in _build._SIGNATURES[name].items():
+            skip = self.MASK_ARGS[fn]
+            getattr(lib, fn).argtypes = [a for i, a in enumerate(argtypes) if i not in skip]
+
+    def __getattr__(self, fn):
+        if fn not in self.MASK_ARGS:
+            return getattr(self._lib, fn)
+        skip = self.MASK_ARGS[fn]
+        return lambda *args: getattr(self._lib, fn)(
+            *(a for i, a in enumerate(args) if i not in skip))
 
 
 def k3k6_bits(dev: torch.device, old: Path) -> None:
@@ -381,8 +406,11 @@ def k3k6_bits(dev: torch.device, old: Path) -> None:
 
     names = ("flash_attention", "flash_attention_bwd")
     new = {n: _build.library(n) for n in names}
-    olds = {n: _build_variants({"old": (old / f"{n}.cu").read_text()}, n, old)["old"]
-            for n in names}
+    olds = {}
+    for n in names:
+        src = (old / f"{n}.cu").read_text()
+        lib = _build_variants({"old": src}, n, old)["old"]
+        olds[n] = lib if "q_seg" in src else _WithoutMasks(lib, n)
     g = torch.Generator(device=dev).manual_seed(97)
 
     def use(libs):

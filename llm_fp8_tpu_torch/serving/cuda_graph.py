@@ -11,8 +11,12 @@ that every kernel is built and has set its attributes (``nvcc`` and
 ``cudaFuncSetAttribute`` must not run inside a capture) and cuBLAS has its
 workspace; that warm-up's writes to the ``state`` buffers (and the draws
 from ``generator``) are then undone. It writes the caches only at the rows
-the first replay writes again. Then the body is captured. A capture that
-fails raises: nothing carries on eagerly.
+the first replay writes again. Then the body is captured, with Python's
+cyclic garbage collector paused: a collection inside the capture can free
+another engine's graph, and destroying a graph while one is being captured
+invalidates the capture (on the H100, when a harness replaced speculative
+engines in a loop). A capture that fails raises: nothing carries on
+eagerly.
 
 The kernel wrappers count a launch where they enqueue their kernel, so at
 the warm-up and in the capture, never at a replay. :attr:`StepGraph.launches`
@@ -21,6 +25,7 @@ holds the counts of the capture, which each replay launches again, and
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -72,8 +77,16 @@ class StepGraph:
         if self._generator is not None:
             graph.register_generator_state(self._generator)
         before = _counts()
-        with torch.cuda.graph(graph):
-            self._body()
+        # The collector paused (see the module note); torch.cuda.graph
+        # collects once before the capture begins.
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self._body()
+        finally:
+            if gc_was_on:
+                gc.enable()
         after = _counts()
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         self._graph = graph

@@ -29,7 +29,7 @@ from llm_fp8_tpu.ops.attention import decode_attention as jax_decode_attention
 from llm_fp8_tpu_torch.convert import tensor_from_numpy
 from llm_fp8_tpu_torch.kernels import KERNEL_WRAPPERS
 from llm_fp8_tpu_torch.kernels.decode_attention import decode_attention_arena
-from llm_fp8_tpu_torch.kernels.flash_attention import flash_attention
+from llm_fp8_tpu_torch.kernels.flash_attention import f32_card_refuses, flash_attention
 from llm_fp8_tpu_torch.ops.attention import attention, attention_ref, decode_attention
 
 
@@ -83,22 +83,26 @@ def test_flash_plain_matches_jax_flash_forward(name):
 @pytest.mark.parametrize("feature", ["alibi_slopes", "attention_chunk", "q_segment_ids",
                                      "dropout_p"])
 def test_flash_unported_features_raise(feature):
-    # ALiBi and dropout are ported: those cases check that K3 (its plain
-    # version) follows attention_ref with them, within two bf16 ulps (P is
-    # rounded to bf16 in K3 only); the others still raise.
-    value = {"alibi_slopes": torch.tensor([0.5, 0.125]), "attention_chunk": 2,
-             "q_segment_ids": torch.zeros((1, 4), dtype=torch.int32), "dropout_p": 0.3}[feature]
-    if feature in ("alibi_slopes", "dropout_p"):
-        rng = np.random.default_rng(2)
-        q = torch.from_numpy(rng.standard_normal((1, 16, 2, 32)).astype(np.float32)).to(
-            torch.bfloat16)
-        out = flash_attention(q, q, q, **{feature: value}).float().numpy()
-        ref = attention_ref(q.float(), q.float(), q.float(), **{feature: value}).numpy()
-        np.testing.assert_allclose(out, ref, rtol=0, atol=2 * _ulp(ref))
-        return
-    q = torch.zeros((1, 4, 2, 32), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, **{feature: value})
+    # Every feature is ported: each case checks that K3 (its plain version)
+    # follows attention_ref with it, within two bf16 ulps (P is rounded to
+    # bf16 in K3 only). The chunk and segment ids (packed: two sequences and
+    # a padding tail of id 0) still raise on the card's path of K3's float32
+    # instance, which is all that raises now.
+    seg = torch.tensor([[1] * 5 + [2] * 7 + [0] * 4], dtype=torch.int32)
+    kw = {"alibi_slopes": {"alibi_slopes": torch.tensor([0.5, 0.125])},
+          "attention_chunk": {"attention_chunk": 5},
+          "q_segment_ids": {"q_segment_ids": seg, "kv_segment_ids": seg},
+          "dropout_p": {"dropout_p": 0.3}}[feature]
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((1, 16, 2, 32)).astype(np.float32)).to(
+        torch.bfloat16)
+    out = flash_attention(q, q, q, **kw).float().numpy()
+    ref = attention_ref(q.float(), q.float(), q.float(), **kw).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=2 * _ulp(ref))
+    if feature in ("attention_chunk", "q_segment_ids"):
+        with pytest.raises(NotImplementedError, match="float32 instances"):
+            f32_card_refuses(attention_chunk=kw.get("attention_chunk"),
+                             segment_ids=kw.get("q_segment_ids"))
 
 
 def test_flash_kv_lens_needs_one_length_per_row():

@@ -243,3 +243,42 @@ def test_rotary_frequencies_are_built_once_per_device(models, monkeypatch):
     eng.run()
     assert len(calls) == 2  # one more model shape, built once for all its steps
     tl._inv_freq.cache_clear()
+
+
+def test_graph_capture_pauses_cyclic_garbage_collection(monkeypatch):
+    """``StepGraph.capture`` runs the captured body with Python's cyclic
+    collector paused (a collection inside a capture can free another
+    engine's graph, which invalidates the capture on the card) and restores
+    it after, also when the body raises. The card's stream and graph calls
+    are stood in for by no-ops on this CPU build."""
+    import contextlib
+    import gc
+
+    from llm_fp8_tpu_torch.serving.cuda_graph import StepGraph
+
+    class Fake:
+        def __init__(self, *a, **k):
+            pass
+
+        def __getattr__(self, name):
+            return lambda *a, **k: None
+
+    monkeypatch.setattr(torch.cuda, "Stream", Fake)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Fake)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: Fake())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", lambda g: contextlib.nullcontext())
+    seen = []
+    graph = StepGraph(lambda: seen.append(gc.isenabled()), state=[torch.zeros(2)])
+    assert gc.isenabled()
+    graph.capture()
+    assert seen == [True, False] and gc.isenabled() and graph.captures == 1
+
+    def boom():
+        seen.append(gc.isenabled())
+        if len(seen) > 3:
+            raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        StepGraph(boom, state=[]).capture()
+    assert seen[2:] == [True, False] and gc.isenabled()

@@ -24,7 +24,7 @@ import torch
 from llm_fp8_tpu.kernels.flash_attention import flash_attention as jax_flash
 from llm_fp8_tpu_torch.convert import tensor_from_numpy
 from llm_fp8_tpu_torch.kernels import launch_counts, reset_launch_counts
-from llm_fp8_tpu_torch.kernels.flash_attention import flash_attention
+from llm_fp8_tpu_torch.kernels.flash_attention import f32_card_refuses, flash_attention
 from llm_fp8_tpu_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from llm_fp8_tpu_torch.ops.attention import attention_ref
 
@@ -94,23 +94,26 @@ def test_plain_k6_matches_jax_backward(name):
 
 
 def test_backward_raises_on_what_the_forward_refuses():
-    # ALiBi and dropout are ported: their backward matches the gradient of
-    # attention_ref under torch autograd (tolerances of the cases above).
+    # ALiBi, dropout, the chunk and segment ids are ported: their backward
+    # matches the gradient of attention_ref under torch autograd (tolerances
+    # of the cases above). Only K6's float32 instance still refuses the
+    # chunk and segment ids, on the card's path.
     rng = np.random.default_rng(5)
     qkv = [torch.from_numpy(rng.standard_normal((1, 8, 2, 32)).astype(np.float32))
            .to(torch.bfloat16).requires_grad_() for _ in range(3)]
+    seg = torch.tensor([[1, 1, 1, 2, 2, 2, 2, 0]], dtype=torch.int32)
     for kw in ({"alibi_slopes": torch.tensor([0.5, 0.25])},
-               {"dropout_p": 0.25, "dropout_seed": 3}):
+               {"dropout_p": 0.25, "dropout_seed": 3}, {"attention_chunk": 3},
+               {"q_segment_ids": seg, "kv_segment_ids": seg}):
         out = flash_attention(*qkv, **kw)
         got = torch.autograd.grad(out, qkv, torch.ones_like(out))
         f32 = [t.detach().float().requires_grad_() for t in qkv]
         want = torch.autograd.grad(attention_ref(*f32, **kw), f32, torch.ones_like(out).float())
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=2e-2, atol=2e-2)
-    q = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, requires_grad=True)
-    for kw in ({"attention_chunk": 4}, {"q_segment_ids": torch.zeros((1, 8), dtype=torch.int32)}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            flash_attention(q, q, q, **kw)
+    for kw in ({"attention_chunk": 4}, {"segment_ids": seg}):
+        with pytest.raises(NotImplementedError, match="float32 instances"):
+            f32_card_refuses(**kw)
 
 
 def test_plain_k6_gradients_are_deterministic():

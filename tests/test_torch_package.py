@@ -48,7 +48,9 @@ PORT_MODULES = [
     "llm_fp8_tpu_torch.serving.paged_engine", "llm_fp8_tpu_torch.serving.cuda_graph",
     "llm_fp8_tpu_torch.serving.speculative", "llm_fp8_tpu_torch.serving.spec_engine",
     "llm_fp8_tpu_torch.models.hf_loader", "llm_fp8_tpu_torch.cli.serve",
-    "llm_fp8_tpu_torch.convert", "chip_smoke",
+    "llm_fp8_tpu_torch.convert", "llm_fp8_tpu_torch.models.bert",
+    "llm_fp8_tpu_torch.models.vit", "llm_fp8_tpu_torch.ops.varlen",
+    "llm_fp8_tpu_torch.ops.split_kv", "chip_smoke",
 ]
 
 
