@@ -105,7 +105,7 @@ Phases, in order; any failure exits non-zero before the last line:
    the plain mask bit for bit; each timed beside its dropout-free time.
    ``alibi_serve``: Baichuan-13B at full width: 2-layer slices card against
    CPU (arena, paged; the xla passes held to a share of the logits' std,
-   the 1B's 0.06 not being met at this width), then 12 of 40 layers with LAYERWISE fp8 weights (made
+   the 1B's 0.06 not being met at this width), then 8 of 40 layers with LAYERWISE fp8 weights (made
    a layer at a time) and fp8 KV through the arena engine and the paged
    engine (8 prompts of 3500 tokens), graph against eager tokens.
 8. ``train_rest``: 8 layers at 1B width, 10 steps under remat none, full
@@ -171,14 +171,14 @@ Phases, in order; any failure exits non-zero before the last line:
    ``BAICHUAN_XLA_TOL_STD`` of the logits' std. ``gemma_train_slice``:
    gemma2-2b cut to 2 layers, one bf16-recipe step card against CPU (loss
    and every gradient), without and with dropout 0.1. ``gemma_serve``:
-   gemma2-9b at 12 of 42 layers through ``Engine(forward_fn=gemma_forward)``
+   gemma2-9b at 8 of 42 layers through ``Engine(forward_fn=gemma_forward)``
    (fp8 weights made two layers at a time, e4m3 KV, 8192 tokens a slot, 6
    prompts of 500-1000 tokens and 2 of 4500-6000, 32 new each), graph
    against eager tokens, K3 and K9 launches, step ms, TTFT, peak memory,
    busy share. ``gemma_train``: gemma2-2b at all 26 layers, float32 master
    weights and AdamW, 2 x 1024 tokens, 3 steps under remat full and dots
    (losses bit-equal), K3/K6 launches a step, a profiled step.
-   ``gemma_spec_serve``: gemma2-9b (12 layers, fp8, e4m3 KV) with a bf16 gemma2-2b
+   ``gemma_spec_serve``: gemma2-9b (8 layers, fp8, e4m3 KV) with a bf16 gemma2-2b
    draft, 8 requests, gamma 4, greedy, graph against eager tokens.
 12. The MoE family (Mixtral-8x7B, Qwen3-30B-A3B; no kernel of its own: the
    experts, router, dispatch and combine are plain torch, as XLA in JAX).
@@ -252,7 +252,25 @@ Phases, in order; any failure exits non-zero before the last line:
    ragged, with its MLM logits) and vit-large (24 layers, 64 images) at full
    depth, float32 and fp8 weights: K3 float32 launches a layer, K9's at the
    fp8 projections, ms a forward, peak memory, the busy share.
-15. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
+15. Distribution (``parallel/``). ``dist_kernels``: every rank's K3 and K6
+   launches of a ring of 4 run in this process through the ring's own step
+   functions (``ring_in_one_process``; the hop a rotation of a list), at
+   Llama-3.2-1B's attention (B 1 x 4·2048, 32 q heads over 8, D 64, causal)
+   and Llama-3.1-8B's (4·4096, D 128), with window, softcap and ragged
+   kv_lens at B 2 x 4·512, and non-causal (later chunks at negative
+   relative offsets); out and LSE against K3 over the whole sequence and
+   dq/dk/dv against K6 over it, row by row (``ROW_ULPS``, K6's single-key
+   rows as in ``train_kernels``); planted faults (the offset's rank and
+   source swapped, no final dK/dV hop, a chunk's own LSE in the backward)
+   caught in >90% of the rows they move; each (rank, step)'s K3 and K6
+   timed, their sum and the slowest rank beside the unsplit kernels, the
+   bounds and SDPA's flash forward/backward over the whole sequence.
+   ``dist_train``: a world of one on NCCL, Llama-3.2-1B at full width and
+   ``DIST_TRAIN_LAYERS`` layers, 8 x 512, LAYERWISE on the native route,
+   ``DIST_TRAIN_STEPS`` steps through ``Trainer(mesh=)`` against the same
+   steps without a mesh: losses and parameters bit for bit, K3/K6/K9
+   launches counted on the mesh run.
+16. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 With ``--out DIR`` the details of every case go to ``DIR/chip_smoke.json``
@@ -283,7 +301,7 @@ PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_se
           "gemma_serve", "gemma_train", "gemma_spec_serve", "moe_kernels", "moe_slice",
           "moe_train_slice", "moe_serve", "moe_train", "moe_spec_serve", "mla_kernels",
           "mla_slice", "mla_train_slice", "mla_serve", "mla_train", "mla_spec_serve",
-          "encoder_kernels", "encoder_slice", "encoder_forward")
+          "encoder_kernels", "encoder_slice", "encoder_forward", "dist_kernels", "dist_train")
 #: The kernels each path runs (launch counts read around its run). On the
 #: card fp8 weights take qdot's fp8native route (K9 quantizes x per row, then
 #: fp8 products), as the JAX package picks it where fp8 products exist; K1
@@ -2765,8 +2783,9 @@ def train_slice_check(dev, log):
                                 ("dw_column_scales_rolled_one", True)):
             hits = []
 
-            def planted(t, fmt, contract_axis, margin, first_only=first_only, hits=hits):
-                q = real(t, fmt, contract_axis, margin)
+            def planted(t, fmt, contract_axis, margin, rows=None, *, first_only=first_only,
+                        hits=hits):
+                q = real(t, fmt, contract_axis, margin, rows)
                 if contract_axis == 0 and t.ndim == 2 and not (first_only and hits):
                     hits.append(tuple(t.shape))
                     q = QTensor(qvalue=q.qvalue, scale=torch.roll(q.scale, 1, dims=-1), fmt=fmt)
@@ -3677,7 +3696,7 @@ def dropout_kernel_cases(dev, bw, peak, log):
 
 
 #: Baichuan-13B's depth in alibi_serve (12 of its 40 layers; cut for time).
-ALIBI_SERVE_LAYERS = 12
+ALIBI_SERVE_LAYERS = 8
 
 
 def fp8_params_by_layer(cfg, dev, seed=0, init=None, quantize=None, per=1):
@@ -5667,7 +5686,7 @@ def gemma_train_slice(dev, log, model="gemma2-2b"):
 GEMMA_SERVE_PROMPTS = ((6, 500, 1001), (2, 4500, 6001))
 #: gemma_serve's (and gemma_spec_serve's target) depth: 12 of gemma2-9b's 42
 #: (cut for time).
-GEMMA_SERVE_LAYERS = 12
+GEMMA_SERVE_LAYERS = 8
 
 
 def gemma_serving(dev, card, log, num_layers=GEMMA_SERVE_LAYERS):
@@ -7801,6 +7820,306 @@ def encoder_forward(dev, card, log):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 15: distribution (the ring's kernels; a world of one on NCCL)
+# --------------------------------------------------------------------------
+
+RING_FAULTS = ("swapped_q_offset", "no_final_hop", "local_lse")
+
+
+def ring_in_one_process(q, k, v, do, *, n, causal, window, softcap, kv_lens, scale,
+                        fault=None, timings=None):
+    """Every rank's steps of a ring of ``n`` in one process, through the step
+    functions ``parallel/ring_attention.py``'s ring calls (``step_args``,
+    ``fwd_partial`` = K3 with its LSE, ``OnlineMerge``, ``bwd_partial`` = K6
+    with the global LSE); the hop is a rotation of the rank-indexed lists
+    (rank r receives rank r - 1's chunk). Returns the whole ``(out, lse,
+    dq, dk, dv)``. ``fault``: one of :data:`RING_FAULTS`, planted. With
+    ``timings`` (a dict) each (rank, step)'s K3 and K6 launches are timed
+    (``cuda_ms``) into ``timings["k3"][r]`` / ``["k6"][r]`` lists."""
+    import torch
+
+    from llm_fp8_tpu_torch.parallel.ring_attention import (OnlineMerge, RingSpec, bwd_partial,
+                                                           chunk_schedule, fwd_partial,
+                                                           step_args)
+
+    spec = RingSpec(causal=causal, scale=scale, window=window, softcap=softcap)
+    qs, ks, vs, dos = ([c.contiguous() for c in t.chunk(n, dim=1)] for t in (q, k, v, do))
+
+    def args(step, r):
+        a = step_args(step, r, n, qs[r].shape, ks[r].shape, kv_lens, spec, q.device)
+        if a is not None and fault == "swapped_q_offset":  # idx and src exchanged
+            src, _, _ = chunk_schedule(step, r, qs[r].shape[1], ks[r].shape[1], n, causal,
+                                       window)
+            a = (torch.full_like(a[0], src * qs[r].shape[1] - r * ks[r].shape[1]), a[1])
+        return a
+
+    def rotate(lst):
+        return [lst[(r - 1) % n] for r in range(n)]
+
+    merges = [OnlineMerge(qs[r]) for r in range(n)]
+    kb, vb = list(ks), list(vs)
+    for step in range(n):
+        for r in range(n):
+            a = args(step, r)
+            if a is None:
+                continue
+            merges[r].add(*fwd_partial(qs[r], kb[r], vb[r], a, spec))
+            if timings is not None:
+                timings["k3"][r].append(cuda_ms(
+                    lambda r=r, a=a, kk=kb[r], vv=vb[r]: fwd_partial(qs[r], kk, vv, a, spec),
+                    calls=5, rounds=3))
+        if step < n - 1:
+            kb, vb = rotate(kb), rotate(vb)
+    outs, lses = zip(*(m.finish(q.dtype) for m in merges))
+    dq = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in qs]
+    dk = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in ks]
+    dv = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in vs]
+    kb, vb = list(ks), list(vs)
+    for step in range(n):
+        for r in range(n):
+            a = args(step, r)
+            if a is None:
+                continue
+            lse = lses[r]
+            if fault == "local_lse":
+                lse = fwd_partial(qs[r], kb[r], vb[r], a, spec)[1]
+            g = bwd_partial(qs[r], kb[r], vb[r], outs[r], lse, dos[r], a, spec)
+            dq[r] += g[0].float()
+            dk[r] += g[1].float()
+            dv[r] += g[2].float()
+            if timings is not None:
+                timings["k6"][r].append(cuda_ms(
+                    lambda r=r, a=a, kk=kb[r], vv=vb[r]: bwd_partial(
+                        qs[r], kk, vv, outs[r], lses[r], dos[r], a, spec), calls=5, rounds=3))
+        if step < n - 1:
+            kb, vb, dk, dv = rotate(kb), rotate(vb), rotate(dk), rotate(dv)
+    if fault != "no_final_hop":  # each accumulator's last hop home
+        dk, dv = rotate(dk), rotate(dv)
+    return (torch.cat(outs, dim=1), torch.cat(lses, dim=2),
+            torch.cat(dq, dim=1).to(q.dtype), torch.cat(dk, dim=1).to(k.dtype),
+            torch.cat(dv, dim=1).to(v.dtype))
+
+
+#: (name, B, S per rank, Hq, Hk, D, causal, window, softcap, kv_lens, timed):
+#: Llama-3.2-1B's and Llama-3.1-8B's attention widths on a ring of 4, the
+#: features at B 2 x 4·512, and one non-causal ring (later chunks at negative
+#: relative offsets in K6).
+DIST_RING_CASES = (
+    ("ring4 1B B1 S4x2048 Hq32 Hk8 D64 causal", 1, 2048, 32, 8, 64, True, None, None, None,
+     True),
+    ("ring4 8B B1 S4x4096 Hq32 Hk8 D128 causal", 1, 4096, 32, 8, 128, True, None, None, None,
+     True),
+    ("ring4 features B2 S4x512 window 700 softcap 30 ragged", 2, 512, 32, 8, 64, True, 700, 30.0,
+     (2048, 1100), False),
+    ("ring4 non-causal B2 S4x512 window 300 ragged", 2, 512, 32, 8, 64, False, 300, None,
+     (2048, 900), False),
+)
+DIST_RING = 4
+
+
+def dist_kernel_cases(dev, bw, peak, log):
+    """The ring's kernel work on the card: every rank's K3 and K6 launches of
+    a ring of 4 (``ring_in_one_process``) against K3 and K6 over the whole
+    sequence, row by row (``ROW_ULPS``; K6's single-key rows as in
+    ``train_kernels``), planted faults caught; per-rank kernel times (the sum
+    and the slowest rank) beside the unsplit kernels, their bounds and SDPA's
+    flash forward/backward over the whole sequence."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels import flash_attention_bwd as k6
+
+    g = torch.Generator(device=dev).manual_seed(1717)
+    n = DIST_RING
+    cases = []
+    for (name, B, Sr, Hq, Hk, D, causal, window, softcap, lens, timed) in DIST_RING_CASES:
+        S = n * Sr
+        q, do = (torch.randn((B, S, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn((B, S, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        kl = torch.tensor(lens or [S] * B, dtype=torch.int32, device=dev)
+        qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+        cfg = dict(causal=causal, window=window, softcap=softcap, scale=D ** -0.5)
+        ring_kw = dict(n=n, causal=causal, window=window, softcap=softcap,
+                       kv_lens=kl if lens else None, scale=D ** -0.5)
+        timings = {"k3": [[] for _ in range(n)], "k6": [[] for _ in range(n)]} if timed else None
+        out, lse, dq, dk, dv = ring_in_one_process(q, k, v, do, timings=timings, **ring_kw)
+        ref, ref_lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **cfg)
+        rdq, rdk, rdv = k6.flash_attention_bwd(q, k, v, ref, ref_lse, do, q_offset=qo,
+                                               kv_lens=kl, **cfg)
+        torch.cuda.synchronize()
+        err, ulps = rows_within(out, ref, f"ring {name} out")
+        finite = torch.isfinite(ref_lse)
+        check(bool((torch.isfinite(lse) == finite).all()), f"ring {name}: dead rows differ")
+        lse_err = (lse[finite] - ref_lse[finite]).abs().max().item()
+        check(lse_err <= 1e-3, f"ring {name}: lse {lse_err} off K3's")
+        live = live_pairs(B, S, S, qo, kl, causal, window, dev)
+        nkeys = live.sum(dim=-1)
+        key_multi = (live & (nkeys > 1)[:, :, None]).any(dim=1)
+        ex = {"dq": (nkeys == 1)[:, :, None].expand(B, S, Hq),
+              "dk": (live.any(dim=1) & ~key_multi)[:, :, None].expand(B, S, Hk),
+              "dv": torch.zeros((B, S, Hk), dtype=torch.bool, device=dev)}
+        k6_case = dict(kernel="flash_attention_bwd", case=name, ring=n)
+        for what, a, b in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+            e, u, n_ex, noise = grad_rows_within(a, b, ex[what], f"ring {name} {what}")
+            k6_case[what] = dict(max_abs_err=e, err_ulps=u, zero_rows=n_ex, zero_row_err=noise)
+        k6_case["max_abs_err"] = max(k6_case[w]["max_abs_err"] for w in ("dq", "dk", "dv"))
+        k3_case = dict(kernel="flash_attention", case=name, ring=n, max_abs_err=err,
+                       err_ulps=ulps, lse_err=lse_err)
+        pairs = int(live.sum()) * Hq
+        if timed:
+            caught = {}
+            sound = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+            refs = {"out": ref, "dq": rdq, "dk": rdk, "dv": rdv}
+            for fault in RING_FAULTS:
+                bad = dict(zip(("out", "lse", "dq", "dk", "dv"),
+                               ring_in_one_process(q, k, v, do, fault=fault, **ring_kw)))
+                shares = {}
+                for key in sound:
+                    moved = row_ulps(bad[key], sound[key]) > 1
+                    if bool(moved.any()):
+                        shares[key] = caught_share(bad[key], refs[key], moved)
+                check(shares and min(shares.values()) > 0.9,
+                      f"ring {name}: planted {fault} caught in {shares} of the rows it moves")
+                caught[fault] = shares
+            k6_case["caught"] = k3_case["caught"] = caught
+            k3_rank = [sum(t) for t in timings["k3"]]
+            k6_rank = [sum(t) for t in timings["k6"]]
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            kh, vh = (t.repeat_interleave(Hq // Hk, dim=1) for t in (kh, vh))
+            k3_case.update(
+                ms=sum(k3_rank), slowest_rank_ms=max(k3_rank), per_rank_ms=k3_rank,
+                launches_per_rank=[len(t) for t in timings["k3"]],
+                unsplit_ms=cuda_ms(lambda: k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl,
+                                                              **cfg), calls=5, rounds=3),
+                plain_ms=None,
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, scale=D ** -0.5), calls=5, rounds=3),
+                library="SDPA's flash forward over the whole sequence (causal)")
+            nbytes = (2 * q.numel() + (k.numel() + v.numel()) * n) * 2 + B * Hq * S * 4
+            k3_case["bound_ms"], k3_case["bound_by"] = bound_ms(nbytes, 4.0 * D * pairs, bw,
+                                                                peak)
+            sdpa_bwd, _ = sdpa_backward(qh, kh, vh, do.transpose(1, 2), D ** -0.5)
+            k6_case.update(
+                ms=sum(k6_rank), slowest_rank_ms=max(k6_rank), per_rank_ms=k6_rank,
+                unsplit_ms=cuda_ms(lambda: k6.flash_attention_bwd(
+                    q, k, v, ref, ref_lse, do, q_offset=qo, kv_lens=kl, **cfg),
+                    calls=5, rounds=3),
+                plain_ms=None, library_ms=cuda_ms(sdpa_bwd, calls=5, rounds=3),
+                library="SDPA's flash backward over the whole sequence (causal)")
+            del sdpa_bwd
+            nbytes = 2 * (2 * q.numel() + 2 * (k.numel() + v.numel()) * n + 2 * q.numel()) \
+                + B * Hq * S * 4
+            k6_case["bound_ms"], k6_case["bound_by"] = bound_ms(nbytes, 10.0 * D * pairs,
+                                                                bw, peak)
+            for c in (k3_case, k6_case):
+                c["vs_unsplit"] = c["ms"] / c["unsplit_ms"]
+                c["vs_library"] = c["ms"] / c["library_ms"]
+        cases += [k3_case, k6_case]
+        log(k3_case)
+        log(k6_case)
+        del q, k, v, do, out, lse, dq, dk, dv, ref, ref_lse, rdq, rdk, rdv
+        torch.cuda.empty_cache()
+    return cases
+
+
+DIST_TRAIN_LAYERS = 4
+DIST_TRAIN_STEPS = 3
+
+
+def dist_training(dev, card, log):
+    """A world of one on NCCL: Llama-3.2-1B at full width and
+    ``DIST_TRAIN_LAYERS`` layers, 8 x 512 tokens, LAYERWISE on the card's
+    native route, ``DIST_TRAIN_STEPS`` steps through ``Trainer(mesh=)``
+    (DTensor parameters and AdamW state, the per-layer gathers and the
+    gradients' reduce-scatter, the world's all-reduces and K9's row group,
+    all through NCCL) against the same steps without a mesh: every loss and
+    every parameter bit for bit; K3, K6 and K9 launched on the mesh run."""
+    import dataclasses
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.models.llama import init_params
+    from llm_fp8_tpu_torch.parallel import MeshConfig, gather_tree, make_mesh, shard_params
+    from llm_fp8_tpu_torch.training import TrainConfig, Trainer
+    from llm_fp8_tpu_torch.training.trainer import _leaves
+
+    cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=DIST_TRAIN_LAYERS)
+    g = torch.Generator().manual_seed(17)
+    batches = [{"input_ids": torch.randint(3, cfg.vocab_size, (8, 512), generator=g),
+                "attention_mask": torch.ones((8, 512), dtype=torch.int32)}
+               for _ in range(DIST_TRAIN_STEPS)]
+    for b in batches:
+        b["attention_mask"][1, 400:] = 0
+    tcfg = TrainConfig(recipes="default", learning_rate=3e-4, warmup_steps=1,
+                       total_steps=DIST_TRAIN_STEPS)
+    saved = os.environ.pop("LLM_FP8_NATIVE_DOT", None)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        runs = {}
+        for tag in ("plain", "mesh"):
+            mesh = make_mesh(MeshConfig(), "cuda") if tag == "mesh" else None
+            tr = Trainer(cfg, tcfg, device=dev, mesh=mesh)
+            params = init_params(cfg, dtype=torch.float32, device=dev, seed=0)
+            state = tr.init_state(shard_params(params, mesh) if mesh is not None else params)
+            del params
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            losses, step_s = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                state, m = tr.train_step(state, b)
+                losses.append(m["loss"].item())
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                check(int(m["finite"]) == 1, f"dist_train {tag}: a step is not finite")
+            counts = kernels.launch_counts()
+            flat = dict(_leaves(gather_tree(state.params)))
+            runs[tag] = dict(losses=losses, step_ms=[1e3 * t for t in step_s], launches=counts,
+                             params={p: t.detach().clone() for p, t in flat.items()})
+            del tr, state, flat
+            torch.cuda.empty_cache()
+        plain, mesh_run = runs["plain"], runs["mesh"]
+        same_losses = [float.hex(a) == float.hex(b)
+                       for a, b in zip(plain["losses"], mesh_run["losses"])]
+        check(all(same_losses), f"dist_train: losses {mesh_run['losses']} against "
+              f"{plain['losses']} without a mesh")
+        differ = [p for p in plain["params"]
+                  if not torch.equal(plain["params"][p], mesh_run["params"][p])]
+        check(not differ, f"dist_train: parameters differ from the mesh-less run: {differ}")
+        L = DIST_TRAIN_LAYERS * DIST_TRAIN_STEPS
+        want = {"flash_attention": L, "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+                "quantize_fused": 8 * L}
+        for kname, nl in want.items():
+            check(mesh_run["launches"][kname] == nl,
+                  f"dist_train: {kname} launched {mesh_run['launches'][kname]} times, not {nl}")
+        res = dict(card=card, world=1, backend="nccl",
+                   config=f"llama-3.2-1b, {DIST_TRAIN_LAYERS} layers, float32 master weights, "
+                   "LAYERWISE, native fp8 dots", batch="8 x 512", steps=DIST_TRAIN_STEPS,
+                   losses=mesh_run["losses"], losses_bit_equal=True, params_bit_equal=True,
+                   leaves=len(plain["params"]), step_ms=mesh_run["step_ms"],
+                   plain_step_ms=plain["step_ms"], launches=mesh_run["launches"],
+                   plain_launches=plain["launches"])
+        log(res)
+        return res
+    finally:
+        dist.destroy_process_group()
+        restore_env("LLM_FP8_NATIVE_DOT", saved)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7894,7 +8213,9 @@ def main(argv=None) -> int:
              ("mla_spec_serve", lambda: mla_spec_serving(dev, card, log)),
              ("encoder_kernels", lambda: encoder_kernel_cases(dev, bw, peak, log)),
              ("encoder_slice", lambda: encoder_slice_check(dev, log)),
-             ("encoder_forward", lambda: encoder_forward(dev, card, log)))
+             ("encoder_forward", lambda: encoder_forward(dev, card, log)),
+             ("dist_kernels", lambda: dist_kernel_cases(dev, bw, peak, log)),
+             ("dist_train", lambda: dist_training(dev, card, log)))
     try:
         for phase, run in steps:
             if phase in phases:
@@ -7973,7 +8294,9 @@ def kernels_line(report):
                "deepseek-v2-lite draft, greedy)": report["mla_spec_serve"]["greedy"]["launches"],
                **{f"encoder forward ({run['model']}, {run['layers']} layers, {run['weights']} "
                   "weights)": run["launches"] for key, run in report["encoder_forward"].items()
-                  if key != "card"}}
+                  if key != "card"},
+               f"dist train (Trainer(mesh=), a world of one on NCCL, llama-3.2-1b at "
+               f"{DIST_TRAIN_LAYERS} layers, fp8)": report["dist_train"]["launches"]}
     for counts in by_path.values():
         counts["flash_attention_bwd"] = (counts.get("flash_attention_bwd_dkv", 0)
                                          + counts.get("flash_attention_bwd_dq", 0))
@@ -8019,7 +8342,11 @@ def kernels_line(report):
                             "attention_chunk 2048 (8192 prefill)": ("encoder_kernels",
                                                                     "chunk 2048 prefill"),
                             "split-KV, 8 K3 launches (32768-token cache)": (
-                                "encoder_kernels", "split-KV")},
+                                "encoder_kernels", "split-KV"),
+                            "ring of 4, every rank's steps (llama-3.2-1b, 4 x 2048)": (
+                                "dist_kernels", "ring4 1B"),
+                            "ring of 4, every rank's steps (llama-3.1-8b, 4 x 4096)": (
+                                "dist_kernels", "ring4 8B")},
         "flash_attention_bwd": {"alibi": ("alibi_kernels", "alibi Hq40 D128 B2 S1024"),
                                 "dropout": ("dropout_kernels", "dropout"),
                                 "head_dim 256": ("gemma_kernels", "D256 2b train"),
@@ -8035,7 +8362,11 @@ def kernels_line(report):
                                 "segment ids (packed, llama-3.2-1b train shape)": (
                                     "encoder_kernels", "segments train"),
                                 "attention_chunk 128 (train shape)": ("encoder_kernels",
-                                                                      "chunk 128 train")},
+                                                                      "chunk 128 train"),
+                                "ring of 4, every rank's steps (llama-3.2-1b, 4 x 2048)": (
+                                    "dist_kernels", "ring4 1B"),
+                                "ring of 4, every rank's steps (llama-3.1-8b, 4 x 4096)": (
+                                    "dist_kernels", "ring4 8B")},
         "flash_attention_f32": {"dropout": ("zoo_train_kernels", "dropout"),
                                 "non-causal, bert-large": ("encoder_kernels", "bert-large"),
                                 "non-causal, vit-large": ("encoder_kernels", "vit-large"),
@@ -8131,7 +8462,8 @@ def kernels_line(report):
                     "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
                     "keep_mask_equal", "k6_keep_mask_equal", "split_ms", "split_bound_ms",
                     "caught", "vs_library", "padded_to", "ms_without_segments",
-                    "ms_unchunked", "ms_unsplit") if k in o}
+                    "ms_unchunked", "ms_unsplit", "unsplit_ms", "slowest_rank_ms",
+                    "per_rank_ms", "vs_unsplit") if k in o}
         if kname in also:
             phase, prefix = also[kname]
             o = next(o for o in report[phase]

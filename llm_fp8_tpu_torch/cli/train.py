@@ -40,8 +40,28 @@ trains as an MoE model and is written as HF ``DeepseekV2ForCausalLM``
 safetensors (the JAX CLI's export sends it to the Mixtral export, which
 raises; the port tells MLA apart first).
 
-Not ported yet (they raise): the mesh flags and ``--multihost`` (one
-device), ``--use_wandb`` and the HF dataset and tokenizer (no network).
+Several cards (or CPU processes): launch one process a device with
+``torchrun``, which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and
+``MASTER_ADDR``/``MASTER_PORT``; each rank joins the world (NCCL on
+``cuda:LOCAL_RANK``, gloo under ``--device cpu``; ``--multihost`` joins the
+same way) and the mesh is built from ``--dp/--fsdp/--cp`` as JAX builds it
+(``--fsdp -1`` takes the devices the others leave), then the Llama family
+trains through ``Trainer(mesh=)`` (``training/trainer.py``):
+
+  torchrun --nproc_per_node 8 -m llm_fp8_tpu_torch.cli.train \
+      --model_name meta-llama/Llama-3.2-1B --random_init --synthetic_samples 4000 \
+      --mixed_precision fp8 --dp 2 --fsdp 4
+  torchrun --nproc_per_node 2 -m llm_fp8_tpu_torch.cli.train --model_name debug-tiny \
+      --random_init --synthetic_samples 40 --device cpu --fsdp 2
+
+Every rank reads the same batches and trains on its rows; rank 0 logs (the
+JSON lines, and ``MetricLogger``'s ``--log_dir/metrics.jsonl`` with the
+step timer's rates and the device memory), and writes the checkpoints and
+the export (gathered from every rank).
+
+Not ported yet (they raise): ``--tp``/``--ep`` above 1 (the next slice:
+column/row-parallel products and the experts' all-to-all), a mesh for the
+zoo families, ``--use_wandb`` and the HF dataset and tokenizer (no network).
 ``--unroll`` is a JAX scan knob with no counterpart here.
 """
 from __future__ import annotations
@@ -50,7 +70,6 @@ import argparse
 import json
 import math
 import os
-import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -90,13 +109,16 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--device", type=str, default=None,
                    help="default cuda; 'cpu' runs the plain versions of the kernels")
 
-    m = p.add_argument_group("Mesh (not ported: one device)")
-    m.add_argument("--dp", type=int, default=1)
-    m.add_argument("--fsdp", type=int, default=-1)
-    m.add_argument("--tp", type=int, default=1)
-    m.add_argument("--cp", type=int, default=1)
-    m.add_argument("--ep", type=int, default=1)
-    m.add_argument("--multihost", action="store_true")
+    m = p.add_argument_group("Mesh (a torchrun world: one process a device)")
+    m.add_argument("--dp", type=int, default=1, help="data parallel (parameters replicated)")
+    m.add_argument("--fsdp", type=int, default=-1,
+                   help="parameter-sharded data parallel; -1 takes the rest of the world")
+    m.add_argument("--tp", type=int, default=1, help="tensor parallel: not ported yet")
+    m.add_argument("--cp", type=int, default=1,
+                   help="context parallel (ring attention over the sequence)")
+    m.add_argument("--ep", type=int, default=1, help="expert parallel: not ported yet")
+    m.add_argument("--multihost", action="store_true",
+                   help="join the world the launcher describes (as torchrun's variables do)")
 
     lg = p.add_argument_group("Logging and Saving")
     lg.add_argument("--log_dir", type=str, default="./runs")
@@ -113,9 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = {
-        "--dp/--tp/--cp/--ep/--fsdp (a device mesh)": (args.dp, args.tp, args.cp, args.ep,
-                                                         args.fsdp) != (1, 1, 1, 1, -1),
-        "--multihost": args.multihost,
+        "--tp/--ep above 1 (tensor and expert parallelism: the next slice, column/row-"
+        "parallel products and the experts' all-to-all)": args.tp > 1 or args.ep > 1,
         "--use_wandb": args.use_wandb,
         "--unroll (a JAX scan knob)": args.unroll != 1,
         "the HF dataset (use --synthetic_samples)": not args.synthetic_samples,
@@ -152,8 +173,9 @@ def main(argv=None):
     from ..training import (CheckpointManager, DataConfig, DataManager, StabilityTracker,
                             TrainConfig, Trainer, export_hf, synthetic_examples)
     from ..utils.backend import resolve_device
+    from ..utils.metrics import MetricLogger
+    from ..utils.monitor import StepTimer, device_memory_stats
 
-    dev = resolve_device(args.device)
     try:
         entry = resolve_model(args.model_name)
     except (NotImplementedError, ValueError) as e:
@@ -164,6 +186,26 @@ def main(argv=None):
     if recipes != "bf16" and not llama:
         raise SystemExit("--mixed_precision fp8 implements the Llama/Qwen stack; train "
                          f"{args.model_name} with --mixed_precision bf16")
+    mesh, rank = None, 0
+    if "WORLD_SIZE" in os.environ or args.multihost:
+        from ..parallel import MeshConfig, init_world, make_mesh
+
+        if not llama:
+            raise SystemExit(f"training over a mesh takes the Llama family, not "
+                             f"{args.model_name}")
+        own_world = not torch.distributed.is_initialized()
+        dev = init_world(args.device)
+        try:
+            mesh = make_mesh(MeshConfig(dp=args.dp, fsdp=args.fsdp, cp=args.cp, ep=args.ep,
+                                        tp=args.tp), dev.type)
+        except (AssertionError, ValueError) as e:
+            raise SystemExit(f"the mesh does not fit the world: {e}")
+        rank = torch.distributed.get_rank()
+    else:
+        if (args.dp, args.cp) != (1, 1) or args.fsdp > 1:
+            raise SystemExit("--dp/--fsdp/--cp above 1 need a world: launch one process a "
+                             "device with torchrun")
+        dev = resolve_device(args.device)
 
     dm = DataManager(DataConfig(dataset_name=args.dataset_name, split_name=args.split_name,
                                 max_seq_length=args.max_seq_length,
@@ -188,51 +230,62 @@ def main(argv=None):
         grad_accum=args.gradient_accumulation_steps, recipes=recipes,
         remat={"none": False, "full": True, "dots": "dots"}[args.remat],
         ce_chunks=args.ce_chunks), device=dev,
-        forward_fn=None if llama else entry.forward_fn)
+        forward_fn=None if llama else entry.forward_fn, mesh=mesh)
+    if mesh is not None:
+        from ..parallel import shard_params
+
+        params = shard_params(params, mesh)
     state = trainer.init_state(params)
     stability = StabilityTracker(precision_name=f"fp8-{args.fp8_scenario}"
                                  if args.mixed_precision == "fp8" else "bf16")
     ckpt = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir else None
-    print(json.dumps({"device": str(dev), "steps_per_epoch": steps_per_epoch,
-                      "total_steps": total_steps, "recipes": recipes,
-                      "remat": args.remat}), flush=True)
+    world = {} if mesh is None else {"world": torch.distributed.get_world_size(),
+                                     "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+    logger = MetricLogger(args.log_dir) if rank == 0 else None
+    timer = StepTimer()
 
-    os.makedirs(args.log_dir, exist_ok=True)
-    log_file = open(os.path.join(args.log_dir, "metrics.jsonl"), "a")
+    def log(obj, step, prefix, extra=None):
+        if rank == 0:
+            print(json.dumps({prefix: {**obj, **(extra or {})}}, default=str), flush=True)
+            logger.log(obj, step, prefix=prefix)
 
-    def log(obj):
-        line = json.dumps(obj, default=str)
-        print(line, flush=True)
-        log_file.write(line + "\n")
-
-    step, tokens, t0 = 0, 0, time.perf_counter()
+    if rank == 0:
+        print(json.dumps({"device": str(dev), "steps_per_epoch": steps_per_epoch,
+                          "total_steps": total_steps, "recipes": recipes,
+                          "remat": args.remat, **world}, default=str), flush=True)
+    step = 0
     for epoch in range(args.num_epochs):
         for batch in dm.batches(train_seqs, args.batch_size, shuffle=True, seed=epoch):
             state, m = trainer.train_step(state, batch)
             step += 1
-            tokens += int(m["tokens"])
             loss = float(m["loss"])
+            timer.step(int(m["tokens"]))
             inst = stability.track_step(loss, grad_norm=float(m["grad_norm"]),
                                         activation_mean=float(m["activation_mean"]),
                                         activation_std=float(m["activation_std"]))
             if step % args.log_every == 0:
-                wall = time.perf_counter() - t0
                 aux = {"router_aux": float(m["router_aux"])} if "router_aux" in m else {}
-                log({"train": {**inst, "step": step, "epoch": epoch,
-                               "perplexity": math.exp(min(loss, 20.0)),
-                               "tokens_per_s": tokens / wall, **aux}})
+                log({**inst, "perplexity": math.exp(min(loss, 20.0)), **timer.rates(),
+                     "memory_gb": device_memory_stats(dev)["in_use_gb"], "epoch": epoch,
+                     **aux}, step, "train", {"step": step})
             if args.save_every and ckpt and step % args.save_every == 0:
                 ckpt.save(state, step)
         ev = trainer.evaluate(state.params, dm.batches(eval_seqs, dm.config.eval_bs,
                                                        shuffle=False, drop_last=False))
-        log({"eval": {**ev, "step": step, "epoch": epoch}})
+        log({**ev, "epoch": epoch}, step, "eval", {"step": step})
         if ckpt:
             ckpt.save(state, step, eval_loss=ev["eval_loss"])
-    log_file.close()
 
     report = stability.report()
+    if logger is not None:
+        logger.log_summary(report)
+        logger.close()
     if llama or hasattr(cfg, "num_experts"):  # MLA configs too: export_hf tells them apart
         export_hf(state.params, cfg, args.output_dir)
+        if mesh is not None and own_world:
+            torch.distributed.destroy_process_group()
+        if rank != 0:
+            return report
     else:
         # The zoo families: the raw param tree, as the JAX CLI saves it.
         os.makedirs(args.output_dir, exist_ok=True)

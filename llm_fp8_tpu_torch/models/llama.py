@@ -132,7 +132,11 @@ def unstack_layers(layers: Dict[str, Any]) -> List[Dict[str, Any]]:
     """Every layer's parameters (views), one ``unbind`` per stacked tensor.
     Under autograd the unbind's backward stacks the layer gradients once,
     where indexing layer by layer writes a zero-filled full-size gradient
-    per layer and adds them up."""
+    per layer and adds them up. Layers a parameter-sharded world gathers
+    (``parallel/fsdp.py::ShardedLayers``) come a layer at a time, each
+    gathered just before it runs."""
+    if hasattr(layers, "unstack"):
+        return layers.unstack()
     L = next(iter(layers.values())).shape[0]
     per = {k: ([v.layer(i) for i in range(L)] if isinstance(v, QTensor) else v.unbind(0))
            for k, v in layers.items()}
@@ -408,7 +412,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
             kv_lens: Optional[torch.Tensor] = None,
             compute_dtype=torch.bfloat16, return_kv: bool = False,
             return_hidden: bool = False, remat=False, dropout_p: float = 0.0,
-            dropout_seed: int = 0):
+            dropout_seed: int = 0, cp_group=None):
     """``tokens [B, S] -> (logits [B, S, V] float32, cache)``.
 
     ``cache=None``: causal self-attention; with ``return_kv`` the second
@@ -417,11 +421,15 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
     carries the new ``lens``. ``return_hidden`` returns the final-norm hidden
     states ``[B, S, D]`` in place of the logits (``_lm_head`` maps them).
     ``remat`` (``none|full|dots``) and ``dropout_p``/``dropout_seed`` apply
-    to the cache-free (training) forward.
+    to the cache-free (training) forward. ``cp_group``: context parallelism
+    over that process group for the cache-free forward (every rank holds the
+    whole sequence; attention rings over its chunks, ``ops/attention.py``).
     """
     mode = remat_mode(remat)
     if cache is not None and (mode != "none" or dropout_p):
         raise ValueError("remat and dropout are training options: no cache")
+    if cache is not None and cp_group is not None:
+        raise ValueError("context parallelism is a training option: no cache")
     if return_kv and mode != "none":
         raise ValueError("return_kv reads the layers' K/V: not under remat")
     dev = params["embed"].device
@@ -442,7 +450,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
                 return attention(q, kk, vv, causal=True, kv_lens=kv_lens,
                                  window=cfg.sliding_window, alibi_slopes=slopes,
                                  dropout_p=dropout_p,
-                                 dropout_seed=dropout_seed + li * DROPOUT_LAYER_STRIDE)
+                                 dropout_seed=dropout_seed + li * DROPOUT_LAYER_STRIDE,
+                                 cp_group=cp_group)
             x = _run_layer(x, lp, cos, sin, cfg, attend, mode)[0]
         else:
             def attend(q, kk, vv, li=li):
@@ -560,7 +569,7 @@ def forward_fp8_train(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelCo
                       recipes: RecipeSet, scales: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
                       sinks: Dict[str, torch.Tensor], *, compute_dtype=torch.bfloat16,
                       remat=False, return_hidden: bool = False, dropout_p: float = 0.0,
-                      dropout_seed: int = 0):
+                      dropout_seed: int = 0, cp_group=None):
     """FP8 training forward: the four GEMM sites of every layer run through
     :func:`~..quant.fp8_dot` with the recipe the set assigns to their role.
 
@@ -573,7 +582,8 @@ def forward_fp8_train(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelCo
     amaxes are the first forward's). ``dropout_p``/``dropout_seed``:
     attention dropout as in :func:`forward` (the JAX package's fp8 forward
     has none, and the ``Trainer`` passes dropout on the bf16 recipe only, as
-    the JAX trainer does).
+    the JAX trainer does). ``cp_group``: context parallelism, as in
+    :func:`forward`.
     """
     mode = remat_mode(remat)
     dev = params["embed"].device
@@ -588,7 +598,8 @@ def forward_fp8_train(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelCo
         def attend(q, kk, vv, li=li):
             return attention(q, kk, vv, causal=True, window=cfg.sliding_window,
                              alibi_slopes=slopes, dropout_p=dropout_p,
-                             dropout_seed=dropout_seed + li * DROPOUT_LAYER_STRIDE)
+                             dropout_seed=dropout_seed + li * DROPOUT_LAYER_STRIDE,
+                             cp_group=cp_group)
 
         dots = _make_train_dots(
             recipes, {s: (scales[s][0][li], scales[s][1][li]) for s in DOT_SITES},

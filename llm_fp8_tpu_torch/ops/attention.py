@@ -239,10 +239,25 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               q_offset=0, kv_lens: Optional[torch.Tensor] = None,
               attention_chunk: Optional[int] = None,
               kv_start: Optional[torch.Tensor] = None, alibi_slopes=None,
-              dropout_p: float = 0.0, dropout_seed=0):
+              dropout_p: float = 0.0, dropout_seed=0, cp_group=None):
     """Public attention entry: :func:`decode_attention` for Sq == 1 without
     dropout, K3 (the flash kernel) on a CUDA tensor, :func:`attention_ref`
-    on a CPU tensor."""
+    on a CPU tensor.
+
+    ``cp_group``: context parallelism over that process group (JAX's
+    ``cp_axis`` island). Every rank of the group holds the whole sequence;
+    q, k and v are cut to this rank's chunk, the ring of
+    ``parallel/ring_attention.py`` runs, and the output is gathered back
+    along the sequence. The cut's backward all-gathers and the gather's
+    keeps this rank's slice, so gradients come out whole and equal on the
+    group's ranks (``parallel/collectives.py``). Causal or full attention
+    with window, softcap and ragged ``kv_lens``; dropout and ALiBi raise,
+    as in JAX."""
+    if cp_group is not None:
+        return _cp_attention(q, k, v, cp_group, causal=causal, window=window, softcap=softcap,
+                             scale=scale, q_offset=q_offset, kv_lens=kv_lens,
+                             attention_chunk=attention_chunk, kv_start=kv_start,
+                             alibi_slopes=alibi_slopes, dropout_p=dropout_p)
     if q.shape[1] == 1 and causal and dropout_p == 0.0:
         return decode_attention(q, k, v, scale=scale, kv_lens=kv_lens, window=window,
                                 softcap=softcap, q_offset=q_offset,
@@ -260,3 +275,21 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                          attention_chunk=attention_chunk, kv_start=kv_start,
                          alibi_slopes=alibi_slopes, dropout_p=dropout_p,
                          dropout_seed=dropout_seed)
+
+
+def _cp_attention(q, k, v, group, *, causal, window, softcap, scale, q_offset, kv_lens,
+                  attention_chunk, kv_start, alibi_slopes, dropout_p):
+    from ..parallel.collectives import seq_chunk, seq_gather
+    from ..parallel.ring_attention import ring_attention
+
+    if dropout_p != 0.0 or alibi_slopes is not None:
+        raise NotImplementedError("context parallelism supports window/softcap/ragged-kv_lens "
+                                  "attention but not dropout or ALiBi")
+    if attention_chunk is not None or kv_start is not None or not (
+            isinstance(q_offset, int) and q_offset == 0) or q.shape[1] != k.shape[1]:
+        raise NotImplementedError("context parallelism runs self-attention over the whole "
+                                  "sequence: no q_offset, kv_start, chunk or cache")
+    qc, kc, vc = (seq_chunk(t, 1, group) for t in (q, k, v))
+    out = ring_attention(qc, kc, vc, group=group, causal=causal, scale=scale, window=window,
+                         softcap=softcap, kv_lens=kv_lens)
+    return seq_gather(out, 1, group)

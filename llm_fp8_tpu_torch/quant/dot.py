@@ -54,9 +54,19 @@ codes and scales of ``quantize`` bit for bit, so the JAX package's
 
 On the CPU the narrow routes multiply the codes in float32, as XLA's CPU dot
 does with narrow operands.
+
+A data-parallel world (:func:`rows_split_over`): each rank's activations and
+gradients are its rows of a batch cut over a process group. Every
+just-in-time scale whose amax runs over the rows (a per-tensor gradient
+scale, dW's per-column gradient scales, an MX block along the rows) is then
+taken over the whole batch, as JAX's GSPMD program takes it: the rank's
+amax is all-reduced (MAX) first; K9's per-column quantize gets the global
+amax as one more row of its operand, so its codes and scales are the single
+process's bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -72,7 +82,7 @@ from .qtensor import MX_BLOCK, QTensor, _unpack_int4_halves, quantize, quantize_
 from .recipe import Recipe
 
 __all__ = ["qdot", "qdot_route", "serving_layout", "padded_operands", "fp8_dot", "DotAmaxes",
-           "matmul_f32"]
+           "matmul_f32", "rows_split_over"]
 
 
 class DotAmaxes(NamedTuple):
@@ -278,11 +288,39 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 _FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 
+#: The process group a batch's rows are cut over (:func:`rows_split_over`).
+_ROW_GROUP = None
 
-def _quantize_channel(t: torch.Tensor, fmt, contract_axis: int, margin: int) -> QTensor:
+
+@contextlib.contextmanager
+def rows_split_over(group):
+    """Within: the ``fp8_dot`` calls made take their row-wise just-in-time
+    amaxes over ``group`` (module docstring); their backward keeps the
+    group of its forward."""
+    global _ROW_GROUP
+    prev, _ROW_GROUP = _ROW_GROUP, group
+    try:
+        yield
+    finally:
+        _ROW_GROUP = prev
+
+
+def _global_amax(t: torch.Tensor, rows, dim=None) -> torch.Tensor:
+    """|t|'s amax (over ``dim``, kept, or all of it), all-reduced (MAX)
+    over the ``rows`` group."""
+    import torch.distributed as dist
+
+    a = t.detach().float().abs()
+    a = a.amax() if dim is None else a.amax(dim=dim, keepdim=True)
+    dist.all_reduce(a, op=dist.ReduceOp.MAX, group=rows)
+    return a
+
+
+def _quantize_channel(t: torch.Tensor, fmt, contract_axis: int, margin: int,
+                      rows=None) -> QTensor:
     """Per-channel quantize through K9 (rows of the last axis, or columns of
     a 2-D operand). The TPU's VMEM size guards are not carried over: K9
-    takes any length."""
+    takes any length. ``rows``: the group the columns' rows are cut over."""
     from ..kernels.quantize import quantize_fused  # kernels.quantize imports quant
 
     if contract_axis == t.ndim - 1:
@@ -290,8 +328,35 @@ def _quantize_channel(t: torch.Tensor, fmt, contract_axis: int, margin: int) -> 
         return QTensor(qvalue=q.qvalue.reshape(t.shape),
                        scale=q.scale.reshape(*t.shape[:-1], 1), fmt=fmt)
     if t.ndim == 2 and contract_axis == 0:
-        return quantize_fused(t, fmt, axis=0, margin=margin)
+        if rows is None:
+            return quantize_fused(t, fmt, axis=0, margin=margin)
+        # The world's column amaxes as one more row: K9 finds them as the
+        # columns' maxima, and the rank's rows get the single process's codes.
+        top = _global_amax(t, rows, dim=0).to(t.dtype)
+        q = quantize_fused(torch.cat([t, top]), fmt, axis=0, margin=margin)
+        return QTensor(qvalue=q.qvalue[:-1], scale=q.scale, fmt=fmt)
+    if rows is not None:
+        raise NotImplementedError("a per-channel quantize over the rows of a >2-D operand "
+                                  "in a data-parallel world")
     return quantize(t, fmt, axes=(contract_axis,), margin=margin)
+
+
+def _tensor_scaled(t: torch.Tensor, fmt, margin: int, rows=None) -> QTensor:
+    """Per-tensor just-in-time quantize, its amax over the ``rows`` group."""
+    if rows is None:
+        return quantize(t, fmt, axes=None, margin=margin)
+    from .qtensor import compute_scale
+
+    return quantize(t, fmt, axes=None, margin=margin,
+                    scale=compute_scale(_global_amax(t, rows), fmt, margin))
+
+
+def _mx_rows(t: torch.Tensor, block_axis: int, rows) -> None:
+    """MX blocks along the rows of a batch cut over ``rows`` are the single
+    process's only if each rank's rows fill whole blocks."""
+    if rows is not None and t.shape[block_axis] % MX_BLOCK:
+        raise NotImplementedError(f"MX blocks along {t.shape[block_axis]} rows a rank: a "
+                                  f"data-parallel world needs a multiple of {MX_BLOCK}")
 
 
 def _q_fwd(t: torch.Tensor, recipe: Recipe, scale, contract_axis: int) -> QTensor:
@@ -303,19 +368,26 @@ def _q_fwd(t: torch.Tensor, recipe: Recipe, scale, contract_axis: int) -> QTenso
     return quantize(t, recipe.fmt_fwd, axes=None, scale=scale, margin=recipe.margin)
 
 
-def _q_bwd(g: torch.Tensor, recipe: Recipe, contract_axis: int) -> QTensor:
-    """Quantize a gradient: just-in-time scale in the backward format."""
-    if recipe.granularity == "block32" and g.shape[contract_axis] % MX_BLOCK == 0:
-        return quantize_mx(g, recipe.fmt_bwd, block_axis=contract_axis, block_size=MX_BLOCK)
+def _q_bwd(g: torch.Tensor, recipe: Recipe, contract_axis: int, rows=None) -> QTensor:
+    """Quantize a gradient: just-in-time scale in the backward format
+    (``rows``: the group its rows are cut over, when ``contract_axis`` runs
+    over them or the scale is per tensor)."""
+    along_rows = rows if contract_axis == 0 else None
+    if recipe.granularity == "block32":
+        _mx_rows(g, contract_axis, along_rows)
+        if g.shape[contract_axis] % MX_BLOCK == 0:
+            return quantize_mx(g, recipe.fmt_bwd, block_axis=contract_axis,
+                               block_size=MX_BLOCK)
     if recipe.granularity == "channel":
-        return _quantize_channel(g, recipe.fmt_bwd, contract_axis, recipe.margin)
-    return quantize(g, recipe.fmt_bwd, axes=None, margin=recipe.margin)
+        return _quantize_channel(g, recipe.fmt_bwd, contract_axis, recipe.margin, along_rows)
+    return _tensor_scaled(g, recipe.fmt_bwd, recipe.margin, rows)
 
 
-def _mx_or_tensor(t: torch.Tensor, fmt, block_axis: int) -> QTensor:
+def _mx_or_tensor(t: torch.Tensor, fmt, block_axis: int, rows=None) -> QTensor:
+    _mx_rows(t, block_axis, rows)
     if t.shape[block_axis] % MX_BLOCK == 0:
         return quantize_mx(t, fmt, block_axis=block_axis, block_size=MX_BLOCK)
-    return quantize(t, fmt)
+    return _tensor_scaled(t, fmt, 0, rows)
 
 
 def _native_fp8_enabled() -> bool:
@@ -440,7 +512,7 @@ class _Fp8Dot(torch.autograd.Function):
             xv = (x_res.dequantize(torch.bfloat16) if isinstance(x_res, QTensor)
                   else x_res.to(torch.bfloat16))
             y = _bf16_dot(xv, wq.dequantize(torch.bfloat16), x.dtype)
-        ctx.recipe, ctx.mode = recipe, mode
+        ctx.recipe, ctx.mode, ctx.rows = recipe, mode, _ROW_GROUP
         ctx.x_res, ctx.wq = x_res, wq
         ctx.x_dtype, ctx.w_dtype = x.dtype, w.dtype
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -449,7 +521,7 @@ class _Fp8Dot(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, *_amax_grads):
-        recipe, mode, x_res, wq = ctx.recipe, ctx.mode, ctx.x_res, ctx.wq
+        recipe, mode, x_res, wq, rows = ctx.recipe, ctx.mode, ctx.x_res, ctx.wq, ctx.rows
         g_amax = _amax_of(gy)
         if mode:
             # Scale folding: the residual's per-channel scale varies along the
@@ -464,7 +536,7 @@ class _Fp8Dot(torch.autograd.Function):
 
             x8 = x_res.qvalue.reshape(-1, x_res.shape[-1])
             g_dw = (gy32 * x_res.scale.float()).reshape(-1, gy.shape[-1])
-            gq_dw = _quantize_channel(g_dw, recipe.fmt_bwd, 0, recipe.margin)
+            gq_dw = _quantize_channel(g_dw, recipe.fmt_bwd, 0, recipe.margin, rows)
             acc = _codes_mm(x8.t(), gq_dw.qvalue, mode)
             dw = (acc * gq_dw.scale.float().reshape(-1)).to(ctx.w_dtype)
             return dx, dw, None, None, g_amax, None
@@ -474,7 +546,7 @@ class _Fp8Dot(torch.autograd.Function):
         wv = wq.dequantize(torch.bfloat16)
         # dx = g @ wᵀ: the gradient quantizes along its last axis; the block
         # recipe requantizes w transposed (TE keeps both orientations).
-        gq_for_dx = _q_bwd(gy, recipe, contract_axis=gy.ndim - 1)
+        gq_for_dx = _q_bwd(gy, recipe, contract_axis=gy.ndim - 1, rows=rows)
         if recipe.granularity == "block32":
             wT = _mx_or_tensor(wv.t().float(), recipe.fmt_bwd, block_axis=1).dequantize(
                 torch.bfloat16)
@@ -484,10 +556,10 @@ class _Fp8Dot(torch.autograd.Function):
         # dw = xᵀ @ g: contraction over the batch rows.
         x2 = xv.reshape(-1, xv.shape[-1])
         g2 = gy.reshape(-1, gy.shape[-1]).float()
-        gq_for_dw = _q_bwd(g2, recipe, contract_axis=0)
+        gq_for_dw = _q_bwd(g2, recipe, contract_axis=0, rows=rows)
         if recipe.granularity == "block32":
-            xT = _mx_or_tensor(x2.t().float(), recipe.fmt_bwd, block_axis=1).dequantize(
-                torch.bfloat16)
+            xT = _mx_or_tensor(x2.t().float(), recipe.fmt_bwd, block_axis=1,
+                               rows=rows).dequantize(torch.bfloat16)
         else:
             xT = x2.t()
         dw = _bf16_dot(xT, gq_for_dw.dequantize(torch.bfloat16), ctx.w_dtype)

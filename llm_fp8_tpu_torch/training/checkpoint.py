@@ -15,6 +15,14 @@ run resumed from step n continues as the uninterrupted run would.
 :func:`export_hf` writes ``model.safetensors`` (float32, HF names, through
 ``models/hf_loader.py``'s own writer: the port never imports
 ``safetensors``) and the ``config.json`` JAX writes.
+
+Under a ``torch.distributed`` world (a state of ``DTensor`` slices, the
+``Trainer(mesh=)``'s) every rank calls :meth:`~CheckpointManager.save`,
+:meth:`~CheckpointManager.restore` and :func:`export_hf`: the full tensors
+are gathered (a collective), rank 0 writes the same file a single process
+writes, and :meth:`restore` copies into each template ``DTensor`` its
+rank's slice, on whatever mesh the template lives (a checkpoint saved under
+``fsdp 2`` restores under ``dp 2``, as JAX's Orbax restore re-shards).
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import shutil
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..models.config import ModelConfig
 from ..models.hf_loader import export_hf_state_dict, write_safetensors
@@ -35,27 +44,47 @@ __all__ = ["CheckpointManager", "export_hf"]
 _STATE_FILE = "state.pt"
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def _plain(x):
-    """A train state as nested dicts of detached tensors, ints and None."""
+    """A train state as nested dicts of detached full tensors (a DTensor's
+    gathered: every rank calls this), ints and None."""
+    from ..parallel.sharding import full_tensor
+
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return {f.name: _plain(getattr(x, f.name)) for f in dataclasses.fields(x)}
     if isinstance(x, dict):
         return {k: _plain(v) for k, v in x.items()}
     if isinstance(x, torch.Tensor):
-        return x.detach()
+        return full_tensor(x).detach()
     return x
 
 
 def _fill(template, saved, path="state"):
     """``template`` with the values of ``saved`` (its :func:`_plain` form):
-    tensors copied into the template's tensors in place, dataclasses
-    rebuilt around them, other leaves taken from ``saved``."""
+    tensors copied into the template's tensors in place (a DTensor's slice
+    into its local tensor), dataclasses rebuilt around them, other leaves
+    taken from ``saved``."""
     if isinstance(template, torch.Tensor):
         if not isinstance(saved, torch.Tensor) or saved.shape != template.shape:
             raise ValueError(f"{path}: the checkpoint holds {getattr(saved, 'shape', saved)}, "
                              f"the template {tuple(template.shape)}")
         with torch.no_grad():
-            template.copy_(saved)
+            if hasattr(template, "to_local"):
+                from ..parallel.sharding import slice_of
+
+                local = template.to_local()
+                local.copy_(slice_of(saved.to(local.device), template.placements,
+                                     template.device_mesh))
+            else:
+                template.copy_(saved)
         return template
     if dataclasses.is_dataclass(template):
         return dataclasses.replace(template, **{
@@ -83,18 +112,25 @@ class CheckpointManager:
         return os.path.join(self.dir, f"ckpt_{tag}")
 
     def save(self, state, step: int, *, eval_loss: Optional[float] = None) -> str:
+        """Write ``state`` as step ``step`` (in a world: every rank calls
+        this; rank 0 writes, the others wait for it)."""
         path = self._path(step)
-        os.makedirs(path, exist_ok=True)
-        torch.save(_plain(state), os.path.join(path, _STATE_FILE))
-        with open(os.path.join(self.dir, f"meta_{step}.json"), "w") as f:
-            json.dump({"step": step, "eval_loss": eval_loss}, f)
+        plain = _plain(state)
+        if _rank() == 0:
+            os.makedirs(path, exist_ok=True)
+            torch.save(plain, os.path.join(path, _STATE_FILE))
+            with open(os.path.join(self.dir, f"meta_{step}.json"), "w") as f:
+                json.dump({"step": step, "eval_loss": eval_loss}, f)
         if eval_loss is not None and eval_loss < self._best_loss:
             self._best_loss = eval_loss
-            best = self._path("best")
-            if os.path.exists(best):
-                shutil.rmtree(best)
-            shutil.copytree(path, best)
-        self._cleanup()
+            if _rank() == 0:
+                best = self._path("best")
+                if os.path.exists(best):
+                    shutil.rmtree(best)
+                shutil.copytree(path, best)
+        if _rank() == 0:
+            self._cleanup()
+        _barrier()
         return path
 
     def restore(self, template, tag="latest"):
@@ -144,6 +180,20 @@ def export_hf(params: Dict[str, Any], cfg: ModelConfig, out_dir: str, *,
             return tree.dequantize(torch.float32)
         return tree
 
+    if dist.is_initialized():  # DTensor slices gathered on every rank, written by rank 0
+        from ..parallel.sharding import gather_tree
+
+        params = gather_tree(params)
+        if _rank() != 0:
+            _barrier()
+            return out_dir
+        _export(params, cfg, out_dir, deq)
+        _barrier()
+        return out_dir
+    return _export(params, cfg, out_dir, deq)
+
+
+def _export(params, cfg, out_dir: str, deq) -> str:
     os.makedirs(out_dir, exist_ok=True)
     if hasattr(cfg, "kv_lora_rank"):
         return _export_deepseek(deq(params), cfg, out_dir)

@@ -10,7 +10,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..quant.dot import matmul_f32
 
-__all__ = ["causal_lm_loss", "chunked_causal_lm_loss", "IGNORE_INDEX"]
+__all__ = ["causal_lm_loss", "chunked_causal_lm_loss", "token_count", "IGNORE_INDEX"]
 
 IGNORE_INDEX = -100  # HF convention used by the reference's collator
 
@@ -36,30 +36,42 @@ def _valid(tokens: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return valid
 
 
+def token_count(tokens: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The number of predicted tokens the losses average over (int64, 0-d,
+    before the floor of 1)."""
+    return _valid(torch.as_tensor(tokens).long(), mask).sum()
+
+
 def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
                    mask: Optional[torch.Tensor] = None, *, z_loss: float = 0.0,
-                   label_smoothing: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                   label_smoothing: float = 0.0,
+                   n_total: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Next-token CE over ``logits [B, S, V]``: position t predicts token
     t+1; the last position, padded positions and ``IGNORE_INDEX`` labels are
-    excluded. Returns ``(mean_loss, total_tokens)``."""
+    excluded. Returns ``(mean_loss, total_tokens)``. ``n_total``: the count
+    to divide by (a data-parallel world's, summed over its ranks), returned
+    as the second value; default this batch's."""
     tokens = tokens.to(logits.device).long()
     valid = _valid(tokens, mask)
     labels = torch.where(valid, tokens[:, 1:], torch.zeros_like(tokens[:, 1:]))
     nll = _nll(logits[:, :-1].float(), labels, z_loss, label_smoothing)
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    n = valid.sum().clamp(min=1)
+    n = valid.sum().clamp(min=1) if n_total is None else n_total
     return nll.sum() / n, n
 
 
 def chunked_causal_lm_loss(hidden: torch.Tensor, lm_weight: torch.Tensor,
                            tokens: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
                            num_chunks: int = 8, z_loss: float = 0.0,
-                           label_smoothing: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                           label_smoothing: float = 0.0,
+                           n_total: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`causal_lm_loss` fused with the lm_head projection
     (``hidden [B, S, D] @ lm_weight [D, V]``), rows taken in ``num_chunks``
     chunks whose logits are recomputed in the backward
     (``torch.utils.checkpoint``), so the ``[B, S, V]`` float32 logits never
-    exist at once. Gradients reach ``hidden`` and ``lm_weight``."""
+    exist at once. Gradients reach ``hidden`` and ``lm_weight``.
+    ``n_total`` as in :func:`causal_lm_loss`."""
     D = hidden.shape[-1]
     tokens = tokens.to(hidden.device).long()
     h = hidden[:, :-1].reshape(-1, D)
@@ -82,5 +94,5 @@ def chunked_causal_lm_loss(hidden: torch.Tensor, lm_weight: torch.Tensor,
         sl = slice(i * rows, (i + 1) * rows)
         total = total + checkpoint(body, h[sl], lm_weight, labels[sl], valid[sl],
                                    use_reentrant=False)
-    n = valid.sum().clamp(min=1)
+    n = valid.sum().clamp(min=1) if n_total is None else n_total
     return total / n, n

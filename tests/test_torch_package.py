@@ -50,7 +50,11 @@ PORT_MODULES = [
     "llm_fp8_tpu_torch.models.hf_loader", "llm_fp8_tpu_torch.cli.serve",
     "llm_fp8_tpu_torch.convert", "llm_fp8_tpu_torch.models.bert",
     "llm_fp8_tpu_torch.models.vit", "llm_fp8_tpu_torch.ops.varlen",
-    "llm_fp8_tpu_torch.ops.split_kv", "chip_smoke",
+    "llm_fp8_tpu_torch.ops.split_kv", "llm_fp8_tpu_torch.parallel",
+    "llm_fp8_tpu_torch.parallel.mesh", "llm_fp8_tpu_torch.parallel.sharding",
+    "llm_fp8_tpu_torch.parallel.collectives", "llm_fp8_tpu_torch.parallel.fsdp",
+    "llm_fp8_tpu_torch.parallel.ring_attention", "llm_fp8_tpu_torch.parallel.pipeline",
+    "llm_fp8_tpu_torch.utils.metrics", "llm_fp8_tpu_torch.utils.monitor", "chip_smoke",
 ]
 
 

@@ -444,7 +444,7 @@ def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
     assert report["steps"] == 9 and report["non_finite_steps"] == 0
     assert (tmp_path / "out" / "stability_report.json").exists()
     lines = (tmp_path / "runs" / "metrics.jsonl").read_text().splitlines()
-    assert any('"eval"' in line for line in lines)
+    assert any('"eval/eval_loss"' in line for line in lines)  # MetricLogger's keys
     # Checkpointing (ported): steps 4 and 8, then 9 after the epoch's eval;
     # the newest two kept, the eval's the best; the HF export at the end.
     ckpt = sorted(p.name for p in (tmp_path / "ckpt").iterdir())
