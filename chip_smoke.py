@@ -115,7 +115,7 @@ Phases, in order; any failure exits non-zero before the last line:
    and the HF export read back bit for bit. ``compare``: ``cli.compare``
    at 1B width, 8 layers, all five configs for 5 steps, then ``--resume``.
 9. The GPT-2 and NeoX families (float32 compute). ``zoo_kernels``: K3's
-   float32 instance (3xTF32 ``mma.sync``) against its plain version row by
+   float32 instance (3xTF32 ``wgmma``) against its plain version row by
    row (``F32_ROW_TOL`` of each row's largest |v|) at Falcon-7B's prefill
    (71 q heads over 1 kv head, D 64, a 2048 bucket, ragged kv_lens), GPT-J's
    D 256, BTLM's D 80 with ALiBi and scale 1/80, gpt2-xl's 25 heads and the
@@ -133,13 +133,16 @@ Phases, in order; any failure exits non-zero before the last line:
    busy share; then every GPT-2/NeoX debug config through the engine.
 10. Training and speculative serving of the GPT-2 and NeoX families.
    ``zoo_train_kernels``: K6's float32 instance (its dQ and dKV kernels on
-   3xTF32 ``mma.sync``) against its plain version row by row
+   3xTF32 ``wgmma``) against its plain version row by row
    (``F32_GRAD_TOL`` of each row's largest |grad|, floored) at BTLM-3B's
    training shape (32 heads of 80, ALiBi, scale 1/80), gpt2-xl's 25 heads,
-   SantaCoder's 16 q heads over 1 at D 128, GPT-J's D 256, the debug D 32
-   and BTLM's shape with dropout 0.1; planted single-pass TF32, a query tile
-   lost in the dKV loop, a wrong slope and a keep mask of another seed must
-   be caught; the keep masks read back bit for bit from K6's dV (dO
+   SantaCoder's 16 q heads over 1 at D 128, GPT-J's D 256, the debug D 32,
+   a GQA-8 shape (32 q heads over 4 at D 128) and BTLM's shape with dropout
+   0.1; planted single-pass TF32, a query tile lost in the dKV loop, a wrong
+   slope, a keep mask of another seed and, where the dKV plan splits the
+   GQA group into slices, one slice's partial dropped must be caught; the
+   ptxas registers and spills of every float32 instance are printed after
+   the build; the keep masks read back bit for bit from K6's dV (dO
    one-hot) and K3's float32 output (V one-hot); K3's float32 dropout timed
    beside it without; each case beside its plain version and SDPA's float32
    backward. ``zoo_train_slice``: btlm-3b at full width cut to 2 layers, one
@@ -4505,6 +4508,8 @@ ZOO_K6_CASES = (
     ("santacoder MQA B4 S1024 Hq16 Hk1 D128 causal", 4, 1024, 16, 1, 128, False, None, 0.0, 0),
     ("gptj-6b B2 S512 Hq=Hk=16 D256 causal", 2, 512, 16, 16, 256, False, None, 0.0, 0),
     ("debug D32 B2 S256 Hq4 Hk2 ragged kv_lens", 2, 256, 4, 2, 32, False, None, 0.0, 37),
+    ("gqa-8 B4 S1024 Hq32 Hk4 D128 causal (dKV's group split into slices)", 4, 1024, 32, 4,
+     128, False, None, 0.0, 0),
     ("dropout 0.1 btlm-3b B8 S512 Hq=Hk=32 D80 alibi scale 1/80 causal", 8, 512, 32, 32, 80,
      True, 1.0 / 80, 0.1, 0),
 )
@@ -4554,7 +4559,9 @@ def zoo_train_kernel_cases(dev, bw, peak, log):
     single-pass TF32 (the kernels' ``passes=1``), a query tile lost in the
     dKV loop (queries 64-127 left out of dK and dV: held over the keys they
     give 2^-10 of weight or more), each head given its neighbour's ALiBi
-    slope, and a keep mask from another seed. Then the keep masks read back
+    slope, a keep mask from another seed and, where the dKV plan splits the
+    GQA group (``dkv_slices``: SantaCoder, the GQA-8 case, the debug case),
+    one slice's partial dK and dV dropped before the sum. Then the keep masks read back
     bit for bit (at BTLM's shape without ALiBi, whose far keys underflow):
     K6's from dV with dO one-hot, K3's float32 instance's from its output
     with V one-hot. Each main case timed (CUDA graph) beside the plain
@@ -4622,6 +4629,18 @@ def zoo_train_kernel_cases(dev, bw, peak, log):
 
         planted = {"single_pass_tf32": caught(k6.flash_attention_bwd_f32(*args, passes=1,
                                                                           **bwd))}
+        n = k6.dkv_slices(B, S, Hk, Hq // Hk, D)
+        case["dkv_slices"] = n
+        if n > 1:  # the group split: one slice's partial dK and dV dropped before the sum
+            parts = torch.empty(k6.dkv_scratch_shape(B, S, Hk, D, n), device=dev)
+            k6.dkv_partials_launch(q, k, v, do, lse, di, qo, kl, parts[0], parts[1], n, **cfg)
+            parts[:, n // 2].zero_()
+            dropped = (torch.empty_like(k), torch.empty_like(v))
+            k6.dkv_sum_launch(parts, *dropped)
+            planted["dropped_slice (dk, dv)"] = [
+                float((f32_grad_err(a, b) > F32_GRAD_TOL).float().mean())
+                for a, b in zip(dropped, ref[1:])]
+            del parts, dropped
         lost = do.clone()
         lost[:, 64:128] = 0.0  # queries 64-127 out of dK and dV (their dq rows too)
         bad = k6.flash_attention_bwd_plain(q, k, v, out, lse, lost, window=None, softcap=None,
@@ -4647,7 +4666,7 @@ def zoo_train_kernel_cases(dev, bw, peak, log):
         live = live_pairs(B, S, S, qo, kl, True, None, dev)
         pairs = int(live.sum()) * Hq
         case["live_pairs"] = pairs
-        if name.startswith(("btlm", "gpt2-xl", "santacoder", "gptj", "dropout")):
+        if name.startswith(("btlm", "gpt2-xl", "santacoder", "gptj", "dropout", "gqa-8")):
             call = lambda: k6.flash_attention_bwd_f32(*args, **bwd)  # noqa: E731
             case["ms"] = cuda_ms(call, calls=5, rounds=3)
             case["call_ms"] = eager_ms(call, calls=5, rounds=3)
@@ -8120,6 +8139,36 @@ def dist_training(dev, card, log):
         restore_env("LLM_FP8_NATIVE_DOT", saved)
 
 
+def ptxas_summary(build_dir, names):
+    """Registers and spill bytes of every kernel instance in the ``nvcc
+    -Xptxas -v`` logs of the named libraries: {"kernel<D,passes>": [registers,
+    spill stores, spill loads]} (an empty dict where a library was not built
+    in this run)."""
+    import re
+
+    out = {}
+    for name in names:
+        log = build_dir / f"{name}.log"
+        if not log.exists():
+            continue
+        kernel = None
+        for line in log.read_text().splitlines():
+            m = "Compiling entry function" in line and re.search(
+                r"(flash_fwd_f32_kernel|flash_bwd_f32_dq_kernel|flash_bwd_f32_dkv_kernel|"
+                r"dkv_sum_kernel)(?:ILi(\d+)ELi(\d+)E)?", line)
+            if m:
+                kernel = m.group(1) + (f"<{m.group(2)},{m.group(3)}>" if m.group(2) else "")
+                out[kernel] = [None, 0, 0]
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and kernel:
+                out[kernel][1:] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                out[kernel][0] = int(m.group(1))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -8156,6 +8205,9 @@ def main(argv=None) -> int:
           flush=True)
 
     report = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=built)
+    report["ptxas_f32"] = ptxas_summary(_build.BUILD_DIR, ("flash_attention_f32",
+                                                           "flash_attention_bwd_f32"))
+    print(json.dumps({"ptxas_f32": report["ptxas_f32"]}), flush=True)
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         for log_file in _build.BUILD_DIR.glob("*.log"):  # nvcc -Xptxas -v output

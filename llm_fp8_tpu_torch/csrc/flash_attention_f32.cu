@@ -16,36 +16,40 @@
 // bf16 instance). Masked scores take the TPU kernel's finite MASK_VALUE;
 // dead rows give out 0 and lse -inf. Head dims 32, 64, 80, 128 and 256.
 //
-// Bound on the H100: operations, 4·D FLOPs per live (query, key) pair. No
-// wgmma takes float32, so the products run on mma.sync m16n8k8 TF32 with a
-// 3xTF32 split (below): three TF32 products per float32 product, against
-// the 495 TFLOP/s TF32 peak, i.e. 165 TFLOP/s of float32 products at best
+// Bound on the H100: operations, 4·D FLOPs per live (query, key) pair. The
+// products run on the TF32 tensor cores (wgmma m64nNk8 .tf32) with a 3xTF32
+// split (below): three TF32 products per float32 product, against the
+// 495 TFLOP/s TF32 peak, i.e. 165 TFLOP/s of float32 products at best
 // (Falcon-7B's 2048-token causal prefill, 71 heads of 64, is 38 GFLOP a
 // layer, 0.23 ms at that rate; 0.57 ms at CUDA-core float32's 67 TFLOP/s).
 //
-// Design (a simple kernel that is right; not yet tuned):
+// Design:
 // - Precision: 3xTF32 (tf32x3.cuh: each operand split into big and small
 //   TF32 parts, three products), float32 to a few ulps; single-pass TF32
 //   (the PASSES == 1 instance) is kept as the planted fault the checks must
-//   catch. CUDA-core FFMA was the other design: exact float32, but 3x fewer
-//   FLOPs a cycle than 3xTF32 on the tensor cores.
-// - One block of 4 warps per (64 query rows, q head, batch row); each warp
-//   owns 16 rows. Q is loaded once into shared memory; the block walks key
-//   tiles of BN keys (64; 32 at D = 256) that hold a live key for some row,
-//   each loaded by all threads (16-byte loads, rows past Sk as zeros) into
-//   shared memory and used by the 4 warps. Several blocks share an SM
-//   (4 at D = 64), which overlaps one block's loads with another's math.
-// - Rows of Q, K and V in shared memory are D + 4 floats apart, which puts
-//   the 32 lanes of every fragment load on 32 different banks.
+//   catch.
+// - One block of two warpgroups (8 warps of 16 rows) per (128 query rows,
+//   q head, batch row). Q is copied once into shared memory (rows D + 4
+//   floats apart); each warp splits its own rows' A fragments a k-step at
+//   a time, the next step's loads and split running while the last step's
+//   wgmmas do. A warpgroup whose rows all precede a causal tile skips it.
+// - The block walks key tiles of BN keys (Cfg) that hold a live key for
+//   some row. Tile j + 1's K and V rows are in flight (cp.async, rows past
+//   Sk as zeros) while tile j's products run; when they land, the split
+//   stage writes K once into a plane (keys as rows: Q·Kᵀ's K-major B) and V
+//   once, transposed, into another (head dims as rows, keys in the c_as_a
+//   order: P·V's K-major B), and the wgmmas read those planes and convert
+//   nothing. BN keeps two blocks on an SM up to D 80 (one at D 128 and 256),
+//   so that one warpgroup's split and softmax run while another's products
+//   do.
 // - S = Q·Kᵀ stays in the accumulator registers (rows g and g + 8 of the
 //   warp's 16, columns 2t and 2t + 1 of each 8-key group, g = lane / 4,
-//   t = lane % 4). The softmax runs there in the log2 domain, the row max
-//   and sum over the 4 lanes of a quad. P·V reads P straight from those
-//   registers as the A fragment: within an 8-key group, the A fragment's
-//   column t is key 2t and its column t + 4 key 2t + 1, so V's B fragment is
-//   read with the same key order (rows 2t and 2t + 1), and the sum over the
-//   group is unchanged. O stays in registers.
-// - Warps whose rows all precede a causal tile skip its products.
+//   t = lane % 4). The softmax runs there in the log2 domain (p = 2^x by
+//   the special-function unit, ex2.approx: about 2 ulp, results below
+//   2^-126 flushed to 0), the row max and sum over the 4 lanes of a quad. P·V reads P straight from those
+//   registers as the A fragment (tf32x3::c_as_a); V's plane holds the keys
+//   of each 8-group in the matching order, so the sum over the group is
+//   unchanged. O stays in registers (two 128-column wgmma halves at D 256).
 // - Dropout is a uniform runtime branch (drop.on()), so it adds no template
 //   instance; its hash runs only when a rate is set.
 #include <math.h>
@@ -57,127 +61,117 @@
 
 namespace {
 
-using tf32x3::load4;
-using tf32x3::mma_f32;
-using tf32x3::split;
-
-constexpr int kBM = 64;  // query rows a block: 4 warps of 16
 constexpr float kMask = -0.7f * 3.4028234663852886e38f;
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
-  static constexpr int BN = D > 128 ? 32 : 64;  // keys a tile
-  static constexpr int LD = D + 4;              // floats between shared-memory rows
-  static constexpr int BYTES = (kBM + 2 * BN) * LD * 4;
+  static constexpr int NWG = 2;         // warpgroups a block, 64 query rows each
+  static constexpr int BM = 64 * NWG;   // query rows a block
+  static constexpr int NT = 128 * NWG;  // threads a block
+  static constexpr int BN = D == 32 ? 64 : D <= 80 ? 32 : 16;  // keys a tile
+  static constexpr int LD = D + 4;  // floats between the rows of Q and the raw K/V tiles
+  // Q, the raw K and V tiles in flight, K's plane and V's transposed plane.
+  static constexpr int BYTES =
+      4 * (BM * LD + 2 * BN * LD + 2 * (2 * BN * D));
+  static_assert(BYTES <= 232448, "K3 f32: shared memory");
 };
 
 template <int D, int PASSES>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(Cfg<D>::NT)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, const int* __restrict__ q_offset,
                      const int* __restrict__ kv_lens, const float* __restrict__ alibi, int Sq,
                      int Sk, int Hq, int Hk, float scale, int causal, dropout::Params drop) {
-  constexpr int BN = Cfg<D>::BN, LD = Cfg<D>::LD, V4 = D / 4, NT = BN / 8, DT = D / 8;
+  constexpr int BM = Cfg<D>::BM, NT = Cfg<D>::NT, BN = Cfg<D>::BN, LD = Cfg<D>::LD;
+  constexpr int NG = BN / 8, DT = D / 8;  // 8-key groups a tile, 8-column groups of O
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kBM * LD;
-  float* vs = ks + BN * LD;
+  float* kraw = qs + BM * LD;
+  float* vraw = kraw + BN * LD;
+  uint32_t* kpl = reinterpret_cast<uint32_t*>(vraw + BN * LD);  // BN keys x D
+  uint32_t* vpl = kpl + 2 * BN * D;                              // D x BN keys
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;  // heavy (late) tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // heavy (late) tiles first
   const int kvh = h / (Hq / Hk);
   const int q_off = q_offset[b];
   const int kv_len = min(kv_lens[b], Sk);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int lr0 = 64 * wg + 16 * warp + g;  // this thread's rows in the block: lr0, lr0 + 8
   const size_t q_rs = static_cast<size_t>(Hq) * D, k_rs = static_cast<size_t>(Hk) * D;
+  const size_t kbase = static_cast<size_t>(b) * Sk;
 
   // Key tiles that can hold a live (q, k) pair for some row of the block.
   int k_hi = kv_len;
-  if (causal) k_hi = min(k_hi, q_off + min(q0 + kBM, Sq));
+  if (causal) k_hi = min(k_hi, q_off + min(q0 + BM, Sq));
   const int ntiles = k_hi > 0 ? (k_hi + BN - 1) / BN : 0;
 
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int i = threadIdx.x; i < kBM * V4; i += 128) {
-    const int r = i / V4, c = (i % V4) * 4;
-    *reinterpret_cast<float4*>(qs + r * LD + c) =
-        q0 + r < Sq ? load4(q + (static_cast<size_t>(b) * Sq + q0 + r) * q_rs + h * D + c)
-                    : zero;
+  tf32x3::cp_rows<D, BM, NT>(qs, q, q0, Sq, static_cast<size_t>(b) * Sq, q_rs, h * D);
+  if (ntiles > 0) {
+    tf32x3::cp_rows<D, BN, NT>(kraw, k, 0, Sk, kbase, k_rs, kvh * D);
+    tf32x3::cp_rows<D, BN, NT>(vraw, v, 0, Sk, kbase, k_rs, kvh * D);
   }
+  tf32x3::cp_async_commit();
 
-  const int row0 = q0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  const int row0 = q0 + lr0;  // this thread's rows: row0, row0 + 8
   const int pos0 = q_off + row0;
-  const int warp_min = q_off + q0 + 16 * warp, warp_max = warp_min + 15;
+  const int warp_min = pos0 - g;
+  // The last query position of this thread's warpgroup (its products skip
+  // the key tiles past it) and whether the warpgroup has rows at all.
+  const int wg_max = q_off + q0 + 64 * wg + 63;
+  const bool wg_rows = q0 + 64 * wg < Sq;
   const float scale2 = scale * kLog2e;
   const float slope2 = alibi != nullptr ? alibi[b * Hq + h] * kLog2e : 0.0f;
   const bool dropping = drop.on();
   const uint32_t h0 = drop.head(static_cast<uint32_t>(b * Hq + h));
 
-  float o[DT][4];
+  float o[D / 2];  // 8-column group c: o[4c .. 4c + 3]
 #pragma unroll
-  for (int c = 0; c < DT; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[c][e] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 
   for (int j = 0; j < ntiles; ++j) {
     const int k0 = j * BN;
-    __syncthreads();  // the previous tile's reads (and Q's stores) are done
-    for (int i = threadIdx.x; i < BN * V4; i += 128) {
-      const int r = i / V4, c = (i % V4) * 4;
-      float4 kv = zero, vv = zero;
-      if (k0 + r < Sk) {
-        const size_t off = (static_cast<size_t>(b) * Sk + k0 + r) * k_rs + kvh * D + c;
-        kv = load4(k + off);
-        vv = load4(v + off);
-      }
-      *reinterpret_cast<float4*>(ks + r * LD + c) = kv;
-      *reinterpret_cast<float4*>(vs + r * LD + c) = vv;
+    tf32x3::cp_async_wait_all();
+    __syncthreads();  // tile j (and Q) landed; the previous tile's products are done
+    tf32x3::split_plane<PASSES, BN, D, NT>(kpl, kraw);
+    tf32x3::split_plane_t<PASSES, BN, D, NT>(vpl, vraw);
+    hopper::fence_proxy_async();  // the planes, written by threads, are read by wgmma
+    __syncthreads();              // the planes are written and the raw tiles free
+    if (j + 1 < ntiles) {
+      tf32x3::cp_rows<D, BN, NT>(kraw, k, k0 + BN, Sk, kbase, k_rs, kvh * D);
+      tf32x3::cp_rows<D, BN, NT>(vraw, v, k0 + BN, Sk, kbase, k_rs, kvh * D);
     }
-    __syncthreads();
-    if (causal && k0 > warp_max) continue;  // no live key for any row of this warp
+    tf32x3::cp_async_commit();
+    // A warpgroup whose rows all precede the tile (or lie past Sq) skips it.
+    if ((causal && k0 > wg_max) || !wg_rows) continue;
 
-    // ---- S = Q·Kᵀ ----
-    float s[NT][4];
+    // ---- S = Q·Kᵀ (8-key group n: s[4n .. 4n + 3]) ----
+    float sacc[1][BN / 2];
+    float (&s)[BN / 2] = sacc[0];
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DT; ++kk) {
-      const float* qa = qs + (16 * warp + g) * LD + 8 * kk + t;
-      uint32_t ab[4], as[4];
-      split<PASSES>(qa[0], ab[0], as[0]);
-      split<PASSES>(qa[8 * LD], ab[1], as[1]);
-      split<PASSES>(qa[4], ab[2], as[2]);
-      split<PASSES>(qa[8 * LD + 4], ab[3], as[3]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const float* kb = ks + (8 * n + g) * LD + 8 * kk + t;
-        uint32_t bb0, bs0, bb1, bs1;
-        split<PASSES>(kb[0], bb0, bs0);
-        split<PASSES>(kb[4], bb1, bs1);
-        mma_f32<PASSES>(s[n], ab, as, bb0, bb1, bs0, bs1);
-      }
-    }
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.0f;
+    tf32x3::rows_products<PASSES, BN, D, 1>(sacc, {qs}, lr0, t, {kpl});
 
     // ---- online softmax, log2 domain ----
     const bool need_mask = k0 + BN > kv_len || (causal && k0 + BN - 1 > warp_min);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < NG; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kp = k0 + 8 * n + 2 * t + (e & 1), qp = pos0 + 8 * (e >> 1);
-        float x = s[n][e] * scale2;
+        float x = s[4 * n + e] * scale2;
         if (slope2 != 0.0f) x = fmaf(-slope2, fabsf(static_cast<float>(qp - kp)), x);
         if (need_mask) {
           bool live = kp < kv_len;
           if (causal) live = live && kp <= qp;
           x = live ? x : kMask;
         }
-        s[n][e] = x;
+        s[4 * n + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     float alpha[2], rs[2] = {0.0f, 0.0f};
@@ -190,44 +184,39 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m[r] = m_new;
     }
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        rs[e >> 1] += p;
-      }
+    for (int i = 0; i < BN / 2; ++i) {
+      const float p = hopper::fast_exp2(s[i] - m[(i >> 1) & 1]);
+      s[i] = p;
+      rs[(i >> 1) & 1] += p;
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
     if (dropping) {  // P·V takes the kept entries, scaled; l the undropped row sum
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NG; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = k0 + 8 * n + 2 * t + (e & 1), qp = pos0 + 8 * (e >> 1);
-          s[n][e] = drop.keep(h0, qp, kp) ? s[n][e] * drop.scale : 0.0f;
+          s[4 * n + e] = drop.keep(h0, qp, kp) ? s[4 * n + e] * drop.scale : 0.0f;
         }
     }
 #pragma unroll
-    for (int c = 0; c < DT; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[c][e] *= alpha[e >> 1];
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
     // ---- O += P·V, P from the score registers (keys 2t, 2t + 1 of a group) ----
+    uint32_t pb[NG][4], ps[NG][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      uint32_t ab[4], as[4];
-      tf32x3::c_as_a<PASSES>(s[n], ab, as);
-      const float* vb = vs + (8 * n + 2 * t) * LD + g;
-#pragma unroll
-      for (int c = 0; c < DT; ++c) {
-        uint32_t bb0, bs0, bb1, bs1;
-        split<PASSES>(vb[8 * c], bb0, bs0);
-        split<PASSES>(vb[LD + 8 * c], bb1, bs1);
-        mma_f32<PASSES>(o[c], ab, as, bb0, bb1, bs0, bs1);
-      }
+    for (int n = 0; n < NG; ++n) tf32x3::c_as_a<PASSES>(s + 4 * n, pb[n], ps[n]);
+    if constexpr (D <= 128) {
+      tf32x3::acc_product<PASSES, D, BN, D>(o, pb, ps, vpl, 0, 1);
+    } else {  // two 128-column halves (one wgmma's N at most 256, its registers 128)
+      tf32x3::acc_product<PASSES, 128, BN, D>(*reinterpret_cast<float(*)[64]>(o), pb, ps,
+                                              vpl, 0, 1);
+      tf32x3::acc_product<PASSES, 128, BN, D>(*reinterpret_cast<float(*)[64]>(o + 64), pb,
+                                              ps, vpl, 128, 1);
     }
   }
+  tf32x3::cp_async_wait_all();  // no copy outlives the block
 
   // ---- epilogue: out = O / l (0 on dead rows), lse = m + log l ----
 #pragma unroll
@@ -245,7 +234,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DT; ++c)
       *reinterpret_cast<float2*>(orow + 8 * c + 2 * t) =
-          make_float2(o[c][2 * r] * inv, o[c][2 * r + 1] * inv);
+          make_float2(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
     if (t == 0)
       lse[(static_cast<size_t>(b) * Hq + h) * Sq + row] =
           dead ? -INFINITY : (m[r] + log2f(l[r])) * kLn2;
@@ -271,8 +260,8 @@ int launch(const Args& a, cudaStream_t s) {
   static const cudaError_t smem_set = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<D, PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
-  dim3 grid((a.Sq + kBM - 1) / kBM, a.Hq, a.B);
-  flash_fwd_f32_kernel<D, PASSES><<<grid, 128, bytes, s>>>(
+  dim3 grid((a.Sq + Cfg<D>::BM - 1) / Cfg<D>::BM, a.Hq, a.B);
+  flash_fwd_f32_kernel<D, PASSES><<<grid, Cfg<D>::NT, bytes, s>>>(
       a.q, a.k, a.v, a.out, a.lse, a.q_offset, a.kv_lens, a.alibi, a.Sq, a.Sk, a.Hq, a.Hk,
       a.scale, a.causal, a.drop);
   return static_cast<int>(cudaGetLastError());

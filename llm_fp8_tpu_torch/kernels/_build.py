@@ -59,7 +59,8 @@ _SIGNATURES = {
                             [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _I, _F, _P]},
     "flash_attention_bwd_f32": {
         "flash_bwd_f32_dq_launch": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _I, _I, _F, _P],
-        "flash_bwd_f32_dkv_launch": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _I, _I, _F, _P]},
+        "flash_bwd_f32_dkv_launch": [_P] * 11 + [_I] * 7 + [_F, _I, _I, _I, _I, _F, _P],
+        "flash_bwd_f32_dkv_sum_launch": [_P] * 3 + [_I] * 2 + [_P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -12,7 +12,7 @@ family's 192 and 24 and debug-vit's 16 zero-padded to 256 and 32 by the
 wrapper, :data:`PADDED_HEAD_DIMS`).
 float32 q, k and v (the GPT-2 and NeoX families serve in float32) take K3's
 float32 instance, :func:`flash_fwd_f32` (``csrc/flash_attention_f32.cu``:
-``mma.sync`` TF32 products with a 3xTF32 split, so float32 accuracy; head
+``wgmma`` TF32 products with a 3xTF32 split, so float32 accuracy; head
 dims 32, 64, 80, 128 and 256; causal, ``q_offset``, ``kv_lens``, GQA, the
 scale, ALiBi and dropout; no window, softcap, chunk or segment ids: the
 wrapper raises on them for CUDA tensors). Its autograd backward is

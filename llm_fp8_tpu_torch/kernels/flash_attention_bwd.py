@@ -32,8 +32,10 @@ card, which skip the tiles outside every row's chunk).
 
 float32 q/k/v (the GPT-2 and NeoX families train in float32) take K6's
 float32 instance on the card, :func:`flash_attention_bwd_f32`
-(``csrc/flash_attention_bwd_f32.cu``: the same two kernels on ``mma.sync``
-TF32 products with a 3xTF32 split, so float32 accuracy; p and ds stay
+(``csrc/flash_attention_bwd_f32.cu``: the same two kernels on ``wgmma``
+TF32 products with a 3xTF32 split, so float32 accuracy, each tile's operands
+split once into shared-memory planes; the dKV walk splits a GQA group into
+the slices of :func:`dkv_slices`, summed in slice order; p and ds stay
 float32, as the TPU kernel keeps them in q's dtype; head dims 32, 64, 80,
 128 and 256; causal, ``q_offset``, ``kv_lens``, GQA, the scale, ALiBi and
 dropout; no window, softcap, chunk or segment ids on the card).
@@ -51,7 +53,8 @@ from ._common import (PADDED_HEAD_DIMS, aligned16, alibi_bias, dropout_args, dro
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "flash_bwd_dkv",
            "flash_bwd_dq", "recompute_p_ds", "row_di", "flash_attention_bwd_f32",
-           "flash_bwd_f32_dq", "flash_bwd_f32_dkv", "F32_HEAD_DIMS"]
+           "flash_bwd_f32_dq", "flash_bwd_f32_dkv", "F32_HEAD_DIMS", "dkv_slices",
+           "dkv_scratch_shape", "dkv_keys", "DKV_TARGET_BLOCKS"]
 
 #: Head dims of the float32 instance: K3's float32 instance's (GPT-2/OPT/
 #: Falcon 64, SantaCoder and Pythia-1.4B 128, BTLM 80, GPT-J 256, debug 32).
@@ -226,16 +229,54 @@ flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0
 
 
-def _f32_args(q, k, cfg):
+def _f32_args(q, k, cfg, nslices=None):
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     alibi = cfg.get("alibi")
     return [ctypes.c_void_p(alibi.data_ptr() if alibi is not None else 0),
             ctypes.c_int(B), ctypes.c_int(Sq), ctypes.c_int(Sk), ctypes.c_int(Hq),
-            ctypes.c_int(Hk), ctypes.c_int(D), ctypes.c_float(cfg["scale"]),
+            ctypes.c_int(Hk), ctypes.c_int(D),
+            *([] if nslices is None else [ctypes.c_int(nslices)]),
+            ctypes.c_float(cfg["scale"]),
             ctypes.c_int(int(cfg["causal"])), ctypes.c_int(cfg.get("passes", 3)),
             *dropout_args(cfg.get("dropout_p", 0.0), cfg.get("dropout_seed", 0)),
             ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)]
+
+
+#: The blocks :func:`dkv_slices` aims the float32 dKV grid at: sixteen for
+#: each of the H100's 132 SMs. The causal walk's blocks are uneven (a key
+#: tile near the start meets every query, one near the end few), and on an
+#: H100 more, smaller blocks evened them out up to one q head a slice
+#: (``scripts/kernel_variants.py k6-f32-slices``): SantaCoder's dKV (B 4 x
+#: S 1024, 16 q heads over one) took 5776 µs in one slice, 1234 in 8 and
+#: 1008 in 16; Falcon-7B's training shape (B 8 x S 512, 71 over one) 6279 in
+#: one and 1079 in 71.
+DKV_TARGET_BLOCKS = 16 * 132
+
+
+def dkv_keys(D: int) -> int:
+    """Keys a block of the float32 dKV kernel takes (``Rows<D, kDKV>::BM``:
+    two warpgroups of 64 at head dims 80 and 128, one at 32, 64 and 256)."""
+    return 128 if D in (80, 128) else 64
+
+
+def dkv_slices(B: int, Sk: int, Hk: int, group: int, D: int) -> int:
+    """Slices of each GQA group that the float32 dKV kernel splits its walk
+    into: the fewest that divide ``group`` and bring its grid of key tiles
+    (:func:`dkv_keys`; two blocks a tile at D 256, dK's and dV's), kv heads
+    and batch rows to :data:`DKV_TARGET_BLOCKS` blocks, or the group itself.
+    Slice s of n takes the group's q heads ``s·group // n .. (s + 1)·group //
+    n - 1`` (as many in each); the slices' partial dK and dV are summed in
+    slice order."""
+    tiles = -(-Sk // dkv_keys(D)) * (2 if D == 256 else 1)
+    want = -(-DKV_TARGET_BLOCKS // (tiles * Hk * B))
+    return next(n for n in range(1, group + 1) if group % n == 0 and (n >= want or n == group))
+
+
+def dkv_scratch_shape(B: int, Sk: int, Hk: int, D: int, nslices: int) -> tuple:
+    """The float32 partials a split walk writes: dK's and dV's, one
+    ``[B, Sk, Hk, D]`` each per slice."""
+    return (2, nslices, B, Sk, Hk, D)
 
 
 def flash_bwd_f32_dq(q, k, v, o, do, lse, q_offset, kv_lens, **cfg):
@@ -253,14 +294,47 @@ def flash_bwd_f32_dq(q, k, v, o, do, lse, q_offset, kv_lens, **cfg):
     return dq, di
 
 
-def flash_bwd_f32_dkv(q, k, v, do, lse, di, q_offset, kv_lens, **cfg):
-    """dK and dV of K6's float32 instance on the card (its dKV kernel);
-    counts its launches."""
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+def dkv_partials_launch(q, k, v, do, lse, di, q_offset, kv_lens, out_k, out_v, nslices,
+                        **cfg):
+    """The float32 dKV kernel alone over ``nslices`` slices of each group:
+    ``out_k``/``out_v`` are ``[nslices, B, Sk, Hk, D]`` float32 (for one
+    slice, dk and dv themselves). Counts nothing: :func:`flash_bwd_f32_dkv`
+    is the kernel's wrapper."""
     lib = _build.library("flash_attention_bwd_f32")
-    err = lib.flash_bwd_f32_dkv_launch(*_ptrs(q, k, v, do, lse, di, q_offset, kv_lens, dk, dv),
-                                       *_f32_args(q, k, cfg))
+    err = lib.flash_bwd_f32_dkv_launch(
+        *_ptrs(q, k, v, do, lse, di, q_offset, kv_lens, out_k, out_v),
+        *_f32_args(q, k, cfg, nslices))
     _build.check(lib, err, "flash_attention_bwd_f32 (dKV)")
+
+
+def dkv_sum_launch(parts, dk, dv):
+    """dk, dv = the sums of the slices' partials ``parts`` (the shape of
+    :func:`dkv_scratch_shape`) in slice order: the dKV kernel's second pass."""
+    if dk.numel() >= 2 ** 31:
+        raise ValueError(f"flash_attention_bwd_f32: {dk.numel()} elements of dK")
+    lib = _build.library("flash_attention_bwd_f32")
+    err = lib.flash_bwd_f32_dkv_sum_launch(
+        *_ptrs(parts, dk, dv), ctypes.c_int(dk.numel()), ctypes.c_int(parts.shape[1]),
+        ctypes.c_void_p(torch.cuda.current_stream(dk.device).cuda_stream))
+    _build.check(lib, err, "flash_attention_bwd_f32 (dKV sum)")
+
+
+def flash_bwd_f32_dkv(q, k, v, do, lse, di, q_offset, kv_lens, **cfg):
+    """dK and dV of K6's float32 instance on the card (its dKV kernel, over
+    the slices of :func:`dkv_slices`, then the slices' sum where there are
+    several); counts its launches."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    n = dkv_slices(B, Sk, Hk, Hq // Hk, D)
+    if n == 1:
+        dkv_partials_launch(q, k, v, do, lse, di, q_offset, kv_lens, dk, dv, 1, **cfg)
+    else:
+        parts = torch.empty(dkv_scratch_shape(B, Sk, Hk, D, n), dtype=torch.float32,
+                            device=q.device)
+        dkv_partials_launch(q, k, v, do, lse, di, q_offset, kv_lens, parts[0], parts[1], n,
+                            **cfg)
+        dkv_sum_launch(parts, dk, dv)
     flash_bwd_f32_dkv.launches += 1
     return dk, dv
 

@@ -29,8 +29,23 @@ kernels' sources (a new head dim, a new mask) can be shown to leave the
 existing instances as they were. A build older than the segment ids and the
 chunk is called without those arguments.
 
+``k3k6-f32 DIR``: K3's and K6's float32 instances built from another
+checkout's ``csrc`` directory ``DIR`` beside the repo's, on the same inputs
+at every case of ``chip_smoke.py``'s ``ZOO_K3_CASES``, ``ENC_F32_CASES`` and
+``ZOO_K6_CASES``: each build's worst row against the plain version (in the
+units of ``F32_ROW_TOL`` and ``F32_GRAD_TOL``) and the device times of both
+builds in turns (old, new, new, old); where the dKV plan splits the GQA
+group, the repo's build is also timed with the walk in one slice. A build
+from before the group split is called with one slice and no sum pass.
+
+``k6-f32-slices``: K6's float32 dKV kernel (and its sum pass) at every
+slice count that divides the GQA group, at SantaCoder's, a GQA-8 and
+Falcon-7B's training shapes, beside the count ``dkv_slices`` plans.
+
     python -m llm_fp8_tpu_torch.scripts.kernel_variants [k1-splits] [k1-merge] [k7-exp]
     python -m llm_fp8_tpu_torch.scripts.kernel_variants k3k6-bits OLD_CHECKOUT/llm_fp8_tpu_torch/csrc
+    python -m llm_fp8_tpu_torch.scripts.kernel_variants k3k6-f32 OLD_CHECKOUT/llm_fp8_tpu_torch/csrc
+    python -m llm_fp8_tpu_torch.scripts.kernel_variants k6-f32-slices
 
 Needs a CUDA card and ``nvcc``. Times are device times of calls captured in
 a CUDA graph. Prints one JSON object per case.
@@ -298,6 +313,8 @@ def _build_variants(variants: dict, lib_name: str = "flash_attention_fp8",
         lib.kernel_error_string.restype = ctypes.c_char_p
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         for fn, argtypes in _build._SIGNATURES[lib_name].items():
+            if not hasattr(lib, fn):  # an older build without this launcher
+                continue
             f = getattr(lib, fn)
             f.restype, f.argtypes = ctypes.c_int, argtypes
         libs[name] = lib
@@ -466,19 +483,170 @@ def k3k6_bits(dev: torch.device, old: Path) -> None:
         use(new)
 
 
+class _F32BwdBeforeSlices:
+    """K6's float32 build from before the GQA group split: its dKV launcher
+    takes no slice count and writes dk and dv itself (the wrappers reach it
+    with the plan at one slice, so they call no sum pass)."""
+
+    SLICES_ARG = 17  # nslices' position in the dKV launcher's arguments
+
+    def __init__(self, lib):
+        self._lib = lib
+        sig = _build._SIGNATURES["flash_attention_bwd_f32"]["flash_bwd_f32_dkv_launch"]
+        lib.flash_bwd_f32_dkv_launch.argtypes = [a for i, a in enumerate(sig)
+                                                 if i != self.SLICES_ARG]
+
+    def __getattr__(self, fn):
+        if fn != "flash_bwd_f32_dkv_launch":
+            return getattr(self._lib, fn)
+        return lambda *args: self._lib.flash_bwd_f32_dkv_launch(
+            *(a for i, a in enumerate(args) if i != self.SLICES_ARG))
+
+
+def k3k6_f32(dev: torch.device, old: Path) -> None:
+    root = Path(__file__).resolve().parents[2]
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+
+    from ..kernels import flash_attention as k3
+    from ..kernels import flash_attention_bwd as k6
+    from ..kernels._common import pad_head_dim
+    from ..ops.attention import default_alibi_slopes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = ("flash_attention_f32", "flash_attention_bwd_f32")
+    new = {n: _build.library(n) for n in names}
+    olds = {n: _build_variants({"old": (old / f"{n}.cu").read_text()}, n, old)["old"]
+            for n in names}
+    old_slices = hasattr(olds["flash_attention_bwd_f32"], "flash_bwd_f32_dkv_sum_launch")
+    if not old_slices:
+        olds["flash_attention_bwd_f32"] = _F32BwdBeforeSlices(olds["flash_attention_bwd_f32"])
+    plan = k6.dkv_slices
+    print(json.dumps({"card": cs.nvidia_smi(), "old": str(old),
+                      "old_splits_the_group": old_slices}), flush=True)
+
+    def use(tag):
+        for n in names:
+            _build._LIBS[n] = (olds if tag == "old" else new)[n]
+        one = tag == "new, one slice" or (tag == "old" and not old_slices)
+        k6.dkv_slices = (lambda *a: 1) if one else plan
+
+    def turns(tags, fn):
+        us = {tag: [] for tag in tags}
+        for tag in tags + tags[::-1]:
+            use(tag)
+            us[tag].append(_graph_ms(fn, calls=5) * 1e3)
+        return us
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    try:
+        fwd_cases = [(name, B, Sq, Sk, Hq, Hk, D, qo, kv, al, sc, True)
+                     for name, B, Sq, Sk, Hq, Hk, D, qo, kv, al, sc in cs.ZOO_K3_CASES]
+        fwd_cases += [(name, B, S, S, H, H, D, [0] * B, kv or [S] * B, False, None, False)
+                      for name, B, S, H, D, kv in cs.ENC_F32_CASES]
+        for name, B, Sq, Sk, Hq, Hk, D, q_off, kv, alibi, scale, causal in fwd_cases:
+            Dp = D if D in k3.F32_HEAD_DIMS else 32
+            q, k, v = (pad_head_dim(torch.randn(s, generator=g, device=dev), Dp)
+                       for s in ((B, Sq, Hq, D), (B, Sk, Hk, D), (B, Sk, Hk, D)))
+            qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+            kl = torch.tensor(kv, dtype=torch.int32, device=dev)
+            al = default_alibi_slopes(Hq, dev)[None].expand(B, Hq).contiguous() if alibi else None
+            cfg = dict(causal=causal, scale=scale or D ** -0.5, alibi=al)
+            ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, window=None, softcap=None, **cfg)
+            rows = torch.isfinite(ref_lse).transpose(1, 2)
+            worst = {}
+            for tag in ("old", "new"):
+                use(tag)
+                out, _ = k3.flash_fwd_f32(q, k, v, qo, kl, **cfg)
+                worst[tag] = float(cs.f32_row_err(out, ref, v, Hq)[rows].max() / cs.F32_ROW_TOL)
+            us = turns(["old", "new"], lambda: k3.flash_fwd_f32(q, k, v, qo, kl, **cfg))
+            print(json.dumps({"kernel": "flash_attention_f32", "case": name,
+                              "worst_row_over_tol": worst, "us": us}), flush=True)
+            del q, k, v, ref, ref_lse
+        for name, B, S, Hq, Hk, D, alibi, scale, rate, short in cs.ZOO_K6_CASES:
+            q, do = (torch.randn((B, S, Hq, D), generator=g, device=dev) for _ in range(2))
+            k, v = (torch.randn((B, S, Hk, D), generator=g, device=dev) for _ in range(2))
+            qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+            kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+            kl[-1] -= short
+            al = default_alibi_slopes(Hq, dev)[None].expand(B, Hq).contiguous() if alibi else None
+            cfg = dict(causal=True, scale=scale or D ** -0.5, alibi=al, dropout_p=rate,
+                       dropout_seed=cs.DROPOUT_SEED)
+            use("new")
+            out, lse = k3.flash_fwd_f32(q, k, v, qo, kl, **cfg)
+            args = (q, k, v, out, lse, do)
+            ref = k6.flash_attention_bwd_plain(*args, q_offset=qo, kv_lens=kl, window=None,
+                                               softcap=None, **cfg)
+            n = plan(B, S, Hk, Hq // Hk, D)
+            tags = ["old", "new"] + (["new, one slice"] if n > 1 else [])
+            worst = {}
+            for tag in tags:
+                use(tag)
+                got = k6.flash_attention_bwd_f32(*args, q_offset=qo, kv_lens=kl, **cfg)
+                worst[tag] = {w: float(cs.f32_grad_err(a, b).max() / cs.F32_GRAD_TOL)
+                              for w, a, b in zip(("dq", "dk", "dv"), got, ref)}
+            us = turns(tags, lambda: k6.flash_attention_bwd_f32(*args, q_offset=qo, kv_lens=kl,
+                                                                **cfg))
+            _, di = k6.flash_bwd_f32_dq(q, k, v, out, do, lse, qo, kl, **cfg)
+            dkv_us = turns(tags, lambda: k6.flash_bwd_f32_dkv(q, k, v, do, lse, di, qo, kl,
+                                                              **cfg))
+            print(json.dumps({"kernel": "flash_attention_bwd_f32", "case": name, "slices": n,
+                              "worst_row_over_tol": worst, "us": us, "dkv_us": dkv_us}),
+                  flush=True)
+            del q, k, v, do, out, lse, ref
+            torch.cuda.empty_cache()
+    finally:
+        use("new")
+
+
+#: k6-f32-slices shapes: name, B, S, Hq, Hk, D.
+_SLICE_SHAPES = (("santacoder B4 S1024 Hq16 Hk1 D128", 4, 1024, 16, 1, 128),
+                 ("gqa-8 B4 S1024 Hq32 Hk4 D128", 4, 1024, 32, 4, 128),
+                 ("falcon-7b train B8 S512 Hq71 Hk1 D64", 8, 512, 71, 1, 64))
+
+
+def k6_f32_slices(dev: torch.device) -> None:
+    from ..kernels import flash_attention as k3
+    from ..kernels import flash_attention_bwd as k6
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    plan = k6.dkv_slices
+    try:
+        for name, B, S, Hq, Hk, D in _SLICE_SHAPES:
+            q, do = (torch.randn((B, S, Hq, D), generator=g, device=dev) for _ in range(2))
+            k, v = (torch.randn((B, S, Hk, D), generator=g, device=dev) for _ in range(2))
+            qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+            kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+            cfg = dict(causal=True, scale=D ** -0.5, alibi=None)
+            out, lse = k3.flash_fwd_f32(q, k, v, qo, kl, **cfg)
+            _, di = k6.flash_bwd_f32_dq(q, k, v, out, do, lse, qo, kl, **cfg)
+            group = Hq // Hk
+            us = {}
+            for n in (n for n in range(1, group + 1) if group % n == 0):
+                k6.dkv_slices = lambda *a, n=n: n
+                us[n] = _graph_ms(lambda: k6.flash_bwd_f32_dkv(q, k, v, do, lse, di, qo, kl,
+                                                               **cfg), calls=5) * 1e3
+            k6.dkv_slices = plan
+            print(json.dumps({"case": name, "plan": plan(B, S, Hk, group, D), "dkv_us": us}),
+                  flush=True)
+    finally:
+        k6.dkv_slices = plan
+
+
 def main(argv=None) -> None:
     parts = (argv if argv is not None else sys.argv[1:]) or ["k1-splits", "k1-merge", "k7-exp"]
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants times kernels on a CUDA card")
     dev = torch.device("cuda")
     print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
-    if parts[0] == "k3k6-bits":
+    if parts[0] in ("k3k6-bits", "k3k6-f32"):
         if len(parts) != 2:
-            raise SystemExit("k3k6-bits takes one argument: an older checkout's csrc directory")
-        k3k6_bits(dev, Path(parts[1]))
+            raise SystemExit(f"{parts[0]} takes one argument: an older checkout's csrc directory")
+        (k3k6_bits if parts[0] == "k3k6-bits" else k3k6_f32)(dev, Path(parts[1]))
         return
     for part in parts:
-        {"k1-splits": k1_splits, "k1-merge": k1_merge, "k7-exp": k7_exp}[part](dev)
+        {"k1-splits": k1_splits, "k1-merge": k1_merge, "k7-exp": k7_exp,
+         "k6-f32-slices": k6_f32_slices}[part](dev)
 
 
 if __name__ == "__main__":

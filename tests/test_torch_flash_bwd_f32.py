@@ -27,6 +27,11 @@ without a card through its plain version.
   2^-14 (dq, head dim 256); its float32 sums are flushed a tile at a time
   (the tensor cores' accumulation drops low bits: before that flush dK and
   dV read 3.7 x 2^-14 at Falcon-7B's 71 q heads over one kv head).
+* The same separation in the kernels' order of sums: a key or query tile's
+  product at a time, the GQA group split into the slices of the dKV plan
+  (``dkv_slices``) and summed in slice order; and the plan itself (slices
+  that divide the group, enough blocks for the card at SantaCoder's and
+  Falcon-7B's shapes, the scratch's shape).
 * The wrapper on CPU tensors takes the plain version; the float32 forward
   takes dropout (its plain version on the CPU) and its autograd backward
   is the plain K6 there.
@@ -41,7 +46,9 @@ from llm_fp8_tpu.ops.attention import attention as jax_attention
 from llm_fp8_tpu.ops.attention import default_alibi_slopes as jax_slopes
 from llm_fp8_tpu_torch.kernels._common import alibi_bias
 from llm_fp8_tpu_torch.kernels.flash_attention import flash_attention, flash_fwd_plain
-from llm_fp8_tpu_torch.kernels.flash_attention_bwd import (flash_attention_bwd,
+from llm_fp8_tpu_torch.kernels.flash_attention_bwd import (DKV_TARGET_BLOCKS, dkv_keys,
+                                                           dkv_scratch_shape, dkv_slices,
+                                                           flash_attention_bwd,
                                                            flash_attention_bwd_f32,
                                                            flash_attention_bwd_plain,
                                                            recompute_p_ds, row_di)
@@ -158,11 +165,32 @@ def _mm(a, b, passes):
     return _tf32(a - ab) @ bb + ab @ _tf32(b - bb) + ab @ bb
 
 
-def _emulated_bwd(q, k, v, o, lse, do, scale, slopes, passes):
+#: The float32 K6's tiles (``csrc/flash_attention_bwd_f32.cu::Cfg``): keys a
+#: dQ tile and queries a dKV tile, by head dim.
+DQ_KEYS = {32: 64, 64: 32, 80: 16, 128: 16, 256: 16}
+DKV_QUERIES = {32: 64, 64: 16, 80: 16, 128: 16, 256: 16}
+
+
+def _tile_sums(parts, order):
+    """The running float32 sum of ``parts[..., i, :, :]`` for i in ``order``,
+    one rounding add a tile (the kernels' flush)."""
+    acc = torch.zeros_like(parts[..., 0, :, :])
+    for i in order:
+        acc = acc + parts[..., i, :, :]
+    return acc
+
+
+def _emulated_bwd(q, k, v, o, lse, do, scale, slopes, passes, tiled=False, nslices=None):
     """The backward's five products in the kernel's arithmetic (float32
-    elsewhere): S recompute, dP, dV, dK, dQ."""
+    elsewhere): S recompute, dP, dV, dK, dQ. ``tiled``: the kernels' order
+    of sums too: dQ summed a key tile at a time (``DQ_KEYS``), dK and dV a
+    query tile at a time (``DKV_QUERIES``) over the q heads of each slice of
+    the wrapper's plan (``dkv_slices``, or ``nslices``), head by head, and
+    the slices' sums added in slice order; each tile's product (small·big +
+    big·small + big·big) added to the running sum by one float32 add."""
     B, S, Hq, D = q.shape
-    g = Hq // k.shape[2]
+    Hk = k.shape[2]
+    g = Hq // Hk
     qf, dof = q.permute(0, 2, 1, 3), do.permute(0, 2, 1, 3)
     kf = k.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
     vf = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
@@ -172,10 +200,32 @@ def _emulated_bwd(q, k, v, o, lse, do, scale, slopes, passes):
     live = torch.ones(S, S, dtype=torch.bool).tril()
     p = torch.where(live, torch.exp(s - lse[..., None]), torch.zeros_like(s))
     ds = p * (_mm(dof, vf.transpose(-1, -2), passes) - row_di(o, do)[..., None]) * scale
-    dv = _mm(p.transpose(-1, -2), dof, passes).reshape(B, -1, g, S, D).sum(dim=2)
-    dk = _mm(ds.transpose(-1, -2), qf, passes).reshape(B, -1, g, S, D).sum(dim=2)
-    dq = _mm(ds, kf, passes)
-    return [t.permute(0, 2, 1, 3) for t in (dq, dk, dv)]
+    if not tiled:
+        dv = _mm(p.transpose(-1, -2), dof, passes).reshape(B, -1, g, S, D).sum(dim=2)
+        dk = _mm(ds.transpose(-1, -2), qf, passes).reshape(B, -1, g, S, D).sum(dim=2)
+        dq = _mm(ds, kf, passes)
+        return [t.permute(0, 2, 1, 3) for t in (dq, dk, dv)]
+    bn, bq = DQ_KEYS[D], DKV_QUERIES[D]
+    # dQ: [B, Hq, tiles, S, D], one part a key tile.
+    dq = _tile_sums(_mm(ds.reshape(B, Hq, S, S // bn, bn).transpose(2, 3),
+                        kf.reshape(B, Hq, S // bn, bn, D), passes), range(S // bn))
+    # dK, dV: [B, Hk, g·tiles, S, D], one part a (q head, query tile).
+
+    def parts(a, b):
+        a = a.reshape(B, Hk, g, S // bq, bq, S).transpose(-1, -2)
+        b = b.reshape(B, Hk, g, S // bq, bq, D)
+        return _mm(a, b, passes).reshape(B, Hk, g * (S // bq), S, D)
+
+    n = nslices or dkv_slices(B, S, Hk, g, D)
+    grads = []
+    for part in (parts(ds, qf), parts(p, dof)):
+        total = None
+        for sl in range(n):
+            heads = range(sl * g // n, (sl + 1) * g // n)
+            acc = _tile_sums(part, [h * (S // bq) + t for h in heads for t in range(S // bq)])
+            total = acc if total is None else total + acc
+        grads.append(total)
+    return [t.permute(0, 2, 1, 3) for t in (dq, *grads)]
 
 
 @pytest.mark.parametrize("shape", ["btlm: 4 heads of 80, alibi, scale 1/80",
@@ -199,6 +249,71 @@ def test_grad_tolerance_separates_3xtf32_from_single_pass(shape):
         assert float(_row_err(a, b).max()) <= 2.0 ** -14, f"3xTF32 d{name}"
     caught = (_row_err(one[0], plain[0]) > GRAD_TOL).double().mean()
     assert caught >= 0.95
+
+
+@pytest.mark.parametrize("shape", ["santacoder: 8 over 1 of 128, the plan's 8 slices",
+                                   "gqa 8: 16 over 2 of 64, 3 slices of 2-3 heads"])
+def test_tiled_order_of_sums_keeps_3xtf32_within_float32_noise(shape):
+    """The redesigned kernels' order of sums (key and query tiles of their
+    Cfg, the GQA group split into slices, summed in slice order) in 3xTF32
+    stays within 2^-14 of the plain float32 K6 (the card's tolerance is
+    2^-12), and single-pass TF32 in the same order still breaks
+    F32_GRAD_TOL in nearly every dq row. At these small shapes the plan
+    gives every head its own slice; the kernel takes any count up to the
+    group, so the second case splits 8 heads 2, 3, 3 (the plan itself takes
+    divisors of the group)."""
+    B, S, Hq, Hk, D = (1, 512, 8, 1, 128) if shape.startswith("santa") else (1, 256, 16, 2, 64)
+    n = None if shape.startswith("santa") else 3
+    assert dkv_slices(B, S, Hk, Hq // Hk, D) == 8
+    q, k, v, do = _inputs(B, S, Hq, Hk, D, seed=29)
+    scale = D ** -0.5
+    qo = torch.zeros(B, dtype=torch.int32)
+    kl = torch.full((B,), S, dtype=torch.int32)
+    cfg = dict(causal=True, window=None, softcap=None, scale=scale)
+    o, lse = flash_fwd_plain(q, k, v, qo, kl, **cfg)
+    plain = flash_attention_bwd_plain(q, k, v, o, lse, do, q_offset=qo, kv_lens=kl, **cfg)
+    three = _emulated_bwd(q, k, v, o, lse, do, scale, None, 3, tiled=True, nslices=n)
+    one = _emulated_bwd(q, k, v, o, lse, do, scale, None, 1, tiled=True, nslices=n)
+    for name, a, b in zip("qkv", three, plain):
+        assert float(_row_err(a, b).max()) <= 2.0 ** -14, f"3xTF32 d{name}"
+    caught = (_row_err(one[0], plain[0]) > GRAD_TOL).double().mean()
+    assert caught >= 0.95
+
+
+# (B, Sk, Hk, group, D) of the zoo's float32 training shapes and the split cases
+PLAN_SHAPES = {"santacoder B4 S1024 16 over 1 D128": (4, 1024, 1, 16, 128),
+               "falcon-7b B8 S512 71 over 1 D64": (8, 512, 1, 71, 64),
+               "falcon-7b B2 S2048 71 over 1 D64": (2, 2048, 1, 71, 64),
+               "gqa 8 B4 S1024 32 over 4 D128": (4, 1024, 4, 8, 128),
+               "gptj-6b B2 S512 MHA D256": (2, 512, 16, 1, 256),
+               "btlm-3b B8 S512 MHA D80": (8, 512, 32, 1, 80),
+               "debug B2 S256 4 over 2 D32": (2, 256, 2, 2, 32)}
+
+
+@pytest.mark.parametrize("name", list(PLAN_SHAPES))
+def test_dkv_plan_slices_partition_the_group(name):
+    B, Sk, Hk, group, D = PLAN_SHAPES[name]
+    n = dkv_slices(B, Sk, Hk, group, D)
+    assert 1 <= n <= group and group % n == 0
+    heads = [list(range(s * group // n, (s + 1) * group // n)) for s in range(n)]
+    assert all(len(h) == group // n for h in heads) and sum(heads, []) == list(range(group))
+    blocks = -(-Sk // dkv_keys(D)) * (2 if D == 256 else 1) * Hk * B * n
+    # The target wherever the group can give it, and no smaller divisor of
+    # the group reaches it.
+    assert blocks >= min(DKV_TARGET_BLOCKS, blocks // n * group)
+    assert all(blocks // n * m < DKV_TARGET_BLOCKS for m in range(1, n) if group % m == 0)
+    assert dkv_scratch_shape(B, Sk, Hk, D, n) == (2, n, B, Sk, Hk, D)
+
+
+def test_dkv_plan_gives_santacoder_and_falcon_a_block_per_sm():
+    for B, Sk, Hk, group, D in (PLAN_SHAPES["santacoder B4 S1024 16 over 1 D128"],
+                                PLAN_SHAPES["falcon-7b B8 S512 71 over 1 D64"],
+                                PLAN_SHAPES["falcon-7b B2 S2048 71 over 1 D64"]):
+        n = dkv_slices(B, Sk, Hk, group, D)
+        assert n > 1 and -(-Sk // dkv_keys(D)) * (2 if D == 256 else 1) * Hk * B * n >= 132
+    assert dkv_slices(*PLAN_SHAPES["gqa 8 B4 S1024 32 over 4 D128"]) == 8
+    assert dkv_slices(*PLAN_SHAPES["falcon-7b B8 S512 71 over 1 D64"]) == 71
+    assert dkv_slices(*PLAN_SHAPES["gptj-6b B2 S512 MHA D256"]) == 1
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_tensors_and_dropout_in_the_forward():
