@@ -273,7 +273,25 @@ Phases, in order; any failure exits non-zero before the last line:
    ``DIST_TRAIN_STEPS`` steps through ``Trainer(mesh=)`` against the same
    steps without a mesh: losses and parameters bit for bit, K3/K6/K9
    launches counted on the mesh run.
-16. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
+16. Tensor-parallel serving (``parallel/tensor.py``, ``Engine(mesh=)``).
+   ``tp_kernels``: Qwen2.5-14B at full width and ``TP_LAYERS`` layers
+   (LAYERWISE fp8, e4m3 arena): the mesh-less engine serves 8 prompts of
+   200-1000 tokens and ``TP_STEPS`` greedy steps; the four ranks of a tp
+   group run the same work in this process (``local_tp_ranks``: threads,
+   the collectives rank-ordered float32 sums, maxima and concatenations),
+   each over its ``tp_rank_params`` shard through the port's own forwards;
+   read as the slices read (fp8native free running, not held; fp8native
+   with the mesh-less run's projection inputs forced, ``TP_FORCED_TOL_STD``;
+   ``LLM_FP8_QDOT=xla`` free running, ``TP_XLA_TOL_STD``), K9's codes of the
+   row-parallel inputs the single process's slices bit for bit, planted
+   faults (the row amax left local, ``wqkv`` cut contiguously, Baichuan-13B's
+   ALiBi slopes rebuilt per rank) caught in >90% of the rows they move, and
+   each rank's K1, K2, K3 and K9 timed beside the unsplit launch.
+   ``tp_serve``: a world of one on NCCL, ``Engine(mesh=MeshConfig(tp=1))``
+   against the mesh-less engine on Llama-3.2-1B at ``TP_SERVE_LAYERS``
+   layers: tokens and logits bit for bit, the decode step one CUDA graph
+   with the group collectives inside; ms a step both ways.
+17. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 With ``--out DIR`` the details of every case go to ``DIR/chip_smoke.json``
@@ -304,7 +322,8 @@ PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_se
           "gemma_serve", "gemma_train", "gemma_spec_serve", "moe_kernels", "moe_slice",
           "moe_train_slice", "moe_serve", "moe_train", "moe_spec_serve", "mla_kernels",
           "mla_slice", "mla_train_slice", "mla_serve", "mla_train", "mla_spec_serve",
-          "encoder_kernels", "encoder_slice", "encoder_forward", "dist_kernels", "dist_train")
+          "encoder_kernels", "encoder_slice", "encoder_forward", "dist_kernels", "dist_train",
+          "tp_kernels", "tp_serve")
 #: The kernels each path runs (launch counts read around its run). On the
 #: card fp8 weights take qdot's fp8native route (K9 quantizes x per row, then
 #: fp8 products), as the JAX package picks it where fp8 products exist; K1
@@ -8139,6 +8158,680 @@ def dist_training(dev, card, log):
         restore_env("LLM_FP8_NATIVE_DOT", saved)
 
 
+# --------------------------------------------------------------------------
+# phase 16: tensor-parallel serving (a tp group's ranks in one process; a
+# world of one on NCCL)
+# --------------------------------------------------------------------------
+
+TP = 4
+TP_MODEL, TP_LAYERS = "qwen2.5-14b", 4
+#: (prompts, shortest, longest + 1), decode steps after the prefills.
+TP_PROMPTS, TP_STEPS = (8, 200, 1001), 16
+TP_BUCKETS, TP_SEQ = (256, 512, 1024), 1040
+#: A row (one request's prefill, or one slot's decode step): its largest
+#: logit difference from the mesh-less run's over the row's std. Free
+#: running in bf16 (the xla route), the ranks' residual stream sums float32
+#: partials in another order than one product, and its bf16 roundings then
+#: part as two runs of other sum orders part (the card-vs-CPU slices read
+#: 0.052-0.098 of the std; Qwen2.5-14B's composition 0.088, Baichuan-13B's
+#: 0.035 on the H100); with the fp8native products held to the same inputs
+#: (``TPForcedInputs``) only the products' sums remain (read 0.0017).
+TP_XLA_TOL_STD = 0.1
+TP_FORCED_TOL_STD = 0.01
+TP_ALIBI_MODEL, TP_ALIBI_LAYERS = "baichuan-13b", 2
+TP_FAULTS = ("row amax left local", "wqkv cut contiguously")
+#: Tokens of each of the two prompts whose every position the faults read.
+TP_FAULT_TOKENS = 256
+TP_PATH = ("quantize_fused", "decode_attention_arena", "flash_attention")
+TP_SERVE_LAYERS = 4
+
+
+def tp_row_std(got, ref):
+    """Per row (last dim): max |got - ref| over the std of ``ref``'s row."""
+    return (got.float() - ref.float()).abs().amax(-1) / ref.float().std(-1)
+
+
+def tp_compose(ranks, prompts, steps, dev, kv_dtype):
+    """Every rank's work of one serve in this process, the ranks as threads
+    of a ``LocalGroup`` (``parallel/tensor.py::local_tp_ranks``; ``tp`` None:
+    the mesh-less forward): each prompt prefilled into the rank's e4m3 arena
+    slot (``forward(return_kv=True)`` and the engine's own store), then the
+    decode steps ``(tokens, lengths)`` fed as the engine fed them. Returns
+    rank 0's ``(prefill logits [n, V], step logits [steps, B, V])`` after
+    checking every rank's are the same bits."""
+    import torch
+
+    from llm_fp8_tpu_torch.models.llama import forward, forward_decode_arena
+    from llm_fp8_tpu_torch.parallel.collectives import LocalGroup
+    from llm_fp8_tpu_torch.serving import Engine
+
+    group = ranks[0][2].group if ranks[0][2] is not None else LocalGroup(1)
+
+    def rank_run(r):
+        p, c, tp = ranks[r]
+        shape = (c.num_layers, len(prompts), c.num_kv_heads, TP_SEQ, c.head_dim)
+        ka = torch.zeros(shape, dtype=kv_dtype, device=dev)
+        va = torch.zeros(shape, dtype=kv_dtype, device=dev)
+        ones = torch.ones((c.num_kv_heads,), dtype=torch.float32, device=dev)
+        pre = []
+        for i, (padded, n) in enumerate(prompts):
+            logits, (k, v) = forward(p, padded[None], c, kv_lens=n.reshape(1), return_kv=True,
+                                     tp=tp)
+            Engine._store_arena(ka, k, ones, i)
+            Engine._store_arena(va, v, ones, i)
+            pre.append(logits[0, int(n) - 1])
+        outs = [forward_decode_arena(p, toks[:, None], c, ka, va, lens, kv_scale=(ones, ones),
+                                     window=c.sliding_window, tp=tp)[0][:, 0]
+                for toks, lens in steps]
+        return torch.stack(pre), torch.stack(outs) if outs else None
+
+    res = group.run(rank_run)
+    for a, b in res[1:]:
+        check(torch.equal(a, res[0][0]) and (b is None or torch.equal(b, res[0][1])),
+              "tp compose: the ranks' gathered logits differ")
+    return res[0]
+
+
+def tp_prefill_rows(ranks, tokens, lens):
+    """Every live position's logits of one prefill (the batch's rows one
+    after another), composed over ``ranks`` as ``tp_compose`` composes."""
+    import torch
+
+    from llm_fp8_tpu_torch.models.llama import forward
+    from llm_fp8_tpu_torch.parallel.collectives import LocalGroup
+
+    group = ranks[0][2].group if ranks[0][2] is not None else LocalGroup(1)
+    outs = group.run(lambda r: forward(ranks[r][0], tokens, ranks[r][1], kv_lens=lens,
+                                       tp=ranks[r][2])[0])
+    check(all(torch.equal(o, outs[0]) for o in outs[1:]), "tp prefill: ranks differ")
+    return torch.cat([outs[0][b, :int(n)] for b, n in enumerate(lens)])
+
+
+def tp_fault_share(bad, sound, ref, tol):
+    """Share of the rows a planted fault moves (any logit off the sound
+    composition's) that break ``tol`` against the reference."""
+    moved = tp_row_std(bad, sound) > 0
+    if not bool(moved.any()):
+        return 0.0
+    return float((tp_row_std(bad, ref)[moved] > tol).float().mean())
+
+
+def tp_kernel_timings(dev, bw, peak, cfg, log):
+    """One rank's K1 (its decode and prefill kernels, the xla route's), K2,
+    K3 and K9 launches at Qwen2.5-14B's tp 4 shard shapes, each beside the
+    unsplit launch and its bound, the plain version at the shard shape and
+    a library call where one computes the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_fp8_tpu_torch.kernels import decode_attention as k2
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+    from llm_fp8_tpu_torch.kernels import quant_matmul as k1
+    from llm_fp8_tpu_torch.kernels import quantize as k9
+    from llm_fp8_tpu_torch.kernels._common import fp8_to_bf16_ftz
+    from llm_fp8_tpu_torch.parallel.collectives import LocalGroup
+    from llm_fp8_tpu_torch.quant import E4M3, quantize
+    from llm_fp8_tpu_torch.quant.dot import _AMAX_COLS, _quantize_channel
+
+    g = torch.Generator(device=dev).manual_seed(2020)
+    D, I, H, Hk, Dh = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.head_dim)
+    cases = []
+
+    def pair(name, fn_rank, fn_whole, nbytes, flops, extra, reps=None):
+        reps = reps or {}
+        ms, whole = cuda_ms(fn_rank, **reps), cuda_ms(fn_whole, **reps)
+        b_ms, b_by = bound_ms(nbytes[0], flops[0], bw, peak)
+        w_ms, _ = bound_ms(nbytes[1], flops[1], bw, peak)
+        case = dict(case=name, tp=TP, ms=ms, unsplit_ms=whole, vs_unsplit=ms / whole,
+                    vs_quarter=ms / (whole / TP), bound_ms=b_ms, bound_by=b_by,
+                    unsplit_bound_ms=w_ms, **extra)
+        cases.append(case)
+        log(case)
+        return case
+
+    # K1 (xla route): each projection's rank shard and the whole weight.
+    shapes = {"wqkv": ((D, H * Dh + 2 * Hk * Dh), -1), "wo": ((H * Dh, D), 0),
+              "w_gate_up": ((D, 2 * I), -1), "w_down": ((I, D), 0)}
+    for name, ((K, N), cut) in shapes.items():
+        kr, nr = (K // TP, N) if cut == 0 else (K, N // TP)
+        for M in (8, 1024):
+            qs = {}
+            for tag, (kk, nn) in (("rank", (kr, nr)), ("whole", (K, N))):
+                w = torch.randn((kk, nn), generator=g, device=dev) * 0.02
+                qt = quantize(w, E4M3, axes=(0,), flush_subnormal=True)
+                del w
+                copies = 1 if M > 8 else max(1, math.ceil(200e6 / (kk * nn)))
+                qs[tag] = (qt, [qt.qvalue.clone() for _ in range(copies)],
+                           torch.randn((M, kk), generator=g, device=dev).to(torch.bfloat16))
+            (qr, wr, xr), (qw, ww, xw) = qs["rank"], qs["whole"]
+            nwr, nww = cycler(wr), cycler(ww)
+            got = k1.quant_matmul(xr, qr.qvalue, qr.scale, mode="channel")
+            ref = k1.quant_matmul_plain(xr, qr.qvalue, qr.scale, mode="channel")
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 2.0 ** -7 * ref.float().abs().max().item()
+            check(err <= tol, f"tp K1 {name} M={M}: err {err} > tol {tol}")
+            wdq = cycler([qr.dequantize(torch.bfloat16) for _ in range(max(1, len(wr) // 2))])
+            extra = dict(
+                kernel="quant_matmul", max_abs_err=err, tol=tol,
+                shard=[kr, nr], whole=[K, N], M=M,
+                plain_ms=cuda_ms(lambda: k1.quant_matmul_plain(xr, nwr(), qr.scale,
+                                                               mode="channel"),
+                                 calls=2, rounds=3),
+                library_ms=cuda_ms(lambda: torch.matmul(xr, wdq())),
+                library="torch.matmul on the dequantized bf16 shard")
+            pair(f"tp{TP} {name} M={M} channel e4m3",
+                 lambda: k1.quant_matmul(xr, nwr(), qr.scale, mode="channel"),
+                 lambda: k1.quant_matmul(xw, nww(), qw.scale, mode="channel"),
+                 (M * kr * 2 + kr * nr + nr * 4 + M * nr * 2, M * K * 2 + K * N + N * 4
+                  + M * N * 2), (2.0 * M * kr * nr, 2.0 * M * K * N), extra)
+            del qs, wr, ww, wdq, got, ref
+            torch.cuda.empty_cache()
+
+    # K2: the decode step's attention over the rank's heads (16 layers of
+    # arena rotated past the L2) and over all heads.
+    L, B, S = 16, 8, 1024
+    lengths = torch.tensor([200, 333, 471, 512, 640, 777, 901, 1000], dtype=torch.int32,
+                           device=dev)
+    ang = (lengths - 1).float()[:, None] * torch.rand((1, Dh // 2), generator=g, device=dev)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    k2_in = {}
+    for tag, hq, hk in (("rank", H // TP, Hk // TP), ("whole", H, Hk)):
+        ka = torch.randn((L, B, hk, S, Dh), generator=g, device=dev).to(torch.float8_e4m3fn)
+        va = torch.randn((L, B, hk, S, Dh), generator=g, device=dev).to(torch.float8_e4m3fn)
+        q = torch.randn((B, hq, Dh), generator=g, device=dev).to(torch.bfloat16)
+        nk = torch.randn((B, hk, Dh), generator=g, device=dev).to(torch.bfloat16)
+        ones = torch.ones((hk,), device=dev)
+        k2_in[tag] = (q, ka, va, nk, ones, cycler(list(range(L))))
+    q, ka, va, nk, ones, layers = k2_in["rank"]
+    kw = dict(new_k=nk, new_v=nk, rope_cos_sin=(cos, sin), k_scale=ones, v_scale=ones)
+    err, ulps, _, _ = k2_check(k2, "tp K2", q, ka, va, lengths, 3, nk, nk, cos, sin, ones,
+                               ones)
+    hq, hk = H // TP, Hk // TP
+    kd, vd = (fp8_to_bf16_ftz(t[0]).repeat_interleave(hq // hk, dim=1) for t in (ka, va))
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None].long())[:, None, None, :]
+    wq, wka, wva, wnk, wones, wlayers = k2_in["whole"]
+    wkw = dict(new_k=wnk, new_v=wnk, rope_cos_sin=(cos, sin), k_scale=wones, v_scale=wones)
+    keys = int(lengths.sum())
+    pair(f"tp{TP} B8 Hq{hq} Hk{hk} D{Dh} S1024 e4m3 append rotary",
+         lambda: k2.decode_attention_arena(q, ka, va, lengths, layers(), **kw),
+         lambda: k2.decode_attention_arena(wq, wka, wva, lengths, wlayers(), **wkw),
+         (2 * keys * hk * Dh + q.numel() * 4 + nk.numel() * 4,
+          2 * keys * Hk * Dh + wq.numel() * 4 + wnk.numel() * 4),
+         (4.0 * hq * Dh * keys, 4.0 * H * Dh * keys),
+         dict(kernel="decode_attention_arena", max_abs_err=err, err_ulps=ulps,
+              plain_ms=cuda_ms(lambda: k2.decode_attention_arena_plain(
+                  q, ka, va, lengths, layers(), new_k=nk, new_v=nk, cos=cos, sin=sin,
+                  k_scale=ones, v_scale=ones, scale=Dh ** -0.5, window=None, softcap=None),
+                  calls=2, rounds=3),
+              library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                  q[:, :, None], kd, vd, attn_mask=mask)),
+              library="SDPA over the shard's dequantized cache (heads expanded)"))
+    del k2_in, ka, va, kd, vd, wka, wva
+    torch.cuda.empty_cache()
+
+    # K3: a 1024-token prefill over the rank's heads and over all heads.
+    Sq, kv_len = 1024, 1000
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    kl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    k3_in = {tag: tuple(torch.randn((1, Sq, h, Dh), generator=g, device=dev)
+                        .to(torch.bfloat16) for h in (hq_, hk_, hk_))
+             for tag, hq_, hk_ in (("rank", H // TP, Hk // TP), ("whole", H, Hk))}
+    q, k, v = k3_in["rank"]
+    got = k3.flash_attention(q, k, v, causal=True, q_offset=zero, kv_lens=kl)
+    ref, _ = k3.flash_fwd_plain(q, k, v, zero, kl, causal=True, window=None, softcap=None,
+                                scale=Dh ** -0.5)
+    err, ulps = rows_within(got, ref, "tp K3")
+    pos = torch.arange(Sq, device=dev)
+    live = (pos[None, :] <= pos[:, None]) & (pos[None, :] < kv_len)
+    pairs = int(live.sum())
+    qh = q.transpose(1, 2)
+    kh, vh = (t.transpose(1, 2).repeat_interleave(hq // hk, dim=1) for t in (k, v))
+    wq, wk, wv = k3_in["whole"]
+    pair(f"tp{TP} prefill B1 Sq=Sk={Sq} Hq{hq} Hk{hk} D{Dh} causal kv_len={kv_len}",
+         lambda: k3.flash_attention(q, k, v, causal=True, q_offset=zero, kv_lens=kl),
+         lambda: k3.flash_attention(wq, wk, wv, causal=True, q_offset=zero, kv_lens=kl),
+         ((2 * q.numel() + k.numel() + v.numel()) * 2 + hq * Sq * 4,
+          (2 * wq.numel() + wk.numel() + wv.numel()) * 2 + H * Sq * 4),
+         (4.0 * hq * Dh * pairs, 4.0 * H * Dh * pairs),
+         dict(kernel="flash_attention", max_abs_err=err, err_ulps=ulps,
+              plain_ms=cuda_ms(lambda: k3.flash_fwd_plain(
+                  q, k, v, zero, kl, causal=True, window=None, softcap=None,
+                  scale=Dh ** -0.5), calls=2, rounds=3),
+              library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                  qh, kh, vh, attn_mask=live[None, None])),
+              library="SDPA on the same mask (kv heads expanded)"))
+    del k3_in, q, k, v, wq, wk, wv, got, ref, kh, vh
+    torch.cuda.empty_cache()
+
+    # K9: the row-parallel inputs (wo's, w_down's), the rank's K slice with
+    # the group's amax appended, against the whole row; and the whole
+    # row-parallel quantize (amax, the group's max, the appended columns,
+    # K9, the codes cut back) against the mesh-less quantize.
+    one = LocalGroup(1)
+    for name, K in (("wo", H * Dh), ("w_down", I)):
+        for M in (8, 1024):
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            xr = torch.cat([x[:, :K // TP], torch.zeros((M, _AMAX_COLS), device=dev,
+                                                         dtype=x.dtype)], dim=1)
+            got = k9.quantize_fused(xr, E4M3, axis=-1)
+            ref = k9.quantize_fused_plain(xr, E4M3, axis=-1)
+            check(torch.equal(got.qvalue.view(torch.uint8), ref.qvalue.view(torch.uint8))
+                  and torch.equal(got.scale, ref.scale), f"tp K9 {name} M={M}: codes differ")
+            kr = K // TP + _AMAX_COLS
+            path = one.run(lambda r: (
+                cuda_ms(lambda: _quantize_channel(x[:, :K // TP], E4M3, 1, 0, k=one)),
+                cuda_ms(lambda: _quantize_channel(x, E4M3, 1, 0))))[0]
+            pair(f"tp{TP} {name} input rows M={M} K={K // TP}+{_AMAX_COLS} bf16 e4m3",
+                 lambda: k9.quantize_fused(xr, E4M3, axis=-1),
+                 lambda: k9.quantize_fused(x, E4M3, axis=-1),
+                 (M * kr * 3 + M * 4, M * K * 3 + M * 4), (0.0, 0.0),
+                 dict(kernel="quantize_fused", max_abs_err=0.0, codes_equal=True,
+                      plain_ms=cuda_ms(lambda: k9.quantize_fused_plain(xr, E4M3, axis=-1)),
+                      library_ms=None, row_parallel_quantize_ms=path[0],
+                      meshless_quantize_ms=path[1]))
+            del x, xr
+    return cases
+
+
+class TPForcedInputs:
+    """The fp8native route quantizes each projection's input to e4m3, so one
+    bf16 rounding that differs between two sums of the same products (a tp
+    group's float32 partials against one product, fp8 products that
+    accumulate K in other pieces) flips codes by whole e4m3 steps, and the
+    flips compound through the layers (``ForcedQdotInputs``). The checked
+    fp8native reading therefore holds the ranks' products to the mesh-less
+    run's on the same inputs: that run records every ``qdot`` input, and each
+    rank's run of the same call takes it (its slice of K where the rank's
+    input is one: a row-parallel product) in place of its own."""
+
+    def __init__(self, group):
+        import threading
+
+        self.queue, self.group, self.local = [], group, threading.local()
+
+    @contextlib.contextmanager
+    def side(self, record: bool):
+        from llm_fp8_tpu_torch.models import llama
+
+        real = llama.qdot
+
+        def rec(x, w, **kw):
+            self.queue.append(x.detach().clone())
+            return real(x, w, **kw)
+
+        def replay(x, w, **kw):
+            i = getattr(self.local, "i", 0)
+            self.local.i = i + 1
+            x0 = self.queue[i]
+            if x0.shape[-1] != x.shape[-1]:  # the rank's slice of K
+                r, k = self.group.rank(), x.shape[-1]
+                x0 = x0[..., r * k:(r + 1) * k]
+            check(x0.shape == x.shape, f"tp forced inputs: {tuple(x0.shape)} recorded, "
+                  f"{tuple(x.shape)} asked")
+            return real(x0.to(x.dtype), w, **kw)
+
+        llama.qdot = rec if record else replay
+        try:
+            yield
+        finally:
+            llama.qdot = real
+
+
+def tp_read(got, ref, what, tol=None):
+    """Rows of ``got`` against ``ref`` in units of each row's std: the worst
+    and the median, held to ``tol`` (None: a free-running fp8native
+    reading, not held)."""
+    rows = tp_row_std(got, ref)
+    worst = float(rows.max())
+    check(math.isfinite(worst) and (tol is None or worst <= tol),
+          f"tp_kernels {what}: a composed row is {worst} of its std off the mesh-less "
+          f"run's (tol {tol})")
+    return dict(worst_row_std=worst, median_row_std=float(rows.median()), rows=rows.numel(),
+                tol_std=tol)
+
+
+def tp_kernels(dev, bw, peak, card, log):
+    """Qwen2.5-14B at full width (5120 hidden, 40 q heads over 8 of 128,
+    intermediate 13824, vocab 152064, the qkv bias) and ``TP_LAYERS``
+    layers of seeded random LAYERWISE fp8 weights, an e4m3 arena: the
+    mesh-less engine serves 8 prompts of 200-1000 tokens, then
+    ``TP_STEPS`` greedy steps (one a replay), and the tp 4 shards
+    (``local_tp_ranks``: the ranks as threads, their collectives
+    rank-ordered float32 sums, maxima and concatenations) run the same
+    prefills and steps, fed the engine's tokens. Read as the slices read:
+    on the fp8native route free running against the engine (not held; the
+    greedy tokens equal up to each slot's first near-tie) and with the
+    mesh-less run's projection inputs forced (``TPForcedInputs``), and on
+    ``LLM_FP8_QDOT=xla`` (K1 at every shard's projection) free running,
+    held row by row to ``TP_FORCED_TOL_STD`` and ``TP_XLA_TOL_STD``. The ranks' K9 codes of the
+    row-parallel inputs are the single process's slices bit for bit.
+    Planted faults, each caught in >90% of the rows it moves: the row amax
+    left local (fp8native, forced inputs), ``wqkv`` cut contiguously (xla)
+    and, on Baichuan-13B at 2 layers, ALiBi slopes rebuilt per rank (xla).
+    Then each rank's K1, K2, K3 and K9 are timed beside the unsplit
+    launch (``tp_kernel_timings``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.models import llama
+    from llm_fp8_tpu_torch.parallel import collectives, tensor
+    from llm_fp8_tpu_torch.parallel.collectives import LocalGroup
+    from llm_fp8_tpu_torch.quant import E4M3, QTensor
+    from llm_fp8_tpu_torch.quant.dot import _quantize_channel
+    from llm_fp8_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    saved = os.environ.pop("LLM_FP8_QDOT", None)
+    try:
+        cfg = dataclasses.replace(get_config(TP_MODEL), num_layers=TP_LAYERS)
+        params = fp8_params_by_layer(cfg, dev, seed=20)
+        g = torch.Generator(device=dev).manual_seed(20)
+        if cfg.qkv_bias:  # random, so that a wrong cut of it shows
+            params["layers"]["bqkv"] = (torch.randn(params["layers"]["bqkv"].shape,
+                                                    generator=g, device=dev) * 0.5
+                                        ).to(torch.bfloat16)
+
+        class Recorder(Engine):
+            def _run_prefill(self, padded, true_len, slot):
+                last = super()._run_prefill(padded, true_len, slot)
+                self.pre.append(last.clone())
+                return last
+
+            def _run_decode_burst(self, toks, lens, steps):
+                block, logits = super()._run_decode_burst(toks, lens, steps)
+                self.steps.append((toks.clone(), lens.clone(), logits.clone()))
+                return block, logits
+
+        rng = np.random.RandomState(20)
+        n_req, lo, hi = TP_PROMPTS
+        prompts = [rng.randint(1, cfg.vocab_size, rng.randint(lo, hi)).astype(np.int32)
+                   for _ in range(n_req)]
+        ecfg = EngineConfig(max_slots=n_req, max_seq_len=TP_SEQ, prefill_buckets=TP_BUCKETS,
+                            kv_dtype="fp8", decode_burst=1)
+        eng = Recorder(params, cfg, ecfg, device=dev)
+        eng.pre, eng.steps = [], []
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=TP_STEPS + 1))
+                for p in prompts]
+        eng.run()
+        check(all(len(r.output) == TP_STEPS + 1 for r in reqs) and len(eng.steps) == TP_STEPS,
+              "tp_kernels: the mesh-less engine did not serve every step")
+        padded = []
+        for p in prompts:
+            t = np.zeros((eng._bucket_for(len(p)),), np.int32)
+            t[:len(p)] = p
+            padded.append((torch.as_tensor(t, device=dev),
+                           torch.tensor(len(p), dtype=torch.int32, device=dev)))
+        steps = [(toks, lens) for toks, lens, _ in eng.steps]
+        ref_pre = torch.stack(eng.pre)
+        ref_steps = torch.stack([lg for _, _, lg in eng.steps])
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # fp8native, free running: the main path's composition (launches
+        # counted), read against the engine.
+        t0 = time.perf_counter()
+        ranks = tensor.local_tp_ranks(params, cfg, TP)
+        kernels.reset_launch_counts()
+        pre, dec = tp_compose(ranks, padded, steps, dev, torch.float8_e4m3fn)
+        counts = kernels.launch_counts()
+        compose_s = time.perf_counter() - t0
+        for name in TP_PATH:
+            check(counts.get(name, 0) > 0, f"tp_kernels: {name} launched {counts.get(name)} "
+                  "times in the composition")
+        free = tp_read(torch.cat([pre, dec.flatten(0, 1)]),
+                       torch.cat([ref_pre, ref_steps.flatten(0, 1)]), "free")
+        # Greedy tokens up to each slot's first near-tie (the engine's top two
+        # closer than twice the row's difference).
+        top2 = ref_steps.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        diff = (dec - ref_steps).abs().amax(-1)
+        agree = ties = 0
+        for s in range(n_req):
+            for i in range(TP_STEPS):
+                if float(gap[i, s]) <= 2 * float(diff[i, s]):
+                    ties += 1
+                    break
+                check(int(dec[i, s].argmax()) == int(ref_steps[i, s].argmax()),
+                      f"tp_kernels: slot {s} step {i}: greedy token differs at gap "
+                      f"{float(gap[i, s])} > 2 x {float(diff[i, s])}")
+                agree += 1
+        free.update(greedy_agree=agree, near_ties=ties)
+        del pre, dec, ref_pre, ref_steps, top2, gap, diff
+
+        # fp8native with the mesh-less run's projection inputs forced.
+        forced = TPForcedInputs(ranks[0][2].group)
+        with forced.side(record=True):
+            m_pre, m_dec = tp_compose([(params, cfg, None)], padded, steps, dev,
+                                      torch.float8_e4m3fn)
+        with forced.side(record=False):
+            f_pre, f_dec = tp_compose(ranks, padded, steps, dev, torch.float8_e4m3fn)
+        forced_read = tp_read(torch.cat([f_pre, f_dec.flatten(0, 1)]),
+                              torch.cat([m_pre, m_dec.flatten(0, 1)]), "fp8native forced",
+                              TP_FORCED_TOL_STD)
+        forced_read["inputs"] = len(forced.queue)
+        del forced, m_pre, m_dec, f_pre, f_dec
+
+        # K9's codes of the row-parallel inputs: the single process's slices.
+        codes = []
+        for K in (cfg.q_dim, cfg.intermediate_size):
+            for M in (8, 1024):
+                x = (torch.randn((M, K), generator=g, device=dev)
+                     * torch.rand((M, K), generator=g, device=dev) ** 4).to(torch.bfloat16)
+                whole = _quantize_channel(x, E4M3, 1, 0)
+                grp = LocalGroup(TP)
+                parts = grp.run(lambda r: _quantize_channel(x.chunk(TP, dim=1)[r], E4M3, 1, 0,
+                                                            k=grp))
+                same = (torch.equal(torch.cat([p.qvalue for p in parts], 1).view(torch.uint8),
+                                    whole.qvalue.view(torch.uint8))
+                        and all(torch.equal(p.scale, whole.scale) for p in parts))
+                check(same, f"tp_kernels: K9 codes of [{M}, {K}] cut over {TP} ranks differ "
+                      "from the single process's")
+                codes.append(dict(M=M, K=K, codes_bit_equal=same))
+
+        # Planted: the row amax left local (fp8native, forced inputs), every
+        # position of two prompts' prefills a row.
+        toks = torch.stack([padded[i][0][:TP_FAULT_TOKENS] for i in (0, 1)])
+        lens = torch.tensor([TP_FAULT_TOKENS] * 2, dtype=torch.int32, device=dev)
+
+        caught = {}
+        forced = TPForcedInputs(ranks[0][2].group)
+        with forced.side(record=True):
+            ref_rows = tp_prefill_rows([(params, cfg, None)], toks, lens)
+        real_max = collectives.all_reduce_max
+        with forced.side(record=False):
+            sound = tp_prefill_rows(ranks, toks, lens)
+        collectives.all_reduce_max = lambda t, group: t.clone()
+        try:
+            with forced.side(record=False):
+                bad = tp_prefill_rows(ranks, toks, lens)
+        finally:
+            collectives.all_reduce_max = real_max
+        tp_read(sound, ref_rows, "fault rows, fp8native forced", TP_FORCED_TOL_STD)
+        caught["row amax left local"] = tp_fault_share(bad, sound, ref_rows, TP_FORCED_TOL_STD)
+        del ranks, forced, sound, bad, ref_rows
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The xla route: K1 at every shard's projection (the shards cut under
+        # LLM_FP8_QDOT=xla take its row-major layout), free running against
+        # the mesh-less run on the same route; then the wqkv fault.
+        os.environ["LLM_FP8_QDOT"] = "xla"
+        params = dict(params, layers={
+            k: (dataclasses.replace(v, qvalue=v.qvalue.contiguous())
+                if isinstance(v, QTensor) else v) for k, v in params["layers"].items()})
+        torch.cuda.empty_cache()
+        x_ranks = tensor.local_tp_ranks(params, cfg, TP)
+        kernels.reset_launch_counts()
+        x_pre, x_dec = tp_compose(x_ranks, padded, steps, dev, torch.float8_e4m3fn)
+        x_counts = kernels.launch_counts()
+        r_pre, r_dec = tp_compose([(params, cfg, None)], padded, steps, dev,
+                                  torch.float8_e4m3fn)
+        xla = tp_read(torch.cat([x_pre, x_dec.flatten(0, 1)]),
+                      torch.cat([r_pre, r_dec.flatten(0, 1)]), "xla", TP_XLA_TOL_STD)
+        check(x_counts.get("quant_matmul", 0) > 0, f"tp_kernels xla: K1 launched "
+              f"{x_counts.get('quant_matmul')} times")
+        xla["launches"] = x_counts
+        del x_pre, x_dec, r_pre, r_dec
+        ref_rows = tp_prefill_rows([(params, cfg, None)], toks, lens)
+        sound = tp_prefill_rows(x_ranks, toks, lens)
+        tp_read(sound, ref_rows, "fault rows, xla", TP_XLA_TOL_STD)
+        real_cols = tensor.qkv_columns
+        tensor.qkv_columns = lambda c, r, n, d=None: torch.arange(
+            r * c.qkv_dim // n, (r + 1) * c.qkv_dim // n, device=d)
+        try:
+            bad = tp_prefill_rows(tensor.local_tp_ranks(params, cfg, TP), toks, lens)
+        finally:
+            tensor.qkv_columns = real_cols
+        caught["wqkv cut contiguously"] = tp_fault_share(bad, sound, ref_rows, TP_XLA_TOL_STD)
+        del params, x_ranks, sound, bad, ref_rows
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ALiBi: Baichuan-13B's slopes, each rank its heads' slice (xla).
+        bcfg = dataclasses.replace(get_config(TP_ALIBI_MODEL), num_layers=TP_ALIBI_LAYERS)
+        bparams = fp8_params_by_layer(bcfg, dev, seed=21)
+        btoks = torch.randint(1, bcfg.vocab_size, (1, 512), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(21))
+        blens = torch.tensor([500], dtype=torch.int32, device=dev)
+        b_ref = tp_prefill_rows([(bparams, bcfg, None)], btoks, blens)
+        b_ranks = tensor.local_tp_ranks(bparams, bcfg, TP)
+        b_sound = tp_prefill_rows(b_ranks, btoks, blens)
+        alibi = tp_read(b_sound, b_ref, "alibi, xla", TP_XLA_TOL_STD)
+        real = llama._rank_alibi
+        llama._rank_alibi = lambda c, d, tp: llama._alibi(c, d)
+        try:
+            b_bad = tp_prefill_rows(b_ranks, btoks, blens)
+        finally:
+            llama._rank_alibi = real
+        caught["alibi slopes rebuilt per rank"] = tp_fault_share(b_bad, b_sound, b_ref,
+                                                                 TP_XLA_TOL_STD)
+        del bparams, b_ranks, b_bad, b_sound, b_ref
+        os.environ.pop("LLM_FP8_QDOT", None)
+        torch.cuda.empty_cache()
+        low = {k: v for k, v in caught.items() if not v > 0.9}
+        check(not low, f"tp_kernels: planted faults caught in only {low} of the rows they move")
+        res = dict(card=card, model=TP_MODEL, layers=TP_LAYERS, tp=TP,
+                   prompt_lens=[len(p) for p in prompts], steps=TP_STEPS,
+                   fp8native_free=free, fp8native_forced=forced_read, xla=xla,
+                   alibi=dict(model=TP_ALIBI_MODEL, layers=TP_ALIBI_LAYERS, **alibi),
+                   compose_s=compose_s, launches=counts,
+                   launches_per_rank={k: v / TP for k, v in counts.items() if v},
+                   k9_codes=codes, caught=caught)
+        log(res)
+        res["cases"] = tp_kernel_timings(dev, bw, peak, cfg, log)
+        return res
+    finally:
+        restore_env("LLM_FP8_QDOT", saved)
+
+
+def tp_serving(dev, card, log):
+    """A world of one on NCCL: ``Engine(mesh=MeshConfig(tp=1))`` against the
+    mesh-less ``Engine`` on Llama-3.2-1B at full width and
+    ``TP_SERVE_LAYERS`` layers (LAYERWISE fp8 on the default route, e4m3
+    arena, 8 prompts of 100-250 tokens, 32 greedy tokens in bursts): the
+    tokens, every prefill's logits and the last step's logits bit for bit,
+    the decode step captured once with the group collectives inside (one
+    replay profiled: its NCCL or copy kernels listed); ms a step both
+    ways, and the mesh run's K2, K3 and K9 launches counted."""
+    import dataclasses
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.models.llama import init_params, quantize_params
+    from llm_fp8_tpu_torch.parallel import MeshConfig, make_mesh
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+    from llm_fp8_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    class Checked(Instrumented, Engine):
+        def _run_prefill(self, padded, true_len, slot):
+            last = self._timed_prefill(super()._run_prefill, padded, true_len, slot)
+            self.pre.append(last.clone())
+            return last
+
+    saved = os.environ.pop("LLM_FP8_QDOT", None)
+    cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=TP_SERVE_LAYERS)
+    params = quantize_params(init_params(cfg, device=dev, seed=0), LAYERWISE)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, cfg.vocab_size, rng.randint(100, 251)).astype(np.int32)
+               for _ in range(8)]
+    ecfg = EngineConfig(max_slots=8, max_seq_len=1024, prefill_buckets=(128, 256),
+                        kv_dtype="fp8")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        runs = {}
+        for tag in ("plain", "mesh"):
+            mesh = make_mesh(MeshConfig(tp=1), "cuda") if tag == "mesh" else None
+            warm = Checked(params, cfg, ecfg, device=dev, mesh=mesh)
+            warm.pre = []
+            warm.add_request(np.arange(1, 17, dtype=np.int32), SamplingParams(max_new_tokens=4))
+            warm.run()
+            del warm
+            eng = Checked(params, cfg, ecfg, device=dev, mesh=mesh)
+            eng.pre = []
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            reqs = [eng.add_request(p, SamplingParams(max_new_tokens=32)) for p in prompts]
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            graph = eng.step_graph
+            graph_checks(f"tp_serve {tag}", eng, graph, eng.burst_steps)
+            check(eng.finite is not None and bool(eng.finite), f"tp_serve {tag}: non-finite")
+            runs[tag] = dict(tokens=[r.output for r in reqs], pre=torch.stack(eng.pre),
+                             last=eng._logits.clone(), counts=device_launches(counts, graph),
+                             step_ms=1e3 * eng.decode_s / max(eng.burst_steps, 1),
+                             prefill_s=eng.prefill_s, wall_s=wall, replays=graph.replays,
+                             a_replay=graph.launches, eng=eng)
+        mesh_eng = runs["mesh"]["eng"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mesh_eng.step_graph.replay()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if "nccl" in e.key.lower() or "memcpy" in e.key.lower()})
+        plain, mesh_run = runs["plain"], runs["mesh"]
+        bits = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))  # noqa: E731
+        same = dict(tokens=plain["tokens"] == mesh_run["tokens"],
+                    prefill_logits=bits(plain["pre"], mesh_run["pre"]),
+                    last_step_logits=bits(plain["last"], mesh_run["last"]))
+        check(all(same.values()), f"tp_serve: the mesh engine differs from the mesh-less: {same}")
+        for name in ARENA_PATH:
+            check(mesh_run["counts"].get(name, 0) > 0,
+                  f"tp_serve: {name} launched {mesh_run['counts'].get(name)} times")
+        res = dict(card=card, world=1, backend="nccl", mesh="tp 1 (every axis 1)",
+                   config=f"llama-3.2-1b, {TP_SERVE_LAYERS} layers, LAYERWISE fp8, e4m3 arena",
+                   requests=len(prompts), generated=32 * len(prompts), bit_equal=same,
+                   step_ms=mesh_run["step_ms"], plain_step_ms=plain["step_ms"],
+                   prefill_s=mesh_run["prefill_s"], plain_prefill_s=plain["prefill_s"],
+                   wall_s=mesh_run["wall_s"], plain_wall_s=plain["wall_s"],
+                   replays=mesh_run["replays"], launches=mesh_run["counts"],
+                   plain_launches=plain["counts"], launches_a_replay=mesh_run["a_replay"],
+                   graph_collective_kernels=names)
+        log(res)
+        del runs, mesh_eng
+        return res
+    finally:
+        dist.destroy_process_group()
+        restore_env("LLM_FP8_QDOT", saved)
+
+
 def ptxas_summary(build_dir, names):
     """Registers and spill bytes of every kernel instance in the ``nvcc
     -Xptxas -v`` logs of the named libraries: {"kernel<D,passes>": [registers,
@@ -8267,7 +8960,9 @@ def main(argv=None) -> int:
              ("encoder_slice", lambda: encoder_slice_check(dev, log)),
              ("encoder_forward", lambda: encoder_forward(dev, card, log)),
              ("dist_kernels", lambda: dist_kernel_cases(dev, bw, peak, log)),
-             ("dist_train", lambda: dist_training(dev, card, log)))
+             ("dist_train", lambda: dist_training(dev, card, log)),
+             ("tp_kernels", lambda: tp_kernels(dev, bw, peak, card, log)),
+             ("tp_serve", lambda: tp_serving(dev, card, log)))
     try:
         for phase, run in steps:
             if phase in phases:
@@ -8295,6 +8990,13 @@ def main(argv=None) -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase_cases(report, phase):
+    """A phase's kernel cases (a phase whose report is a dict keeps them under
+    ``cases``)."""
+    out = report[phase]
+    return out["cases"] if isinstance(out, dict) else out
 
 
 def kernels_line(report):
@@ -8348,7 +9050,13 @@ def kernels_line(report):
                   "weights)": run["launches"] for key, run in report["encoder_forward"].items()
                   if key != "card"},
                f"dist train (Trainer(mesh=), a world of one on NCCL, llama-3.2-1b at "
-               f"{DIST_TRAIN_LAYERS} layers, fp8)": report["dist_train"]["launches"]}
+               f"{DIST_TRAIN_LAYERS} layers, fp8)": report["dist_train"]["launches"],
+               f"tp compose ({TP_MODEL} at {TP_LAYERS} layers, the {TP} ranks of a tp group "
+               "in one process, e4m3 arena)": report["tp_kernels"]["launches"],
+               f"tp compose LLM_FP8_QDOT=xla (2 prompts, 2 steps)":
+                   report["tp_kernels"]["xla"]["launches"],
+               f"tp serve (Engine(mesh=), a world of one on NCCL, llama-3.2-1b at "
+               f"{TP_SERVE_LAYERS} layers, fp8)": report["tp_serve"]["launches"]}
     for counts in by_path.values():
         counts["flash_attention_bwd"] = (counts.get("flash_attention_bwd_dkv", 0)
                                          + counts.get("flash_attention_bwd_dq", 0))
@@ -8370,7 +9078,6 @@ def kernels_line(report):
     also = {"quantize_fused": ("train_kernels", "gate_up [4096, 16384] rows float32 e4m3"),
             "rmsnorm_residual_fused": ("fp8_kernels", "[4096, 2048] float32")}
     features = {
-        "decode_attention_arena": {"alibi": ("alibi_kernels", "B8 Hq40")},
         "paged_attention": {"alibi": ("alibi_kernels", "B8 Hq40")},
         "flash_attention": {"alibi": ("alibi_kernels", "alibi Hq40 D128 prefill"),
                             "dropout": ("dropout_kernels", "dropout"),
@@ -8398,7 +9105,15 @@ def kernels_line(report):
                             "ring of 4, every rank's steps (llama-3.2-1b, 4 x 2048)": (
                                 "dist_kernels", "ring4 1B"),
                             "ring of 4, every rank's steps (llama-3.1-8b, 4 x 4096)": (
-                                "dist_kernels", "ring4 8B")},
+                                "dist_kernels", "ring4 8B"),
+                            "tp 4 shard (qwen2.5-14b prefill)": ("tp_kernels", "tp4 prefill")},
+        "quant_matmul": {f"tp 4 shard (qwen2.5-14b {n} M={m})": ("tp_kernels", f"tp4 {n} M={m}")
+                         for n in ("wqkv", "wo", "w_gate_up", "w_down") for m in (8, 1024)},
+        "decode_attention_arena": {"alibi": ("alibi_kernels", "B8 Hq40"),
+                                   "tp 4 shard (qwen2.5-14b)": ("tp_kernels", "tp4 B8")},
+        "quantize_fused": {f"tp 4 shard (qwen2.5-14b {n} input M={m})": (
+            "tp_kernels", f"tp4 {n} input rows M={m}") for n in ("wo", "w_down")
+            for m in (8, 1024)},
         "flash_attention_bwd": {"alibi": ("alibi_kernels", "alibi Hq40 D128 B2 S1024"),
                                 "dropout": ("dropout_kernels", "dropout"),
                                 "head_dim 256": ("gemma_kernels", "D256 2b train"),
@@ -8504,10 +9219,11 @@ def kernels_line(report):
                                    "vs_library", "bound_ms", "caught")}
                 for o in report["zoo_kernels"]])
         if kname in features:  # the ALiBi and dropout cases beside the main one
-            line[-1]["headers"] = headers[kname]
+            if kname in headers:
+                line[-1]["headers"] = headers[kname]
             line[-1]["features"] = {}
             for tag, (phase, prefix) in features[kname].items():
-                o = next(o for o in report[phase]
+                o = next(o for o in phase_cases(report, phase)
                          if o["kernel"] == kname and o["case"].startswith(prefix))
                 line[-1]["features"][tag] = {k: o.get(k) for k in (
                     "case", "max_abs_err", "ms", "ms_without_alibi", "ms_without_dropout",
@@ -8515,7 +9231,8 @@ def kernels_line(report):
                     "keep_mask_equal", "k6_keep_mask_equal", "split_ms", "split_bound_ms",
                     "caught", "vs_library", "padded_to", "ms_without_segments",
                     "ms_unchunked", "ms_unsplit", "unsplit_ms", "slowest_rank_ms",
-                    "per_rank_ms", "vs_unsplit") if k in o}
+                    "per_rank_ms", "vs_unsplit", "vs_quarter", "unsplit_bound_ms",
+                    "row_parallel_quantize_ms", "meshless_quantize_ms") if k in o}
         if kname in also:
             phase, prefix = also[kname]
             o = next(o for o in report[phase]

@@ -33,6 +33,20 @@ their autograd context either way.
 ALiBi models (``cfg.alibi``: Baichuan-13B) have no rotary: their slopes
 (:func:`~..ops.attention.default_alibi_slopes`, built once per head count
 and device) go to K3, K2, K5 and the plain attention.
+
+Tensor parallelism (serving): :func:`forward` and
+:func:`forward_decode_arena` take ``tp``, a :class:`~..parallel.tensor.TPRank`,
+with the rank's shard (``parallel/tensor.py::tp_rank_params``) and config
+(its head counts and intermediate dim). The outputs of ``wo`` and
+``w_down`` are float32 partials, all-reduced over the group and cast once
+(a sum of bf16 partials would round once a rank where the single product
+rounds once); their fp8native inputs are quantized with each row's amax
+over the group (``quant/dot.py::k_split_over``). The embedding looks up
+the rank's vocabulary rows, zeros elsewhere, and all-reduces (exact: one
+rank holds each id); the logits are all-gathered along the vocabulary
+(exact). A rank's ALiBi slopes are its heads' slice of the whole model's.
+Parts the layout replicates run whole, with no collective. Without ``tp``
+nothing of this runs.
 """
 from __future__ import annotations
 
@@ -308,6 +322,49 @@ def _alibi(cfg: ModelConfig, device) -> Optional[torch.Tensor]:
     return default_alibi_slopes(cfg.num_heads, device) if cfg.alibi else None
 
 
+def _rank_alibi(cfg: ModelConfig, device, tp) -> Optional[torch.Tensor]:
+    """A tp rank's ALiBi slopes: with split heads, its heads' slice of the
+    whole model's (slopes rebuilt for the rank's head count would be another
+    model's); without ``tp`` or with the heads whole, :func:`_alibi`'s."""
+    if tp is None or not cfg.alibi or not tp.layout.heads:
+        return _alibi(cfg, device)
+    h = cfg.num_heads
+    return default_alibi_slopes(tp.num_heads, device)[tp.rank * h:(tp.rank + 1) * h]
+
+
+def _embed(params, tokens: torch.Tensor, dtype, tp=None) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in ``dtype``; under ``tp`` with a
+    split vocabulary, the rank's rows (zeros for the other ranks' ids)
+    summed over the group."""
+    emb = params["embed"]
+    if tp is None or not tp.layout.vocab:
+        return emb[tokens.long()].to(dtype)
+    from ..parallel.collectives import all_reduce_sum
+
+    local = tokens.long() - tp.rank * emb.shape[0]
+    mine = (local >= 0) & (local < emb.shape[0])
+    rows = emb[torch.where(mine, local, torch.zeros_like(local))]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return all_reduce_sum(rows, tp.group).to(dtype)
+
+
+def _row_parallel(x: torch.Tensor, w, tp, split: bool) -> torch.Tensor:
+    """``x @ w`` of a row-parallel weight (``wo``, ``w_down``): under ``tp``
+    with the part split, the float32 partial summed over the group and cast
+    once, its fp8native input quantized with the group's row amaxes."""
+    if tp is None or not split:
+        return _dot(x, w)
+    from ..parallel.collectives import all_reduce_sum
+    from ..quant.dot import k_split_over
+
+    with k_split_over(tp.group):
+        if isinstance(w, QTensor):
+            y = qdot(x, w, out_dtype=torch.float32)
+        else:
+            y = _matmul_f32(x, w.to(x.dtype))
+    return all_reduce_sum(y, tp.group).to(x.dtype)
+
+
 #: Layer li's dropout seed is ``dropout_seed + li · DROPOUT_LAYER_STRIDE``
 #: (without it every layer would drop the same entries).
 DROPOUT_LAYER_STRIDE = 7919
@@ -368,20 +425,22 @@ def _swiglu(gate_up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.float()).to(up.dtype) * up
 
 
-def _mlp(x, lp, cfg: ModelConfig, dots=None, amaxes=None, seg=_call):
+def _mlp(x, lp, cfg: ModelConfig, dots=None, amaxes=None, seg=_call, tp=None):
     h = seg(rmsnorm, x, lp["norm_mlp"], cfg.rms_eps)
     h = seg(_swiglu, _site_dot(h, lp["w_gate_up"], "mlp_gate_up", dots, amaxes))
+    if tp is not None:
+        return x + _row_parallel(h, lp["w_down"], tp, tp.layout.mlp)
     return x + _site_dot(h, lp["w_down"], "mlp_down", dots, amaxes)
 
 
 def _layer_body(x, lp, cos, sin, cfg: ModelConfig, attend, dots=None, amaxes=None,
-                seg=_call):
+                seg=_call, tp=None):
     """One decoder layer over a sequence: ``attend(q, k, v) -> attn`` (causal
     self-attention or the cache), the GEMMs through ``dots`` when given (the
     FP8 training path; their amaxes land in ``amaxes``). ``seg(fn, *args)``
     runs each elementwise segment between the GEMM sites and attention
     (``_ckpt`` under ``remat="dots"``). No rotary for ALiBi models (``cos``
-    None)."""
+    None). ``tp``: a rank's layer (module docstring; serving only)."""
     B, S, _ = x.shape
 
     def rotary(qkv):
@@ -392,8 +451,11 @@ def _layer_body(x, lp, cos, sin, cfg: ModelConfig, attend, dots=None, amaxes=Non
 
     h = seg(rmsnorm, x, lp["norm_attn"], cfg.rms_eps)
     attn = attend(*seg(rotary, _site_dot(h, lp["wqkv"], "attn_qkv", dots, amaxes)))
-    x = x + _site_dot(attn.reshape(B, S, -1), lp["wo"], "attn_out", dots, amaxes)
-    return _mlp(x, lp, cfg, dots, amaxes, seg)
+    if tp is not None:
+        x = x + _row_parallel(attn.reshape(B, S, -1), lp["wo"], tp, tp.layout.heads)
+    else:
+        x = x + _site_dot(attn.reshape(B, S, -1), lp["wo"], "attn_out", dots, amaxes)
+    return _mlp(x, lp, cfg, dots, amaxes, seg, tp)
 
 
 def _run_layer(x, lp, cos, sin, cfg: ModelConfig, attend, mode: str, dots=None):
@@ -412,7 +474,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
             kv_lens: Optional[torch.Tensor] = None,
             compute_dtype=torch.bfloat16, return_kv: bool = False,
             return_hidden: bool = False, remat=False, dropout_p: float = 0.0,
-            dropout_seed: int = 0, cp_group=None):
+            dropout_seed: int = 0, cp_group=None, tp=None):
     """``tokens [B, S] -> (logits [B, S, V] float32, cache)``.
 
     ``cache=None``: causal self-attention; with ``return_kv`` the second
@@ -424,8 +486,13 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
     to the cache-free (training) forward. ``cp_group``: context parallelism
     over that process group for the cache-free forward (every rank holds the
     whole sequence; attention rings over its chunks, ``ops/attention.py``).
+    ``tp``: a rank's forward over its shard (module docstring); ``cfg`` is
+    the rank's config. Serving only: not with remat, dropout or ``cp_group``.
     """
     mode = remat_mode(remat)
+    if tp is not None and (mode != "none" or dropout_p or cp_group is not None):
+        raise ValueError("tensor parallelism here is a serving option: no remat, dropout "
+                         "or context parallelism")
     if cache is not None and (mode != "none" or dropout_p):
         raise ValueError("remat and dropout are training options: no cache")
     if cache is not None and cp_group is not None:
@@ -434,12 +501,12 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
         raise ValueError("return_kv reads the layers' K/V: not under remat")
     dev = params["embed"].device
     tokens = tokens.to(dev)
-    x = params["embed"][tokens.long()].to(compute_dtype)
+    x = _embed(params, tokens, compute_dtype, tp)
     B, S = tokens.shape
     start_pos = torch.as_tensor(start_pos, dtype=torch.int32, device=dev).reshape(-1).expand(B)
     positions = start_pos[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
     cos, sin = _rope_tables(cfg, positions)
-    slopes = _alibi(cfg, dev)
+    slopes = _rank_alibi(cfg, dev, tp)
     ks, vs = [], []
     for li, lp in enumerate(unstack_layers(params["layers"])):
         if cache is None:
@@ -452,13 +519,14 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
                                  dropout_p=dropout_p,
                                  dropout_seed=dropout_seed + li * DROPOUT_LAYER_STRIDE,
                                  cp_group=cp_group)
-            x = _run_layer(x, lp, cos, sin, cfg, attend, mode)[0]
+            x = (_layer_body(x, lp, cos, sin, cfg, attend, tp=tp) if tp is not None
+                 else _run_layer(x, lp, cos, sin, cfg, attend, mode)[0])
         else:
             def attend(q, kk, vv, li=li):
                 return cache_append_attend(
                     q, kk, vv, (cache.k, cache.v, cache.k_scale[li], cache.v_scale[li], li),
                     start_pos, kv_lens, window=cfg.sliding_window, alibi_slopes=slopes)[0]
-            x = _layer_body(x, lp, cos, sin, cfg, attend)
+            x = _layer_body(x, lp, cos, sin, cfg, attend, tp=tp)
     if cache is None:
         new_cache = (torch.stack(ks), torch.stack(vs)) if return_kv else None
     else:
@@ -467,7 +535,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, *,
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
     if return_hidden:
         return x, new_cache
-    return _lm_head(params, x, cfg), new_cache
+    return _lm_head(params, x, cfg, tp), new_cache
 
 
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -491,7 +559,11 @@ def lm_head_weight(params, cfg: ModelConfig) -> torch.Tensor:
     return lm
 
 
-def _lm_head(params, x, cfg: ModelConfig) -> torch.Tensor:
+def _lm_head(params, x, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    if tp is not None and tp.layout.vocab:  # the ranks' columns of the vocabulary
+        from ..parallel.collectives import all_gather
+
+        return all_gather(_lm_head(params, x, cfg), -1, tp.group)
     if cfg.tie_word_embeddings or "lm_head" not in params:
         return _matmul_f32(x, params["embed"].to(x.dtype).t())
     lm = params["lm_head"]
@@ -502,19 +574,20 @@ def _lm_head(params, x, cfg: ModelConfig) -> torch.Tensor:
 
 def forward_decode_arena(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
                          k_arena: torch.Tensor, v_arena: torch.Tensor, lens: torch.Tensor,
-                         *, kv_scale=1.0, window: Optional[int] = None):
+                         *, kv_scale=1.0, window: Optional[int] = None, tp=None):
     """Single-token decode over the ``[L, B, Hk, S, Dh]`` arena through K2,
     which rotates q and the new K, quantizes and appends the new token at
     ``lens`` (in place) and attends. Returns ``(logits [B, 1, V], k_arena,
-    v_arena)``. ALiBi models take their slopes in K2 and no rotary."""
+    v_arena)``. ALiBi models take their slopes in K2 and no rotary. ``tp``:
+    a rank's step over its shard and its heads' arena (module docstring)."""
     B, S_tok = tokens.shape
     if S_tok != 1:
         raise ValueError(f"forward_decode_arena takes one token per sequence, got {S_tok}")
     dev = params["embed"].device
     lens = lens.to(device=dev, dtype=torch.int32)
-    x = params["embed"][tokens.to(dev).long()].to(torch.bfloat16)
+    x = _embed(params, tokens.to(dev), torch.bfloat16, tp)
     cos, sin = _rope_tables(cfg, lens[:, None])
-    slopes = _alibi(cfg, dev)
+    slopes = _rank_alibi(cfg, dev, tp)
     k_sc, v_sc = kv_scale if isinstance(kv_scale, tuple) else (kv_scale, kv_scale)
     lengths = lens + 1
     for li, lp in enumerate(unstack_layers(params["layers"])):
@@ -524,10 +597,13 @@ def forward_decode_arena(params: Dict[str, Any], tokens: torch.Tensor, cfg: Mode
             q[:, 0], k_arena, v_arena, lengths, li, new_k=kk[:, 0], new_v=vv[:, 0],
             rope_cos_sin=None if cos is None else (cos[:, 0], sin[:, 0]), k_scale=k_sc,
             v_scale=v_sc, window=window, alibi_slopes=slopes)
-        x = x + _dot(attn.reshape(B, 1, -1), lp["wo"])
-        x = _mlp(x, lp, cfg)
+        if tp is not None:
+            x = x + _row_parallel(attn.reshape(B, 1, -1), lp["wo"], tp, tp.layout.heads)
+        else:
+            x = x + _dot(attn.reshape(B, 1, -1), lp["wo"])
+        x = _mlp(x, lp, cfg, tp=tp)
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
-    return _lm_head(params, x, cfg), k_arena, v_arena
+    return _lm_head(params, x, cfg, tp), k_arena, v_arena
 
 
 def forward_paged(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,

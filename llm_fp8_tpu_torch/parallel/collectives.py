@@ -21,32 +21,149 @@ around them needs.
 
 None for the group makes each an identity; a group of one rank runs the
 collectives (a copy).
+
+Serving (tensor-parallel inference, no adjoints): :func:`all_reduce_sum`
+(in float32), :func:`all_reduce_max`, :func:`all_gather` along a dim and
+:func:`broadcast` from one rank of the group; each is a copy for
+``group=None``. Besides a process group they take a :class:`LocalGroup`:
+the ranks of a group run as threads of one process (one card, or a CPU
+test, doing a tp group's work), where the collectives are rank-ordered
+float32 sums, maxima and concatenations.
 """
 from __future__ import annotations
+
+import threading
+from typing import Callable, List
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["gather_shards", "seq_chunk", "seq_gather", "replicated_in", "replicated_sum",
-           "hop", "exchange", "group_size", "group_rank"]
+           "hop", "exchange", "group_size", "group_rank", "all_reduce_sum", "all_reduce_max",
+           "all_gather", "broadcast", "LocalGroup"]
+
+
+class LocalGroup:
+    """``size`` ranks of one process, each a thread of :meth:`run`. A rank's
+    collective hands its tensor in and waits for the others; every rank then
+    reads the same rank-ordered result. Ranks on one card share its stream,
+    so a tensor handed in is ready for the kernels another rank enqueues
+    after the meeting."""
+
+    def __init__(self, size: int, timeout: float = 600.0):
+        self.size = size
+        self._slots: List = [None] * size
+        self._barrier = threading.Barrier(size, timeout=timeout)
+        self._local = threading.local()
+
+    def rank(self) -> int:
+        return self._local.rank
+
+    def run(self, fn: Callable[[int], object]) -> list:
+        """``[fn(0), ..., fn(size - 1)]``, each on its own thread; the first
+        rank's exception is raised (the others' meetings are broken)."""
+        out: list = [None] * self.size
+        errs: list = [None] * self.size
+
+        def body(r):
+            self._local.rank = r
+            try:
+                out[r] = fn(r)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errs[r] = e
+                self._barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,)) for r in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        self._barrier.reset()
+        first = next((e for e in errs if e is not None
+                      and not isinstance(e, threading.BrokenBarrierError)), None)
+        first = first or next((e for e in errs if e is not None), None)
+        if first is not None:
+            raise first
+        return out
+
+    def meet(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's ``t``, in rank order."""
+        self._slots[self.rank()] = t
+        self._barrier.wait()
+        parts = list(self._slots)
+        self._barrier.wait()  # nobody hands in the next tensor before all have read
+        return parts
 
 
 def group_size(group) -> int:
+    if isinstance(group, LocalGroup):
+        return group.size
     return 1 if group is None else dist.get_world_size(group)
 
 
 def group_rank(group) -> int:
+    if isinstance(group, LocalGroup):
+        return group.rank()
     return 0 if group is None else dist.get_rank(group)
 
 
 def _all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = group_size(group)
     t = t.contiguous()
+    if isinstance(group, LocalGroup):
+        return torch.cat(group.meet(t), dim=dim)
     out = t.new_empty((n * t.shape[0], *t.shape[1:]))
     dist.all_gather_into_tensor(out, t, group=group)
     if dim == 0:
         return out
     return torch.cat(out.view(n, *t.shape).unbind(0), dim=dim)
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the ranks of ``group`` of ``t``, in float32 (a new
+    tensor; ``t`` unchanged). A bf16 partial is widened first, so the sum
+    rounds once, where the caller casts it."""
+    out = t.float() if t.dtype != torch.float32 else t.clone()
+    if group is None:
+        return out
+    if isinstance(group, LocalGroup):
+        parts = group.meet(out)
+        acc = parts[0].clone()
+        for p in parts[1:]:
+            acc += p
+        return acc
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum over the ranks of ``group`` (a new tensor)."""
+    if group is None:
+        return t.clone()
+    if isinstance(group, LocalGroup):
+        return torch.stack(group.meet(t)).amax(dim=0)
+    out = t.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim`` in rank order."""
+    if group is None:
+        return t.clone()
+    return _all_gather(t, dim % t.ndim, group)
+
+
+def broadcast(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Rank ``src`` (of the group)'s ``t`` on every rank of ``group``; the
+    others pass a tensor of the same shape and dtype."""
+    if group is None:
+        return t.clone()
+    if isinstance(group, LocalGroup):
+        return group.meet(t)[src].clone()
+    out = t.contiguous().clone()
+    dist.broadcast(out, src=dist.get_global_rank(group, src), group=group)
+    return out
 
 
 def _reduce_scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -12,12 +12,15 @@ process group, one rank a device, with JAX's six axes in JAX's order:
   * ``cp``   context parallel: the sequence ring of ``parallel/ring_attention.py``;
   * ``ep``   expert parallel, ``tp`` tensor parallel: their rows of the
              sharding table are ported (``parallel/sharding.py``); the
-             trainer refuses them above 1.
+             serving engine splits the Llama family over ``tp``
+             (``parallel/tensor.py``); the trainer refuses both above 1.
 
 A world is started by the launcher (``torchrun``: ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), NCCL with one card a rank,
 gloo for CPU processes (:func:`init_world`). :func:`data_group` is the
-flattened ``(dp, fsdp)`` group over which the batch is cut.
+flattened ``(dp, fsdp)`` group over which the batch (or the serving
+engine's slots) is cut; :func:`tp_group` the ``tp`` group a model's heads,
+MLP columns and vocabulary are split over.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["MeshConfig", "make_mesh", "AXES", "AXIS_DP", "AXIS_FSDP", "AXIS_PP", "AXIS_CP",
-           "AXIS_EP", "AXIS_TP", "axis_sizes", "data_group", "data_index", "init_world"]
+           "AXIS_EP", "AXIS_TP", "axis_sizes", "data_group", "data_index", "tp_group", "init_world"]
 
 AXIS_DP = "dp"
 AXIS_FSDP = "fsdp"
@@ -87,23 +90,38 @@ def axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
-_DATA_GROUPS: Dict[tuple, object] = {}
+_GROUPS: Dict[tuple, object] = {}
+
+
+def _subgroup(mesh, kind: str, groups):
+    """This rank's group among ``groups`` (rank lists covering the world),
+    made once per kind and layout of the world's ranks (every rank keys it
+    alike, so all make the same groups in the same order)."""
+    key = (kind, dist.group.WORLD, tuple(mesh.mesh.shape), tuple(mesh.mesh.flatten().tolist()))
+    if key not in _GROUPS:
+        mine, _ = dist.new_subgroups_by_enumeration([g.tolist() for g in groups])
+        _GROUPS[key] = mine
+    return _GROUPS[key]
 
 
 def data_group(mesh):
     """The process group of this rank's ``(dp, fsdp)`` ranks (JAX's batch
-    spec ``P(("dp", "fsdp"))``), made once per layout of the world's ranks
-    of the world (every rank keys it alike, so all make the same groups in
-    the same order); None without a mesh."""
+    spec ``P(("dp", "fsdp"))``), ordered as :func:`data_index` counts them;
+    None without a mesh."""
     if mesh is None:
         return None
-    key = (dist.group.WORLD, tuple(mesh.mesh.shape), tuple(mesh.mesh.flatten().tolist()))
-    if key not in _DATA_GROUPS:
-        ranks = mesh.mesh  # [dp, fsdp, pp, cp, ep, tp]
-        groups = ranks.permute(2, 3, 4, 5, 0, 1).reshape(-1, ranks.shape[0] * ranks.shape[1])
-        mine, _ = dist.new_subgroups_by_enumeration([g.tolist() for g in groups])
-        _DATA_GROUPS[key] = mine
-    return _DATA_GROUPS[key]
+    ranks = mesh.mesh  # [dp, fsdp, pp, cp, ep, tp]
+    return _subgroup(mesh, "data", ranks.permute(2, 3, 4, 5, 0, 1).reshape(
+        -1, ranks.shape[0] * ranks.shape[1]))
+
+
+def tp_group(mesh):
+    """The process group of this rank's ``tp`` ranks, ordered by their ``tp``
+    coordinate; None without a mesh."""
+    if mesh is None:
+        return None
+    ranks = mesh.mesh
+    return _subgroup(mesh, "tp", ranks.reshape(-1, ranks.shape[-1]))
 
 
 def data_index(mesh) -> int:

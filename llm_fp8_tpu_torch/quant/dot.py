@@ -63,6 +63,13 @@ taken over the whole batch, as JAX's GSPMD program takes it: the rank's
 amax is all-reduced (MAX) first; K9's per-column quantize gets the global
 amax as one more row of its operand, so its codes and scales are the single
 process's bit for bit.
+
+A tensor-parallel world (:func:`k_split_over`): a row-parallel product's
+activations hold the rank's slice of K. ``qdot``'s fp8native route then
+quantizes each row with its amax over the whole of K, as GSPMD reduces over
+a sharded axis: the rank's row amaxes are all-reduced (MAX) over the group
+and K9 gets them as one more column, so each rank's codes are the slice of
+the single process's codes bit for bit.
 """
 from __future__ import annotations
 
@@ -70,6 +77,7 @@ import contextlib
 import dataclasses
 import functools
 import os
+import threading
 import warnings
 from typing import NamedTuple, Optional
 
@@ -82,7 +90,7 @@ from .qtensor import MX_BLOCK, QTensor, _unpack_int4_halves, quantize, quantize_
 from .recipe import Recipe
 
 __all__ = ["qdot", "qdot_route", "serving_layout", "padded_operands", "fp8_dot", "DotAmaxes",
-           "matmul_f32", "rows_split_over"]
+           "matmul_f32", "rows_split_over", "k_split_over"]
 
 
 class DotAmaxes(NamedTuple):
@@ -231,7 +239,7 @@ def qdot(x: torch.Tensor, w: QTensor, *, out_dtype=None, impl: Optional[str] = N
                              "route (row-major for K1, or unpadded); quantize_params lays them "
                              "out for the route in force when it runs, so set LLM_FP8_QDOT "
                              "before it")
-        xq = _quantize_channel(x, E4M3, x.ndim - 1, margin=0)
+        xq = _quantize_channel(x, E4M3, x.ndim - 1, margin=0, k=_K_GROUP.group)
         return _narrow_dot(xq, w, out_dtype or x.dtype, "fp8")
     if impl == "fused" and w.pack_axis is None:
         return qdot_fused(x, w, out_dtype=out_dtype or x.dtype)
@@ -305,6 +313,33 @@ def rows_split_over(group):
         _ROW_GROUP = prev
 
 
+class _KGroup(threading.local):
+    group = None
+
+
+#: The group a row-parallel product's K is cut over (:func:`k_split_over`);
+#: per thread, since a ``LocalGroup``'s ranks are threads of one process.
+_K_GROUP = _KGroup()
+
+
+@contextlib.contextmanager
+def k_split_over(group):
+    """Within (on this thread): ``qdot`` calls on the fp8native route take
+    each activation row's amax over ``group``, whose ranks hold the other
+    slices of K (a row-parallel product; module docstring). None: no
+    change."""
+    prev, _K_GROUP.group = _K_GROUP.group, group
+    try:
+        yield
+    finally:
+        _K_GROUP.group = prev
+
+
+#: Columns appended to a row for its global amax: one 16-byte vector of
+#: bf16 (two of float32), so K9 keeps its vector loads.
+_AMAX_COLS = 16
+
+
 def _global_amax(t: torch.Tensor, rows, dim=None) -> torch.Tensor:
     """|t|'s amax (over ``dim``, kept, or all of it), all-reduced (MAX)
     over the ``rows`` group."""
@@ -317,15 +352,30 @@ def _global_amax(t: torch.Tensor, rows, dim=None) -> torch.Tensor:
 
 
 def _quantize_channel(t: torch.Tensor, fmt, contract_axis: int, margin: int,
-                      rows=None) -> QTensor:
+                      rows=None, k=None) -> QTensor:
     """Per-channel quantize through K9 (rows of the last axis, or columns of
     a 2-D operand). The TPU's VMEM size guards are not carried over: K9
-    takes any length. ``rows``: the group the columns' rows are cut over."""
+    takes any length. ``rows``: the group the columns' rows are cut over;
+    ``k``: the group the rows' K is cut over."""
     from ..kernels.quantize import quantize_fused  # kernels.quantize imports quant
 
     if contract_axis == t.ndim - 1:
-        q = quantize_fused(t.reshape(-1, t.shape[-1]), fmt, axis=-1, margin=margin)
-        return QTensor(qvalue=q.qvalue.reshape(t.shape),
+        t2 = t.reshape(-1, t.shape[-1])
+        if k is not None:
+            # The group's row amaxes as one more column (zeros after it):
+            # K9 finds them as the rows' maxima, the rank's columns get the
+            # single process's codes, and the appended columns are dropped.
+            from ..parallel.collectives import all_reduce_max
+
+            top = all_reduce_max(t2.detach().float().abs().amax(dim=1, keepdim=True), k)
+            pad = t2.new_zeros((t2.shape[0], _AMAX_COLS))
+            pad[:, :1] = top.to(t2.dtype)
+            q = quantize_fused(torch.cat([t2, pad], dim=1), fmt, axis=-1, margin=margin)
+            codes = q.qvalue[:, :t2.shape[1]].contiguous()
+        else:
+            q = quantize_fused(t2, fmt, axis=-1, margin=margin)
+            codes = q.qvalue
+        return QTensor(qvalue=codes.reshape(t.shape),
                        scale=q.scale.reshape(*t.shape[:-1], 1), fmt=fmt)
     if t.ndim == 2 and contract_axis == 0:
         if rows is None:

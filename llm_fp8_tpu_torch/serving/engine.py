@@ -24,6 +24,26 @@ buffers (tokens, lengths, logits, a ``[32, slots]`` burst output; see
 one read-back: the counterpart of the JAX engine's one-dispatch ``lax.scan``
 burst. A sampled step replays the same graph and samples from its logits.
 On the CPU a burst is a Python loop of the same step.
+
+``mesh`` (a ``DeviceMesh`` of ``parallel/mesh.py``; the Llama family):
+the JAX engine's layout on ``torch.distributed``. The weights are split
+over ``tp`` (``parallel/tensor.py``: each rank's shard of the whole tree,
+which a tree of ``shard_params`` is gathered into first) and whole over
+``fsdp``; the slots are cut over the data axes ``(dp, fsdp)`` (JAX's
+``P(("dp", "fsdp"))``; every data group holds every slot where they do not
+divide ``max_slots``), so a rank's arena is ``[L, B/data, Hk/tp, S, Dh]``.
+The scheduler is host logic every rank runs alike: a prefill runs on the
+data group that owns the slot and its logits are broadcast to the others;
+a step's logits are all-gathered over the data group before anything reads
+them; a sampled token is drawn on the tp group's first rank and broadcast
+over the group. int8 KV: the owner's calibrated scales and each prefill's
+saturation statistics are broadcast over the data group and gathered over
+``tp``, so every rank decides on every head and rescales its arena in the
+same step. Ranks along ``pp``, ``cp`` and ``ep`` compute what their peers
+compute, as GSPMD replicates a forward over axes it does not use. On the
+card the decode step stays one CUDA graph with the NCCL collectives inside
+(each group runs one collective eagerly first, so its communicator exists
+before the capture).
 """
 from __future__ import annotations
 
@@ -133,8 +153,13 @@ class RequestQueue:
     def _sample_one(self, logits: torch.Tensor, p: SamplingParams):
         if p.temperature == 0.0:
             return greedy(logits[None, :])[0]
-        return sample(logits[None, :], self._generator, temperature=p.temperature,
-                      top_k=p.top_k, top_p=p.top_p)[0]
+        return self._agreed(sample(logits[None, :], self._generator,
+                                   temperature=p.temperature, top_k=p.top_k,
+                                   top_p=p.top_p)[0])
+
+    def _agreed(self, tok: torch.Tensor) -> torch.Tensor:
+        """Hook: the sampled token every rank goes on with."""
+        return tok
 
     def _is_stop(self, req: Request, tok: int) -> bool:
         if len(req.output) >= req.params.max_new_tokens:
@@ -235,7 +260,9 @@ class Engine(RequestQueue):
 
     Runs on ``cuda`` unless ``device`` is given (``device="cpu"`` runs the
     plain versions of the kernels). ``forward_fn``: the family's forward
-    (default: the Llama family's ``forward``)."""
+    (default: the Llama family's ``forward``). ``mesh``: serve over a
+    ``DeviceMesh`` (module docstring); another family's ``forward_fn``
+    raises ``NotImplementedError`` there above one rank."""
 
     #: Subclass hook: engines whose steps feed several tokens opt out of the
     #: single-token arena path (as the JAX package's speculative engine does).
@@ -244,9 +271,16 @@ class Engine(RequestQueue):
     def __init__(self, params: Dict[str, Any], model_cfg: ModelConfig,
                  engine_cfg: EngineConfig = EngineConfig(), *,
                  eos_token_id: Optional[int] = None, device=None,
-                 generator: Optional[torch.Generator] = None, forward_fn=None):
+                 generator: Optional[torch.Generator] = None, forward_fn=None, mesh=None):
         self.device = resolve_device(device)
         self._forward = forward_fn if forward_fn is not None else forward
+        #: The whole model's config (``cfg`` is this rank's under a mesh).
+        self.model_cfg = model_cfg
+        self.tp = None
+        self._data, self._data_index = None, 0
+        self._nslots = engine_cfg.max_slots
+        if mesh is not None:
+            params, model_cfg = self._mesh_shard(params, model_cfg, mesh, engine_cfg.max_slots)
         self.params = params if self._forward is forward else with_f32_head(params)
         self.cfg = model_cfg
         buckets = tuple(b for b in engine_cfg.prefill_buckets
@@ -269,27 +303,102 @@ class Engine(RequestQueue):
                 "forward); use kv_dtype='bf16' or 'fp8' for this model")
         self._calibrated = not self._int8_kv
         Hk = model_cfg.num_kv_heads
+        #: This rank's kv heads among the whole model's (the drift statistics
+        #: cover every head).
+        h0 = self.tp.rank * Hk if self.tp is not None and self.tp.layout.heads else 0
+        self._heads = (h0, h0 + Hk)
         dev = self.device
         self._kscales = torch.full((Hk,), engine_cfg.kv_scale, dtype=torch.float32, device=dev)
         self._vscales = torch.full((Hk,), engine_cfg.kv_scale, dtype=torch.float32, device=dev)
-        self._sat_ewma_k = np.zeros((Hk,), np.float64)
-        self._sat_ewma_v = np.zeros((Hk,), np.float64)
+        self._sat_ewma_k = np.zeros((self.model_cfg.num_kv_heads,), np.float64)
+        self._sat_ewma_v = np.zeros((self.model_cfg.num_kv_heads,), np.float64)
         self.kv_sat_warning = False
         self.kv_recalibrations = 0
         if self._fp8_arena:
             L, Dh = model_cfg.num_layers, model_cfg.head_dim
-            self.ka = torch.zeros((L, B, Hk, S, Dh), dtype=kv_dtype, device=dev)
-            self.va = torch.zeros((L, B, Hk, S, Dh), dtype=kv_dtype, device=dev)
+            self.ka = torch.zeros((L, self._nslots, Hk, S, Dh), dtype=kv_dtype, device=dev)
+            self.va = torch.zeros((L, self._nslots, Hk, S, Dh), dtype=kv_dtype, device=dev)
             self.cache = None
         else:
-            self.cache: KVCache = init_kv_cache(model_cfg, B, S, dtype=kv_dtype, device=dev)
+            self.cache: KVCache = init_kv_cache(model_cfg, self._nslots, S, dtype=kv_dtype,
+                                                device=dev)
         self.slot_req: List[Optional[Request]] = [None] * B
         self.slot_lens = np.zeros((B,), np.int32)
         self.slot_last_tok = np.zeros((B,), np.int32)
         self.waiting: List[Request] = []
         self._next_id = 0
         self._generator = generator or torch.Generator(device=dev).manual_seed(0)
-        self._init_step_graph(B, model_cfg.vocab_size, dev)
+        self._init_step_graph(B, self.model_cfg.vocab_size, dev)
+
+    def _mesh_shard(self, params, model_cfg: ModelConfig, mesh, slots: int):
+        """This rank's shard and config under ``mesh``; sets the tp group and
+        the data group over which the slots are cut (module docstring)."""
+        from ..parallel.collectives import all_reduce_sum
+        from ..parallel.mesh import (AXIS_DP, AXIS_FSDP, AXIS_TP, axis_sizes, data_group,
+                                     data_index, tp_group)
+        from ..parallel.sharding import gather_tree
+        from ..parallel.tensor import TPRank, tp_layout, tp_rank_config, tp_rank_params
+
+        if self._forward is not forward:
+            if mesh.mesh.numel() > 1:
+                raise NotImplementedError(
+                    "Engine(mesh=) over more than one rank serves the Llama family's forward "
+                    "only; other families under a mesh are not ported yet (ROADMAP.md, "
+                    "Queue 1 item 5)")
+            return params, model_cfg  # a world of one computes the mesh-less function
+        sizes = axis_sizes(mesh)
+        params = gather_tree(params)
+        size, rank = sizes[AXIS_TP], mesh.get_local_rank(AXIS_TP)
+        layout = tp_layout(params, model_cfg, size)
+        self.tp = TPRank(tp_group(mesh), rank, layout, model_cfg.num_heads)
+        n_data = sizes[AXIS_DP] * sizes[AXIS_FSDP]
+        if slots % n_data == 0:  # else every data group holds every slot (JAX's adapt_spec)
+            self._data, self._data_index = data_group(mesh), data_index(mesh)
+            self._nslots = slots // n_data
+        for group in (self.tp.group, self._data):
+            if group is not None:
+                all_reduce_sum(torch.zeros((1,), device=self.device), group)
+        return (tp_rank_params(params, model_cfg, rank, size, layout),
+                tp_rank_config(model_cfg, layout))
+
+    def _owner(self, slot: int):
+        """``(data index of the group holding slot, its row there)``."""
+        if self._data is None:
+            return self._data_index, slot
+        return divmod(slot, self._nslots)
+
+    def _shared_logits(self, last, owner: int):
+        """The owner's prefill logits on every rank of the data group."""
+        if self._data is None:
+            return last
+        from ..parallel.collectives import broadcast
+
+        if last is None:
+            last = torch.zeros((self.model_cfg.vocab_size,), dtype=torch.float32,
+                               device=self.device)
+        return broadcast(last, self._data, owner)
+
+    def _shared_stats(self, stats, owner: int):
+        """A prefill's per-head saturation statistics ``(k_sat, k_amax,
+        v_sat, v_amax)`` of every kv head, on every rank: the owner's,
+        broadcast over the data group and gathered over ``tp``."""
+        from ..parallel.collectives import all_gather, broadcast
+
+        if self._data is not None:
+            t = (torch.stack(stats) if stats is not None else
+                 torch.zeros((4, self.cfg.num_kv_heads), dtype=torch.float32,
+                             device=self.device))
+            stats = tuple(broadcast(t, self._data, owner).unbind(0))
+        if self.tp is not None and self.tp.layout.heads:
+            stats = tuple(all_gather(torch.stack(stats), 1, self.tp.group).unbind(0))
+        return stats
+
+    def _agreed(self, tok: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return tok
+        from ..parallel.collectives import broadcast
+
+        return broadcast(tok.reshape(1), self.tp.group)[0]
 
     # ------------------------------------------------------------------
     # compute
@@ -299,7 +408,7 @@ class Engine(RequestQueue):
         """Run the prompt without a cache; return last-position logits and
         the raw per-layer K/V ``[L, 1, bucket, Hk, Dh]``."""
         logits, kv = forward(self.params, tokens[None, :], self.cfg,
-                             kv_lens=true_len.reshape(1), return_kv=True)
+                             kv_lens=true_len.reshape(1), return_kv=True, tp=self.tp)
         return logits[0, int(true_len) - 1], kv
 
     @staticmethod
@@ -345,22 +454,42 @@ class Engine(RequestQueue):
         return last
 
     def _run_prefill(self, padded, true_len, slot):
+        """Prefill ``slot`` (on the data group holding it); its last logits
+        on every rank."""
+        owner, row = self._owner(slot)
+        mine = owner == self._data_index
         if self._fp8_arena:
             if not self._calibrated:
-                return self._calibrate_int8_kv(padded, true_len, slot)
-            last, stats = self._prefill_arena(padded, true_len, slot)
+                last = self._calibrate_int8_kv(padded, true_len, row) if mine else None
+                if self._data is not None:  # one set of scales for every slot
+                    from ..parallel.collectives import broadcast
+
+                    self._kscales.copy_(broadcast(self._kscales, self._data, owner))
+                    self._vscales.copy_(broadcast(self._vscales, self._data, owner))
+                    self._calibrated = True
+                return self._shared_logits(last, owner)
+            last, stats = self._prefill_arena(padded, true_len, row) if mine else (None, None)
             if self._int8_kv:
-                self._track_kv_drift(stats)
-            return last
-        bucket = padded.shape[0]
-        one = init_kv_cache(self.cfg, 1, bucket, dtype=self.ecfg.kv_dtype, device=self.device)
-        one = dataclasses.replace(one, k_scale=self.cache.k_scale, v_scale=self.cache.v_scale)
-        logits, one = self._forward(self.params, padded[None, :], self.cfg, cache=one,
-                                    start_pos=0, kv_lens=true_len.reshape(1))
-        self.cache.k[:, slot, :bucket] = one.k[:, 0]
-        self.cache.v[:, slot, :bucket] = one.v[:, 0]
-        self.cache.lens[slot] = true_len
-        return logits[0, int(true_len) - 1]
+                self._track_kv_drift(self._shared_stats(stats, owner))
+            return self._shared_logits(last, owner)
+        last = None
+        if mine:
+            bucket = padded.shape[0]
+            one = init_kv_cache(self.cfg, 1, bucket, dtype=self.ecfg.kv_dtype,
+                                device=self.device)
+            one = dataclasses.replace(one, k_scale=self.cache.k_scale,
+                                      v_scale=self.cache.v_scale)
+            logits, one = self._forward(self.params, padded[None, :], self.cfg, cache=one,
+                                        start_pos=0, kv_lens=true_len.reshape(1),
+                                        **self._tp_kw())
+            self.cache.k[:, row, :bucket] = one.k[:, 0]
+            self.cache.v[:, row, :bucket] = one.v[:, 0]
+            self.cache.lens[row] = true_len
+            last = logits[0, int(true_len) - 1]
+        return self._shared_logits(last, owner)
+
+    def _tp_kw(self):
+        return {} if self.tp is None else {"tp": self.tp}
 
     def _track_kv_drift(self, stats):
         """Update the saturation EWMA, warn past the threshold, optionally
@@ -382,10 +511,11 @@ class Engine(RequestQueue):
         if self.ecfg.kv_recalibrate and (k_sat.max() > self.ecfg.kv_sat_threshold
                                          or v_sat.max() > self.ecfg.kv_sat_threshold):
             dev = self.device
+            h0, h1 = self._heads
             new_ks = torch.maximum(self._kscales, torch.as_tensor(
-                k_amax * 1.05 / 127.0, dtype=torch.float32, device=dev))
+                k_amax[h0:h1] * 1.05 / 127.0, dtype=torch.float32, device=dev))
             new_vs = torch.maximum(self._vscales, torch.as_tensor(
-                v_amax * 1.05 / 127.0, dtype=torch.float32, device=dev))
+                v_amax[h0:h1] * 1.05 / 127.0, dtype=torch.float32, device=dev))
             self._rescale_arena(new_ks, new_vs)
             self.kv_recalibrations += 1
 
@@ -411,17 +541,27 @@ class Engine(RequestQueue):
     def _decode_step(self, toks, lens):
         """One decode step over every slot: ``(logits [B, V], greedy [B])``.
         The arena or cache is written in place (the forwards return the same
-        tensors), so a captured step writes the engine's own storage."""
+        tensors), so a captured step writes the engine's own storage. Under a
+        mesh the rank steps its data group's slots and the logits of every
+        slot are gathered."""
+        if self._data is not None:
+            s0 = self._data_index * self._nslots
+            toks, lens = toks[s0:s0 + self._nslots], lens[s0:s0 + self._nslots]
         if self._fp8_arena:
             logits, _, _ = forward_decode_arena(
                 self.params, toks[:, None], self.cfg, self.ka, self.va, lens,
-                kv_scale=(self._kscales, self._vscales), window=self.cfg.sliding_window)
+                kv_scale=(self._kscales, self._vscales), window=self.cfg.sliding_window,
+                tp=self.tp)
         else:
             logits, cache = self._forward(
                 self.params, toks[:, None], self.cfg, cache=self.cache, start_pos=lens,
-                kv_lens=lens + 1)
+                kv_lens=lens + 1, **self._tp_kw())
             self.cache.lens.copy_(cache.lens)
         logits = logits[:, 0]
+        if self._data is not None:
+            from ..parallel.collectives import all_gather
+
+            logits = all_gather(logits, 0, self._data)
         return logits, greedy(logits)
 
     def _static_inputs(self):

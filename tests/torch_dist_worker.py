@@ -15,6 +15,9 @@ test holds the results to its references. Jobs:
   checkpoint saved under fsdp 2 x cp 2 restored under dp 2 x cp 2.
 * ``pipeline``: ``forward_pipelined`` at pp 4 and pp 2 (x dp 2), logits and
   gradients, beside the plain forward on rank 0.
+* ``serve``: ``Engine(mesh=)`` over the runs' meshes (tp 4, fsdp 2 x tp 2,
+  dp 2 x tp 2), each rank's tokens, its tp and data coordinates and its
+  int8 KV scales after every prefill (:class:`ScaleRecorder`).
 """
 import faulthandler
 import importlib
@@ -257,6 +260,52 @@ def job_pipeline(inp, rank, world):
     return out
 
 
+def scale_recorder():
+    """The engine class the ``serve`` job runs (and its test, without a
+    mesh): an ``Engine`` that keeps its int8 KV scales and recalibration
+    count after every prefill."""
+    from llm_fp8_tpu_torch.serving import Engine
+
+    class ScaleRecorder(Engine):
+        def _run_prefill(self, padded, true_len, slot):
+            last = super()._run_prefill(padded, true_len, slot)
+            self.scale_log.append((self._kscales.clone(), self._vscales.clone(),
+                                   self.kv_recalibrations))
+            return last
+
+        def __init__(self, *args, **kw):
+            self.scale_log = []
+            super().__init__(*args, **kw)
+
+    return ScaleRecorder
+
+
+def job_serve(inp, rank, world):
+    import numpy as np
+
+    from llm_fp8_tpu_torch.convert import params_from_numpy
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.parallel import MeshConfig, make_mesh, shard_params
+    from llm_fp8_tpu_torch.serving import EngineConfig, SamplingParams
+
+    cfg = get_config(inp["model"])
+    params = params_from_numpy(inp["params"], device="cpu")
+    out = {}
+    for name, run in inp["runs"].items():
+        t0 = time.perf_counter()
+        mesh = make_mesh(MeshConfig(**run["mesh"]), "cpu")
+        tree = shard_params(params, mesh) if run["sharded"] else params
+        eng = scale_recorder()(tree, cfg, EngineConfig(**run["ecfg"]), device="cpu", mesh=mesh)
+        reqs = [eng.add_request(np.asarray(p, np.int32), SamplingParams(**sp))
+                for p, sp in run["requests"]]
+        eng.run()
+        out[name] = {"tokens": [r.output for r in reqs], "scale_log": eng.scale_log,
+                     "tp_rank": eng.tp.rank, "heads": eng._heads, "data_index": eng._data_index,
+                     "slots": eng._nslots, "drift": eng.kv_drift_stats(),
+                     "seconds": time.perf_counter() - t0}
+    return out
+
+
 def main():
     torch.set_num_threads(1)
     job, rank, world, port, workdir = sys.argv[1], *map(int, sys.argv[2:5]), sys.argv[5]
@@ -266,7 +315,8 @@ def main():
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=world)
     inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
-    out = {"ring": job_ring, "train": job_train, "pipeline": job_pipeline}[job](inp, rank, world)
+    out = {"ring": job_ring, "train": job_train, "pipeline": job_pipeline,
+           "serve": job_serve}[job](inp, rank, world)
     out["jax_loaded"] = sorted(m for m in sys.modules
                                if m.split(".")[0] in ("jax", "jaxlib", "llm_fp8_tpu"))
     torch.save(out, os.path.join(workdir, f"out_{rank}.pt"))
