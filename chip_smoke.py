@@ -291,7 +291,30 @@ Phases, in order; any failure exits non-zero before the last line:
    against the mesh-less engine on Llama-3.2-1B at ``TP_SERVE_LAYERS``
    layers: tokens and logits bit for bit, the decode step one CUDA graph
    with the group collectives inside; ms a step both ways.
-17. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
+17. Speculative serving over a mesh (``SpecEngine(mesh=)``; both models
+   split over ``tp``). ``tp_spec_kernels``: Llama-3.1-8B at full width and
+   ``TP_SPEC_TARGET_LAYERS`` layers with a Llama-3.2-1B draft at
+   ``TP_SPEC_DRAFT_LAYERS`` (LAYERWISE fp8 from seeds 0 and 1, e4m3 target
+   cache, 8 slots, gamma 4, 8 prompts of 180-220 tokens): the mesh-less
+   ``SpecEngine``'s prefills and ``TP_SPEC_ROUNDS`` rounds recorded; a
+   composition of them without a mesh bit for bit with the engine; the tp
+   4 ranks of both models as threads of this process (8 q heads over 2 in
+   each a rank), their prefill and verify logits read in units of each
+   row's std (fp8native free running, not held; fp8native with the
+   mesh-less composition's projection inputs forced, ``TP_FORCED_TOL_STD``;
+   ``LLM_FP8_QDOT=xla`` free running, ``TP_XLA_TOL_STD``); each rank's K1
+   (``xla``), K3 and K9 at the verify block's shapes (M = 40; K3 at 5 rows
+   a slot at ragged offsets) against their plain versions, timed beside the
+   unsplit launch (K1's column-parallel shards planned as the whole product,
+   as the tp forward runs them: their columns of the whole product's output
+   bit for bit, as in ``tp_kernels``). ``tp_spec_serve``: a world of one on NCCL,
+   ``SpecEngine(mesh=MeshConfig(tp=1))`` against the mesh-less engine on the
+   same target with its own first 3 layers as draft (so rounds accept), 32
+   new tokens, greedy and sampled (top_k 20): tokens, accepted counts and
+   the last round's verify logits bit for bit, some round accepting in each
+   mode, the round one CUDA graph with the group collectives inside; ms a
+   round both ways after the capture's burst.
+18. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 With ``--out DIR`` the details of every case go to ``DIR/chip_smoke.json``
@@ -323,7 +346,7 @@ PHASES = ("kernels", "paged_kernels", "slice", "paged_slice", "serve", "paged_se
           "moe_train_slice", "moe_serve", "moe_train", "moe_spec_serve", "mla_kernels",
           "mla_slice", "mla_train_slice", "mla_serve", "mla_train", "mla_spec_serve",
           "encoder_kernels", "encoder_slice", "encoder_forward", "dist_kernels", "dist_train",
-          "tp_kernels", "tp_serve")
+          "tp_kernels", "tp_serve", "tp_spec_kernels", "tp_spec_serve")
 #: The kernels each path runs (launch counts read around its run). On the
 #: card fp8 weights take qdot's fp8native route (K9 quantizes x per row, then
 #: fp8 products), as the JAX package picks it where fp8 products exist; K1
@@ -888,11 +911,12 @@ def kernel_cases(dev, bw, peak, log):
     return cases
 
 
-def k3_verify_case(k3, dev, g, bw, peak, log, *, Hq, Hk, D, Sk, B=8, Sq=5):
+def k3_verify_case(k3, dev, g, bw, peak, log, *, Hq, Hk, D, Sk, B=8, Sq=5, prefix=""):
     """K3 over a speculative verify block: ``Sq`` query rows a slot at ragged
     ``q_offset``s (one slot at 0, one at the cache's end), ``kv_lens =
     q_offset + Sq``, against its plain version row by row (ROW_ULPS) and its
-    LSE within 1e-3; timed beside SDPA on the same mask."""
+    LSE within 1e-3; timed beside SDPA on the same mask. ``prefix`` starts
+    the case's name."""
     import torch
     import torch.nn.functional as F
 
@@ -906,7 +930,7 @@ def k3_verify_case(k3, dev, g, bw, peak, log, *, Hq, Hk, D, Sk, B=8, Sq=5):
     got, lse = k3.flash_attention(q, k, v, q_offset=qo, kv_lens=kl, return_lse=True, **cfg)
     ref, ref_lse = k3.flash_fwd_plain(q, k, v, qo, kl, **cfg)
     torch.cuda.synchronize()
-    name = f"verify B{B} Sq={Sq} Sk={Sk} Hq{Hq} Hk{Hk} D{D} causal, ragged q_offset"
+    name = f"{prefix}verify B{B} Sq={Sq} Sk={Sk} Hq{Hq} Hk{Hk} D{D} causal, ragged q_offset"
     err, ulps = rows_within(got, ref, f"K3 {name}")
     lse_err = (lse - ref_lse).abs().max().item()
     check(math.isfinite(lse_err) and lse_err <= 1e-3, f"K3 {name}: lse err {lse_err}")
@@ -2052,10 +2076,12 @@ def spec_round_classes():
     class Rounds(SpecEngine):
         """Host time of each burst of rounds (ends in a read-back), rounds
         run, and the round's Python calls (on the card: its warm-up and its
-        capture)."""
+        capture). ``warm_s`` and ``warm_rounds`` leave out the first burst
+        (the graph's warm-up round and capture, or the eager twin's first
+        calls), whose time is ``first_burst_s``."""
 
-        rounds_s = 0.0
-        rounds_run = round_calls = 0
+        rounds_s = warm_s = first_burst_s = 0.0
+        rounds_run = round_calls = warm_rounds = bursts = 0
 
         def _spec_round(self, toks, lens):
             self.round_calls += 1
@@ -2064,8 +2090,15 @@ def spec_round_classes():
         def _timed(self, fn, toks, lens, rounds):
             t0 = time.perf_counter()
             out = fn(toks, lens, rounds)
-            self.rounds_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.rounds_s += dt
             self.rounds_run += rounds
+            if self.bursts:
+                self.warm_s += dt
+                self.warm_rounds += rounds
+            else:
+                self.first_burst_s = dt
+            self.bursts += 1
             return out
 
         def _run_spec_rounds(self, toks, lens, rounds):
@@ -8173,9 +8206,12 @@ TP_BUCKETS, TP_SEQ = (256, 512, 1024), 1040
 #: running in bf16 (the xla route), the ranks' residual stream sums float32
 #: partials in another order than one product, and its bf16 roundings then
 #: part as two runs of other sum orders part (the card-vs-CPU slices read
-#: 0.052-0.098 of the std; Qwen2.5-14B's composition 0.088, Baichuan-13B's
-#: 0.035 on the H100); with the fp8native products held to the same inputs
-#: (``TPForcedInputs``) only the products' sums remain (read 0.0017).
+#: 0.052-0.098 of the std; on the H100 Qwen2.5-14B's composition 0.075,
+#: Llama-3.1-8B's speculative 0.064, Baichuan-13B's 0.035, K1 planning the
+#: column-parallel shards as the whole product; planned alone, 0.088 and
+#: 0.1005, as the mesh-less model's K1 planned for 4x the SMs reads 0.095);
+#: with the fp8native products held to the same inputs (``TPForcedInputs``)
+#: only the products' sums remain (read 0.0017).
 TP_XLA_TOL_STD = 0.1
 TP_FORCED_TOL_STD = 0.01
 TP_ALIBI_MODEL, TP_ALIBI_LAYERS = "baichuan-13b", 2
@@ -8256,6 +8292,141 @@ def tp_fault_share(bad, sound, ref, tol):
     return float((tp_row_std(bad, ref)[moved] > tol).float().mean())
 
 
+def tp_pair(cases, bw, peak, log, name, fn_rank, fn_whole, nbytes, flops, extra, reps=None):
+    """A rank's launch ``fn_rank`` and the unsplit launch ``fn_whole`` timed
+    (``cuda_ms``), with their bounds from ``nbytes`` and ``flops`` (each a
+    ``(rank, whole)`` pair); the case is logged and added to ``cases``."""
+    reps = reps or {}
+    ms, whole = cuda_ms(fn_rank, **reps), cuda_ms(fn_whole, **reps)
+    b_ms, b_by = bound_ms(nbytes[0], flops[0], bw, peak)
+    w_ms, _ = bound_ms(nbytes[1], flops[1], bw, peak)
+    case = dict(case=name, tp=TP, ms=ms, unsplit_ms=whole, vs_unsplit=ms / whole,
+                vs_quarter=ms / (whole / TP), bound_ms=b_ms, bound_by=b_by,
+                unsplit_bound_ms=w_ms, **extra)
+    cases.append(case)
+    log(case)
+    return case
+
+
+def tp_k1_cases(dev, g, cfg, rows, pair, label=""):
+    """K1 (the xla route) at each projection's tp rank shard of ``cfg``
+    against its plain version, at each M of ``rows``, timed beside the whole
+    weight's launch (``pair``: :func:`tp_pair` over the phase's cases). A
+    column-parallel shard (wqkv, gate|up) runs as the tp forward runs it,
+    planned as the whole product (``planned_as_whole``): its columns of the
+    whole product's output bit for bit, and its time with its own plan
+    beside. Weights are rotated past the L2 at decode sizes (M <= 64), as a
+    decode step or a verify block finds them cold. ``label`` goes into the
+    case names after ``tp4``."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels import quant_matmul as k1
+    from llm_fp8_tpu_torch.kernels._common import num_sms
+    from llm_fp8_tpu_torch.quant import E4M3, quantize
+
+    D, I, H, Hk, Dh = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.head_dim)
+    # K1 (xla route): each projection's rank shard and the whole weight.
+    shapes = {"wqkv": ((D, H * Dh + 2 * Hk * Dh), -1), "wo": ((H * Dh, D), 0),
+              "w_gate_up": ((D, 2 * I), -1), "w_down": ((I, D), 0)}
+    for name, ((K, N), cut) in shapes.items():
+        kr, nr = (K // TP, N) if cut == 0 else (K, N // TP)
+        plan = functools.partial(k1.planned_as_whole, TP if cut else 1)
+        for M in rows:
+            qs = {}
+            for tag, (kk, nn) in (("rank", (kr, nr)), ("whole", (K, N))):
+                w = torch.randn((kk, nn), generator=g, device=dev) * 0.02
+                qt = quantize(w, E4M3, axes=(0,), flush_subnormal=True)
+                del w
+                copies = 1 if M > 64 else max(1, math.ceil(200e6 / (kk * nn)))
+                qs[tag] = (qt, [qt.qvalue.clone() for _ in range(copies)],
+                           torch.randn((M, kk), generator=g, device=dev).to(torch.bfloat16))
+            (qr, wr, xr), (qw, ww, xw) = qs["rank"], qs["whole"]
+            nwr, nww = cycler(wr), cycler(ww)
+            with plan():
+                got = k1.quant_matmul(xr, qr.qvalue, qr.scale, mode="channel")
+            ref = k1.quant_matmul_plain(xr, qr.qvalue, qr.scale, mode="channel")
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 2.0 ** -7 * ref.float().abs().max().item()
+            check(err <= tol, f"tp K1 {name} M={M}: err {err} > tol {tol}")
+            extra = {}
+            if cut:
+                cols = slice(nr, 2 * nr)  # rank 1's columns of the whole weight
+                with plan():
+                    part = k1.quant_matmul(xw, qw.qvalue[:, cols].contiguous(),
+                                           qw.scale.reshape(1, -1)[:, cols], mode="channel")
+                whole_cols = k1.quant_matmul(xw, qw.qvalue, qw.scale, mode="channel")[:, cols]
+                check(torch.equal(part, whole_cols), f"tp K1 {name} M={M}: the shard planned "
+                      "as the whole is not the whole product's columns bit for bit")
+                extra.update(columns_bit_equal=True,
+                             own_plan_ms=cuda_ms(lambda: k1.quant_matmul(
+                                 xr, nwr(), qr.scale, mode="channel")))
+                del part, whole_cols
+            with plan():
+                extra["plan"] = list(k1.launch_plan(M, nr, kr, num_sms(dev),
+                                                    M >= k1.PREFILL_MIN_M))
+            wdq = cycler([qr.dequantize(torch.bfloat16) for _ in range(max(1, len(wr) // 2))])
+
+            def rank_launch():
+                with plan():
+                    return k1.quant_matmul(xr, nwr(), qr.scale, mode="channel")
+
+            extra.update(
+                kernel="quant_matmul", max_abs_err=err, tol=tol,
+                shard=[kr, nr], whole=[K, N], M=M,
+                plain_ms=cuda_ms(lambda: k1.quant_matmul_plain(xr, nwr(), qr.scale,
+                                                               mode="channel"),
+                                 calls=2, rounds=3),
+                library_ms=cuda_ms(lambda: torch.matmul(xr, wdq())),
+                library="torch.matmul on the dequantized bf16 shard")
+            pair(f"tp{TP} {label}{name} M={M} channel e4m3", rank_launch,
+                 lambda: k1.quant_matmul(xw, nww(), qw.scale, mode="channel"),
+                 (M * kr * 2 + kr * nr + nr * 4 + M * nr * 2, M * K * 2 + K * N + N * 4
+                  + M * N * 2), (2.0 * M * kr * nr, 2.0 * M * K * N), extra)
+            del qs, wr, ww, wdq, got, ref
+            torch.cuda.empty_cache()
+
+
+def tp_k9_cases(dev, g, cfg, rows, pair, label=""):
+    """K9 on a tp rank's row-parallel inputs of ``cfg`` (wo's, w_down's):
+    the rank's K slice with the group's amax appended, bit for bit against
+    its plain version and timed beside the whole row, at each M of
+    ``rows``; and the whole row-parallel quantize (amax, the group's max,
+    the appended columns, K9, the codes cut back) against the mesh-less
+    quantize. ``label`` as :func:`tp_k1_cases`'."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels import quantize as k9
+    from llm_fp8_tpu_torch.parallel.collectives import LocalGroup
+    from llm_fp8_tpu_torch.quant import E4M3
+    from llm_fp8_tpu_torch.quant.dot import _AMAX_COLS, _quantize_channel
+
+    I, H, Dh = cfg.intermediate_size, cfg.num_heads, cfg.head_dim
+    one = LocalGroup(1)
+    for name, K in (("wo", H * Dh), ("w_down", I)):
+        for M in rows:
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            xr = torch.cat([x[:, :K // TP], torch.zeros((M, _AMAX_COLS), device=dev,
+                                                         dtype=x.dtype)], dim=1)
+            got = k9.quantize_fused(xr, E4M3, axis=-1)
+            ref = k9.quantize_fused_plain(xr, E4M3, axis=-1)
+            check(torch.equal(got.qvalue.view(torch.uint8), ref.qvalue.view(torch.uint8))
+                  and torch.equal(got.scale, ref.scale), f"tp K9 {name} M={M}: codes differ")
+            kr = K // TP + _AMAX_COLS
+            path = one.run(lambda r: (
+                cuda_ms(lambda: _quantize_channel(x[:, :K // TP], E4M3, 1, 0, k=one)),
+                cuda_ms(lambda: _quantize_channel(x, E4M3, 1, 0))))[0]
+            pair(f"tp{TP} {label}{name} input rows M={M} K={K // TP}+{_AMAX_COLS} bf16 e4m3",
+                 lambda: k9.quantize_fused(xr, E4M3, axis=-1),
+                 lambda: k9.quantize_fused(x, E4M3, axis=-1),
+                 (M * kr * 3 + M * 4, M * K * 3 + M * 4), (0.0, 0.0),
+                 dict(kernel="quantize_fused", max_abs_err=0.0, codes_equal=True,
+                      plain_ms=cuda_ms(lambda: k9.quantize_fused_plain(xr, E4M3, axis=-1)),
+                      library_ms=None, row_parallel_quantize_ms=path[0],
+                      meshless_quantize_ms=path[1]))
+            del x, xr
+
+
 def tp_kernel_timings(dev, bw, peak, cfg, log):
     """One rank's K1 (its decode and prefill kernels, the xla route's), K2,
     K3 and K9 launches at Qwen2.5-14B's tp 4 shard shapes, each beside the
@@ -8266,67 +8437,13 @@ def tp_kernel_timings(dev, bw, peak, cfg, log):
 
     from llm_fp8_tpu_torch.kernels import decode_attention as k2
     from llm_fp8_tpu_torch.kernels import flash_attention as k3
-    from llm_fp8_tpu_torch.kernels import quant_matmul as k1
-    from llm_fp8_tpu_torch.kernels import quantize as k9
     from llm_fp8_tpu_torch.kernels._common import fp8_to_bf16_ftz
-    from llm_fp8_tpu_torch.parallel.collectives import LocalGroup
-    from llm_fp8_tpu_torch.quant import E4M3, quantize
-    from llm_fp8_tpu_torch.quant.dot import _AMAX_COLS, _quantize_channel
 
     g = torch.Generator(device=dev).manual_seed(2020)
-    D, I, H, Hk, Dh = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
-                       cfg.num_kv_heads, cfg.head_dim)
+    H, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     cases = []
-
-    def pair(name, fn_rank, fn_whole, nbytes, flops, extra, reps=None):
-        reps = reps or {}
-        ms, whole = cuda_ms(fn_rank, **reps), cuda_ms(fn_whole, **reps)
-        b_ms, b_by = bound_ms(nbytes[0], flops[0], bw, peak)
-        w_ms, _ = bound_ms(nbytes[1], flops[1], bw, peak)
-        case = dict(case=name, tp=TP, ms=ms, unsplit_ms=whole, vs_unsplit=ms / whole,
-                    vs_quarter=ms / (whole / TP), bound_ms=b_ms, bound_by=b_by,
-                    unsplit_bound_ms=w_ms, **extra)
-        cases.append(case)
-        log(case)
-        return case
-
-    # K1 (xla route): each projection's rank shard and the whole weight.
-    shapes = {"wqkv": ((D, H * Dh + 2 * Hk * Dh), -1), "wo": ((H * Dh, D), 0),
-              "w_gate_up": ((D, 2 * I), -1), "w_down": ((I, D), 0)}
-    for name, ((K, N), cut) in shapes.items():
-        kr, nr = (K // TP, N) if cut == 0 else (K, N // TP)
-        for M in (8, 1024):
-            qs = {}
-            for tag, (kk, nn) in (("rank", (kr, nr)), ("whole", (K, N))):
-                w = torch.randn((kk, nn), generator=g, device=dev) * 0.02
-                qt = quantize(w, E4M3, axes=(0,), flush_subnormal=True)
-                del w
-                copies = 1 if M > 8 else max(1, math.ceil(200e6 / (kk * nn)))
-                qs[tag] = (qt, [qt.qvalue.clone() for _ in range(copies)],
-                           torch.randn((M, kk), generator=g, device=dev).to(torch.bfloat16))
-            (qr, wr, xr), (qw, ww, xw) = qs["rank"], qs["whole"]
-            nwr, nww = cycler(wr), cycler(ww)
-            got = k1.quant_matmul(xr, qr.qvalue, qr.scale, mode="channel")
-            ref = k1.quant_matmul_plain(xr, qr.qvalue, qr.scale, mode="channel")
-            err = (got.float() - ref.float()).abs().max().item()
-            tol = 2.0 ** -7 * ref.float().abs().max().item()
-            check(err <= tol, f"tp K1 {name} M={M}: err {err} > tol {tol}")
-            wdq = cycler([qr.dequantize(torch.bfloat16) for _ in range(max(1, len(wr) // 2))])
-            extra = dict(
-                kernel="quant_matmul", max_abs_err=err, tol=tol,
-                shard=[kr, nr], whole=[K, N], M=M,
-                plain_ms=cuda_ms(lambda: k1.quant_matmul_plain(xr, nwr(), qr.scale,
-                                                               mode="channel"),
-                                 calls=2, rounds=3),
-                library_ms=cuda_ms(lambda: torch.matmul(xr, wdq())),
-                library="torch.matmul on the dequantized bf16 shard")
-            pair(f"tp{TP} {name} M={M} channel e4m3",
-                 lambda: k1.quant_matmul(xr, nwr(), qr.scale, mode="channel"),
-                 lambda: k1.quant_matmul(xw, nww(), qw.scale, mode="channel"),
-                 (M * kr * 2 + kr * nr + nr * 4 + M * nr * 2, M * K * 2 + K * N + N * 4
-                  + M * N * 2), (2.0 * M * kr * nr, 2.0 * M * K * N), extra)
-            del qs, wr, ww, wdq, got, ref
-            torch.cuda.empty_cache()
+    pair = functools.partial(tp_pair, cases, bw, peak, log)
+    tp_k1_cases(dev, g, cfg, (8, 1024), pair)
 
     # K2: the decode step's attention over the rank's heads (16 layers of
     # arena rotated past the L2) and over all heads.
@@ -8404,33 +8521,7 @@ def tp_kernel_timings(dev, bw, peak, cfg, log):
     del k3_in, q, k, v, wq, wk, wv, got, ref, kh, vh
     torch.cuda.empty_cache()
 
-    # K9: the row-parallel inputs (wo's, w_down's), the rank's K slice with
-    # the group's amax appended, against the whole row; and the whole
-    # row-parallel quantize (amax, the group's max, the appended columns,
-    # K9, the codes cut back) against the mesh-less quantize.
-    one = LocalGroup(1)
-    for name, K in (("wo", H * Dh), ("w_down", I)):
-        for M in (8, 1024):
-            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-            xr = torch.cat([x[:, :K // TP], torch.zeros((M, _AMAX_COLS), device=dev,
-                                                         dtype=x.dtype)], dim=1)
-            got = k9.quantize_fused(xr, E4M3, axis=-1)
-            ref = k9.quantize_fused_plain(xr, E4M3, axis=-1)
-            check(torch.equal(got.qvalue.view(torch.uint8), ref.qvalue.view(torch.uint8))
-                  and torch.equal(got.scale, ref.scale), f"tp K9 {name} M={M}: codes differ")
-            kr = K // TP + _AMAX_COLS
-            path = one.run(lambda r: (
-                cuda_ms(lambda: _quantize_channel(x[:, :K // TP], E4M3, 1, 0, k=one)),
-                cuda_ms(lambda: _quantize_channel(x, E4M3, 1, 0))))[0]
-            pair(f"tp{TP} {name} input rows M={M} K={K // TP}+{_AMAX_COLS} bf16 e4m3",
-                 lambda: k9.quantize_fused(xr, E4M3, axis=-1),
-                 lambda: k9.quantize_fused(x, E4M3, axis=-1),
-                 (M * kr * 3 + M * 4, M * K * 3 + M * 4), (0.0, 0.0),
-                 dict(kernel="quantize_fused", max_abs_err=0.0, codes_equal=True,
-                      plain_ms=cuda_ms(lambda: k9.quantize_fused_plain(xr, E4M3, axis=-1)),
-                      library_ms=None, row_parallel_quantize_ms=path[0],
-                      meshless_quantize_ms=path[1]))
-            del x, xr
+    tp_k9_cases(dev, g, cfg, (8, 1024), pair)
     return cases
 
 
@@ -8521,7 +8612,7 @@ def tp_kernels(dev, bw, peak, card, log):
     from llm_fp8_tpu_torch.models import llama
     from llm_fp8_tpu_torch.parallel import collectives, tensor
     from llm_fp8_tpu_torch.parallel.collectives import LocalGroup
-    from llm_fp8_tpu_torch.quant import E4M3, QTensor
+    from llm_fp8_tpu_torch.quant import E4M3
     from llm_fp8_tpu_torch.quant.dot import _quantize_channel
     from llm_fp8_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 
@@ -8661,9 +8752,7 @@ def tp_kernels(dev, bw, peak, card, log):
         # LLM_FP8_QDOT=xla take its row-major layout), free running against
         # the mesh-less run on the same route; then the wqkv fault.
         os.environ["LLM_FP8_QDOT"] = "xla"
-        params = dict(params, layers={
-            k: (dataclasses.replace(v, qvalue=v.qvalue.contiguous())
-                if isinstance(v, QTensor) else v) for k, v in params["layers"].items()})
+        params = row_major_layers(params)
         torch.cuda.empty_cache()
         x_ranks = tensor.local_tp_ranks(params, cfg, TP)
         kernels.reset_launch_counts()
@@ -8832,6 +8921,502 @@ def tp_serving(dev, card, log):
         restore_env("LLM_FP8_QDOT", saved)
 
 
+# --------------------------------------------------------------------------
+# phase 17: speculative serving over a mesh (a tp group's ranks in one
+# process; a world of one on NCCL)
+# --------------------------------------------------------------------------
+
+TP_SPEC_TARGET, TP_SPEC_TARGET_LAYERS = "llama-3.1-8b", 4
+TP_SPEC_DRAFT, TP_SPEC_DRAFT_LAYERS = "llama-3.2-1b", 2
+#: Slots (one a prompt), gamma, prompt lengths (shortest, longest + 1), the
+#: rounds ``tp_spec_kernels`` composes, the tokens ``tp_spec_serve`` asks.
+TP_SPEC_SLOTS, TP_SPEC_GAMMA, TP_SPEC_LENS = 8, 4, (180, 221)
+TP_SPEC_ROUNDS, TP_SPEC_NEW = 4, 32
+TP_SPEC_SEQ, TP_SPEC_BUCKETS = 512, (256,)
+#: The kernels of the speculative round on the fp8native route (the KVCache
+#: path: K3 at every attention, K9 at every projection).
+TP_SPEC_PATH = ("quantize_fused", "flash_attention")
+TP_SPEC_SAMPLED = dict(temperature=0.8, top_k=20, seed=5)
+#: ``tp_spec_serve``'s draft: the target's first layers (``first_layers``).
+TP_SPEC_SERVE_DRAFT_LAYERS = 3
+
+
+def first_layers(params, cfg, n):
+    """``(params, cfg)`` of the first ``n`` layers of a Llama tree: a draft
+    that shares its target's embedding, head and first layers, so its
+    proposals agree with the target where the later layers move little."""
+    import dataclasses
+
+    from llm_fp8_tpu_torch.quant import QTensor
+
+    layers = {k: v.layer(slice(0, n)) if isinstance(v, QTensor) else v[:n]
+              for k, v in params["layers"].items()}
+    return dict(params, layers=layers), dataclasses.replace(cfg, num_layers=n)
+
+
+def tp_spec_models(dev, prompt_seed=2):
+    """The target and the draft at full width, cut in depth, LAYERWISE fp8
+    from seeds 0 and 1 (``spec_serve``'s), and the prompts (from
+    ``prompt_seed``: ``spec_serve``'s by default)."""
+    import dataclasses
+
+    import numpy as np
+
+    from llm_fp8_tpu_torch.models import get_config
+    from llm_fp8_tpu_torch.models.llama import init_params, quantize_params
+    from llm_fp8_tpu_torch.quant import LAYERWISE
+
+    tcfg = dataclasses.replace(get_config(TP_SPEC_TARGET), num_layers=TP_SPEC_TARGET_LAYERS)
+    dcfg = dataclasses.replace(get_config(TP_SPEC_DRAFT), num_layers=TP_SPEC_DRAFT_LAYERS)
+    tparams = quantize_params(init_params(tcfg, device=dev, seed=0), LAYERWISE)
+    dparams = quantize_params(init_params(dcfg, device=dev, seed=1), LAYERWISE)
+    rng = np.random.RandomState(prompt_seed)
+    prompts = [rng.randint(1, tcfg.vocab_size, rng.randint(*TP_SPEC_LENS)).astype(np.int32)
+               for _ in range(TP_SPEC_SLOTS)]
+    return tcfg, tparams, dcfg, dparams, prompts
+
+
+def tp_spec_ecfg(**kw):
+    from llm_fp8_tpu_torch.serving import EngineConfig
+
+    return EngineConfig(max_slots=TP_SPEC_SLOTS, max_seq_len=TP_SPEC_SEQ,
+                        prefill_buckets=TP_SPEC_BUCKETS, kv_dtype="fp8", **kw)
+
+
+def tp_spec_compose(tranks, dranks, prompts, rounds, dev, kv_dtype=None):
+    """Every rank's work of a speculative serve in this process, the ranks
+    as threads of the target's ``LocalGroup`` (``tp`` None: the mesh-less
+    forwards): each prompt ``(padded, length)`` prefilled into the rank's
+    target cache (``kv_dtype``; the engine's e4m3 by default) and bf16
+    draft cache at its slot, as ``SpecEngine`` fills them; then each round
+    ``(block, lens)`` as the engine ran it: the draft's ``gamma + 1`` greedy
+    feeds from the block's first token, and the verify forward over
+    ``block``. Returns rank 0's ``(prefill logits [n, V], proposals [R, B,
+    gamma], verify logits [R, B, gamma + 1, V])`` after checking every
+    rank's are the same bits."""
+    import torch
+
+    from llm_fp8_tpu_torch.models.llama import forward, init_kv_cache
+    from llm_fp8_tpu_torch.ops.sampling import greedy
+    from llm_fp8_tpu_torch.parallel.collectives import LocalGroup
+
+    group = tranks[0][2].group if tranks[0][2] is not None else LocalGroup(1)
+    g, B = TP_SPEC_GAMMA, len(prompts)
+
+    def kw(tp):
+        return {} if tp is None else {"tp": tp}
+
+    def prefill(p, c, tp, cache, i, padded, n):
+        one = init_kv_cache(c, 1, padded.shape[0], dtype=cache.k.dtype, device=dev)
+        logits, one = forward(p, padded[None], c, cache=one, start_pos=0, kv_lens=n.reshape(1),
+                              **kw(tp))
+        cache.k[:, i, :padded.shape[0]] = one.k[:, 0]
+        cache.v[:, i, :padded.shape[0]] = one.v[:, 0]
+        return logits[0, int(n) - 1]
+
+    def rank_run(r):
+        (tp_, tc, ttp), (dp_, dc, dtp) = tranks[r], dranks[r]
+        cache = init_kv_cache(tc, B, TP_SPEC_SEQ, dtype=kv_dtype or torch.float8_e4m3fn,
+                              device=dev)
+        dcache = init_kv_cache(dc, B, TP_SPEC_SEQ, dtype=torch.bfloat16, device=dev)
+        pre = []
+        for i, (padded, n) in enumerate(prompts):
+            pre.append(prefill(tp_, tc, ttp, cache, i, padded, n))
+            prefill(dp_, dc, dtp, dcache, i, padded, n)
+        props, verify = [], []
+        for block, lens in rounds:
+            tok, pos, feeds = block[:, 0], lens, []
+            for _ in range(g + 1):
+                logits, _ = forward(dp_, tok[:, None], dc, cache=dcache, start_pos=pos,
+                                    kv_lens=pos + 1, **kw(dtp))
+                tok = greedy(logits[:, 0])
+                feeds.append(tok)
+                pos = pos + 1
+            props.append(torch.stack(feeds[:g], dim=1))
+            verify.append(forward(tp_, block, tc, cache=cache, start_pos=lens,
+                                  kv_lens=lens + g + 1, **kw(ttp))[0])
+        return torch.stack(pre), torch.stack(props), torch.stack(verify)
+
+    res = group.run(rank_run)
+    for out in res[1:]:
+        check(all(torch.equal(a, b) for a, b in zip(out, res[0])),
+              "tp spec compose: the ranks' gathered logits or proposals differ")
+    return res[0]
+
+
+def tp_spec_read(got, ref, what, log, tol=None):
+    """``tp_read``'s reading of a composition's prefill and verify logits
+    (``(pre, verify)`` pairs) against ``ref``'s, logged; the prefill rows'
+    and each round's verify rows' worst beside the whole's. Held to ``tol``
+    by :func:`tp_spec_hold`, once the phase has measured everything."""
+    import torch
+
+    pre, ver = tp_row_std(got[0], ref[0]), tp_row_std(got[1], ref[1])  # [n], [R, B, g+1]
+    rows = lambda pre, ver: torch.cat([pre, ver.flatten(0, 2)])  # noqa: E731
+    out = dict(tp_read(rows(*got), rows(*ref), f"spec {what}"), tol_std=tol,
+               reading=f"tp_spec_kernels {what}", prefill_worst_row_std=float(pre.max()),
+               verify_worst_row_std_by_round=ver.flatten(1).amax(1).tolist(),
+               verify_worst_row_std_by_position=ver.flatten(0, 1).amax(0).tolist())
+    log(out)
+    return out
+
+
+def tp_spec_hold(reading):
+    """A ``tp_spec_read`` reading held to its ``tol_std``."""
+    worst, tol = reading["worst_row_std"], reading["tol_std"]
+    check(worst <= tol, f"{reading['reading']}: a composed row is {worst} of its std off the "
+          f"mesh-less run's (tol {tol})")
+
+
+def tp_spec_kernel_timings(dev, bw, peak, cfg, log):
+    """One rank's K1 (the xla route), K3 and K9 launches at the verify block
+    of the target's tp 4 shard (M = slots x (gamma + 1) = 40 rows; K3 at 5
+    query rows a slot at ragged offsets), each against its plain version,
+    timed beside the unsplit launch, its bound and a library call where one
+    computes the same function."""
+    import torch
+
+    from llm_fp8_tpu_torch.kernels import flash_attention as k3
+
+    g = torch.Generator(device=dev).manual_seed(2121)
+    cases = []
+    pair = functools.partial(tp_pair, cases, bw, peak, log)
+    M = TP_SPEC_SLOTS * (TP_SPEC_GAMMA + 1)
+    tp_k1_cases(dev, g, cfg, (M,), pair, "spec ")
+    H, Hk, Dh, Sq = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, TP_SPEC_GAMMA + 1
+    shard = k3_verify_case(k3, dev, g, bw, peak, log, Hq=H // TP, Hk=Hk // TP, D=Dh,
+                           Sk=TP_SPEC_SEQ, B=TP_SPEC_SLOTS, Sq=Sq, prefix=f"tp{TP} spec ")
+    whole = k3_verify_case(k3, dev, g, bw, peak, log, Hq=H, Hk=Hk, D=Dh, Sk=TP_SPEC_SEQ,
+                           B=TP_SPEC_SLOTS, Sq=Sq, prefix=f"tp{TP} spec unsplit ")
+    shard.update(tp=TP, unsplit_ms=whole["ms"], vs_unsplit=shard["ms"] / whole["ms"],
+                 vs_quarter=shard["ms"] / (whole["ms"] / TP),
+                 unsplit_bound_ms=whole["bound_ms"], unsplit_library_ms=whole["library_ms"])
+    cases.append(shard)
+    torch.cuda.empty_cache()
+    tp_k9_cases(dev, g, cfg, (M,), pair, "spec ")
+    return cases
+
+
+def tp_spec_record(dev, tcfg, tparams, dcfg, dparams, prompts):
+    """The mesh-less ``SpecEngine`` over ``prompts`` for ``TP_SPEC_ROUNDS``
+    greedy rounds, run eagerly: ``(padded prompts [(tokens, length)],
+    rounds [(verify block, lengths)], (prefill logits [n, V], verify logits
+    [R, B, gamma + 1, V]), per-round accepted counts)``."""
+    import numpy as np
+    import torch
+
+    from llm_fp8_tpu_torch.serving import SamplingParams, SpecEngine
+
+    class Recorder(SpecEngine):
+        """Eager rounds; each prefill's logits and each round's verify
+        block, lengths and logits kept."""
+
+        def _run_prefill(self, padded, true_len, slot):
+            last = super()._run_prefill(padded, true_len, slot)
+            self.pre.append(last.clone())
+            return last
+
+        def _verify(self, block, lens):
+            logits = super()._verify(block, lens)
+            self.rounds.append((block.clone(), lens.clone(), logits.clone()))
+            return logits
+
+        def _run_spec_rounds(self, toks, lens, rounds):
+            return self._round_loop(toks, lens, rounds)
+
+    eng = Recorder(tparams, tcfg, dparams, dcfg, tp_spec_ecfg(decode_burst=2 * TP_SPEC_ROUNDS),
+                   gamma=TP_SPEC_GAMMA, device=dev)
+    eng.pre, eng.rounds = [], []
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=TP_SPEC_ROUNDS + 1))
+            for p in prompts]
+    eng.run()
+    check(all(r.done and r.error is None for r in reqs) and len(eng.rounds) == TP_SPEC_ROUNDS,
+          f"tp_spec_kernels: the mesh-less engine ran {len(eng.rounds)} rounds")
+    padded = []
+    for p in prompts:
+        t = np.zeros((eng._bucket_for(len(p)),), np.int32)
+        t[:len(p)] = p
+        padded.append((torch.as_tensor(t, device=dev),
+                       torch.tensor(len(p), dtype=torch.int32, device=dev)))
+    rounds = [(block, lens) for block, lens, _ in eng.rounds]
+    ref = (torch.stack(eng.pre), torch.stack([lg for _, _, lg in eng.rounds]))
+    return padded, rounds, ref, list(eng.accepted_histogram)
+
+
+def row_major_layers(params):
+    """``params`` with every quantized layer weight's codes row-major (the
+    xla route's K1 layout, as ``tp_kernels`` re-lays them)."""
+    import dataclasses
+
+    from llm_fp8_tpu_torch.quant import QTensor
+
+    return dict(params, layers={k: (dataclasses.replace(v, qvalue=v.qvalue.contiguous())
+                                    if isinstance(v, QTensor) else v)
+                                for k, v in params["layers"].items()})
+
+
+def tp_spec_kernels(dev, bw, peak, card, log):
+    """Llama-3.1-8B at full width and ``TP_SPEC_TARGET_LAYERS`` layers with a
+    Llama-3.2-1B draft at ``TP_SPEC_DRAFT_LAYERS`` (``tp_spec_models``), an
+    e4m3 target KVCache, 8 slots, gamma 4: the mesh-less ``SpecEngine``
+    serves the 8 prompts for ``TP_SPEC_ROUNDS`` greedy rounds, run eagerly
+    and recorded (its prefill logits, each round's verify block and
+    logits); the composition of those prefills and rounds
+    (``tp_spec_compose``) without a mesh must give its logits bit for bit.
+    Then the tp 4 ranks of both models (the draft's on the target's group;
+    per rank 8 q heads over 2 kv heads in each model) run them as threads of
+    this process, read in units of each row's std: on the fp8native route
+    free running (launches counted; not held), with the mesh-less
+    composition's projection inputs forced into the ranks
+    (``TPForcedInputs``: both models' feeds and the verify block over the
+    engine's proposals), held to ``TP_FORCED_TOL_STD``, and on
+    ``LLM_FP8_QDOT=xla`` free running against the mesh-less composition on
+    that route, held to ``TP_XLA_TOL_STD`` (K1 plans each rank's split
+    column-parallel products as the whole product, so their columns sum as
+    the mesh-less run's). Then each rank's K1, K3 and K9 at the round's
+    shapes against their plain versions (``tp_spec_kernel_timings``)."""
+    import torch
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.parallel import tensor
+
+    saved = os.environ.pop("LLM_FP8_QDOT", None)
+    try:
+        seconds = {}
+        t0 = time.perf_counter()
+        tcfg, tparams, dcfg, dparams, prompts = tp_spec_models(dev)
+        seconds["models"] = time.perf_counter() - t0
+        padded, rounds, ref, accepted = tp_spec_record(dev, tcfg, tparams, dcfg, dparams,
+                                                       prompts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds["record"] = time.perf_counter() - t0 - seconds["models"]
+
+        # The composition without a mesh is the engine's work.
+        m_pre, m_props, m_ver = tp_spec_compose([(tparams, tcfg, None)], [(dparams, dcfg, None)],
+                                                padded, rounds, dev)
+        blocks = torch.stack([b for b, _ in rounds])
+        same = dict(prefill=torch.equal(m_pre, ref[0]), verify=torch.equal(m_ver, ref[1]),
+                    proposals=torch.equal(m_props, blocks[:, :, 1:]))
+        check(all(same.values()), f"tp_spec_kernels: the mesh-less composition is not the "
+              f"engine's work bit for bit: {same}")
+        del m_pre, m_props, m_ver
+        seconds["meshless_compose"] = time.perf_counter() - t0 - sum(seconds.values())
+
+        # fp8native, free running: the main path's composition (launches
+        # counted), read against the engine.
+        t1 = time.perf_counter()
+        ranks = tensor.local_tp_ranks(tparams, tcfg, TP)
+        dranks = tensor.local_tp_ranks(dparams, dcfg, TP, ranks[0][2].group)
+        heads = [(c.num_heads, c.num_kv_heads) for _, c, _ in ranks[:1] + dranks[:1]]
+        check(heads == [(tcfg.num_heads // TP, tcfg.num_kv_heads // TP),
+                        (dcfg.num_heads // TP, dcfg.num_kv_heads // TP)]
+              and all(tp.layout.heads for _, _, tp in ranks + dranks),
+              f"tp_spec_kernels: a rank's (q, kv) heads are {heads}, not a quarter of each")
+        kernels.reset_launch_counts()
+        f_pre, f_props, f_ver = tp_spec_compose(ranks, dranks, padded, rounds, dev)
+        counts = kernels.launch_counts()
+        seconds["compose_free"] = time.perf_counter() - t1
+        for name in TP_SPEC_PATH:
+            check(counts.get(name, 0) > 0, f"tp_spec_kernels: {name} launched "
+                  f"{counts.get(name)} times in the composition")
+        free = tp_spec_read((f_pre, f_ver), ref, "fp8native free", log)
+        free["proposals_equal"] = float((f_props == blocks[:, :, 1:]).float().mean())
+        del f_pre, f_props, f_ver
+
+        # fp8native with the mesh-less composition's projection inputs forced.
+        forced = TPForcedInputs(ranks[0][2].group)
+        with forced.side(record=True):
+            m_pre, m_props, m_ver = tp_spec_compose(
+                [(tparams, tcfg, None)], [(dparams, dcfg, None)], padded, rounds, dev)
+        with forced.side(record=False):
+            x_pre, x_props, x_ver = tp_spec_compose(ranks, dranks, padded, rounds, dev)
+        forced_read = tp_spec_read((x_pre, x_ver), (m_pre, m_ver), "fp8native forced", log,
+                                   TP_FORCED_TOL_STD)
+        forced_read.update(inputs=len(forced.queue),
+                           proposals_equal=float((x_props == m_props).float().mean()))
+        del forced, m_pre, m_props, m_ver, x_pre, x_props, x_ver, ranks, dranks
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds["forced"] = time.perf_counter() - t0 - sum(seconds.values())
+
+        # The xla route: K1 at every shard's projection, free running against
+        # the mesh-less composition on the same route.
+        os.environ["LLM_FP8_QDOT"] = "xla"
+        tparams, dparams = row_major_layers(tparams), row_major_layers(dparams)
+        torch.cuda.empty_cache()
+        ranks = tensor.local_tp_ranks(tparams, tcfg, TP)
+        dranks = tensor.local_tp_ranks(dparams, dcfg, TP, ranks[0][2].group)
+        kernels.reset_launch_counts()
+        x_pre, _, x_ver = tp_spec_compose(ranks, dranks, padded, rounds, dev)
+        x_counts = kernels.launch_counts()
+        r_pre, _, r_ver = tp_spec_compose([(tparams, tcfg, None)], [(dparams, dcfg, None)],
+                                          padded, rounds, dev)
+        xla = tp_spec_read((x_pre, x_ver), (r_pre, r_ver), "xla", log, TP_XLA_TOL_STD)
+        check(x_counts.get("quant_matmul", 0) > 0, f"tp_spec_kernels xla: K1 launched "
+              f"{x_counts.get('quant_matmul')} times")
+        xla["launches"] = x_counts
+        del x_pre, x_ver, r_pre, r_ver, ranks, dranks, tparams, dparams
+        os.environ.pop("LLM_FP8_QDOT", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds["xla"] = time.perf_counter() - t0 - sum(seconds.values())
+        res = dict(card=card, target=f"{TP_SPEC_TARGET}, {TP_SPEC_TARGET_LAYERS} layers",
+                   draft=f"{TP_SPEC_DRAFT}, {TP_SPEC_DRAFT_LAYERS} layers", tp=TP,
+                   slots=TP_SPEC_SLOTS, gamma=TP_SPEC_GAMMA, rounds=TP_SPEC_ROUNDS,
+                   prompt_lens=[len(p) for p in prompts], accepted=accepted,
+                   rank_heads=heads, meshless_composition_bit_equal=same, fp8native_free=free,
+                   fp8native_forced=forced_read, xla=xla, seconds=seconds,
+                   launches=counts, launches_per_rank={k: v / TP for k, v in counts.items() if v})
+        log(res)
+        res["cases"] = tp_spec_kernel_timings(dev, bw, peak, tcfg, log)
+        seconds["timings"] = time.perf_counter() - t0 - sum(seconds.values())
+        for reading in (forced_read, xla):
+            tp_spec_hold(reading)
+        return res
+    finally:
+        restore_env("LLM_FP8_QDOT", saved)
+
+
+def tp_spec_serving(dev, card, log):
+    """A world of one on NCCL: ``SpecEngine(mesh=MeshConfig(tp=1))`` against
+    the mesh-less ``SpecEngine`` with ``tp_spec_models``' target and, as
+    draft, its own first ``TP_SPEC_SERVE_DRAFT_LAYERS`` layers at its width
+    (``first_layers``: a random draft of another model accepts nothing, and
+    the round's multi-token commit would go unexercised), LAYERWISE fp8 on
+    the default route, e4m3 KV, 8 slots, gamma 4, 8 prompts of 180-220
+    tokens, ``TP_SPEC_NEW`` new tokens each, greedy and then sampled (top_k
+    20) from the same seed: the committed tokens, the per-round accepted
+    counts and the last round's verify logits bit for bit, some round
+    accepting proposals in each mode, each round one CUDA graph captured
+    once and replayed (one replay of the mesh run profiled: its NCCL or copy
+    kernels listed), the mesh run's K3 and K9 launches counted; ms a round
+    both ways over the bursts after the capture's."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_fp8_tpu_torch import kernels
+    from llm_fp8_tpu_torch.parallel import MeshConfig, make_mesh
+    from llm_fp8_tpu_torch.serving import SamplingParams
+
+    Rounds, _ = spec_round_classes()
+
+    class Checked(Rounds):
+        """The last round's verify logits in a static buffer (the captured
+        round copies them there at every replay)."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.vlast = torch.zeros((self._nslots, self.gamma + 1, self.model_cfg.vocab_size),
+                                     dtype=torch.float32, device=self.device)
+
+        def _verify(self, block, lens):
+            logits = super()._verify(block, lens)
+            self.vlast.copy_(logits)
+            return logits
+
+    saved = os.environ.pop("LLM_FP8_QDOT", None)
+    tcfg, tparams, _, _, prompts = tp_spec_models(dev)
+    dparams, dcfg = first_layers(tparams, tcfg, TP_SPEC_SERVE_DRAFT_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ecfg = tp_spec_ecfg()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        def serve(mesh, sampling, max_new):
+            eng = Checked(tparams, tcfg, dparams, dcfg, ecfg, gamma=TP_SPEC_GAMMA, device=dev,
+                          mesh=mesh, **sampling)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new)) for p in prompts]
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            graph = eng.round_graph
+            check(all(r.done and r.error is None and len(r.output) == max_new for r in reqs),
+                  "tp_spec_serve: a request was not served in full")
+            check(graph.captures == 1 and graph.replays == eng.rounds_run
+                  and eng.round_calls == 2,
+                  f"tp_spec_serve: {graph.captures} captures, {graph.replays} replays for "
+                  f"{eng.rounds_run} rounds, {eng.round_calls} Python rounds")
+            check(bool(torch.isfinite(eng.vlast).all()), "tp_spec_serve: non-finite logits")
+            return eng, dict(tokens=[r.output for r in reqs],
+                             accepted=list(eng.accepted_histogram), vlast=eng.vlast.clone(),
+                             rounds=eng.rounds_run, warm_rounds=eng.warm_rounds,
+                             round_ms=1e3 * eng.warm_s / max(eng.warm_rounds, 1),
+                             first_burst_ms=1e3 * eng.first_burst_s, wall_s=wall,
+                             replays=graph.replays, launches_a_replay=graph.launches,
+                             launches=device_launches(counts, graph))
+
+        mesh = make_mesh(MeshConfig(tp=1), "cuda")
+        for m in (None, mesh):  # warm-up: kernels, cuBLAS and the communicators
+            serve(m, {}, 4)
+        runs, names = {}, []
+        for mode, sampling in (("greedy", {}), ("sampled", TP_SPEC_SAMPLED)):
+            for tag, m in (("plain", None), ("mesh", mesh)):
+                eng, runs[(mode, tag)] = serve(m, sampling, TP_SPEC_NEW)
+                if (mode, tag) == ("greedy", "mesh"):
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        eng.round_graph.replay()
+                        torch.cuda.synchronize()
+                    names = sorted({e.key for e in prof.key_averages()
+                                    if "nccl" in e.key.lower() or "memcpy" in e.key.lower()})
+                del eng
+                gc.collect()
+        out = {}
+        for mode in ("greedy", "sampled"):
+            plain, mesh_run = runs[(mode, "plain")], runs[(mode, "mesh")]
+            same = dict(tokens=plain["tokens"] == mesh_run["tokens"],
+                        accepted=plain["accepted"] == mesh_run["accepted"],
+                        last_verify_logits=torch.equal(plain["vlast"].view(torch.int32),
+                                                       mesh_run["vlast"].view(torch.int32)))
+            check(all(same.values()),
+                  f"tp_spec_serve {mode}: the mesh engine differs from the mesh-less: {same}")
+            check(max(mesh_run["accepted"]) > 0,
+                  f"tp_spec_serve {mode}: no round accepted a proposal")
+            for name in TP_SPEC_PATH:
+                check(mesh_run["launches"].get(name, 0) > 0
+                      and mesh_run["launches_a_replay"].get(name, 0) > 0,
+                      f"tp_spec_serve {mode}: {name} launched "
+                      f"{mesh_run['launches'].get(name)} times, "
+                      f"{mesh_run['launches_a_replay'].get(name)} a replay")
+            out[mode] = dict(bit_equal=same, round_ms=mesh_run["round_ms"],
+                             plain_round_ms=plain["round_ms"], rounds=mesh_run["rounds"],
+                             warm_rounds=mesh_run["warm_rounds"],
+                             first_burst_ms=mesh_run["first_burst_ms"],
+                             plain_first_burst_ms=plain["first_burst_ms"],
+                             replays=mesh_run["replays"], wall_s=mesh_run["wall_s"],
+                             plain_wall_s=plain["wall_s"],
+                             mean_accepted=float(sum(mesh_run["accepted"])
+                                                 / max(len(mesh_run["accepted"]), 1)),
+                             max_accepted=max(mesh_run["accepted"]),
+                             launches=mesh_run["launches"],
+                             plain_launches=plain["launches"],
+                             launches_a_replay=mesh_run["launches_a_replay"])
+        check(bool(names), "tp_spec_serve: the profiled replay lists no NCCL or copy kernel")
+        res = dict(card=card, world=1, backend="nccl", mesh="tp 1 (every axis 1)",
+                   target=f"{TP_SPEC_TARGET}, {TP_SPEC_TARGET_LAYERS} layers",
+                   draft=f"the target's first {TP_SPEC_SERVE_DRAFT_LAYERS} layers",
+                   weights="LAYERWISE fp8, random (seed 0)", kv_dtype="fp8",
+                   slots=TP_SPEC_SLOTS, gamma=TP_SPEC_GAMMA, max_new=TP_SPEC_NEW,
+                   sampling=TP_SPEC_SAMPLED, graph_collective_kernels=names, **out)
+        log(res)
+        return res
+    finally:
+        dist.destroy_process_group()
+        restore_env("LLM_FP8_QDOT", saved)
+
+
 def ptxas_summary(build_dir, names):
     """Registers and spill bytes of every kernel instance in the ``nvcc
     -Xptxas -v`` logs of the named libraries: {"kernel<D,passes>": [registers,
@@ -8962,7 +9547,9 @@ def main(argv=None) -> int:
              ("dist_kernels", lambda: dist_kernel_cases(dev, bw, peak, log)),
              ("dist_train", lambda: dist_training(dev, card, log)),
              ("tp_kernels", lambda: tp_kernels(dev, bw, peak, card, log)),
-             ("tp_serve", lambda: tp_serving(dev, card, log)))
+             ("tp_serve", lambda: tp_serving(dev, card, log)),
+             ("tp_spec_kernels", lambda: tp_spec_kernels(dev, bw, peak, card, log)),
+             ("tp_spec_serve", lambda: tp_spec_serving(dev, card, log)))
     try:
         for phase, run in steps:
             if phase in phases:
@@ -9056,7 +9643,13 @@ def kernels_line(report):
                f"tp compose LLM_FP8_QDOT=xla (2 prompts, 2 steps)":
                    report["tp_kernels"]["xla"]["launches"],
                f"tp serve (Engine(mesh=), a world of one on NCCL, llama-3.2-1b at "
-               f"{TP_SERVE_LAYERS} layers, fp8)": report["tp_serve"]["launches"]}
+               f"{TP_SERVE_LAYERS} layers, fp8)": report["tp_serve"]["launches"],
+               f"tp spec compose ({TP_SPEC_TARGET} at {TP_SPEC_TARGET_LAYERS} layers, "
+               f"{TP_SPEC_DRAFT} draft at {TP_SPEC_DRAFT_LAYERS}, the {TP} ranks of a tp group "
+               f"in one process, {TP_SPEC_ROUNDS} rounds)": report["tp_spec_kernels"]["launches"],
+               "tp spec compose LLM_FP8_QDOT=xla": report["tp_spec_kernels"]["xla"]["launches"],
+               **{f"tp spec serve (SpecEngine(mesh=), a world of one on NCCL, {mode})":
+                  report["tp_spec_serve"][mode]["launches"] for mode in ("greedy", "sampled")}}
     for counts in by_path.values():
         counts["flash_attention_bwd"] = (counts.get("flash_attention_bwd_dkv", 0)
                                          + counts.get("flash_attention_bwd_dq", 0))
@@ -9106,14 +9699,22 @@ def kernels_line(report):
                                 "dist_kernels", "ring4 1B"),
                             "ring of 4, every rank's steps (llama-3.1-8b, 4 x 4096)": (
                                 "dist_kernels", "ring4 8B"),
-                            "tp 4 shard (qwen2.5-14b prefill)": ("tp_kernels", "tp4 prefill")},
-        "quant_matmul": {f"tp 4 shard (qwen2.5-14b {n} M={m})": ("tp_kernels", f"tp4 {n} M={m}")
-                         for n in ("wqkv", "wo", "w_gate_up", "w_down") for m in (8, 1024)},
+                            "tp 4 shard (qwen2.5-14b prefill)": ("tp_kernels", "tp4 prefill"),
+                            "tp 4 shard, spec verify block (llama-3.1-8b)": (
+                                "tp_spec_kernels", "tp4 spec verify")},
+        "quant_matmul": {**{f"tp 4 shard (qwen2.5-14b {n} M={m})": ("tp_kernels",
+                                                                    f"tp4 {n} M={m}")
+                            for n in ("wqkv", "wo", "w_gate_up", "w_down") for m in (8, 1024)},
+                         **{f"tp 4 shard, spec verify block (llama-3.1-8b {n} M=40)": (
+                             "tp_spec_kernels", f"tp4 spec {n} M=40")
+                            for n in ("wqkv", "wo", "w_gate_up", "w_down")}},
         "decode_attention_arena": {"alibi": ("alibi_kernels", "B8 Hq40"),
                                    "tp 4 shard (qwen2.5-14b)": ("tp_kernels", "tp4 B8")},
-        "quantize_fused": {f"tp 4 shard (qwen2.5-14b {n} input M={m})": (
+        "quantize_fused": {**{f"tp 4 shard (qwen2.5-14b {n} input M={m})": (
             "tp_kernels", f"tp4 {n} input rows M={m}") for n in ("wo", "w_down")
             for m in (8, 1024)},
+            **{f"tp 4 shard, spec verify block (llama-3.1-8b {n} input M=40)": (
+                "tp_spec_kernels", f"tp4 spec {n} input rows M=40") for n in ("wo", "w_down")}},
         "flash_attention_bwd": {"alibi": ("alibi_kernels", "alibi Hq40 D128 B2 S1024"),
                                 "dropout": ("dropout_kernels", "dropout"),
                                 "head_dim 256": ("gemma_kernels", "D256 2b train"),
@@ -9232,7 +9833,8 @@ def kernels_line(report):
                     "caught", "vs_library", "padded_to", "ms_without_segments",
                     "ms_unchunked", "ms_unsplit", "unsplit_ms", "slowest_rank_ms",
                     "per_rank_ms", "vs_unsplit", "vs_quarter", "unsplit_bound_ms",
-                    "row_parallel_quantize_ms", "meshless_quantize_ms") if k in o}
+                    "row_parallel_quantize_ms", "meshless_quantize_ms",
+                    "unsplit_library_ms") if k in o}
         if kname in also:
             phase, prefix = also[kname]
             o = next(o for o in report[phase]

@@ -14,10 +14,19 @@ Modes: ``tensor`` (scale ``[1, 1]``) and ``channel`` (scale ``[1, N]``)
 scale the float32 accumulator after the dot; ``mx`` (bf16 power-of-two
 scales ``[K/32, N]``, read by the kernels as stored) scales each 32-row
 weight block before it.
+
+A column-parallel shard (:func:`planned_as_whole`): the split of K and the
+rows a block takes are planned from the shapes, so a tp rank's ``[K, N/tp]``
+shard would sum its columns in another float32 order than the whole
+``[K, N]`` product does. Within ``planned_as_whole(tp)`` the kernels plan
+as for the whole product, and each column of the shard is the whole
+product's column bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -25,7 +34,8 @@ import torch
 from . import _build
 from ._common import W_KINDS, aligned16, e4m3_to_bf16_ftz, num_sms
 
-__all__ = ["quant_matmul", "quant_matmul_plain", "qdot_fused", "split_plan"]
+__all__ = ["quant_matmul", "quant_matmul_plain", "qdot_fused", "split_plan",
+           "planned_as_whole"]
 
 _MODES = {"tensor": 0, "channel": 1, "mx": 2}
 MX_BLOCK = 32  # quant.qtensor.MX_BLOCK
@@ -125,6 +135,40 @@ def _prefill_ok(x, w_q, M, N, K) -> bool:
             and x.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0)
 
 
+class _Parts(threading.local):
+    n = 1
+
+
+#: The column-parallel group size the plans take (:func:`planned_as_whole`);
+#: per thread, since a ``LocalGroup``'s ranks are threads of one process.
+_PARTS = _Parts()
+
+
+@contextlib.contextmanager
+def planned_as_whole(parts: int):
+    """Within (on this thread): K1 plans each product as for one ``parts``
+    times as wide, the whole product of which it is a column-parallel
+    shard: the same split of K and rows a block, so each column sums in the
+    whole product's order. 1: no change."""
+    prev, _PARTS.n = _PARTS.n, parts
+    try:
+        yield
+    finally:
+        _PARTS.n = prev
+
+
+def launch_plan(M: int, N: int, K: int, sms: int, prefill: bool):
+    """``(rows, splits, k_tiles_per_split)`` of a launch: the prefill
+    kernel's 256 or 128 rows a block (256 when that grid still covers the
+    card) and split of K, or the decode kernel's :func:`split_plan` (rows
+    0), each planned for ``N`` times :func:`planned_as_whole`'s parts."""
+    N *= _PARTS.n
+    if not prefill:
+        return (0, *split_plan(M, N, K, sms))
+    rows = 256 if -(-M // 256) * -(-N // _PBN) >= sms else 128
+    return (rows, *_prefill_splits(-(-N // _PBN) * -(-M // rows), -(-K // _PBK), sms))
+
+
 def _launch(x, w_q, scale, mode, out_dtype):
     lib = _build.library("quant_matmul")
     M, K = x.shape
@@ -134,17 +178,14 @@ def _launch(x, w_q, scale, mode, out_dtype):
     # scales, bf16 MX scales (no conversion pass).
     scale = aligned16(scale.reshape(-1).to(torch.bfloat16 if mode == "mx" else torch.float32))
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    sms = num_sms(x.device)
     p = ctypes.c_void_p
     common = (ctypes.c_int(M), ctypes.c_int(N), ctypes.c_int(K),
               ctypes.c_int(W_KINDS[w_q.dtype]), ctypes.c_int(_MODES[mode]),
               ctypes.c_int(int(out_dtype == torch.float32)))
     stream = p(torch.cuda.current_stream(x.device).cuda_stream)
     prefill = _prefill_ok(x, w_q, M, N, K)
+    rows, splits, per = launch_plan(M, N, K, num_sms(x.device), prefill)
     if prefill:
-        # 256 rows a block when that grid still covers the card, else 128.
-        rows = 256 if -(-M // 256) * -(-N // _PBN) >= sms else 128
-        splits, per = _prefill_splits(-(-N // _PBN) * -(-M // rows), -(-K // _PBK), sms)
         partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
                    if splits > 1 else None)
         err = lib.qmm_prefill_launch(
@@ -152,7 +193,6 @@ def _launch(x, w_q, scale, mode, out_dtype):
             p(partial.data_ptr() if partial is not None else 0), *common, ctypes.c_int(rows),
             ctypes.c_int(splits), ctypes.c_int(per), stream)
     else:
-        splits, per = split_plan(M, N, K, sms)
         err = lib.qmm_launch(p(x.data_ptr()), p(w_q.data_ptr()), p(scale.data_ptr()),
                              p(out.data_ptr()), *common, ctypes.c_int(splits),
                              ctypes.c_int(per), stream)

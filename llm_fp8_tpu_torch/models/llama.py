@@ -41,7 +41,10 @@ with the rank's shard (``parallel/tensor.py::tp_rank_params``) and config
 ``w_down`` are float32 partials, all-reduced over the group and cast once
 (a sum of bf16 partials would round once a rank where the single product
 rounds once); their fp8native inputs are quantized with each row's amax
-over the group (``quant/dot.py::k_split_over``). The embedding looks up
+over the group (``quant/dot.py::k_split_over``). K1 plans a split
+column-parallel product (``wqkv``, ``w_gate_up``, ``lm_head``) as the whole
+product (``kernels/quant_matmul.py::planned_as_whole``), so the rank's
+columns sum as the mesh-less run's do. The embedding looks up
 the rank's vocabulary rows, zeros elsewhere, and all-reduces (exact: one
 rank holds each id); the logits are all-gathered along the vocabulary
 (exact). A rank's ALiBi slopes are its heads' slice of the whole model's.
@@ -50,6 +53,7 @@ nothing of this runs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -348,6 +352,17 @@ def _embed(params, tokens: torch.Tensor, dtype, tp=None) -> torch.Tensor:
     return all_reduce_sum(rows, tp.group).to(dtype)
 
 
+def _columns_of(tp, split: bool):
+    """The context of a column-parallel product (``wqkv``, ``w_gate_up``,
+    the vocabulary's ``lm_head``): under ``tp`` with the part split, K1
+    plans the rank's shard as the whole product."""
+    if tp is None or not split:
+        return contextlib.nullcontext()
+    from ..kernels.quant_matmul import planned_as_whole
+
+    return planned_as_whole(tp.layout.size)
+
+
 def _row_parallel(x: torch.Tensor, w, tp, split: bool) -> torch.Tensor:
     """``x @ w`` of a row-parallel weight (``wo``, ``w_down``): under ``tp``
     with the part split, the float32 partial summed over the group and cast
@@ -427,7 +442,9 @@ def _swiglu(gate_up: torch.Tensor) -> torch.Tensor:
 
 def _mlp(x, lp, cfg: ModelConfig, dots=None, amaxes=None, seg=_call, tp=None):
     h = seg(rmsnorm, x, lp["norm_mlp"], cfg.rms_eps)
-    h = seg(_swiglu, _site_dot(h, lp["w_gate_up"], "mlp_gate_up", dots, amaxes))
+    with _columns_of(tp, tp is not None and tp.layout.mlp):
+        h = _site_dot(h, lp["w_gate_up"], "mlp_gate_up", dots, amaxes)
+    h = seg(_swiglu, h)
     if tp is not None:
         return x + _row_parallel(h, lp["w_down"], tp, tp.layout.mlp)
     return x + _site_dot(h, lp["w_down"], "mlp_down", dots, amaxes)
@@ -450,7 +467,9 @@ def _layer_body(x, lp, cos, sin, cfg: ModelConfig, attend, dots=None, amaxes=Non
         return apply_rope(q, cos, sin), apply_rope(kk, cos, sin), vv
 
     h = seg(rmsnorm, x, lp["norm_attn"], cfg.rms_eps)
-    attn = attend(*seg(rotary, _site_dot(h, lp["wqkv"], "attn_qkv", dots, amaxes)))
+    with _columns_of(tp, tp is not None and tp.layout.heads):
+        qkv = _site_dot(h, lp["wqkv"], "attn_qkv", dots, amaxes)
+    attn = attend(*seg(rotary, qkv))
     if tp is not None:
         x = x + _row_parallel(attn.reshape(B, S, -1), lp["wo"], tp, tp.layout.heads)
     else:
@@ -563,7 +582,9 @@ def _lm_head(params, x, cfg: ModelConfig, tp=None) -> torch.Tensor:
     if tp is not None and tp.layout.vocab:  # the ranks' columns of the vocabulary
         from ..parallel.collectives import all_gather
 
-        return all_gather(_lm_head(params, x, cfg), -1, tp.group)
+        with _columns_of(tp, True):
+            logits = _lm_head(params, x, cfg)
+        return all_gather(logits, -1, tp.group)
     if cfg.tie_word_embeddings or "lm_head" not in params:
         return _matmul_f32(x, params["embed"].to(x.dtype).t())
     lm = params["lm_head"]
@@ -592,7 +613,8 @@ def forward_decode_arena(params: Dict[str, Any], tokens: torch.Tensor, cfg: Mode
     lengths = lens + 1
     for li, lp in enumerate(unstack_layers(params["layers"])):
         h = rmsnorm(x, lp["norm_attn"], cfg.rms_eps)
-        q, kk, vv = _qkv(h, lp, cfg, B, 1)
+        with _columns_of(tp, tp is not None and tp.layout.heads):
+            q, kk, vv = _qkv(h, lp, cfg, B, 1)
         attn, k_arena, v_arena = decode_attention_arena(
             q[:, 0], k_arena, v_arena, lengths, li, new_k=kk[:, 0], new_v=vv[:, 0],
             rope_cos_sin=None if cos is None else (cos[:, 0], sin[:, 0]), k_scale=k_sc,

@@ -48,7 +48,7 @@ from ..quant.dot import serving_layout
 from ..quant.qtensor import QTensor, _pack_int4
 
 __all__ = ["TPLayout", "TPRank", "tp_layout", "tp_rank_params", "tp_rank_config",
-           "qkv_columns", "local_tp_ranks"]
+           "qkv_columns", "tp_shard", "local_tp_ranks"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,15 +174,25 @@ def tp_rank_params(params: Dict[str, Any], cfg: ModelConfig, rank: int, size: in
     return out
 
 
-def local_tp_ranks(params: Dict[str, Any], cfg: ModelConfig, size: int):
+def tp_shard(params: Dict[str, Any], cfg: ModelConfig, size: int, rank: int, group,
+             layout: Optional[TPLayout] = None):
+    """Rank ``rank``'s ``(shard, config, TPRank)`` of the whole tree
+    ``params`` over the tp group ``group`` of ``size`` ranks (``layout``:
+    :func:`tp_layout`'s, by default)."""
+    layout = layout or tp_layout(params, cfg, size)
+    return (tp_rank_params(params, cfg, rank, size, layout), tp_rank_config(cfg, layout),
+            TPRank(group, rank, layout, cfg.num_heads))
+
+
+def local_tp_ranks(params: Dict[str, Any], cfg: ModelConfig, size: int, group=None):
     """The ranks of a tp group of ``size`` in this process: ``[(shard,
-    config, TPRank)]`` over one :class:`~.collectives.LocalGroup`. Run a
-    forward of every rank with ``ranks[0][2].group.run(lambda r: ...)``;
-    their collectives meet in rank order."""
+    config, TPRank)]`` over one :class:`~.collectives.LocalGroup` (``group``:
+    one that another model's ranks meet on, as a speculative draft's meet on
+    its target's; a new one by default). Run a forward of every rank with
+    ``ranks[0][2].group.run(lambda r: ...)``; their collectives meet in rank
+    order."""
     from .collectives import LocalGroup
 
     layout = tp_layout(params, cfg, size)
-    group = LocalGroup(size)
-    rank_cfg = tp_rank_config(cfg, layout)
-    return [(tp_rank_params(params, cfg, r, size, layout), rank_cfg,
-             TPRank(group, r, layout, cfg.num_heads)) for r in range(size)]
+    group = group or LocalGroup(size)
+    return [tp_shard(params, cfg, size, r, group, layout) for r in range(size)]

@@ -337,20 +337,18 @@ class Engine(RequestQueue):
         from ..parallel.mesh import (AXIS_DP, AXIS_FSDP, AXIS_TP, axis_sizes, data_group,
                                      data_index, tp_group)
         from ..parallel.sharding import gather_tree
-        from ..parallel.tensor import TPRank, tp_layout, tp_rank_config, tp_rank_params
+        from ..parallel.tensor import tp_shard
 
         if self._forward is not forward:
             if mesh.mesh.numel() > 1:
                 raise NotImplementedError(
                     "Engine(mesh=) over more than one rank serves the Llama family's forward "
                     "only; other families under a mesh are not ported yet (ROADMAP.md, "
-                    "Queue 1 item 5)")
+                    "Queue 1: \"The other families over a mesh\")")
             return params, model_cfg  # a world of one computes the mesh-less function
         sizes = axis_sizes(mesh)
-        params = gather_tree(params)
-        size, rank = sizes[AXIS_TP], mesh.get_local_rank(AXIS_TP)
-        layout = tp_layout(params, model_cfg, size)
-        self.tp = TPRank(tp_group(mesh), rank, layout, model_cfg.num_heads)
+        params, model_cfg, self.tp = tp_shard(gather_tree(params), model_cfg, sizes[AXIS_TP],
+                                              mesh.get_local_rank(AXIS_TP), tp_group(mesh))
         n_data = sizes[AXIS_DP] * sizes[AXIS_FSDP]
         if slots % n_data == 0:  # else every data group holds every slot (JAX's adapt_spec)
             self._data, self._data_index = data_group(mesh), data_index(mesh)
@@ -358,8 +356,7 @@ class Engine(RequestQueue):
         for group in (self.tp.group, self._data):
             if group is not None:
                 all_reduce_sum(torch.zeros((1,), device=self.device), group)
-        return (tp_rank_params(params, model_cfg, rank, size, layout),
-                tp_rank_config(model_cfg, layout))
+        return params, model_cfg
 
     def _owner(self, slot: int):
         """``(data index of the group holding slot, its row there)``."""

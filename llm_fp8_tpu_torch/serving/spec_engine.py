@@ -33,6 +33,22 @@ one read-back (the counterpart of the rounds' ``lax.scan``); in sampled mode
 the engine's generator is registered with the graph, so each replay draws
 anew. On the CPU the rounds run as a Python loop of the same round. The host
 truncates each slot at its stop after the burst.
+
+``mesh`` (the Llama family, as :class:`Engine`'s): the target is split over
+``tp`` and the slots are cut over the data axes ``(dp, fsdp)`` by
+``Engine._mesh_shard``; the draft is split over the same tp group with its
+own layout, or kept whole on every rank where ``tp`` does not divide its kv
+heads (JAX's ``adapt_spec`` replicates the draft cache's heads there). A
+rank's draft cache holds its data group's slots and its kv heads. Both
+prefills run on the data group that owns the slot. A round steps the rank's
+rows (the draft's feeds and the verify block with ``tp=``, acceptance on
+those rows) and all-gathers its outputs over the data group before the
+full-width static buffers take them. Every random draw is made for the
+whole batch and cut to the rank's rows, so every rank of a tp group draws
+what its peers draw, slots of different data groups draw different numbers,
+and a mesh run draws what the mesh-less engine draws. On the card the round
+stays one CUDA graph with both models' and the data group's collectives
+inside.
 """
 from __future__ import annotations
 
@@ -55,29 +71,41 @@ from .engine import Engine, EngineConfig, Request
 __all__ = ["SpecEngine", "leviathan_accept", "draw"]
 
 
-def draw(probs: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+def _uniform(shape, generator: Optional[torch.Generator], device, rows=None) -> torch.Tensor:
+    """``U[0, 1)`` of ``shape`` from ``generator``. ``rows = (B, s0)``: rows
+    ``s0 .. s0 + shape[0]`` of a draw for all ``B`` rows, so a data group's
+    slots take the whole batch's numbers."""
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device)
+    B, s0 = rows
+    return torch.rand((B, *shape[1:]), generator=generator, device=device)[s0:s0 + shape[0]]
+
+
+def draw(probs: torch.Tensor, generator: Optional[torch.Generator], rows=None) -> torch.Tensor:
     """One categorical sample per row of ``probs [..., V]`` (unnormalized
     weights are fine): ``argmax(probs / E)`` with ``E ~ Exp(1)`` drawn from
     ``generator``, no host sync (it runs inside a captured round). Returns
-    int32 ``[...]``."""
-    u = torch.rand(probs.shape, generator=generator, device=probs.device)
+    int32 ``[...]``. ``rows``: as :func:`_uniform`'s, for ``probs [b, V]``."""
+    u = _uniform(probs.shape, generator, probs.device, rows)
     e = -torch.log(u.clamp_min(torch.finfo(torch.float32).tiny))
     return torch.argmax(probs.float() / e, dim=-1).to(torch.int32)
 
 
 def leviathan_accept(proposals: torch.Tensor, q_probs: torch.Tensor, p_probs: torch.Tensor,
-                     generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor]:
+                     generator: Optional[torch.Generator],
+                     rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The vectorized rejection test of one round (JAX ``_spec_round``'s
     sampled branch): ``proposals [B, g]`` drawn from ``q_probs [B, g, V]``,
     target ``p_probs [B, g+1, V]``. Returns ``(n_accept [B], correction
     [B])``: the accepted prefix length and the token after it, drawn from
     ``max(p - q, 0)`` at the first rejection (``p`` itself where that is
-    zero) or from ``p`` at ``g`` when everything was accepted."""
+    zero) or from ``p`` at ``g`` when everything was accepted. ``rows``: as
+    :func:`_uniform`'s (the batch's rows of a data group)."""
     B, g = proposals.shape
     idx = proposals.long()[..., None]
     qx = torch.gather(q_probs, -1, idx)[..., 0]
     px = torch.gather(p_probs[:, :g], -1, idx)[..., 0]
-    u = torch.rand((B, g), generator=generator, device=proposals.device)
+    u = _uniform((B, g), generator, proposals.device, rows)
     # u*q < p  <=>  u < min(1, p/q); q <= 0 (a numerical-noise proposal)
     # rejects, as spec_verify does.
     accept = (qx > 0.0) & (u * qx < px)
@@ -88,7 +116,7 @@ def leviathan_accept(proposals: torch.Tensor, q_probs: torch.Tensor, p_probs: to
     q_row = torch.gather(q_ext, 1, at)[:, 0]
     residual = torch.clamp(p_row - q_row, min=0.0)
     residual = torch.where(residual.sum(-1, keepdim=True) > 0.0, residual, p_row)
-    return n_acc.to(torch.int32), draw(residual, generator)
+    return n_acc.to(torch.int32), draw(residual, generator, rows)
 
 
 class SpecEngine(Engine):
@@ -102,6 +130,9 @@ class SpecEngine(Engine):
     ``SamplingParams`` govern stopping only. Runs on ``cuda`` unless
     ``device`` is given. ``forward_fn``/``draft_forward_fn``: the target's
     and the draft's family forwards (default: the Llama family's).
+    ``mesh``: serve over a ``DeviceMesh`` (module docstring); another
+    family's target or draft raises ``NotImplementedError`` there above one
+    rank.
     """
 
     _use_arena = False  # the verify lane feeds gamma+1 tokens: the KVCache path
@@ -112,14 +143,23 @@ class SpecEngine(Engine):
                  engine_cfg: EngineConfig = EngineConfig(), *, gamma: int = 4,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
                  eos_token_id: Optional[int] = None, device=None, seed: int = 0,
-                 forward_fn=None, draft_forward_fn=None):
+                 forward_fn=None, draft_forward_fn=None, mesh=None):
         if model_cfg.vocab_size != draft_cfg.vocab_size:
             raise ValueError("target and draft must share a vocabulary")
+        self._dforward = draft_forward_fn if draft_forward_fn is not None else forward
+        if mesh is not None and self._dforward is not forward and mesh.mesh.numel() > 1:
+            raise NotImplementedError(
+                "SpecEngine(mesh=) over more than one rank serves the Llama family's draft "
+                "only; other families under a mesh are not ported yet (ROADMAP.md, Queue 1: "
+                "\"The other families over a mesh\")")
         dev = resolve_device(device)
         super().__init__(params, model_cfg, engine_cfg, eos_token_id=eos_token_id,
                          device=dev, generator=torch.Generator(device=dev).manual_seed(seed),
-                         forward_fn=forward_fn)
-        self._dforward = draft_forward_fn if draft_forward_fn is not None else forward
+                         forward_fn=forward_fn, mesh=mesh)
+        #: The draft's tp rank (None: no mesh, or the draft whole on every rank).
+        self.dtp = None
+        if self.tp is not None and self._dforward is forward:
+            draft_params, draft_cfg = self._mesh_shard_draft(draft_params, draft_cfg)
         self.dparams = (draft_params if self._dforward is forward
                         else with_f32_head(draft_params))
         self.dcfg = draft_cfg
@@ -130,7 +170,8 @@ class SpecEngine(Engine):
         B, S = self.ecfg.max_slots, self.ecfg.max_seq_len
         # The draft cache in bf16: the draft is small, and quantizing it buys
         # nothing once the target dominates the memory traffic.
-        self.dcache: KVCache = init_kv_cache(draft_cfg, B, S, dtype=torch.bfloat16, device=dev)
+        self.dcache: KVCache = init_kv_cache(draft_cfg, self._nslots, S, dtype=torch.bfloat16,
+                                             device=dev)
         # The round's static outputs (the tokens and lengths are the
         # engine's ``_toks``/``_lens``; ``_row`` picks the output row).
         R, g = max(self._SPEC_BURST_BUCKETS), self.gamma
@@ -146,53 +187,89 @@ class SpecEngine(Engine):
         self.accepted_total = 0
         self.rounds_total = 0
 
+    def _mesh_shard_draft(self, params, cfg: ModelConfig):
+        """The draft's shard and config over the target's tp group (a tree of
+        ``shard_params`` gathered first), or the whole draft where ``tp`` does
+        not divide its kv heads."""
+        from ..parallel.sharding import gather_tree
+        from ..parallel.tensor import tp_layout, tp_shard
+
+        params = gather_tree(params)
+        layout = tp_layout(params, cfg, self.tp.layout.size)
+        if not layout.heads:
+            return params, cfg
+        params, cfg, self.dtp = tp_shard(params, cfg, layout.size, self.tp.rank, self.tp.group,
+                                         layout)
+        return params, cfg
+
     # ------------------------------------------------------------------
     # compute
     # ------------------------------------------------------------------
 
+    def _dtp_kw(self):
+        return {} if self.dtp is None else {"tp": self.dtp}
+
     def _draft_prefill(self, tokens: torch.Tensor, true_len: torch.Tensor, slot: int):
         """Prefill the draft cache slot with the same prompt (its logits are
-        unused: the first committed token comes from the target)."""
+        unused: the first committed token comes from the target), on the data
+        group holding the slot."""
+        owner, row = self._owner(slot)
+        if owner != self._data_index:
+            return
         bucket = tokens.shape[0]
         one = init_kv_cache(self.dcfg, 1, bucket, dtype=torch.bfloat16, device=self.device)
         _, one = self._dforward(self.dparams, tokens[None, :], self.dcfg, cache=one,
-                                start_pos=0, kv_lens=true_len.reshape(1))
-        self.dcache.k[:, slot, :bucket] = one.k[:, 0]
-        self.dcache.v[:, slot, :bucket] = one.v[:, 0]
-        self.dcache.lens[slot] = true_len
+                                start_pos=0, kv_lens=true_len.reshape(1), **self._dtp_kw())
+        self.dcache.k[:, row, :bucket] = one.k[:, 0]
+        self.dcache.v[:, row, :bucket] = one.v[:, 0]
+        self.dcache.lens[row] = true_len
 
     def _filtered(self, logits):
         return filtered_logits(logits, temperature=self.temperature, top_k=self.top_k,
                                top_p=self.top_p)
 
+    def _verify(self, block: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """The verify lane: one ragged-batch target forward over ``block [b,
+        g+1]`` at each row's ``lens``; its logits ``[b, g+1, V]``."""
+        logits, _ = self._forward(self.params, block, self.cfg, cache=self.cache,
+                                  start_pos=lens, kv_lens=lens + block.shape[1],
+                                  **self._tp_kw())
+        return logits
+
     def _spec_round(self, toks: torch.Tensor, lens: torch.Tensor):
         """One speculative round over every slot. Returns ``(committed [B,
         g+1] int32, n_commit [B], new_last [B], new_lens [B])``: position
         ``i`` of ``committed`` is valid iff ``i < n_commit``; ``n_commit =
-        n_accept + 1`` (the accepted prefix and the correction or bonus)."""
-        B, g = toks.shape[0], self.gamma
+        n_accept + 1`` (the accepted prefix and the correction or bonus).
+        Under a mesh the rank steps its data group's rows, and the outputs
+        of every slot are gathered."""
+        g = self.gamma
         greedy_mode = self.temperature == 0.0
+        rows = None
+        if self._data is not None:
+            s0 = self._data_index * self._nslots
+            rows = (toks.shape[0], s0)
+            toks, lens = toks[s0:s0 + self._nslots], lens[s0:s0 + self._nslots]
 
         # --- draft lane: gamma proposal feeds + 1 ingest-only feed ---
         tok, pos, props, q_rows = toks, lens, [], []
         for _ in range(g + 1):
             logits, _ = self._dforward(self.dparams, tok[:, None], self.dcfg,
-                                       cache=self.dcache, start_pos=pos, kv_lens=pos + 1)
+                                       cache=self.dcache, start_pos=pos, kv_lens=pos + 1,
+                                       **self._dtp_kw())
             logits = logits[:, 0]
             if greedy_mode:
                 tok = greedy(logits)
             else:
                 q = torch.softmax(self._filtered(logits), dim=-1)
-                tok = draw(q, self._generator)
+                tok = draw(q, self._generator, rows)
                 q_rows.append(q)
             props.append(tok)
             pos = pos + 1
         proposals = torch.stack(props[:g], dim=1)  # the last feed's output is dropped
 
         # --- verify lane: one ragged-batch target forward ---
-        block = torch.cat([toks[:, None], proposals], dim=1)
-        tlogits, _ = self._forward(self.params, block, self.cfg, cache=self.cache,
-                                   start_pos=lens, kv_lens=lens + g + 1)  # [B, g+1, V]
+        tlogits = self._verify(torch.cat([toks[:, None], proposals], dim=1), lens)
         if greedy_mode:
             targets = greedy(tlogits)
             accept = proposals == targets[:, :g]
@@ -202,7 +279,7 @@ class SpecEngine(Engine):
             p_probs = filtered_probs(tlogits, temperature=self.temperature, top_k=self.top_k,
                                      top_p=self.top_p)
             n_acc, correction = leviathan_accept(proposals, torch.stack(q_rows[:g], dim=1),
-                                                 p_probs, self._generator)
+                                                 p_probs, self._generator, rows)
 
         idx = torch.arange(g + 1, dtype=torch.int32, device=toks.device)[None, :]
         props_pad = torch.cat([proposals, torch.zeros_like(proposals[:, :1])], dim=1)
@@ -214,7 +291,12 @@ class SpecEngine(Engine):
         # rejected rows); in place, as the captured round writes them.
         self.cache.lens.copy_(new_lens)
         self.dcache.lens.copy_(new_lens)
-        return committed, n_acc + 1, correction, new_lens
+        out = (committed, n_acc + 1, correction, new_lens)
+        if self._data is None:
+            return out
+        from ..parallel.collectives import all_gather
+
+        return tuple(all_gather(t, 0, self._data) for t in out)
 
     def _graph_round(self):
         """The round the CUDA graph captures, over the static buffers: its
@@ -267,8 +349,8 @@ class SpecEngine(Engine):
         sampling config (the verified stream's own distribution)."""
         if self.temperature == 0.0:
             return int(torch.argmax(logits))
-        return int(draw(torch.softmax(self._filtered(logits[None]), dim=-1),
-                        self._generator)[0])
+        return int(self._agreed(draw(torch.softmax(self._filtered(logits[None]), dim=-1),
+                                     self._generator)[0]))
 
     def step(self) -> List[Request]:
         """Admit waiting requests (prefilling both caches), then a burst of

@@ -1,6 +1,7 @@
 """Tensor-parallel serving in the port (``parallel/tensor.py``, the ``tp``
 forward of ``models/llama.py``, ``quant/dot.py::k_split_over``,
-``Engine(mesh=)``) against the mesh-less port and the JAX package.
+``Engine(mesh=)``, ``SpecEngine(mesh=)``) against the mesh-less port and the
+JAX package.
 
 Without a world:
 
@@ -16,9 +17,16 @@ Without a world:
   process's codes' slice bit for bit. Indivisible heads (debug-tiny at tp
   4) replicate the attention; debug-qwen3's QK-norm runs on a rank's heads
   as on all; debug-baichuan's ALiBi slopes are the ranks' slices of the
-  whole model's.
+  whole model's. K1 plans a rank's split ``wqkv`` and ``w_gate_up`` as
+  the whole product (the same split of K: each column summed in the
+  whole product's order), and the row-parallel products as themselves.
 * Planted faults break the composition: ``wqkv`` cut contiguously, the
   row-parallel amax left local, ALiBi slopes rebuilt per rank.
+* One speculative round composed over tp 4 (both caches prefilled, the
+  draft's feeds, the verify block at ragged offsets; target and draft
+  split over one group) proposes the mesh-less round's tokens and gives its
+  verify logits within 1e-5 relative. A data group's draws are its rows of
+  the whole batch's.
 
 A gloo world of 4 CPU processes (``tests/torch_dist_worker.py`` ``serve``,
 one launch) serves debug-small (float32 weights, JAX's initializer) over tp
@@ -27,9 +35,15 @@ port engine's tokens, which are JAX's greedy reference (``attn_impl="ref"``,
 as ``tests/test_serving.py`` computes it); a sampled request gives the same
 tokens on every rank of the tp group; int8 KV over dp 2 x tp 2: every
 rank's scales after each prefill (the calibration and a recalibration
-among them) are the mesh-less engine's slice. A world of one in this
-process: tokens and every step's logits bit for bit against the mesh-less
-engine.
+among them) are the mesh-less engine's slice. In the same world
+``SpecEngine(mesh=)`` (debug-small with the target's first layer as draft)
+over tp 4, dp 2 x tp 2 and fsdp 2 x tp 2, and with a draft of 2 kv heads
+that tp 4 keeps whole, gives JAX's greedy tokens (greedy speculation is
+greedy decoding) and the mesh-less SpecEngine's per-round accepted counts;
+a sampled run over dp 2 x tp 2 commits the mesh-less engine's tokens on
+every rank. Worlds of one in this process: tokens and every step's (every
+round's verify) logits bit for bit against the mesh-less engine (spec
+engine), greedy and sampled. Another family above one rank is refused.
 """
 import dataclasses
 
@@ -53,8 +67,9 @@ from llm_fp8_tpu_torch.quant import INT4_WEIGHTS, LAYERWISE, MXFP8_SET, QTensor
 from llm_fp8_tpu_torch.quant import dot as qdotmod
 from llm_fp8_tpu_torch.quant.formats import E4M3
 from llm_fp8_tpu_torch.quant.qtensor import quantize
-from llm_fp8_tpu_torch.serving import Engine, EngineConfig, SamplingParams
-from torch_dist_worker import free_port, launch_world, scale_recorder
+from llm_fp8_tpu_torch.serving import Engine, EngineConfig, SamplingParams, SpecEngine
+from llm_fp8_tpu_torch.serving.spec_engine import draw, leviathan_accept
+from torch_dist_worker import free_port, launch_world, serve_engine, serve_result
 
 torch.set_num_threads(1)
 
@@ -238,6 +253,63 @@ def test_composed_cache_path_equals_the_meshless_cache_path(monkeypatch):
     assert _rel(got[0], ref) <= REL
 
 
+#: Column-parallel products of a tp 4 shard, ``(M, N, K)`` of the whole:
+#: Llama-3.1-8B's at the verify block (M = 40, the decode kernel) and
+#: Qwen2.5-14B's at a prefill (M = 1024, the prefill kernel).
+COLUMN_PRODUCTS = {
+    "8b wqkv M=40": (40, 6144, 4096), "8b gate|up M=40": (40, 28672, 4096),
+    "8b lm_head M=40": (40, 128256, 4096), "14b wqkv M=1024": (1024, 7168, 5120),
+    "14b gate|up M=1024": (1024, 27648, 5120), "14b wqkv M=8": (8, 7168, 5120),
+}
+
+
+@pytest.mark.parametrize("case", list(COLUMN_PRODUCTS))
+def test_k1_plans_a_column_shard_as_the_whole_product(case):
+    """Within ``planned_as_whole(4)`` a rank's ``[K, N/4]`` shard takes the
+    whole product's rows a block and split of K, so its columns sum in the
+    whole product's order; alone, the narrower shard plans otherwise."""
+    from llm_fp8_tpu_torch.kernels import quant_matmul as k1
+
+    M, N, K = COLUMN_PRODUCTS[case]
+    prefill = M >= k1.PREFILL_MIN_M
+    whole = k1.launch_plan(M, N, K, 132, prefill)
+    with k1.planned_as_whole(4):
+        assert k1.launch_plan(M, N // 4, K, 132, prefill) == whole
+    assert k1.launch_plan(M, N, K, 132, prefill) == whole
+    if case == "8b wqkv M=40":
+        assert k1.launch_plan(M, N // 4, K, 132, prefill) != whole
+
+
+def test_tp_forward_plans_only_the_split_column_products_as_the_whole(monkeypatch):
+    """Each rank's K1 calls (the fused route; threads of a ``LocalGroup``):
+    the split ``wqkv`` and ``w_gate_up`` are planned as their whole product,
+    the row-parallel ``wo`` and ``w_down`` as themselves, and the setting is
+    the calling thread's alone."""
+    import threading
+
+    from llm_fp8_tpu_torch.kernels import quant_matmul as k1
+
+    monkeypatch.setenv("LLM_FP8_QDOT", "fused")
+    cfg = get_config("debug-small")
+    params = quantize_params(init_params(cfg, dtype=torch.float32, device="cpu", seed=3),
+                             LAYERWISE)
+    seen, lock, plain = set(), threading.Lock(), k1.quant_matmul_plain
+
+    def spy(x, w_q, scale, **kw):
+        with lock:
+            seen.add((tuple(w_q.shape), k1._PARTS.n))
+        return plain(x, w_q, scale, **kw)
+
+    monkeypatch.setattr(k1, "quant_matmul_plain", spy)
+    ranks = ptensor.local_tp_ranks(params, cfg, 2)
+    ranks[0][2].group.run(lambda r: forward(ranks[r][0], _tokens(cfg), ranks[r][1],
+                                            tp=ranks[r][2]))
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    assert seen == {((D, cfg.qkv_dim // 2), 2), ((D, I), 2), ((cfg.q_dim // 2, D), 1),
+                    ((I // 2, D), 1)}
+    assert k1._PARTS.n == 1
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n", [2, 4])
 def test_k9_row_codes_are_the_single_process_slice(n, dtype):
@@ -366,17 +438,50 @@ def _int8_prompts(cfg):
     return [rng.randint(1, cfg.vocab_size, n).astype(np.int32) for n in (2, 30, 29, 31)]
 
 
+#: The spec runs' sampling: top_k 20 at temperature 0.8, the engine's seed.
+SPEC_SAMPLED = dict(temperature=0.8, top_k=20, seed=5)
+TP4, DP2_TP2, FSDP2_TP2 = dict(tp=4), dict(dp=2, fsdp=1, tp=2), dict(fsdp=2, tp=2)
+
+
 def _runs(cfg):
     greedy = [(p, GREEDY) for p in _prompts(cfg)]
     return {
-        "tp4": dict(mesh=dict(tp=4), sharded=False, ecfg=ECFG,
+        "tp4": dict(mesh=TP4, sharded=False, ecfg=ECFG,
                     requests=greedy + [(_prompts(cfg)[1], SAMPLED)]),
-        "fsdp2_tp2": dict(mesh=dict(fsdp=2, tp=2), sharded=True, ecfg=ECFG, requests=greedy),
-        "dp2_tp2": dict(mesh=dict(dp=2, fsdp=1, tp=2), sharded=False, ecfg=ECFG,
-                        requests=greedy),
-        "int8_dp2_tp2": dict(mesh=dict(dp=2, fsdp=1, tp=2), sharded=False, ecfg=INT8,
+        "fsdp2_tp2": dict(mesh=FSDP2_TP2, sharded=True, ecfg=ECFG, requests=greedy),
+        "dp2_tp2": dict(mesh=DP2_TP2, sharded=False, ecfg=ECFG, requests=greedy),
+        "int8_dp2_tp2": dict(mesh=DP2_TP2, sharded=False, ecfg=INT8,
                              requests=[(p, GREEDY) for p in _int8_prompts(cfg)]),
+        # SpecEngine(mesh=): the draft is debug-small cut to one layer, or
+        # (``kv2``) a one-layer draft of 2 kv heads, which tp 4 leaves whole.
+        "spec_tp4": dict(mesh=TP4, sharded=False, ecfg=ECFG, requests=greedy,
+                         spec=dict(draft="cut")),
+        "spec_dp2_tp2": dict(mesh=DP2_TP2, sharded=False, ecfg=ECFG, requests=greedy,
+                             spec=dict(draft="cut")),
+        "spec_fsdp2_tp2": dict(mesh=FSDP2_TP2, sharded=True, ecfg=ECFG, requests=greedy,
+                               spec=dict(draft="cut")),
+        "spec_tp4_draft_whole": dict(mesh=TP4, sharded=False, ecfg=ECFG, requests=greedy,
+                                     spec=dict(draft="kv2")),
+        # One prompt in every slot: slots 0-1 and 2-3 are two data groups'.
+        "spec_sampled_dp2_tp2": dict(mesh=DP2_TP2, sharded=False, ecfg=ECFG,
+                                     requests=[(_prompts(cfg)[1], SAMPLED)] * 4,
+                                     spec=dict(draft="cut", **SPEC_SAMPLED)),
     }
+
+
+def _drafts(jparams, jcfg):
+    """The spec runs' drafts, ``name -> (port config, numpy tree)``: the
+    target cut to its first layer, and a one-layer draft of 2 kv heads
+    (JAX's initializer)."""
+    cut = jax.tree_util.tree_map(np.asarray, dict(
+        jparams, layers=jax.tree_util.tree_map(lambda t: t[:1], jparams["layers"])))
+    jkv2 = dataclasses.replace(jcfg, num_layers=1, num_kv_heads=2)
+    kv2 = jax.tree_util.tree_map(np.asarray,
+                                 jllama.init_params(jkv2, jax.random.PRNGKey(13),
+                                                    dtype=jnp.float32))
+    cfg = get_config(MODEL)
+    return {"cut": (dataclasses.replace(cfg, num_layers=1), cut),
+            "kv2": (dataclasses.replace(cfg, num_layers=1, num_kv_heads=2), kv2)}
 
 
 def _jax_greedy(jparams, jcfg, prompts, new):
@@ -399,13 +504,12 @@ def _jax_greedy(jparams, jcfg, prompts, new):
     return np.stack(out, axis=1).tolist()
 
 
-def _meshless(np_params, cfg, run):
-    eng = scale_recorder()(params_from_numpy(np_params), cfg, EngineConfig(**run["ecfg"]),
-                           device="cpu")
+def _meshless(np_params, cfg, run, drafts):
+    drafts = {k: (c, params_from_numpy(t)) for k, (c, t) in drafts.items()}
+    eng = serve_engine(run, params_from_numpy(np_params), cfg, drafts)
     reqs = [eng.add_request(p, SamplingParams(**sp)) for p, sp in run["requests"]]
     eng.run()
-    return {"tokens": [r.output for r in reqs], "scale_log": eng.scale_log,
-            "drift": eng.kv_drift_stats()}
+    return serve_result(eng, reqs, drafts[run["spec"]["draft"]][0] if "spec" in run else None)
 
 
 @pytest.fixture(scope="module")
@@ -416,8 +520,10 @@ def serve_world(tmp_path_factory):
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
     cfg = get_config(MODEL)
     runs = _runs(cfg)
-    outs = launch_world("serve", work, dict(model=MODEL, params=np_params, runs=runs))
-    refs = {name: _meshless(np_params, cfg, run) for name, run in runs.items()}
+    drafts = _drafts(jparams, jcfg)
+    outs = launch_world("serve", work, dict(model=MODEL, params=np_params, runs=runs,
+                                            drafts=drafts))
+    refs = {name: _meshless(np_params, cfg, run, drafts) for name, run in runs.items()}
     jax_tokens = _jax_greedy(jparams, jcfg, _prompts(cfg), GREEDY["max_new_tokens"])
     return outs, refs, jax_tokens
 
@@ -484,6 +590,69 @@ def test_world_ranks_import_no_jax(serve_world):
     assert all(o["jax_loaded"] == [] for o in outs)
 
 
+SPEC_GREEDY_RUNS = ["spec_tp4", "spec_dp2_tp2", "spec_fsdp2_tp2", "spec_tp4_draft_whole"]
+
+
+@pytest.mark.parametrize("name", SPEC_GREEDY_RUNS)
+def test_world_spec_greedy_tokens_and_accepted_counts(serve_world, name):
+    """Greedy speculation commits plain greedy decoding's tokens: JAX's, and
+    the mesh-less SpecEngine's with its per-round accepted counts."""
+    outs, refs, jax_tokens = serve_world
+    assert refs[name]["tokens"] == jax_tokens
+    assert 0 < max(refs[name]["accepted"])  # the draft is accepted in some rounds
+    for o in outs:
+        assert o[name]["tokens"] == jax_tokens
+        assert o[name]["accepted"] == refs[name]["accepted"]
+
+
+def test_world_spec_sampled_requests_are_the_meshless_engines_on_every_rank(serve_world):
+    """One prompt in all four slots over dp 2 x tp 2: every rank commits the
+    mesh-less engine's tokens and accepted counts, so the ranks of a tp
+    group draw alike and the two data groups draw their own rows of the
+    batch's numbers (a group drawing only its rows from the seed, as its
+    peer group does, fails this)."""
+    outs, refs, _ = serve_world
+    ref = refs["spec_sampled_dp2_tp2"]
+    tokens = ref["tokens"]
+    assert all(len(t) == SAMPLED["max_new_tokens"] for t in tokens)
+    assert tokens[0] != tokens[2] and tokens[1] != tokens[3]
+    for o in outs:
+        assert o["spec_sampled_dp2_tp2"]["tokens"] == tokens
+        assert o["spec_sampled_dp2_tp2"]["accepted"] == ref["accepted"]
+
+
+def test_a_data_groups_draws_are_its_rows_of_the_batchs_draw():
+    """``draw`` and ``leviathan_accept`` with ``rows = (B, s0)`` take rows
+    ``s0..`` of what the whole batch draws from the same generator state."""
+    g = torch.Generator().manual_seed(9)
+    probs = torch.rand((4, 3, 50), generator=torch.Generator().manual_seed(1)) + 0.01
+    props = torch.randint(0, 50, (4, 2), generator=torch.Generator().manual_seed(2))
+    state = g.get_state()
+    whole = (draw(probs[:, 0], g), *leviathan_accept(props, probs[:, :2], probs, g))
+    for s0 in (0, 2):
+        g.set_state(state)
+        part = (draw(probs[s0:s0 + 2, 0], g, (4, s0)),
+                *leviathan_accept(props[s0:s0 + 2], probs[s0:s0 + 2, :2], probs[s0:s0 + 2], g,
+                                  (4, s0)))
+        assert all(torch.equal(p, w[s0:s0 + 2]) for p, w in zip(part, whole))
+
+
+def test_world_spec_draft_layout(serve_world):
+    """The draft's cache holds the rank's slots and kv heads; a draft whose
+    kv heads tp 4 does not divide stays whole on every rank, its cache with
+    all its heads."""
+    outs, _, _ = serve_world
+    L, S = 1, ECFG["max_seq_len"]
+    for o in outs:
+        assert o["spec_tp4"]["draft_split"] and not o["spec_tp4"]["draft_whole"]
+        assert o["spec_tp4"]["draft_cache"] == (L, 4, S, 1, 64)
+        assert o["spec_dp2_tp2"]["draft_cache"] == (L, 2, S, 2, 64)
+        assert o["spec_fsdp2_tp2"]["draft_cache"] == (L, 2, S, 2, 64)
+        whole = o["spec_tp4_draft_whole"]
+        assert not whole["draft_split"] and whole["draft_whole"]
+        assert whole["draft_cache"] == (L, 4, S, 2, 64)
+
+
 class _LogitsRecorder(Engine):
     def _decode_step(self, toks, lens):
         logits, g = super()._decode_step(toks, lens)
@@ -520,17 +689,124 @@ def test_world_of_one_engine_is_the_meshless_engine_bit_for_bit(kv, recipes, mon
     assert len(l0) == len(l1) and all(torch.equal(a, b) for a, b in zip(l0, l1))
 
 
+class _TwoRanks:  # a mesh of two ranks: refused before any collective
+    class mesh:
+        @staticmethod
+        def numel():
+            return 2
+
+
+REFUSAL = "The other families over a mesh"
+
+
 def test_engine_mesh_refuses_other_families_above_one_rank():
     from llm_fp8_tpu_torch.models.gpt2 import GPT2_REGISTRY, gpt2_forward, init_gpt2_params
 
-    class Mesh:  # two ranks: refused before any collective
-        class mesh:
-            @staticmethod
-            def numel():
-                return 2
-
     gcfg = GPT2_REGISTRY["debug-gpt2"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match=REFUSAL):
         Engine(init_gpt2_params(gcfg, device="cpu"), gcfg,
                EngineConfig(max_slots=2, max_seq_len=64, prefill_buckets=(32,)),
-               device="cpu", forward_fn=gpt2_forward, mesh=Mesh())
+               device="cpu", forward_fn=gpt2_forward, mesh=_TwoRanks())
+
+
+@pytest.mark.parametrize("which", ["target", "draft"])
+def test_spec_engine_mesh_refuses_other_families_above_one_rank(which):
+    """A GPT-2 target, or a GPT-2 draft beside a Llama target, over two
+    ranks."""
+    from llm_fp8_tpu_torch.models.gpt2 import GPT2_REGISTRY, gpt2_forward, init_gpt2_params
+
+    gcfg = GPT2_REGISTRY["debug-gpt2"]
+    lcfg = dataclasses.replace(get_config("debug-tiny"), vocab_size=gcfg.vocab_size)
+    gpt2 = (init_gpt2_params(gcfg, device="cpu"), gcfg, gpt2_forward)
+    llama = (init_params(lcfg, dtype=torch.float32, device="cpu"), lcfg, None)
+    (tp, tc, tf), (dp, dc, df) = (gpt2, llama) if which == "target" else (llama, gpt2)
+    with pytest.raises(NotImplementedError, match=REFUSAL):
+        SpecEngine(tp, tc, dp, dc, EngineConfig(max_slots=2, max_seq_len=64,
+                                                prefill_buckets=(32,)),
+                   device="cpu", forward_fn=tf, draft_forward_fn=df, mesh=_TwoRanks())
+
+
+class _VerifyRecorder(SpecEngine):
+    def _verify(self, block, lens):
+        logits = super()._verify(block, lens)
+        self.rows.append(logits.clone())
+        return logits
+
+
+@pytest.mark.parametrize("mode", ["greedy f32", "sampled f32", "greedy fp8 weights fp8 kv"])
+def test_world_of_one_spec_engine_is_the_meshless_spec_engine_bit_for_bit(mode, monkeypatch):
+    """Tokens, per-round accepted counts and every round's verify logits."""
+    import torch.distributed as dist
+
+    from llm_fp8_tpu_torch.parallel import MeshConfig, make_mesh, shard_params
+
+    recipes = LAYERWISE if "fp8 weights" in mode else None
+    cfg, params = _tree("debug-tiny", recipes, False, monkeypatch)
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    dparams = init_params(dcfg, dtype=torch.float32, device="cpu", seed=4)
+    if recipes is not None:
+        dparams = quantize_params(dparams, recipes)
+    kv = "fp8" if "fp8 kv" in mode else torch.float32
+    ecfg = EngineConfig(max_slots=2, max_seq_len=64, kv_dtype=kv, prefill_buckets=(16, 32))
+    sampling = SPEC_SAMPLED if mode.startswith("sampled") else {}
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        runs = []
+        for mesh in (None, make_mesh(MeshConfig(), "cpu")):
+            tree = (lambda t: t) if mesh is None else (lambda t: shard_params(t, mesh))
+            eng = _VerifyRecorder(tree(params), cfg, tree(dparams), dcfg, ecfg, device="cpu",
+                                  mesh=mesh, **sampling)
+            eng.rows = []
+            reqs = [eng.add_request(p, SamplingParams(max_new_tokens=9))
+                    for p in _prompts(cfg)[:3]]
+            eng.run()
+            runs.append(([r.output for r in reqs], list(eng.accepted_histogram), eng.rows))
+    finally:
+        dist.destroy_process_group()
+    (t0, a0, l0), (t1, a1, l1) = runs
+    assert t0 == t1 and a0 == a1
+    assert len(l0) == len(l1) and all(torch.equal(a, b) for a, b in zip(l0, l1))
+
+
+def test_composed_spec_round_equals_the_meshless_round(monkeypatch):
+    """Prefills of both caches and one speculative round (the draft's g + 1
+    feeds, the target's verify block at ragged offsets), float32, target
+    and draft each split over one tp group of 4: the proposals equal the
+    mesh-less round's, and the verify logits within ``REL``."""
+    cfg, params = _tree("debug-small", None, False, monkeypatch)
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    dparams = dict(params, layers={k: v[:1] for k, v in params["layers"].items()})
+    toks = _tokens(cfg, S=16)
+    lens = torch.tensor([16, 11], dtype=torch.int32)
+    last = _tokens(cfg, S=1, seed=1)[:, 0]
+    g = 4
+
+    def round_(t, tc, d, dc, ttp=None, dtp=None):
+        def kw(tp):
+            return dict(compute_dtype=torch.float32, **({} if tp is None else {"tp": tp}))
+
+        cache = tllama.init_kv_cache(tc, 2, 32, dtype=torch.float32, device="cpu")
+        dcache = tllama.init_kv_cache(dc, 2, 32, dtype=torch.float32, device="cpu")
+        forward(t, toks, tc, cache=cache, start_pos=0, kv_lens=lens, **kw(ttp))
+        forward(d, toks, dc, cache=dcache, start_pos=0, kv_lens=lens, **kw(dtp))
+        tok, pos, props = last, lens, []
+        for _ in range(g + 1):
+            logits, _ = forward(d, tok[:, None], dc, cache=dcache, start_pos=pos,
+                                kv_lens=pos + 1, **kw(dtp))
+            tok = logits[:, 0].argmax(-1).to(torch.int32)
+            props.append(tok)
+            pos = pos + 1
+        block = torch.cat([last[:, None], torch.stack(props[:g], dim=1)], dim=1)
+        logits, _ = forward(t, block, tc, cache=cache, start_pos=lens, kv_lens=lens + g + 1,
+                            **kw(ttp))
+        return block, logits
+
+    ref_block, ref = round_(params, cfg, dparams, dcfg)
+    ranks = ptensor.local_tp_ranks(params, cfg, 4)
+    dranks = ptensor.local_tp_ranks(dparams, dcfg, 4, ranks[0][2].group)
+    got = ranks[0][2].group.run(lambda r: round_(*ranks[r][:2], *dranks[r][:2], ranks[r][2],
+                                                 dranks[r][2]))
+    for block, logits in got:
+        assert torch.equal(block, ref_block)
+        assert _rel(logits, ref) <= REL, _rel(logits, ref)

@@ -17,7 +17,10 @@ test holds the results to its references. Jobs:
   gradients, beside the plain forward on rank 0.
 * ``serve``: ``Engine(mesh=)`` over the runs' meshes (tp 4, fsdp 2 x tp 2,
   dp 2 x tp 2), each rank's tokens, its tp and data coordinates and its
-  int8 KV scales after every prefill (:class:`ScaleRecorder`).
+  int8 KV scales after every prefill (:class:`ScaleRecorder`); then
+  ``SpecEngine(mesh=)`` over the spec runs' meshes (a run with ``spec``
+  names its draft among ``inputs["drafts"]`` and its sampling), each rank's
+  tokens, per-round accepted counts and the draft's layout.
 """
 import faulthandler
 import importlib
@@ -280,29 +283,62 @@ def scale_recorder():
     return ScaleRecorder
 
 
+def serve_engine(run, params, cfg, drafts, mesh=None):
+    """The engine of a ``serve`` run (and of its test's mesh-less
+    reference): a ``SpecEngine`` over the run's draft (``drafts``: name →
+    (config, tree)) where the run has ``spec``, else a
+    :func:`scale_recorder` engine."""
+    from llm_fp8_tpu_torch.parallel import shard_params
+    from llm_fp8_tpu_torch.serving import EngineConfig, SpecEngine
+
+    ecfg = EngineConfig(**run["ecfg"])
+    if "spec" not in run:
+        return scale_recorder()(params, cfg, ecfg, device="cpu", mesh=mesh)
+    spec = dict(run["spec"])
+    dcfg, dparams = drafts[spec.pop("draft")]
+    if mesh is not None and run["sharded"]:
+        dparams = shard_params(dparams, mesh)
+    return SpecEngine(params, cfg, dparams, dcfg, ecfg, device="cpu", mesh=mesh, **spec)
+
+
+def serve_result(eng, reqs, dcfg=None):
+    """What a ``serve`` run reports of ``eng`` after its requests (``dcfg``:
+    the whole draft's config, for a ``SpecEngine``)."""
+    out = {"tokens": [r.output for r in reqs], "drift": eng.kv_drift_stats()}
+    if dcfg is not None:
+        out.update(accepted=list(eng.accepted_histogram), draft_split=eng.dtp is not None,
+                   draft_cache=tuple(eng.dcache.k.shape),
+                   draft_whole=eng.dparams["layers"]["wqkv"].shape[-1] == dcfg.qkv_dim)
+    else:
+        out["scale_log"] = eng.scale_log
+    return out
+
+
 def job_serve(inp, rank, world):
     import numpy as np
 
     from llm_fp8_tpu_torch.convert import params_from_numpy
     from llm_fp8_tpu_torch.models import get_config
     from llm_fp8_tpu_torch.parallel import MeshConfig, make_mesh, shard_params
-    from llm_fp8_tpu_torch.serving import EngineConfig, SamplingParams
+    from llm_fp8_tpu_torch.serving import SamplingParams
 
     cfg = get_config(inp["model"])
     params = params_from_numpy(inp["params"], device="cpu")
+    drafts = {name: (dcfg, params_from_numpy(tree, device="cpu"))
+              for name, (dcfg, tree) in inp.get("drafts", {}).items()}
     out = {}
     for name, run in inp["runs"].items():
         t0 = time.perf_counter()
         mesh = make_mesh(MeshConfig(**run["mesh"]), "cpu")
         tree = shard_params(params, mesh) if run["sharded"] else params
-        eng = scale_recorder()(tree, cfg, EngineConfig(**run["ecfg"]), device="cpu", mesh=mesh)
+        eng = serve_engine(run, tree, cfg, drafts, mesh)
         reqs = [eng.add_request(np.asarray(p, np.int32), SamplingParams(**sp))
                 for p, sp in run["requests"]]
         eng.run()
-        out[name] = {"tokens": [r.output for r in reqs], "scale_log": eng.scale_log,
-                     "tp_rank": eng.tp.rank, "heads": eng._heads, "data_index": eng._data_index,
-                     "slots": eng._nslots, "drift": eng.kv_drift_stats(),
-                     "seconds": time.perf_counter() - t0}
+        dcfg = drafts[run["spec"]["draft"]][0] if "spec" in run else None
+        out[name] = dict(serve_result(eng, reqs, dcfg), tp_rank=eng.tp.rank, heads=eng._heads,
+                         data_index=eng._data_index, slots=eng._nslots,
+                         seconds=time.perf_counter() - t0)
     return out
 
 
